@@ -1,0 +1,26 @@
+"""gpuraytracer_tpu_torch — the PyTorch and CUDA port of gpuraytracer_tpu.
+
+The JAX package ``gpuraytracer_tpu`` is the reference; this package mirrors
+its subpackage and module names so each module's counterpart is easy to
+find, and never imports JAX.
+
+Layout
+------
+core/       ABI dataclasses of tensors, HLSL-semantics math, camera
+geometry/   analytic primitives, the SDF library + sphere tracer, metaballs
+accel/      scene arrays, ray space transforms, closest/any-hit traversal
+render/     wavefront integrator (the frame kernel's plain version),
+            Phong/Fresnel/fog shading, checkerboard, Renderer
+kernels/    hand-written CUDA kernels for Hopper (sm_90a), built with nvcc
+            on first use and loaded through ctypes
+models/     the builtin scene and its animation
+apps/       the CLI renderer
+
+Every function takes tensors on an explicit device; nothing here keeps a
+hidden global device. CPU tensors run the plain PyTorch path, CUDA tensors
+the CUDA kernels.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

@@ -1,0 +1,427 @@
+"""Signed-distance-field library + sphere-trace intersector.
+
+Port of gpuraytracer_tpu/geometry/sdf.py (iq's distance functions as the
+reference composes them: SignedDistancePrimitives.hlsli:55-319,
+ProceduralPrimitivesLibrary.hlsli:63-98, SignedDistanceFractals.hlsli).
+
+Distance functions take (N, 3) positions and return (N,) distances, with
+the reference's association and HLSL fmod. ``sphere_trace`` keeps the
+reference march's per-lane semantics (march from t_min in steps of
+step_scale * distance until distance <= 1e-4 * t; an invalid crossing
+keeps marching) on the compacted set of still-marching lanes.
+
+The march knobs read the same ``GPURT_*`` environment variables with the
+same defaults as the reference package, at call time.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from gpuraytracer_tpu_torch.core import hlsl
+from gpuraytracer_tpu_torch.core.types import (
+    FRACTAL_ITERATIONS_COUNT,
+    SDF_HIT_THRESHOLD,
+    SDF_MAX_STEPS,
+    SignedDistancePrimitive,
+)
+
+
+def _vec(v, like):
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# CSG operators and primitives (hlsli:55-273)
+# ---------------------------------------------------------------------------
+
+def op_subtract(d1, d2):
+    return torch.maximum(d1, -d2)
+
+
+def op_intersect(d1, d2):
+    return torch.maximum(d1, d2)
+
+
+def op_rep(p, c):
+    """Domain repetition fmod(p, c) - 0.5*c with HLSL (truncating) fmod."""
+    c = _vec(c, p)
+    return hlsl.fmod(p, c) - 0.5 * c
+
+
+def op_twist(p):
+    """Rotate xz by angle 3*y (hlsli:108-114)."""
+    c = torch.cos(3.0 * p[:, 1])
+    s = torch.sin(3.0 * p[:, 1])
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    return torch.stack([c * x - s * z, s * x + c * z, y], dim=-1)
+
+
+def sd_sphere(p, s):
+    return hlsl.length(p) - s
+
+
+def sd_box(p, b):
+    d = torch.abs(p) - _vec(b, p)
+    dmax = torch.maximum(torch.maximum(d[:, 0], d[:, 1]), d[:, 2])
+    return torch.clamp(dmax, max=0.0) + hlsl.length(torch.clamp(d, min=0.0))
+
+
+def ud_round_box(p, b, r):
+    return hlsl.length(torch.clamp(torch.abs(p) - _vec(b, p), min=0.0)) - r
+
+
+def _length_xz(p):
+    return hlsl.sqrt(p[:, 0] * p[:, 0] + p[:, 2] * p[:, 2])
+
+
+def _length2(a, b):
+    return hlsl.sqrt(a * a + b * b)
+
+
+def sd_torus(p, t):
+    return _length2(_length_xz(p) - t[0], p[:, 1]) - t[1]
+
+
+def sd_cylinder(p, h):
+    d_x = torch.abs(_length_xz(p)) - h[0]
+    d_y = torch.abs(p[:, 1]) - h[1]
+    return (torch.clamp(torch.maximum(d_x, d_y), max=0.0)
+            + _length2(torch.clamp(d_x, min=0.0), torch.clamp(d_y, min=0.0)))
+
+
+def length_to_pow_negative8(a, b):
+    """(a^8 + b^8)^(1/8) (hlsli:252-256), with pow(., 1/8) as the
+    reference's XLA path evaluates it."""
+    qa = a * a
+    qa = qa * qa
+    qa = qa * qa
+    qb = b * b
+    qb = qb * qb
+    qb = qb * qb
+    return torch.pow(qa + qb, 1.0 / 8.0)
+
+
+def sd_torus82(p, t):
+    """Square-profile torus: L2 ring distance, L8 tube norm (hlsli:258-262)."""
+    return length_to_pow_negative8(_length_xz(p) - t[0], p[:, 1]) - t[1]
+
+
+def sd_octahedron(p, h):
+    d = (torch.maximum(torch.abs(p[:, 0]), torch.abs(p[:, 2])) * h[0]
+         + torch.abs(p[:, 1]) * h[1])
+    return d - h[1] * h[2]
+
+
+def sd_pyramid(p, h):
+    return op_subtract(sd_octahedron(p, h), p[:, 1])
+
+
+def sd_fractal_pyramid(p, h, scale=2.0, iterations=FRACTAL_ITERATIONS_COUNT):
+    """Sierpinski pyramid (SignedDistanceFractals.hlsli:34-63): fold toward
+    the closest of 5 vertices (strict <, ties keep the earlier vertex),
+    p <- scale*p - v*(scale-1), then sdPyramid rescaled by scale^-n."""
+    a = h[2] * h[1] / h[0]
+    vertices = [
+        _vec((0.0, h[2], 0.0), p),
+        _vec((-a, 0.0, a), p),
+        _vec((a, 0.0, -a), p),
+        _vec((a, 0.0, a), p),
+        _vec((-a, 0.0, -a), p),
+    ]
+    for _ in range(iterations):
+        best_v = vertices[0].expand_as(p)
+        best_d = hlsl.length_sq(p - vertices[0])
+        for v in vertices[1:]:
+            dv = hlsl.length_sq(p - v)
+            closer = dv < best_d
+            best_v = torch.where(closer[:, None], v, best_v)
+            best_d = torch.where(closer, dv, best_d)
+        p = scale * p - best_v * (scale - 1.0)
+    return sd_pyramid(p, h) * (scale ** (-float(iterations)))
+
+
+# ---------------------------------------------------------------------------
+# The seven composed scene objects (ProceduralPrimitivesLibrary.hlsli:63-98)
+# ---------------------------------------------------------------------------
+
+def distance_mini_spheres(p):
+    return op_intersect(
+        sd_sphere(op_rep(p + 1.0, (2.0 / 4.0, 2.0 / 4.0, 2.0 / 4.0)), 0.65 / 4.0),
+        sd_box(p, (1.0, 1.0, 1.0)),
+    )
+
+
+def distance_intersected_round_cube(p):
+    return op_subtract(
+        op_subtract(ud_round_box(p, (0.75, 0.75, 0.75), 0.2), sd_sphere(p, 1.20)),
+        -sd_sphere(p, 1.32),
+    )
+
+
+def distance_square_torus(p):
+    return sd_torus82(p, (0.75, 0.15))
+
+
+def distance_twisted_torus(p):
+    return sd_torus(op_twist(p), (0.6, 0.2))
+
+
+def distance_cog(p):
+    """Torus82 ring minus angularly repeated cylinders; the polar angle is
+    atan2 as in the reference's XLA path (not a polynomial)."""
+    polar = torch.stack([
+        torch.atan2(p[:, 2], p[:, 0]) / 6.2831,
+        torch.ones_like(p[:, 0]),
+        0.015 + 0.25 * hlsl.length(p),
+    ], dim=-1)
+    teeth = sd_cylinder(op_rep(polar + 1.0, (0.05, 1.0, 0.075)), (0.02, 0.8))
+    return op_subtract(sd_torus82(p, (0.60, 0.3)), teeth)
+
+
+def distance_cylinder(p):
+    return op_intersect(
+        sd_cylinder(op_rep(p + 1.0, (1.0, 2.0, 1.0)), (0.3, 2.0)),
+        sd_box(p + 1.0, (2.0, 2.0, 2.0)),
+    )
+
+
+def distance_fractal_pyramid(p):
+    """Base at y == -1 of the unit AABB; 63.435deg base angle, height 2."""
+    return sd_fractal_pyramid(p + _vec((0.0, 1.0, 0.0), p), (0.894, 0.447, 2.0), 2.0)
+
+
+DISTANCE_FUNCTIONS = {
+    int(SignedDistancePrimitive.MINI_SPHERES): distance_mini_spheres,
+    int(SignedDistancePrimitive.INTERSECTED_ROUND_CUBE): distance_intersected_round_cube,
+    int(SignedDistancePrimitive.SQUARE_TORUS): distance_square_torus,
+    int(SignedDistancePrimitive.TWISTED_TORUS): distance_twisted_torus,
+    int(SignedDistancePrimitive.COG): distance_cog,
+    int(SignedDistancePrimitive.CYLINDER): distance_cylinder,
+    int(SignedDistancePrimitive.FRACTAL_PYRAMID): distance_fractal_pyramid,
+}
+
+# Codes inside the march_escape_t envelope (slope >= 0.4, support radius
+# <= 2.5 local units): every reference primitive.
+ESCAPE_SAFE_CODES = frozenset(DISTANCE_FUNCTIONS)
+
+
+def calculate_normal(pos, distance_fn):
+    """Tetrahedral-offset gradient estimate, e = 0.5773e-4 (hlsli:275-283)."""
+    e = 0.5773 * 0.0001
+    offsets = [_vec(o, pos) for o in ((e, -e, -e), (-e, -e, e), (-e, e, -e), (e, e, e))]
+    n = offsets[0] * distance_fn(pos + offsets[0])[:, None]
+    for off in offsets[1:]:
+        n = n + off * distance_fn(pos + off)[:, None]
+    return hlsl.normalize(n)
+
+
+# ---------------------------------------------------------------------------
+# March knobs (read at call time; same variables and defaults as the
+# reference package, geometry/sdf.py:407-585)
+# ---------------------------------------------------------------------------
+
+ESCAPE_ALPHA_INV = 2.5
+ESCAPE_RADIUS = 12.0  # already multiplied by ESCAPE_ALPHA_INV (2x margin)
+
+
+def march_escape_t(o_norm, d_norm):
+    """Upper bound on any crossing t for a local ray with |origin| = o_norm,
+    |direction| = d_norm: no crossing exists once
+    t * (|d| - ESCAPE_ALPHA_INV * threshold) > |o| + ESCAPE_RADIUS."""
+    denom = torch.clamp(d_norm - ESCAPE_ALPHA_INV * SDF_HIT_THRESHOLD, min=1e-6)
+    return (o_norm + ESCAPE_RADIUS) / denom
+
+
+def _env_relax(name: str, default: float) -> float:
+    try:
+        v = float(os.environ.get(name, str(default)))
+    except ValueError:
+        return default
+    return v if v > 1.0 else 1.0
+
+
+def _env_budget(name: str, default: int) -> int:
+    try:
+        v = int(float(os.environ.get(name, str(default))))
+    except ValueError:
+        return default
+    return v if v > 1 else 0
+
+
+def reference_relax() -> float:
+    """GPURT_RELAX_REF: opt-in over-relaxation of radiance marches (default
+    1.0, off)."""
+    return _env_relax("GPURT_RELAX_REF", 1.0)
+
+
+def occlusion_relax() -> float:
+    """GPURT_RELAX_SHADOW: over-relaxation of occlusion marches (default 1.6)."""
+    return _env_relax("GPURT_RELAX_SHADOW", 1.6)
+
+
+def relax_for_code(code: int, occlusion: bool = False) -> float:
+    if int(code) >= 7:
+        raise NotImplementedError(
+            f"distance code {code}: the extension fractals are not ported yet")
+    base = reference_relax()
+    return max(base, occlusion_relax()) if occlusion else base
+
+
+def shadow_budget_cap() -> int:
+    """GPURT_SHADOW_BUDGET: occlusion march budget cap (default 96; 0 off)."""
+    return _env_budget("GPURT_SHADOW_BUDGET", 96)
+
+
+def bounce_shadow_budget_cap() -> int:
+    """GPURT_SHADOW_BUDGET_B: extra cap at bounce levels (default 64)."""
+    return _env_budget("GPURT_SHADOW_BUDGET_B", 64)
+
+
+def radiance_budget_cap() -> int:
+    """GPURT_MARCH_BUDGET: radiance march budget cap (default 160; 0 off)."""
+    return _env_budget("GPURT_MARCH_BUDGET", 160)
+
+
+def bounce_radiance_budget_cap() -> int:
+    """GPURT_MARCH_BUDGET_B: extra cap at bounce levels (default 128)."""
+    return _env_budget("GPURT_MARCH_BUDGET_B", 128)
+
+
+def cap_occlusion_budget(budget: int, bounce: bool = False) -> int:
+    cap = shadow_budget_cap()
+    budget = min(int(budget), cap) if cap else int(budget)
+    if bounce:
+        bcap = bounce_shadow_budget_cap()
+        if bcap:
+            budget = min(budget, bcap)
+    return budget
+
+
+def cap_radiance_budget(budget: int, bounce: bool = False) -> int:
+    cap = radiance_budget_cap()
+    budget = min(int(budget), cap) if cap else int(budget)
+    if bounce:
+        bcap = bounce_radiance_budget_cap()
+        if bcap:
+            budget = min(budget, bcap)
+    return budget
+
+
+def march_budget(natural: int, *, occlusion: bool, level: int):
+    """(budget, capped_hit) of one march at recursion ``level``: bounce
+    levels (>= 1) take the harsher bounce cap, and an occlusion march whose
+    budget sits below the geometry's natural one reports OCCLUDED when it
+    runs out (reference: accel/traverse._dispatch_procedural)."""
+    if occlusion:
+        steps = cap_occlusion_budget(natural)
+        steps_b = cap_occlusion_budget(steps, bounce=True)
+    else:
+        steps = cap_radiance_budget(natural)
+        steps_b = cap_radiance_budget(steps, bounce=True)
+    budget = steps_b if (level > 0 and steps_b < steps) else steps
+    return budget, bool(occlusion and budget < natural)
+
+
+# ---------------------------------------------------------------------------
+# Sphere tracer (hlsli:287-319)
+# ---------------------------------------------------------------------------
+
+def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_max,
+                 cull_backface, active, max_steps: int = SDF_MAX_STEPS,
+                 escape_bound: bool = True, relax: float = 1.0, capped_hit: bool = False):
+    """RaySignedDistancePrimitiveTest over (N, 3) local-space rays.
+
+    Per lane: sample d = f(o + t*dir); a sample is counted against
+    ``max_steps``; d <= 1e-4*t is a crossing, which ends the march if the
+    hit is valid (t in [t_min, t_max], and facing the ray when culling) and
+    otherwise steps on by step_scale*d like any other sample. Lanes retire
+    past the escape bound (``march_escape_t``, result-identical).
+
+    relax > 1: Keinert over-relaxation with overshoot back-step, as the
+    reference (cruise steps relax*step_scale*d; consecutive safety spheres
+    disjoint -> step back (1-relax)*relax*step_scale*d_prev and march
+    plainly from then on; an invalid crossing also ends relaxation).
+
+    Non-relaxed marches retire cycles: an advance that leaves t unchanged
+    or returns to the previous t repeats forever, so the lane is marked as
+    having spent its budget at once — the same result as the reference
+    burning its remaining steps, including under ``capped_hit``.
+
+    capped_hit: lanes that spend the budget without a valid hit report a
+    hit at their final t (occlusion semantics under reduced budgets).
+
+    Returns (hit, t_hit) with t_hit = inf on a miss.
+    """
+    n = origins.shape[0]
+    dev = origins.device
+    t_hit = torch.full((n,), torch.inf, dtype=origins.dtype, device=dev)
+    lanes = torch.nonzero(active).squeeze(1)
+    if lanes.numel() == 0:
+        return t_hit < torch.inf, t_hit
+    o, d, tm = origins[lanes], directions[lanes], t_max[lanes]
+    if escape_bound:
+        t_esc = torch.minimum(tm, march_escape_t(hlsl.length(o), hlsl.length(d)))
+    else:
+        t_esc = tm
+    m = lanes.numel()
+    t = torch.full((m,), float(t_min), dtype=origins.dtype, device=dev)
+    steps = torch.zeros(m, dtype=torch.int32, device=dev)
+    found = torch.full_like(t, torch.inf)
+    relaxed = relax > 1.0
+    if relaxed:
+        rprev = torch.zeros_like(t)
+        oon = torch.ones(m, dtype=torch.bool, device=dev)
+        fail_scale = (1.0 - relax) * relax
+    else:
+        t_prev = torch.full_like(t, -1.0)
+    cur = torch.arange(m, device=dev)
+    while cur.numel():
+        tc, oc, dc, sc = t[cur], o[cur], d[cur], steps[cur]
+        live = sc < max_steps
+        pos = oc + tc[:, None] * dc
+        dist = distance_fn(pos)
+        if relaxed:
+            rp, on = rprev[cur], oon[cur]
+            fail = live & on & (dist + rp < relax * rp)
+            crossed = live & (dist <= SDF_HIT_THRESHOLD * tc) & ~fail
+        else:
+            crossed = live & (dist <= SDF_HIT_THRESHOLD * tc)
+        valid = torch.zeros_like(crossed)
+        if bool(crossed.any()):
+            ci = torch.nonzero(crossed).squeeze(1)
+            ok = (tc[ci] >= t_min) & (tc[ci] <= tm[cur[ci]])
+            if cull_backface:
+                nrm = calculate_normal(pos[ci], distance_fn)
+                ok = ok & (hlsl.dot(dc[ci], nrm) <= 0.0)
+            valid[ci] = ok
+        found[cur[valid]] = tc[valid]
+        moved = live & ~valid
+        plain = step_scale * dist
+        if relaxed:
+            resumed = crossed & ~valid
+            stepv = torch.where(
+                fail, fail_scale * (step_scale * rp),
+                torch.where(on & ~resumed, relax * plain, plain))
+            escaped = moved & ~fail & (tc + plain > t_esc[cur])
+            t_new = tc + stepv
+            oon[cur] = on & ~fail & ~resumed
+            rprev[cur] = torch.where(moved, dist, rp)
+            go = moved & ~escaped
+            steps[cur] = sc + live.to(sc.dtype)
+        else:
+            t_new = tc + plain
+            tp = t_prev[cur]
+            stuck = moved & ((t_new == tc) | (t_new == tp))
+            t_prev[cur] = torch.where(moved, tc, tp)
+            go = moved & ~(t_new > t_esc[cur]) & ~stuck
+            steps[cur] = torch.where(stuck, max_steps, sc + live.to(sc.dtype))
+        t[cur] = torch.where(moved, t_new, tc)
+        cur = cur[go]
+    if capped_hit:
+        capped = (steps >= max_steps) & ~torch.isfinite(found)
+        found = torch.where(capped, t, found)
+    t_hit[lanes] = found
+    return torch.isfinite(t_hit), t_hit

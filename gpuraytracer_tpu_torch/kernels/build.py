@@ -1,0 +1,96 @@
+"""Build the CUDA kernels in csrc/ with nvcc on first use, load with ctypes.
+
+Each kernel source compiles to a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), for Hopper:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
+         -Xcompiler -fPIC --fmad=<true|false> -Xptxas -v
+
+never with --use_fast_math (the fog kill depends on expf underflowing to
+an exact 0, and march crossings are ulp-sensitive). The library lands in
+build/gpuraytracer_tpu_torch/ at the repository root, named after a hash
+of the sources and flags, so a changed source rebuilds and an unchanged one
+loads the existing build. A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpuraytracer_tpu_torch"
+
+# Contraction of a*b+c into FMA, chosen by the flip rate against the 96x54
+# builtin golden (rendered by the reference's fused XLA program, which
+# contracts too): on an H100, 1.10% of pixels flip with contraction and
+# 1.29% without (PERF.md).
+DEFAULT_FMAD = True
+
+# Shared headers every kernel source may include.
+_HEADERS = ("frame_math.cuh",)
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc") or "",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _flags(fmad: bool):
+    return ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+            "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
+            "-Xptxas", "-v"]
+
+
+def library_path(name: str, fmad: bool = DEFAULT_FMAD) -> Path:
+    """Where the build of csrc/<name>.cu with these flags lives."""
+    h = hashlib.sha256(" ".join(_flags(fmad)).encode())
+    for src in (f"{name}.cu",) + _HEADERS:
+        h.update(src.encode())
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD) -> tuple[Path, str]:
+    """Compile csrc/<name>.cu unless its build exists. Returns the library
+    path and ptxas' report (registers, spills; empty when reused)."""
+    out = library_path(name, fmad)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path()] + _flags(fmad) + ["-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str, fmad: bool = DEFAULT_FMAD) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; declares the C interface."""
+    path, _ = compile_kernel(name, fmad)
+    lib = ctypes.CDLL(str(path))
+    if name == "frame_kernel":
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gprt_frame_render.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.gprt_frame_render.restype = ci
+        lib.gprt_error_string.argtypes = [ci]
+        lib.gprt_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,409 @@
+// Per-pixel device math of the frame kernel: vectors, the seven reference
+// distance functions and their normal, the analytic intersectors, the
+// metaball field, and the two marchers.
+//
+// Replaces the device math of the reference's Pallas kernels
+// (gpuraytracer_tpu/kernels/soa.py; scene_kernel.py _march_sdf_part,
+// _normal_at, _march_metaballs_part, _metaball_normal, _local_ray). Where
+// the Pallas forms and the reference's XLA path (geometry/*.py, which
+// rendered every committed golden) differ, this follows the XLA path:
+// atan2f for the Cog's polar angle, powf(., 1/8) for the torus82 length,
+// division-form normalize, and the XLA tetrahedral-normal association.
+// Every float constant is written as the double the reference package
+// holds, converted to float, so both round it the same way.
+#pragma once
+
+#include <math.h>
+
+#include <limits>
+
+#define F(x) ((float)(x))
+
+namespace gprt {
+
+constexpr float kInf = std::numeric_limits<float>::infinity();
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+// o + t*d, component-wise, in the reference's association.
+__device__ __forceinline__ V3 along(V3 o, float t, V3 d) {
+  return v3(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z);
+}
+// (x + y) + z, the order of the reference's reductions.
+__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ float len3(V3 a) { return sqrtf(dot3(a, a)); }
+__device__ __forceinline__ float len2(float a, float b) { return sqrtf(a * a + b * b); }
+// HLSL normalize in division form with the exact-zero guard.
+__device__ __forceinline__ V3 normalize(V3 v) {
+  float l = fmaxf(len3(v), 1e-20f);
+  return v3(v.x / l, v.y / l, v.z / l);
+}
+// i - (2*dot(i, n))*n
+__device__ __forceinline__ V3 reflect(V3 i, V3 n) {
+  float k = 2.0f * dot3(i, n);
+  return v3(i.x - k * n.x, i.y - k * n.y, i.z - k * n.z);
+}
+__device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+// NaN-propagating max/min, as the reference's slab reductions behave.
+__device__ __forceinline__ float nmax(float a, float b) { return (a != a || b != b) ? a + b : fmaxf(a, b); }
+__device__ __forceinline__ float nmin(float a, float b) { return (a != a || b != b) ? a + b : fminf(a, b); }
+
+// ---------------------------------------------------------------------------
+// Distance functions (geometry/sdf.py; hlsli anchors there)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ V3 op_rep(V3 p, float cx, float cy, float cz) {
+  return v3(fmodf(p.x, cx) - 0.5f * cx, fmodf(p.y, cy) - 0.5f * cy, fmodf(p.z, cz) - 0.5f * cz);
+}
+
+__device__ __forceinline__ float sd_box(V3 p, float b) {
+  V3 d = v3(fabsf(p.x) - b, fabsf(p.y) - b, fabsf(p.z) - b);
+  float inside = fminf(fmaxf(fmaxf(d.x, d.y), d.z), 0.0f);
+  return inside + len3(v3(fmaxf(d.x, 0.0f), fmaxf(d.y, 0.0f), fmaxf(d.z, 0.0f)));
+}
+
+__device__ __forceinline__ float len_xz(V3 p) { return sqrtf(p.x * p.x + p.z * p.z); }
+
+__device__ __forceinline__ float len_pow8(float a, float b) {
+  float qa = a * a;
+  qa = qa * qa;
+  qa = qa * qa;
+  float qb = b * b;
+  qb = qb * qb;
+  qb = qb * qb;
+  return powf(qa + qb, 0.125f);
+}
+
+__device__ __forceinline__ float sd_torus82(V3 p, float t0, float t1) {
+  return len_pow8(len_xz(p) - t0, p.y) - t1;
+}
+
+__device__ __forceinline__ float sd_cylinder(V3 p, float h0, float h1) {
+  float dx = fabsf(len_xz(p)) - h0;
+  float dy = fabsf(p.y) - h1;
+  return fminf(fmaxf(dx, dy), 0.0f) + len2(fmaxf(dx, 0.0f), fmaxf(dy, 0.0f));
+}
+
+__device__ __forceinline__ float distance_mini_spheres(V3 p) {
+  V3 q = op_rep(v3(p.x + 1.0f, p.y + 1.0f, p.z + 1.0f), F(2.0 / 4.0), F(2.0 / 4.0), F(2.0 / 4.0));
+  return fmaxf(len3(q) - F(0.65 / 4.0), sd_box(p, 1.0f));
+}
+
+__device__ __forceinline__ float distance_round_cube(V3 p) {
+  V3 d = v3(fmaxf(fabsf(p.x) - F(0.75), 0.0f), fmaxf(fabsf(p.y) - F(0.75), 0.0f),
+            fmaxf(fabsf(p.z) - F(0.75), 0.0f));
+  float rb = len3(d) - F(0.2);
+  float l = len3(p);
+  return fmaxf(fmaxf(rb, -(l - F(1.20))), l - F(1.32));
+}
+
+__device__ __forceinline__ float distance_twisted_torus(V3 p) {
+  float c = cosf(3.0f * p.y);
+  float s = sinf(3.0f * p.y);
+  // op_twist -> (c x - s z, s x + c z, y); the torus reads xz = (c x - s z, y).
+  float tx = c * p.x - s * p.z;
+  float ty = s * p.x + c * p.z;
+  return len2(len2(tx, p.y) - F(0.6), ty) - F(0.2);
+}
+
+__device__ __forceinline__ float distance_cog(V3 p) {
+  float ang = atan2f(p.z, p.x) / F(6.2831);
+  V3 polar = v3(ang + 1.0f, 1.0f + 1.0f, (F(0.015) + 0.25f * len3(p)) + 1.0f);
+  float teeth = sd_cylinder(op_rep(polar, F(0.05), 1.0f, F(0.075)), F(0.02), F(0.8));
+  return fmaxf(sd_torus82(p, F(0.60), F(0.3)), -teeth);
+}
+
+__device__ __forceinline__ float distance_cylinder(V3 p) {
+  V3 q = v3(p.x + 1.0f, p.y + 1.0f, p.z + 1.0f);
+  return fmaxf(sd_cylinder(op_rep(q, 1.0f, 2.0f, 1.0f), F(0.3), 2.0f), sd_box(q, 2.0f));
+}
+
+__device__ __forceinline__ float distance_fractal_pyramid(V3 p) {
+  // sd_fractal_pyramid(p + (0,1,0), h = (0.894, 0.447, 2.0), scale 2, 4 folds)
+  const float a = F(2.0 * 0.447 / 0.894);
+  const float vx[5] = {0.0f, -a, a, a, -a};
+  const float vy[5] = {2.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const float vz[5] = {0.0f, a, -a, a, -a};
+  V3 q = v3(p.x + 0.0f, p.y + 1.0f, p.z + 0.0f);
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    V3 e = sub(q, v3(vx[0], vy[0], vz[0]));
+    float best = dot3(e, e);
+    int bi = 0;
+#pragma unroll
+    for (int k = 1; k < 5; ++k) {
+      V3 f = sub(q, v3(vx[k], vy[k], vz[k]));
+      float dk = dot3(f, f);
+      if (dk < best) {
+        best = dk;
+        bi = k;
+      }
+    }
+    q = v3(2.0f * q.x - vx[bi] * 1.0f, 2.0f * q.y - vy[bi] * 1.0f, 2.0f * q.z - vz[bi] * 1.0f);
+  }
+  float oct = fmaxf(fabsf(q.x), fabsf(q.z)) * F(0.894) + fabsf(q.y) * F(0.447);
+  oct = oct - F(0.447 * 2.0);
+  return fmaxf(oct, -q.y) * F(0.0625);
+}
+
+// Codes 0..6 in the reference's SignedDistancePrimitive order.
+__device__ __noinline__ float sdf_distance(int code, V3 p) {
+  switch (code) {
+    case 0: return distance_mini_spheres(p);
+    case 1: return distance_round_cube(p);
+    case 2: return sd_torus82(p, F(0.75), F(0.15));
+    case 3: return distance_twisted_torus(p);
+    case 4: return distance_cog(p);
+    case 5: return distance_cylinder(p);
+    default: return distance_fractal_pyramid(p);
+  }
+}
+
+// Tetrahedral-offset normal (geometry/sdf.calculate_normal): n is the sum
+// of offset_k * f(p + offset_k), k = xyy, yyx, yxy, xxx, then normalized.
+__device__ __noinline__ V3 sdf_normal(int code, V3 p) {
+  const float e = F(0.5773 * 0.0001);
+  float d0 = sdf_distance(code, v3(p.x + e, p.y + -e, p.z + -e));
+  float d1 = sdf_distance(code, v3(p.x + -e, p.y + -e, p.z + e));
+  float d2 = sdf_distance(code, v3(p.x + -e, p.y + e, p.z + -e));
+  float d3 = sdf_distance(code, v3(p.x + e, p.y + e, p.z + e));
+  V3 n = v3(e * d0 + -e * d1 + -e * d2 + e * d3,
+            -e * d0 + -e * d1 + e * d2 + e * d3,
+            -e * d0 + e * d1 + -e * d2 + e * d3);
+  return normalize(n);
+}
+
+// ---------------------------------------------------------------------------
+// Analytic primitives (geometry/analytic.py)
+// ---------------------------------------------------------------------------
+
+struct Roots {
+  bool has;
+  float t0, t1;
+};
+
+// Stable quadratic for |o + t d - c| = r; rr is r*r as the caller's
+// reference computes it.
+__device__ __forceinline__ Roots solve_sphere(V3 o, V3 d, V3 c, float rr) {
+  V3 L = sub(o, c);
+  float a = dot3(d, d);
+  float b = 2.0f * dot3(d, L);
+  float cc = dot3(L, L) - rr;
+  float discr = b * b - 4.0f * a * cc;
+  float sq = sqrtf(fmaxf(discr, 0.0f));
+  float q = b > 0.0f ? -0.5f * (b + sq) : -0.5f * (b - sq);
+  float x0 = q / a;
+  float x1 = cc / q;
+  float t0 = fminf(x0, x1);
+  float t1 = fmaxf(x0, x1);
+  if (discr == 0.0f) {
+    float mid = -0.5f * b / a;
+    t0 = mid;
+    t1 = mid;
+  }
+  return Roots{discr >= 0.0f, t0, t1};
+}
+
+// RaySpheresIntersectionTest: three hollow spheres, closest valid hit wins.
+__device__ bool intersect_spheres(V3 o, V3 d, float t_max, bool cull, float* t_out, V3* n_out) {
+  const float cx[3] = {F(-0.3), F(0.1), F(0.35)};
+  const float cy[3] = {F(-0.3), F(0.1), F(0.35)};
+  const float cz[3] = {F(-0.3), F(0.4), F(0.0)};
+  const float rr[3] = {F(0.6 * 0.6), F(0.3 * 0.3), F(0.15 * 0.15)};
+  float best_t = t_max;
+  bool found = false;
+  for (int s = 0; s < 3; ++s) {
+    V3 c = v3(cx[s], cy[s], cz[s]);
+    Roots r = solve_sphere(o, d, c, rr[s]);
+    V3 n0 = normalize(sub(along(o, r.t0, d), c));
+    V3 n1 = normalize(sub(along(o, r.t1, d), c));
+    bool v0 = r.t0 >= 0.0f && r.t0 <= t_max && (!cull || dot3(d, n0) <= 0.0f);
+    bool v1 = r.t1 >= 0.0f && r.t1 <= t_max && (!cull || dot3(d, n1) <= 0.0f);
+    bool use_a = r.t0 < 0.0f;
+    bool hit_a = !(r.t1 < 0.0f) && v1;
+    bool hit_b1 = !v0 && v1;
+    bool hit = r.has && (use_a ? hit_a : (v0 || hit_b1));
+    bool use_t1 = use_a || hit_b1;
+    float t = use_t1 ? r.t1 : r.t0;
+    if (hit && t < best_t) {
+      best_t = t;
+      *n_out = use_t1 ? n1 : n0;
+      found = true;
+    }
+  }
+  *t_out = best_t;
+  return found;
+}
+
+struct Interval {
+  float tmin, tmax;
+};
+
+// Slab interval with the reference's inf handling for axis-parallel rays.
+__device__ __forceinline__ Interval slab(V3 o, V3 d, V3 mn, V3 mx) {
+  float oc[3] = {o.x, o.y, o.z}, dc[3] = {d.x, d.y, d.z};
+  float lo[3] = {mn.x, mn.y, mn.z}, hi[3] = {mx.x, mx.y, mx.z};
+  float t0[3], t1[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float inv = dc[k] != 0.0f ? 1.0f / dc[k] : (dc[k] > 0.0f ? kInf : -kInf);
+    float near = dc[k] > 0.0f ? lo[k] : hi[k];
+    float far = dc[k] > 0.0f ? hi[k] : lo[k];
+    t0[k] = (near - oc[k]) * inv;
+    t1[k] = (far - oc[k]) * inv;
+  }
+  return Interval{nmax(nmax(t0[0], t0[1]), t0[2]), nmin(nmin(t1[0], t1[1]), t1[2])};
+}
+
+// Hollow unit AABB with priority-ordered face normals.
+__device__ bool intersect_hollow_aabb(V3 o, V3 d, float t_max, bool cull, float* t_out, V3* n_out) {
+  Interval iv = slab(o, d, v3(-1.0f, -1.0f, -1.0f), v3(1.0f, 1.0f, 1.0f));
+  bool interval_ok = iv.tmax > iv.tmin && iv.tmax >= 0.0f && iv.tmin <= t_max;
+  bool entry_ok = iv.tmin >= 0.0f && iv.tmin <= t_max;
+  float t = iv.tmin;
+  V3 pos = along(o, t, d);
+  const float eps = F(0.0001);
+  V3 n = v3(0.0f, 0.0f, 0.0f);
+  if (fabsf(-1.0f - pos.x) < eps) n = v3(-1.0f, 0.0f, 0.0f);
+  else if (fabsf(-1.0f - pos.y) < eps) n = v3(0.0f, -1.0f, 0.0f);
+  else if (fabsf(-1.0f - pos.z) < eps) n = v3(0.0f, 0.0f, -1.0f);
+  else if (fabsf(1.0f - pos.x) < eps) n = v3(1.0f, 0.0f, 0.0f);
+  else if (fabsf(1.0f - pos.y) < eps) n = v3(0.0f, 1.0f, 0.0f);
+  else if (fabsf(1.0f - pos.z) < eps) n = v3(0.0f, 0.0f, 1.0f);
+  bool hit = interval_ok && entry_ok && (!cull || dot3(d, n) <= 0.0f);
+  *t_out = t;
+  *n_out = n;
+  return hit;
+}
+
+// ---------------------------------------------------------------------------
+// Metaballs (geometry/metaballs.py); mb = 3 x (cx, cy, cz, r)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float metaball_potential(V3 p, const float* b) {
+  float dist = len3(v3(p.x - b[0], p.y - b[1], p.z - b[2]));
+  float dr = (b[3] - dist) / b[3];
+  float d2 = dr * dr;
+  float d4 = d2 * d2;
+  float val = 6.0f * (dr * d4) - 15.0f * d4 + 10.0f * (dr * d2);
+  return dist <= b[3] ? val : 0.0f;
+}
+
+__device__ __forceinline__ float metaballs_potential(V3 p, const float* mb) {
+  return metaball_potential(p, mb) + metaball_potential(p, mb + 4) + metaball_potential(p, mb + 8);
+}
+
+__device__ __noinline__ V3 metaballs_normal(V3 p, const float* mb) {
+  const float e = F(0.5773 * 0.00001);
+  V3 n = v3(metaballs_potential(v3(p.x - e, p.y, p.z), mb) - metaballs_potential(v3(p.x + e, p.y, p.z), mb),
+            metaballs_potential(v3(p.x, p.y - e, p.z), mb) - metaballs_potential(v3(p.x, p.y + e, p.z), mb),
+            metaballs_potential(v3(p.x, p.y, p.z - e), mb) - metaballs_potential(v3(p.x, p.y, p.z + e), mb));
+  return normalize(n);
+}
+
+// Fixed 128-step march over the union of the balls' bounding-sphere
+// intervals clipped to [0, t_max]; a crossing that fails the validity check
+// steps on like any other sample.
+__device__ bool march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cull, float* t_out) {
+  float tmin = kInf, tmax = -kInf;
+  for (int j = 0; j < 3; ++j) {
+    const float* b = mb + 4 * j;
+    Roots r = solve_sphere(o, d, v3(b[0], b[1], b[2]), b[3] * b[3]);
+    if (r.has) {
+      tmin = fminf(fmaxf(r.t0, 0.0f), tmin);
+      tmax = fmaxf(fminf(r.t1, t_max), tmax);
+    }
+  }
+  tmin = fmaxf(tmin, 0.0f);
+  tmax = fminf(tmax, t_max);
+  if (!(tmax >= tmin)) return false;
+  float step = (tmax - tmin) / 128.0f;
+  float t = tmin;
+  for (int s = 0; s < 128; ++s) {
+    V3 pos = along(o, t, d);
+    if (metaballs_potential(pos, mb) >= F(0.25)) {
+      bool ok = t >= 0.0f && t <= t_max;
+      if (ok && cull) ok = dot3(d, metaballs_normal(pos, mb)) <= 0.0f;
+      if (ok) {
+        *t_out = t;
+        return true;
+      }
+    }
+    t = t + step;
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// Sphere tracer (geometry/sdf.sphere_trace)
+// ---------------------------------------------------------------------------
+
+struct MarchSpec {
+  int max_steps;
+  float relax;       // > 1: over-relaxed (occlusion by default)
+  float fail_scale;  // (1 - relax) * relax, rounded from double
+  bool capped_hit;   // budget exhaustion reports a hit (occlusion)
+  bool cull;
+};
+
+// Returns whether the march hit; *t_out is the hit t.
+__device__ bool march_sdf(int code, V3 o, V3 d, float t_max, float step_scale, const MarchSpec& m,
+                          float* t_out) {
+  float o_norm = len3(o), d_norm = len3(d);
+  float denom = fmaxf(d_norm - F(2.5 * 0.0001), 1e-6f);
+  float t_esc = fminf(t_max, (o_norm + 12.0f) / denom);
+  const bool relaxed = m.relax > 1.0f;
+  float t = 0.0f, rprev = 0.0f, t_prev = -1.0f;
+  bool oon = true;
+  int steps = 0;
+  while (steps < m.max_steps) {
+    V3 pos = along(o, t, d);
+    float dist = sdf_distance(code, pos);
+    ++steps;
+    bool fail = relaxed && oon && (dist + rprev < m.relax * rprev);
+    bool crossed = dist <= F(0.0001) * t && !fail;
+    if (crossed) {
+      bool ok = t >= 0.0f && t <= t_max;
+      if (ok && m.cull) ok = dot3(d, sdf_normal(code, pos)) <= 0.0f;
+      if (ok) {
+        *t_out = t;
+        return true;
+      }
+    }
+    float plain = step_scale * dist;
+    if (relaxed) {
+      float stepv = fail ? m.fail_scale * (step_scale * rprev)
+                         : ((oon && !crossed) ? m.relax * plain : plain);
+      bool escaped = !fail && (t + plain > t_esc);
+      oon = oon && !fail && !crossed;
+      rprev = dist;
+      t = t + stepv;
+      if (escaped) break;
+    } else {
+      float t_new = t + plain;
+      // A step that leaves t unchanged or returns to the previous t repeats
+      // forever: the lane would spend its whole budget, so spend it now.
+      if (t_new == t || t_new == t_prev) {
+        steps = m.max_steps;
+        break;
+      }
+      t_prev = t;
+      t = t_new;
+      if (t > t_esc) break;
+    }
+  }
+  if (m.capped_hit && steps >= m.max_steps) {
+    *t_out = t;
+    return true;
+  }
+  return false;
+}
+
+}  // namespace gprt

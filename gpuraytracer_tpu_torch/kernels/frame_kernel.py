@@ -1,0 +1,305 @@
+"""The whole frame in one hand-written CUDA kernel (csrc/frame_kernel.cu).
+
+Replaces the reference's fused Pallas frame kernel
+(gpuraytracer_tpu/kernels/frame_kernel.py: render_frame_tiles /
+_frame_kernel, plain mode) together with the scene-kernel device functions
+it inlines. One CUDA thread renders one pixel: raygen, then per level the
+plane test, the closest traversal, the material pick, the shadow ray, the
+shading and the bounce, and one float4 store.
+
+Parameters reach the kernel as one contiguous f32 buffer and one int32
+layout buffer (``pack_frame``), packed from the same blocks as the
+reference's ``pack_frame_params``. On a CPU tensor the wrapper runs the
+kernel's plain version — the wavefront ``render/trace.trace_radiance`` on
+the scene unpacked from the same buffers; on a CUDA tensor it launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+
+import torch
+
+from gpuraytracer_tpu_torch.accel.instances import Scene, SceneArrays, SceneLayout
+from gpuraytracer_tpu_torch.core.types import (
+    InstanceTransforms,
+    IntersectorKind,
+    MAX_RAY_RECURSION_DEPTH,
+    MaterialTable,
+    SDF_MAX_STEPS,
+    SceneConstants,
+)
+from gpuraytracer_tpu_torch.geometry import metaballs, sdf
+
+# Kernel launches since import (or since a caller reset it); chip runs read
+# it to show that a frame went through the kernel.
+LAUNCHES = 0
+
+# Buffer layout, shared with csrc/frame_kernel.cu (keep in step).
+F_HEADER = 8  # elapsed_time, relax_r, relax_s, fail_scale_r, fail_scale_s, 0, 0, 0
+I_HEADER = 8  # G, M, plane_gid, has_plane, 0, 0, 0, 0
+GEO_STRIDE = 8  # kind, code, budget r0, r1, s0, s1, capped s0, s1
+MAX_MATERIALS = 16
+_BLOCKS = (("b2l", 12), ("l2b", 9), ("sscale", 1), ("aabb", 6))  # per geometry
+
+
+def param_offsets(g: int, m: int) -> dict:
+    """Offsets (in floats) of each block in the f32 parameter buffer."""
+    off, at = {}, F_HEADER
+    for name, width in _BLOCKS:
+        off[name] = at
+        at += g * width
+    for name, size in (("mb", 12), ("mat", m * 8), ("p2w", 16), ("cvec", 32)):
+        off[name] = at
+        at += size
+    off["total"] = at
+    return off
+
+
+@dataclasses.dataclass(frozen=True)
+class FramePack:
+    """The kernel's inputs: ``params`` (f32) and ``layout`` (int32), both
+    1-D, contiguous and on the rendering device, plus their sizes."""
+
+    params: torch.Tensor
+    layout: torch.Tensor
+    num_geometries: int
+    num_materials: int
+
+
+def frame_mode() -> str:
+    """GPURT_FRAME_MODE as the reference reads it (default "plain")."""
+    m = os.environ.get("GPURT_FRAME_MODE", "")
+    if m in ("plain", "compact", "defer"):
+        return m
+    return "plain"
+
+
+def merged_shadow_enabled() -> bool:
+    return os.environ.get("GPURT_MERGED_SHADOW", "") == "1"
+
+
+def fused_eligible_layout(layout: SceneLayout, num_materials: int) -> bool:
+    """Whether the frame kernel covers the layout (the reference's
+    fused_eligible_layout, less the kinds not ported yet)."""
+    supported = (IntersectorKind.ANALYTIC, IntersectorKind.VOLUMETRIC,
+                 IntersectorKind.SIGNED_DISTANCE)
+    return (
+        not os.environ.get("GPURT_DISABLE_FUSED")
+        and layout.num_procedural > 0
+        and all(k in supported for k in layout.kinds)
+        and all(int(p) < 7 for k, p in zip(layout.kinds, layout.prim_types)
+                if k == IntersectorKind.SIGNED_DISTANCE)
+        and layout.material_ids is None
+        and num_materials <= MAX_MATERIALS
+    )
+
+
+def check_kernel_covers(layout: SceneLayout, num_materials: int) -> None:
+    """Raise, naming the reference kernel that is not ported yet, for a
+    frame the CUDA frame kernel does not render. Never falls back."""
+    mode = frame_mode()
+    if mode == "compact":
+        raise NotImplementedError(
+            "GPURT_FRAME_MODE=compact: frame_kernel.render_frame_compact is not "
+            "ported to CUDA yet")
+    if mode == "defer":
+        raise NotImplementedError(
+            "GPURT_FRAME_MODE=defer: frame_kernel.render_frame_deferred and "
+            "_shadow_queue_kernel are not ported to CUDA yet")
+    if merged_shadow_enabled():
+        raise NotImplementedError(
+            "GPURT_MERGED_SHADOW: scene_kernel._march_sdf_multi is not ported "
+            "to CUDA yet")
+    if not fused_eligible_layout(layout, num_materials):
+        raise NotImplementedError(
+            "scene layout outside the frame kernel: scene_kernel."
+            "scene_closest_tiles (and megakernel.sphere_trace_tiles, "
+            "_intersect_trimesh_tile) are not ported to CUDA yet")
+
+
+def pack_frame_params(scene: Scene):
+    """Parameter blocks as the reference's pack_frame_params builds them:
+    (b2l_rows (G,12), l2b_rot (G,9), step_scales (G,), aabbs (G,6),
+    mb_params (3,4), materials (M,8), p2w (4,4), cvec (8,4)), plus the
+    static fields (geoms, plane_gid)."""
+    arrays, layout = scene.arrays, scene.layout
+    tr = arrays.transforms
+    g = tr.blas_to_local.shape[0]
+    b2l_rows = tr.blas_to_local[:, :3, :].reshape(g, 12)
+    l2b_rot = tr.local_to_blas[:, :3, :3].reshape(g, 9)
+    aabbs = torch.cat([arrays.aabb_min, arrays.aabb_max], dim=-1)
+    centers, radii = metaballs.animated_metaballs(arrays.constants.elapsed_time)
+    mb_params = torch.cat([centers, radii[:, None]], dim=-1)
+    step_scales = arrays.materials.step_scale[:g]
+    mats = arrays.materials
+    materials = torch.stack([
+        mats.albedo[:, 0], mats.albedo[:, 1], mats.albedo[:, 2], mats.albedo[:, 3],
+        mats.reflectance_coefficient, mats.diffuse_coefficient,
+        mats.specular_coefficient, mats.specular_power,
+    ], dim=-1)
+    c = arrays.constants
+    zeros = torch.zeros(4, dtype=torch.float32, device=aabbs.device)
+
+    def row4(v):
+        return torch.cat([v, zeros[: 4 - v.shape[0]]])
+
+    if layout.has_plane:
+        plane_o, plane_s = row4(arrays.plane_origin), row4(arrays.plane_size)
+    else:  # an impossible rect: the plane test can never pass
+        plane_o, plane_s = zeros, row4(torch.full((2,), -1.0, device=aabbs.device))
+    cvec = torch.stack([
+        row4(c.camera_position[:3]), row4(c.light_position[:3]),
+        c.light_ambient_color, c.light_diffuse_color, row4(arrays.blas_offset),
+        plane_o, plane_s, zeros,
+    ])
+    p2w = c.projection_to_world.reshape(4, 4)
+    blocks = (b2l_rows, l2b_rot, step_scales, aabbs, mb_params, materials, p2w, cvec)
+    static = dict(
+        geoms=tuple((int(k), int(p)) for k, p in zip(layout.kinds, layout.prim_types)),
+        plane_gid=int(layout.plane_geometry_id),
+    )
+    return blocks, static
+
+
+def pack_frame(scene: Scene) -> FramePack:
+    """One f32 parameter buffer + one int32 layout buffer on the scene's
+    device. The march knobs (budgets per level, relaxation, capped-hit
+    occlusion) are read here, at call time, as the wavefront reads them."""
+    blocks, static = pack_frame_params(scene)
+    layout = scene.layout
+    g = len(static["geoms"])
+    m = blocks[5].shape[0]
+    dev = blocks[0].device
+    relax_r = sdf.reference_relax()
+    relax_s = max(relax_r, sdf.occlusion_relax())
+    header = torch.tensor(
+        [0.0, relax_r, relax_s, (1.0 - relax_r) * relax_r, (1.0 - relax_s) * relax_s,
+         0.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    header[0] = scene.arrays.constants.elapsed_time
+    params = torch.cat([header] + [b.reshape(-1).to(torch.float32) for b in blocks])
+
+    ints = [g, m, static["plane_gid"], int(layout.has_plane), 0, 0, 0, 0]
+    for i, (kind, code) in enumerate(static["geoms"]):
+        natural = layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS
+        rb0, _ = sdf.march_budget(natural, occlusion=False, level=0)
+        rb1, _ = sdf.march_budget(natural, occlusion=False, level=1)
+        sb0, sc0 = sdf.march_budget(natural, occlusion=True, level=0)
+        sb1, sc1 = sdf.march_budget(natural, occlusion=True, level=1)
+        ints += [kind, code, rb0, rb1, sb0, sb1, int(sc0), int(sc1)]
+    layout_buf = torch.tensor(ints, dtype=torch.int32, device=dev)
+    return FramePack(params=params.contiguous(), layout=layout_buf,
+                     num_geometries=g, num_materials=m)
+
+
+def unpack_frame(pack: FramePack) -> Scene:
+    """The Scene a FramePack encodes (inverse of ``pack_frame`` for every
+    field the renderer reads), on the pack's device."""
+    g, m = pack.num_geometries, pack.num_materials
+    p = pack.params
+    ints = pack.layout.tolist()
+    off = param_offsets(g, m)
+
+    def blk(name, *shape):
+        n = 1
+        for s in shape:
+            n *= s
+        return p[off[name]: off[name] + n].reshape(shape)
+
+    geo = [ints[I_HEADER + GEO_STRIDE * i: I_HEADER + GEO_STRIDE * (i + 1)] for i in range(g)]
+    layout = SceneLayout(kinds=tuple(IntersectorKind(r[0]) for r in geo),
+                         prim_types=tuple(r[1] for r in geo), has_plane=bool(ints[3]))
+    cvec = blk("cvec", 8, 4)
+    mat = blk("mat", m, 8)
+    last_row = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=p.dtype, device=p.device)
+    b2l = torch.cat([blk("b2l", g, 3, 4), last_row.expand(g, 1, 4)], dim=1)
+    l2b = torch.zeros(g, 4, 4, dtype=p.dtype, device=p.device)
+    l2b[:, :3, :3] = blk("l2b", g, 3, 3)
+    l2b[:, 3, 3] = 1.0
+    step_scale = torch.ones(m, dtype=p.dtype, device=p.device)
+    step_scale[:g] = blk("sscale", g)
+    one = torch.ones(1, dtype=p.dtype, device=p.device)
+    aabb = blk("aabb", g, 6)
+    arrays = SceneArrays(
+        constants=SceneConstants(
+            projection_to_world=blk("p2w", 4, 4),
+            camera_position=torch.cat([cvec[0, :3], one]),
+            light_position=cvec[1].clone(),
+            light_ambient_color=cvec[2].clone(),
+            light_diffuse_color=cvec[3].clone(),
+            reflectance=p.new_zeros(()),
+            elapsed_time=p[0].clone(),
+        ),
+        materials=MaterialTable(
+            albedo=mat[:, 0:4], reflectance_coefficient=mat[:, 4],
+            diffuse_coefficient=mat[:, 5], specular_coefficient=mat[:, 6],
+            specular_power=mat[:, 7], step_scale=step_scale,
+        ),
+        transforms=InstanceTransforms(local_to_blas=l2b, blas_to_local=b2l),
+        aabb_min=aabb[:, :3], aabb_max=aabb[:, 3:],
+        blas_offset=cvec[4, :3].clone(),
+        plane_origin=cvec[5, :3].clone(), plane_size=cvec[6, :2].clone(),
+    )
+    return Scene(layout=layout, arrays=arrays)
+
+
+def render_frame_plain(pack: FramePack, *, width: int, height: int,
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH):
+    """The kernel's plain PyTorch version on the same packed inputs: the
+    wavefront (render/trace.render_wavefront) on the unpacked scene, on the
+    pack's device."""
+    from gpuraytracer_tpu_torch.render import trace
+
+    return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth)
+
+
+def _check_pack(pack: FramePack) -> None:
+    g, m = pack.num_geometries, pack.num_materials
+    p, lay = pack.params, pack.layout
+    if p.dtype != torch.float32 or lay.dtype != torch.int32:
+        raise TypeError(f"params must be float32 and layout int32, got {p.dtype}, {lay.dtype}")
+    if p.device != lay.device:
+        raise ValueError(f"params on {p.device} but layout on {lay.device}")
+    if p.dim() != 1 or lay.dim() != 1 or not (p.is_contiguous() and lay.is_contiguous()):
+        raise ValueError("params and layout must be 1-D contiguous tensors")
+    if not (0 < g and 0 < m <= MAX_MATERIALS):
+        raise ValueError(f"unsupported sizes: {g} geometries, {m} materials")
+    if p.numel() != param_offsets(g, m)["total"] or lay.numel() != I_HEADER + GEO_STRIDE * g:
+        raise ValueError(f"buffer sizes {p.numel()}/{lay.numel()} do not match "
+                         f"{g} geometries and {m} materials")
+
+
+def render_frame_tiles(pack: FramePack, *, width: int, height: int,
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None):
+    """(H, W, 4) f32 radiance image of the packed frame.
+
+    CUDA: launches csrc/frame_kernel.cu on the current stream (``lib``: a
+    loaded build of it, default the shipped one) and counts the launch in
+    LAUNCHES. CPU: runs ``render_frame_plain``."""
+    global LAUNCHES
+    _check_pack(pack)
+    dev = pack.params.device
+    if dev.type == "cpu":
+        return render_frame_plain(pack, width=width, height=height, max_depth=max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"no frame kernel for device {dev}")
+    if width <= 0 or height <= 0 or not 1 <= max_depth <= 8:
+        raise ValueError(f"bad frame size {width}x{height} or depth {max_depth}")
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("frame_kernel")
+    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.gprt_frame_render(
+        ctypes.c_void_p(pack.params.data_ptr()), ctypes.c_void_p(pack.layout.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), width, height, max_depth,
+        pack.num_geometries, pack.num_materials, dev.index, ctypes.c_void_p(stream),
+    )
+    if rc != 0:
+        raise RuntimeError(f"frame kernel launch failed: CUDA error {rc} "
+                           f"({lib.gprt_error_string(rc).decode()})")
+    LAUNCHES += 1
+    return out
