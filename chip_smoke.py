@@ -3,19 +3,54 @@
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
-Phases (each prints its result; any failure raises and exits non-zero):
+Phases (each prints its result and its seconds; any failure raises and
+exits non-zero):
   1. device   fail without CUDA; print the card's name and power limit
-  2. build    build the frame kernel from csrc/ with nvcc (both --fmad modes)
-  3. plain    kernel vs its plain PyTorch version (the wavefront), 320x180
-  4. golden   kernel vs tests/golden_builtin_96x54_t0p7.npz, both fmad modes
-  5. main     Renderer(1920, 1080, device="cuda") over a 16-frame animated
-              window: every frame through the kernel, finite, not background;
-              ms/frame from CUDA events, and one plain 1080p frame for scale
+  2. build    build both kernels from csrc/ with nvcc, all builds at once
+              (both kernels with --fmad true and false, and the
+              op-counting builds of both); print ptxas' registers
+  3. probe    the extension fractals' device distance functions against
+              their plain versions point by point across the local AABB
+  4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
+  5. golden   frame kernel vs tests/golden_builtin_96x54_t0p7.npz, both
+              fmad modes
+  6. main     Renderer(1920, 1080, device="cuda") over a 16-frame animated
+              window: every frame through the frame kernel (launch count),
+              finite, not background; ms/frame from CUDA events; the kernel
+              alone, its op count and bound, and one plain 1080p frame
+  7. suite    the five BENCH_CONFIGS through trace.render_frame: 96x54
+              t=0.7 against their goldens, 320x180 against the frame
+              kernel's plain version, and a 16-frame animated window at
+              their published sizes through the frame kernel
+  8. scene    GPURT_DISABLE_FUSED=1: the scene kernel against its plain
+              version on ray batches (builtin, sdf_primitives_720p, the
+              fractal scene; 320x180; closest at levels 0/1, accept-first
+              at levels 0/1); a builtin 320x180 frame through the
+              wavefront with the scene kernel against the frame kernel and
+              the plain version; the builtin 1080p 16-frame window on this
+              path with its exact launch count; the 1080p level-0 closest
+              pass timed; then two builder scenes at 160x90 against the
+              plain version, with GPURT_DISABLE_FUSED unset and set: 16
+              instances of 16 materials (17 with the plane, past the frame
+              kernel's cap, so the scene kernel renders it either way),
+              and 384 instances, whose buffers take over the 48 KB of
+              shared memory a block gets without opting in
 Then the kernel JSON line, the card line, and the final JSON status line.
 
-Comparison bar (as tests/test_frame_kernel.py holds the reference's Pallas
+Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
 kernel to its XLA path): fewer than 2% of pixels with max-channel |diff| >
-1e-3, every other pixel within 1e-3, and more than 75% of those within 1e-5.
+1e-3, every other pixel within 1e-3, and more than 75% of those within
+1e-5. Ray-batch bar: gid equal on >= 98% of rays, and |best_t| within 1e-3
+where gid agrees: on every such ray for the scene kernel built without
+contraction (--fmad=false), which repeats the plain arithmetic; on >= 98%
+of them for the shipped build, where contraction moves a march crossing by
+a step on a few rays.
+
+Bounds: the larger of the bytes a call must move (inputs read once,
+outputs written once) over 3.35 TB/s and its f32 FLOPs over 67 TFLOP/s,
+the H100 SXM's published peaks. The -DGPRT_COUNT_OPS build counts the
+FLOPs on the same inputs, in the unit of that peak: a multiply-add is two
+(csrc/frame_math.cuh says what else counts).
 """
 
 import json
@@ -28,10 +63,13 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W_MAIN, H_MAIN, FRAMES = 1920, 1080, 16
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def bar(img, ref):
-    """(passes, flip fraction, max abs diff over all pixels) of the bar."""
+    """(passes, flip fraction, within-1e-5 fraction, max abs diff) of the
+    image bar."""
     diff = (img.float().cpu() - ref.float().cpu()).abs().amax(dim=-1)
     flipped = diff > 1e-3
     agree = diff[~flipped]
@@ -55,15 +93,100 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps, out
 
 
+def bound(nbytes, ops):
+    """(bound ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class Phase:
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        if exc[0] is None:
+            print(f"[{self.name}] done in {time.perf_counter() - self.t0:.1f} s", flush=True)
+
+
+def reset_counts():
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+
+    frame_kernel.LAUNCHES = 0
+    scene_kernel.LAUNCHES = 0
+
+
+def counts():
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+
+    return frame_kernel.LAUNCHES, scene_kernel.LAUNCHES
+
+
+def animated_window(renderer, dev, label, w, h):
+    """16 animated frames through renderer.render, timed by CUDA events:
+    (ms/frame, (frame launches, scene launches)); every frame is checked
+    finite and not mostly background."""
+    renderer.render(0.0)  # warm-up (module load), not counted
+    torch.cuda.synchronize()
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    frames = [renderer.render(0.0333 * k) for k in range(FRAMES)]
+    end.record()
+    torch.cuda.synchronize()
+    launched = counts()
+    bg = torch.tensor([0.8, 0.9, 1.0, 1.0], device=dev)
+    bg_frac = []
+    for k, f in enumerate(frames):
+        if f.shape != (h, w, 4) or not bool(torch.isfinite(f).all()):
+            raise AssertionError(f"{label} frame {k}: shape {tuple(f.shape)} or non-finite")
+        bg_frac.append(float(((f - bg).abs().amax(dim=-1) <= 1e-3).float().mean()))
+    if max(bg_frac) >= 0.70:
+        raise AssertionError(f"{label}: a frame is mostly background ({max(bg_frac):.3f})")
+    return start.elapsed_time(end) / FRAMES, launched, max(bg_frac)
+
+
+def instance_grid(nx, nz, n_materials):
+    """A SceneBuilder with nx * nz closed-form instances (spheres and hollow
+    boxes, alternating) over the builtin grid's footprint, cycling through
+    n_materials albedos."""
+    from gpuraytracer_tpu_torch.core.types import AnalyticPrimitive, IntersectorKind
+    from gpuraytracer_tpu_torch.models import builder
+
+    b = builder.SceneBuilder()
+    for k in range(nx * nz):
+        ix, iz = divmod(k, nz)
+        mn = (-7.0 + 14.0 * ix / nx, -1.0, -7.0 + 14.0 * iz / nz)
+        mx = (mn[0] + 7.0 / nx, mn[1] + 14.0 / nx, mn[2] + 7.0 / nz)
+        kind = AnalyticPrimitive.SPHERES if (ix + iz) % 2 else AnalyticPrimitive.AABB
+        albedo = (0.2 + 0.8 * (k % n_materials) / n_materials, 0.5, 0.5, 1.0)
+        b.add_instance(builder.InstanceSpec(
+            kind=IntersectorKind.ANALYTIC, prim_type=int(kind), aabb_min=mn, aabb_max=mx,
+            material=builder.Material(albedo)))
+    return b
+
+
 def main() -> int:
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
+    import numpy as np
+
+    from gpuraytracer_tpu_torch.accel import traverse
     from gpuraytracer_tpu_torch.accel.instances import Scene
-    from gpuraytracer_tpu_torch.kernels import build, frame_kernel
-    from gpuraytracer_tpu_torch.models import builtin
+    from gpuraytracer_tpu_torch.core import camera as cam
+    from gpuraytracer_tpu_torch.core import hlsl
+    from gpuraytracer_tpu_torch.geometry import sdf
+    from gpuraytracer_tpu_torch.kernels import build, frame_kernel, scene_kernel
+    from gpuraytracer_tpu_torch.models import builtin, scenes
+    from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.render.renderer import Renderer
 
     # The plain version keeps explicit row math, but pin full-f32 matrix
@@ -76,100 +199,313 @@ def main() -> int:
     dev = torch.device("cuda:0")
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    def golden(name):
+        path = os.path.join(ROOT, "tests", f"golden_{name}_96x54_t0p7.npz")
+        return torch.from_numpy(np.load(path)["image"])
+
     # 2. build --------------------------------------------------------------
-    t0 = time.perf_counter()
-    reports = {}
-    for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
-        _, report = build.compile_kernel("frame_kernel", fmad=fmad)
-        reports[fmad] = " ".join(line.split("ptxas info    : ")[-1].strip()
-                                 for line in report.splitlines() if "Used" in line)
-    print(f"[build] frame_kernel.cu built in {time.perf_counter() - t0:.2f} s; "
-          f"fmad={build.DEFAULT_FMAD} (shipped): {reports[build.DEFAULT_FMAD]}; "
-          f"fmad={not build.DEFAULT_FMAD}: {reports[not build.DEFAULT_FMAD]}", flush=True)
+    with Phase("build"):
+        builds = [("frame_kernel", build.DEFAULT_FMAD, False),
+                  ("frame_kernel", not build.DEFAULT_FMAD, False),
+                  ("scene_kernel", build.DEFAULT_FMAD, False),
+                  ("scene_kernel", not build.DEFAULT_FMAD, False),
+                  ("frame_kernel", build.DEFAULT_FMAD, True),
+                  ("scene_kernel", build.DEFAULT_FMAD, True)]
+        reports = build.compile_all(builds)
+        for (name, fmad, count), report in reports.items():
+            used = " | ".join(line.split("ptxas info    : ")[-1].strip()
+                              for line in report.splitlines()
+                              if "Used" in line or "spill" in line)
+            print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}: {used}",
+                  flush=True)
 
-    # 3. kernel vs plain at 320x180 ------------------------------------------
-    w, h = 320, 180
-    pack = frame_kernel.pack_frame(builtin.build_scene(aspect=w / h, elapsed_time=0.7, device=dev))
-    img = frame_kernel.render_frame_tiles(pack, width=w, height=h)
-    plain = frame_kernel.render_frame_plain(pack, width=w, height=h)
-    torch.cuda.synchronize()
-    ok, frac, tight, max_err = bar(img, plain)
-    print(f"[plain] kernel vs plain 320x180 t=0.7: flipped {frac:.6f} (bar < 0.02), "
-          f"within 1e-5 {tight:.6f} (bar > 0.75), max |diff| {max_err:.6g}", flush=True)
-    if not ok:
-        raise AssertionError("kernel disagrees with its plain version")
+    # 3. the fractals' device distance functions, before any render ----------
+    with Phase("probe"):
+        gen = torch.Generator().manual_seed(7)
+        pts = (torch.rand(65536, 3, generator=gen) * 2.2 - 1.1).to(dev)
+        for code in (7, 8):
+            got = scene_kernel.sdf_distance(code, pts)
+            want = sdf.DISTANCE_FUNCTIONS[code](pts)
+            rel = (got - want).abs() / want.abs().clamp(min=1e-6)
+            far = float((rel > 1e-4).float().mean())
+            print(f"[probe] distance code {code} at 65536 points in [-1.1, 1.1]^3: exact "
+                  f"{float((got == want).float().mean()):.6f}, rel diff > 1e-4 on {far:.6f}, "
+                  f"max |diff| {float((got - want).abs().max()):.6g}", flush=True)
+            if far > 0.01 or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"distance code {code} disagrees with its plain version")
 
-    # 4. kernel vs golden at 96x54 --------------------------------------------
-    import numpy as np
+    # 4. frame kernel vs plain at 320x180 -------------------------------------
+    with Phase("plain"):
+        w, h = 320, 180
+        pack = frame_kernel.pack_frame(builtin.build_scene(aspect=w / h, elapsed_time=0.7, device=dev))
+        img = frame_kernel.render_frame_tiles(pack, width=w, height=h)
+        plain = frame_kernel.render_frame_plain(pack, width=w, height=h)
+        ok, frac, tight, max_err = bar(img, plain)
+        print(f"[plain] kernel vs plain 320x180 t=0.7: flipped {frac:.6f} (bar < 0.02), "
+              f"within 1e-5 {tight:.6f} (bar > 0.75), max |diff| {max_err:.6g}", flush=True)
+        if not ok:
+            raise AssertionError("frame kernel disagrees with its plain version")
 
-    golden = torch.from_numpy(
-        np.load(os.path.join(ROOT, "tests", "golden_builtin_96x54_t0p7.npz"))["image"])
-    pack_g = frame_kernel.pack_frame(builtin.build_scene(aspect=96 / 54, elapsed_time=0.7, device=dev))
-    rates = {}
-    for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
-        out = frame_kernel.render_frame_tiles(pack_g, width=96, height=54,
-                                              lib=build.load("frame_kernel", fmad=fmad))
-        rates[fmad] = bar(out, golden)
-    ok, frac, tight, _ = rates[build.DEFAULT_FMAD]
-    alt = rates[not build.DEFAULT_FMAD]
-    print(f"[golden] kernel vs golden 96x54: fmad={build.DEFAULT_FMAD} (shipped) flipped "
-          f"{frac:.6f} within-1e-5 {tight:.6f}; fmad={not build.DEFAULT_FMAD} flipped "
-          f"{alt[1]:.6f} within-1e-5 {alt[2]:.6f}", flush=True)
-    if not ok:
-        raise AssertionError("kernel disagrees with the golden image")
+    # 5. frame kernel vs golden at 96x54 --------------------------------------
+    with Phase("golden"):
+        pack_g = frame_kernel.pack_frame(builtin.build_scene(aspect=96 / 54, elapsed_time=0.7, device=dev))
+        rates = {}
+        for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
+            out = frame_kernel.render_frame_tiles(pack_g, width=96, height=54,
+                                                  lib=build.load("frame_kernel", fmad=fmad))
+            rates[fmad] = bar(out, golden("builtin"))
+        ok, frac, tight, _ = rates[build.DEFAULT_FMAD]
+        alt = rates[not build.DEFAULT_FMAD]
+        print(f"[golden] kernel vs golden 96x54: fmad={build.DEFAULT_FMAD} (shipped) flipped "
+              f"{frac:.6f} within-1e-5 {tight:.6f}; fmad={not build.DEFAULT_FMAD} flipped "
+              f"{alt[1]:.6f} within-1e-5 {alt[2]:.6f}", flush=True)
+        if not ok:
+            raise AssertionError("frame kernel disagrees with the golden image")
 
-    # 5. main path: Renderer at 1920x1080, 16 animated frames -----------------
-    renderer = Renderer(W_MAIN, H_MAIN, device=dev)
-    renderer.render(0.0)  # warm-up (module load), not counted
-    torch.cuda.synchronize()
-    frame_kernel.LAUNCHES = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    frames = [renderer.render(0.0333 * k) for k in range(FRAMES)]
-    end.record()
-    torch.cuda.synchronize()
-    launches = frame_kernel.LAUNCHES
-    ms_frame = start.elapsed_time(end) / FRAMES
-    if launches != FRAMES:
-        raise AssertionError(f"{launches} kernel launches for {FRAMES} frames")
-    bg = torch.tensor([0.8, 0.9, 1.0, 1.0], device=dev)
-    bg_frac = []
-    for k, f in enumerate(frames):
-        if f.shape != (H_MAIN, W_MAIN, 4) or not bool(torch.isfinite(f).all()):
-            raise AssertionError(f"frame {k}: shape {tuple(f.shape)} or non-finite values")
-        bg_frac.append(float(((f - bg).abs().amax(dim=-1) <= 1e-3).float().mean()))
-    if max(bg_frac) >= 0.70:
-        raise AssertionError(f"frame is mostly background: {max(bg_frac):.3f}")
-    del frames
+    # 6. main path: Renderer at 1920x1080, 16 animated frames -----------------
+    with Phase("main"):
+        ms_frame, (f_launch, s_launch), bg_max = animated_window(
+            Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p", W_MAIN, H_MAIN)
+        if (f_launch, s_launch) != (FRAMES, 0):
+            raise AssertionError(f"{f_launch} frame / {s_launch} scene kernel launches for "
+                                 f"{FRAMES} frames")
+        frame_launches = f_launch
+        scene = builtin.animate_arrays(
+            builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev).arrays, 0.0333 * 8)
+        pack_m = frame_kernel.pack_frame(Scene(builtin.LAYOUT, scene))
+        frame_ms, kimg = cuda_ms(
+            lambda: frame_kernel.render_frame_tiles(pack_m, width=W_MAIN, height=H_MAIN), 10)
+        ops = torch.zeros(1, dtype=torch.int64, device=dev)
+        frame_kernel.render_frame_tiles(pack_m, width=W_MAIN, height=H_MAIN, ops=ops,
+                                        lib=build.load("frame_kernel", count_ops=True))
+        frame_ops = int(ops.item())
+        frame_bytes = (pack_m.params.numel() + pack_m.layout.numel()) * 4 + W_MAIN * H_MAIN * 16
+        frame_bound, frame_bound_by = bound(frame_bytes, frame_ops)
+        frame_plain_ms, pimg = cuda_ms(
+            lambda: frame_kernel.render_frame_plain(pack_m, width=W_MAIN, height=H_MAIN), 1,
+            warmup=False)
+        ok, frac, tight, frame_err = bar(kimg, pimg)
+        print(f"[main] kernel vs plain 1920x1080 t={0.0333 * 8:.4f}: flipped {frac:.6f}, "
+              f"within 1e-5 {tight:.6f}, max |diff| {frame_err:.6g}", flush=True)
+        if not ok:
+            raise AssertionError("frame kernel disagrees with its plain version at 1080p")
+        print(f"[main] Renderer 1920x1080, {FRAMES} frames t=0.0333k: {f_launch} frame kernel "
+              f"launches, all finite, background <= {bg_max:.3f}; {ms_frame:.3f} ms/frame, "
+              f"{W_MAIN * H_MAIN / ms_frame / 1e3:.3f} Mrays/s (W*H*fps/1e6); kernel alone "
+              f"{frame_ms:.3f} ms ({frame_ops} f32 FLOPs, {frame_bytes} bytes: bound "
+              f"{frame_bound:.4f} ms by {frame_bound_by}); plain wavefront "
+              f"{frame_plain_ms:.1f} ms/frame; {card}", flush=True)
 
-    scene = builtin.animate_arrays(
-        builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev).arrays, 0.0333 * 8)
-    pack_m = frame_kernel.pack_frame(Scene(builtin.LAYOUT, scene))
-    kernel_ms, kimg = cuda_ms(
-        lambda: frame_kernel.render_frame_tiles(pack_m, width=W_MAIN, height=H_MAIN), 5)
-    plain_ms, pimg = cuda_ms(
-        lambda: frame_kernel.render_frame_plain(pack_m, width=W_MAIN, height=H_MAIN), 1,
-        warmup=False)
-    ok, frac, tight, max_err = bar(kimg, pimg)
-    print(f"[main] kernel vs plain 1920x1080 t={0.0333 * 8:.4f}: flipped {frac:.6f}, "
-          f"within 1e-5 {tight:.6f}, max |diff| {max_err:.6g}", flush=True)
-    if not ok:
-        raise AssertionError("kernel disagrees with its plain version at 1080p")
-    mrays = W_MAIN * H_MAIN / ms_frame / 1e3
-    print(f"[main] Renderer 1920x1080, {FRAMES} frames t=0.0333k: {launches} kernel launches, "
-          f"all finite, background <= {max(bg_frac):.3f}; {ms_frame:.3f} ms/frame, "
-          f"{mrays:.3f} Mrays/s (W*H*fps/1e6); kernel alone {kernel_ms:.3f} ms; plain "
-          f"wavefront {plain_ms:.1f} ms/frame; {card}", flush=True)
+    # 7. the five bench scenes through the frame kernel ------------------------
+    with Phase("suite"):
+        for cfg in scenes.BENCH_CONFIGS:
+            reset_counts()
+            img = trace.render_frame(cfg.build(96 / 54, 0.7, device=dev), 96, 54,
+                                     max_depth=cfg.max_depth)
+            if counts() != (1, 0):
+                raise AssertionError(f"{cfg.name}: 96x54 frame launched {counts()}")
+            ok, frac, tight, _ = bar(img, golden(cfg.name))
+            print(f"[suite] {cfg.name} 96x54 vs golden: flipped {frac:.6f}, within 1e-5 "
+                  f"{tight:.6f}", flush=True)
+            if not ok:
+                raise AssertionError(f"{cfg.name}: frame kernel disagrees with the golden")
+            pack_s = frame_kernel.pack_frame(cfg.build(320 / 180, 0.7, device=dev))
+            img = frame_kernel.render_frame_tiles(pack_s, width=320, height=180,
+                                                  max_depth=cfg.max_depth)
+            t0 = time.perf_counter()
+            plain = frame_kernel.render_frame_plain(pack_s, width=320, height=180,
+                                                    max_depth=cfg.max_depth)
+            torch.cuda.synchronize()
+            ok, frac, tight, err = bar(img, plain)
+            print(f"[suite] {cfg.name} 320x180 kernel vs plain: flipped {frac:.6f}, within "
+                  f"1e-5 {tight:.6f}, max |diff| {err:.6g} (plain {time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{cfg.name}: frame kernel disagrees with its plain version")
+            renderer = Renderer(cfg.width, cfg.height, device=dev, scene_factory=cfg.build,
+                                animate=cfg.builder().animator(), max_depth=cfg.max_depth)
+            ms, launched, bg_max = animated_window(renderer, dev, cfg.name, cfg.width, cfg.height)
+            if launched != (FRAMES, 0):
+                raise AssertionError(f"{cfg.name}: {launched} launches for {FRAMES} frames")
+            pack_f = frame_kernel.pack_frame(cfg.build(cfg.width / cfg.height, 0.0333 * 8,
+                                                       device=dev))
+            kernel_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_tiles(
+                pack_f, width=cfg.width, height=cfg.height, max_depth=cfg.max_depth), 10)
+            print(f"[suite] {cfg.name} {cfg.width}x{cfg.height} depth {cfg.max_depth}, {FRAMES} "
+                  f"frames: {launched[0]} frame kernel launches, background <= {bg_max:.3f}; "
+                  f"{ms:.3f} ms/frame, {cfg.width * cfg.height / ms / 1e3:.3f} Mrays/s; kernel "
+                  f"alone {kernel_ms:.3f} ms; {card}", flush=True)
 
+    # 8. the scene kernel (GPURT_DISABLE_FUSED=1) ------------------------------
+    os.environ["GPURT_DISABLE_FUSED"] = "1"
+    with Phase("scene"):
+        scene_err = 0.0
+
+        def check_batch(label, scene_b, pack_b, o, d, active, level, accept_first):
+            """The shipped scene kernel and its no-contraction build against
+            the plain version on one batch."""
+            nonlocal scene_err
+            hit_p, ob, db, act, t0 = traverse.pass_inputs(o, d, scene_b, active=active,
+                                                          occlusion=accept_first)
+            pt, _, pg = scene_kernel.scene_closest_plain(scene_b, ob, db, act, t0, level=level,
+                                                         accept_first=accept_first)
+            line = []
+            for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
+                kt, _, kg = scene_kernel.scene_closest_tiles(
+                    scene_b, ob, db, act, t0, level=level, accept_first=accept_first,
+                    pack=pack_b, lib=build.load("scene_kernel", fmad=fmad))
+                same = kg == pg
+                dt = (kt - pt).abs()[same & (pg >= 0)]
+                agree = float(same.float().mean())
+                close = float((dt <= 1e-3).float().mean()) if dt.numel() else 1.0
+                dt_max = float(dt.max()) if dt.numel() else 0.0
+                line.append(f"fmad={fmad}: gid agrees on {agree:.6f}, |dt| <= 1e-3 on {close:.6f} "
+                            f"of those hits, max |dt| {dt_max:.6g}")
+                if fmad == build.DEFAULT_FMAD:
+                    # Contraction moves a crossing by a march step on a few rays.
+                    scene_err = max(scene_err, dt_max)
+                    ok = agree >= 0.98 and close >= 0.98
+                else:
+                    # Without contraction the kernel repeats the plain arithmetic.
+                    ok = ok and agree >= 0.98 and dt_max <= 1e-3
+            print(f"[scene] {label}: {int(act.sum())} live rays, {int((pg >= 0).sum())} plain "
+                  f"hits; " + "; ".join(line), flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: scene kernel disagrees with its plain version")
+
+        w, h = 320, 180
+        for name in ("builtin", "sdf_primitives_720p", "fractal_mandelbulb_julia_1080p"):
+            scene_b = (builtin.build_scene(aspect=w / h, elapsed_time=0.7, device=dev)
+                       if name == "builtin" else
+                       scenes.get_config(name).build(w / h, 0.7, device=dev))
+            pack_b = frame_kernel.pack_frame(scene_b)
+            px, py = cam.pixel_grid(w, h, dev)
+            c = scene_b.arrays.constants
+            o, d = cam.generate_camera_rays(px, py, w, h, c.camera_position, c.projection_to_world)
+            o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+            hit = traverse.closest_hit(o, d, scene_b, level=0, plain=True)
+            hp = o + hit.t[:, None] * d
+            shadow = hlsl.normalize(c.light_position[:3] - hp)
+            refl = hlsl.reflect(d, hit.normal)
+            check_batch(f"{name} camera rays, closest, level 0", scene_b, pack_b, o, d, None, 0,
+                        False)
+            check_batch(f"{name} reflection rays, closest, level 1", scene_b, pack_b, hp, refl,
+                        hit.hit, 1, False)
+            for level in (0, 1):
+                check_batch(f"{name} shadow rays, accept-first, level {level}", scene_b, pack_b,
+                            hp, shadow, hit.hit, level, True)
+
+        scene_s = builtin.build_scene(aspect=w / h, elapsed_time=0.7, device=dev)
+        reset_counts()
+        img = trace.render_frame(scene_s, w, h)
+        torch.cuda.synchronize()
+        if counts() != (0, 5):
+            raise AssertionError(f"builtin 320x180 wavefront frame launched {counts()}")
+        pack_s = frame_kernel.pack_frame(scene_s)
+        for label, ref in (("frame kernel", frame_kernel.render_frame_tiles(pack_s, width=w, height=h)),
+                           ("plain", frame_kernel.render_frame_plain(pack_s, width=w, height=h))):
+            ok, frac, tight, err = bar(img, ref)
+            print(f"[scene] builtin 320x180 wavefront + scene kernel vs {label}: flipped "
+                  f"{frac:.6f}, within 1e-5 {tight:.6f}, max |diff| {err:.6g}", flush=True)
+            if not ok:
+                raise AssertionError(f"scene-kernel frame disagrees with the {label}")
+
+        ms_scene_frame, launched, bg_max = animated_window(
+            Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p wavefront", W_MAIN, H_MAIN)
+        if launched != (0, 5 * FRAMES):
+            raise AssertionError(f"builtin 1080p wavefront: {launched} launches for {FRAMES} "
+                                 f"frames (expected 0 frame, {5 * FRAMES} scene)")
+        scene_launches = launched[1]
+        print(f"[scene] Renderer 1920x1080 with GPURT_DISABLE_FUSED=1, {FRAMES} frames: "
+              f"{launched[1]} scene kernel launches (3 closest + 2 occlusion per frame), "
+              f"background <= {bg_max:.3f}; {ms_scene_frame:.3f} ms/frame, "
+              f"{W_MAIN * H_MAIN / ms_scene_frame / 1e3:.3f} Mrays/s; frame-kernel path "
+              f"{ms_frame:.3f} ms/frame in phase 6; {card}", flush=True)
+
+        # The main path's largest pass: 1080p camera rays, closest, level 0.
+        scene_m = Scene(builtin.LAYOUT, scene)
+        px, py = cam.pixel_grid(W_MAIN, H_MAIN, dev)
+        c = scene_m.arrays.constants
+        o, d = cam.generate_camera_rays(px, py, W_MAIN, H_MAIN, c.camera_position,
+                                        c.projection_to_world)
+        _, ob, db, act, t0 = traverse.pass_inputs(o.reshape(-1, 3), d.reshape(-1, 3), scene_m)
+        n = ob.shape[0]
+        scene_ms, (kt, _, kg) = cuda_ms(
+            lambda: scene_kernel.scene_closest_tiles(scene_m, ob, db, act, t0, pack=pack_m), 10)
+        ops.zero_()
+        scene_kernel.scene_closest_tiles(scene_m, ob, db, act, t0, pack=pack_m, ops=ops,
+                                         lib=build.load("scene_kernel", count_ops=True))
+        scene_ops = int(ops.item())
+        scene_bytes = n * (29 + 20) + (pack_m.params.numel() + pack_m.layout.numel()) * 4
+        scene_bound, scene_bound_by = bound(scene_bytes, scene_ops)
+        scene_plain_ms, (pt, _, pg) = cuda_ms(
+            lambda: scene_kernel.scene_closest_plain(scene_m, ob, db, act, t0), 1, warmup=False)
+        same = kg == pg
+        dts = (kt - pt).abs()[same & (pg >= 0)]
+        dt, close = float(dts.max()), float((dts <= 1e-3).float().mean())
+        scene_err = max(scene_err, dt)
+        print(f"[scene] 1080p camera rays, closest, level 0 ({n} rays): gid agrees on "
+              f"{float(same.float().mean()):.6f}, |dt| <= 1e-3 on {close:.6f} of those hits, "
+              f"max |dt| {dt:.6g}; kernel {scene_ms:.3f} ms "
+              f"({scene_ops} f32 FLOPs, {scene_bytes} bytes: bound {scene_bound:.4f} ms by "
+              f"{scene_bound_by}); plain {scene_plain_ms:.1f} ms; {card}", flush=True)
+        if float(same.float().mean()) < 0.98 or close < 0.98:
+            raise AssertionError("1080p pass: scene kernel disagrees with its plain version")
+
+        w, h = 160, 90
+        for nx, nz, n_mat in ((4, 4, 16), (24, 16, 8)):
+            scene_x = instance_grid(nx, nz, n_mat).build(w / h, 0.7, device=dev)
+            pack_x = frame_kernel.pack_frame(scene_x)
+            plain = frame_kernel.render_frame_plain(pack_x, width=w, height=h)
+            shared = frame_kernel.shared_bytes(pack_x.num_geometries, pack_x.num_materials,
+                                               shading=True)
+            for disabled in (False, True):
+                if disabled:
+                    os.environ["GPURT_DISABLE_FUSED"] = "1"
+                else:
+                    del os.environ["GPURT_DISABLE_FUSED"]
+                reset_counts()
+                img = trace.render_frame(scene_x, w, h)
+                torch.cuda.synchronize()
+                f_n, s_n = counts()
+                fused = not disabled and pack_x.num_materials <= frame_kernel.MAX_MATERIALS
+                if (f_n, s_n) != (1, 0) if fused else not (f_n == 0 and 1 <= s_n <= 5):
+                    raise AssertionError(f"{nx * nz} instances: launched {(f_n, s_n)}")
+                ok, frac, tight, err = bar(img, plain)
+                print(f"[scene] {nx * nz} instances, {pack_x.num_materials} materials "
+                      f"({shared} B of frame-kernel shared memory) 160x90, "
+                      f"GPURT_DISABLE_FUSED={int(disabled)}: {f_n} frame / {s_n} scene "
+                      f"launches; vs plain flipped {frac:.6f}, within 1e-5 {tight:.6f}, "
+                      f"max |diff| {err:.6g}", flush=True)
+                if not ok:
+                    raise AssertionError(f"{nx * nz} instances: frame disagrees with plain")
+    del os.environ["GPURT_DISABLE_FUSED"]
+
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "frame_kernel",
         "route": "cuda",
         "source": "gpuraytracer_tpu_torch/kernels/csrc/frame_kernel.cu",
         "replaces": "gpuraytracer_tpu/kernels/frame_kernel.py:672",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "launches": frame_launches,
+        "max_abs_err": frame_err,
+        "ms": frame_ms,
+        "plain_ms": frame_plain_ms,
+        "bound_ms": frame_bound,
+        "bound_by": frame_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "scene_kernel",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/scene_kernel.cu",
+        "replaces": "gpuraytracer_tpu/kernels/scene_kernel.py:1854",
+        "launches": scene_launches,
+        "max_abs_err": scene_err,
+        "ms": scene_ms,
+        "plain_ms": scene_plain_ms,
+        "bound_ms": scene_bound,
+        "bound_by": scene_bound_by,
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

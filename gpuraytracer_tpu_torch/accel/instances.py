@@ -46,6 +46,25 @@ class SceneLayout:
     # Geometry -> material-slot map; None = identity.
     material_ids: Tuple[int, ...] | None = None
 
+    @classmethod
+    def from_fields(cls, fields: Mapping) -> "SceneLayout":
+        """Build from plain fields keyed by name (ints and tuples of ints,
+        as the reference package's SceneLayout holds them)."""
+
+        def ints(v):
+            return None if v is None else tuple(int(x) for x in v)
+
+        clusters = fields.get("clusters")
+        return cls(
+            kinds=tuple(IntersectorKind(int(k)) for k in fields["kinds"]),
+            prim_types=ints(fields["prim_types"]),
+            has_plane=bool(fields.get("has_plane", True)),
+            clusters=None if clusters is None else tuple(ints(c) for c in clusters),
+            step_budgets=ints(fields.get("step_budgets")),
+            traversal_order=ints(fields.get("traversal_order")),
+            material_ids=ints(fields.get("material_ids")),
+        )
+
     @property
     def num_procedural(self) -> int:
         return len(self.kinds)
@@ -64,7 +83,10 @@ class SceneArrays:
     """Per-frame scene state (the constant-buffer contents)."""
 
     constants: SceneConstants
-    materials: MaterialTable  # (G, ...) rows; plane material is the LAST row
+    # (M, ...) shading rows: one per geometry row (plane last), or the
+    # unique rows that layout.material_ids maps geometry rows to;
+    # step_scale always has one entry per geometry row.
+    materials: MaterialTable
     transforms: InstanceTransforms  # (P, 4, 4) pairs, rebuilt per frame
     aabb_min: torch.Tensor  # (P, 3) BLAS-space geometry AABBs
     aabb_max: torch.Tensor  # (P, 3)
@@ -150,9 +172,12 @@ def ray_to_local(origins_blas, directions_blas, blas_to_local):
 def normal_to_world(normal_local, local_to_blas):
     """Local -> BLAS -> world normal as the intersection shaders do it
     (Raytracing.hlsl:298-301): straight matrix (not inverse transpose),
-    then normalize by division."""
+    then normalize by division. A zero normal stays zero, as in the
+    reference's Pallas kernels (the squared length is floored at 1e-30,
+    which changes no other normal): a march that lands inside a quaternion
+    Julia set, where the distance is constant, has a zero gradient."""
     m = local_to_blas
     n = torch.stack([_row(m, r, normal_local) for r in range(3)], dim=-1)
-    return n / hlsl.sqrt(
-        n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2]
-    ).unsqueeze(-1)
+    return n / hlsl.sqrt(torch.clamp(
+        n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1] + n[..., 2] * n[..., 2], min=1e-30
+    )).unsqueeze(-1)

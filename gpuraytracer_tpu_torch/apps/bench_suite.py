@@ -1,0 +1,189 @@
+"""Benchmark suite over the five bench scenes (models/scenes.BENCH_CONFIGS).
+
+Port of gpuraytracer_tpu/apps/bench_suite.py, with the reference's two
+Mrays/s variants: fps-derived (W*H*fps/1e6, Renderer.cpp:391) and
+dispatch-time-derived (W*H/(ms*1e3), RendererRaytracingHelper.h:673-678).
+
+- Wall throughput: each of ``--reps`` repetitions issues ``--frames``
+  windows of ``--wall-chain`` animated frames asynchronously; ms/frame is
+  the CUDA-event time of the repetition over its frame count, median over
+  the repetitions. Every frame is consumed: a ``torch.sum`` checksum of
+  each image accumulates across the window and the host reads it at the
+  window's end, so no frame is dead work.
+- ``frame_ms_1dispatch``: windows of one frame each (the fixed cost of a
+  window, the host's read of the checksum, not amortized).
+- ``device_frame_ms``: the slope between one-frame windows and
+  three-frame windows, (t_3 - t_1) / 2, so that fixed cost cancels;
+  ``mrays_dispatch`` is computed from it.
+
+Each frame animates the scene (SceneBuilder.animator) and renders it
+through render/trace.render_frame: the CUDA frame kernel for fused-eligible
+scenes, else the wavefront with the CUDA scene kernel
+(GPURT_DISABLE_FUSED=1 forces the latter). The JSON records which kernels
+ran and how many launches each frame made.
+
+Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
+the host clock, for tiny smoke runs only):
+  python -m gpuraytracer_tpu_torch.apps.bench_suite [--configs a,b]
+         [--frames 4] [--reps 3] [--wall-chain 16] [--scale 1.0]
+         [--json out.json] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# Frames of the longer window the device-time slope is taken against.
+CHAIN = 3
+
+
+class _Clock:
+    """ms between two marks: CUDA events on a GPU (device timeline, read
+    after the host has synchronized), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if self.cuda:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def ms(self, start, end) -> float:
+        if self.cuda:
+            return start.elapsed_time(end)
+        return (end - start) * 1e3
+
+
+def _launch_counts():
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+
+    return {"frame_kernel": frame_kernel.LAUNCHES, "scene_kernel": scene_kernel.LAUNCHES}
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = 16,
+                 scale: float = 1.0, device="cuda") -> dict:
+    from gpuraytracer_tpu_torch.accel.instances import Scene
+    from gpuraytracer_tpu_torch.render import trace
+    from gpuraytracer_tpu_torch.utils import stats
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    width = max(8, int(cfg.width * scale))
+    height = max(8, int(cfg.height * scale))
+    builder = cfg.builder()
+    scene0 = builder.build(width / height, 0.0, device=dev)
+    layout, arrays0 = scene0.layout, scene0.arrays
+    animate = builder.animator()
+    clock = _Clock(dev)
+
+    def frame_t(i):
+        return 0.033 * i if cfg.animated else 1e-5 * i
+
+    def window(n):
+        """n animated frames issued back to back; every image feeds the
+        checksum, which the host reads at the end. Returns (start, end)."""
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        start = clock.mark()
+        for i in range(n):
+            img = trace.render_frame(Scene(layout, animate(arrays0, frame_t(i))), width, height,
+                                     max_depth=cfg.max_depth)
+            acc = acc + torch.sum(img)
+        end = clock.mark()
+        if not torch.isfinite(acc).item():  # waits for the window
+            raise AssertionError(f"{cfg.name}: non-finite frame checksum")
+        return start, end
+
+    def timed(n, windows):
+        marks = [window(n) for _ in range(windows)]
+        return sum(clock.ms(s, e) for s, e in marks) / (n * windows)
+
+    t0 = time.perf_counter()
+    window(1)  # kernel build and load, not timed
+    first_frame_s = time.perf_counter() - t0
+
+    before = _launch_counts()
+    wall_ms = [timed(wall_chain, frames)]
+    after = _launch_counts()
+    n_frames = wall_chain * frames
+    wall_ms += [timed(wall_chain, frames) for _ in range(reps - 1)]
+    frame_ms = statistics.median(wall_ms)
+    fps = 1e3 / frame_ms
+    ms_1dispatch = min(timed(1, frames) for _ in range(reps))
+    out = {
+        "config": cfg.name,
+        "width": width,
+        "height": height,
+        "max_depth": cfg.max_depth,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "launches_per_frame": {k: (after[k] - before[k]) / n_frames for k in after},
+        "frame_ms": frame_ms,
+        "frame_ms_min": min(wall_ms),
+        "frame_ms_max": max(wall_ms),
+        "reps": reps,
+        "frames_per_window": frames,
+        "wall_chain": wall_chain,
+        "frame_ms_1dispatch": ms_1dispatch,
+        "fps": fps,
+        "mrays_fps": stats.mrays_per_second_from_fps(width, height, fps),
+        "first_frame_s": first_frame_s,
+    }
+    t_chain = min(timed(CHAIN, frames) * CHAIN for _ in range(reps))
+    device_ms = (t_chain - ms_1dispatch) / (CHAIN - 1)
+    out["device_frame_ms"] = device_ms
+    out["mrays_dispatch"] = (stats.mrays_per_second_from_dispatch_ms(width, height, device_ms)
+                             if device_ms > 0 else None)
+    return out
+
+
+def main(argv=None) -> int:
+    from gpuraytracer_tpu_torch.models.scenes import BENCH_CONFIGS, get_config
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--configs", type=str, default="",
+                   help="comma-separated names (default: all five)")
+    p.add_argument("--frames", type=int, default=4, help="windows per timed repetition")
+    p.add_argument("--reps", type=int, default=3, help="timed repetitions (median reported)")
+    p.add_argument("--wall-chain", type=int, default=16,
+                   help="animated frames per window (1 = every frame its own window)")
+    p.add_argument("--scale", type=float, default=1.0, help="resolution scale factor")
+    p.add_argument("--json", type=str, default="")
+    p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
+    args = p.parse_args(argv)
+
+    configs = ([get_config(n) for n in args.configs.split(",") if n] if args.configs
+               else list(BENCH_CONFIGS))
+    if torch.device(args.device).type == "cuda":
+        print(card_line(), flush=True)
+    results = []
+    for cfg in configs:
+        r = bench_config(cfg, frames=args.frames, reps=args.reps, wall_chain=args.wall_chain,
+                         scale=args.scale, device=args.device)
+        print(json.dumps(r), flush=True)
+        results.append(r)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(results, f, indent=2)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,7 @@ class RenderConfig:
     animate_geometry: bool = True
     animate_camera: bool = False
     animate_light: bool = False
-    device: str = "cpu"
+    device: str = "cuda"
 
     @property
     def aspect_ratio(self) -> float:

@@ -206,6 +206,25 @@ DISTANCE_FUNCTIONS = {
 # Codes inside the march_escape_t envelope (slope >= 0.4, support radius
 # <= 2.5 local units): every reference primitive.
 ESCAPE_SAFE_CODES = frozenset(DISTANCE_FUNCTIONS)
+# Extension codes registered as AABB-windowed (geometry/fractal.py adds 7
+# and 8 when the geometry package is imported). Their marches skip the
+# back-face cull, run only inside the local unit box and take the
+# extension relaxation (geometry/registry.py, csrc/traverse.cuh).
+AABB_WINDOWED_CODES = frozenset()
+
+
+def register_distance_function(code, fn, *, aabb_windowed=False):
+    """Register an extension distance function (codes past 0..6). It makes
+    no escape-envelope claim, so the caller must declare AABB-windowed
+    marches, which stop at the local unit box's exit."""
+    global AABB_WINDOWED_CODES
+    code = int(code)
+    if not aabb_windowed:
+        raise ValueError(
+            f"distance function code {code}: extension codes are marched "
+            "inside their unit box only; declare aabb_windowed=True")
+    DISTANCE_FUNCTIONS[code] = fn
+    AABB_WINDOWED_CODES = AABB_WINDOWED_CODES | {code}
 
 
 def calculate_normal(pos, distance_fn):
@@ -262,12 +281,24 @@ def occlusion_relax() -> float:
     return _env_relax("GPURT_RELAX_SHADOW", 1.6)
 
 
-def relax_for_code(code: int, occlusion: bool = False) -> float:
-    if int(code) >= 7:
-        raise NotImplementedError(
-            f"distance code {code}: the extension fractals are not ported yet")
-    base = reference_relax()
+RELAX_OMEGA = 1.6
+
+
+def extension_relax() -> float:
+    """GPURT_RELAX: over-relaxation of the AABB-windowed extension
+    fractals' marches (default 1.6)."""
+    return _env_relax("GPURT_RELAX", RELAX_OMEGA)
+
+
+def march_relax(windowed: bool, occlusion: bool = False) -> float:
+    """Relaxation of a march of an AABB-windowed code or a reference code."""
+    base = extension_relax() if windowed else reference_relax()
     return max(base, occlusion_relax()) if occlusion else base
+
+
+def relax_for_code(code: int, occlusion: bool = False) -> float:
+    """Relaxation of a march of SDF code ``code``."""
+    return march_relax(int(code) in AABB_WINDOWED_CODES, occlusion)
 
 
 def shadow_budget_cap() -> int:
@@ -353,6 +384,10 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
     capped_hit: lanes that spend the budget without a valid hit report a
     hit at their final t (occlusion semantics under reduced budgets).
 
+    t_min is a float or a per-lane (N,) tensor (the window entry of an
+    AABB-windowed march); the march starts there and a crossing before it
+    is invalid.
+
     Returns (hit, t_hit) with t_hit = inf on a miss.
     """
     n = origins.shape[0]
@@ -367,7 +402,11 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
     else:
         t_esc = tm
     m = lanes.numel()
-    t = torch.full((m,), float(t_min), dtype=origins.dtype, device=dev)
+    if torch.is_tensor(t_min):
+        t_lo = t_min[lanes]
+    else:
+        t_lo = torch.full((m,), float(t_min), dtype=origins.dtype, device=dev)
+    t = t_lo.clone()
     steps = torch.zeros(m, dtype=torch.int32, device=dev)
     found = torch.full_like(t, torch.inf)
     relaxed = relax > 1.0
@@ -392,7 +431,7 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
         valid = torch.zeros_like(crossed)
         if bool(crossed.any()):
             ci = torch.nonzero(crossed).squeeze(1)
-            ok = (tc[ci] >= t_min) & (tc[ci] <= tm[cur[ci]])
+            ok = (tc[ci] >= t_lo[cur[ci]]) & (tc[ci] <= tm[cur[ci]])
             if cull_backface:
                 nrm = calculate_normal(pos[ci], distance_fn)
                 ok = ok & (hlsl.dot(dc[ci], nrm) <= 0.0)

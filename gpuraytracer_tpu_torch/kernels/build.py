@@ -7,10 +7,13 @@ Each kernel source compiles to a shared library with a plain C interface
          -Xcompiler -fPIC --fmad=<true|false> -Xptxas -v
 
 never with --use_fast_math (the fog kill depends on expf underflowing to
-an exact 0, and march crossings are ulp-sensitive). The library lands in
-build/gpuraytracer_tpu_torch/ at the repository root, named after a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one
-loads the existing build. A failed build raises with nvcc's stderr.
+an exact 0, and march crossings are ulp-sensitive). ``count_ops`` adds
+-DGPRT_COUNT_OPS: a build that counts the f32 operations it performs (for
+a measurement's operation bound; never the shipped build). The library
+lands in build/gpuraytracer_tpu_torch/ at the repository root, named after
+a hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the existing build. A failed build raises with nvcc's
+stderr. ``compile_all`` runs several builds at once, one nvcc each.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -34,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpuraytracer_tpu_to
 DEFAULT_FMAD = True
 
 # Shared headers every kernel source may include.
-_HEADERS = ("frame_math.cuh",)
+_HEADERS = ("frame_math.cuh", "traverse.cuh")
 
 
 def nvcc_path() -> str:
@@ -48,31 +52,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(fmad: bool):
-    return ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-            "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
-            "-Xptxas", "-v"]
+def _flags(fmad: bool, count_ops: bool = False):
+    return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+             "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
+             "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else []))
 
 
-def library_path(name: str, fmad: bool = DEFAULT_FMAD) -> Path:
+def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> Path:
     """Where the build of csrc/<name>.cu with these flags lives."""
-    h = hashlib.sha256(" ".join(_flags(fmad)).encode())
+    h = hashlib.sha256(" ".join(_flags(fmad, count_ops)).encode())
     for src in (f"{name}.cu",) + _HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD) -> tuple[Path, str]:
+def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD,
+                   count_ops: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills; empty when reused)."""
-    out = library_path(name, fmad)
+    out = library_path(name, fmad, count_ops)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path()] + _flags(fmad) + ["-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path()] + _flags(fmad, count_ops) + ["-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -82,15 +87,30 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD) -> tuple[Path, str]:
     return out, proc.stderr
 
 
+def compile_all(builds) -> dict:
+    """Run compile_kernel for every (name, fmad, count_ops) in ``builds``
+    at once (one nvcc process each); returns {build: ptxas report}."""
+    builds = list(builds)
+    with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
+        reports = list(pool.map(lambda b: compile_kernel(*b)[1], builds))
+    return dict(zip(builds, reports))
+
+
 @functools.lru_cache(maxsize=None)
-def load(name: str, fmad: bool = DEFAULT_FMAD) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; declares the C interface."""
-    path, _ = compile_kernel(name, fmad)
+def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; declares the C interface
+    (every pointer and the stream as c_void_p)."""
+    path, _ = compile_kernel(name, fmad, count_ops)
     lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "frame_kernel":
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gprt_frame_render.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.gprt_frame_render.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
         lib.gprt_frame_render.restype = ci
-        lib.gprt_error_string.argtypes = [ci]
-        lib.gprt_error_string.restype = ctypes.c_char_p
+    elif name == "scene_kernel":
+        lib.gprt_scene_closest.argtypes = [vp] * 9 + [ci] * 6 + [vp, ci, vp]
+        lib.gprt_scene_closest.restype = ci
+        lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
+        lib.gprt_sdf_distance.restype = ci
+    lib.gprt_error_string.argtypes = [ci]
+    lib.gprt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,16 +1,28 @@
-// Per-pixel device math of the frame kernel: vectors, the seven reference
-// distance functions and their normal, the analytic intersectors, the
+// Per-ray device math of the frame and scene kernels: vectors, the seven
+// reference distance functions, the Mandelbulb and quaternion Julia
+// extension fractals and their normal, the analytic intersectors, the
 // metaball field, and the two marchers.
 //
 // Replaces the device math of the reference's Pallas kernels
 // (gpuraytracer_tpu/kernels/soa.py; scene_kernel.py _march_sdf_part,
-// _normal_at, _march_metaballs_part, _metaball_normal, _local_ray). Where
-// the Pallas forms and the reference's XLA path (geometry/*.py, which
-// rendered every committed golden) differ, this follows the XLA path:
-// atan2f for the Cog's polar angle, powf(., 1/8) for the torus82 length,
-// division-form normalize, and the XLA tetrahedral-normal association.
+// _normal_at, _march_metaballs_part, _metaball_normal, _local_ray) and of
+// geometry/fractal.py. Where the Pallas forms and the reference's XLA path
+// (geometry/*.py, which rendered every committed golden) differ, this
+// follows the XLA path: atan2f for the Cog's polar angle, powf(., 1/8) for
+// the torus82 length, division-form normalize, the XLA tetrahedral-normal
+// association, and fractal.py's Mandelbulb and Julia (not soa.py's).
 // Every float constant is written as the double the reference package
 // holds, converted to float, so both round it the same way.
+//
+// Built with -DGPRT_COUNT_OPS, every function adds the f32 floating-point
+// operations it performs to a per-block counter that the kernel adds to a
+// global total; the default build compiles the counting away. They are
+// counted by hand from this source as FLOPs, the unit of the published f32
+// peak: each +, -, * and / is one, so a multiply-add (one FMA once
+// contracted) is two; each min, max, abs, sqrt, floor, fmod and
+// transcendental call is one; comparisons, selects, negations and
+// arithmetic on constants alone (folded by the compiler) are not counted.
+// Only the operation bound of a measurement reads it.
 #pragma once
 
 #include <math.h>
@@ -18,6 +30,13 @@
 #include <limits>
 
 #define F(x) ((float)(x))
+
+#ifdef GPRT_COUNT_OPS
+__shared__ unsigned long long gprt_block_ops;
+#define GPRT_OPS(n) atomicAdd(&gprt_block_ops, (unsigned long long)(n))
+#else
+#define GPRT_OPS(n) ((void)0)
+#endif
 
 namespace gprt {
 
@@ -153,8 +172,90 @@ __device__ __forceinline__ float distance_fractal_pyramid(V3 p) {
   return fmaxf(oct, -q.y) * F(0.0625);
 }
 
-// Codes 0..6 in the reference's SignedDistancePrimitive order.
+// Power-8 triplex Mandelbulb (geometry/fractal.distance_mandelbulb): a
+// lane past the bailout keeps its state, so the loop may stop there.
+__device__ __forceinline__ float distance_mandelbulb(V3 p) {
+  const float scale = F(1.2);
+  const float px = p.x * scale, py = p.y * scale, pz = p.z * scale;
+  float x = px, y = py, z = pz, dz = 1.0f;
+  float m = px * px + py * py + pz * pz;
+  int it = 0;
+  for (; it < 8 && !(m > 4.0f); ++it) {
+    float m2 = m * m;
+    float m4 = m2 * m2;
+    dz = 8.0f * sqrtf(m4 * m2 * m) * dz + 1.0f;
+    float x2 = x * x, y2 = y * y, z2 = z * z;
+    float x4 = x2 * x2, y4 = y2 * y2, z4 = z2 * z2;
+    float k3 = x2 + z2;
+    float k3_7 = k3 * k3 * k3 * k3 * k3 * k3 * k3;
+    float k2 = 1.0f / sqrtf(fmaxf(k3_7, F(1e-30)));
+    float k1 = x4 + y4 + z4 - 6.0f * y2 * z2 - 6.0f * x2 * y2 + 2.0f * z2 * x2;
+    float k4 = x2 - y2 + z2;
+    float nx = px + 64.0f * x * y * z * (x2 - z2) * k4 * (x4 - 6.0f * x2 * z2 + z4) * k1 * k2;
+    float ny = py + -16.0f * y2 * k3 * k4 * k4 + k1 * k1;
+    float nz = pz + -8.0f * y * k4 *
+                        (x4 * x4 - 28.0f * x4 * x2 * z2 + 70.0f * x4 * z4 - 28.0f * x2 * z2 * z4 +
+                         z4 * z4) *
+                        k1 * k2;
+    x = nx;
+    y = ny;
+    z = nz;
+    m = x * x + y * y + z * z;
+  }
+  GPRT_OPS(8 + 83 * it + 7);
+  m = fmaxf(m, F(1e-18));
+  float de = 0.25f * logf(m) * sqrtf(m) / dz;
+  return de / scale;
+}
+
+// Quaternion Julia z <- z^2 + c on the w = 0 slice
+// (geometry/fractal.distance_julia_quaternion); (w, x, y, z) components,
+// escape tested before each update, "just inside" (-1e-3) if it never
+// escapes.
+__device__ __forceinline__ float distance_julia(V3 p) {
+  const float scale = F(1.1);
+  const float cw = F(-0.2), cx = F(0.6), cy = F(0.2), cz = F(0.2);
+  float zw = p.x * scale, zx = p.y * scale, zy = p.z * scale, zz = 0.0f;
+  float dw = 1.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  bool escaped = false;
+  int it = 0;
+  for (; it < 11; ++it) {
+    float m2 = zw * zw + zx * zx + zy * zy + zz * zz;
+    if (m2 > 16.0f) {
+      escaped = true;
+      break;
+    }
+    float ew = zw * dw - zx * dx - zy * dy - zz * dz;
+    float ex = zw * dx + zx * dw + zy * dz - zz * dy;
+    float ey = zw * dy - zx * dz + zy * dw + zz * dx;
+    float ez = zw * dz + zx * dy - zy * dx + zz * dw;
+    float qw = zw * zw - zx * zx - zy * zy - zz * zz;
+    float qx = zw * zx + zx * zw + zy * zz - zz * zy;
+    float qy = zw * zy - zx * zz + zy * zw + zz * zx;
+    float qz = zw * zz + zx * zy - zy * zx + zz * zw;
+    dw = 2.0f * ew;
+    dx = 2.0f * ex;
+    dy = 2.0f * ey;
+    dz = 2.0f * ez;
+    zw = qw + cw;
+    zx = qx + cx;
+    zy = qy + cy;
+    zz = qz + cz;
+  }
+  GPRT_OPS(3 + 71 * it + (escaped ? 7 : 0) + 23);
+  float mz = fmaxf(sqrtf(zw * zw + zx * zx + zy * zy + zz * zz), F(1e-9));
+  float mdz = fmaxf(sqrtf(dw * dw + dx * dx + dy * dy + dz * dz), F(1e-6));
+  float de = 0.5f * mz * logf(mz) / mdz;
+  return (escaped ? de : F(-1e-3)) / scale;
+}
+
+// FLOPs of one call of each reference distance function.
+__constant__ int kDistanceOps[7] = {36, 26, 14, 19, 45, 46, 209};
+
+// Codes 0..6 in the reference's SignedDistancePrimitive order, then the
+// extension fractals 7 (Mandelbulb) and 8 (quaternion Julia).
 __device__ __noinline__ float sdf_distance(int code, V3 p) {
+  if (code < 7) GPRT_OPS(kDistanceOps[code]);
   switch (code) {
     case 0: return distance_mini_spheres(p);
     case 1: return distance_round_cube(p);
@@ -162,13 +263,16 @@ __device__ __noinline__ float sdf_distance(int code, V3 p) {
     case 3: return distance_twisted_torus(p);
     case 4: return distance_cog(p);
     case 5: return distance_cylinder(p);
-    default: return distance_fractal_pyramid(p);
+    case 6: return distance_fractal_pyramid(p);
+    case 7: return distance_mandelbulb(p);
+    default: return distance_julia(p);
   }
 }
 
 // Tetrahedral-offset normal (geometry/sdf.calculate_normal): n is the sum
 // of offset_k * f(p + offset_k), k = xyy, yyx, yxy, xxx, then normalized.
 __device__ __noinline__ V3 sdf_normal(int code, V3 p) {
+  GPRT_OPS(12 + 21 + 10);
   const float e = F(0.5773 * 0.0001);
   float d0 = sdf_distance(code, v3(p.x + e, p.y + -e, p.z + -e));
   float d1 = sdf_distance(code, v3(p.x + -e, p.y + -e, p.z + e));
@@ -213,6 +317,7 @@ __device__ __forceinline__ Roots solve_sphere(V3 o, V3 d, V3 c, float rr) {
 
 // RaySpheresIntersectionTest: three hollow spheres, closest valid hit wins.
 __device__ bool intersect_spheres(V3 o, V3 d, float t_max, bool cull, float* t_out, V3* n_out) {
+  GPRT_OPS(3 * (70 + (cull ? 10 : 0)));
   const float cx[3] = {F(-0.3), F(0.1), F(0.35)};
   const float cy[3] = {F(-0.3), F(0.1), F(0.35)};
   const float cz[3] = {F(-0.3), F(0.4), F(0.0)};
@@ -264,6 +369,7 @@ __device__ __forceinline__ Interval slab(V3 o, V3 d, V3 mn, V3 mx) {
 
 // Hollow unit AABB with priority-ordered face normals.
 __device__ bool intersect_hollow_aabb(V3 o, V3 d, float t_max, bool cull, float* t_out, V3* n_out) {
+  GPRT_OPS(19 + 6 + 12 + (cull ? 5 : 0));
   Interval iv = slab(o, d, v3(-1.0f, -1.0f, -1.0f), v3(1.0f, 1.0f, 1.0f));
   bool interval_ok = iv.tmax > iv.tmin && iv.tmax >= 0.0f && iv.tmin <= t_max;
   bool entry_ok = iv.tmin >= 0.0f && iv.tmin <= t_max;
@@ -297,10 +403,12 @@ __device__ __forceinline__ float metaball_potential(V3 p, const float* b) {
 }
 
 __device__ __forceinline__ float metaballs_potential(V3 p, const float* mb) {
+  GPRT_OPS(3 * 20 + 2);
   return metaball_potential(p, mb) + metaball_potential(p, mb + 4) + metaball_potential(p, mb + 8);
 }
 
 __device__ __noinline__ V3 metaballs_normal(V3 p, const float* mb) {
+  GPRT_OPS(6 + 3 + 10);
   const float e = F(0.5773 * 0.00001);
   V3 n = v3(metaballs_potential(v3(p.x - e, p.y, p.z), mb) - metaballs_potential(v3(p.x + e, p.y, p.z), mb),
             metaballs_potential(v3(p.x, p.y - e, p.z), mb) - metaballs_potential(v3(p.x, p.y + e, p.z), mb),
@@ -312,6 +420,7 @@ __device__ __noinline__ V3 metaballs_normal(V3 p, const float* mb) {
 // intervals clipped to [0, t_max]; a crossing that fails the validity check
 // steps on like any other sample.
 __device__ bool march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cull, float* t_out) {
+  GPRT_OPS(3 * 37 + 4);
   float tmin = kInf, tmax = -kInf;
   for (int j = 0; j < 3; ++j) {
     const float* b = mb + 4 * j;
@@ -327,10 +436,14 @@ __device__ bool march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool c
   float step = (tmax - tmin) / 128.0f;
   float t = tmin;
   for (int s = 0; s < 128; ++s) {
+    GPRT_OPS(7);
     V3 pos = along(o, t, d);
     if (metaballs_potential(pos, mb) >= F(0.25)) {
       bool ok = t >= 0.0f && t <= t_max;
-      if (ok && cull) ok = dot3(d, metaballs_normal(pos, mb)) <= 0.0f;
+      if (ok && cull) {
+        GPRT_OPS(5);
+        ok = dot3(d, metaballs_normal(pos, mb)) <= 0.0f;
+      }
       if (ok) {
         *t_out = t;
         return true;
@@ -351,27 +464,38 @@ struct MarchSpec {
   float fail_scale;  // (1 - relax) * relax, rounded from double
   bool capped_hit;   // budget exhaustion reports a hit (occlusion)
   bool cull;
+  bool escape;       // retire past the escape bound (reference codes only)
 };
 
-// Returns whether the march hit; *t_out is the hit t.
-__device__ bool march_sdf(int code, V3 o, V3 d, float t_max, float step_scale, const MarchSpec& m,
-                          float* t_out) {
+// March from t_start to t_max (the AABB window of an extension fractal, or
+// 0 and the running best t). Returns whether the march hit; *t_out is the
+// hit t. Not inlined: one out-of-line copy serves the closest and the
+// occlusion traversals, which keeps the frame kernel within 128 registers
+// without spills (inlined into both, it spilled once the extension
+// fractals joined the distance switch; ptxas -v).
+__device__ __noinline__ bool march_sdf(int code, V3 o, V3 d, float t_start, float t_max, float step_scale,
+                          const MarchSpec& m, float* t_out) {
+  GPRT_OPS(14 + (m.escape ? 3 : 0));
   float o_norm = len3(o), d_norm = len3(d);
   float denom = fmaxf(d_norm - F(2.5 * 0.0001), 1e-6f);
-  float t_esc = fminf(t_max, (o_norm + 12.0f) / denom);
+  float t_esc = m.escape ? fminf(t_max, (o_norm + 12.0f) / denom) : t_max;
   const bool relaxed = m.relax > 1.0f;
-  float t = 0.0f, rprev = 0.0f, t_prev = -1.0f;
+  float t = t_start, rprev = 0.0f, t_prev = -1.0f;
   bool oon = true;
   int steps = 0;
   while (steps < m.max_steps) {
+    GPRT_OPS(relaxed ? 13 : 9);
     V3 pos = along(o, t, d);
     float dist = sdf_distance(code, pos);
     ++steps;
     bool fail = relaxed && oon && (dist + rprev < m.relax * rprev);
     bool crossed = dist <= F(0.0001) * t && !fail;
     if (crossed) {
-      bool ok = t >= 0.0f && t <= t_max;
-      if (ok && m.cull) ok = dot3(d, sdf_normal(code, pos)) <= 0.0f;
+      bool ok = t >= t_start && t <= t_max;
+      if (ok && m.cull) {
+        GPRT_OPS(5);
+        ok = dot3(d, sdf_normal(code, pos)) <= 0.0f;
+      }
       if (ok) {
         *t_out = t;
         return true;

@@ -1,0 +1,119 @@
+// One traversal pass over every procedural geometry: one thread per ray.
+//
+// Replaces: gpuraytracer_tpu/kernels/scene_kernel.py scene_closest_tiles /
+// _scene_kernel, phase "single" (with _traverse_tile, _local_ray,
+// _march_sdf_part, _march_metaballs_part, _metaball_normal): BLAS-space rays
+// with an initial bound t0 in; the closest procedural hit (best_t, world
+// normal, geometry id; gid -1 where nothing beat t0) out, or accept-first
+// occlusion (gid of the first valid hit, best_t 0 there). The wavefront
+// (render/trace.py) calls it once per closest pass and once per shadow pass
+// over the live lanes of a level, so N varies per call.
+//
+// The device code is traverse.cuh, the same the frame kernel runs. The TPU
+// schedule (VMEM scratch planes, pl.when tile gates, the two-phase
+// "main"/"finish" split, the tile policy) is not behaviour and is not
+// carried over.
+//
+// What bounds it on an H100: the same divergent per-lane march loops as the
+// frame kernel (ALU- and latency-bound); its bytes are 29 per ray in (o, d,
+// active, t0) and 20 out (best_t, normal, gid). What the design does about
+// it: the traversal's parameters sit in shared memory per block (the
+// shading blocks of the buffers are not copied), rays are read and
+// written once, and every march stops early by the reference's
+// result-exact rules. The wavefront keeps rays in pixel
+// order, so a warp's rays stay spatially coherent; sorting rays by
+// direction or geometry is left to later work.
+//
+// Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py
+// pack_frame builds them; o, d (N, 3) f32; active (N,) bool; t0 (N,) f32.
+// The C entry returns cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+
+#include "traverse.cuh"
+
+namespace gprt {
+
+__global__ void __launch_bounds__(128)
+    scene_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                 const float* __restrict__ o, const float* __restrict__ d,
+                 const bool* __restrict__ active, const float* __restrict__ t0,
+                 float* __restrict__ best_t, float* __restrict__ normal, int* __restrict__ gid,
+                 int n, int G, int M, int level, int accept_first, int cull,
+                 unsigned long long* ops) {
+  extern __shared__ float smem[];
+#ifdef GPRT_COUNT_OPS
+  if (threadIdx.x == 0) gprt_block_ops = 0;
+#endif
+  const Scene s = load_scene<false>(params, layout, G, M, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const V3 ob = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
+    const V3 dir = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+    Hit h{t0[i], -1, v3(0.0f, 0.0f, 0.0f)};
+    if (active[i]) {
+      if (accept_first) {
+        h.gid = occluded_procedural(s, ob, dir, h.t, level);
+        if (h.gid >= 0) h.t = 0.0f;
+      } else {
+        closest_procedural(s, ob, dir, level, cull != 0, &h);
+      }
+    }
+    best_t[i] = h.t;
+    normal[3 * i] = h.n.x;
+    normal[3 * i + 1] = h.n.y;
+    normal[3 * i + 2] = h.n.z;
+    gid[i] = h.gid;
+  }
+#ifdef GPRT_COUNT_OPS
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(ops, gprt_block_ops);
+#endif
+}
+
+// Check entry, not on any render path: the distance function of SDF code
+// `code` at n local-space points (N, 3), for the point-by-point comparison
+// of the device distance functions with their plain versions.
+__global__ void __launch_bounds__(128)
+    sdf_probe(int code, const float* __restrict__ p, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = sdf_distance(code, v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]));
+}
+
+}  // namespace gprt
+
+// ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds the
+// pass's f32 FLOPs to; the default build ignores it.
+extern "C" int gprt_scene_closest(const float* params, const int* layout, const float* o,
+                                  const float* d, const bool* active, const float* t0,
+                                  float* best_t, float* normal, int* gid, int n,
+                                  int num_geometries, int num_materials, int level,
+                                  int accept_first, int cull, unsigned long long* ops, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int G = num_geometries, M = num_materials;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const size_t shmem = gprt::shared_bytes(false, G, M);
+  err = gprt::reserve_shared(gprt::scene_kernel, shmem, device);
+  if (err != cudaSuccess) return (int)err;
+  const int block = 128;
+  const int grid = (n + block - 1) / block;
+  gprt::scene_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+      params, layout, o, d, active, t0, best_t, normal, gid, n, G, M, level, accept_first, cull,
+      ops);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gprt_sdf_distance(int code, const float* p, float* out, int n, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || code < 0 || code > 8) return (int)cudaErrorInvalidValue;
+  gprt::sdf_probe<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(code, p, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* gprt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

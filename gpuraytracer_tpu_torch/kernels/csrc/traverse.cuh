@@ -1,0 +1,245 @@
+// Per-ray traversal over the procedural geometries, shared by the frame
+// kernel (frame_kernel.cu) and the scene kernel (scene_kernel.cu), so the
+// two cannot drift apart.
+//
+// Replaces the traversal of the reference's Pallas scene kernel
+// (gpuraytracer_tpu/kernels/scene_kernel.py: _traverse_tile, _local_ray,
+// _march_sdf_part, _march_metaballs_part, _metaball_normal) with the
+// semantics of its XLA path (accel/traverse.py), which rendered every
+// golden: every geometry in definition order (layout.traversal_order is a
+// cost choice of the TPU tiles and is not followed; the metaball march
+// step depends on the running best t, so the order can move pixels),
+// each behind its BLAS-space slab gate against the running best t; the
+// clusters of the layout are conservative gates and are not evaluated.
+// Closest: strict-< reduction, the winning march's normal computed once
+// at its hit. Accept-first: the first valid (or capped) hit ends the
+// search. AABB-windowed codes (the extension fractals; the per-geometry
+// flag that pack_frame sets from geometry/sdf.AABB_WINDOWED_CODES) skip the
+// back-face cull and march only inside their local unit box, over-relaxed
+// with their own knobs; every march takes its geometry's budget for the
+// level. This is the device form of geometry/registry.py's table.
+//
+// Parameters: the f32 and int32 buffers of kernels/frame_kernel.py
+// pack_frame, copied to shared memory once per block (load_scene): the
+// whole buffers for the frame kernel, only their traversal prefix for the
+// scene kernel.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "frame_math.cuh"
+
+namespace gprt {
+
+constexpr int kFHeader = 12;
+constexpr int kIHeader = 8;
+constexpr int kGeoStride = 10;
+constexpr int kGeoWindowed = 9;  // column of the AABB-windowed flag
+constexpr float kRayTMax = 10000.0f;
+
+enum Kind { kAnalytic = 0, kVolumetric = 1, kSignedDistance = 2 };
+
+struct Scene {
+  // elapsed, then relax and fail scale of radiance / occlusion marches for
+  // the reference codes (1..4) and the extension fractals (5..8)
+  const float* hdr;
+  const float* b2l;     // G x 12 (rows 0..2 of blas_to_local)
+  const float* l2b;     // G x 9  (rotation of local_to_blas)
+  const float* sscale;  // G
+  const float* aabb;    // G x 6
+  const float* mb;      // 3 x 4
+  const float* mat;     // M x 8: albedo rgba, refl, diffuse, specular, power
+  const float* p2w;     // 4 x 4 row-vector projection_to_world
+  const float* cvec;    // 8 x 4: cam, light, ambient, diffuse, blas, plane o, plane s
+  // G x 10: kind, code, budgets r0 r1 s0 s1, capped s0 s1, natural, windowed
+  const int* geo;
+  const int* mat_ids;   // G + 1: material slot of each geometry row (plane last)
+  int G, M, plane_gid, has_plane;
+};
+
+struct Hit {
+  float t;
+  int gid;
+  V3 n;
+};
+
+// The traversal prefix of each buffer (the header, the per-geometry blocks
+// and the metaballs; the header and the geometry rows), then the whole.
+__host__ __device__ constexpr int traversal_floats(int G) {
+  return kFHeader + G * (12 + 9 + 1 + 6) + 12;
+}
+__host__ __device__ constexpr int traversal_ints(int G) { return kIHeader + kGeoStride * G; }
+__host__ __device__ constexpr int param_floats(int G, int M) {
+  return traversal_floats(G) + M * 8 + 16 + 32;
+}
+__host__ __device__ constexpr int layout_ints(int G) { return traversal_ints(G) + G + 1; }
+
+// Bytes of shared memory load_scene<kShading> fills.
+__host__ __device__ constexpr size_t shared_bytes(bool shading, int G, int M) {
+  return 4 * (size_t)(shading ? param_floats(G, M) + layout_ints(G)
+                              : traversal_floats(G) + traversal_ints(G));
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory: past the default 48
+// KB it opts in, up to the device's per-block limit (227 KB on an H100).
+template <typename Kernel>
+__host__ cudaError_t reserve_shared(Kernel kernel, size_t bytes, int device) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int cap = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  if (bytes > (size_t)cap) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Copies the buffers into the block's shared memory (every thread of the
+// block must call it) and points a Scene at them. Without kShading only
+// the traversal prefix is copied, and the shading blocks (materials,
+// camera, light, plane, material slots) are null.
+template <bool kShading>
+__device__ __forceinline__ Scene load_scene(const float* __restrict__ params,
+                                            const int* __restrict__ layout, int G, int M,
+                                            float* smem) {
+  const int nf = kShading ? param_floats(G, M) : traversal_floats(G);
+  const int ni = kShading ? layout_ints(G) : traversal_ints(G);
+  int* ismem = reinterpret_cast<int*>(smem + nf);
+  const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y * blockDim.z;
+  for (int k = tid; k < nf; k += nthreads) smem[k] = params[k];
+  for (int k = tid; k < ni; k += nthreads) ismem[k] = layout[k];
+  __syncthreads();
+  Scene s;
+  s.hdr = smem;
+  s.b2l = s.hdr + kFHeader;
+  s.l2b = s.b2l + 12 * G;
+  s.sscale = s.l2b + 9 * G;
+  s.aabb = s.sscale + G;
+  s.mb = s.aabb + 6 * G;
+  s.mat = kShading ? s.mb + 12 : nullptr;
+  s.p2w = kShading ? s.mat + 8 * M : nullptr;
+  s.cvec = kShading ? s.p2w + 16 : nullptr;
+  s.geo = ismem + kIHeader;
+  s.mat_ids = kShading ? s.geo + kGeoStride * G : nullptr;
+  s.G = G;
+  s.M = M;
+  s.plane_gid = ismem[2];
+  s.has_plane = ismem[3];
+  return s;
+}
+
+__device__ __forceinline__ void local_ray(const Scene& s, int g, V3 o, V3 d, V3* ol, V3* dl) {
+  GPRT_OPS(18 + 15);
+  const float* m = s.b2l + 12 * g;
+  *ol = v3(m[0] * o.x + m[1] * o.y + m[2] * o.z + m[3], m[4] * o.x + m[5] * o.y + m[6] * o.z + m[7],
+           m[8] * o.x + m[9] * o.y + m[10] * o.z + m[11]);
+  *dl = v3(m[0] * d.x + m[1] * d.y + m[2] * d.z, m[4] * d.x + m[5] * d.y + m[6] * d.z,
+           m[8] * d.x + m[9] * d.y + m[10] * d.z);
+}
+
+// Straight-matrix local -> world normal, normalized by division; a zero
+// normal stays zero (the squared length is floored at 1e-30).
+__device__ __forceinline__ V3 normal_to_world(const Scene& s, int g, V3 n) {
+  GPRT_OPS(15 + 7 + 3);
+  const float* m = s.l2b + 9 * g;
+  V3 w = v3(m[0] * n.x + m[1] * n.y + m[2] * n.z, m[3] * n.x + m[4] * n.y + m[5] * n.z,
+            m[6] * n.x + m[7] * n.y + m[8] * n.z);
+  float l = sqrtf(fmaxf(w.x * w.x + w.y * w.y + w.z * w.z, F(1e-30)));
+  return v3(w.x / l, w.y / l, w.z / l);
+}
+
+// Slab gate of geometry g against [0, t_max] in BLAS space.
+__device__ __forceinline__ bool gate(const Scene& s, int g, V3 ob, V3 d, float t_max) {
+  GPRT_OPS(3 * 5 + 4);
+  const float* a = s.aabb + 6 * g;
+  Interval iv = slab(ob, d, v3(a[0], a[1], a[2]), v3(a[3], a[4], a[5]));
+  return iv.tmax > iv.tmin && iv.tmax >= 0.0f && iv.tmin <= t_max;
+}
+
+__device__ __forceinline__ MarchSpec spec(const Scene& s, int g, bool occlusion, int level,
+                                          bool cull, bool windowed) {
+  const int* q = s.geo + kGeoStride * g;
+  const float* r = s.hdr + (windowed ? 5 : 1);  // relax_r, relax_s, fail_r, fail_s
+  MarchSpec m;
+  int b = level > 0 ? 1 : 0;
+  m.max_steps = occlusion ? q[4 + b] : q[2 + b];
+  m.relax = occlusion ? r[1] : r[0];
+  m.fail_scale = occlusion ? r[3] : r[2];
+  m.capped_hit = occlusion && q[6 + b] != 0;
+  m.cull = cull && !windowed;
+  m.escape = !windowed;
+  return m;
+}
+
+// Geometry g's intersector on the local ray over [0, t_max]; *nl is the
+// local normal of a closed-form hit (a march's is computed by the caller).
+__device__ bool intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool occlusion,
+                          int level, bool cull, float* t, V3* nl) {
+  const int* q = s.geo + kGeoStride * g;
+  const int kind = q[0], code = q[1];
+  if (kind == kAnalytic) {
+    return code == 0 ? intersect_hollow_aabb(ol, dl, t_max, cull, t, nl)
+                     : intersect_spheres(ol, dl, t_max, cull, t, nl);
+  }
+  if (kind == kVolumetric) return march_metaballs(ol, dl, t_max, s.mb, cull, t);
+  float t_lo = 0.0f, t_hi = t_max;
+  const bool windowed = q[kGeoWindowed] != 0;
+  if (windowed) {
+    // An AABB-windowed code's window: [max(entry, 0), min(exit, t_max)] of
+    // the local unit box, empty windows skipped.
+    GPRT_OPS(3 * 5 + 4 + 2);
+    Interval w = slab(ol, dl, v3(-1.0f, -1.0f, -1.0f), v3(1.0f, 1.0f, 1.0f));
+    t_lo = nmax(w.tmin, 0.0f);
+    t_hi = nmin(t_max, w.tmax);
+    if (!(w.tmax > w.tmin && t_hi > t_lo)) return false;
+  }
+  const MarchSpec m = spec(s, g, occlusion, level, cull, windowed);
+  return march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t);
+}
+
+// Closest procedural hit over BLAS-space ray (ob, d): h holds the running
+// best (the plane's hit, or the caller's bound with gid -1) and takes any
+// geometry whose hit is strictly closer.
+__device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool cull, Hit* h) {
+  bool deferred_normal = false;
+  for (int g = 0; g < s.G; ++g) {
+    float running = fminf(h->t, kRayTMax);
+    if (!gate(s, g, ob, d, running)) continue;
+    V3 ol, dl;
+    local_ray(s, g, ob, d, &ol, &dl);
+    float t = kInf;
+    V3 nl = v3(0.0f, 0.0f, 0.0f);
+    const bool marched = s.geo[kGeoStride * g] != kAnalytic;
+    if (intersect(s, g, ol, dl, running, false, level, cull, &t, &nl) && t < h->t) {
+      h->t = t;
+      h->gid = g;
+      deferred_normal = marched;
+      if (!marched) h->n = normal_to_world(s, g, nl);
+    }
+  }
+  if (deferred_normal) {
+    // The winning march's normal, at its own hit, computed once.
+    const int g = h->gid;
+    V3 ol, dl;
+    local_ray(s, g, ob, d, &ol, &dl);
+    V3 pos = along(ol, h->t, dl);
+    V3 nl = s.geo[kGeoStride * g] == kVolumetric ? metaballs_normal(pos, s.mb)
+                                                 : sdf_normal(s.geo[kGeoStride * g + 1], pos);
+    h->n = normal_to_world(s, g, nl);
+  }
+}
+
+// Accept-first occlusion over [0, t_max] with back-face culling: the first
+// geometry with a valid (or capped) hit, or -1.
+__device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int level) {
+  for (int g = 0; g < s.G; ++g) {
+    if (!gate(s, g, ob, d, t_max)) continue;
+    V3 ol, dl;
+    local_ray(s, g, ob, d, &ol, &dl);
+    float t;
+    V3 nl;
+    if (intersect(s, g, ol, dl, t_max, true, level, true, &t, &nl)) return g;
+  }
+  return -1;
+}
+
+}  // namespace gprt

@@ -9,10 +9,11 @@ shading and the bounce, and one float4 store.
 
 Parameters reach the kernel as one contiguous f32 buffer and one int32
 layout buffer (``pack_frame``), packed from the same blocks as the
-reference's ``pack_frame_params``. On a CPU tensor the wrapper runs the
-kernel's plain version — the wavefront ``render/trace.trace_radiance`` on
-the scene unpacked from the same buffers; on a CUDA tensor it launches
-the kernel or raises.
+reference's ``pack_frame_params``; the scene kernel (scene_kernel.py)
+reads the same two buffers. On a CPU tensor the wrapper runs the kernel's
+plain version — the wavefront ``render/trace.trace_radiance`` on the
+scene unpacked from the same buffers; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,11 +39,25 @@ from gpuraytracer_tpu_torch.geometry import metaballs, sdf
 # it to show that a frame went through the kernel.
 LAUNCHES = 0
 
-# Buffer layout, shared with csrc/frame_kernel.cu (keep in step).
-F_HEADER = 8  # elapsed_time, relax_r, relax_s, fail_scale_r, fail_scale_s, 0, 0, 0
-I_HEADER = 8  # G, M, plane_gid, has_plane, 0, 0, 0, 0
-GEO_STRIDE = 8  # kind, code, budget r0, r1, s0, s1, capped s0, s1
+# Buffer layout, shared with csrc/traverse.cuh (keep in step).
+# f32 header: elapsed_time, then (relax, fail_scale) of radiance and
+# occlusion marches for the reference codes (relax_r, relax_s, fail_r,
+# fail_s) and for the AABB-windowed codes (the same four), then padding.
+F_HEADER = 12
+# int32 header: G, M, plane_gid, has_plane, has_material_ids,
+# has_step_budgets, 0, 0; then G geometry rows, then G + 1 material slots
+# (the identity when the layout has no material_ids; padded with 0
+# without a plane).
+I_HEADER = 8
+# kind, code, budget r0, r1, s0, s1, capped s0, s1, natural budget,
+# AABB-windowed (the code is in sdf.AABB_WINDOWED_CODES)
+GEO_STRIDE = 10
 MAX_MATERIALS = 16
+# Most dynamic shared memory a block of either kernel may take (an H100's
+# per-block opt-in limit); the buffers are copied there (``shared_bytes``).
+SHARED_BYTES_MAX = 227 * 1024
+# SDF codes with a device function in csrc/frame_math.cuh.
+KERNEL_SDF_CODES = frozenset(range(9))
 _BLOCKS = (("b2l", 12), ("l2b", 9), ("sscale", 1), ("aabb", 6))  # per geometry
 
 
@@ -83,24 +98,22 @@ def merged_shadow_enabled() -> bool:
 
 
 def fused_eligible_layout(layout: SceneLayout, num_materials: int) -> bool:
-    """Whether the frame kernel covers the layout (the reference's
-    fused_eligible_layout, less the kinds not ported yet)."""
-    supported = (IntersectorKind.ANALYTIC, IntersectorKind.VOLUMETRIC,
-                 IntersectorKind.SIGNED_DISTANCE)
+    """Whether the frame kernel renders the layout (the reference's
+    fused_eligible_layout, less meshes): GPURT_DISABLE_FUSED unset, at
+    least one procedural instance, and at most 16 unique materials. Every
+    other scene that ``check_kernel_covers`` accepts goes through the
+    wavefront and the scene kernel."""
     return (
         not os.environ.get("GPURT_DISABLE_FUSED")
         and layout.num_procedural > 0
-        and all(k in supported for k in layout.kinds)
-        and all(int(p) < 7 for k, p in zip(layout.kinds, layout.prim_types)
-                if k == IntersectorKind.SIGNED_DISTANCE)
-        and layout.material_ids is None
         and num_materials <= MAX_MATERIALS
     )
 
 
-def check_kernel_covers(layout: SceneLayout, num_materials: int) -> None:
+def check_kernel_covers(layout: SceneLayout) -> None:
     """Raise, naming the reference kernel that is not ported yet, for a
-    frame the CUDA frame kernel does not render. Never falls back."""
+    CUDA frame that neither the frame kernel nor the scene kernel renders.
+    Never falls back."""
     mode = frame_mode()
     if mode == "compact":
         raise NotImplementedError(
@@ -114,11 +127,15 @@ def check_kernel_covers(layout: SceneLayout, num_materials: int) -> None:
         raise NotImplementedError(
             "GPURT_MERGED_SHADOW: scene_kernel._march_sdf_multi is not ported "
             "to CUDA yet")
-    if not fused_eligible_layout(layout, num_materials):
+    if IntersectorKind.TRIANGLE in layout.kinds:
         raise NotImplementedError(
-            "scene layout outside the frame kernel: scene_kernel."
-            "scene_closest_tiles (and megakernel.sphere_trace_tiles, "
-            "_intersect_trimesh_tile) are not ported to CUDA yet")
+            "triangle meshes: scene_kernel._intersect_trimesh_tile / _mt_face "
+            "(and geometry/trimesh.py, megakernel.sphere_trace_tiles) are not "
+            "ported to CUDA yet")
+    for kind, code in zip(layout.kinds, layout.prim_types):
+        if kind == IntersectorKind.SIGNED_DISTANCE and int(code) not in KERNEL_SDF_CODES:
+            raise NotImplementedError(
+                f"distance code {int(code)} has no CUDA device function")
 
 
 def pack_frame_params(scene: Scene):
@@ -174,25 +191,55 @@ def pack_frame(scene: Scene) -> FramePack:
     g = len(static["geoms"])
     m = blocks[5].shape[0]
     dev = blocks[0].device
-    relax_r = sdf.reference_relax()
-    relax_s = max(relax_r, sdf.occlusion_relax())
-    header = torch.tensor(
-        [0.0, relax_r, relax_s, (1.0 - relax_r) * relax_r, (1.0 - relax_s) * relax_s,
-         0.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    relax = []
+    for windowed in (False, True):
+        relax_r = sdf.march_relax(windowed, occlusion=False)
+        relax_s = sdf.march_relax(windowed, occlusion=True)
+        relax += [relax_r, relax_s, (1.0 - relax_r) * relax_r, (1.0 - relax_s) * relax_s]
+    header = torch.tensor([0.0] + relax + [0.0, 0.0, 0.0], dtype=torch.float32, device=dev)
     header[0] = scene.arrays.constants.elapsed_time
     params = torch.cat([header] + [b.reshape(-1).to(torch.float32) for b in blocks])
 
-    ints = [g, m, static["plane_gid"], int(layout.has_plane), 0, 0, 0, 0]
+    ints = [g, m, static["plane_gid"], int(layout.has_plane), int(layout.material_ids is not None),
+            int(layout.step_budgets is not None), 0, 0]
     for i, (kind, code) in enumerate(static["geoms"]):
         natural = layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS
         rb0, _ = sdf.march_budget(natural, occlusion=False, level=0)
         rb1, _ = sdf.march_budget(natural, occlusion=False, level=1)
         sb0, sc0 = sdf.march_budget(natural, occlusion=True, level=0)
         sb1, sc1 = sdf.march_budget(natural, occlusion=True, level=1)
-        ints += [kind, code, rb0, rb1, sb0, sb1, int(sc0), int(sc1)]
+        windowed = kind == IntersectorKind.SIGNED_DISTANCE and code in sdf.AABB_WINDOWED_CODES
+        ints += [kind, code, rb0, rb1, sb0, sb1, int(sc0), int(sc1), natural, int(windowed)]
+    slots = list(layout.material_ids) if layout.material_ids is not None else list(range(g + 1))
+    ints += slots + [0] * (g + 1 - len(slots))
     layout_buf = torch.tensor(ints, dtype=torch.int32, device=dev)
     return FramePack(params=params.contiguous(), layout=layout_buf,
                      num_geometries=g, num_materials=m)
+
+
+def layout_size(g: int) -> int:
+    """Length of the int32 layout buffer for g procedural geometries."""
+    return I_HEADER + GEO_STRIDE * g + g + 1
+
+
+def shared_bytes(g: int, m: int, *, shading: bool) -> int:
+    """Bytes of shared memory a block copies the buffers into: all of both
+    for the frame kernel (``shading``), for the scene kernel only their
+    traversal prefix (up to the material table; the geometry rows)."""
+    off = param_offsets(g, m)
+    floats = off["total"] if shading else off["mat"]
+    ints = layout_size(g) if shading else I_HEADER + GEO_STRIDE * g
+    return 4 * (floats + ints)
+
+
+def check_shared(kernel: str, g: int, m: int, *, shading: bool) -> None:
+    """Raise, naming the kernel, for a scene whose buffers do not fit in a
+    block's shared memory."""
+    nbytes = shared_bytes(g, m, shading=shading)
+    if nbytes > SHARED_BYTES_MAX:
+        raise ValueError(
+            f"{kernel}: {g} geometries and {m} materials need {nbytes} bytes of shared "
+            f"memory a block, over the {SHARED_BYTES_MAX} a block can take")
 
 
 def unpack_frame(pack: FramePack) -> Scene:
@@ -210,8 +257,14 @@ def unpack_frame(pack: FramePack) -> Scene:
         return p[off[name]: off[name] + n].reshape(shape)
 
     geo = [ints[I_HEADER + GEO_STRIDE * i: I_HEADER + GEO_STRIDE * (i + 1)] for i in range(g)]
-    layout = SceneLayout(kinds=tuple(IntersectorKind(r[0]) for r in geo),
-                         prim_types=tuple(r[1] for r in geo), has_plane=bool(ints[3]))
+    has_plane = bool(ints[3])
+    slots = ints[I_HEADER + GEO_STRIDE * g:][:g + int(has_plane)]
+    layout = SceneLayout(
+        kinds=tuple(IntersectorKind(r[0]) for r in geo),
+        prim_types=tuple(r[1] for r in geo), has_plane=has_plane,
+        step_budgets=tuple(r[8] for r in geo) if ints[5] else None,
+        material_ids=tuple(slots) if ints[4] else None,
+    )
     cvec = blk("cvec", 8, 4)
     mat = blk("mat", m, 8)
     last_row = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=p.dtype, device=p.device)
@@ -219,7 +272,8 @@ def unpack_frame(pack: FramePack) -> Scene:
     l2b = torch.zeros(g, 4, 4, dtype=p.dtype, device=p.device)
     l2b[:, :3, :3] = blk("l2b", g, 3, 3)
     l2b[:, 3, 3] = 1.0
-    step_scale = torch.ones(m, dtype=p.dtype, device=p.device)
+    # One step_scale per geometry row; the plane's is never read (1.0).
+    step_scale = torch.ones(g + int(has_plane), dtype=p.dtype, device=p.device)
     step_scale[:g] = blk("sscale", g)
     one = torch.ones(1, dtype=p.dtype, device=p.device)
     aabb = blk("aabb", g, 6)
@@ -249,14 +303,16 @@ def unpack_frame(pack: FramePack) -> Scene:
 def render_frame_plain(pack: FramePack, *, width: int, height: int,
                        max_depth: int = MAX_RAY_RECURSION_DEPTH):
     """The kernel's plain PyTorch version on the same packed inputs: the
-    wavefront (render/trace.render_wavefront) on the unpacked scene, on the
-    pack's device."""
+    wavefront (render/trace.render_wavefront) with plain traversal passes
+    on the unpacked scene, on the pack's device."""
     from gpuraytracer_tpu_torch.render import trace
 
-    return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth)
+    return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth,
+                                  plain=True)
 
 
-def _check_pack(pack: FramePack) -> None:
+def check_pack(pack: FramePack) -> None:
+    """Raise unless the pack's buffers are what the CUDA kernels read."""
     g, m = pack.num_geometries, pack.num_materials
     p, lay = pack.params, pack.layout
     if p.dtype != torch.float32 or lay.dtype != torch.int32:
@@ -265,22 +321,33 @@ def _check_pack(pack: FramePack) -> None:
         raise ValueError(f"params on {p.device} but layout on {lay.device}")
     if p.dim() != 1 or lay.dim() != 1 or not (p.is_contiguous() and lay.is_contiguous()):
         raise ValueError("params and layout must be 1-D contiguous tensors")
-    if not (0 < g and 0 < m <= MAX_MATERIALS):
+    if not (0 < g and 0 < m):
         raise ValueError(f"unsupported sizes: {g} geometries, {m} materials")
-    if p.numel() != param_offsets(g, m)["total"] or lay.numel() != I_HEADER + GEO_STRIDE * g:
+    if p.numel() != param_offsets(g, m)["total"] or lay.numel() != layout_size(g):
         raise ValueError(f"buffer sizes {p.numel()}/{lay.numel()} do not match "
                          f"{g} geometries and {m} materials")
 
 
+def ops_pointer(ops):
+    """The device address of an op counter ((1,) int64 CUDA tensor, read
+    by a counting build of a kernel) or NULL."""
+    if ops is None:
+        return ctypes.c_void_p(None)
+    if ops.dtype != torch.int64 or ops.numel() != 1 or ops.device.type != "cuda":
+        raise ValueError("ops must be a (1,) int64 CUDA tensor")
+    return ctypes.c_void_p(ops.data_ptr())
+
+
 def render_frame_tiles(pack: FramePack, *, width: int, height: int,
-                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None):
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None, ops=None):
     """(H, W, 4) f32 radiance image of the packed frame.
 
     CUDA: launches csrc/frame_kernel.cu on the current stream (``lib``: a
-    loaded build of it, default the shipped one) and counts the launch in
-    LAUNCHES. CPU: runs ``render_frame_plain``."""
+    loaded build of it, default the shipped one; ``ops``: the counter a
+    counting build adds to) and counts the launch in LAUNCHES. CPU: runs
+    ``render_frame_plain``."""
     global LAUNCHES
-    _check_pack(pack)
+    check_pack(pack)
     dev = pack.params.device
     if dev.type == "cpu":
         return render_frame_plain(pack, width=width, height=height, max_depth=max_depth)
@@ -288,6 +355,10 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
         raise ValueError(f"no frame kernel for device {dev}")
     if width <= 0 or height <= 0 or not 1 <= max_depth <= 8:
         raise ValueError(f"bad frame size {width}x{height} or depth {max_depth}")
+    if pack.num_materials > MAX_MATERIALS:
+        raise ValueError(f"{pack.num_materials} materials: the frame kernel takes at most "
+                         f"{MAX_MATERIALS} (render_frame routes such scenes to the wavefront)")
+    check_shared("frame kernel", pack.num_geometries, pack.num_materials, shading=True)
     from gpuraytracer_tpu_torch.kernels import build
 
     lib = lib if lib is not None else build.load("frame_kernel")
@@ -296,7 +367,8 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     rc = lib.gprt_frame_render(
         ctypes.c_void_p(pack.params.data_ptr()), ctypes.c_void_p(pack.layout.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), width, height, max_depth,
-        pack.num_geometries, pack.num_materials, dev.index, ctypes.c_void_p(stream),
+        pack.num_geometries, pack.num_materials, ops_pointer(ops), dev.index,
+        ctypes.c_void_p(stream),
     )
     if rc != 0:
         raise RuntimeError(f"frame kernel launch failed: CUDA error {rc} "

@@ -1,0 +1,152 @@
+"""The five benchmark scenes (BASELINE.json configs #1-#5).
+
+Port of gpuraytracer_tpu/models/scenes.py, with the same names, sizes,
+depths and instance specs:
+
+1. single_sphere_plane_256: one analytic sphere cluster + plane, 256x256,
+   primary + shadow rays (depth 2)
+2. analytic_grid_720p: 8 chrome sphere clusters + 8 boxes, 1280x720, one
+   reflection bounce (depth 2)
+3. sdf_primitives_720p: the seven sphere-traced objects, 1280x720, depth 3
+4. metaballs_1080p: three animated metaball instances, 1920x1080, depth 3
+5. fractal_mandelbulb_julia_1080p: Mandelbulb + quaternion Julia (the
+   extension fractals, DE budget 96) and a chrome sphere cluster,
+   1920x1080, depth 3
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+from gpuraytracer_tpu_torch.core.types import (
+    CHROMIUM_REFLECTANCE,
+    AnalyticPrimitive,
+    IntersectorKind,
+    SignedDistancePrimitive,
+    VolumetricPrimitive,
+)
+from gpuraytracer_tpu_torch.geometry.fractal import ExtendedSignedDistancePrimitive
+from gpuraytracer_tpu_torch.models.builder import (
+    InstanceSpec,
+    Material,
+    SceneBuilder,
+    grid_cell_aabb,
+)
+
+GREEN = (0.1, 1.0, 0.5, 1.0)
+RED = (1.0, 0.5, 0.5, 1.0)
+YELLOW = (1.0, 1.0, 0.5, 1.0)
+CHROME = Material(CHROMIUM_REFLECTANCE, reflectance=1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class BenchConfig:
+    name: str
+    builder: Callable[[], SceneBuilder]  # a fresh SceneBuilder
+    width: int
+    height: int
+    max_depth: int
+    animated: bool = False
+
+    def build(self, aspect: float, elapsed_time: float = 0.0, *, device="cuda"):
+        return self.builder().build(aspect, elapsed_time, device=device)
+
+
+def _single_sphere_builder() -> SceneBuilder:
+    b = SceneBuilder()
+    mn, mx = grid_cell_aabb(1, 1, size=(3.0, 3.0, 3.0))
+    b.add_instance(InstanceSpec(
+        kind=IntersectorKind.ANALYTIC, prim_type=int(AnalyticPrimitive.SPHERES),
+        aabb_min=mn, aabb_max=mx, material=Material(RED), scale=(1.5, 1.5, 1.5)))
+    return b
+
+
+def _analytic_grid_builder() -> SceneBuilder:
+    b = SceneBuilder()
+    for ix in range(4):
+        for iz in range(4):
+            if (ix + iz) % 2 == 0:
+                mn, mx = grid_cell_aabb(ix, iz, (3, 3, 3))
+                b.add_instance(InstanceSpec(
+                    kind=IntersectorKind.ANALYTIC, prim_type=int(AnalyticPrimitive.SPHERES),
+                    aabb_min=mn, aabb_max=mx, material=CHROME, scale=(1.5, 1.5, 1.5),
+                    rotates=True))
+            else:
+                mn, mx = grid_cell_aabb(ix, iz, (2, 3, 2))
+                b.add_instance(InstanceSpec(
+                    kind=IntersectorKind.ANALYTIC, prim_type=int(AnalyticPrimitive.AABB),
+                    aabb_min=mn, aabb_max=mx, material=Material(RED if iz % 2 else YELLOW),
+                    scale=(1.0, 1.5, 1.0)))
+    return b
+
+
+_SDF_OBJECTS = (
+    (SignedDistancePrimitive.MINI_SPHERES, Material(GREEN), (1, 1, 1), False),
+    (SignedDistancePrimitive.INTERSECTED_ROUND_CUBE, Material(GREEN), (1, 1, 1), False),
+    (SignedDistancePrimitive.SQUARE_TORUS, CHROME, (1.5, 1.5, 1.5), False),
+    (SignedDistancePrimitive.TWISTED_TORUS, Material(YELLOW, 0, 1.0, 0.7, 50, 0.5), (1, 1, 1),
+     True),
+    (SignedDistancePrimitive.COG, Material(YELLOW, 0, 1.0, 0.1, 2), (1, 1, 1), True),
+    (SignedDistancePrimitive.CYLINDER, Material(RED), (1, 1.5, 1), False),
+    (SignedDistancePrimitive.FRACTAL_PYRAMID, Material(GREEN, 0, 1, 0.1, 4, 0.8), (3, 3, 3),
+     False),
+)
+
+
+def _sdf_showcase_builder() -> SceneBuilder:
+    b = SceneBuilder()
+    cells = [(0, 0), (1, 0), (2, 0), (0, 2), (1, 2), (2, 2), (3, 1)]
+    for (prim, mat, scale, rotates), (ix, iz) in zip(_SDF_OBJECTS, cells):
+        size = ((6.0, 6.0, 6.0) if prim == SignedDistancePrimitive.FRACTAL_PYRAMID
+                else (2.0 * scale[0], 2.0 * scale[1], 2.0 * scale[2]))
+        mn, mx = grid_cell_aabb(ix, iz, size)
+        b.add_instance(InstanceSpec(
+            kind=IntersectorKind.SIGNED_DISTANCE, prim_type=int(prim), aabb_min=mn,
+            aabb_max=mx, material=mat, scale=scale, rotates=rotates))
+    return b
+
+
+def _metaballs_builder() -> SceneBuilder:
+    b = SceneBuilder()
+    for ix, iz in ((0, 1), (2, 1), (1, 3)):
+        mn, mx = grid_cell_aabb(ix, iz, (3, 3, 3))
+        b.add_instance(InstanceSpec(
+            kind=IntersectorKind.VOLUMETRIC, prim_type=int(VolumetricPrimitive.METABALLS),
+            aabb_min=mn, aabb_max=mx, material=CHROME, scale=(1.5, 1.5, 1.5), rotates=True))
+    return b
+
+
+def _fractal_builder() -> SceneBuilder:
+    b = SceneBuilder()
+    for code, cell, albedo in (
+        (ExtendedSignedDistancePrimitive.MANDELBULB, (1, 1), GREEN),
+        (ExtendedSignedDistancePrimitive.JULIA_QUATERNION, (3, 2), YELLOW),
+    ):
+        mn, mx = grid_cell_aabb(*cell, (4, 4, 4))
+        b.add_instance(InstanceSpec(
+            kind=IntersectorKind.SIGNED_DISTANCE, prim_type=int(code), aabb_min=mn,
+            aabb_max=mx, material=Material(albedo, 0.0, 1.0, 0.4, 10.0, 0.6),
+            scale=(2.0, 2.0, 2.0), rotates=True,
+            step_budget=96))  # the DE fractals' own budget (reference, round 5)
+    mn, mx = grid_cell_aabb(0, 3, (3, 3, 3))
+    b.add_instance(InstanceSpec(
+        kind=IntersectorKind.ANALYTIC, prim_type=int(AnalyticPrimitive.SPHERES),
+        aabb_min=mn, aabb_max=mx, material=CHROME, scale=(1.5, 1.5, 1.5)))
+    return b
+
+
+BENCH_CONFIGS: Tuple[BenchConfig, ...] = (
+    BenchConfig("single_sphere_plane_256", _single_sphere_builder, 256, 256, 2),
+    BenchConfig("analytic_grid_720p", _analytic_grid_builder, 1280, 720, 2),
+    BenchConfig("sdf_primitives_720p", _sdf_showcase_builder, 1280, 720, 3),
+    BenchConfig("metaballs_1080p", _metaballs_builder, 1920, 1080, 3, animated=True),
+    BenchConfig("fractal_mandelbulb_julia_1080p", _fractal_builder, 1920, 1080, 3),
+)
+
+
+def get_config(name: str) -> BenchConfig:
+    for c in BENCH_CONFIGS:
+        if c.name == name:
+            return c
+    raise KeyError(name)

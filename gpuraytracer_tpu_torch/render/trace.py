@@ -12,8 +12,11 @@ throughput. Shadow rays are traced at levels 0 and 1 only (the recursion
 cap, Raytracing.hlsl:117-120).
 
 ``trace_radiance`` is the plain PyTorch version of the CUDA frame kernel
-(kernels/frame_kernel.py); ``render_frame`` sends CUDA scenes to the
-kernel and CPU scenes to this wavefront.
+(kernels/frame_kernel.py). ``render_frame`` sends a CUDA scene to the
+frame kernel when it is fused-eligible, and every other CUDA scene to this
+wavefront with its traversal passes in the CUDA scene kernel
+(kernels/scene_kernel.py); a CPU scene renders through the wavefront with
+the scene kernel's plain version.
 """
 
 from __future__ import annotations
@@ -34,8 +37,21 @@ from gpuraytracer_tpu_torch.render import checkers as checkers_mod
 from gpuraytracer_tpu_torch.render import shade
 
 
+def _material_rows(scene: Scene, geometry_id):
+    """Material-table row of each lane's geometry: geometry ids map through
+    layout.material_ids when the table is deduplicated; miss lanes (-1)
+    take row 0 and are masked by the callers."""
+    gid = geometry_id.clamp(min=0)
+    ids = scene.layout.material_ids
+    if ids is None:
+        return gid
+    table = torch.tensor(ids, dtype=torch.int64, device=gid.device)
+    return torch.where(geometry_id >= 0, table[gid], 0)
+
+
 def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: Scene,
-                   *, max_depth: int = MAX_RAY_RECURSION_DEPTH):
+                   *, max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
+                   plain: bool = False):
     """Trace radiance rays (..., 3) and return float4 colours (..., 4).
 
     pixel_x/pixel_y are the launch indices (DispatchRaysIndex), which the
@@ -43,6 +59,10 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     on the lanes still alive; a lane retires when its reflection is off or
     its outgoing throughput is exactly zero on every channel (it would add
     +0.0 at every later level, so retiring it is result-exact).
+
+    ``pack``: the frame's packed kernel buffers (frame_kernel.pack_frame),
+    built once by the caller for the scene kernel's passes on a GPU;
+    ``plain``: run the scene kernel's plain version on any device.
     """
     arrays = scene.arrays
     constants = arrays.constants
@@ -68,10 +88,10 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
             break
         oa, da = o[lanes], d[lanes]
         hit = closest_hit(oa, da, scene, t_min=RAY_TMIN, t_max=RAY_TMAX,
-                          cull_backface=True, level=level)
+                          cull_backface=True, level=level, pack=pack, plain=plain)
         nrm = hit.normal
         hit_pos = oa + hit.t[:, None] * da
-        gid = hit.geometry_id.clamp(min=0)
+        gid = _material_rows(scene, hit.geometry_id)
         albedo = mats.albedo[gid]
         refl_coef = mats.reflectance_coefficient[gid]
         diff_coef = mats.diffuse_coefficient[gid]
@@ -91,7 +111,8 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
             needed = hit.hit & ((kd > 0.0) | (spec_coef * ks > 0.0))
             shadow_dir = hlsl.normalize(light_pos - hit_pos)
             in_shadow = any_hit(hit_pos, shadow_dir, scene, t_min=RAY_TMIN,
-                                t_max=RAY_TMAX, active=needed, level=level)
+                                t_max=RAY_TMAX, active=needed, level=level, pack=pack,
+                                plain=plain)
 
         phong = shade.phong_lighting(
             albedo, nrm, in_shadow, hit_pos, da, light_pos,
@@ -137,31 +158,43 @@ def render_frame(scene: Scene, width: int, height: int, *,
     """Full frame, the DispatchRays(W, H, 1) analog; returns an (H, W, 4)
     float32 radiance image on the scene's device.
 
-    A CUDA scene renders through the hand-written frame kernel, which
-    raises for a scene or mode it does not cover; a CPU scene renders
-    through the wavefront above."""
+    A CUDA scene renders through the hand-written frame kernel when it is
+    fused-eligible (frame_kernel.fused_eligible_layout), else through the
+    wavefront with its traversal passes in the hand-written scene kernel;
+    what neither kernel covers raises. A CPU scene renders through the
+    wavefront."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     dev = scene.arrays.aabb_min.device
-    if dev.type == "cuda":
-        frame_kernel.check_kernel_covers(scene.layout, scene.arrays.materials.albedo.shape[0])
-        pack = frame_kernel.pack_frame(scene)
+    if dev.type != "cuda":
+        return render_wavefront(scene, width, height, max_depth=max_depth)
+    frame_kernel.check_kernel_covers(scene.layout)
+    pack = frame_kernel.pack_frame(scene)
+    if frame_kernel.fused_eligible_layout(scene.layout, scene.arrays.materials.albedo.shape[0]):
         return frame_kernel.render_frame_tiles(pack, width=width, height=height,
                                                max_depth=max_depth)
-    return render_wavefront(scene, width, height, max_depth=max_depth)
+    return render_wavefront(scene, width, height, max_depth=max_depth, pack=pack)
 
 
 def render_wavefront(scene: Scene, width: int, height: int, *,
-                     max_depth: int = MAX_RAY_RECURSION_DEPTH):
-    """Raygen + trace_radiance over the whole frame on the scene's device:
-    the frame kernel's plain version."""
+                     max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
+                     plain: bool = False):
+    """Raygen + trace_radiance over the whole frame on the scene's device.
+    With ``plain`` (or on the CPU) every pass is plain PyTorch: the frame
+    kernel's plain version. Otherwise, on a GPU, the traversal passes run
+    in the scene kernel (``pack``: the frame's packed buffers, built here
+    if None)."""
+    from gpuraytracer_tpu_torch.kernels import frame_kernel
+
     dev = scene.arrays.aabb_min.device
+    if dev.type == "cuda" and pack is None and not plain:
+        pack = frame_kernel.pack_frame(scene)
     px, py = cam.pixel_grid(width, height, dev)
     c = scene.arrays.constants
     origins, directions = cam.generate_camera_rays(
         px, py, width, height, c.camera_position, c.projection_to_world)
     return trace_radiance(origins, directions, px, py, width, height, scene,
-                          max_depth=max_depth)
+                          max_depth=max_depth, pack=pack, plain=plain)
 
 
 def to_rgba8(image_f32):

@@ -202,3 +202,17 @@ def test_analytical_checkers():
     port = t_checkers.analytical_checkers(_t(hit), _t(up), _t(px), _t(py), w, h,
                                           _t(eye), _t(p2w))
     _close(port, ref, atol=1e-5)
+
+
+def test_render_config_defaults_to_the_card():
+    # An entry point runs on the card unless the caller asks for the CPU;
+    # the rest of RenderConfig follows the reference's defaults.
+    from gpuraytracer_tpu.core.config import RenderConfig as JConfig
+    from gpuraytracer_tpu_torch.core.config import RenderConfig
+
+    config = RenderConfig()
+    assert config.device == "cuda"
+    ref = JConfig()
+    assert (config.width, config.height, config.max_recursion_depth) == (
+        ref.width, ref.height, ref.max_recursion_depth)
+    assert RenderConfig(device="cpu").device == "cpu"

@@ -107,8 +107,12 @@ def test_renderer_animates_and_resizes(small_frame):
 
 
 def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
+    # render_frame on a GPU: fused-eligible scenes go to the frame kernel,
+    # every other covered scene to the wavefront with the scene kernel, and
+    # what neither kernel covers raises, naming the unported kernel.
     layout = builtin.LAYOUT
-    frame_kernel.check_kernel_covers(layout, 11)
+    frame_kernel.check_kernel_covers(layout)
+    assert frame_kernel.fused_eligible_layout(layout, 11)
     for key, value, kernel in (
         ("GPURT_FRAME_MODE", "compact", "render_frame_compact"),
         ("GPURT_FRAME_MODE", "defer", "render_frame_deferred"),
@@ -117,13 +121,17 @@ def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
         with monkeypatch.context() as m:
             m.setenv(key, value)
             with pytest.raises(NotImplementedError, match=kernel):
-                frame_kernel.check_kernel_covers(layout, 11)
+                frame_kernel.check_kernel_covers(layout)
     meshes = dataclasses.replace(
         layout, kinds=layout.kinds[:-1] + (IntersectorKind.TRIANGLE,))
-    with pytest.raises(NotImplementedError, match="scene_closest_tiles"):
-        frame_kernel.check_kernel_covers(meshes, 11)
-    with pytest.raises(NotImplementedError, match="scene_closest_tiles"):
-        frame_kernel.check_kernel_covers(layout, 17)
+    with pytest.raises(NotImplementedError, match="_intersect_trimesh_tile"):
+        frame_kernel.check_kernel_covers(meshes)
+    # 17 unique materials, or GPURT_DISABLE_FUSED: the scene-kernel wavefront.
+    assert not frame_kernel.fused_eligible_layout(layout, 17)
+    with monkeypatch.context() as m:
+        m.setenv("GPURT_DISABLE_FUSED", "1")
+        frame_kernel.check_kernel_covers(layout)
+        assert not frame_kernel.fused_eligible_layout(layout, 11)
 
 
 def test_cuda_renderer_without_a_gpu_raises():

@@ -1,6 +1,8 @@
 """The PyTorch port never imports JAX: a fresh interpreter imports every
-module of the package, renders a small frame on the CPU through the CLI,
-and checks that neither ``jax`` nor the JAX package entered sys.modules."""
+module of the package (among them every module of the bench-scene slice),
+renders a small frame on the CPU through the CLI, runs the bench suite on
+one scene at a tiny size, and checks that neither ``jax`` nor the JAX
+package entered sys.modules."""
 
 import os
 import subprocess
@@ -12,9 +14,17 @@ _SRC = r"""
 import pkgutil, sys
 import torch
 import gpuraytracer_tpu_torch as pkg
+names = set()
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     __import__(mod.name)
-from gpuraytracer_tpu_torch.apps import render_cli
+    names.add(mod.name[len(pkg.__name__) + 1:])
+slice_modules = {"geometry.fractal", "geometry.registry", "accel.bvh", "models.builder",
+                 "models.scenes", "kernels.scene_kernel", "utils.stats", "apps.bench_suite"}
+assert slice_modules <= names, sorted(slice_modules - names)
+from gpuraytracer_tpu_torch.apps import bench_suite, render_cli
+assert bench_suite.main(["--device", "cpu", "--configs", "single_sphere_plane_256",
+                         "--scale", "0.05", "--frames", "1", "--reps", "1",
+                         "--wall-chain", "1"]) == 0
 out = sys.argv[1]
 assert render_cli.main(["--device", "cpu", "--width", "8", "--height", "8",
                         "--time", "0.7", "--out", out]) == 0
