@@ -6,9 +6,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases (each prints its result and its seconds; any failure raises and
 exits non-zero):
   1. device   fail without CUDA; print the card's name and power limit
-  2. build    build both kernels from csrc/ with nvcc, all builds at once
-              (both kernels with --fmad true and false, and the
-              op-counting builds of both); print ptxas' registers
+  2. build    build the three kernel libraries from csrc/ with nvcc, all
+              builds at once (each with --fmad true and false, and the
+              op-counting build of each); print ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
@@ -35,6 +35,20 @@ exits non-zero):
               kernel's cap, so the scene kernel renders it either way),
               and 384 instances, whose buffers take over the 48 KB of
               shared memory a block gets without opting in
+  9. mesh     the march kernel (csrc/megakernel.cu) against its plain version
+              on ray batches for every SDF code, closest and occlusion, at
+              the level-0 and the bounce budget; the three mesh scenes of
+              models/meshes.py at 96x54 against their goldens and at
+              320x180 against their route's plain version (the octahedra
+              also with GPURT_DISABLE_FUSED=1, through the scene kernel);
+              16-frame 1080p windows of mesh_octahedra and
+              mesh_heightfield_512 (frame kernel) and mesh_heightfield_sdf
+              (per-geometry route, its exact march and mesh launch counts);
+              the march and mesh calls of the 1080p level-0 closest pass
+              against their plain versions (ray-batch bar over the gated
+              rays, normals, gated-out rays miss) and alone, with op counts
+              and bounds; one 1080p mesh_octahedra frame-kernel frame
+              against its plain version
 Then the kernel JSON line, the card line, and the final JSON status line.
 
 Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
@@ -44,7 +58,11 @@ kernel to its XLA path): fewer than 2% of pixels with max-channel |diff| >
 where gid agrees: on every such ray for the scene kernel built without
 contraction (--fmad=false), which repeats the plain arithmetic; on >= 98%
 of them for the shipped build, where contraction moves a march crossing by
-a step on a few rays.
+a step on a few rays. The one-geometry calls of phase 9 are held to the
+same bar over the rays their gate admits (hits for gid), and in addition:
+normals within 1e-2 on >= 98% of the valid hits whose t agrees (printed
+only for the shipped build's code-8 batches, see phase 9), and every ray
+outside the gate a miss.
 
 Bounds: the larger of the bytes a call must move (inputs read once,
 outputs written once) over 3.35 TB/s and its f32 FLOPs over 67 TFLOP/s,
@@ -99,6 +117,27 @@ def bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ray_agreement(k_out, p_out, gate):
+    """A one-geometry call (hit, t, normal) against its plain version over
+    the rays its gate admits: (hit agreement on the gated rays, share of
+    both-hit rays with |dt| <= 1e-3, max |dt|, share of the valid both-hit
+    rays whose t agrees with normals within 1e-2, max normal |diff| there,
+    whether every ray outside the gate misses). A capped hit (t = 0) takes
+    its normal at the ray origin, which no caller reads: not compared."""
+    (k_hit, k_t, k_n), (p_hit, p_t, p_n) = k_out, p_out
+    agree = float((k_hit == p_hit)[gate].float().mean()) if bool(gate.any()) else 1.0
+    both = k_hit & p_hit
+    dt = (k_t - p_t).abs()
+    dtb = dt[both]
+    close = float((dtb <= 1e-3).float().mean()) if dtb.numel() else 1.0
+    dt_max = float(dtb.max()) if dtb.numel() else 0.0
+    dn = (k_n - p_n).abs().amax(dim=-1)[both & (dt <= 1e-3) & (p_t > 0.0)]
+    n_close = float((dn <= 1e-2).float().mean()) if dn.numel() else 1.0
+    dn_max = float(dn.max()) if dn.numel() else 0.0
+    outside = bool(torch.isinf(k_t[~gate]).all())
+    return agree, close, dt_max, n_close, dn_max, outside
+
+
 class Phase:
     def __init__(self, name):
         self.name = name
@@ -114,21 +153,26 @@ class Phase:
 
 
 def reset_counts():
-    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
 
     frame_kernel.LAUNCHES = 0
     scene_kernel.LAUNCHES = 0
+    megakernel.LAUNCHES = 0
+    megakernel.MESH_LAUNCHES = 0
 
 
 def counts():
-    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+    """(frame kernel, scene kernel, megakernel march, megakernel mesh entry)
+    launches."""
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
 
-    return frame_kernel.LAUNCHES, scene_kernel.LAUNCHES
+    return (frame_kernel.LAUNCHES, scene_kernel.LAUNCHES, megakernel.LAUNCHES,
+            megakernel.MESH_LAUNCHES)
 
 
 def animated_window(renderer, dev, label, w, h):
     """16 animated frames through renderer.render, timed by CUDA events:
-    (ms/frame, (frame launches, scene launches)); every frame is checked
+    (ms/frame, counts(), max background share); every frame is checked
     finite and not mostly background."""
     renderer.render(0.0)  # warm-up (module load), not counted
     torch.cuda.synchronize()
@@ -205,12 +249,10 @@ def main() -> int:
 
     # 2. build --------------------------------------------------------------
     with Phase("build"):
-        builds = [("frame_kernel", build.DEFAULT_FMAD, False),
-                  ("frame_kernel", not build.DEFAULT_FMAD, False),
-                  ("scene_kernel", build.DEFAULT_FMAD, False),
-                  ("scene_kernel", not build.DEFAULT_FMAD, False),
-                  ("frame_kernel", build.DEFAULT_FMAD, True),
-                  ("scene_kernel", build.DEFAULT_FMAD, True)]
+        builds = [(name, fmad, count)
+                  for name in ("frame_kernel", "scene_kernel", "megakernel")
+                  for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
+                                      (build.DEFAULT_FMAD, True))]
         reports = build.compile_all(builds)
         for (name, fmad, count), report in reports.items():
             used = " | ".join(line.split("ptxas info    : ")[-1].strip()
@@ -264,12 +306,11 @@ def main() -> int:
 
     # 6. main path: Renderer at 1920x1080, 16 animated frames -----------------
     with Phase("main"):
-        ms_frame, (f_launch, s_launch), bg_max = animated_window(
+        ms_frame, launched, bg_max = animated_window(
             Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p", W_MAIN, H_MAIN)
-        if (f_launch, s_launch) != (FRAMES, 0):
-            raise AssertionError(f"{f_launch} frame / {s_launch} scene kernel launches for "
-                                 f"{FRAMES} frames")
-        frame_launches = f_launch
+        if launched != (FRAMES, 0, 0, 0):
+            raise AssertionError(f"{launched} launches for {FRAMES} frames")
+        frame_launches = f_launch = launched[0]
         scene = builtin.animate_arrays(
             builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev).arrays, 0.0333 * 8)
         pack_m = frame_kernel.pack_frame(Scene(builtin.LAYOUT, scene))
@@ -302,7 +343,7 @@ def main() -> int:
             reset_counts()
             img = trace.render_frame(cfg.build(96 / 54, 0.7, device=dev), 96, 54,
                                      max_depth=cfg.max_depth)
-            if counts() != (1, 0):
+            if counts() != (1, 0, 0, 0):
                 raise AssertionError(f"{cfg.name}: 96x54 frame launched {counts()}")
             ok, frac, tight, _ = bar(img, golden(cfg.name))
             print(f"[suite] {cfg.name} 96x54 vs golden: flipped {frac:.6f}, within 1e-5 "
@@ -325,7 +366,7 @@ def main() -> int:
             renderer = Renderer(cfg.width, cfg.height, device=dev, scene_factory=cfg.build,
                                 animate=cfg.builder().animator(), max_depth=cfg.max_depth)
             ms, launched, bg_max = animated_window(renderer, dev, cfg.name, cfg.width, cfg.height)
-            if launched != (FRAMES, 0):
+            if launched != (FRAMES, 0, 0, 0):
                 raise AssertionError(f"{cfg.name}: {launched} launches for {FRAMES} frames")
             pack_f = frame_kernel.pack_frame(cfg.build(cfg.width / cfg.height, 0.0333 * 8,
                                                        device=dev))
@@ -399,7 +440,7 @@ def main() -> int:
         reset_counts()
         img = trace.render_frame(scene_s, w, h)
         torch.cuda.synchronize()
-        if counts() != (0, 5):
+        if counts() != (0, 5, 0, 0):
             raise AssertionError(f"builtin 320x180 wavefront frame launched {counts()}")
         pack_s = frame_kernel.pack_frame(scene_s)
         for label, ref in (("frame kernel", frame_kernel.render_frame_tiles(pack_s, width=w, height=h)),
@@ -412,7 +453,7 @@ def main() -> int:
 
         ms_scene_frame, launched, bg_max = animated_window(
             Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p wavefront", W_MAIN, H_MAIN)
-        if launched != (0, 5 * FRAMES):
+        if launched != (0, 5 * FRAMES, 0, 0):
             raise AssertionError(f"builtin 1080p wavefront: {launched} launches for {FRAMES} "
                                  f"frames (expected 0 frame, {5 * FRAMES} scene)")
         scene_launches = launched[1]
@@ -467,9 +508,10 @@ def main() -> int:
                 reset_counts()
                 img = trace.render_frame(scene_x, w, h)
                 torch.cuda.synchronize()
-                f_n, s_n = counts()
+                f_n, s_n, m_n, t_n = counts()
                 fused = not disabled and pack_x.num_materials <= frame_kernel.MAX_MATERIALS
-                if (f_n, s_n) != (1, 0) if fused else not (f_n == 0 and 1 <= s_n <= 5):
+                if (m_n, t_n) != (0, 0) or (
+                        (f_n, s_n) != (1, 0) if fused else not (f_n == 0 and 1 <= s_n <= 5)):
                     raise AssertionError(f"{nx * nz} instances: launched {(f_n, s_n)}")
                 ok, frac, tight, err = bar(img, plain)
                 print(f"[scene] {nx * nz} instances, {pack_x.num_materials} materials "
@@ -480,6 +522,221 @@ def main() -> int:
                 if not ok:
                     raise AssertionError(f"{nx * nz} instances: frame disagrees with plain")
     del os.environ["GPURT_DISABLE_FUSED"]
+
+    # 9. triangle meshes and the per-geometry route ---------------------------
+    with Phase("mesh"):
+        from gpuraytracer_tpu_torch.geometry import analytic
+        from gpuraytracer_tpu_torch.kernels import megakernel
+        from gpuraytracer_tpu_torch.models import meshes
+
+        # The march kernel against its plain version on ray batches: every SDF code,
+        # closest and occlusion, at the level-0 and the bounce budget of a
+        # geometry of natural budget 512, with the window of an AABB-windowed
+        # code, as the per-geometry route passes them.
+        gen = torch.Generator().manual_seed(9)
+        n = 65536
+        o = torch.rand(n, 3, generator=gen) * 6.0 - 3.0
+        d = hlsl.normalize(torch.rand(n, 3, generator=gen) * 1.2 - 0.6 - o)
+        o, d = o.to(dev), d.to(dev)
+        mega_err = 0.0
+        for code in range(9):
+            gate = torch.ones(n, dtype=torch.bool, device=dev)
+            t_max = torch.full((n,), 10.0, device=dev)
+            w_start = None
+            windowed = code in sdf.AABB_WINDOWED_CODES
+            if windowed:
+                lo, hi = analytic.aabb_interval(o, d, torch.full((3,), -1.0, device=dev),
+                                                torch.full((3,), 1.0, device=dev))
+                w_start, t_max = lo.clamp(min=0.0), torch.minimum(t_max, hi)
+                gate = (hi > lo) & (t_max > w_start)
+            for occlusion in (False, True):
+                for level in (0, 1):
+                    steps, capped = sdf.march_budget(512, occlusion=occlusion, level=level)
+                    kw = dict(prim_code=code, cull_backface=not windowed, max_steps=steps,
+                              t_start=w_start, capped_hit=capped,
+                              relax=sdf.relax_for_code(code, occlusion=occlusion))
+                    p_out = megakernel.sphere_trace_plain(o, d, gate, t_max, 0.9, **kw)
+                    line, ok = [], True
+                    for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
+                        k_out = megakernel.sphere_trace_tiles(
+                            o, d, gate, t_max, 0.9, lib=build.load("megakernel", fmad=fmad), **kw)
+                        agree, close, dt_max, n_close, dn_max, outside = ray_agreement(
+                            k_out, p_out, gate)
+                        # Code 8's 11 quaternion Julia iterations are chaotic:
+                        # contraction changes the last bits of its distances and
+                        # the tetrahedral normal (a difference at offset 5.8e-5)
+                        # amplifies them, so the shipped build's code-8 normals
+                        # are printed, not held; the build without contraction,
+                        # which repeats the plain arithmetic, holds them.
+                        normals_held = code != 8 or fmad != build.DEFAULT_FMAD
+                        ok = ok and agree >= 0.98 and outside and (
+                            n_close >= 0.98 or not normals_held) and (
+                            close >= 0.98 if fmad == build.DEFAULT_FMAD else dt_max <= 1e-3)
+                        if fmad == build.DEFAULT_FMAD:
+                            mega_err = max(mega_err, dt_max)
+                        line.append(f"fmad={fmad}: hit agrees on {agree:.6f} of gated rays, "
+                                    f"|dt| <= 1e-3 on {close:.6f} of both-hit rays, max |dt| "
+                                    f"{dt_max:.6g}, normals within 1e-2 on {n_close:.6f} "
+                                    f"(max {dn_max:.6g})")
+                    print(f"[mesh] march code {code} {'occlusion' if occlusion else 'closest'} "
+                          f"budget {steps}{' capped-hit' if capped else ''}: {int(gate.sum())} "
+                          f"gated rays, {int(p_out[0].sum())} plain hits; " + "; ".join(line),
+                          flush=True)
+                    if not ok:
+                        raise AssertionError(f"march code {code}: kernel disagrees with plain")
+
+        # The three mesh scenes: 96x54 against their goldens, 320x180 against
+        # their route's plain version; the octahedra also on the wavefront.
+        def route_plain(scene_r, w, h, max_depth):
+            if traverse._total_mesh_faces(scene_r) > traverse.TRI_FACE_TOTAL_CAP:
+                return trace.render_wavefront(scene_r, w, h, max_depth=max_depth, plain=True)
+            return frame_kernel.render_frame_plain(frame_kernel.pack_frame(scene_r), width=w,
+                                                   height=h, max_depth=max_depth)
+
+        sdf_cfg = meshes.get_config("mesh_heightfield_sdf")
+        probe = sdf_cfg.build(1.0, 0.0, device=dev)
+        n_sdf = sum(int(k) == 2 for k in probe.layout.kinds)
+        n_mesh = len(probe.arrays.meshes)
+        per_frame = {"mesh_octahedra": (1, 0, 0, 0), "mesh_heightfield_512": (1, 0, 0, 0),
+                     # 3 closest + 2 occlusion passes (trace_radiance at depth
+                     # 3), each one launch per SDF geometry and one per mesh.
+                     "mesh_heightfield_sdf": (0, 0, 5 * n_sdf, 5 * n_mesh)}
+        for cfg, disabled in [(c, False) for c in meshes.MESH_CONFIGS] + [
+                (meshes.get_config("mesh_octahedra"), True)]:
+            expect = (0, 5, 0, 0) if disabled else per_frame[cfg.name]
+            if disabled:
+                os.environ["GPURT_DISABLE_FUSED"] = "1"
+            label = cfg.name + (" GPURT_DISABLE_FUSED=1" if disabled else "")
+            reset_counts()
+            img = trace.render_frame(cfg.build(96 / 54, 0.7, device=dev), 96, 54,
+                                     max_depth=cfg.max_depth)
+            torch.cuda.synchronize()
+            if counts() != expect:
+                raise AssertionError(f"{label}: 96x54 frame launched {counts()}, not {expect}")
+            ref = torch.from_numpy(np.load(os.path.join(
+                ROOT, "tests", f"golden_torch_{cfg.name}_96x54_t0p7.npz"))["image"])
+            ok, frac, tight, _ = bar(img, ref)
+            print(f"[mesh] {label} 96x54 vs golden: launched {counts()}; flipped {frac:.6f}, "
+                  f"within 1e-5 {tight:.6f}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: disagrees with the golden")
+            scene_r = cfg.build(320 / 180, 0.7, device=dev)
+            img = trace.render_frame(scene_r, 320, 180, max_depth=cfg.max_depth)
+            plain = route_plain(scene_r, 320, 180, cfg.max_depth)
+            ok, frac, tight, err = bar(img, plain)
+            alt = ""
+            if expect[0]:
+                # The frame kernel's other contraction mode, on the same frame.
+                other = frame_kernel.render_frame_tiles(
+                    frame_kernel.pack_frame(scene_r), width=320, height=180,
+                    max_depth=cfg.max_depth,
+                    lib=build.load("frame_kernel", fmad=not build.DEFAULT_FMAD))
+                alt = f"; fmad={not build.DEFAULT_FMAD} build flipped {bar(other, plain)[1]:.6f}"
+            print(f"[mesh] {label} 320x180 vs its route's plain version: flipped {frac:.6f}, "
+                  f"within 1e-5 {tight:.6f}, max |diff| {err:.6g}{alt}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: disagrees with its route's plain version")
+            if disabled:
+                del os.environ["GPURT_DISABLE_FUSED"]
+
+        # 16-frame 1080p windows: the octahedra and the 512-face heightfield
+        # through the frame kernel, the 544-face scene on the per-geometry
+        # route.
+        for name in ("mesh_octahedra", "mesh_heightfield_512", "mesh_heightfield_sdf"):
+            cfg = meshes.get_config(name)
+            renderer = Renderer(cfg.width, cfg.height, device=dev, scene_factory=cfg.build,
+                                animate=cfg.builder().animator(), max_depth=cfg.max_depth)
+            ms, launched, bg_max = animated_window(renderer, dev, name, cfg.width, cfg.height)
+            expect = tuple(FRAMES * c for c in per_frame[name])
+            if launched != expect:
+                raise AssertionError(f"{name}: {launched} launches for {FRAMES} frames, "
+                                     f"not {expect}")
+            if name == "mesh_heightfield_sdf":
+                mega_launches, mesh_launches = launched[2], launched[3]
+            print(f"[mesh] {name} {cfg.width}x{cfg.height} depth {cfg.max_depth}, {FRAMES} "
+                  f"frames: launches (frame, scene, march, mesh) {launched}, background <= "
+                  f"{bg_max:.3f}; {ms:.3f} ms/frame, {cfg.width * cfg.height / ms / 1e3:.3f} "
+                  f"Mrays/s; {card}", flush=True)
+
+        # The march kernel and the mesh entry alone, at the shapes of the 544-face
+        # scene's 1080p level-0 closest pass (the route's largest): the
+        # calls are recorded from the pass itself.
+        scene_m9 = sdf_cfg.build(W_MAIN / H_MAIN, 0.0333 * 8, device=dev)
+        calls = {"march": [], "mesh": []}
+        real = {"march": megakernel.sphere_trace_tiles, "mesh": megakernel.trimesh_closest}
+
+        def recorder(kind):
+            def record(*args, **kw):
+                calls[kind].append((args, kw))
+                return real[kind](*args, **kw)
+            return record
+
+        megakernel.sphere_trace_tiles = recorder("march")
+        megakernel.trimesh_closest = recorder("mesh")
+        try:
+            px, py = cam.pixel_grid(W_MAIN, H_MAIN, dev)
+            c = scene_m9.arrays.constants
+            o, d = cam.generate_camera_rays(px, py, W_MAIN, H_MAIN, c.camera_position,
+                                            c.projection_to_world)
+            traverse.closest_hit(o.reshape(-1, 3), d.reshape(-1, 3), scene_m9, level=0)
+        finally:
+            megakernel.sphere_trace_tiles, megakernel.trimesh_closest = real["march"], real["mesh"]
+        if (len(calls["march"]), len(calls["mesh"])) != (n_sdf, n_mesh):
+            raise AssertionError(f"1080p pass made {len(calls['march'])} march and "
+                                 f"{len(calls['mesh'])} mesh calls")
+        alone = {}
+        for kind, plain_fn in (("march", megakernel.sphere_trace_plain),
+                               ("mesh", megakernel.trimesh_closest_plain)):
+            k_ms = p_ms = nbytes = err = 0.0
+            k_ops = 0
+            for args, kw in calls[kind]:
+                t, _ = cuda_ms(lambda: real[kind](*args, **kw), 10)
+                k_ms += t
+                ops.zero_()
+                real[kind](*args, ops=ops, lib=build.load("megakernel", count_ops=True), **kw)
+                k_ops += int(ops.item())
+                t, p_out = cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False)
+                p_ms += t
+                k_out = real[kind](*args, **kw)
+                # march: (o, d, gate, ...); mesh entry: (rows, o, d, gate, ...)
+                rays, gate = (args[0], args[2]) if kind == "march" else (args[1], args[3])
+                rays, gated = rays.shape[0], int(gate.sum())
+                agree, close, dt_max, n_close, dn_max, outside = ray_agreement(k_out, p_out, gate)
+                err = max(err, dt_max)
+                print(f"[mesh] 1080p {kind} call: {gated} of {rays} rays gated; hit agrees on "
+                      f"{agree:.6f} of them, |dt| <= 1e-3 on {close:.6f} of both-hit rays "
+                      f"(max {dt_max:.6g}), normals within 1e-2 on {n_close:.6f} (max "
+                      f"{dn_max:.6g}), gated-out rays miss: {outside}", flush=True)
+                if not (agree >= 0.98 and close >= 0.98 and n_close >= 0.98 and outside):
+                    raise AssertionError(f"1080p {kind} call disagrees with its plain version")
+                # Every ray reads its gate and writes t_hit and its normal; only
+                # a gated ray reads o, d, t_max (and the march's t_start).
+                t_start_b = 4 if kw.get("t_start") is not None else 0
+                nbytes += rays * (1 + 16) + gated * (12 + 12 + 4 + t_start_b)
+                if kind == "mesh":
+                    nbytes += args[0].numel() * 4
+            b_ms, b_by = bound(nbytes, k_ops)
+            alone[kind] = dict(ms=k_ms, plain_ms=p_ms, ops=k_ops, nbytes=nbytes, bound_ms=b_ms,
+                               bound_by=b_by, err=err)
+            print(f"[mesh] {kind} calls of the 1080p level-0 closest pass ({len(calls[kind])} "
+                  f"calls): kernel {k_ms:.3f} ms ({k_ops} f32 FLOPs, {int(nbytes)} bytes: bound "
+                  f"{b_ms:.4f} ms by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+
+        # The mesh body inside the frame kernel at 1080p: one mesh_octahedra
+        # frame against its plain version, as phase 6 holds the builtin one.
+        oct_cfg = meshes.get_config("mesh_octahedra")
+        pack_o = frame_kernel.pack_frame(oct_cfg.build(oct_cfg.width / oct_cfg.height,
+                                                       0.0333 * 8, device=dev))
+        kimg = frame_kernel.render_frame_tiles(pack_o, width=oct_cfg.width,
+                                               height=oct_cfg.height, max_depth=oct_cfg.max_depth)
+        pimg = frame_kernel.render_frame_plain(pack_o, width=oct_cfg.width,
+                                               height=oct_cfg.height, max_depth=oct_cfg.max_depth)
+        ok, frac, tight, oct_err = bar(kimg, pimg)
+        print(f"[mesh] mesh_octahedra {oct_cfg.width}x{oct_cfg.height} t={0.0333 * 8:.4f} frame "
+              f"kernel vs plain: flipped {frac:.6f}, within 1e-5 {tight:.6f}, max |diff| "
+              f"{oct_err:.6g}", flush=True)
+        if not ok:
+            raise AssertionError("mesh_octahedra: frame kernel disagrees with plain at 1080p")
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
@@ -505,6 +762,30 @@ def main() -> int:
         "plain_ms": scene_plain_ms,
         "bound_ms": scene_bound,
         "bound_by": scene_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "megakernel_sphere_trace",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/megakernel.cu",
+        "replaces": "gpuraytracer_tpu/kernels/megakernel.py:103",
+        "launches": mega_launches,
+        "max_abs_err": max(mega_err, alone["march"]["err"]),
+        "ms": alone["march"]["ms"],
+        "plain_ms": alone["march"]["plain_ms"],
+        "bound_ms": alone["march"]["bound_ms"],
+        "bound_by": alone["march"]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "megakernel_trimesh",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/megakernel.cu",
+        "replaces": "gpuraytracer_tpu/geometry/trimesh.py:135",
+        "launches": mesh_launches,
+        "max_abs_err": alone["mesh"]["err"],
+        "ms": alone["mesh"]["ms"],
+        "plain_ms": alone["mesh"]["plain_ms"],
+        "bound_ms": alone["mesh"]["bound_ms"],
+        "bound_by": alone["mesh"]["bound_by"],
         "library_ms": None,
     }]}))
     print(card)

@@ -26,6 +26,7 @@ from gpuraytracer_tpu_torch.core.types import (
     SceneConstants,
     tensors_to,
 )
+from gpuraytracer_tpu_torch.geometry.trimesh import TriangleMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,12 +94,15 @@ class SceneArrays:
     blas_offset: torch.Tensor  # (3,) BLAS -> world translation
     plane_origin: torch.Tensor  # (3,) world-space corner of the ground quad
     plane_size: torch.Tensor  # (2,) world-space x/z extents of the quad
+    # Triangle meshes, indexed by a TRIANGLE geometry's prim_type (its slot).
+    meshes: Tuple[TriangleMesh, ...] = ()
 
     def to(self, device) -> "SceneArrays":
         return tensors_to(self, device)
 
     def to_numpy(self) -> dict:
-        """Flatten to {"constants.elapsed_time": ndarray, ...}."""
+        """Flatten to {"constants.elapsed_time": ndarray, ...}; mesh k's
+        rows go to "meshes.k.v0", "meshes.k.e1", ..."""
         return _flatten(self)
 
     @classmethod
@@ -119,6 +123,9 @@ def _flatten(obj, prefix="") -> dict:
             out.update(_flatten(v, key + "."))
         elif isinstance(v, torch.Tensor):
             out[key] = v.detach().cpu().numpy()
+        elif isinstance(v, tuple):
+            for k, item in enumerate(v):
+                out.update(_flatten(item, f"{key}.{k}."))
     return out
 
 
@@ -127,12 +134,23 @@ def _unflatten(cls, flat, prefix, device):
     for f in dataclasses.fields(cls):
         key = prefix + f.name
         sub = _DATACLASS_FIELDS.get(f.name)
-        if sub is not None:
+        if f.name == "meshes":
+            kw[f.name] = tuple(_unflatten(TriangleMesh, flat, f"{key}.{k}.", device)
+                               for k in range(_count_items(flat, key + ".")))
+        elif sub is not None:
             kw[f.name] = _unflatten(sub, flat, key + ".", device)
         else:
             kw[f.name] = torch.tensor(np.asarray(flat[key], dtype=np.float32),
                                       device=device)
     return cls(**kw)
+
+
+def _count_items(flat, prefix) -> int:
+    """Number of tuple items under ``prefix`` ("meshes." -> 0, 1, ...)."""
+    idx = {int(k[len(prefix):].split(".", 1)[0]) for k in flat if k.startswith(prefix)}
+    if idx != set(range(len(idx))):
+        raise ValueError(f"{prefix}: items {sorted(idx)} are not 0..n-1")
+    return len(idx)
 
 
 _DATACLASS_FIELDS = {

@@ -7,9 +7,14 @@ t (the shrinking RayTCurrent), with a strict-< closest reduction. Shadow
 rays use accept-first semantics (Raytracing.hlsl:115-147): any valid hit
 occludes, and back-face culling stays on.
 
-Rays are (N, 3). The plane is tested here; the procedural pass is one
-call of kernels/scene_kernel.scene_closest_tiles (the CUDA scene kernel
-on a GPU, its plain version, the per-geometry loop, on the CPU).
+Rays are (N, 3). The plane is tested here; the procedural pass takes one
+of two routes, as the reference's does (``_scene_kernel_eligible``). A
+scene of at most TRI_FACE_TOTAL_CAP mesh faces takes one call of
+kernels/scene_kernel.scene_closest_tiles: the CUDA scene kernel on a GPU.
+A GPU scene past the cap takes ``per_geometry_route``, one geometry at a
+time, with every SDF march and every mesh in csrc/megakernel.cu. On the
+CPU every pass is scene_closest_plain, the per-geometry loop with the XLA
+path's per-level budgets, which rendered every golden.
 """
 
 from __future__ import annotations
@@ -18,8 +23,19 @@ import functools
 
 import torch
 
-from gpuraytracer_tpu_torch.accel.instances import Scene, ray_to_blas
+from gpuraytracer_tpu_torch.accel.instances import Scene, SceneArrays, ray_to_blas
 from gpuraytracer_tpu_torch.core.types import HitRecord, RAY_TMAX, RAY_TMIN
+
+# The reference's mesh caps (gpuraytracer_tpu/accel/traverse.py:196-207):
+# meshes of at most TRI_FACE_CAP faces unroll in the TPU kernels, larger
+# ones stream; a scene of more than TRI_FACE_TOTAL_CAP faces in all takes
+# neither the frame nor the scene kernel but the per-geometry route. The
+# port keeps the faces in global memory, where no such ceiling exists, and
+# keeps the rule so that every scene takes the reference's route (the
+# per-geometry route marches at other budgets, so the route shows in the
+# image).
+TRI_FACE_CAP = 64
+TRI_FACE_TOTAL_CAP = 512
 
 
 def intersect_plane(origins, directions, plane_origin, plane_size, *, t_min, t_max):
@@ -38,9 +54,67 @@ def intersect_plane(origins, directions, plane_origin, plane_size, *, t_min, t_m
     return hit, torch.where(hit, t, torch.inf)
 
 
-def _procedural_pass(plain, pack):
+def _total_mesh_faces(scene: Scene) -> int:
+    """Faces over every mesh of the scene, counted raw as the reference
+    counts them. (The reference's note that padded rows are what fill the
+    TPU's scalar memory is about that memory; the port keeps faces in
+    global memory and counts raw faces, so that it routes every scene as
+    the reference does.)"""
+    return sum(m.num_faces for m in scene.arrays.meshes)
+
+
+def _scene_kernel_eligible(scene: Scene) -> bool:
+    """Whether a GPU pass takes the scene kernel (the reference's rule,
+    traverse.py:214-232, in which only the face cap decides on the card:
+    the kernel covers every kind); else it takes ``per_geometry_route``."""
+    return scene.layout.num_procedural > 0 and _total_mesh_faces(scene) <= TRI_FACE_TOTAL_CAP
+
+
+def pack_tri_rows(arrays: SceneArrays):
+    """Every mesh's faces in one (F, 12) f32 table [v0 | e1 | e2 | n] on the
+    arrays' device, and each mesh slot's (start, count) in it. The
+    reference's padding of large meshes to its stream chunk is a TPU
+    schedule and is dropped (its all-zero faces cannot hit)."""
+    rows, offsets, start = [], [], 0
+    for m in arrays.meshes:
+        rows.append(m.rows())
+        offsets.append((start, m.num_faces))
+        start += m.num_faces
+    if not rows:
+        return torch.zeros((0, 12), dtype=torch.float32, device=arrays.aabb_min.device), ()
+    return torch.cat(rows, dim=0).contiguous(), tuple(offsets)
+
+
+def per_geometry_route(plain: bool = False):
+    """The pass function of a GPU scene past TRI_FACE_TOTAL_CAP faces: the
+    reference's closest_hit / any_hit loop (traverse.py:337-395, 444-479)
+    as its TPU runs it, which is kernels/scene_kernel.scene_closest_plain
+    with every SDF march in csrc/megakernel.cu's march kernel and every
+    mesh in its mesh entry (one launch per geometry and pass over all the
+    pass's rays; analytic shapes and metaballs in their plain forms, as
+    the reference runs them in XLA), and every level marched at the level-0
+    budget (the reference's _dispatch_procedural, traverse.py:128-175, has
+    no bounce cap on this route). ``plain``: the two kernels' plain
+    versions."""
+    from gpuraytracer_tpu_torch.kernels import megakernel, scene_kernel
+
+    if plain:
+        march, mesh_closest = megakernel.sphere_trace_plain, megakernel.trimesh_closest_plain
+    else:
+        march, mesh_closest = megakernel.sphere_trace_tiles, megakernel.trimesh_closest
+    return functools.partial(scene_kernel.scene_closest_plain, budget_level=0, march=march,
+                             mesh_closest=mesh_closest)
+
+
+def _procedural_pass(scene: Scene, plain, pack):
+    """The pass function of the scene's route (see the module docstring);
+    ``plain`` picks the route's plain version on a GPU."""
     from gpuraytracer_tpu_torch.kernels import scene_kernel
 
+    if scene.arrays.aabb_min.device.type != "cuda":
+        return scene_kernel.scene_closest_plain
+    if not _scene_kernel_eligible(scene):
+        return per_geometry_route(plain)
     if plain:
         return scene_kernel.scene_closest_plain
     return functools.partial(scene_kernel.scene_closest_tiles, pack=pack)
@@ -78,12 +152,13 @@ def closest_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_
     indexes the geometry rows (procedural 0..P-1, plane == P, miss -1).
 
     The plane is tested here; the procedural pass starts from its t (else
-    t_max) in kernels/scene_kernel.scene_closest_tiles: the CUDA scene
-    kernel on a GPU (``pack``: the frame's packed buffers, if already
-    built), its plain version on the CPU or wherever ``plain`` is set."""
+    t_max) on the scene's route (``_procedural_pass``): on a GPU the scene
+    kernel or the per-geometry route (``pack``: the frame's packed buffers,
+    if already built; ``plain``: the route's plain version), on the CPU
+    the scene kernel's plain version."""
     hit_p, o_blas, d_blas, active, t0 = pass_inputs(
         origins, directions, scene, t_min=t_min, t_max=t_max, active=active)
-    best_t, normal, gid = _procedural_pass(plain, pack)(
+    best_t, normal, gid = _procedural_pass(scene, plain, pack)(
         scene, o_blas, d_blas, active, t0, level=level, cull_backface=cull_backface)
     hit_proc = gid >= 0
     geometry_id = torch.where(hit_proc, gid.to(torch.int64),
@@ -107,6 +182,6 @@ def any_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_TMAX
         active = torch.ones(origins.shape[0], dtype=torch.bool, device=origins.device)
     hit_p, o_blas, d_blas, remaining, t0 = pass_inputs(
         origins, directions, scene, t_min=t_min, t_max=t_max, active=active, occlusion=True)
-    _, _, gid = _procedural_pass(plain, pack)(
+    _, _, gid = _procedural_pass(scene, plain, pack)(
         scene, o_blas, d_blas, remaining, t0, level=level, accept_first=True)
     return (hit_p | (gid >= 0)) & active

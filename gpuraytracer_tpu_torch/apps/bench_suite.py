@@ -22,17 +22,29 @@ scenes, else the wavefront with the CUDA scene kernel
 (GPURT_DISABLE_FUSED=1 forces the latter). The JSON records which kernels
 ran and how many launches each frame made.
 
+``--ab-roots A,B,B,A`` instead times two checkouts' kernels in turns, on
+one card inside one call: for each root (a checkout of this repository,
+for example the parent commit unpacked with ``git archive`` into a
+directory that .gitignore lists), a fresh process imports that checkout's
+package, builds its kernels and times with CUDA events (one warm-up
+launch, then ``--reps`` launches) the frame kernel on the builtin
+1920x1080 frame at t = 0.2664 and the scene kernel's level-0 closest pass
+over that frame's camera rays; one JSON line per root.
+
 Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
 the host clock, for tiny smoke runs only):
   python -m gpuraytracer_tpu_torch.apps.bench_suite [--configs a,b]
          [--frames 4] [--reps 3] [--wall-chain 16] [--scale 1.0]
          [--json out.json] [--device cuda]
+  python -m gpuraytracer_tpu_torch.apps.bench_suite --ab-roots PARENT,.,.,PARENT
+         [--reps 20]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -153,6 +165,62 @@ def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = 16,
     return out
 
 
+_KERNEL_TIMING = r"""
+import json, sys, torch
+sys.path.insert(0, ROOT)
+from gpuraytracer_tpu_torch.accel import traverse
+from gpuraytracer_tpu_torch.accel.instances import Scene
+from gpuraytracer_tpu_torch.core import camera as cam
+from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+from gpuraytracer_tpu_torch.models import builtin
+
+assert frame_kernel.__file__.startswith(ROOT), frame_kernel.__file__
+dev = torch.device("cuda:0")
+w, h = 1920, 1080
+arrays = builtin.animate_arrays(builtin.build_scene(aspect=w / h, device=dev).arrays, 0.0333 * 8)
+scene = Scene(builtin.LAYOUT, arrays)
+pack = frame_kernel.pack_frame(scene)
+px, py = cam.pixel_grid(w, h, dev)
+c = arrays.constants
+o, d = cam.generate_camera_rays(px, py, w, h, c.camera_position, c.projection_to_world)
+_, ob, db, act, t0 = traverse.pass_inputs(o.reshape(-1, 3), d.reshape(-1, 3), scene)
+
+
+def timed(fn):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+frame_ms = timed(lambda: frame_kernel.render_frame_tiles(pack, width=w, height=h))
+scene_ms = timed(lambda: scene_kernel.scene_closest_tiles(scene, ob, db, act, t0, pack=pack))
+print(json.dumps({"root": ROOT, "frame_kernel_ms": frame_ms, "scene_kernel_pass_ms": scene_ms,
+                  "reps": REPS, "card": torch.cuda.get_device_name(0)}), flush=True)
+"""
+
+
+def ab_kernels(roots, reps: int) -> int:
+    """The builtin 1080p frame kernel and scene pass of each checkout in
+    ``roots``, in that order, each in a fresh process (see the module
+    docstring); prints one JSON line per root."""
+    for root in roots:
+        root = os.path.abspath(root)
+        code = f"ROOT = {root!r}\nREPS = {reps}\n" + _KERNEL_TIMING
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     from gpuraytracer_tpu_torch.models.scenes import BENCH_CONFIGS, get_config
 
@@ -167,7 +235,12 @@ def main(argv=None) -> int:
     p.add_argument("--scale", type=float, default=1.0, help="resolution scale factor")
     p.add_argument("--json", type=str, default="")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
+    p.add_argument("--ab-roots", type=str, default="",
+                   help="comma-separated checkout roots: time their kernels in turns instead")
     args = p.parse_args(argv)
+    if args.ab_roots:
+        print(card_line(), flush=True)
+        return ab_kernels(args.ab_roots.split(","), args.reps)
 
     configs = ([get_config(n) for n in args.configs.split(",") if n] if args.configs
                else list(BENCH_CONFIGS))

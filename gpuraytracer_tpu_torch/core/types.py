@@ -85,7 +85,7 @@ TOTAL_PRIMITIVE_COUNT = (
 
 def tensors_to(obj, device):
     """Return a copy of a frozen dataclass with every tensor field (and
-    nested dataclass field) moved to ``device``."""
+    nested dataclass field, alone or in a tuple) moved to ``device``."""
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
@@ -93,6 +93,8 @@ def tensors_to(obj, device):
             changes[f.name] = v.to(device)
         elif dataclasses.is_dataclass(v):
             changes[f.name] = tensors_to(v, device)
+        elif isinstance(v, tuple) and all(dataclasses.is_dataclass(x) for x in v):
+            changes[f.name] = tuple(tensors_to(x, device) for x in v)
     return dataclasses.replace(obj, **changes)
 
 

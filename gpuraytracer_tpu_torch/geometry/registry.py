@@ -8,9 +8,17 @@ intersector, so the traversal's plain version (kernels/scene_kernel.py)
 calls ``intersect`` and nothing else. Sphere traces take the geometry's
 natural budget capped by the level's knobs (sdf.march_budget); an
 AABB-windowed code (sdf.AABB_WINDOWED_CODES) skips the back-face cull and
-marches only inside its local unit box. ``intersect`` is a plain dispatch
-on the code, where the JAX package compiles a switch over every branch.
-The CUDA kernels hold the same table in csrc/traverse.cuh.
+marches only inside its local unit box. Every triangle mesh shares one
+entry (its prim_type is the scene's mesh slot; the caller hands the mesh
+in). ``intersect`` is a plain dispatch on the code, where the JAX package
+compiles a switch over every branch. The CUDA kernels hold the same table
+in csrc/traverse.cuh.
+
+The SDF and mesh entries take the march and the mesh test as optional
+callables in the form of kernels/megakernel.py's wrappers, which is how the
+per-geometry route (accel/traverse.per_geometry_route) runs them in
+csrc/megakernel.cu; by default they run the plain forms (sdf.march,
+trimesh.intersect_trimesh).
 """
 
 from __future__ import annotations
@@ -25,24 +33,31 @@ from gpuraytracer_tpu_torch.core.types import (
     SDF_MAX_STEPS,
     VolumetricPrimitive,
 )
-from gpuraytracer_tpu_torch.geometry import analytic, metaballs, sdf
+from gpuraytracer_tpu_torch.geometry import analytic, metaballs, sdf, trimesh
 
-# (kind, prim_type) -> fn(o, d, *, t_min, t_max, cull_backface, step_scale,
-#                         elapsed_time, natural_budget, occlusion, level,
-#                         with_normal) -> (hit, t, local normal or None)
+# (kind, prim_type) -> fn(o, d, *, t_min, t_max, cull_backface, active,
+#                         step_scale, elapsed_time, natural_budget, occlusion,
+#                         level, with_normal, mesh, march, mesh_closest)
+#                      -> (hit, t, local normal or None)
 _REGISTRY: Dict[Tuple[IntersectorKind, int], Callable] = {}
+
+
+def _key(kind, prim_type) -> Tuple[IntersectorKind, int]:
+    """Every mesh slot shares the TRIANGLE entry (slot 0)."""
+    kind = IntersectorKind(kind)
+    return kind, 0 if kind == IntersectorKind.TRIANGLE else int(prim_type)
 
 
 def register(kind: IntersectorKind, prim_type: int):
     def deco(fn):
-        _REGISTRY[(IntersectorKind(kind), int(prim_type))] = fn
+        _REGISTRY[_key(kind, prim_type)] = fn
         return fn
 
     return deco
 
 
 def lookup(kind: IntersectorKind, prim_type: int) -> Callable:
-    return _REGISTRY[(IntersectorKind(kind), int(prim_type))]
+    return _REGISTRY[_key(kind, prim_type)]
 
 
 def registered() -> Tuple[Tuple[IntersectorKind, int], ...]:
@@ -51,20 +66,28 @@ def registered() -> Tuple[Tuple[IntersectorKind, int], ...]:
 
 def intersect(kind, prim_type, o, d, *, t_min, t_max, cull_backface, step_scale,
               elapsed_time, natural_budget=SDF_MAX_STEPS, occlusion=False, level=0,
-              with_normal=True):
-    """One geometry's intersector over the lanes it is given (t_max per
-    lane): (hit, t, local normal or None). ``occlusion`` and ``level``
-    select the march's budget and relaxation; ``with_normal=False`` skips
-    a march's normal."""
-    if IntersectorKind(kind) == IntersectorKind.TRIANGLE:
-        raise NotImplementedError("triangle meshes: geometry/trimesh.py is not ported yet")
+              with_normal=True, mesh=None, active=None, march=None, mesh_closest=None):
+    """One geometry's intersector over (N, 3) local rays (t_max (N,)):
+    (hit, t, local normal or None), hit False outside ``active`` (N,) bool
+    (default: every lane), whose lanes marches and meshes skip.
+    ``occlusion`` and ``level`` select the march's budget and relaxation;
+    ``with_normal=False`` skips a plain march's normal; ``mesh``: a
+    TRIANGLE geometry's TriangleMesh; ``march``, ``mesh_closest``: the
+    SDF march and the mesh test in the form of
+    kernels/megakernel.sphere_trace_tiles and trimesh_closest (default:
+    the plain forms)."""
     try:
         fn = lookup(kind, prim_type)
     except KeyError:
         raise ValueError(f"no intersector for kind={kind} type={prim_type}") from None
-    return fn(o, d, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
-              step_scale=step_scale, elapsed_time=elapsed_time, natural_budget=natural_budget,
-              occlusion=occlusion, level=level, with_normal=with_normal)
+    if active is None:
+        active = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    hit, t, normal = fn(o, d, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
+                        active=active, step_scale=step_scale, elapsed_time=elapsed_time,
+                        natural_budget=natural_budget, occlusion=occlusion, level=level,
+                        with_normal=with_normal, mesh=mesh, march=march,
+                        mesh_closest=mesh_closest)
+    return hit & active, t, normal
 
 
 @register(IntersectorKind.ANALYTIC, AnalyticPrimitive.AABB)
@@ -79,11 +102,20 @@ def _spheres(o, d, *, t_min, t_max, cull_backface, **_):
                                       cull_backface=cull_backface)
 
 
+@register(IntersectorKind.TRIANGLE, 0)
+def _trimesh(o, d, *, t_min, t_max, cull_backface, active, mesh, mesh_closest, **_):
+    if mesh_closest is None:
+        return trimesh.intersect_trimesh(o, d, mesh, t_min=t_min, t_max=t_max,
+                                         cull_backface=cull_backface, active=active)
+    # The mesh entry's hit test is t >= 0: t_min is RAY_TMIN = 0 on every pass.
+    return mesh_closest(mesh.rows(), o, d, active, t_max, cull_backface=cull_backface)
+
+
 @register(IntersectorKind.VOLUMETRIC, VolumetricPrimitive.METABALLS)
-def _metaballs(o, d, *, t_min, t_max, cull_backface, elapsed_time, **_):
+def _metaballs(o, d, *, t_min, t_max, cull_backface, active, elapsed_time, **_):
     return metaballs.intersect_metaballs(
         o, d, elapsed_time, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
-        active=torch.ones(o.shape[0], dtype=torch.bool, device=o.device))
+        active=active)
 
 
 _UNIT_LO = torch.tensor([-1.0, -1.0, -1.0])
@@ -91,35 +123,27 @@ _UNIT_HI = torch.tensor([1.0, 1.0, 1.0])
 
 
 def _make_sdf(code: int):
-    distance_fn = sdf.DISTANCE_FUNCTIONS[code]
     windowed = code in sdf.AABB_WINDOWED_CODES
 
-    def _fn(o, d, *, t_min, t_max, cull_backface, step_scale, natural_budget, occlusion,
-            level, with_normal, **_):
-        t_lo, t_hi, cull = t_min, t_max, cull_backface
-        gate = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    def _fn(o, d, *, t_min, t_max, cull_backface, active, step_scale, natural_budget,
+            occlusion, level, with_normal, march, **_):
+        cull, gate, t_hi = cull_backface, active, t_max
+        t_start = None if t_min == 0.0 else torch.full_like(t_max, t_min)
         if windowed:
             # [max(entry, t_min), min(exit, t_max)] of the local unit box;
             # lanes whose window is empty are not marched.
             cull = False
             w_lo, w_hi = analytic.aabb_interval(o, d, _UNIT_LO.to(o.device),
                                                 _UNIT_HI.to(o.device))
-            t_lo = torch.clamp(w_lo, min=t_min)
+            t_start = torch.clamp(w_lo, min=t_min)
             t_hi = torch.minimum(t_max, w_hi)
-            gate = (w_hi > w_lo) & (t_hi > t_lo)
+            gate = gate & (w_hi > w_lo) & (t_hi > t_start)
         budget, capped_hit = sdf.march_budget(natural_budget, occlusion=occlusion, level=level)
-        hit, t = sdf.sphere_trace(
-            o, d, distance_fn, step_scale=step_scale, t_min=t_lo, t_max=t_hi,
-            cull_backface=cull, active=gate, max_steps=budget,
-            escape_bound=code in sdf.ESCAPE_SAFE_CODES,
-            relax=sdf.relax_for_code(code, occlusion=occlusion), capped_hit=capped_hit)
-        normal = None
-        if with_normal:
-            normal = torch.zeros_like(o)
-            if bool(hit.any()):
-                hi = torch.nonzero(hit).squeeze(1)
-                normal[hi] = sdf.calculate_normal(o[hi] + t[hi][:, None] * d[hi], distance_fn)
-        return hit, t, normal
+        kw = dict(prim_code=code, cull_backface=cull, max_steps=budget, t_start=t_start,
+                  relax=sdf.relax_for_code(code, occlusion=occlusion), capped_hit=capped_hit)
+        if march is None:
+            return sdf.march(o, d, gate, t_hi, step_scale, with_normal=with_normal, **kw)
+        return march(o, d, gate, t_hi, step_scale, **kw)
 
     return _fn
 

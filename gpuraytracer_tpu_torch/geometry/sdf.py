@@ -362,7 +362,8 @@ def march_budget(natural: int, *, occlusion: bool, level: int):
 
 def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_max,
                  cull_backface, active, max_steps: int = SDF_MAX_STEPS,
-                 escape_bound: bool = True, relax: float = 1.0, capped_hit: bool = False):
+                 escape_bound: bool = True, relax: float = 1.0, capped_hit: bool = False,
+                 capped_t=None):
     """RaySignedDistancePrimitiveTest over (N, 3) local-space rays.
 
     Per lane: sample d = f(o + t*dir); a sample is counted against
@@ -382,7 +383,8 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
     burning its remaining steps, including under ``capped_hit``.
 
     capped_hit: lanes that spend the budget without a valid hit report a
-    hit at their final t (occlusion semantics under reduced budgets).
+    hit at their final t (occlusion semantics under reduced budgets), or
+    at ``capped_t`` where one is given (the per-geometry kernel writes 0).
 
     t_min is a float or a per-lane (N,) tensor (the window entry of an
     AABB-windowed march); the march starts there and a crossing before it
@@ -461,6 +463,31 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
         cur = cur[go]
     if capped_hit:
         capped = (steps >= max_steps) & ~torch.isfinite(found)
-        found = torch.where(capped, t, found)
+        found = torch.where(capped, t if capped_t is None else torch.full_like(t, capped_t),
+                            found)
     t_hit[lanes] = found
     return torch.isfinite(t_hit), t_hit
+
+
+def march(o, d, gate, t_max, step_scale, *, prim_code: int, cull_backface: bool = True,
+          max_steps: int = SDF_MAX_STEPS, t_start=None, relax: float = 1.0,
+          capped_hit: bool = False, capped_t=None, with_normal: bool = True):
+    """One SDF geometry's march over the gated lanes of (N, 3) local rays, in
+    the form of the march kernel's wrapper (kernels/megakernel.py): from
+    t_start ((N,), None: 0) to t_max, the escape bound for ESCAPE_SAFE_CODES
+    only, then the tetrahedral normal at each hit ((0, 0, 0) elsewhere;
+    None when not ``with_normal``). Returns (hit, t_hit, normal)."""
+    code = int(prim_code)
+    fn = DISTANCE_FUNCTIONS[code]
+    hit, t = sphere_trace(
+        o, d, fn, step_scale=step_scale, t_min=0.0 if t_start is None else t_start,
+        t_max=t_max, cull_backface=cull_backface, active=gate, max_steps=int(max_steps),
+        escape_bound=code in ESCAPE_SAFE_CODES, relax=float(relax),
+        capped_hit=bool(capped_hit), capped_t=capped_t)
+    if not with_normal:
+        return hit, t, None
+    normal = torch.zeros_like(o)
+    if bool(hit.any()):
+        hi = torch.nonzero(hit).squeeze(1)
+        normal[hi] = calculate_normal(o[hi] + t[hi][:, None] * d[hi], fn)
+    return hit, t, normal

@@ -102,15 +102,21 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> ctype
     (every pointer and the stream as c_void_p)."""
     path, _ = compile_kernel(name, fmad, count_ops)
     lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "frame_kernel":
-        lib.gprt_frame_render.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
+        lib.gprt_frame_render.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
         lib.gprt_frame_render.restype = ci
     elif name == "scene_kernel":
-        lib.gprt_scene_closest.argtypes = [vp] * 9 + [ci] * 6 + [vp, ci, vp]
+        lib.gprt_scene_closest.argtypes = [vp] * 10 + [ci] * 6 + [vp, ci, vp]
         lib.gprt_scene_closest.restype = ci
         lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
         lib.gprt_sdf_distance.restype = ci
+    elif name == "megakernel":
+        lib.gprt_sphere_trace.argtypes = ([vp] * 7 + [ci, ci, cf, ci, cf, cf, ci, ci, ci]
+                                          + [vp, ci, vp])
+        lib.gprt_sphere_trace.restype = ci
+        lib.gprt_trimesh.argtypes = [vp, ci] + [vp] * 6 + [ci, ci, vp, ci, vp]
+        lib.gprt_trimesh.restype = ci
     lib.gprt_error_string.argtypes = [ci]
     lib.gprt_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,7 +3,8 @@
 // Replaces: gpuraytracer_tpu/kernels/frame_kernel.py render_frame_tiles /
 // _frame_kernel (plain mode), with the scene-kernel device functions that
 // Pallas kernel inlines (scene_kernel._traverse_tile, _march_sdf_part,
-// _normal_at, _march_metaballs_part, _metaball_normal, _local_ray) and the
+// _normal_at, _march_metaballs_part, _metaball_normal, _local_ray,
+// _intersect_trimesh_tile, _mt_face) and the
 // device math of kernels/soa.py and geometry/fractal.py (frame_math.cuh);
 // the traversal is traverse.cuh, which the scene kernel shares.
 //
@@ -33,8 +34,9 @@
 // left to later work.
 //
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py packs
-// them (header, then the reference's pack_frame_params blocks); out is an
-// (H, W, 4) f32 image. The C entry returns cudaGetLastError() after the
+// them (header, then the reference's pack_frame_params blocks); tri, the
+// F x 12 mesh face table (null without meshes); out is an (H, W, 4) f32
+// image. The C entry returns cudaGetLastError() after the
 // launch.
 
 #include <cuda_runtime.h>
@@ -200,13 +202,13 @@ __device__ void render_pixel(const Scene& s, float4* __restrict__ out, int px, i
 
 __global__ void __launch_bounds__(128)
     frame_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                 float4* __restrict__ out, int width, int height, int max_depth, int G, int M,
+                 const float* __restrict__ tri, float4* __restrict__ out, int width, int height, int max_depth, int G, int M,
                  unsigned long long* ops) {
   extern __shared__ float smem[];
 #ifdef GPRT_COUNT_OPS
   if (threadIdx.x == 0 && threadIdx.y == 0) gprt_block_ops = 0;
 #endif
-  const Scene s = load_scene<true>(params, layout, G, M, smem);
+  const Scene s = load_scene<true>(params, layout, tri, G, M, smem);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) render_pixel(s, out, px, py, width, height, max_depth);
@@ -220,7 +222,8 @@ __global__ void __launch_bounds__(128)
 
 // ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds
 // the frame's f32 FLOPs to; the default build ignores it.
-extern "C" int gprt_frame_render(const float* params, const int* layout, float* out, int width,
+extern "C" int gprt_frame_render(const float* params, const int* layout, const float* tri,
+                                 float* out, int width,
                                  int height, int max_depth, int num_geometries, int num_materials,
                                  unsigned long long* ops, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -232,7 +235,7 @@ extern "C" int gprt_frame_render(const float* params, const int* layout, float* 
   dim3 block(16, 8);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   gprt::frame_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      params, layout, reinterpret_cast<float4*>(out), width, height, max_depth, G, M, ops);
+      params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth, G, M, ops);
   return (int)cudaGetLastError();
 }
 

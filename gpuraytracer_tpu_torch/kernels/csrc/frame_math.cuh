@@ -467,13 +467,18 @@ struct MarchSpec {
   bool escape;       // retire past the escape bound (reference codes only)
 };
 
+// What a march ended in: no hit, a valid crossing, or a spent budget that
+// the spec's capped_hit rule reports as a hit.
+enum MarchResult { kMarchMiss = 0, kMarchHit = 1, kMarchCapped = 2 };
+
 // March from t_start to t_max (the AABB window of an extension fractal, or
-// 0 and the running best t). Returns whether the march hit; *t_out is the
-// hit t. Not inlined: one out-of-line copy serves the closest and the
-// occlusion traversals, which keeps the frame kernel within 128 registers
-// without spills (inlined into both, it spilled once the extension
-// fractals joined the distance switch; ptxas -v).
-__device__ __noinline__ bool march_sdf(int code, V3 o, V3 d, float t_start, float t_max, float step_scale,
+// 0 and the running best t). Returns how the march ended; *t_out is the
+// crossing's t, or the final t of a capped march. Not inlined: one
+// out-of-line copy serves the closest and the occlusion traversals, which
+// keeps the frame kernel within 128 registers without spills (inlined into
+// both, it spilled once the extension fractals joined the distance switch;
+// ptxas -v).
+__device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float t_max, float step_scale,
                           const MarchSpec& m, float* t_out) {
   GPRT_OPS(14 + (m.escape ? 3 : 0));
   float o_norm = len3(o), d_norm = len3(d);
@@ -498,7 +503,7 @@ __device__ __noinline__ bool march_sdf(int code, V3 o, V3 d, float t_start, floa
       }
       if (ok) {
         *t_out = t;
-        return true;
+        return kMarchHit;
       }
     }
     float plain = step_scale * dist;
@@ -525,9 +530,9 @@ __device__ __noinline__ bool march_sdf(int code, V3 o, V3 d, float t_start, floa
   }
   if (m.capped_hit && steps >= m.max_steps) {
     *t_out = t;
-    return true;
+    return kMarchCapped;
   }
-  return false;
+  return kMarchMiss;
 }
 
 }  // namespace gprt

@@ -2,7 +2,8 @@
 //
 // Replaces: gpuraytracer_tpu/kernels/scene_kernel.py scene_closest_tiles /
 // _scene_kernel, phase "single" (with _traverse_tile, _local_ray,
-// _march_sdf_part, _march_metaballs_part, _metaball_normal): BLAS-space rays
+// _march_sdf_part, _march_metaballs_part, _metaball_normal,
+// _intersect_trimesh_tile, _mt_face): BLAS-space rays
 // with an initial bound t0 in; the closest procedural hit (best_t, world
 // normal, geometry id; gid -1 where nothing beat t0) out, or accept-first
 // occlusion (gid of the first valid hit, best_t 0 there). The wavefront
@@ -25,7 +26,8 @@
 // direction or geometry is left to later work.
 //
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py
-// pack_frame builds them; o, d (N, 3) f32; active (N,) bool; t0 (N,) f32.
+// pack_frame builds them; tri, the F x 12 mesh face table (null without
+// meshes); o, d (N, 3) f32; active (N,) bool; t0 (N,) f32.
 // The C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
@@ -36,7 +38,7 @@ namespace gprt {
 
 __global__ void __launch_bounds__(128)
     scene_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                 const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ tri, const float* __restrict__ o, const float* __restrict__ d,
                  const bool* __restrict__ active, const float* __restrict__ t0,
                  float* __restrict__ best_t, float* __restrict__ normal, int* __restrict__ gid,
                  int n, int G, int M, int level, int accept_first, int cull,
@@ -45,7 +47,7 @@ __global__ void __launch_bounds__(128)
 #ifdef GPRT_COUNT_OPS
   if (threadIdx.x == 0) gprt_block_ops = 0;
 #endif
-  const Scene s = load_scene<false>(params, layout, G, M, smem);
+  const Scene s = load_scene<false>(params, layout, tri, G, M, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     const V3 ob = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
@@ -84,8 +86,8 @@ __global__ void __launch_bounds__(128)
 
 // ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds the
 // pass's f32 FLOPs to; the default build ignores it.
-extern "C" int gprt_scene_closest(const float* params, const int* layout, const float* o,
-                                  const float* d, const bool* active, const float* t0,
+extern "C" int gprt_scene_closest(const float* params, const int* layout, const float* tri,
+                                  const float* o, const float* d, const bool* active, const float* t0,
                                   float* best_t, float* normal, int* gid, int n,
                                   int num_geometries, int num_materials, int level,
                                   int accept_first, int cull, unsigned long long* ops, int device,
@@ -100,7 +102,7 @@ extern "C" int gprt_scene_closest(const float* params, const int* layout, const 
   const int block = 128;
   const int grid = (n + block - 1) / block;
   gprt::scene_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      params, layout, o, d, active, t0, best_t, normal, gid, n, G, M, level, accept_first, cull,
+      params, layout, tri, o, d, active, t0, best_t, normal, gid, n, G, M, level, accept_first, cull,
       ops);
   return (int)cudaGetLastError();
 }

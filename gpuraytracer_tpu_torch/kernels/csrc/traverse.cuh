@@ -17,12 +17,16 @@
 // flag that pack_frame sets from geometry/sdf.AABB_WINDOWED_CODES) skip the
 // back-face cull and march only inside their local unit box, over-relaxed
 // with their own knobs; every march takes its geometry's budget for the
-// level. This is the device form of geometry/registry.py's table.
+// level. Triangle meshes (the mesh body, scene_kernel._mt_face /
+// _intersect_trimesh_tile) run Möller–Trumbore over their rows of the face
+// table. This is the device form of geometry/registry.py's table.
 //
 // Parameters: the f32 and int32 buffers of kernels/frame_kernel.py
 // pack_frame, copied to shared memory once per block (load_scene): the
 // whole buffers for the frame kernel, only their traversal prefix for the
-// scene kernel.
+// scene kernel. The F x 12 face table stays in global memory and is read
+// through the read-only cache: faces are many and read once per ray, and
+// shared memory keeps only what every ray of the block reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,11 +37,14 @@ namespace gprt {
 
 constexpr int kFHeader = 12;
 constexpr int kIHeader = 8;
-constexpr int kGeoStride = 10;
-constexpr int kGeoWindowed = 9;  // column of the AABB-windowed flag
+constexpr int kGeoStride = 12;
+constexpr int kGeoWindowed = 9;    // column of the AABB-windowed flag
+constexpr int kGeoFaceStart = 10;  // a mesh's first row in the face table
+constexpr int kGeoFaceCount = 11;  // and its number of faces
+constexpr int kFaceStride = 12;    // v0, e1, e2, n
 constexpr float kRayTMax = 10000.0f;
 
-enum Kind { kAnalytic = 0, kVolumetric = 1, kSignedDistance = 2 };
+enum Kind { kAnalytic = 0, kVolumetric = 1, kSignedDistance = 2, kTriangle = 3 };
 
 struct Scene {
   // elapsed, then relax and fail scale of radiance / occlusion marches for
@@ -51,9 +58,11 @@ struct Scene {
   const float* mat;     // M x 8: albedo rgba, refl, diffuse, specular, power
   const float* p2w;     // 4 x 4 row-vector projection_to_world
   const float* cvec;    // 8 x 4: cam, light, ambient, diffuse, blas, plane o, plane s
-  // G x 10: kind, code, budgets r0 r1 s0 s1, capped s0 s1, natural, windowed
+  // G x 12: kind, code, budgets r0 r1 s0 s1, capped s0 s1, natural, windowed,
+  // face start, face count
   const int* geo;
   const int* mat_ids;   // G + 1: material slot of each geometry row (plane last)
+  const float* tri;     // F x 12 face table in global memory (null without meshes)
   int G, M, plane_gid, has_plane;
 };
 
@@ -98,7 +107,8 @@ __host__ cudaError_t reserve_shared(Kernel kernel, size_t bytes, int device) {
 // camera, light, plane, material slots) are null.
 template <bool kShading>
 __device__ __forceinline__ Scene load_scene(const float* __restrict__ params,
-                                            const int* __restrict__ layout, int G, int M,
+                                            const int* __restrict__ layout,
+                                            const float* __restrict__ tri, int G, int M,
                                             float* smem) {
   const int nf = kShading ? param_floats(G, M) : traversal_floats(G);
   const int ni = kShading ? layout_ints(G) : traversal_ints(G);
@@ -124,6 +134,7 @@ __device__ __forceinline__ Scene load_scene(const float* __restrict__ params,
   s.M = M;
   s.plane_gid = ismem[2];
   s.has_plane = ismem[3];
+  s.tri = tri;
   return s;
 }
 
@@ -170,8 +181,53 @@ __device__ __forceinline__ MarchSpec spec(const Scene& s, int g, bool occlusion,
   return m;
 }
 
+// Möller–Trumbore over `count` face rows (v0, e1, e2, n) against the local
+// ray over [0, t_max], closest face by a strict <, as
+// scene_kernel._mt_face / _intersect_trimesh_tile in the same arithmetic
+// order (geometry/trimesh.mt_face is the plain version). det = dot(e1,
+// d x e2) > 0 is a front face: the cull keeps det > 1e-12, no cull
+// |det| > 1e-12. *nl is the winning face's n. Out of line, so the face loop
+// adds no registers to the traversals that never meet a mesh.
+__device__ __noinline__ bool intersect_trimesh(const float* __restrict__ tri, int count, V3 o,
+                                               V3 d, float t_max, bool cull, float* t_out,
+                                               V3* nl) {
+  const float eps = F(1e-12);
+  float best = kInf;
+  int win = -1;
+  for (int f = 0; f < count; ++f) {
+    const float* r = tri + kFaceStride * f;
+    GPRT_OPS(cull ? 14 : 15);
+    const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
+    const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
+    const float pvx = d.y * e2z - d.z * e2y;
+    const float pvy = d.z * e2x - d.x * e2z;
+    const float pvz = d.x * e2y - d.y * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    if (!(cull ? det > eps : fabsf(det) > eps)) continue;
+    GPRT_OPS(32);
+    const float inv = 1.0f / det;
+    const float tvx = o.x - __ldg(r), tvy = o.y - __ldg(r + 1), tvz = o.z - __ldg(r + 2);
+    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    const float v = (d.x * qvx + d.y * qvy + d.z * qvz) * inv;
+    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
+    if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= 0.0f && t <= t_max && t < best) {
+      best = t;
+      win = f;
+    }
+  }
+  if (win < 0) return false;
+  const float* r = tri + kFaceStride * win;
+  *t_out = best;
+  *nl = v3(__ldg(r + 9), __ldg(r + 10), __ldg(r + 11));
+  return true;
+}
+
 // Geometry g's intersector on the local ray over [0, t_max]; *nl is the
-// local normal of a closed-form hit (a march's is computed by the caller).
+// local normal of a closed-form or mesh hit (a march's is computed by the
+// caller).
 __device__ bool intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool occlusion,
                           int level, bool cull, float* t, V3* nl) {
   const int* q = s.geo + kGeoStride * g;
@@ -181,6 +237,10 @@ __device__ bool intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool
                      : intersect_spheres(ol, dl, t_max, cull, t, nl);
   }
   if (kind == kVolumetric) return march_metaballs(ol, dl, t_max, s.mb, cull, t);
+  if (kind == kTriangle) {
+    return intersect_trimesh(s.tri + kFaceStride * q[kGeoFaceStart], q[kGeoFaceCount], ol, dl,
+                             t_max, cull, t, nl);
+  }
   float t_lo = 0.0f, t_hi = t_max;
   const bool windowed = q[kGeoWindowed] != 0;
   if (windowed) {
@@ -193,7 +253,7 @@ __device__ bool intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool
     if (!(w.tmax > w.tmin && t_hi > t_lo)) return false;
   }
   const MarchSpec m = spec(s, g, occlusion, level, cull, windowed);
-  return march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t);
+  return march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t) != kMarchMiss;
 }
 
 // Closest procedural hit over BLAS-space ray (ob, d): h holds the running
@@ -208,7 +268,8 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
     local_ray(s, g, ob, d, &ol, &dl);
     float t = kInf;
     V3 nl = v3(0.0f, 0.0f, 0.0f);
-    const bool marched = s.geo[kGeoStride * g] != kAnalytic;
+    const int kind = s.geo[kGeoStride * g];
+    const bool marched = kind == kVolumetric || kind == kSignedDistance;
     if (intersect(s, g, ol, dl, running, false, level, cull, &t, &nl) && t < h->t) {
       h->t = t;
       h->gid = g;

@@ -9,8 +9,9 @@ shading and the bounce, and one float4 store.
 
 Parameters reach the kernel as one contiguous f32 buffer and one int32
 layout buffer (``pack_frame``), packed from the same blocks as the
-reference's ``pack_frame_params``; the scene kernel (scene_kernel.py)
-reads the same two buffers. On a CPU tensor the wrapper runs the kernel's
+reference's ``pack_frame_params``, and the mesh face table
+(accel/traverse.pack_tri_rows); the scene kernel (scene_kernel.py) reads
+the same buffers. On a CPU tensor the wrapper runs the kernel's
 plain version — the wavefront ``render/trace.trace_radiance`` on the
 scene unpacked from the same buffers; on a CUDA tensor it launches the
 kernel or raises.
@@ -24,6 +25,7 @@ import os
 
 import torch
 
+from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.accel.instances import Scene, SceneArrays, SceneLayout
 from gpuraytracer_tpu_torch.core.types import (
     InstanceTransforms,
@@ -33,7 +35,7 @@ from gpuraytracer_tpu_torch.core.types import (
     SDF_MAX_STEPS,
     SceneConstants,
 )
-from gpuraytracer_tpu_torch.geometry import metaballs, sdf
+from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 
 # Kernel launches since import (or since a caller reset it); chip runs read
 # it to show that a frame went through the kernel.
@@ -50,8 +52,9 @@ F_HEADER = 12
 # without a plane).
 I_HEADER = 8
 # kind, code, budget r0, r1, s0, s1, capped s0, s1, natural budget,
-# AABB-windowed (the code is in sdf.AABB_WINDOWED_CODES)
-GEO_STRIDE = 10
+# AABB-windowed (the code is in sdf.AABB_WINDOWED_CODES), then a mesh's
+# first row and number of rows in the face table (0, 0 for other kinds)
+GEO_STRIDE = 12
 MAX_MATERIALS = 16
 # Most dynamic shared memory a block of either kernel may take (an H100's
 # per-block opt-in limit); the buffers are copied there (``shared_bytes``).
@@ -77,12 +80,16 @@ def param_offsets(g: int, m: int) -> dict:
 @dataclasses.dataclass(frozen=True)
 class FramePack:
     """The kernel's inputs: ``params`` (f32) and ``layout`` (int32), both
-    1-D, contiguous and on the rendering device, plus their sizes."""
+    1-D, contiguous and on the rendering device, plus their sizes, and the
+    (F, 12) f32 mesh face table ``tri`` with each mesh slot's (start,
+    count) in it (F = 0 without meshes)."""
 
     params: torch.Tensor
     layout: torch.Tensor
     num_geometries: int
     num_materials: int
+    tri: torch.Tensor
+    tri_offsets: tuple = ()
 
 
 def frame_mode() -> str:
@@ -97,23 +104,27 @@ def merged_shadow_enabled() -> bool:
     return os.environ.get("GPURT_MERGED_SHADOW", "") == "1"
 
 
-def fused_eligible_layout(layout: SceneLayout, num_materials: int) -> bool:
+def fused_eligible_layout(layout: SceneLayout, num_materials: int,
+                          total_mesh_faces: int = 0) -> bool:
     """Whether the frame kernel renders the layout (the reference's
-    fused_eligible_layout, less meshes): GPURT_DISABLE_FUSED unset, at
-    least one procedural instance, and at most 16 unique materials. Every
-    other scene that ``check_kernel_covers`` accepts goes through the
-    wavefront and the scene kernel."""
+    fused_eligible_layout): GPURT_DISABLE_FUSED unset, at least one
+    procedural instance, at most 16 unique materials and at most
+    accel/traverse.TRI_FACE_TOTAL_CAP mesh faces. Every other scene that
+    ``check_kernel_covers`` accepts goes through the wavefront: the scene
+    kernel within the face cap, the per-geometry route past it."""
     return (
         not os.environ.get("GPURT_DISABLE_FUSED")
         and layout.num_procedural > 0
         and num_materials <= MAX_MATERIALS
+        and total_mesh_faces <= traverse.TRI_FACE_TOTAL_CAP
     )
 
 
 def check_kernel_covers(layout: SceneLayout) -> None:
     """Raise, naming the reference kernel that is not ported yet, for a
-    CUDA frame that neither the frame kernel nor the scene kernel renders.
-    Never falls back."""
+    CUDA frame that no ported route renders (the frame kernel, the scene
+    kernel, the per-geometry route of csrc/megakernel.cu). Never falls
+    back."""
     mode = frame_mode()
     if mode == "compact":
         raise NotImplementedError(
@@ -127,11 +138,6 @@ def check_kernel_covers(layout: SceneLayout) -> None:
         raise NotImplementedError(
             "GPURT_MERGED_SHADOW: scene_kernel._march_sdf_multi is not ported "
             "to CUDA yet")
-    if IntersectorKind.TRIANGLE in layout.kinds:
-        raise NotImplementedError(
-            "triangle meshes: scene_kernel._intersect_trimesh_tile / _mt_face "
-            "(and geometry/trimesh.py, megakernel.sphere_trace_tiles) are not "
-            "ported to CUDA yet")
     for kind, code in zip(layout.kinds, layout.prim_types):
         if kind == IntersectorKind.SIGNED_DISTANCE and int(code) not in KERNEL_SDF_CODES:
             raise NotImplementedError(
@@ -188,6 +194,7 @@ def pack_frame(scene: Scene) -> FramePack:
     occlusion) are read here, at call time, as the wavefront reads them."""
     blocks, static = pack_frame_params(scene)
     layout = scene.layout
+    tri, tri_offsets = traverse.pack_tri_rows(scene.arrays)
     g = len(static["geoms"])
     m = blocks[5].shape[0]
     dev = blocks[0].device
@@ -209,12 +216,14 @@ def pack_frame(scene: Scene) -> FramePack:
         sb0, sc0 = sdf.march_budget(natural, occlusion=True, level=0)
         sb1, sc1 = sdf.march_budget(natural, occlusion=True, level=1)
         windowed = kind == IntersectorKind.SIGNED_DISTANCE and code in sdf.AABB_WINDOWED_CODES
-        ints += [kind, code, rb0, rb1, sb0, sb1, int(sc0), int(sc1), natural, int(windowed)]
+        faces = tri_offsets[code] if kind == IntersectorKind.TRIANGLE else (0, 0)
+        ints += [kind, code, rb0, rb1, sb0, sb1, int(sc0), int(sc1), natural, int(windowed),
+                 *faces]
     slots = list(layout.material_ids) if layout.material_ids is not None else list(range(g + 1))
     ints += slots + [0] * (g + 1 - len(slots))
     layout_buf = torch.tensor(ints, dtype=torch.int32, device=dev)
-    return FramePack(params=params.contiguous(), layout=layout_buf,
-                     num_geometries=g, num_materials=m)
+    return FramePack(params=params.contiguous(), layout=layout_buf, num_geometries=g,
+                     num_materials=m, tri=tri, tri_offsets=tri_offsets)
 
 
 def layout_size(g: int) -> int:
@@ -275,6 +284,10 @@ def unpack_frame(pack: FramePack) -> Scene:
     # One step_scale per geometry row; the plane's is never read (1.0).
     step_scale = torch.ones(g + int(has_plane), dtype=p.dtype, device=p.device)
     step_scale[:g] = blk("sscale", g)
+    rows = pack.tri
+    meshes = tuple(trimesh.TriangleMesh(v0=rows[a:a + c, 0:3], e1=rows[a:a + c, 3:6],
+                                        e2=rows[a:a + c, 6:9], n=rows[a:a + c, 9:12])
+                   for a, c in pack.tri_offsets)
     one = torch.ones(1, dtype=p.dtype, device=p.device)
     aabb = blk("aabb", g, 6)
     arrays = SceneArrays(
@@ -296,6 +309,7 @@ def unpack_frame(pack: FramePack) -> Scene:
         aabb_min=aabb[:, :3], aabb_max=aabb[:, 3:],
         blas_offset=cvec[4, :3].clone(),
         plane_origin=cvec[5, :3].clone(), plane_size=cvec[6, :2].clone(),
+        meshes=meshes,
     )
     return Scene(layout=layout, arrays=arrays)
 
@@ -326,6 +340,13 @@ def check_pack(pack: FramePack) -> None:
     if p.numel() != param_offsets(g, m)["total"] or lay.numel() != layout_size(g):
         raise ValueError(f"buffer sizes {p.numel()}/{lay.numel()} do not match "
                          f"{g} geometries and {m} materials")
+    tri = pack.tri
+    if tri.dtype != torch.float32 or tri.device != p.device or tri.dim() != 2 \
+            or tri.shape[1] != 12 or not tri.is_contiguous():
+        raise ValueError(f"tri must be a contiguous (F, 12) float32 tensor on {p.device}, got "
+                         f"{tuple(tri.shape)} {tri.dtype} on {tri.device}")
+    if sum(c for _, c in pack.tri_offsets) != tri.shape[0]:
+        raise ValueError(f"tri_offsets {pack.tri_offsets} do not cover {tri.shape[0]} faces")
 
 
 def ops_pointer(ops):
@@ -366,7 +387,7 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.gprt_frame_render(
         ctypes.c_void_p(pack.params.data_ptr()), ctypes.c_void_p(pack.layout.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), width, height, max_depth,
+        ctypes.c_void_p(pack.tri.data_ptr()), ctypes.c_void_p(out.data_ptr()), width, height, max_depth,
         pack.num_geometries, pack.num_materials, ops_pointer(ops), dev.index,
         ctypes.c_void_p(stream),
     )

@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from gpuraytracer_tpu_torch.accel.instances import Scene, normal_to_world, ray_to_local
-from gpuraytracer_tpu_torch.core.types import RAY_TMIN, SDF_MAX_STEPS
+from gpuraytracer_tpu_torch.core.types import RAY_TMIN, SDF_MAX_STEPS, IntersectorKind
 from gpuraytracer_tpu_torch.geometry import analytic, registry
 from gpuraytracer_tpu_torch.kernels import frame_kernel
 
@@ -35,12 +35,19 @@ PROBE_LAUNCHES = 0
 
 
 def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
-                        accept_first: bool = False, cull_backface: bool = True):
+                        accept_first: bool = False, cull_backface: bool = True,
+                        budget_level: int | None = None, march=None, mesh_closest=None):
     """The kernel's plain PyTorch version: every procedural geometry in
     definition order, each gated by its BLAS-space slab against the
-    running best t and run on the lanes its gate admits, with a strict-<
-    closest reduction. accept_first: a lane's first valid hit ends its
-    search (its best_t drops to 0); back-face culling stays on.
+    running best t, with a strict-< closest reduction. accept_first: a
+    lane's first valid hit ends its search (its best_t drops to 0);
+    back-face culling stays on.
+
+    The same loop is the per-geometry route (accel/traverse.
+    per_geometry_route): ``budget_level`` marches every pass at that
+    level's budget instead of ``level``'s; ``march`` and ``mesh_closest``
+    run the SDF marches and the meshes (geometry/registry.intersect), one
+    call per geometry over all N rays behind its gate.
 
     Returns (best_t (N,) f32, normal (N, 3) f32 world space, gid (N,)
     int32); gid is -1 where no procedural hit beat t0."""
@@ -51,33 +58,33 @@ def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
     normal = torch.zeros_like(o_blas)
     gid = torch.full((n,), -1, dtype=torch.int32, device=dev)
     tr = arrays.transforms
+    step_scales = arrays.materials.step_scale.tolist()
+    march_level = level if budget_level is None else budget_level
     for i, (kind, prim_type) in enumerate(zip(layout.kinds, layout.prim_types)):
         gate = analytic.aabb_hit_mask(o_blas, d_blas, arrays.aabb_min[i], arrays.aabb_max[i],
                                       t_min=RAY_TMIN, t_max=best_t) & active
         if accept_first:
             gate = gate & (gid < 0)
-        lanes = torch.nonzero(gate).squeeze(1)
-        if lanes.numel() == 0:
-            continue
-        o_loc, d_loc = ray_to_local(o_blas[lanes], d_blas[lanes], tr.blas_to_local[i])
-        hit_i, t_i, n_loc = registry.intersect(
-            kind, prim_type, o_loc, d_loc, t_min=RAY_TMIN, t_max=best_t[lanes],
+        o_loc, d_loc = ray_to_local(o_blas, d_blas, tr.blas_to_local[i])
+        hit, t, n_loc = registry.intersect(
+            kind, prim_type, o_loc, d_loc, t_min=RAY_TMIN, t_max=best_t, active=gate,
             cull_backface=True if accept_first else cull_backface,
-            step_scale=arrays.materials.step_scale[i],
-            elapsed_time=arrays.constants.elapsed_time,
+            step_scale=step_scales[i], elapsed_time=arrays.constants.elapsed_time,
             natural_budget=layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS,
-            occlusion=accept_first, level=level, with_normal=not accept_first,
+            occlusion=accept_first, level=march_level, with_normal=not accept_first,
+            mesh=arrays.meshes[prim_type] if kind == IntersectorKind.TRIANGLE else None,
+            march=march, mesh_closest=mesh_closest,
         )
         if accept_first:
             # Any valid (or capped) hit occludes, whatever its t.
-            win = lanes[hit_i]
-            best_t[win] = 0.0
+            win = hit
+            best_t = torch.where(win, 0.0, best_t)
         else:
-            closer = hit_i & (t_i < best_t[lanes])
-            win = lanes[closer]
-            best_t[win] = t_i[closer]
-            normal[win] = normal_to_world(n_loc[closer], tr.local_to_blas[i])
-        gid[win] = i
+            win = hit & (t < best_t)
+            best_t = torch.where(win, t, best_t)
+            normal = torch.where(win[:, None], normal_to_world(n_loc, tr.local_to_blas[i]),
+                                 normal)
+        gid = torch.where(win, i, gid)
     return best_t, normal, gid
 
 
@@ -135,7 +142,7 @@ def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
         return ctypes.c_void_p(x.data_ptr())
 
     rc = lib.gprt_scene_closest(
-        ptr(pack.params), ptr(pack.layout), ptr(o_blas), ptr(d_blas), ptr(active), ptr(t0),
+        ptr(pack.params), ptr(pack.layout), ptr(pack.tri), ptr(o_blas), ptr(d_blas), ptr(active), ptr(t0),
         ptr(best_t), ptr(normal), ptr(gid), n, pack.num_geometries, pack.num_materials,
         int(level), int(accept_first), int(cull_backface), frame_kernel.ops_pointer(ops),
         dev.index, ctypes.c_void_p(stream),

@@ -3,6 +3,8 @@
 Port of gpuraytracer_tpu/models/builder.py. A scene is a list of instances
 (kind, primitive type, BLAS-space AABB placement, material, scale and an
 optional rotation about +Y), the builtin camera, light and ground plane.
+A triangle-mesh instance's primitive type is its slot in the scene's
+meshes (``add_mesh_instance``).
 ``build`` produces the Scene the renderer consumes, with:
 
 - a layout carrying clusters (accel/bvh.py), per-instance step budgets, a
@@ -33,6 +35,7 @@ from gpuraytracer_tpu_torch.core.types import (
     MaterialTable,
     make_scene_constants,
 )
+from gpuraytracer_tpu_torch.geometry import trimesh
 from gpuraytracer_tpu_torch.models import builtin
 
 
@@ -65,6 +68,7 @@ class InstanceSpec:
 class SceneBuilder:
     def __init__(self):
         self._instances: List[InstanceSpec] = []
+        self._meshes: List[trimesh.TriangleMesh] = []
         self.camera: Camera = builtin.default_camera()
         self.light_position = builtin.LIGHT_POSITION
         self.light_ambient = builtin.LIGHT_AMBIENT
@@ -79,9 +83,22 @@ class SceneBuilder:
         self._instances.append(spec)
         return self
 
-    def add_mesh_instance(self, *args, **kwargs) -> "SceneBuilder":
-        raise NotImplementedError(
-            "triangle-mesh instances: geometry/trimesh.py is not ported yet")
+    def add_mesh_instance(self, positions, indices, material: Material, *, normals=None,
+                          aabb_min: Tuple[float, float, float],
+                          aabb_max: Tuple[float, float, float],
+                          scale: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+                          rotates: bool = False,
+                          rotation_rate: float = builtin.ROTATION_RATE) -> "SceneBuilder":
+        """Add an indexed-triangle-mesh instance (the triangle BLAS analog,
+        Renderer.cpp:575-592). Vertices live in the instance's local space,
+        as the procedural primitives do; the mesh's slot becomes the
+        instance's prim_type."""
+        self._instances.append(InstanceSpec(
+            kind=IntersectorKind.TRIANGLE, prim_type=len(self._meshes), aabb_min=aabb_min,
+            aabb_max=aabb_max, material=material, scale=scale, rotates=rotates,
+            rotation_rate=rotation_rate))
+        self._meshes.append(trimesh.from_indexed(positions, indices, normals))
+        return self
 
     def without_plane(self) -> "SceneBuilder":
         self.plane_material = None
@@ -229,6 +246,7 @@ class SceneBuilder:
             blas_offset=f32(self.blas_offset),
             plane_origin=f32(self.plane_origin),
             plane_size=f32(self.plane_size),
+            meshes=tuple(m.to(device) for m in self._meshes),
         )
         return Scene(layout=self.layout, arrays=arrays)
 

@@ -14,9 +14,11 @@ cap, Raytracing.hlsl:117-120).
 ``trace_radiance`` is the plain PyTorch version of the CUDA frame kernel
 (kernels/frame_kernel.py). ``render_frame`` sends a CUDA scene to the
 frame kernel when it is fused-eligible, and every other CUDA scene to this
-wavefront with its traversal passes in the CUDA scene kernel
-(kernels/scene_kernel.py); a CPU scene renders through the wavefront with
-the scene kernel's plain version.
+wavefront, whose traversal passes take the scene's route
+(accel/traverse.py): the CUDA scene kernel (kernels/scene_kernel.py)
+within the mesh face cap, the per-geometry route with the march kernel of
+kernels/megakernel.py past it. A CPU scene renders through the wavefront
+with the scene kernel's plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from gpuraytracer_tpu_torch.accel.instances import Scene
-from gpuraytracer_tpu_torch.accel.traverse import any_hit, closest_hit
+from gpuraytracer_tpu_torch.accel.traverse import _total_mesh_faces, any_hit, closest_hit
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.core.types import (
@@ -62,7 +64,7 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
 
     ``pack``: the frame's packed kernel buffers (frame_kernel.pack_frame),
     built once by the caller for the scene kernel's passes on a GPU;
-    ``plain``: run the scene kernel's plain version on any device.
+    ``plain``: the route's plain version of every pass on a GPU.
     """
     arrays = scene.arrays
     constants = arrays.constants
@@ -158,11 +160,14 @@ def render_frame(scene: Scene, width: int, height: int, *,
     """Full frame, the DispatchRays(W, H, 1) analog; returns an (H, W, 4)
     float32 radiance image on the scene's device.
 
-    A CUDA scene renders through the hand-written frame kernel when it is
-    fused-eligible (frame_kernel.fused_eligible_layout), else through the
-    wavefront with its traversal passes in the hand-written scene kernel;
-    what neither kernel covers raises. A CPU scene renders through the
-    wavefront."""
+    A CUDA scene renders as the reference routes it: through the
+    hand-written frame kernel when it is fused-eligible
+    (frame_kernel.fused_eligible_layout: at most 16 materials and 512 mesh
+    faces), else through the wavefront, whose passes run in the scene
+    kernel for a scene of at most 512 mesh faces and on the per-geometry
+    route (the march kernel and the mesh entry of csrc/megakernel.cu)
+    past that; what no route covers raises. A CPU scene renders through
+    the wavefront with plain passes."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     dev = scene.arrays.aabb_min.device
@@ -170,7 +175,8 @@ def render_frame(scene: Scene, width: int, height: int, *,
         return render_wavefront(scene, width, height, max_depth=max_depth)
     frame_kernel.check_kernel_covers(scene.layout)
     pack = frame_kernel.pack_frame(scene)
-    if frame_kernel.fused_eligible_layout(scene.layout, scene.arrays.materials.albedo.shape[0]):
+    if frame_kernel.fused_eligible_layout(scene.layout, scene.arrays.materials.albedo.shape[0],
+                                          _total_mesh_faces(scene)):
         return frame_kernel.render_frame_tiles(pack, width=width, height=height,
                                                max_depth=max_depth)
     return render_wavefront(scene, width, height, max_depth=max_depth, pack=pack)
@@ -180,10 +186,11 @@ def render_wavefront(scene: Scene, width: int, height: int, *,
                      max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
                      plain: bool = False):
     """Raygen + trace_radiance over the whole frame on the scene's device.
-    With ``plain`` (or on the CPU) every pass is plain PyTorch: the frame
-    kernel's plain version. Otherwise, on a GPU, the traversal passes run
-    in the scene kernel (``pack``: the frame's packed buffers, built here
-    if None)."""
+    On a GPU the traversal passes take the scene's route: the scene kernel,
+    or the per-geometry route past the mesh face cap (``pack``: the frame's
+    packed buffers, built here if None); with ``plain`` each route's plain
+    version. On the CPU every pass is the scene kernel's plain version, the
+    frame kernel's plain version."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     dev = scene.arrays.aabb_min.device

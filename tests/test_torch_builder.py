@@ -121,23 +121,37 @@ def test_pack_round_trip_of_deduplicated_scene():
 
 def test_step_budgets_reach_the_layout_buffer():
     # The fractal scene's two DE fractals march with their own budget (96),
-    # capped per level like every march, inside their unit box (the last
-    # column); the sphere cluster keeps 512.
+    # capped per level like every march, inside their unit box (column 9);
+    # the sphere cluster keeps 512. No row is a mesh: the face-table columns
+    # are (0, 0).
     scene = scenes.get_config("fractal_mandelbulb_julia_1080p").build(ASPECT, device="cpu")
     assert scene.layout.step_budgets == (96, 96, 512)
     pack = frame_kernel.pack_frame(scene)
     geo = pack.layout[frame_kernel.I_HEADER:][:frame_kernel.GEO_STRIDE * 3]
     rows = geo.reshape(3, frame_kernel.GEO_STRIDE).tolist()
-    assert [r[2:] for r in rows] == ([[96, 96, 96, 64, 0, 1, 96, 1]] * 2
-                                     + [[160, 128, 96, 64, 1, 1, 512, 0]])
+    assert [r[2:] for r in rows] == ([[96, 96, 96, 64, 0, 1, 96, 1, 0, 0]] * 2
+                                     + [[160, 128, 96, 64, 1, 1, 512, 0, 0, 0]])
 
 
 def test_builder_refuses_meshes_and_empty_scenes():
-    b = builder.SceneBuilder()
-    with pytest.raises(NotImplementedError, match="trimesh"):
-        b.add_mesh_instance(np.zeros((3, 3)), np.zeros((1, 3)), builder.Material((1, 1, 1, 1)))
+    # (The name predates meshes: a mesh instance now builds, and only an
+    # empty scene is refused.)
     with pytest.raises(ValueError, match="no instances"):
-        b.build(ASPECT, device="cpu")
+        builder.SceneBuilder().build(ASPECT, device="cpu")
+    positions = [(0.0, 0.0, 0.0), (0.0, 0.0, 1.0), (1.0, 0.0, 0.0)]
+    for indices in (np.asarray([[0, 1, 2]], np.uint16), np.asarray([[0, 1, 2]], np.uint32)):
+        b = builder.SceneBuilder().add_mesh_instance(
+            positions, indices, builder.Material((1, 1, 1, 1)),
+            aabb_min=(-1.0, -1.0, -1.0), aabb_max=(1.0, 1.0, 1.0))
+        ref = j_builder.SceneBuilder().add_mesh_instance(
+            positions, indices, j_builder.Material((1, 1, 1, 1)),
+            aabb_min=(-1.0, -1.0, -1.0), aabb_max=(1.0, 1.0, 1.0))
+        scene, ref_scene = b.build(ASPECT, device="cpu"), ref.build(ASPECT)
+        assert scene.layout.kinds == ref_scene.layout.kinds == (IntersectorKind.TRIANGLE,)
+        assert scene.layout.prim_types == ref_scene.layout.prim_types == (0,)
+        (mesh,), (ref_mesh,) = scene.arrays.meshes, ref_scene.arrays.meshes
+        for f in ("v0", "e1", "e2", "n"):
+            np.testing.assert_array_equal(getattr(mesh, f).numpy(), np.asarray(getattr(ref_mesh, f)))
 
 
 def test_grid_cell_aabb_and_plane_less_layout():

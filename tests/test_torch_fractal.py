@@ -91,9 +91,9 @@ def test_windowed_flag_reaches_the_kernel_buffers():
     pack = frame_kernel.pack_frame(scene)
     g = pack.num_geometries
     rows = pack.layout[frame_kernel.I_HEADER:][:g * frame_kernel.GEO_STRIDE].reshape(g, -1)
-    for (kind, code, *_, windowed) in rows.tolist():
+    for (kind, code, *_, windowed, _, _) in rows.tolist():
         assert windowed == int(kind == 2 and code in sdf.AABB_WINDOWED_CODES)
-    assert sum(r[-1] for r in rows.tolist()) == 2
+    assert sum(r[9] for r in rows.tolist()) == 2
 
 
 def _registry_keys():
@@ -109,7 +109,10 @@ def test_registry_matches_reference_table(key):
     # per-geometry dispatch (accel/traverse._dispatch_procedural: window,
     # budget, relaxation) on seeded local rays, closest at level 1 and, for
     # the marched codes (whose budget and relaxation the query selects),
-    # occlusion at level 0. The reference's program contracts multiply-adds
+    # occlusion at level 0. The reference dispatches a triangle mesh outside
+    # its registry (in _dispatch_procedural); the port's table holds it as
+    # one more entry, checked here on a seeded 16-face mesh. The
+    # reference's program contracts multiply-adds
     # and the port's does not, which moves a march crossing by a step on a
     # few rays: hits agree on >= 98% of rays, t within 1e-3 + 1e-4 * t where
     # both hit (as tests/test_torch_scene_kernel.py); where t agrees to 1e-5
@@ -121,7 +124,18 @@ def test_registry_matches_reference_table(key):
     from gpuraytracer_tpu.geometry import registry as j_registry
     from gpuraytracer_tpu_torch.geometry import registry
 
-    assert _registry_keys() == [(int(k), c) for k, c in j_registry.registered()]
+    from gpuraytracer_tpu.geometry import trimesh as j_trimesh
+    from gpuraytracer_tpu_torch.geometry import trimesh
+
+    assert [k for k in _registry_keys() if k[0] != 3] == [
+        (int(k), c) for k, c in j_registry.registered()]
+    mesh = j_mesh = None
+    if key[0] == 3:
+        mrng = np.random.default_rng(9)
+        positions = mrng.uniform(-1, 1, size=(12, 3)).astype(np.float32)
+        indices = mrng.integers(0, 12, size=(16, 3)).astype(np.uint32)
+        mesh = trimesh.from_indexed(positions, indices)
+        j_mesh = j_trimesh.from_indexed(positions, indices)
     rng = np.random.default_rng(6 + 16 * key[0] + key[1])
     n = 128
     o = rng.uniform(-3, 3, size=(n, 3)).astype(np.float32)
@@ -135,11 +149,11 @@ def test_registry_matches_reference_table(key):
             key[0], key[1], torch.from_numpy(o), torch.from_numpy(d), t_min=0.0,
             t_max=torch.from_numpy(t_max), cull_backface=cull, step_scale=1.0,
             elapsed_time=torch.tensor(0.7), natural_budget=96, occlusion=occlusion,
-            level=level)
+            level=level, mesh=mesh)
         want = j_traverse._dispatch_procedural(
             key[0], key[1], jnp.asarray(o), jnp.asarray(d), t_min=0.0, t_max=jnp.asarray(t_max),
             cull=cull, step_scale=1.0, elapsed_time=0.7, gate=jnp.ones((n,), bool),
-            max_steps=96, occlusion=occlusion, level=level)
+            max_steps=96, occlusion=occlusion, level=level, mesh=j_mesh)
         hit, want_hit = got[0].numpy(), np.asarray(want[0])
         assert (hit == want_hit).mean() >= 0.98 and hit.any()
         both = hit & want_hit

@@ -108,8 +108,9 @@ def test_renderer_animates_and_resizes(small_frame):
 
 def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
     # render_frame on a GPU: fused-eligible scenes go to the frame kernel,
-    # every other covered scene to the wavefront with the scene kernel, and
-    # what neither kernel covers raises, naming the unported kernel.
+    # every other covered scene to the wavefront (the scene kernel, or the
+    # per-geometry route past the mesh face cap), and what no route covers
+    # raises, naming the unported kernel. Meshes are covered now.
     layout = builtin.LAYOUT
     frame_kernel.check_kernel_covers(layout)
     assert frame_kernel.fused_eligible_layout(layout, 11)
@@ -124,8 +125,9 @@ def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
                 frame_kernel.check_kernel_covers(layout)
     meshes = dataclasses.replace(
         layout, kinds=layout.kinds[:-1] + (IntersectorKind.TRIANGLE,))
-    with pytest.raises(NotImplementedError, match="_intersect_trimesh_tile"):
-        frame_kernel.check_kernel_covers(meshes)
+    frame_kernel.check_kernel_covers(meshes)
+    assert frame_kernel.fused_eligible_layout(meshes, 11, 512)
+    assert not frame_kernel.fused_eligible_layout(meshes, 11, 513)
     # 17 unique materials, or GPURT_DISABLE_FUSED: the scene-kernel wavefront.
     assert not frame_kernel.fused_eligible_layout(layout, 17)
     with monkeypatch.context() as m:

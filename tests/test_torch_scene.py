@@ -92,12 +92,12 @@ def test_pack_frame_round_trip_and_budgets():
     assert torch.equal(back.arrays.constants.elapsed_time, scene.arrays.constants.elapsed_time)
     # Per-geometry march budgets at the default knobs: radiance 160/128,
     # occlusion 96/64, and capped occlusion reports occluded at both levels;
-    # then the natural budget (512), no AABB window (no extension code), and
-    # the identity material slots.
+    # then the natural budget (512), no AABB window (no extension code), no
+    # face-table rows (no mesh), and the identity material slots.
     g = pack.num_geometries
     geo = pack.layout[t_frame.I_HEADER:t_frame.I_HEADER + g * t_frame.GEO_STRIDE]
     geo = geo.reshape(g, t_frame.GEO_STRIDE)
-    assert geo[:, 2:].tolist() == [[160, 128, 96, 64, 1, 1, 512, 0]] * g
+    assert geo[:, 2:].tolist() == [[160, 128, 96, 64, 1, 1, 512, 0, 0, 0]] * g
     assert pack.layout[t_frame.I_HEADER + g * t_frame.GEO_STRIDE:].tolist() == list(range(g + 1))
     assert pack.params[1].item() == 1.0 and pack.params[2].item() == pytest.approx(1.6)
     assert pack.params[5].item() == pytest.approx(1.6)  # the extension fractals' omega
