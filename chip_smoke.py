@@ -49,6 +49,21 @@ exits non-zero):
               rays, normals, gated-out rays miss) and alone, with op counts
               and bounds; one 1080p mesh_octahedra frame-kernel frame
               against its plain version
+ 10. modes    GPURT_FRAME_MODE=compact|defer (the compact, dense and defer
+              entries of csrc/frame_kernel.cu, the queue kernel of
+              csrc/scene_kernel.cu): builtin 96x54 against the golden and
+              320x180 against the plain frame kernel, each at the default
+              cap, at cap 8 with a queue that holds every pixel (the dense
+              pass and the queue kernel run) and at cap 1 with a one-tile
+              queue (the overflow renders the plain kernel), in both fmad
+              builds (bit-equal share, flips, max |diff|, queued lanes);
+              the --fmad=false compact frame equals its plain kernel bit for
+              bit; the bench scenes and mesh_octahedra at 320x180 in both
+              modes against the plain kernel; a 17-material scene under
+              compact through the scene kernel; a 16-frame 1080p builtin
+              window in each mode (launches, host syncs and queued lanes
+              per frame); each new kernel alone at the 1080p frame's
+              shapes against its plain version, with op counts and bounds
 Then the kernel JSON line, the card line, and the final JSON status line.
 
 Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
@@ -71,6 +86,7 @@ FLOPs on the same inputs, in the unit of that peak: a multiply-add is two
 (csrc/frame_math.cuh says what else counts).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -159,6 +175,43 @@ def reset_counts():
     scene_kernel.LAUNCHES = 0
     megakernel.LAUNCHES = 0
     megakernel.MESH_LAUNCHES = 0
+    frame_kernel.COMPACT_LAUNCHES = frame_kernel.DENSE_LAUNCHES = 0
+    frame_kernel.DEFER_LAUNCHES = scene_kernel.QUEUE_LAUNCHES = 0
+    frame_kernel.HOST_SYNCS = frame_kernel.QUEUED_LANES = 0
+
+
+def mode_counts():
+    """The compacted modes' counters: launches of the plain frame kernel,
+    the compact, dense and defer entries and the queue kernel; host syncs;
+    queued lanes."""
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+
+    return dict(plain=frame_kernel.LAUNCHES, compact=frame_kernel.COMPACT_LAUNCHES,
+                dense=frame_kernel.DENSE_LAUNCHES, defer=frame_kernel.DEFER_LAUNCHES,
+                queue=scene_kernel.QUEUE_LAUNCHES, syncs=frame_kernel.HOST_SYNCS,
+                queued=frame_kernel.QUEUED_LANES)
+
+
+@contextlib.contextmanager
+def fmad_build(fmad):
+    """Every kernel wrapper's default library is the build with
+    --fmad=<fmad> (the modes' host code takes no library argument)."""
+    from gpuraytracer_tpu_torch.kernels import build
+
+    real = build.load
+    build.load = lambda name, count_ops=False: real(name, fmad=fmad, count_ops=count_ops)
+    try:
+        yield
+    finally:
+        build.load = real
+
+
+def exactness(img, ref):
+    """(bit-equal pixel share, flip share, max |diff|) of two images."""
+    img, ref = img.float().cpu(), ref.float().cpu()
+    diff = (img - ref).abs().amax(dim=-1)
+    return (float((img == ref).all(dim=-1).float().mean()), float((diff > 1e-3).float().mean()),
+            float(diff.max()))
 
 
 def counts():
@@ -738,6 +791,209 @@ def main() -> int:
         if not ok:
             raise AssertionError("mesh_octahedra: frame kernel disagrees with plain at 1080p")
 
+    # 10. the compacted frame modes (GPURT_FRAME_MODE=compact|defer) ---------
+    with Phase("modes"):
+        modes = {"compact": frame_kernel.render_frame_compact,
+                 "defer": frame_kernel.render_frame_deferred}
+        cap_arg = {"compact": "budget_cap", "defer": "shadow_cap"}
+
+        def mode_frame(mode, pack_x, w, h, cap, cap_lanes, max_depth=3):
+            reset_counts()
+            img, n = modes[mode](pack_x, width=w, height=h, max_depth=max_depth,
+                                 cap_lanes=cap_lanes, debug_count=True, **{cap_arg[mode]: cap})
+            torch.cuda.synchronize()
+            return img, n, mode_counts()
+
+        # builtin 96x54 vs the golden, 320x180 vs the plain frame kernel:
+        # default cap; cap 8 with a queue that holds every pixel (the dense
+        # pass / queue kernel run); cap 1 with a one-tile queue (overflow).
+        tile = frame_kernel.TILE_ROWS * frame_kernel.TILE_COLS
+        for w, h in ((96, 54), (320, 180)):
+            pack_x = frame_kernel.pack_frame(builtin.build_scene(aspect=w / h, elapsed_time=0.7,
+                                                                 device=dev))
+            for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
+                with fmad_build(fmad):
+                    ref = (golden("builtin") if w == 96 else
+                           frame_kernel.render_frame_tiles(pack_x, width=w, height=h))
+                    for mode in modes:
+                        for cap, cap_lanes, form in ((None, None, "main"), (8, w * h, "repair"),
+                                                     (1, tile, "overflow")):
+                            img, n, c = mode_frame(mode, pack_x, w, h, cap, cap_lanes)
+                            ok, frac, tight, err = bar(img, ref)
+                            exact, flips, _ = exactness(img, ref)
+                            # 96x54 has too few pixels to overflow a one-tile queue.
+                            ran = {"main": c["plain"] == 0,
+                                   "overflow": c["plain"] == 1 or w == 96,
+                                   "repair": c["plain"] == 0 and c["dense" if mode == "compact"
+                                                                   else "queue"] == 1}[form]
+                            print(f"[modes] {mode} {w}x{h} fmad={fmad} cap {cap}"
+                                  f"{'' if cap_lanes is None else f' queue {cap_lanes}'}: "
+                                  f"{n} queued, launches {c}; vs "
+                                  f"{'golden' if w == 96 else 'plain kernel'}: bit-equal "
+                                  f"{exact:.6f}, flipped {flips:.6f}, within 1e-5 {tight:.6f}, "
+                                  f"max |diff| {err:.6g}", flush=True)
+                            if not (ok and n > 0 and ran):
+                                raise AssertionError(f"{mode} {w}x{h} cap {cap}: disagrees or "
+                                                     f"took the wrong path")
+                            if w == 320 and mode == "compact" and fmad is False and exact < 1.0:
+                                raise AssertionError("the --fmad=false compact frame is not the "
+                                                     "plain kernel's bit for bit")
+                            if w == 320 and mode == "defer" and fmad is False and err > 4e-6:
+                                raise AssertionError("the --fmad=false defer frame is not within "
+                                                     "4e-6 of the plain kernel")
+
+        # The bench scenes and the octahedra in both modes vs the plain kernel.
+        w, h = 320, 180
+        for cfg in list(scenes.BENCH_CONFIGS) + [meshes.get_config("mesh_octahedra")]:
+            pack_x = frame_kernel.pack_frame(cfg.build(w / h, 0.7, device=dev))
+            ref = frame_kernel.render_frame_tiles(pack_x, width=w, height=h,
+                                                  max_depth=cfg.max_depth)
+            for mode in modes:
+                img, n, c = mode_frame(mode, pack_x, w, h, None, None, cfg.max_depth)
+                ok, frac, tight, err = bar(img, ref)
+                exact, _, _ = exactness(img, ref)
+                print(f"[modes] {cfg.name} {mode} {w}x{h}: {n} queued, launches {c}; vs plain "
+                      f"kernel bit-equal {exact:.6f}, flipped {frac:.6f}, max |diff| {err:.6g}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"{cfg.name} {mode}: disagrees with the plain kernel")
+
+        # A 17-material scene takes the scene kernel in any mode (the
+        # reference reads the mode only for fused-eligible scenes).
+        os.environ["GPURT_FRAME_MODE"] = "compact"
+        scene_x = instance_grid(4, 4, 16).build(160 / 90, 0.7, device=dev)
+        reset_counts()
+        img = trace.render_frame(scene_x, 160, 90)
+        torch.cuda.synchronize()
+        c, launched = mode_counts(), counts()
+        ok, frac, _, _ = bar(img, frame_kernel.render_frame_plain(
+            frame_kernel.pack_frame(scene_x), width=160, height=90))
+        print(f"[modes] 17 materials, GPURT_FRAME_MODE=compact 160x90: launches {c}, scene "
+              f"kernel {launched[1]}; vs plain flipped {frac:.6f}", flush=True)
+        if not ok or launched[1] == 0 or c["plain"] + c["compact"] + c["defer"] != 0:
+            raise AssertionError("17-material scene under compact: wrong route or image")
+
+        # 16-frame 1080p windows of the main path in each mode, beside a
+        # plain one of the same call.
+        windows = {}
+        for mode in ("plain",) + tuple(modes):
+            os.environ["GPURT_FRAME_MODE"] = mode
+            ms, _, bg_max = animated_window(Renderer(W_MAIN, H_MAIN, device=dev), dev,
+                                            f"builtin 1080p {mode}", W_MAIN, H_MAIN)
+            c = mode_counts()
+            windows[mode] = c
+            per = {k: v / FRAMES for k, v in c.items()}
+            print(f"[modes] Renderer 1920x1080 GPURT_FRAME_MODE={mode}, {FRAMES} frames: "
+                  f"{ms:.3f} ms/frame, {W_MAIN * H_MAIN / ms / 1e3:.3f} Mrays/s; per frame: "
+                  f"launches {per}; background <= {bg_max:.3f}; {card}", flush=True)
+            want = {"plain": ("plain",), "compact": ("compact", "dense"),
+                    "defer": ("defer", "queue")}[mode]
+            if c[want[0]] != FRAMES or any(c[k] == 0 for k in want) or (
+                    mode != "plain" and c["plain"] != 0):
+                raise AssertionError(f"{mode} window: launches {c}")
+        del os.environ["GPURT_FRAME_MODE"]
+
+        # Each new kernel alone at the 1080p frame's shapes (phase 6's frame),
+        # against its plain version on the same inputs.
+        alone_m = {}
+        frame_in = (pack_m.params.numel() + pack_m.layout.numel()) * 4
+        npix = W_MAIN * H_MAIN
+        kw_m = dict(width=W_MAIN, height=H_MAIN)
+        count_lib = build.load("frame_kernel", count_ops=True)
+
+        def record(name, fn, p_ms, err, nbytes, ops_fn, detail):
+            k_ms, _ = cuda_ms(fn, 10)
+            ops.zero_()
+            ops_fn()
+            torch.cuda.synchronize()
+            k_ops = int(ops.item())
+            b_ms, b_by = bound(nbytes, k_ops)
+            alone_m[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, err=err)
+            print(f"[modes] {name} alone 1920x1080: {detail}; kernel {k_ms:.3f} ms ({k_ops} f32 "
+                  f"FLOPs, {int(nbytes)} bytes: bound {b_ms:.4f} ms by {b_by}); plain "
+                  f"{p_ms:.1f} ms; {card}", flush=True)
+
+        def plain_run(fn):
+            """(ms, output) of one call of a plain version."""
+            return cuda_ms(fn, 1, warmup=False)
+
+        # compact's main pass
+        k_img, k_dirty = frame_kernel.render_frame_capped(pack_m, budget_cap=64, **kw_m)
+        p_ms, (p_img, p_dirty) = plain_run(
+            lambda: frame_kernel.render_frame_capped_plain(pack_m, budget_cap=64, **kw_m))
+        clean = (k_dirty == 0) & (p_dirty == 0)
+        ok, frac, tight, err = bar(k_img[clean][:, None], p_img[clean][:, None])
+        agree = float((k_dirty == p_dirty).float().mean())
+        if not ok or agree < 0.999:
+            raise AssertionError("compact main pass disagrees with its plain version")
+        record("frame_compact", lambda: frame_kernel.render_frame_capped(
+                   pack_m, budget_cap=64, **kw_m), p_ms, err,
+               frame_in + npix * (16 + 4), lambda: frame_kernel.render_frame_capped(
+                   pack_m, budget_cap=64, ops=ops, lib=count_lib, **kw_m),
+               f"{int((k_dirty != 0).sum())} dirty ({int((p_dirty != 0).sum())} plain), masks "
+               f"agree on {agree:.6f}; clean pixels flipped {frac:.6f}, max |diff| {err:.6g}")
+        # the dense pass at this frame's queue, against its plain version and
+        # the plain kernel's pixels
+        m_img = frame_kernel.render_frame_tiles(pack_m, **kw_m)
+        q = torch.nonzero(k_dirty.reshape(-1)).squeeze(1)
+        q = q[torch.argsort(k_dirty.reshape(-1)[q], stable=True)].to(torch.int32)
+        qpx, qpy = (q % W_MAIN).contiguous(), (q // W_MAIN).contiguous()
+        k_out = frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m)
+        p_ms, p_out = plain_run(
+            lambda: frame_kernel.render_frame_dense_plain(pack_m, qpx, qpy, **kw_m))
+        ok, frac, tight, err = bar(k_out[:, None], p_out[:, None])
+        same = bool(torch.equal(k_out, m_img.reshape(-1, 4)[q.long()]))
+        if not ok or not same:
+            raise AssertionError("dense pass disagrees with its plain version or the plain kernel")
+        record("frame_dense", lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m),
+               p_ms, err, frame_in + q.shape[0] * (8 + 16), lambda: frame_kernel.render_frame_dense(
+                   pack_m, qpx, qpy, ops=ops, lib=count_lib, **kw_m),
+               f"{q.shape[0]} queued pixels; equal to the plain kernel's: {same}; vs plain "
+               f"flipped {frac:.6f}, max |diff| {err:.6g}")
+        # defer's main pass
+        k_pl = frame_kernel.render_frame_deferred_main(pack_m, shadow_cap=32, **kw_m)
+        p_ms, p_pl = plain_run(
+            lambda: frame_kernel.render_frame_deferred_plain(pack_m, shadow_cap=32, **kw_m))
+        agree = float((k_pl.sinfo == p_pl.sinfo).float().mean())
+        res = [bar(k, p) for k, p in zip(list(k_pl.lit) + list(k_pl.shadowed),
+                                         list(p_pl.lit) + list(p_pl.shadowed))]
+        err = max(r[3] for r in res)
+        if agree < 0.999 or not all(r[0] for r in res):
+            raise AssertionError("defer main pass disagrees with its plain version")
+        nsl = 2
+        record("frame_defer", lambda: frame_kernel.render_frame_deferred_main(
+                   pack_m, shadow_cap=32, **kw_m), p_ms,
+               err, frame_in + npix * (16 * 3 + (16 + 4 + 24) * nsl),
+               lambda: frame_kernel.render_frame_deferred_main(
+                   pack_m, shadow_cap=32, ops=ops, lib=count_lib, **kw_m),
+               f"status agrees on {agree:.6f} of lanes ({int(((k_pl.sinfo & 3) == 2).sum())} "
+               f"unknown); contribution planes flipped <= {max(r[1] for r in res):.6f}, max "
+               f"|diff| {err:.6g}")
+        # the occlusion repair queue at this frame's unknown lanes
+        idxs = [torch.nonzero((k_pl.sinfo[k].reshape(-1) & 3) == 2).squeeze(1) for k in range(nsl)]
+        seg = max(i.shape[0] for i in idxs)
+        q_rays = torch.zeros((nsl, seg, 6), device=dev)
+        q_act = torch.zeros((nsl, seg), dtype=torch.bool, device=dev)
+        for k, i in enumerate(idxs):
+            q_rays[k, :i.shape[0]] = k_pl.rays[k].reshape(-1, 6)[i]
+            q_act[k, :i.shape[0]] = True
+        q_rays, q_act = q_rays.reshape(-1, 6), q_act.reshape(-1)
+        k_occ = scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg)
+        p_ms, p_occ = plain_run(lambda: scene_kernel.shadow_queue_plain(pack_m, q_rays, q_act, seg))
+        agree = float((k_occ == p_occ).float().mean())
+        if agree < 0.999:
+            raise AssertionError("queue kernel disagrees with its plain version")
+        # An inactive entry reads its flag and writes its answer only.
+        n_act = int(q_act.sum())
+        record("shadow_queue", lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg),
+               p_ms, float((k_occ - p_occ).abs().max()),
+               frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
+                                         shading=False) + n_act * 24 + q_rays.shape[0] * (1 + 4),
+               lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg, ops=ops,
+                                                 lib=build.load("scene_kernel", count_ops=True)),
+               f"{n_act} queued rays in {nsl} segments of {seg}; occlusion agrees on "
+               f"{agree:.6f}")
+
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "frame_kernel",
@@ -787,7 +1043,27 @@ def main() -> int:
         "bound_ms": alone["mesh"]["bound_ms"],
         "bound_by": alone["mesh"]["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"gpuraytracer_tpu_torch/kernels/csrc/{src}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": alone_m[name]["err"],
+        "ms": alone_m[name]["ms"],
+        "plain_ms": alone_m[name]["plain_ms"],
+        "bound_ms": alone_m[name]["bound_ms"],
+        "bound_by": alone_m[name]["bound_by"],
+        "library_ms": None,
+    } for name, src, replaces, launches in (
+        ("frame_compact", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
+         windows["compact"]["compact"]),
+        ("frame_dense", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
+         windows["compact"]["dense"]),
+        ("frame_defer", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1075",
+         windows["defer"]["defer"]),
+        ("shadow_queue", "scene_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1016",
+         windows["defer"]["queue"]))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

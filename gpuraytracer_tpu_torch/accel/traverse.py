@@ -145,9 +145,23 @@ def pass_inputs(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_
     return hit_p, o_blas, d_blas, active, torch.where(hit_p, t_p, t_full)
 
 
+def _capped_pass(scene: Scene, plain, pack, caps):
+    """The pass function, or with ``caps`` (the keyword arguments of a
+    capped traversal, scene_kernel.scene_closest_plain's budget_cap,
+    mb_budget_cap, dirty and kill_on_cap) the capped plain pass, which
+    only the plain forms of the compacted frame modes run."""
+    from gpuraytracer_tpu_torch.kernels import scene_kernel
+
+    if not caps:
+        return _procedural_pass(scene, plain, pack)
+    if not plain and scene.arrays.aabb_min.device.type != "cpu":
+        raise ValueError("a capped pass runs only as the scene kernel's plain version")
+    return functools.partial(scene_kernel.scene_closest_plain, **caps)
+
+
 def closest_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_TMAX,
                 cull_backface=True, active=None, level=0, pack=None,
-                plain=False) -> HitRecord:
+                plain=False, caps=None) -> HitRecord:
     """Closest hit over the plane + every procedural geometry; geometry_id
     indexes the geometry rows (procedural 0..P-1, plane == P, miss -1).
 
@@ -155,10 +169,11 @@ def closest_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_
     t_max) on the scene's route (``_procedural_pass``): on a GPU the scene
     kernel or the per-geometry route (``pack``: the frame's packed buffers,
     if already built; ``plain``: the route's plain version), on the CPU
-    the scene kernel's plain version."""
+    the scene kernel's plain version. ``caps``: a capped pass
+    (``_capped_pass``)."""
     hit_p, o_blas, d_blas, active, t0 = pass_inputs(
         origins, directions, scene, t_min=t_min, t_max=t_max, active=active)
-    best_t, normal, gid = _procedural_pass(scene, plain, pack)(
+    best_t, normal, gid = _capped_pass(scene, plain, pack, caps)(
         scene, o_blas, d_blas, active, t0, level=level, cull_backface=cull_backface)
     hit_proc = gid >= 0
     geometry_id = torch.where(hit_proc, gid.to(torch.int64),
@@ -173,15 +188,16 @@ def closest_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_
 
 
 def any_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_TMAX,
-            active=None, level=0, pack=None, plain=False):
+            active=None, level=0, pack=None, plain=False, caps=None):
     """Occlusion query — TraceRay with ACCEPT_FIRST_HIT | SKIP_CLOSEST_HIT
     (Raytracing.hlsl:115-147); back-face culling stays on, which prevents
     self-shadowing. Plane-occluded lanes skip the procedural pass (they go
-    in inactive, with t0 = 0). Returns an (N,) bool occlusion mask."""
+    in inactive, with t0 = 0). Returns an (N,) bool occlusion mask.
+    ``caps``: a capped pass (``_capped_pass``)."""
     if active is None:
         active = torch.ones(origins.shape[0], dtype=torch.bool, device=origins.device)
     hit_p, o_blas, d_blas, remaining, t0 = pass_inputs(
         origins, directions, scene, t_min=t_min, t_max=t_max, active=active, occlusion=True)
-    _, _, gid = _procedural_pass(scene, plain, pack)(
+    _, _, gid = _capped_pass(scene, plain, pack, caps)(
         scene, o_blas, d_blas, remaining, t0, level=level, accept_first=True)
     return (hit_p | (gid >= 0)) & active

@@ -19,8 +19,10 @@ dispatch-time-derived (W*H/(ms*1e3), RendererRaytracingHelper.h:673-678).
 Each frame animates the scene (SceneBuilder.animator) and renders it
 through render/trace.render_frame: the CUDA frame kernel for fused-eligible
 scenes, else the wavefront with the CUDA scene kernel
-(GPURT_DISABLE_FUSED=1 forces the latter). The JSON records which kernels
-ran and how many launches each frame made.
+(GPURT_DISABLE_FUSED=1 forces the latter). GPURT_FRAME_MODE=compact|defer
+renders the fused-eligible scenes in that mode. The JSON records the mode,
+which kernels ran and how many launches each frame made, and the modes'
+host syncs and queued (dirty or unknown) lanes per frame.
 
 ``--ab-roots A,B,B,A`` instead times two checkouts' kernels in turns, on
 one card inside one call: for each root (a checkout of this repository,
@@ -77,9 +79,15 @@ class _Clock:
 
 
 def _launch_counts():
+    """Launches of each kernel entry, and the compacted frame modes' host
+    syncs and queued (dirty or unknown) lanes."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
 
-    return {"frame_kernel": frame_kernel.LAUNCHES, "scene_kernel": scene_kernel.LAUNCHES}
+    return {"frame_kernel": frame_kernel.LAUNCHES, "scene_kernel": scene_kernel.LAUNCHES,
+            "frame_compact": frame_kernel.COMPACT_LAUNCHES,
+            "frame_dense": frame_kernel.DENSE_LAUNCHES,
+            "frame_defer": frame_kernel.DEFER_LAUNCHES, "shadow_queue": scene_kernel.QUEUE_LAUNCHES,
+            "host_syncs": frame_kernel.HOST_SYNCS, "queued_lanes": frame_kernel.QUEUED_LANES}
 
 
 def card_line() -> str:
@@ -92,6 +100,7 @@ def card_line() -> str:
 def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = 16,
                  scale: float = 1.0, device="cuda") -> dict:
     from gpuraytracer_tpu_torch.accel.instances import Scene
+    from gpuraytracer_tpu_torch.kernels import frame_kernel
     from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.utils import stats
 
@@ -145,7 +154,11 @@ def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = 16,
         "height": height,
         "max_depth": cfg.max_depth,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "launches_per_frame": {k: (after[k] - before[k]) / n_frames for k in after},
+        "frame_mode": frame_kernel.frame_mode(),
+        "launches_per_frame": {k: (after[k] - before[k]) / n_frames for k in after
+                               if k not in ("host_syncs", "queued_lanes")},
+        "host_syncs_per_frame": (after["host_syncs"] - before["host_syncs"]) / n_frames,
+        "queued_lanes_per_frame": (after["queued_lanes"] - before["queued_lanes"]) / n_frames,
         "frame_ms": frame_ms,
         "frame_ms_min": min(wall_ms),
         "frame_ms_max": max(wall_ms),

@@ -98,17 +98,26 @@ def find_intersecting_metaballs(origins, directions, centers, radii, t_min, t_ma
 
 
 def intersect_metaballs(origins, directions, elapsed_time, *, t_min=0.0, t_max,
-                        cull_backface, active):
+                        cull_backface, active, max_steps: int = METABALL_MAX_STEPS,
+                        return_capped: bool = False):
     """RayMetaballsIntersectionTest (hlsli:151-202).
 
     origins/directions: (N, 3) local-space rays; t_max: (N,) per-ray bound
-    (the shrinking RayTCurrent); active: (N,) gate. Returns
-    (hit, t_hit, normal) with t_hit = inf on a miss."""
+    (the shrinking RayTCurrent); active: (N,) gate. ``max_steps`` below
+    128 caps the march (a compacted frame mode's main pass); the step stays
+    the interval over 128, so a capped march is a strict prefix of the
+    full one (scene_kernel._march_metaballs_part's step_div). Returns
+    (hit, t_hit, normal) with t_hit = inf on a miss, and with
+    ``return_capped`` the capped lanes: marched (a non-empty interval),
+    the budget spent, no valid crossing. (The reference's kernel also
+    leaves out lanes its potential bound proves empty, which the port
+    does not compute; such lanes can only add to the repaired set.)"""
     n = origins.shape[0]
     dev = origins.device
     centers, radii = animated_metaballs(elapsed_time.to(dev))
     t_hit = torch.full((n,), torch.inf, dtype=origins.dtype, device=dev)
     normal = torch.zeros_like(origins)
+    capped = torch.zeros(n, dtype=torch.bool, device=dev)
 
     tmin, tmax = find_intersecting_metaballs(origins, directions, centers, radii,
                                              t_min, t_max)
@@ -125,7 +134,7 @@ def intersect_metaballs(origins, directions, elapsed_time, *, t_min=0.0, t_max,
             tc = t[cur]
             oc, dc = o[cur], d[cur]
             sc = steps[cur]
-            live = sc < METABALL_MAX_STEPS
+            live = sc < max_steps
             pos = oc + tc[:, None] * dc
             crossed = live & (metaballs_potential(pos, centers, radii)
                               >= METABALL_ISO_THRESHOLD)
@@ -145,9 +154,10 @@ def intersect_metaballs(origins, directions, elapsed_time, *, t_min=0.0, t_max,
             t[cur] = torch.where(go, tc + step[cur], tc)
             cur = cur[go]
         t_hit[lanes] = found
+        capped[lanes] = (steps >= max_steps) & ~torch.isfinite(found)
     hit = torch.isfinite(t_hit)
     if bool(hit.any()):
         hi = torch.nonzero(hit).squeeze(1)
         pos = origins[hi] + t_hit[hi][:, None] * directions[hi]
         normal[hi] = metaballs_normal(pos, centers, radii)
-    return hit, t_hit, normal
+    return (hit, t_hit, normal) + ((capped,) if return_capped else ())

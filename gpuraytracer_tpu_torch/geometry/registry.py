@@ -30,6 +30,7 @@ import torch
 from gpuraytracer_tpu_torch.core.types import (
     AnalyticPrimitive,
     IntersectorKind,
+    METABALL_MAX_STEPS,
     SDF_MAX_STEPS,
     VolumetricPrimitive,
 )
@@ -37,8 +38,9 @@ from gpuraytracer_tpu_torch.geometry import analytic, metaballs, sdf, trimesh
 
 # (kind, prim_type) -> fn(o, d, *, t_min, t_max, cull_backface, active,
 #                         step_scale, elapsed_time, natural_budget, occlusion,
-#                         level, with_normal, mesh, march, mesh_closest)
-#                      -> (hit, t, local normal or None)
+#                         level, with_normal, mesh, march, mesh_closest,
+#                         budget_cap, mb_budget_cap)
+#                      -> (hit, t, local normal or None, dirty lanes or None)
 _REGISTRY: Dict[Tuple[IntersectorKind, int], Callable] = {}
 
 
@@ -66,7 +68,8 @@ def registered() -> Tuple[Tuple[IntersectorKind, int], ...]:
 
 def intersect(kind, prim_type, o, d, *, t_min, t_max, cull_backface, step_scale,
               elapsed_time, natural_budget=SDF_MAX_STEPS, occlusion=False, level=0,
-              with_normal=True, mesh=None, active=None, march=None, mesh_closest=None):
+              with_normal=True, mesh=None, active=None, march=None, mesh_closest=None,
+              budget_cap=None, mb_budget_cap=None, return_capped=False):
     """One geometry's intersector over (N, 3) local rays (t_max (N,)):
     (hit, t, local normal or None), hit False outside ``active`` (N,) bool
     (default: every lane), whose lanes marches and meshes skip.
@@ -75,47 +78,67 @@ def intersect(kind, prim_type, o, d, *, t_min, t_max, cull_backface, step_scale,
     TRIANGLE geometry's TriangleMesh; ``march``, ``mesh_closest``: the
     SDF march and the mesh test in the form of
     kernels/megakernel.sphere_trace_tiles and trimesh_closest (default:
-    the plain forms)."""
+    the plain forms).
+
+    ``budget_cap`` / ``mb_budget_cap``: the step caps of an SDF / metaball
+    march in a compacted frame mode's main pass (sdf.march_budget's
+    ``cap``). ``return_capped`` adds a fourth output, the lanes whose
+    march ran out of a capped budget and so set the geometry's dirty bit
+    (all False for a closed form, or where the cap cannot bind:
+    sdf.cap_marks_dirty)."""
     try:
         fn = lookup(kind, prim_type)
     except KeyError:
         raise ValueError(f"no intersector for kind={kind} type={prim_type}") from None
     if active is None:
         active = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
-    hit, t, normal = fn(o, d, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
-                        active=active, step_scale=step_scale, elapsed_time=elapsed_time,
-                        natural_budget=natural_budget, occlusion=occlusion, level=level,
-                        with_normal=with_normal, mesh=mesh, march=march,
-                        mesh_closest=mesh_closest)
-    return hit & active, t, normal
+    hit, t, normal, capped = fn(o, d, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
+                                active=active, step_scale=step_scale,
+                                elapsed_time=elapsed_time, natural_budget=natural_budget,
+                                occlusion=occlusion, level=level, with_normal=with_normal,
+                                mesh=mesh, march=march, mesh_closest=mesh_closest,
+                                budget_cap=budget_cap, mb_budget_cap=mb_budget_cap,
+                                return_capped=return_capped)
+    if not return_capped:
+        return hit & active, t, normal
+    if capped is None:
+        capped = torch.zeros_like(active)
+    return hit & active, t, normal, capped & active
 
 
 @register(IntersectorKind.ANALYTIC, AnalyticPrimitive.AABB)
 def _aabb(o, d, *, t_min, t_max, cull_backface, **_):
     return analytic.intersect_hollow_aabb(o, d, t_min=t_min, t_max=t_max,
-                                          cull_backface=cull_backface)
+                                          cull_backface=cull_backface) + (None,)
 
 
 @register(IntersectorKind.ANALYTIC, AnalyticPrimitive.SPHERES)
 def _spheres(o, d, *, t_min, t_max, cull_backface, **_):
     return analytic.intersect_spheres(o, d, t_min=t_min, t_max=t_max,
-                                      cull_backface=cull_backface)
+                                      cull_backface=cull_backface) + (None,)
 
 
 @register(IntersectorKind.TRIANGLE, 0)
 def _trimesh(o, d, *, t_min, t_max, cull_backface, active, mesh, mesh_closest, **_):
     if mesh_closest is None:
         return trimesh.intersect_trimesh(o, d, mesh, t_min=t_min, t_max=t_max,
-                                         cull_backface=cull_backface, active=active)
+                                         cull_backface=cull_backface, active=active) + (None,)
     # The mesh entry's hit test is t >= 0: t_min is RAY_TMIN = 0 on every pass.
-    return mesh_closest(mesh.rows(), o, d, active, t_max, cull_backface=cull_backface)
+    return mesh_closest(mesh.rows(), o, d, active, t_max, cull_backface=cull_backface) + (None,)
 
 
 @register(IntersectorKind.VOLUMETRIC, VolumetricPrimitive.METABALLS)
-def _metaballs(o, d, *, t_min, t_max, cull_backface, active, elapsed_time, **_):
+def _metaballs(o, d, *, t_min, t_max, cull_backface, active, elapsed_time, mb_budget_cap,
+               return_capped, **_):
+    # A metaball march sets its dirty bit only under a cap below its 128
+    # steps (scene_kernel.py:1526-1529).
+    if not return_capped or mb_budget_cap is None or mb_budget_cap >= METABALL_MAX_STEPS:
+        return metaballs.intersect_metaballs(
+            o, d, elapsed_time, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
+            active=active) + (None,)
     return metaballs.intersect_metaballs(
         o, d, elapsed_time, t_min=t_min, t_max=t_max, cull_backface=cull_backface,
-        active=active)
+        active=active, max_steps=int(mb_budget_cap), return_capped=True)
 
 
 _UNIT_LO = torch.tensor([-1.0, -1.0, -1.0])
@@ -126,7 +149,7 @@ def _make_sdf(code: int):
     windowed = code in sdf.AABB_WINDOWED_CODES
 
     def _fn(o, d, *, t_min, t_max, cull_backface, active, step_scale, natural_budget,
-            occlusion, level, with_normal, march, **_):
+            occlusion, level, with_normal, march, budget_cap, return_capped, **_):
         cull, gate, t_hi = cull_backface, active, t_max
         t_start = None if t_min == 0.0 else torch.full_like(t_max, t_min)
         if windowed:
@@ -138,12 +161,21 @@ def _make_sdf(code: int):
             t_start = torch.clamp(w_lo, min=t_min)
             t_hi = torch.minimum(t_max, w_hi)
             gate = gate & (w_hi > w_lo) & (t_hi > t_start)
-        budget, capped_hit = sdf.march_budget(natural_budget, occlusion=occlusion, level=level)
+        budget, capped_hit = sdf.march_budget(natural_budget, occlusion=occlusion, level=level,
+                                              cap=budget_cap)
         kw = dict(prim_code=code, cull_backface=cull, max_steps=budget, t_start=t_start,
                   relax=sdf.relax_for_code(code, occlusion=occlusion), capped_hit=capped_hit)
+        if return_capped:
+            if march is not None:
+                raise ValueError("a capped march runs in its plain form only")
+            hit, t, normal, capped = sdf.march(o, d, gate, t_hi, step_scale,
+                                               with_normal=with_normal, return_capped=True, **kw)
+            if not sdf.cap_marks_dirty(natural_budget, occlusion=occlusion, cap=budget_cap):
+                capped = None
+            return hit, t, normal, capped
         if march is None:
-            return sdf.march(o, d, gate, t_hi, step_scale, with_normal=with_normal, **kw)
-        return march(o, d, gate, t_hi, step_scale, **kw)
+            return sdf.march(o, d, gate, t_hi, step_scale, with_normal=with_normal, **kw) + (None,)
+        return march(o, d, gate, t_hi, step_scale, **kw) + (None,)
 
     return _fn
 

@@ -341,19 +341,34 @@ def cap_radiance_budget(budget: int, bounce: bool = False) -> int:
     return budget
 
 
-def march_budget(natural: int, *, occlusion: bool, level: int):
+def march_budget(natural: int, *, occlusion: bool, level: int, cap: int | None = None):
     """(budget, capped_hit) of one march at recursion ``level``: bounce
     levels (>= 1) take the harsher bounce cap, and an occlusion march whose
     budget sits below the geometry's natural one reports OCCLUDED when it
-    runs out (reference: accel/traverse._dispatch_procedural)."""
+    runs out (reference: accel/traverse._dispatch_procedural).
+
+    ``cap``: the step cap of a compacted frame mode's main pass
+    (scene_kernel._traverse_tile's budget_cap), applied to the natural
+    budget before the level's knobs. The occluded-on-cap rule binds only
+    where the capped budget is the plain one (scene_kernel.py:1479-1505):
+    a march capped below it reports a miss, and its lane goes to the
+    repair pass."""
     if occlusion:
-        steps = cap_occlusion_budget(natural)
+        steps = cap_occlusion_budget(natural if cap is None else min(cap, natural))
         steps_b = cap_occlusion_budget(steps, bounce=True)
     else:
-        steps = cap_radiance_budget(natural)
+        steps = cap_radiance_budget(natural if cap is None else min(cap, natural))
         steps_b = cap_radiance_budget(steps, bounce=True)
     budget = steps_b if (level > 0 and steps_b < steps) else steps
-    return budget, bool(occlusion and budget < natural)
+    plain = budget if cap is None else march_budget(natural, occlusion=occlusion, level=level)[0]
+    return budget, bool(occlusion and budget == plain and plain < natural)
+
+
+def cap_marks_dirty(natural: int, *, occlusion: bool, cap: int | None) -> bool:
+    """Whether a march capped by ``cap`` sets its geometry's dirty bit: only
+    where the smaller of its capped budgets at the two kinds of level sits
+    below the natural budget (scene_kernel.py:1506-1510)."""
+    return march_budget(natural, occlusion=occlusion, level=1, cap=cap)[0] < natural
 
 
 # ---------------------------------------------------------------------------
@@ -363,7 +378,7 @@ def march_budget(natural: int, *, occlusion: bool, level: int):
 def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_max,
                  cull_backface, active, max_steps: int = SDF_MAX_STEPS,
                  escape_bound: bool = True, relax: float = 1.0, capped_hit: bool = False,
-                 capped_t=None):
+                 capped_t=None, return_capped: bool = False):
     """RaySignedDistancePrimitiveTest over (N, 3) local-space rays.
 
     Per lane: sample d = f(o + t*dir); a sample is counted against
@@ -390,14 +405,18 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
     AABB-windowed march); the march starts there and a crossing before it
     is invalid.
 
-    Returns (hit, t_hit) with t_hit = inf on a miss.
+    Returns (hit, t_hit) with t_hit = inf on a miss; with
+    ``return_capped`` also the capped lanes, as the reference defines
+    them (scene_kernel.py:459-463): active, the budget spent, no valid
+    crossing (whatever ``capped_hit`` then reports).
     """
     n = origins.shape[0]
     dev = origins.device
     t_hit = torch.full((n,), torch.inf, dtype=origins.dtype, device=dev)
+    capped_all = torch.zeros(n, dtype=torch.bool, device=dev)
     lanes = torch.nonzero(active).squeeze(1)
     if lanes.numel() == 0:
-        return t_hit < torch.inf, t_hit
+        return (t_hit < torch.inf, t_hit) + ((capped_all,) if return_capped else ())
     o, d, tm = origins[lanes], directions[lanes], t_max[lanes]
     if escape_bound:
         t_esc = torch.minimum(tm, march_escape_t(hlsl.length(o), hlsl.length(d)))
@@ -461,33 +480,38 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
             steps[cur] = torch.where(stuck, max_steps, sc + live.to(sc.dtype))
         t[cur] = torch.where(moved, t_new, tc)
         cur = cur[go]
+    capped = (steps >= max_steps) & ~torch.isfinite(found)
     if capped_hit:
-        capped = (steps >= max_steps) & ~torch.isfinite(found)
         found = torch.where(capped, t if capped_t is None else torch.full_like(t, capped_t),
                             found)
     t_hit[lanes] = found
+    if return_capped:
+        capped_all[lanes] = capped
+        return torch.isfinite(t_hit), t_hit, capped_all
     return torch.isfinite(t_hit), t_hit
 
 
 def march(o, d, gate, t_max, step_scale, *, prim_code: int, cull_backface: bool = True,
           max_steps: int = SDF_MAX_STEPS, t_start=None, relax: float = 1.0,
-          capped_hit: bool = False, capped_t=None, with_normal: bool = True):
+          capped_hit: bool = False, capped_t=None, with_normal: bool = True,
+          return_capped: bool = False):
     """One SDF geometry's march over the gated lanes of (N, 3) local rays, in
     the form of the march kernel's wrapper (kernels/megakernel.py): from
     t_start ((N,), None: 0) to t_max, the escape bound for ESCAPE_SAFE_CODES
     only, then the tetrahedral normal at each hit ((0, 0, 0) elsewhere;
-    None when not ``with_normal``). Returns (hit, t_hit, normal)."""
+    None when not ``with_normal``). Returns (hit, t_hit, normal), and the
+    capped lanes (``sphere_trace``) after them with ``return_capped``."""
     code = int(prim_code)
     fn = DISTANCE_FUNCTIONS[code]
-    hit, t = sphere_trace(
+    hit, t, *capped = sphere_trace(
         o, d, fn, step_scale=step_scale, t_min=0.0 if t_start is None else t_start,
         t_max=t_max, cull_backface=cull_backface, active=gate, max_steps=int(max_steps),
         escape_bound=code in ESCAPE_SAFE_CODES, relax=float(relax),
-        capped_hit=bool(capped_hit), capped_t=capped_t)
-    if not with_normal:
-        return hit, t, None
-    normal = torch.zeros_like(o)
-    if bool(hit.any()):
-        hi = torch.nonzero(hit).squeeze(1)
-        normal[hi] = calculate_normal(o[hi] + t[hi][:, None] * d[hi], fn)
-    return hit, t, normal
+        capped_hit=bool(capped_hit), capped_t=capped_t, return_capped=return_capped)
+    normal = None
+    if with_normal:
+        normal = torch.zeros_like(o)
+        if bool(hit.any()):
+            hi = torch.nonzero(hit).squeeze(1)
+            normal[hi] = calculate_normal(o[hi] + t[hi][:, None] * d[hi], fn)
+    return (hit, t, normal, *capped)

@@ -104,11 +104,15 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> ctype
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "frame_kernel":
-        lib.gprt_frame_render.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
-        lib.gprt_frame_render.restype = ci
+        for fn, n_ptr, n_int in (("gprt_frame_render", 4, 5), ("gprt_frame_compact", 5, 9),
+                                 ("gprt_frame_dense", 6, 6), ("gprt_frame_defer", 7, 7)):
+            getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
+            getattr(lib, fn).restype = ci
     elif name == "scene_kernel":
         lib.gprt_scene_closest.argtypes = [vp] * 10 + [ci] * 6 + [vp, ci, vp]
         lib.gprt_scene_closest.restype = ci
+        lib.gprt_shadow_queue.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
+        lib.gprt_shadow_queue.restype = ci
         lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
         lib.gprt_sdf_distance.restype = ci
     elif name == "megakernel":

@@ -33,11 +33,31 @@
 // the image and is not carried over. Register pressure and divergence are
 // left to later work.
 //
+// The compacted frame modes (GPURT_FRAME_MODE; the reference's
+// render_frame_compact, frame_kernel.py:803, and render_frame_deferred,
+// :1075, which run _frame_kernel with budget_cap, emit_dirty, dense and
+// defer_shadow) are render_pixel's other forms, each with an entry:
+//   compact   the closest and occlusion marches capped; a pixel that a cap
+//             touches gets its dirty mask (sticky over levels and both kinds
+//             of ray) and stops (the reference's kill-on-cap and dropped
+//             lanes); writes the image and the (H, W) int32 mask.
+//   dense     one thread per entry of the dirty queue (px, py; -1 is
+//             padding), rendered with the plain form's device code, so a
+//             re-rendered pixel is the plain kernel's pixel.
+//   defer     the occlusion marches capped, each level with a dirty mask of
+//             its own; per level the colour contribution with the light
+//             visible and (shadowed levels) in shadow, the status (0 lit, 1
+//             shadowed, 2 unknown) | mask << 2, and the shadow ray in BLAS
+//             space; a level the pixel never reaches reads zeros.
+// The host (kernels/frame_kernel.py) builds the queues and recomposes. On
+// Hopper the modes' purpose on the TPU, breaking its tile convoys, does not
+// arise (each thread already ends its own march): they are ported for the
+// reference's semantics and measured, not for speed.
+//
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py packs
 // them (header, then the reference's pack_frame_params blocks); tri, the
 // F x 12 mesh face table (null without meshes); out is an (H, W, 4) f32
-// image. The C entry returns cudaGetLastError() after the
-// launch.
+// image. Each C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -80,7 +100,10 @@ __device__ __forceinline__ V3 to_blas(const Scene& s, V3 o) {
 }
 
 // Closest hit over the plane and every procedural geometry; gid -1 on a miss.
-__device__ Hit closest_hit(const Scene& s, V3 o, V3 d, int level) {
+// kCaps: the capped traversal (traverse.cuh) with the pixel's dirty mask.
+template <bool kCaps>
+__device__ Hit closest_hit(const Scene& s, V3 o, V3 d, int level, CapSpec caps,
+                           unsigned* dirty) {
   Hit h{kInf, -1, v3(0.0f, 0.0f, 0.0f)};
   float tp;
   if (plane_test(s, o, d, &tp)) {
@@ -88,15 +111,16 @@ __device__ Hit closest_hit(const Scene& s, V3 o, V3 d, int level) {
     h.gid = s.plane_gid;
     h.n = v3(0.0f, 1.0f, 0.0f);
   }
-  closest_procedural(s, to_blas(s, o), d, level, true, &h);
+  closest_procedural<kCaps>(s, to_blas(s, o), d, level, true, &h, caps, dirty);
   return h;
 }
 
 // Accept-first occlusion over [0, RAY_TMAX] with back-face culling.
-__device__ bool occluded(const Scene& s, V3 o, V3 d, int level) {
+template <bool kCaps>
+__device__ bool occluded(const Scene& s, V3 o, V3 d, int level, CapSpec caps, unsigned* dirty) {
   float tp;
   if (plane_test(s, o, d, &tp)) return true;
-  return occluded_procedural(s, to_blas(s, o), d, kRayTMax, level) >= 0;
+  return occluded_procedural<kCaps>(s, to_blas(s, o), d, kRayTMax, level, caps, dirty) >= 0;
 }
 
 // AnalyticalCheckersTexture with ray differentials from the neighbour
@@ -125,10 +149,26 @@ __device__ float checkers(const Scene& s, V3 hp, V3 n, int px, int py, int width
   return (1.0f - i[0]) * (1.0f - i[1]);
 }
 
+enum Form { kPlainForm = 0, kCompactForm = 1, kDeferForm = 2 };
+
+// Where the defer form writes: planes of n = W * H pixels, level-major.
+struct DeferOut {
+  float4* lit;       // D x n
+  float4* shadowed;  // (D - 1) x n
+  int* sinfo;        // (D - 1) x n
+  float* rays;       // (D - 1) x n x 6: BLAS-space origin, direction
+  int n;
+};
+
 // One pixel: raygen, then per level the closest hit, the material pick,
-// the shadow ray, the shading and the bounce; one float4 store.
-__device__ void render_pixel(const Scene& s, float4* __restrict__ out, int px, int py, int width,
-                             int height, int max_depth) {
+// the shadow ray, the shading and the bounce; returns the colour (the
+// defer form records its planes at `pix` instead and returns zeros).
+// kCompactForm: caps as closest_caps / shadow_caps, *dirty the mask.
+// kDeferForm: occlusion capped as shadow_caps.
+template <int kForm>
+__device__ float4 render_pixel(const Scene& s, int px, int py, int width, int height,
+                               int max_depth, CapSpec closest_caps, CapSpec shadow_caps,
+                               unsigned* dirty, const DeferOut& rec, int pix) {
   const V3 light = v3(s.cvec[4], s.cvec[5], s.cvec[6]);
   const float* amb = s.cvec + 8;
   const float* ldiff = s.cvec + 12;
@@ -138,10 +178,14 @@ __device__ void render_pixel(const Scene& s, float4* __restrict__ out, int px, i
   raygen(s, px, py, width, height, &o, &d);
   float color[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float tw[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  int reached = 0;
 
   for (int level = 0; level < max_depth; ++level) {
     GPRT_OPS(6 + 13 + 7 + 22 + 18 + 1 + 3 + 8 + 4 * 9 + 7 + 2 + 5 + 3 * 14 + 11);
-    Hit h = closest_hit(s, o, d, level);
+    reached = level + 1;
+    Hit h = closest_hit<kForm == kCompactForm>(s, o, d, level, closest_caps, dirty);
+    // compact: a capped pixel is rendered again by the dense pass.
+    if (kForm == kCompactForm && *dirty) break;
     const bool hit = h.gid >= 0;
     const float t = hit ? h.t : kRayTMax;
     const V3 n = h.n;
@@ -156,21 +200,36 @@ __device__ void render_pixel(const Scene& s, float4* __restrict__ out, int px, i
     const float kd = saturate(dot3(neg(incident), n));
     const V3 refl_l = normalize(reflect(incident, n));
     const float ks = powf(saturate(dot3(refl_l, normalize(neg(d)))), spec_p);
+    const bool shadow_level = level + 1 < max_depth;
     bool in_shadow = false;
-    if (level + 1 < max_depth && hit && (kd > 0.0f || spec_c * ks > 0.0f)) {
-      GPRT_OPS(13);
-      in_shadow = occluded(s, hp, normalize(sub(light, hp)), level);
+    unsigned sdirty = 0;
+    V3 sd = v3(0.0f, 0.0f, 0.0f);
+    if (kForm == kDeferForm && shadow_level) {
+      GPRT_OPS(13 + 3);
+      sd = normalize(sub(light, hp));
+      const V3 ob = to_blas(s, hp);
+      float* r = rec.rays + 6 * ((size_t)level * rec.n + pix);
+      r[0] = ob.x, r[1] = ob.y, r[2] = ob.z, r[3] = sd.x, r[4] = sd.y, r[5] = sd.z;
     }
-    const float sf = in_shadow ? F(0.35) : 1.0f;
-    const float dterm = sf * diff * kd;
-    const float sterm = in_shadow ? 0.0f : spec_c * ks;
+    if (shadow_level && hit && (kd > 0.0f || spec_c * ks > 0.0f)) {
+      if (kForm != kDeferForm) {
+        GPRT_OPS(13);
+        sd = normalize(sub(light, hp));
+      }
+      in_shadow = occluded<kForm != kPlainForm>(s, hp, sd, level, shadow_caps,
+                                                kForm == kDeferForm ? &sdirty : dirty);
+    }
+    if (kForm == kCompactForm && *dirty) break;
     const float a = 1.0f - saturate(dot3(n, v3(0.0f, -1.0f, 0.0f)));
-    float phong[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
+
+    // Phong with the shadow factor and specular of `shadowed`.
+    auto phong = [&](bool shadowed, int c) {
+      const float sf = shadowed ? F(0.35) : 1.0f;
+      const float dterm = sf * diff * kd;
+      const float sterm = shadowed ? 0.0f : spec_c * ks;
       float ambient = albedo[c] * ((amb[c] - F(0.1)) + a * (amb[c] - (amb[c] - F(0.1))));
-      phong[c] = ambient + dterm * ldiff[c] * albedo[c] + sterm;
-    }
+      return ambient + dterm * ldiff[c] * albedo[c] + sterm;
+    };
 
     const float k = (hit && h.gid == s.plane_gid) ? checkers(s, hp, n, px, py, width, height) : 1.0f;
 
@@ -179,16 +238,32 @@ __device__ void render_pixel(const Scene& s, float4* __restrict__ out, int px, i
     const float f5 = powf(1.0f - cosi, 5.0f);
     const bool reflective = hit && refl > F(0.001);
     const float fog = 1.0f - expf(F(-0.000002) * t * t * t);
+    auto base = [&](float ph, int c) { return hit ? (1.0f - fog) * (k * ph) + fog * bg[c] : bg[c]; };
+    if (kForm == kDeferForm) GPRT_OPS(4 * 14);  // the second shading variant
     bool live = false;
+    float lit[4], shadowed[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float rm = c < 3 ? refl * (albedo[c] + (1.0f - albedo[c]) * f5) : refl * 1.0f;
       rm = reflective ? rm : 0.0f;
-      float base = hit ? (1.0f - fog) * (k * phong[c]) + fog * bg[c] : bg[c];
       float mult = hit ? (1.0f - fog) * k * rm : 0.0f;
-      color[c] = color[c] + tw[c] * base;
+      if (kForm == kDeferForm) {
+        lit[c] = tw[c] * base(phong(false, c), c);
+        shadowed[c] = tw[c] * base(phong(true, c), c);
+      } else {
+        color[c] = color[c] + tw[c] * base(phong(in_shadow, c), c);
+      }
       tw[c] = tw[c] * mult;
       live = live || tw[c] != 0.0f;
+    }
+    if (kForm == kDeferForm) {
+      const size_t at = (size_t)level * rec.n + pix;
+      rec.lit[at] = make_float4(lit[0], lit[1], lit[2], lit[3]);
+      if (shadow_level) {
+        rec.shadowed[at] = make_float4(shadowed[0], shadowed[1], shadowed[2], shadowed[3]);
+        const int status = in_shadow ? 1 : (sdirty != 0 ? 2 : 0);
+        rec.sinfo[at] = status | (int)(sdirty << 2);
+      }
     }
     // Exact kills: a non-reflective hit or a throughput that is exactly
     // zero on every channel adds +0.0 at every later level.
@@ -197,25 +272,103 @@ __device__ void render_pixel(const Scene& s, float4* __restrict__ out, int px, i
     d = reflect(d, n);
     o = hp;
   }
-  out[py * width + px] = make_float4(color[0], color[1], color[2], color[3]);
+  if (kForm == kDeferForm) {
+    // The levels this pixel never reached read zeros.
+    for (int level = reached; level < max_depth; ++level) {
+      const size_t at = (size_t)level * rec.n + pix;
+      rec.lit[at] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (level + 1 < max_depth) {
+        rec.shadowed[at] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        rec.sinfo[at] = 0;
+        float* r = rec.rays + 6 * at;
+        r[0] = r[1] = r[2] = r[3] = r[4] = r[5] = 0.0f;
+      }
+    }
+  }
+  return make_float4(color[0], color[1], color[2], color[3]);
+}
+
+// The block's scene in shared memory, after resetting the op counter of a
+// counting build.
+__device__ __forceinline__ Scene block_scene(const float* __restrict__ params,
+                                             const int* __restrict__ layout,
+                                             const float* __restrict__ tri, int G, int M) {
+  extern __shared__ float smem[];
+#ifdef GPRT_COUNT_OPS
+  if (threadIdx.x == 0 && threadIdx.y == 0) gprt_block_ops = 0;
+#endif
+  return load_scene<true>(params, layout, tri, G, M, smem);
+}
+
+__device__ __forceinline__ void add_block_ops(unsigned long long* ops) {
+#ifdef GPRT_COUNT_OPS
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) atomicAdd(ops, gprt_block_ops);
+#endif
 }
 
 __global__ void __launch_bounds__(128)
     frame_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                  const float* __restrict__ tri, float4* __restrict__ out, int width, int height, int max_depth, int G, int M,
                  unsigned long long* ops) {
-  extern __shared__ float smem[];
-#ifdef GPRT_COUNT_OPS
-  if (threadIdx.x == 0 && threadIdx.y == 0) gprt_block_ops = 0;
-#endif
-  const Scene s = load_scene<true>(params, layout, tri, G, M, smem);
+  const Scene s = block_scene(params, layout, tri, G, M);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && py < height) render_pixel(s, out, px, py, width, height, max_depth);
-#ifdef GPRT_COUNT_OPS
-  __syncthreads();
-  if (threadIdx.x == 0 && threadIdx.y == 0) atomicAdd(ops, gprt_block_ops);
-#endif
+  if (px < width && py < height) {
+    out[py * width + px] = render_pixel<kPlainForm>(s, px, py, width, height, max_depth,
+                                                    CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0);
+  }
+  add_block_ops(ops);
+}
+
+__global__ void __launch_bounds__(128)
+    frame_compact_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                         const float* __restrict__ tri, float4* __restrict__ out,
+                         int* __restrict__ dirty_out, int width, int height, int max_depth, int G,
+                         int M, CapSpec closest_caps, CapSpec shadow_caps,
+                         unsigned long long* ops) {
+  const Scene s = block_scene(params, layout, tri, G, M);
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px < width && py < height) {
+    unsigned dirty = 0;
+    out[py * width + px] = render_pixel<kCompactForm>(s, px, py, width, height, max_depth,
+                                                      closest_caps, shadow_caps, &dirty,
+                                                      DeferOut{}, 0);
+    dirty_out[py * width + px] = (int)dirty;
+  }
+  add_block_ops(ops);
+}
+
+__global__ void __launch_bounds__(128)
+    frame_dense_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                       const float* __restrict__ tri, const int* __restrict__ qpx,
+                       const int* __restrict__ qpy, float4* __restrict__ out, int n, int width,
+                       int height, int max_depth, int G, int M, unsigned long long* ops) {
+  const Scene s = block_scene(params, layout, tri, G, M);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const int px = qpx[i], py = qpy[i];
+    out[i] = px < 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                    : render_pixel<kPlainForm>(s, px, py, width, height, max_depth, CapSpec{},
+                                               CapSpec{}, nullptr, DeferOut{}, 0);
+  }
+  add_block_ops(ops);
+}
+
+__global__ void __launch_bounds__(128)
+    frame_defer_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                       const float* __restrict__ tri, DeferOut rec, int width, int height,
+                       int max_depth, int G, int M, CapSpec shadow_caps,
+                       unsigned long long* ops) {
+  const Scene s = block_scene(params, layout, tri, G, M);
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px < width && py < height) {
+    render_pixel<kDeferForm>(s, px, py, width, height, max_depth, CapSpec{}, shadow_caps,
+                             nullptr, rec, py * width + px);
+  }
+  add_block_ops(ops);
 }
 
 }  // namespace gprt
@@ -236,6 +389,71 @@ extern "C" int gprt_frame_render(const float* params, const int* layout, const f
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   gprt::frame_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth, G, M, ops);
+  return (int)cudaGetLastError();
+}
+
+// Checks the device and takes the dynamic shared memory `kernel` needs.
+template <typename Kernel>
+static cudaError_t setup(Kernel kernel, int G, int M, int device, size_t* shmem) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  *shmem = gprt::shared_bytes(true, G, M);
+  return gprt::reserve_shared(kernel, *shmem, device);
+}
+
+// The compact form's main pass: out (H, W, 4), dirty (H, W) int32; the
+// closest and occlusion passes' SDF and metaball step caps.
+extern "C" int gprt_frame_compact(const float* params, const int* layout, const float* tri,
+                                  float* out, int* dirty, int width, int height, int max_depth,
+                                  int num_geometries, int num_materials, int closest_sdf_cap,
+                                  int closest_mb_cap, int shadow_sdf_cap, int shadow_mb_cap,
+                                  unsigned long long* ops, int device, void* stream) {
+  size_t shmem;
+  cudaError_t err = setup(gprt::frame_compact_kernel, num_geometries, num_materials, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(16, 8);
+  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  gprt::frame_compact_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, reinterpret_cast<float4*>(out), dirty, width, height, max_depth,
+      num_geometries, num_materials, gprt::CapSpec{closest_sdf_cap, closest_mb_cap},
+      gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
+  return (int)cudaGetLastError();
+}
+
+// The dense pass: n queue entries (qpx, qpy; -1 padding) -> out (n, 4).
+extern "C" int gprt_frame_dense(const float* params, const int* layout, const float* tri,
+                                const int* qpx, const int* qpy, float* out, int n, int width,
+                                int height, int max_depth, int num_geometries, int num_materials,
+                                unsigned long long* ops, int device, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  size_t shmem;
+  cudaError_t err = setup(gprt::frame_dense_kernel, num_geometries, num_materials, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  gprt::frame_dense_kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, qpx, qpy, reinterpret_cast<float4*>(out), n, width, height, max_depth,
+      num_geometries, num_materials, ops);
+  return (int)cudaGetLastError();
+}
+
+// The defer form's main pass: lit (D, H, W, 4), shadowed (D-1, H, W, 4),
+// sinfo (D-1, H, W) int32, rays (D-1, H, W, 6); the occlusion passes' SDF
+// and metaball step caps.
+extern "C" int gprt_frame_defer(const float* params, const int* layout, const float* tri,
+                                float* lit, float* shadowed, int* sinfo, float* rays, int width,
+                                int height, int max_depth, int num_geometries, int num_materials,
+                                int shadow_sdf_cap, int shadow_mb_cap, unsigned long long* ops,
+                                int device, void* stream) {
+  if (max_depth < 2) return (int)cudaErrorInvalidValue;
+  size_t shmem;
+  cudaError_t err = setup(gprt::frame_defer_kernel, num_geometries, num_materials, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(16, 8);
+  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
+                           sinfo, rays, width * height};
+  gprt::frame_defer_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, rec, width, height, max_depth, num_geometries, num_materials,
+      gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
   return (int)cudaGetLastError();
 }
 

@@ -416,10 +416,19 @@ __device__ __noinline__ V3 metaballs_normal(V3 p, const float* mb) {
   return normalize(n);
 }
 
-// Fixed 128-step march over the union of the balls' bounding-sphere
-// intervals clipped to [0, t_max]; a crossing that fails the validity check
-// steps on like any other sample.
-__device__ bool march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cull, float* t_out) {
+// What a march ended in: no crossing, a valid crossing, or a spent budget
+// (the budget ran out with no valid crossing).
+enum MarchResult { kMarchMiss = 0, kMarchHit = 1, kMarchCapped = 2 };
+
+// Fixed-step march over the union of the balls' bounding-sphere intervals
+// clipped to [0, t_max], in 128 steps of the interval over 128; a crossing
+// that fails the validity check steps on like any other sample.
+// max_steps < 128 caps it (a compacted frame mode's main pass): the step
+// stays the same, so a capped march is a strict prefix of the full one
+// (scene_kernel._march_metaballs_part's step_div). kMarchCapped: every
+// sample taken, none a valid crossing.
+__device__ int march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cull, int max_steps,
+                               float* t_out) {
   GPRT_OPS(3 * 37 + 4);
   float tmin = kInf, tmax = -kInf;
   for (int j = 0; j < 3; ++j) {
@@ -432,10 +441,10 @@ __device__ bool march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool c
   }
   tmin = fmaxf(tmin, 0.0f);
   tmax = fminf(tmax, t_max);
-  if (!(tmax >= tmin)) return false;
+  if (!(tmax >= tmin)) return kMarchMiss;
   float step = (tmax - tmin) / 128.0f;
   float t = tmin;
-  for (int s = 0; s < 128; ++s) {
+  for (int s = 0; s < max_steps; ++s) {
     GPRT_OPS(7);
     V3 pos = along(o, t, d);
     if (metaballs_potential(pos, mb) >= F(0.25)) {
@@ -446,12 +455,12 @@ __device__ bool march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool c
       }
       if (ok) {
         *t_out = t;
-        return true;
+        return kMarchHit;
       }
     }
     t = t + step;
   }
-  return false;
+  return kMarchCapped;
 }
 
 // ---------------------------------------------------------------------------
@@ -467,13 +476,16 @@ struct MarchSpec {
   bool escape;       // retire past the escape bound (reference codes only)
 };
 
-// What a march ended in: no hit, a valid crossing, or a spent budget that
-// the spec's capped_hit rule reports as a hit.
-enum MarchResult { kMarchMiss = 0, kMarchHit = 1, kMarchCapped = 2 };
+// Whether a march that ended in r hits under spec m: a valid crossing, or
+// a spent budget where the spec's capped_hit rule reports one.
+__device__ __forceinline__ bool march_hit(int r, const MarchSpec& m) {
+  return r == kMarchHit || (r == kMarchCapped && m.capped_hit);
+}
 
 // March from t_start to t_max (the AABB window of an extension fractal, or
-// 0 and the running best t). Returns how the march ended; *t_out is the
-// crossing's t, or the final t of a capped march. Not inlined: one
+// 0 and the running best t). Returns how the march ended (kMarchCapped:
+// the budget spent, the reference's capped lane, scene_kernel.py:459-463);
+// *t_out is the crossing's t, or the final t of a capped march. Not inlined: one
 // out-of-line copy serves the closest and the occlusion traversals, which
 // keeps the frame kernel within 128 registers without spills (inlined into
 // both, it spilled once the extension fractals joined the distance switch;
@@ -528,7 +540,7 @@ __device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float
       if (t > t_esc) break;
     }
   }
-  if (m.capped_hit && steps >= m.max_steps) {
+  if (steps >= m.max_steps) {
     *t_out = t;
     return kMarchCapped;
   }

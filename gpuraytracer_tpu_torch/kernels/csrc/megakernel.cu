@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(128)
       float th = kInf;
       const int r = march_sdf(code, ol, dl, t_start ? t_start[i] : 0.0f, t_max[i], step_scale, m,
                               &th);
-      if (r != kMarchMiss) {
+      if (march_hit(r, m)) {
         GPRT_OPS(6);
         t = r == kMarchCapped ? 0.0f : th;
         nl = sdf_normal(code, along(ol, t, dl));

@@ -73,6 +73,42 @@ __global__ void __launch_bounds__(128)
 #endif
 }
 
+// The deferred-shadow mode's occlusion repair queue (replaces the
+// reference's frame_kernel._shadow_queue_kernel, frame_kernel.py:1016):
+// one thread per queue entry, rays (N, 6) f32 (BLAS-space origin,
+// direction), active (N,) bool; the queue holds one segment of `seg`
+// entries per shadowed level, so an entry's level is i / seg. An active
+// entry runs the plain accept-first traversal from 0 to RAY_TMAX at that
+// level's budgets (the occluded-on-cap rule of the plain kernel included);
+// occ = active && occluded. Bound like the scene kernel: divergent marches
+// (the entries are the lanes whose capped occlusion march found nothing,
+// the long tail); 25 bytes in and 4 out per entry.
+__global__ void __launch_bounds__(128)
+    shadow_queue_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                        const float* __restrict__ tri, const float* __restrict__ rays,
+                        const bool* __restrict__ active, int* __restrict__ occ, int n, int seg,
+                        int G, int M, unsigned long long* ops) {
+  extern __shared__ float smem[];
+#ifdef GPRT_COUNT_OPS
+  if (threadIdx.x == 0) gprt_block_ops = 0;
+#endif
+  const Scene s = load_scene<false>(params, layout, tri, G, M, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    bool hit = false;
+    if (active[i]) {
+      const float* r = rays + 6 * (size_t)i;
+      hit = occluded_procedural(s, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), kRayTMax,
+                                i / seg) >= 0;
+    }
+    occ[i] = hit ? 1 : 0;
+  }
+#ifdef GPRT_COUNT_OPS
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(ops, gprt_block_ops);
+#endif
+}
+
 // Check entry, not on any render path: the distance function of SDF code
 // `code` at n local-space points (N, 3), for the point-by-point comparison
 // of the device distance functions with their plain versions.
@@ -104,6 +140,23 @@ extern "C" int gprt_scene_closest(const float* params, const int* layout, const 
   gprt::scene_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, o, d, active, t0, best_t, normal, gid, n, G, M, level, accept_first, cull,
       ops);
+  return (int)cudaGetLastError();
+}
+
+// ops: as for gprt_scene_closest.
+extern "C" int gprt_shadow_queue(const float* params, const int* layout, const float* tri,
+                                 const float* rays, const bool* active, int* occ, int n, int seg,
+                                 int num_geometries, int num_materials, unsigned long long* ops,
+                                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int G = num_geometries, M = num_materials;
+  if (n <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  const size_t shmem = gprt::shared_bytes(false, G, M);
+  err = gprt::reserve_shared(gprt::shadow_queue_kernel, shmem, device);
+  if (err != cudaSuccess) return (int)err;
+  gprt::shadow_queue_kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, rays, active, occ, n, seg, G, M, ops);
   return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,16 @@
 // _intersect_trimesh_tile) run Möller–Trumbore over their rows of the face
 // table. This is the device form of geometry/registry.py's table.
 //
+// The compacted frame modes' main passes run the same traversal capped
+// (template parameter kCaps, the reference's budget_cap, mb_budget_cap,
+// dirty_ref and kill_on_cap of _traverse_tile): a march takes the smaller
+// of its cap and its plain budget, reports occluded on a spent budget only
+// where that budget is the plain one (scene_kernel.py:1479-1505), and a
+// march that spends a capped budget below the geometry's natural one sets
+// the geometry's bit of the lane's dirty mask (:1506-1529) and ends the
+// lane's traversal (kill-on-cap, :1362-1369). The plain instantiation
+// carries no cap and no mask.
+//
 // Parameters: the f32 and int32 buffers of kernels/frame_kernel.py
 // pack_frame, copied to shared memory once per block (load_scene): the
 // whole buffers for the frame kernel, only their traversal prefix for the
@@ -43,6 +53,23 @@ constexpr int kGeoFaceStart = 10;  // a mesh's first row in the face table
 constexpr int kGeoFaceCount = 11;  // and its number of faces
 constexpr int kFaceStride = 12;    // v0, e1, e2, n
 constexpr float kRayTMax = 10000.0f;
+constexpr int kMetaballSteps = 128;
+
+// Step caps of a capped traversal: SDF marches (INT_MAX: none), metaball
+// marches (kMetaballSteps: none).
+struct CapSpec {
+  int sdf;
+  int mb;
+};
+
+// What an intersector reports: a hit, and a spent capped budget that marks
+// the lane dirty (both at once for a capped occlusion march at its plain
+// budget).
+enum IntersectBits { kHitBit = 1, kDirtyBit = 2 };
+
+// Geometry -> bit of the dirty mask (scene_kernel._dirty_bit): geometries
+// past 31 share bit 31.
+__device__ __forceinline__ unsigned dirty_bit(int g) { return 1u << (g < 31 ? g : 31); }
 
 enum Kind { kAnalytic = 0, kVolumetric = 1, kSignedDistance = 2, kTriangle = 3 };
 
@@ -227,19 +254,25 @@ __device__ __noinline__ bool intersect_trimesh(const float* __restrict__ tri, in
 
 // Geometry g's intersector on the local ray over [0, t_max]; *nl is the
 // local normal of a closed-form or mesh hit (a march's is computed by the
-// caller).
-__device__ bool intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool occlusion,
-                          int level, bool cull, float* t, V3* nl) {
+// caller). Returns IntersectBits; kDirtyBit only under kCaps.
+template <bool kCaps>
+__device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool occlusion,
+                         int level, bool cull, CapSpec caps, float* t, V3* nl) {
   const int* q = s.geo + kGeoStride * g;
   const int kind = q[0], code = q[1];
   if (kind == kAnalytic) {
-    return code == 0 ? intersect_hollow_aabb(ol, dl, t_max, cull, t, nl)
-                     : intersect_spheres(ol, dl, t_max, cull, t, nl);
+    return (code == 0 ? intersect_hollow_aabb(ol, dl, t_max, cull, t, nl)
+                      : intersect_spheres(ol, dl, t_max, cull, t, nl)) ? kHitBit : 0;
   }
-  if (kind == kVolumetric) return march_metaballs(ol, dl, t_max, s.mb, cull, t);
+  if (kind == kVolumetric) {
+    const int mb_steps = kCaps && caps.mb < kMetaballSteps ? caps.mb : kMetaballSteps;
+    const int r = march_metaballs(ol, dl, t_max, s.mb, cull, mb_steps, t);
+    if (r == kMarchHit) return kHitBit;
+    return kCaps && r == kMarchCapped && mb_steps < kMetaballSteps ? kDirtyBit : 0;
+  }
   if (kind == kTriangle) {
     return intersect_trimesh(s.tri + kFaceStride * q[kGeoFaceStart], q[kGeoFaceCount], ol, dl,
-                             t_max, cull, t, nl);
+                             t_max, cull, t, nl) ? kHitBit : 0;
   }
   float t_lo = 0.0f, t_hi = t_max;
   const bool windowed = q[kGeoWindowed] != 0;
@@ -252,14 +285,31 @@ __device__ bool intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool
     t_hi = nmin(t_max, w.tmax);
     if (!(w.tmax > w.tmin && t_hi > t_lo)) return false;
   }
-  const MarchSpec m = spec(s, g, occlusion, level, cull, windowed);
-  return march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t) != kMarchMiss;
+  MarchSpec m = spec(s, g, occlusion, level, cull, windowed);
+  bool marks_dirty = false;
+  if (kCaps) {
+    // The capped budget; occluded-on-cap only at the plain budget; the
+    // dirty bit only where the smaller capped budget of the two kinds of
+    // level sits below the natural one (sdf.march_budget, cap_marks_dirty).
+    const int plain = m.max_steps;
+    m.max_steps = min(caps.sdf, plain);
+    m.capped_hit = m.capped_hit && m.max_steps == plain;
+    marks_dirty = min(caps.sdf, q[occlusion ? 5 : 3]) < q[8];
+  }
+  const int r = march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t);
+  if (!kCaps) return march_hit(r, m) ? kHitBit : 0;
+  return (march_hit(r, m) ? kHitBit : 0) | (r == kMarchCapped && marks_dirty ? kDirtyBit : 0);
 }
 
 // Closest procedural hit over BLAS-space ray (ob, d): h holds the running
 // best (the plane's hit, or the caller's bound with gid -1) and takes any
-// geometry whose hit is strictly closer.
-__device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool cull, Hit* h) {
+// geometry whose hit is strictly closer. kCaps: marches capped by caps; a
+// march that marks the lane dirty ORs its bit into *dirty and ends the
+// traversal, and a dirty lane's normal is not computed (its hit is not
+// used).
+template <bool kCaps = false>
+__device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool cull, Hit* h,
+                                   CapSpec caps = CapSpec{}, unsigned* dirty = nullptr) {
   bool deferred_normal = false;
   for (int g = 0; g < s.G; ++g) {
     float running = fminf(h->t, kRayTMax);
@@ -270,7 +320,12 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
     V3 nl = v3(0.0f, 0.0f, 0.0f);
     const int kind = s.geo[kGeoStride * g];
     const bool marched = kind == kVolumetric || kind == kSignedDistance;
-    if (intersect(s, g, ol, dl, running, false, level, cull, &t, &nl) && t < h->t) {
+    const int r = intersect<kCaps>(s, g, ol, dl, running, false, level, cull, caps, &t, &nl);
+    if (kCaps && (r & kDirtyBit)) {
+      *dirty |= dirty_bit(g);
+      return;
+    }
+    if ((r & kHitBit) && t < h->t) {
       h->t = t;
       h->gid = g;
       deferred_normal = marched;
@@ -290,15 +345,24 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
 }
 
 // Accept-first occlusion over [0, t_max] with back-face culling: the first
-// geometry with a valid (or capped) hit, or -1.
-__device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int level) {
+// geometry with a valid (or capped) hit, or -1. kCaps: as in
+// closest_procedural; a march that marks the lane dirty ends the search
+// (with its hit, where the occluded-on-cap rule gives one).
+template <bool kCaps = false>
+__device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int level,
+                                   CapSpec caps = CapSpec{}, unsigned* dirty = nullptr) {
   for (int g = 0; g < s.G; ++g) {
     if (!gate(s, g, ob, d, t_max)) continue;
     V3 ol, dl;
     local_ray(s, g, ob, d, &ol, &dl);
     float t;
     V3 nl;
-    if (intersect(s, g, ol, dl, t_max, true, level, true, &t, &nl)) return g;
+    const int r = intersect<kCaps>(s, g, ol, dl, t_max, true, level, true, caps, &t, &nl);
+    if (kCaps && (r & kDirtyBit)) {
+      *dirty |= dirty_bit(g);
+      return (r & kHitBit) ? g : -1;
+    }
+    if (r & kHitBit) return g;
   }
   return -1;
 }

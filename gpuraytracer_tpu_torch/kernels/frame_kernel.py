@@ -7,6 +7,16 @@ it inlines. One CUDA thread renders one pixel: raygen, then per level the
 plane test, the closest traversal, the material pick, the shadow ray, the
 shading and the bounce, and one float4 store.
 
+The same source holds the reference's compacted frame modes
+(GPURT_FRAME_MODE, ``frame_mode``): ``render_frame_compact`` (its
+render_frame_compact: a capped main pass that marks dirty pixels, a dense
+pass over the queue of dirty pixels, the plain kernel if the queue
+overflows) and ``render_frame_deferred`` (its render_frame_deferred: a
+main pass with capped occlusion that records both shadow variants per
+level, the occlusion repair queue of scene_kernel.shadow_queue, and the
+recomposition). Their host code is the same on both devices; each of the
+kernels' wrappers runs its plain version on a CPU tensor.
+
 Parameters reach the kernel as one contiguous f32 buffer and one int32
 layout buffer (``pack_frame``), packed from the same blocks as the
 reference's ``pack_frame_params``, and the mesh face table
@@ -37,9 +47,17 @@ from gpuraytracer_tpu_torch.core.types import (
 )
 from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 
-# Kernel launches since import (or since a caller reset it); chip runs read
-# it to show that a frame went through the kernel.
+# Kernel launches since import (or since a caller reset it), per entry of
+# csrc/frame_kernel.cu; chip runs read them to show that a frame went
+# through the kernels. HOST_SYNCS counts the compacted modes' reads of a
+# queue's size (one torch.nonzero each) and QUEUED_LANES the pixels those
+# queues held (compact: dirty; defer: unknown, summed over levels).
 LAUNCHES = 0
+COMPACT_LAUNCHES = 0
+DENSE_LAUNCHES = 0
+DEFER_LAUNCHES = 0
+HOST_SYNCS = 0
+QUEUED_LANES = 0
 
 # Buffer layout, shared with csrc/traverse.cuh (keep in step).
 # f32 header: elapsed_time, then (relax, fail_scale) of radiance and
@@ -82,7 +100,9 @@ class FramePack:
     """The kernel's inputs: ``params`` (f32) and ``layout`` (int32), both
     1-D, contiguous and on the rendering device, plus their sizes, and the
     (F, 12) f32 mesh face table ``tri`` with each mesh slot's (start,
-    count) in it (F = 0 without meshes)."""
+    count) in it (F = 0 without meshes), and on the host each geometry
+    row's (kind, natural step budget), which the compacted modes read
+    without a device sync."""
 
     params: torch.Tensor
     layout: torch.Tensor
@@ -90,6 +110,20 @@ class FramePack:
     num_materials: int
     tri: torch.Tensor
     tri_offsets: tuple = ()
+    budgets: tuple = ()
+
+
+# The compacted modes' defaults (the reference's COMPACT_BUDGET,
+# COMPACT_CAP_DIV, SHADOW_CAP; GPURT_COMPACT_BUDGET and GPURT_SHADOW_CAP
+# are read at call time).
+COMPACT_BUDGET = 64
+COMPACT_CAP_DIV = 8
+SHADOW_CAP = 32
+# The reference's TPU tile (scene_kernel.TILE_ROWS, TILE_COLS): kept only
+# for the queue capacity rule (``queue_capacity``).
+TILE_ROWS, TILE_COLS = 32, 128
+# Step caps as the kernels take them: no SDF cap, no metaball cap.
+NO_CAP = 2 ** 31 - 1
 
 
 def frame_mode() -> str:
@@ -120,21 +154,16 @@ def fused_eligible_layout(layout: SceneLayout, num_materials: int,
     )
 
 
-def check_kernel_covers(layout: SceneLayout) -> None:
+def check_kernel_covers(layout: SceneLayout, route: str = "frame") -> None:
     """Raise, naming the reference kernel that is not ported yet, for a
-    CUDA frame that no ported route renders (the frame kernel, the scene
-    kernel, the per-geometry route of csrc/megakernel.cu). Never falls
-    back."""
-    mode = frame_mode()
-    if mode == "compact":
-        raise NotImplementedError(
-            "GPURT_FRAME_MODE=compact: frame_kernel.render_frame_compact is not "
-            "ported to CUDA yet")
-    if mode == "defer":
-        raise NotImplementedError(
-            "GPURT_FRAME_MODE=defer: frame_kernel.render_frame_deferred and "
-            "_shadow_queue_kernel are not ported to CUDA yet")
-    if merged_shadow_enabled():
+    CUDA frame that the ported kernels of its ``route`` do not render:
+    "frame" (the frame kernel, in every GPURT_FRAME_MODE), "scene" (the
+    wavefront with the scene kernel) or "per_geometry" (the wavefront on
+    csrc/megakernel.cu). GPURT_MERGED_SHADOW raises on the first two only:
+    the reference reaches _march_sdf_multi only from the traversal of its
+    frame and scene kernels (scene_kernel.py:1653), never on the
+    per-geometry route. Never falls back."""
+    if merged_shadow_enabled() and route in ("frame", "scene"):
         raise NotImplementedError(
             "GPURT_MERGED_SHADOW: scene_kernel._march_sdf_multi is not ported "
             "to CUDA yet")
@@ -209,8 +238,10 @@ def pack_frame(scene: Scene) -> FramePack:
 
     ints = [g, m, static["plane_gid"], int(layout.has_plane), int(layout.material_ids is not None),
             int(layout.step_budgets is not None), 0, 0]
+    budgets = []
     for i, (kind, code) in enumerate(static["geoms"]):
         natural = layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS
+        budgets.append((kind, natural))
         rb0, _ = sdf.march_budget(natural, occlusion=False, level=0)
         rb1, _ = sdf.march_budget(natural, occlusion=False, level=1)
         sb0, sc0 = sdf.march_budget(natural, occlusion=True, level=0)
@@ -223,7 +254,7 @@ def pack_frame(scene: Scene) -> FramePack:
     ints += slots + [0] * (g + 1 - len(slots))
     layout_buf = torch.tensor(ints, dtype=torch.int32, device=dev)
     return FramePack(params=params.contiguous(), layout=layout_buf, num_geometries=g,
-                     num_materials=m, tri=tri, tri_offsets=tri_offsets)
+                     num_materials=m, tri=tri, tri_offsets=tri_offsets, budgets=tuple(budgets))
 
 
 def layout_size(g: int) -> int:
@@ -372,6 +403,37 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     dev = pack.params.device
     if dev.type == "cpu":
         return render_frame_plain(pack, width=width, height=height, max_depth=max_depth)
+    lib = _launch_setup(pack, width, height, max_depth, lib)
+    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    _raise_on(lib.gprt_frame_render(*_buffers(pack), _ptr(out), width, height, max_depth,
+                                    pack.num_geometries, pack.num_materials, ops_pointer(ops),
+                                    *_where(dev)), lib, "frame kernel")
+    LAUNCHES += 1
+    return out
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _buffers(pack: FramePack):
+    return _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri)
+
+
+def _where(dev):
+    return dev.index, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.gprt_error_string(rc).decode()})")
+
+
+def _launch_setup(pack: FramePack, width, height, max_depth, lib):
+    """Check a CUDA launch of an entry of csrc/frame_kernel.cu; returns the
+    library (``lib``, default the shipped build)."""
+    dev = pack.params.device
     if dev.type != "cuda":
         raise ValueError(f"no frame kernel for device {dev}")
     if width <= 0 or height <= 0 or not 1 <= max_depth <= 8:
@@ -382,17 +444,316 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     check_shared("frame kernel", pack.num_geometries, pack.num_materials, shading=True)
     from gpuraytracer_tpu_torch.kernels import build
 
-    lib = lib if lib is not None else build.load("frame_kernel")
+    return lib if lib is not None else build.load("frame_kernel")
+
+
+# ---------------------------------------------------------------------------
+# The compacted frame modes (GPURT_FRAME_MODE=compact|defer)
+# ---------------------------------------------------------------------------
+
+def norm_caps(cap):
+    """A step-cap spec as the reference's _norm_caps reads it: None, an int
+    for both passes, or (closest, shadow)."""
+    if cap is None:
+        return (None, None)
+    if isinstance(cap, int):
+        return (cap, cap)
+    return tuple(cap)
+
+
+def queue_capacity(width: int, height: int, cap_lanes: int | None = None) -> int:
+    """Lanes a compacted mode's queue holds before the frame overflows to the
+    plain kernel: the reference's rule (frame_kernel.py:924-929), computed
+    on the lane count of its 32x128 tiles, so that the overflow triggers on
+    the frames where the reference's does. The padding is a TPU schedule;
+    the port keeps it only for this decision."""
+    tile = TILE_ROWS * TILE_COLS
+    lanes = (height + (-height) % TILE_ROWS) * (width + (-width) % TILE_COLS)
+    cap = cap_lanes if cap_lanes is not None else max(tile, lanes // COMPACT_CAP_DIV)
+    cap = cap + (-cap) % tile
+    return min(cap, lanes + (-lanes) % tile)
+
+
+def _kernel_caps(caps, mb_caps, k):
+    """(SDF cap, metaball cap) of pass k (0 closest, 1 occlusion) as the
+    kernels take them: NO_CAP, METABALL_MAX_STEPS for none."""
+    sdf_cap, mb_cap = caps[k], mb_caps[k]
+    return (NO_CAP if sdf_cap is None else int(sdf_cap),
+            metaballs.METABALL_MAX_STEPS if mb_cap is None else int(mb_cap))
+
+
+def render_frame_capped_plain(pack: FramePack, *, width: int, height: int,
+                              max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
+                              mb_budget_cap=None):
+    """Plain version of compact's main pass (``render_frame_capped``): the
+    wavefront with ``trace.MainPass`` on the unpacked scene. Returns the
+    (H, W, 4) image, wrong at the dirty pixels, and the (H, W) int32 dirty
+    mask."""
+    from gpuraytracer_tpu_torch.render import trace
+
+    caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
+    main = trace.MainPass(closest=(caps[0], mb_caps[0]), shadow=(caps[1], mb_caps[1]))
+    return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth,
+                                  plain=True, main=main)
+
+
+def render_frame_capped(pack: FramePack, *, width: int, height: int,
+                        max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
+                        mb_budget_cap=None, lib=None, ops=None):
+    """Compact's main pass, (image, dirty mask) as ``render_frame_capped_plain``
+    gives them: on CUDA the compact entry of csrc/frame_kernel.cu (counted
+    in COMPACT_LAUNCHES), on the CPU the plain version."""
+    global COMPACT_LAUNCHES
+    check_pack(pack)
+    dev = pack.params.device
+    if dev.type == "cpu":
+        return render_frame_capped_plain(pack, width=width, height=height, max_depth=max_depth,
+                                         budget_cap=budget_cap, mb_budget_cap=mb_budget_cap)
+    lib = _launch_setup(pack, width, height, max_depth, lib)
+    caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gprt_frame_render(
-        ctypes.c_void_p(pack.params.data_ptr()), ctypes.c_void_p(pack.layout.data_ptr()),
-        ctypes.c_void_p(pack.tri.data_ptr()), ctypes.c_void_p(out.data_ptr()), width, height, max_depth,
-        pack.num_geometries, pack.num_materials, ops_pointer(ops), dev.index,
-        ctypes.c_void_p(stream),
-    )
-    if rc != 0:
-        raise RuntimeError(f"frame kernel launch failed: CUDA error {rc} "
-                           f"({lib.gprt_error_string(rc).decode()})")
-    LAUNCHES += 1
+    dirty = torch.empty((height, width), dtype=torch.int32, device=dev)
+    _raise_on(lib.gprt_frame_compact(
+        *_buffers(pack), _ptr(out), _ptr(dirty), width, height, max_depth,
+        pack.num_geometries, pack.num_materials, *_kernel_caps(caps, mb_caps, 0),
+        *_kernel_caps(caps, mb_caps, 1), ops_pointer(ops), *_where(dev)), lib, "compact kernel")
+    COMPACT_LAUNCHES += 1
+    return out, dirty
+
+
+def render_frame_dense_plain(pack: FramePack, qpx, qpy, *, width: int, height: int,
+                             max_depth: int = MAX_RAY_RECURSION_DEPTH):
+    """Plain version of the dense pass (``render_frame_dense``): the plain
+    frame at the queued pixels (qpx, qpy (N,) int32; -1 marks padding,
+    which gets zeros), traced as the wavefront traces the whole frame.
+    Returns (N, 4) f32."""
+    from gpuraytracer_tpu_torch.core import camera as cam
+    from gpuraytracer_tpu_torch.render import trace
+
+    scene = unpack_frame(pack)
+    out = torch.zeros((qpx.shape[0], 4), dtype=torch.float32, device=qpx.device)
+    q = torch.nonzero(qpx >= 0).squeeze(1)
+    px, py = qpx[q].to(torch.int64), qpy[q].to(torch.int64)
+    c = scene.arrays.constants
+    o, d = cam.generate_camera_rays(px, py, width, height, c.camera_position,
+                                    c.projection_to_world)
+    out[q] = trace.trace_radiance(o, d, px, py, width, height, scene, max_depth=max_depth,
+                                  plain=True)
     return out
+
+
+def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None, ops=None):
+    """The dense pass: the plain frame's colour at each queued pixel (qpx,
+    qpy (N,) int32 contiguous, -1 for padding), (N, 4) f32. CUDA: the
+    dense entry of csrc/frame_kernel.cu, one thread per queue entry with
+    the plain kernel's device code (counted in DENSE_LAUNCHES); CPU: the
+    plain version."""
+    global DENSE_LAUNCHES
+    check_pack(pack)
+    dev = pack.params.device
+    for name, q in (("qpx", qpx), ("qpy", qpy)):
+        if q.dtype != torch.int32 or q.dim() != 1 or q.shape != qpx.shape or q.device != dev \
+                or not q.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous (N,) int32 tensor on {dev}")
+    if dev.type == "cpu":
+        return render_frame_dense_plain(pack, qpx, qpy, width=width, height=height,
+                                        max_depth=max_depth)
+    lib = _launch_setup(pack, width, height, max_depth, lib)
+    n = qpx.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    _raise_on(lib.gprt_frame_dense(*_buffers(pack), _ptr(qpx), _ptr(qpy), _ptr(out), n, width,
+                                   height, max_depth, pack.num_geometries, pack.num_materials,
+                                   ops_pointer(ops), *_where(dev)), lib, "dense kernel")
+    DENSE_LAUNCHES += 1
+    return out
+
+
+def render_frame_deferred_plain(pack: FramePack, *, width: int, height: int,
+                                max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
+                                mb_shadow_cap=None):
+    """Plain version of defer's main pass (``render_frame_deferred_main``):
+    the wavefront with a deferring ``trace.MainPass`` on the unpacked
+    scene. Returns its ``trace.DeferPlanes`` over the (H, W) frame."""
+    from gpuraytracer_tpu_torch.render import trace
+
+    main = trace.MainPass(shadow=(shadow_cap, mb_shadow_cap), defer=True)
+    return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth,
+                                  plain=True, main=main)
+
+
+def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
+                               max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
+                               mb_shadow_cap=None, lib=None, ops=None):
+    """Defer's main pass, the ``trace.DeferPlanes`` of the (H, W) frame:
+    on CUDA the defer entry of csrc/frame_kernel.cu (counted in
+    DEFER_LAUNCHES), on the CPU the plain version. Needs max_depth >= 2."""
+    global DEFER_LAUNCHES
+    from gpuraytracer_tpu_torch.render import trace
+
+    check_pack(pack)
+    dev = pack.params.device
+    if max_depth < 2:
+        raise ValueError("the deferred-shadow pass needs a shadowed level (max_depth >= 2)")
+    if dev.type == "cpu":
+        return render_frame_deferred_plain(pack, width=width, height=height,
+                                           max_depth=max_depth, shadow_cap=shadow_cap,
+                                           mb_shadow_cap=mb_shadow_cap)
+    lib = _launch_setup(pack, width, height, max_depth, lib)
+    nsl = max_depth - 1
+    f32 = dict(dtype=torch.float32, device=dev)
+    planes = trace.DeferPlanes(
+        lit=torch.empty((max_depth, height, width, 4), **f32),
+        shadowed=torch.empty((nsl, height, width, 4), **f32),
+        sinfo=torch.empty((nsl, height, width), dtype=torch.int32, device=dev),
+        rays=torch.empty((nsl, height, width, 6), **f32))
+    _raise_on(lib.gprt_frame_defer(
+        *_buffers(pack), *(_ptr(p) for p in planes), width, height, max_depth,
+        pack.num_geometries, pack.num_materials,
+        *_kernel_caps((None, shadow_cap), (None, mb_shadow_cap), 1), ops_pointer(ops),
+        *_where(dev)), lib, "defer kernel")
+    DEFER_LAUNCHES += 1
+    return planes
+
+
+def _count_queue(mask):
+    """Raster indices of the set lanes of a flat mask: one host sync."""
+    global HOST_SYNCS, QUEUED_LANES
+    idx = torch.nonzero(mask).squeeze(1)
+    HOST_SYNCS += 1
+    QUEUED_LANES += idx.shape[0]
+    return idx
+
+
+def _cappable(pack: FramePack, sdf_caps, mb_caps) -> bool:
+    """Whether a march of the packed scene can run out of a cap below its
+    natural budget (SDF) or its 128 steps (metaballs)."""
+    for kind, natural in pack.budgets:
+        caps = [c for c in (sdf_caps if kind == IntersectorKind.SIGNED_DISTANCE else
+                            mb_caps if kind == IntersectorKind.VOLUMETRIC else ())
+                if c is not None]
+        limit = natural if kind == IntersectorKind.SIGNED_DISTANCE else metaballs.METABALL_MAX_STEPS
+        if caps and min(caps) < limit:
+            return True
+    return False
+
+
+def render_frame_compact(pack: FramePack, *, width: int, height: int,
+                         max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap=None,
+                         mb_budget_cap=None, cap_lanes: int | None = None,
+                         debug_count: bool = False):
+    """GPURT_FRAME_MODE=compact, the reference's render_frame_compact
+    (frame_kernel.py:803): the frame with every SDF march capped at
+    ``budget_cap`` steps (default GPURT_COMPACT_BUDGET, 64; an int or
+    (closest, occlusion)) and the metaball marches at ``mb_budget_cap``
+    (default uncapped), marking every pixel that a cap touched dirty
+    (``render_frame_capped``); the dirty pixels, sorted by their dirty
+    mask (stable, so raster order holds within a mask), rendered again
+    by the dense pass at full budgets (``render_frame_dense``) and
+    written back. The image equals the plain kernel's: a march that
+    resolves within its cap is a strict prefix of the full one, and a
+    dirty pixel is rendered again from its camera ray.
+
+    Where no march can be capped the plain kernel renders the frame
+    (frame_kernel.py:860-889); where the queue holds more than
+    ``queue_capacity`` pixels the plain kernel renders it again, as the
+    reference's lax.cond does (frame_kernel.py:1004), and counts in
+    LAUNCHES. Either way the frame's kernels run on the pack's device (the
+    plain versions on the CPU). ``debug_count``: also return the number of
+    dirty pixels. Costs one host sync (the queue's size)."""
+    if budget_cap is None:
+        budget_cap = int(os.environ.get("GPURT_COMPACT_BUDGET", COMPACT_BUDGET))
+    kw = dict(width=width, height=height, max_depth=max_depth)
+    if not _cappable(pack, norm_caps(budget_cap), norm_caps(mb_budget_cap)):
+        img = render_frame_tiles(pack, **kw)
+        return (img, 0) if debug_count else img
+    img, dirty = render_frame_capped(pack, budget_cap=budget_cap, mb_budget_cap=mb_budget_cap,
+                                     **kw)
+    codes = dirty.reshape(-1)
+    idx = _count_queue(codes != 0)
+    count = idx.shape[0]
+    if count > queue_capacity(width, height, cap_lanes):
+        img = render_frame_tiles(pack, **kw)
+    elif count:
+        # Group the queue by dirty mask (the reference's ray sorting,
+        # frame_kernel.py:937-947), stable so raster order holds in a group.
+        idx = idx[torch.argsort(codes[idx], stable=True)]
+        q = idx.to(torch.int32)
+        dense = render_frame_dense(pack, (q % width).contiguous(), (q // width).contiguous(), **kw)
+        img.view(-1, 4).index_copy_(0, idx, dense)
+    return (img, count) if debug_count else img
+
+
+def render_frame_deferred(pack: FramePack, *, width: int, height: int,
+                          max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap=None,
+                          mb_shadow_cap=None, cap_lanes: int | None = None,
+                          debug_count: bool = False, qsort: str = "block-code"):
+    """GPURT_FRAME_MODE=defer, the reference's render_frame_deferred
+    (frame_kernel.py:1075): the main pass caps only the occlusion marches
+    (at ``shadow_cap`` steps, default GPURT_SHADOW_CAP, 32; metaballs at
+    ``mb_shadow_cap``, default uncapped) and records per level both shadow
+    variants and a status (``render_frame_deferred_main``); per shadowed
+    level, the lanes whose status is unknown go to a queue, ordered by
+    ``qsort`` ("block-code": raster blocks of 2**15 pixels, then the
+    capped-geometry code within a block; "code"; "raster"), and the
+    occlusion repair (scene_kernel.shadow_queue) traces them at full
+    budgets, one segment per level; the image is recomposed in the
+    kernel's association order, acc = term_0; acc = acc + term_1; ...
+    The occlusion results are the plain kernel's, so the image agrees with
+    it to the last bits of the shading.
+
+    Where no occlusion march can be capped the plain kernel renders the
+    frame (frame_kernel.py:1136-1157); where a level's queue holds more
+    than ``queue_capacity`` lanes, the plain kernel renders it again
+    (frame_kernel.py:1311), counted in LAUNCHES. ``debug_count``: also
+    return the number of unknown lanes over the levels. Costs one host
+    sync per shadowed level."""
+    from gpuraytracer_tpu_torch.kernels import scene_kernel
+
+    if shadow_cap is None:
+        shadow_cap = int(os.environ.get("GPURT_SHADOW_CAP", SHADOW_CAP))
+    kw = dict(width=width, height=height, max_depth=max_depth)
+    if max_depth < 2 or not _cappable(pack, (shadow_cap,), (mb_shadow_cap,)):
+        img = render_frame_tiles(pack, **kw)
+        return (img, 0) if debug_count else img
+    planes = render_frame_deferred_main(pack, shadow_cap=shadow_cap,
+                                        mb_shadow_cap=mb_shadow_cap, **kw)
+    nsl = max_depth - 1
+    cap = queue_capacity(width, height, cap_lanes)
+    idxs = []
+    for k in range(nsl):
+        info = planes.sinfo[k].reshape(-1)
+        idx = _count_queue((info & 3) == 2)
+        if qsort != "raster" and idx.numel():
+            codes = info[idx] >> 2
+            if qsort == "block-code":
+                codes = (idx >> 15).to(torch.int32) * 1024 + torch.clamp(codes, max=1023)
+            idx = idx[torch.argsort(codes, stable=True)]
+        idxs.append(idx)
+    counts = [i.shape[0] for i in idxs]
+    if max(counts) > cap:
+        img = render_frame_tiles(pack, **kw)
+        return (img, sum(counts)) if debug_count else img
+    occ = [torch.zeros(height * width, dtype=torch.int32, device=pack.params.device)
+           for _ in range(nsl)]
+    seg = max(counts)
+    if seg:
+        rays = planes.rays.new_zeros((nsl, seg, 6))
+        active = torch.zeros((nsl, seg), dtype=torch.bool, device=rays.device)
+        for k, idx in enumerate(idxs):
+            rays[k, :idx.shape[0]] = planes.rays[k].reshape(-1, 6)[idx]
+            active[k, :idx.shape[0]] = True
+        q_occ = scene_kernel.shadow_queue(pack, rays.reshape(-1, 6), active.reshape(-1), seg)
+        for k, idx in enumerate(idxs):
+            occ[k].index_copy_(0, idx, q_occ[k * seg: k * seg + idx.shape[0]])
+    acc = None
+    for k in range(max_depth):
+        term = planes.lit[k]
+        if k < nsl:
+            stat = planes.sinfo[k] & 3
+            shad = (stat == 1) | ((stat == 2) & (occ[k].reshape(height, width) != 0))
+            term = torch.where(shad[..., None], planes.shadowed[k], term)
+        acc = term if acc is None else acc + term
+    return (acc, sum(counts)) if debug_count else acc

@@ -24,19 +24,29 @@ import ctypes
 import torch
 
 from gpuraytracer_tpu_torch.accel.instances import Scene, normal_to_world, ray_to_local
-from gpuraytracer_tpu_torch.core.types import RAY_TMIN, SDF_MAX_STEPS, IntersectorKind
+from gpuraytracer_tpu_torch.core.types import RAY_TMAX, RAY_TMIN, SDF_MAX_STEPS, IntersectorKind
 from gpuraytracer_tpu_torch.geometry import analytic, registry
 from gpuraytracer_tpu_torch.kernels import frame_kernel
 
 # Kernel launches since import (or since a caller reset it); PROBE_LAUNCHES
-# counts the check-only distance probe (``sdf_distance``) apart.
+# counts the check-only distance probe (``sdf_distance``) apart, and
+# QUEUE_LAUNCHES the occlusion repair queue's kernel (``shadow_queue``).
 LAUNCHES = 0
 PROBE_LAUNCHES = 0
+QUEUE_LAUNCHES = 0
+
+
+def dirty_bit(g: int) -> int:
+    """Geometry -> bit of the dirty mask (scene_kernel._dirty_bit):
+    geometries past 31 share bit 31."""
+    return 1 << min(g, 31)
 
 
 def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
                         accept_first: bool = False, cull_backface: bool = True,
-                        budget_level: int | None = None, march=None, mesh_closest=None):
+                        budget_level: int | None = None, march=None, mesh_closest=None,
+                        budget_cap: int | None = None, mb_budget_cap: int | None = None,
+                        dirty=None, kill_on_cap: bool = False):
     """The kernel's plain PyTorch version: every procedural geometry in
     definition order, each gated by its BLAS-space slab against the
     running best t, with a strict-< closest reduction. accept_first: a
@@ -49,6 +59,16 @@ def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
     run the SDF marches and the meshes (geometry/registry.intersect), one
     call per geometry over all N rays behind its gate.
 
+    The capped traversal of the compacted frame modes' main passes
+    (scene_kernel._traverse_tile with budget_cap, dirty_ref, kill_on_cap):
+    ``budget_cap`` / ``mb_budget_cap`` cap the SDF / metaball marches
+    (sdf.march_budget's ``cap``); ``dirty``, an (N,) int32 mask updated
+    in place, takes ``dirty_bit(g)`` for every lane whose march of
+    geometry g ran out of a capped budget (sdf.cap_marks_dirty); with
+    ``kill_on_cap`` a lane whose mask is not 0 passes no further gate.
+    A lane that no cap touched gets what the uncapped pass gives it: a
+    capped march that resolves is a strict prefix of the full one.
+
     Returns (best_t (N,) f32, normal (N, 3) f32 world space, gid (N,)
     int32); gid is -1 where no procedural hit beat t0."""
     layout, arrays = scene.layout, scene.arrays
@@ -60,21 +80,30 @@ def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
     tr = arrays.transforms
     step_scales = arrays.materials.step_scale.tolist()
     march_level = level if budget_level is None else budget_level
+    caps = {}
+    if dirty is not None:
+        caps = dict(budget_cap=budget_cap, mb_budget_cap=mb_budget_cap, return_capped=True)
+    elif budget_cap is not None or mb_budget_cap is not None:
+        raise ValueError("a capped traversal needs a dirty mask")
     for i, (kind, prim_type) in enumerate(zip(layout.kinds, layout.prim_types)):
         gate = analytic.aabb_hit_mask(o_blas, d_blas, arrays.aabb_min[i], arrays.aabb_max[i],
                                       t_min=RAY_TMIN, t_max=best_t) & active
         if accept_first:
             gate = gate & (gid < 0)
+        if kill_on_cap and dirty is not None:
+            gate = gate & (dirty == 0)
         o_loc, d_loc = ray_to_local(o_blas, d_blas, tr.blas_to_local[i])
-        hit, t, n_loc = registry.intersect(
+        hit, t, n_loc, *capped = registry.intersect(
             kind, prim_type, o_loc, d_loc, t_min=RAY_TMIN, t_max=best_t, active=gate,
             cull_backface=True if accept_first else cull_backface,
             step_scale=step_scales[i], elapsed_time=arrays.constants.elapsed_time,
             natural_budget=layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS,
             occlusion=accept_first, level=march_level, with_normal=not accept_first,
             mesh=arrays.meshes[prim_type] if kind == IntersectorKind.TRIANGLE else None,
-            march=march, mesh_closest=mesh_closest,
+            march=march, mesh_closest=mesh_closest, **caps,
         )
+        if capped:
+            dirty.bitwise_or_(torch.where(capped[0], dirty_bit(i), 0).to(torch.int32))
         if accept_first:
             # Any valid (or capped) hit occludes, whatever its t.
             win = hit
@@ -188,3 +217,67 @@ def sdf_distance(code: int, points, lib=None):
                            f"({lib.gprt_error_string(rc).decode()})")
     PROBE_LAUNCHES += 1
     return out
+
+
+def shadow_queue_plain(pack: frame_kernel.FramePack, rays, active, seg: int):
+    """Plain version of the occlusion repair (``shadow_queue``): each
+    segment of ``seg`` queue entries is one accept-first
+    ``scene_closest_plain`` pass at its level's plain budgets, from t = 0
+    to RAY_TMAX, on the scene unpacked from the pack."""
+    scene = frame_kernel.unpack_frame(pack)
+    occ = torch.zeros(rays.shape[0], dtype=torch.int32, device=rays.device)
+    t0 = torch.full((seg,), RAY_TMAX, dtype=torch.float32, device=rays.device)
+    for k in range(rays.shape[0] // seg):
+        part = slice(k * seg, (k + 1) * seg)
+        _, _, gid = scene_closest_plain(scene, rays[part, :3], rays[part, 3:], active[part], t0,
+                                        level=k, accept_first=True)
+        occ[part] = ((gid >= 0) & active[part]).to(torch.int32)
+    return occ
+
+
+def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None, ops=None):
+    """The deferred-shadow mode's occlusion repair (the reference's
+    _shadow_queue_kernel, frame_kernel.py:1016): (N,) int32, 1 where the
+    queued shadow ray is occluded. ``rays`` (N, 6) f32 (BLAS-space origin,
+    direction) and ``active`` (N,) bool hold one segment of ``seg``
+    entries per shadowed level, in level order; an entry's level is its
+    index // seg, and its occlusion query runs at full budgets with that
+    level's knobs. CUDA: the queue entry of csrc/scene_kernel.cu, one
+    thread per entry (counted in QUEUE_LAUNCHES); CPU: the plain
+    version."""
+    global QUEUE_LAUNCHES
+    n = rays.shape[0]
+    dev = rays.device
+    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[1] != 6 \
+            or not rays.is_contiguous():
+        raise ValueError(f"rays: expected a contiguous (N, 6) float32 tensor, got "
+                         f"{tuple(rays.shape)} {rays.dtype}")
+    if active.dtype != torch.bool or tuple(active.shape) != (n,) or active.device != dev \
+            or not active.is_contiguous():
+        raise ValueError(f"active: expected a contiguous ({n},) bool tensor on {dev}")
+    if seg <= 0 or n % seg:
+        raise ValueError(f"{n} queue entries are not whole segments of {seg}")
+    frame_kernel.check_pack(pack)
+    if pack.params.device != dev:
+        raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
+    if dev.type == "cpu":
+        return shadow_queue_plain(pack, rays, active, seg)
+    if dev.type != "cuda":
+        raise ValueError(f"no scene kernel for device {dev}")
+    frame_kernel.check_shared("scene kernel", pack.num_geometries, pack.num_materials,
+                              shading=False)
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("scene_kernel")
+    occ = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.gprt_shadow_queue(
+        ctypes.c_void_p(pack.params.data_ptr()), ctypes.c_void_p(pack.layout.data_ptr()),
+        ctypes.c_void_p(pack.tri.data_ptr()), ctypes.c_void_p(rays.data_ptr()),
+        ctypes.c_void_p(active.data_ptr()), ctypes.c_void_p(occ.data_ptr()), n, seg,
+        pack.num_geometries, pack.num_materials, frame_kernel.ops_pointer(ops), dev.index,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"shadow queue kernel launch failed: CUDA error {rc} "
+                           f"({lib.gprt_error_string(rc).decode()})")
+    QUEUE_LAUNCHES += 1
+    return occ

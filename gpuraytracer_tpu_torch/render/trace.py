@@ -23,9 +23,12 @@ with the scene kernel's plain version.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple
+
 import torch
 
-from gpuraytracer_tpu_torch.accel.instances import Scene
+from gpuraytracer_tpu_torch.accel.instances import Scene, ray_to_blas
 from gpuraytracer_tpu_torch.accel.traverse import _total_mesh_faces, any_hit, closest_hit
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
@@ -34,6 +37,7 @@ from gpuraytracer_tpu_torch.core.types import (
     RAY_TMAX,
     RAY_TMIN,
     REFLECTANCE_EPS,
+    HitRecord,
 )
 from gpuraytracer_tpu_torch.render import checkers as checkers_mod
 from gpuraytracer_tpu_torch.render import shade
@@ -51,9 +55,46 @@ def _material_rows(scene: Scene, geometry_id):
     return torch.where(geometry_id >= 0, table[gid], 0)
 
 
+@dataclasses.dataclass(frozen=True)
+class MainPass:
+    """The main pass of a compacted frame mode: what the level loop of the
+    reference's _frame_kernel carries besides the plain frame
+    (gpuraytracer_tpu/kernels/frame_kernel.py:270-294, 330-333, 382-418,
+    502-549). ``closest`` and ``shadow`` are the (SDF, metaball) step caps
+    of the closest and the occlusion passes (None: uncapped).
+
+    compact (``defer`` False): one dirty mask per lane, sticky across
+    levels and both kinds of ray; every capped traversal kills (a dirty
+    lane passes no further gate), and a lane that is dirty after its
+    closest pass is dropped. defer: the closest passes are never capped;
+    each level's occlusion pass has a dirty mask of its own, and the
+    level's contributions under both shadow variants, its shadow status
+    and its shadow ray are recorded (``DeferPlanes``)."""
+
+    closest: tuple = (None, None)
+    shadow: tuple = (None, None)
+    defer: bool = False
+
+
+class DeferPlanes(NamedTuple):
+    """The deferred-shadow main pass's outputs over a batch B of pixels
+    (the reference's plane set, frame_kernel.py:1174-1179), with D levels:
+    ``lit`` (D, *B, 4) f32, each level's colour contribution with the
+    light visible; ``shadowed`` (D-1, *B, 4) f32, the same in shadow;
+    ``sinfo`` (D-1, *B) int32, status (0 lit, 1 shadowed, 2 unknown: a
+    capped occlusion march found nothing) | dirty bits << 2; ``rays``
+    (D-1, *B, 6) f32, the shadow ray (BLAS-space origin, direction).
+    Levels a lane never reaches hold zeros."""
+
+    lit: torch.Tensor
+    shadowed: torch.Tensor
+    sinfo: torch.Tensor
+    rays: torch.Tensor
+
+
 def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: Scene,
                    *, max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
-                   plain: bool = False):
+                   plain: bool = False, main: MainPass | None = None):
     """Trace radiance rays (..., 3) and return float4 colours (..., 4).
 
     pixel_x/pixel_y are the launch indices (DispatchRaysIndex), which the
@@ -65,6 +106,12 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     ``pack``: the frame's packed kernel buffers (frame_kernel.pack_frame),
     built once by the caller for the scene kernel's passes on a GPU;
     ``plain``: the route's plain version of every pass on a GPU.
+
+    ``main``: the plain version of a compacted frame mode's main pass
+    (``MainPass``; the passes run as the scene kernel's plain version).
+    Compact returns (colours, dirty mask (...) int32); a dirty lane's
+    colour is not the frame's (the dense pass renders it again). Defer
+    returns the ``DeferPlanes``.
     """
     arrays = scene.arrays
     constants = arrays.constants
@@ -83,14 +130,38 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     color = torch.zeros(n, 4, dtype=torch.float32, device=dev)
     throughput = torch.ones(n, 4, dtype=torch.float32, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
+    defer = main is not None and main.defer
+    dirty = None
+    if main is not None and not defer:
+        dirty = torch.zeros(n, dtype=torch.int32, device=dev)
+    if defer:
+        nsl = max_depth - 1
+        planes = DeferPlanes(
+            lit=torch.zeros(max_depth, n, 4, dtype=torch.float32, device=dev),
+            shadowed=torch.zeros(nsl, n, 4, dtype=torch.float32, device=dev),
+            sinfo=torch.zeros(nsl, n, dtype=torch.int32, device=dev),
+            rays=torch.zeros(nsl, n, 6, dtype=torch.float32, device=dev))
+
+    def capped(caps, mask):
+        return dict(budget_cap=caps[0], mb_budget_cap=caps[1], dirty=mask, kill_on_cap=True)
 
     for level in range(max_depth):
         lanes = torch.nonzero(active).squeeze(1)
         if lanes.numel() == 0:
             break
         oa, da = o[lanes], d[lanes]
+        mask = None if dirty is None else dirty[lanes]
         hit = closest_hit(oa, da, scene, t_min=RAY_TMIN, t_max=RAY_TMAX,
-                          cull_backface=True, level=level, pack=pack, plain=plain)
+                          cull_backface=True, level=level, pack=pack, plain=plain,
+                          caps=None if mask is None else capped(main.closest, mask))
+        if mask is not None:
+            # A lane capped in its closest pass is dropped here: the dense
+            # pass renders it again from its camera ray.
+            dirty[lanes] = mask
+            keep = torch.nonzero(mask == 0).squeeze(1)
+            lanes, oa, da = lanes[keep], oa[keep], da[keep]
+            hit = HitRecord(t=hit.t[keep], normal=hit.normal[keep],
+                            geometry_id=hit.geometry_id[keep], hit=hit.hit[keep])
         nrm = hit.normal
         hit_pos = oa + hit.t[:, None] * da
         gid = _material_rows(scene, hit.geometry_id)
@@ -112,15 +183,31 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
             ks = torch.pow(hlsl.saturate(hlsl.dot(refl_l, hlsl.normalize(-da))), spec_pow)
             needed = hit.hit & ((kd > 0.0) | (spec_coef * ks > 0.0))
             shadow_dir = hlsl.normalize(light_pos - hit_pos)
+            if main is not None:
+                # compact: the lane's sticky mask (0 here); defer: the level's own.
+                mask = (dirty[lanes] if dirty is not None
+                        else torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev))
             in_shadow = any_hit(hit_pos, shadow_dir, scene, t_min=RAY_TMIN,
                                 t_max=RAY_TMAX, active=needed, level=level, pack=pack,
-                                plain=plain)
+                                plain=plain,
+                                caps=None if main is None else capped(main.shadow, mask))
+            if dirty is not None:
+                dirty[lanes] = mask
+            elif defer:
+                unknown = ~in_shadow & (mask != 0)
+                status = torch.where(in_shadow, 1, torch.where(unknown, 2, 0)).to(torch.int32)
+                planes.sinfo[level, lanes] = status | (mask << 2)
+                ob, _ = ray_to_blas(hit_pos, shadow_dir, arrays.blas_offset)
+                planes.rays[level, lanes] = torch.cat([ob, shadow_dir], dim=-1)
 
-        phong = shade.phong_lighting(
-            albedo, nrm, in_shadow, hit_pos, da, light_pos,
-            constants.light_ambient_color, constants.light_diffuse_color,
-            diff_coef, spec_coef, spec_pow,
-        )
+        def phong_for(shadowed):
+            return shade.phong_lighting(
+                albedo, nrm, shadowed, hit_pos, da, light_pos,
+                constants.light_ambient_color, constants.light_diffuse_color,
+                diff_coef, spec_coef, spec_pow,
+            )
+
+        phong = phong_for(in_shadow)
 
         # Checkerboard modulation on plane hits only (Raytracing.hlsl:195,211).
         k = torch.ones_like(hit.t)
@@ -142,17 +229,30 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
 
         fog = shade.fog_factor(hit.t)[:, None]
         hit4 = hit.hit[:, None]
-        base = torch.where(hit4, (1.0 - fog) * (k * phong) + fog * bg, bg)
+
+        def base_for(ph):
+            return torch.where(hit4, (1.0 - fog) * (k * ph) + fog * bg, bg)
+
+        base = base_for(phong)
         mult = torch.where(hit4, (1.0 - fog) * k * refl_mult, 0.0)
 
         tw = throughput[lanes]
+        if defer:
+            # Both variants, in the association of the plain recurrence.
+            planes.lit[level, lanes] = tw * base_for(phong_for(torch.zeros_like(hit.hit)))
+            if level + 1 < max_depth:
+                planes.shadowed[level, lanes] = tw * base_for(phong_for(torch.ones_like(hit.hit)))
         color[lanes] = color[lanes] + tw * base
         tw_out = tw * mult
         throughput[lanes] = tw_out
-        active[lanes] = reflective & (tw_out != 0.0).any(dim=-1)
+        live = reflective & (tw_out != 0.0).any(dim=-1)
+        active[lanes] = live if dirty is None else live & (dirty[lanes] == 0)
         o[lanes] = hit_pos
         d[lanes] = hlsl.reflect(da, nrm)
-    return color.reshape(batch + (4,))
+    if defer:
+        return DeferPlanes(*(p.reshape(p.shape[:1] + batch + p.shape[2:]) for p in planes))
+    color = color.reshape(batch + (4,))
+    return color if dirty is None else (color, dirty.reshape(batch))
 
 
 def render_frame(scene: Scene, width: int, height: int, *,
@@ -166,31 +266,58 @@ def render_frame(scene: Scene, width: int, height: int, *,
     faces), else through the wavefront, whose passes run in the scene
     kernel for a scene of at most 512 mesh faces and on the per-geometry
     route (the march kernel and the mesh entry of csrc/megakernel.cu)
-    past that; what no route covers raises. A CPU scene renders through
-    the wavefront with plain passes."""
+    past that; what no route covers raises (frame_kernel.
+    check_kernel_covers). As in the reference (render/trace.py:226-247),
+    GPURT_FRAME_MODE is read only for a fused-eligible scene: "compact"
+    and "defer" render it through frame_kernel.render_frame_compact and
+    render_frame_deferred, "plain" (the default) through the frame kernel
+    alone; every other scene takes its wavefront route in any mode.
+
+    A CPU scene renders through the wavefront with plain passes, or in
+    "compact" or "defer" mode (fused-eligible only) through those modes'
+    host code with their kernels' plain versions."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
-    dev = scene.arrays.aabb_min.device
-    if dev.type != "cuda":
+    route, mode = frame_route(scene)
+    if scene.arrays.aabb_min.device.type == "cuda":
+        frame_kernel.check_kernel_covers(scene.layout, route)
+    elif mode == "plain":
         return render_wavefront(scene, width, height, max_depth=max_depth)
-    frame_kernel.check_kernel_covers(scene.layout)
     pack = frame_kernel.pack_frame(scene)
-    if frame_kernel.fused_eligible_layout(scene.layout, scene.arrays.materials.albedo.shape[0],
-                                          _total_mesh_faces(scene)):
-        return frame_kernel.render_frame_tiles(pack, width=width, height=height,
-                                               max_depth=max_depth)
+    kw = dict(width=width, height=height, max_depth=max_depth)
+    if mode == "compact":
+        return frame_kernel.render_frame_compact(pack, **kw)
+    if mode == "defer":
+        return frame_kernel.render_frame_deferred(pack, **kw)
+    if route == "frame":
+        return frame_kernel.render_frame_tiles(pack, **kw)
     return render_wavefront(scene, width, height, max_depth=max_depth, pack=pack)
+
+
+def frame_route(scene: Scene):
+    """(route, mode) of a frame on a GPU: route "frame" for a fused-eligible
+    scene (frame_kernel.fused_eligible_layout), else "scene" within the
+    mesh face cap and "per_geometry" past it; mode GPURT_FRAME_MODE
+    (frame_kernel.frame_mode) for the "frame" route, "plain" for the
+    others, which the reference never sends to a compacted mode."""
+    from gpuraytracer_tpu_torch.accel.traverse import _scene_kernel_eligible
+    from gpuraytracer_tpu_torch.kernels import frame_kernel
+
+    if frame_kernel.fused_eligible_layout(
+            scene.layout, scene.arrays.materials.albedo.shape[0], _total_mesh_faces(scene)):
+        return "frame", frame_kernel.frame_mode()
+    return ("scene" if _scene_kernel_eligible(scene) else "per_geometry"), "plain"
 
 
 def render_wavefront(scene: Scene, width: int, height: int, *,
                      max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
-                     plain: bool = False):
+                     plain: bool = False, main: MainPass | None = None):
     """Raygen + trace_radiance over the whole frame on the scene's device.
     On a GPU the traversal passes take the scene's route: the scene kernel,
     or the per-geometry route past the mesh face cap (``pack``: the frame's
     packed buffers, built here if None); with ``plain`` each route's plain
     version. On the CPU every pass is the scene kernel's plain version, the
-    frame kernel's plain version."""
+    frame kernel's plain version. ``main``: see ``trace_radiance``."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     dev = scene.arrays.aabb_min.device
@@ -201,7 +328,7 @@ def render_wavefront(scene: Scene, width: int, height: int, *,
     origins, directions = cam.generate_camera_rays(
         px, py, width, height, c.camera_position, c.projection_to_world)
     return trace_radiance(origins, directions, px, py, width, height, scene,
-                          max_depth=max_depth, pack=pack, plain=plain)
+                          max_depth=max_depth, pack=pack, plain=plain, main=main)
 
 
 def to_rgba8(image_f32):

@@ -107,22 +107,23 @@ def test_renderer_animates_and_resizes(small_frame):
 
 
 def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
-    # render_frame on a GPU: fused-eligible scenes go to the frame kernel,
-    # every other covered scene to the wavefront (the scene kernel, or the
-    # per-geometry route past the mesh face cap), and what no route covers
-    # raises, naming the unported kernel. Meshes are covered now.
+    # render_frame on a GPU: fused-eligible scenes go to the frame kernel
+    # (in every GPURT_FRAME_MODE), every other covered scene to the
+    # wavefront (the scene kernel, or the per-geometry route past the mesh
+    # face cap), and what no route covers raises, naming the unported
+    # kernel. Meshes and the compacted frame modes are covered now;
+    # GPURT_MERGED_SHADOW raises on the frame and scene kernels' routes.
     layout = builtin.LAYOUT
     frame_kernel.check_kernel_covers(layout)
     assert frame_kernel.fused_eligible_layout(layout, 11)
-    for key, value, kernel in (
-        ("GPURT_FRAME_MODE", "compact", "render_frame_compact"),
-        ("GPURT_FRAME_MODE", "defer", "render_frame_deferred"),
-        ("GPURT_MERGED_SHADOW", "1", "_march_sdf_multi"),
-    ):
+    for mode in ("compact", "defer"):
         with monkeypatch.context() as m:
-            m.setenv(key, value)
-            with pytest.raises(NotImplementedError, match=kernel):
-                frame_kernel.check_kernel_covers(layout)
+            m.setenv("GPURT_FRAME_MODE", mode)
+            frame_kernel.check_kernel_covers(layout)
+    with monkeypatch.context() as m:
+        m.setenv("GPURT_MERGED_SHADOW", "1")
+        with pytest.raises(NotImplementedError, match="_march_sdf_multi"):
+            frame_kernel.check_kernel_covers(layout)
     meshes = dataclasses.replace(
         layout, kinds=layout.kinds[:-1] + (IntersectorKind.TRIANGLE,))
     frame_kernel.check_kernel_covers(meshes)
