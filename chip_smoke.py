@@ -64,6 +64,27 @@ exits non-zero):
               window in each mode (launches, host syncs and queued lanes
               per frame); each new kernel alone at the 1080p frame's
               shapes against its plain version, with op counts and bounds
+ 11. last     the last three kernel-table items: GPURT_MERGED_SHADOW=1 (the
+              merged instantiations of the frame kernel's plain and dense
+              entries and of the occlusion queue) against the sequential
+              frame of the same build, bit for bit, in both fmad builds:
+              builtin, sdf_primitives_720p and the fractal scene at 320x180
+              and builtin at 1080p, each plain, compact at cap 8 and defer at
+              cap 8; the merged builtin frame against the plain version at
+              320x180;
+              a 17-material scene under the knob through the scene kernel;
+              16-frame 1080p windows with and without the knob (plain,
+              compact, defer) and each merged kernel alone; the two-phase
+              scene pass (scene_closest_tiles(two_phase=True): main and
+              finish entries of csrc/scene_kernel.cu) on the builtin 1080p
+              level-0 closest and shadow passes against the single pass
+              (every differing ray named by its cause) and its plain
+              version, dirty rays per geometry, each entry alone; the
+              two-phase pass against its plain version on 320x180 ray
+              batches of the three scenes (camera rays at level 0, shadow
+              rays at level 1) in both fmad builds; the op probe (csrc/op_probe.cu) against its plain
+              version in all ten variants, then timed at the reference's
+              2000 iterations (ns per element-iteration, bf16/f32)
 Then the kernel JSON line, the card line, and the final JSON status line.
 
 Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
@@ -99,6 +120,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 W_MAIN, H_MAIN, FRAMES = 1920, 1080, 16
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# bf16 outside the tensor cores: twice the f32 rate (packed bf16x2 FMAs,
+# NVIDIA's H100 SXM data: 133.8 TFLOP/s). The 989 TFLOP/s bf16 peak is the
+# tensor cores', which no element-wise chain reaches.
+BF16_OPS_PER_S = 133.8e12
 
 
 def bar(img, ref):
@@ -127,9 +152,9 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps, out
 
 
-def bound(nbytes, ops):
-    """(bound ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """(bound ms, what bounds it); ops at ops_per_s (f32 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -178,6 +203,9 @@ def reset_counts():
     frame_kernel.COMPACT_LAUNCHES = frame_kernel.DENSE_LAUNCHES = 0
     frame_kernel.DEFER_LAUNCHES = scene_kernel.QUEUE_LAUNCHES = 0
     frame_kernel.HOST_SYNCS = frame_kernel.QUEUED_LANES = 0
+    frame_kernel.MERGED_LAUNCHES = frame_kernel.MERGED_DENSE_LAUNCHES = 0
+    scene_kernel.MERGED_QUEUE_LAUNCHES = 0
+    scene_kernel.MAIN_LAUNCHES = scene_kernel.FINISH_LAUNCHES = 0
 
 
 def mode_counts():
@@ -189,7 +217,53 @@ def mode_counts():
     return dict(plain=frame_kernel.LAUNCHES, compact=frame_kernel.COMPACT_LAUNCHES,
                 dense=frame_kernel.DENSE_LAUNCHES, defer=frame_kernel.DEFER_LAUNCHES,
                 queue=scene_kernel.QUEUE_LAUNCHES, syncs=frame_kernel.HOST_SYNCS,
-                queued=frame_kernel.QUEUED_LANES)
+                queued=frame_kernel.QUEUED_LANES, merged=frame_kernel.MERGED_LAUNCHES,
+                dense_merged=frame_kernel.MERGED_DENSE_LAUNCHES,
+                queue_merged=scene_kernel.MERGED_QUEUE_LAUNCHES)
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def ptxas_summary(report):
+    """'kernel<instantiation>: registers; stack and spills' per entry of a
+    ptxas -v report."""
+    import re
+
+    def pretty(mangled):
+        m = re.match(r"_ZN4gprt(\d+)(\w+)", mangled)
+        if not m:
+            return mangled
+        n, rest = int(m.group(1)), m.group(2)
+        return rest[:n] + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(rest[n:n + 5], "")
+
+    out, entry, props, stack = [], None, None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, stack = m.group(1), ""
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+        elif "bytes stack frame" in line and props == entry:
+            stack = line.strip()
+        elif entry and "Used" in line:
+            out.append(f"{pretty(entry)}: {line.split(':')[-1].strip()}; {stack}")
+            entry = None
+    return " | ".join(out)
 
 
 @contextlib.contextmanager
@@ -306,13 +380,11 @@ def main() -> int:
                   for name in ("frame_kernel", "scene_kernel", "megakernel")
                   for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
                                       (build.DEFAULT_FMAD, True))]
+        builds.append(("op_probe", build.DEFAULT_FMAD, False))
         reports = build.compile_all(builds)
         for (name, fmad, count), report in reports.items():
-            used = " | ".join(line.split("ptxas info    : ")[-1].strip()
-                              for line in report.splitlines()
-                              if "Used" in line or "spill" in line)
-            print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}: {used}",
-                  flush=True)
+            print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}: "
+                  f"{ptxas_summary(report)}", flush=True)
 
     # 3. the fractals' device distance functions, before any render ----------
     with Phase("probe"):
@@ -340,6 +412,7 @@ def main() -> int:
               f"within 1e-5 {tight:.6f} (bar > 0.75), max |diff| {max_err:.6g}", flush=True)
         if not ok:
             raise AssertionError("frame kernel disagrees with its plain version")
+        pack_320, plain_320 = pack, plain
 
     # 5. frame kernel vs golden at 96x54 --------------------------------------
     with Phase("golden"):
@@ -379,6 +452,7 @@ def main() -> int:
             lambda: frame_kernel.render_frame_plain(pack_m, width=W_MAIN, height=H_MAIN), 1,
             warmup=False)
         ok, frac, tight, frame_err = bar(kimg, pimg)
+        plain_m = pimg
         print(f"[main] kernel vs plain 1920x1080 t={0.0333 * 8:.4f}: flipped {frac:.6f}, "
               f"within 1e-5 {tight:.6f}, max |diff| {frame_err:.6g}", flush=True)
         if not ok:
@@ -902,6 +976,8 @@ def main() -> int:
         count_lib = build.load("frame_kernel", count_ops=True)
 
         def record(name, fn, p_ms, err, nbytes, ops_fn, detail):
+            # The plain versions leave large blocks in the allocator's cache.
+            torch.cuda.empty_cache()
             k_ms, _ = cuda_ms(fn, 10)
             ops.zero_()
             ops_fn()
@@ -961,8 +1037,11 @@ def main() -> int:
         if agree < 0.999 or not all(r[0] for r in res):
             raise AssertionError("defer main pass disagrees with its plain version")
         nsl = 2
+        # Timed into planes allocated once: the 34 planes (282 MB) stay out
+        # of the loop and the allocator.
+        del p_pl
         record("frame_defer", lambda: frame_kernel.render_frame_deferred_main(
-                   pack_m, shadow_cap=32, **kw_m), p_ms,
+                   pack_m, shadow_cap=32, planes=k_pl, **kw_m), p_ms,
                err, frame_in + npix * (16 * 3 + (16 + 4 + 24) * nsl),
                lambda: frame_kernel.render_frame_deferred_main(
                    pack_m, shadow_cap=32, ops=ops, lib=count_lib, **kw_m),
@@ -993,6 +1072,403 @@ def main() -> int:
                                                  lib=build.load("scene_kernel", count_ops=True)),
                f"{n_act} queued rays in {nsl} segments of {seg}; occlusion agrees on "
                f"{agree:.6f}")
+
+    # 11. the last kernel-table items: merged occlusion, two-phase, op probe --
+    with Phase("last"):
+        from gpuraytracer_tpu_torch.apps import op_probe as probe_app
+        from gpuraytracer_tpu_torch.core.types import IntersectorKind, RAY_TMAX
+        from gpuraytracer_tpu_torch.kernels import op_probe
+
+        def build_scene(name, w, h, t=0.7):
+            return (builtin.build_scene(aspect=w / h, elapsed_time=t, device=dev)
+                    if name == "builtin" else scenes.get_config(name).build(w / h, t, device=dev))
+
+        t11 = time.perf_counter()
+        three = ("builtin", "sdf_primitives_720p", "fractal_mandelbulb_julia_1080p")
+        depth = {name: 3 if name == "builtin" else scenes.get_config(name).max_depth
+                 for name in three}
+        merged_env = dict(GPURT_MERGED_SHADOW="1")
+
+        # (a) merged against sequential, the same build, bit for bit: plain,
+        # compact at cap 8 (the dense entry runs merged) and defer at cap 8
+        # (the queue entry runs merged), both with a queue that holds every
+        # pixel.
+        cases = [(name, frame_kernel.pack_frame(build_scene(name, 320, 180)), 320, 180, depth[name])
+                 for name in three] + [("builtin", pack_m, W_MAIN, H_MAIN, 3)]
+        forms = {"plain": lambda p, w, h, dd: frame_kernel.render_frame_tiles(
+                     p, width=w, height=h, max_depth=dd),
+                 "compact": lambda p, w, h, dd: frame_kernel.render_frame_compact(
+                     p, width=w, height=h, max_depth=dd, budget_cap=8, cap_lanes=w * h),
+                 "defer": lambda p, w, h, dd: frame_kernel.render_frame_deferred(
+                     p, width=w, height=h, max_depth=dd, shadow_cap=8, cap_lanes=w * h)}
+        ran = {"plain": "merged", "compact": "dense_merged", "defer": "queue_merged"}
+        unmerged = {"plain": "plain", "compact": "dense", "defer": "queue"}
+        merged_imgs = {}
+        for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
+            with fmad_build(fmad):
+                for name, pack_x, w, h, dd in cases:
+                    for form, fn in forms.items():
+                        seq = fn(pack_x, w, h, dd)
+                        reset_counts()
+                        with env(**merged_env):
+                            img = fn(pack_x, w, h, dd)
+                        torch.cuda.synchronize()
+                        c = mode_counts()
+                        exact = bool(torch.equal(img, seq))
+                        print(f"[last] merged {name} {w}x{h} {form} fmad={fmad}: bit-equal to the "
+                              f"sequential frame: {exact}; launches {c}", flush=True)
+                        if not exact or c[ran[form]] != 1 or c[unmerged[form]] != 0:
+                            raise AssertionError(f"merged {name} {w}x{h} {form} fmad={fmad}: "
+                                                 f"not the sequential frame, or wrong entry")
+                        if fmad == build.DEFAULT_FMAD and form == "plain":
+                            merged_imgs[(name, w)] = img
+
+        # (b) the merged frame against the frame kernel's plain version (the
+        # other scenes' merged frames are their sequential frames, which
+        # phase 7 holds to the plain version).
+        ok, frac, tight, err = bar(merged_imgs[("builtin", 320)], plain_320)
+        print(f"[last] merged builtin 320x180 vs plain: flipped {frac:.6f}, within 1e-5 "
+              f"{tight:.6f}, max |diff| {err:.6g}; {time.perf_counter() - t11:.1f} s into the "
+              f"phase", flush=True)
+        if not ok:
+            raise AssertionError("merged builtin frame disagrees with the plain version")
+        merged_err = bar(merged_imgs[("builtin", W_MAIN)], plain_m)[3]
+
+        # (c) a 17-material scene under the knob: the scene kernel, in sequence.
+        scene_x = instance_grid(4, 4, 16).build(160 / 90, 0.7, device=dev)
+        seq = trace.render_frame(scene_x, 160, 90)
+        reset_counts()
+        with env(**merged_env):
+            img = trace.render_frame(scene_x, 160, 90)
+        torch.cuda.synchronize()
+        launched, c = counts(), mode_counts()
+        ok, frac, _, _ = bar(img, frame_kernel.render_frame_plain(
+            frame_kernel.pack_frame(scene_x), width=160, height=90))
+        print(f"[last] 17 materials, GPURT_MERGED_SHADOW=1 160x90: scene kernel {launched[1]} "
+              f"launches, frame-kernel family {c}; equal to the frame without the knob: "
+              f"{bool(torch.equal(img, seq))}; vs plain flipped {frac:.6f}", flush=True)
+        if not (ok and torch.equal(img, seq) and launched[1] > 0 and c["merged"] == 0
+                and c["plain"] == 0):
+            raise AssertionError("17-material scene under the knob: wrong route or image")
+
+        # (d) 16-frame 1080p windows with and without the knob, and each
+        # merged kernel alone at the shapes of phase 6 and 10.
+        merged_windows = {}
+        for label, mode, knob in (("plain", "plain", False), ("merged", "plain", True),
+                                  ("compact merged", "compact", True),
+                                  ("defer merged", "defer", True)):
+            with env(GPURT_FRAME_MODE=mode, **(merged_env if knob else {})):
+                ms, _, bg_max = animated_window(Renderer(W_MAIN, H_MAIN, device=dev), dev,
+                                                f"builtin 1080p {label}", W_MAIN, H_MAIN)
+            c = mode_counts()
+            merged_windows[label] = c
+            print(f"[last] Renderer 1920x1080 {label} (GPURT_FRAME_MODE={mode}, "
+                  f"GPURT_MERGED_SHADOW={int(knob)}), {FRAMES} frames: {ms:.3f} ms/frame, "
+                  f"{W_MAIN * H_MAIN / ms / 1e3:.3f} Mrays/s; launches {c}; background <= "
+                  f"{bg_max:.3f}; {card}", flush=True)
+            want = {"plain": ("plain",), "merged": ("merged",),
+                    "compact merged": ("compact", "dense_merged"),
+                    "defer merged": ("defer", "queue_merged")}[label]
+            if c[want[0]] != FRAMES or any(c[k] == 0 for k in want) or (
+                    knob and c["plain"] + c["dense"] + c["queue"] != 0):
+                raise AssertionError(f"{label} window: launches {c}")
+
+        def merged_alone(name, fn, count_fn, nbytes, p_ms, err, detail):
+            with env(**merged_env):
+                k_ms, _ = cuda_ms(fn, 10)
+                ops.zero_()
+                count_fn()
+            torch.cuda.synchronize()
+            k_ops = int(ops.item())
+            b_ms, b_by = bound(nbytes, k_ops)
+            alone_m[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, err=err)
+            print(f"[last] {name} alone 1920x1080: {detail}; kernel {k_ms:.3f} ms ({k_ops} f32 "
+                  f"FLOPs, {int(nbytes)} bytes: bound {b_ms:.4f} ms by {b_by}); plain "
+                  f"{p_ms:.1f} ms (measured above on the same inputs); {card}", flush=True)
+
+        seq_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_tiles(pack_m, **kw_m), 10)
+        merged_alone("frame_kernel_merged",
+                     lambda: frame_kernel.render_frame_tiles(pack_m, **kw_m),
+                     lambda: frame_kernel.render_frame_tiles(pack_m, ops=ops, lib=count_lib, **kw_m),
+                     frame_bytes, frame_plain_ms, merged_err,
+                     f"the sequential instantiation {seq_ms:.3f} ms in the same call; vs plain "
+                     f"max |diff| {merged_err:.6g}")
+        with env(**merged_env):
+            d_out = frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m)
+        if not torch.equal(d_out, k_out):
+            raise AssertionError("merged dense pass is not the sequential one")
+        merged_alone("frame_dense_merged",
+                     lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m),
+                     lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, ops=ops,
+                                                             lib=count_lib, **kw_m),
+                     frame_in + q.shape[0] * (8 + 16), alone_m["frame_dense"]["plain_ms"],
+                     float((d_out - p_out).abs().max()),
+                     f"{q.shape[0]} queued pixels, equal to the sequential dense pass")
+        with env(**merged_env):
+            m_occ = scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg)
+        mq_ms, p_m_occ = plain_run(lambda: scene_kernel.shadow_queue_plain(
+            pack_m, q_rays, q_act, seg, merged=True))
+        if not torch.equal(m_occ, k_occ) or float((m_occ == p_m_occ).float().mean()) < 0.999:
+            raise AssertionError("merged queue disagrees with the sequential one or its plain version")
+        merged_alone("shadow_queue_merged",
+                     lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg),
+                     lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg, ops=ops,
+                                                       lib=build.load("scene_kernel",
+                                                                      count_ops=True)),
+                     frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
+                                               shading=False) + n_act * 24 + q_rays.shape[0] * 5,
+                     mq_ms, float((m_occ - p_m_occ).abs().max()),
+                     f"{n_act} queued rays; equal to the sequential queue; vs its plain version "
+                     f"(occluded_merged_plain) agrees on {float((m_occ == p_m_occ).float().mean()):.6f}")
+
+        print(f"[last] merged checks done {time.perf_counter() - t11:.1f} s into the phase",
+              flush=True)
+
+        # (e) the two-phase pass on the builtin 1080p level-0 closest and
+        # shadow passes (as tools/profile_dirty.py builds them), against the
+        # single pass of the same build and against its plain version.
+        mb_gid = [g for g, k in enumerate(scene_m.layout.kinds) if k == IntersectorKind.VOLUMETRIC]
+
+        def explain(single, two, dirty):
+            """Counts of the rays whose (t, gid) differ between the single pass
+            and the two-phase form, by cause: the finisher stepped a capped
+            metaball march over the interval clipped to the final best t
+            (metaball), a tie of two geometries at one t (tie); and the rest
+            (unexplained), which fails the phase."""
+            (t1, _, g1), (t2, _, g2) = single, two
+            differ = (t1 != t2) | (g1 != g2)
+            mb = torch.zeros_like(differ)
+            for g in mb_gid:
+                mb |= ((dirty >> min(g, 31)) & 1) != 0
+            tie = ~mb & (g1 != g2) & (t1 == t2)
+            rest = differ & ~mb & ~tie
+            return dict(metaball=int((differ & mb).sum()), tie=int((differ & tie).sum()),
+                        unexplained=int(rest.sum()))
+
+        px, py = cam.pixel_grid(W_MAIN, H_MAIN, dev)
+        c0 = scene_m.arrays.constants
+        o, d = cam.generate_camera_rays(px, py, W_MAIN, H_MAIN, c0.camera_position,
+                                        c0.projection_to_world)
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        hit_p, ob, db, act, t0 = traverse.pass_inputs(o, d, scene_m)
+        st, sn, sg = scene_kernel.scene_closest_tiles(scene_m, ob, db, act, t0, pack=pack_m)
+        t_hit = torch.where(sg >= 0, st, torch.where(hit_p, t0, RAY_TMAX))
+        hp = o + t_hit[:, None] * d
+        sd = hlsl.normalize(c0.light_position[:3] - hp)
+        _, obs, dbs, acts, t0s = traverse.pass_inputs(hp, sd, scene_m, active=(sg >= 0) | hit_p,
+                                                      occlusion=True)
+        passes = {"closest": (ob, db, act, t0, False), "shadow": (obs, dbs, acts, t0s, True)}
+        reset_counts()
+        two = {k: scene_kernel.scene_closest_tiles(scene_m, o_, d_, a_, t_, accept_first=af,
+                                                   two_phase=True, debug_dirty=True, pack=pack_m)
+               for k, (o_, d_, a_, t_, af) in passes.items()}
+        torch.cuda.synchronize()
+        two_phase_launches = (scene_kernel.MAIN_LAUNCHES, scene_kernel.FINISH_LAUNCHES)
+        if two_phase_launches != (2, 2) or scene_kernel.LAUNCHES != 0:
+            raise AssertionError(f"two-phase passes launched {two_phase_launches}")
+        two_phase = {}
+        for k, (o_, d_, a_, t_, af) in passes.items():
+            single = scene_kernel.scene_closest_tiles(scene_m, o_, d_, a_, t_, accept_first=af,
+                                                      pack=pack_m)
+            *two_out, dirty = two[k]
+            # An occlusion pass answers occluded or not; which geometry
+            # occludes first is not part of the answer.
+            answer = (lambda g: (g >= 0).to(torch.int32)) if af else (lambda g: g)
+            causes = explain((single[0], None, answer(single[2])),
+                             (two_out[0], None, answer(two_out[2])), dirty)
+            bits = {}
+            for g in range(scene_m.layout.num_procedural):
+                nb = int((((dirty >> min(g, 31)) & 1) != 0).sum())
+                if nb:
+                    bits[f"{g} {scene_m.layout.kinds[g].name.lower()}"] = nb
+            n = dirty.shape[0]
+            warps = float((dirty.reshape(-1, 32) != 0).any(dim=1).float().mean())
+            exact = float(((single[0] == two_out[0])
+                           & (answer(single[2]) == answer(two_out[2]))).float().mean())
+            print(f"[last] two-phase 1080p level-0 {k} pass ({n} rays, {int(a_.sum())} live): "
+                  f"bit-equal to the single pass on {exact:.6f}; differing rays by cause "
+                  f"{causes}; dirty rays {int((dirty != 0).sum())} "
+                  f"({100 * float((dirty != 0).float().mean()):.3f}%), warps with a dirty ray "
+                  f"{100 * warps:.2f}%; dirty rays per geometry {bits}", flush=True)
+            if causes["unexplained"]:
+                raise AssertionError(f"two-phase {k} pass: rays differ without a named cause")
+            # Each entry alone (the finisher on fresh copies of the main
+            # pass's outputs), with op counts and bounds.
+            kw_p = dict(level=0, accept_first=af, pack=pack_m)
+            main_ms, main_out = cuda_ms(lambda: scene_kernel.scene_main_pass(
+                scene_m, o_, d_, a_, t_, **kw_p), 10)
+            ops.zero_()
+            scene_kernel.scene_main_pass(scene_m, o_, d_, a_, t_, ops=ops,
+                                         lib=build.load("scene_kernel", count_ops=True),
+                                         **kw_p)
+            torch.cuda.synchronize()
+            main_ops = int(ops.item())
+            work = [x.clone() for x in main_out[:3]]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            fin_ms = 0.0
+            for r in range(11):
+                for w_, m_ in zip(work, main_out[:3]):
+                    w_.copy_(m_)
+                start.record()
+                scene_kernel.scene_finish(scene_m, o_, d_, main_out[3], *work, accept_first=af,
+                                          pack=pack_m)
+                end.record()
+                torch.cuda.synchronize()
+                if r:
+                    fin_ms += start.elapsed_time(end) / 10
+            for w_, m_ in zip(work, main_out[:3]):
+                w_.copy_(m_)
+            ops.zero_()
+            scene_kernel.scene_finish(scene_m, o_, d_, main_out[3], *work, accept_first=af,
+                                      pack=pack_m, ops=ops,
+                                      lib=build.load("scene_kernel", count_ops=True))
+            torch.cuda.synchronize()
+            fin_ops = int(ops.item())
+            n_dirty = int((main_out[3] != 0).sum())
+            shared = frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
+                                               shading=False)
+            main_bytes = shared + n * (29 + 20 + 4)
+            fin_bytes = shared + n * 4 + n_dirty * (24 + 2 * 20)
+            two_phase[k] = dict(main_ms=main_ms, main_ops=main_ops, main_bytes=main_bytes,
+                                fin_ms=fin_ms, fin_ops=fin_ops, fin_bytes=fin_bytes)
+            mb_, mby = bound(main_bytes, main_ops)
+            fb_, fby = bound(fin_bytes, fin_ops)
+            print(f"[last] two-phase 1080p {k} entries alone: main {main_ms:.3f} ms ({main_ops} "
+                  f"f32 FLOPs, {main_bytes} bytes: bound {mb_:.4f} ms by {mby}); finish "
+                  f"{fin_ms:.3f} ms over {n_dirty} dirty rays ({fin_ops} f32 FLOPs, {fin_bytes} "
+                  f"bytes: bound {fb_:.4f} ms by {fby}); {card}", flush=True)
+        # The plain version of both entries on the closest pass.
+        ob_, db_, a_, t_, _ = passes["closest"]
+        tp_main_ms, p_main = plain_run(lambda: scene_kernel.scene_main_plain(
+            scene_m, ob_, db_, a_, t_))
+        tp_fin_ms, p_fin = plain_run(lambda: scene_kernel.scene_finish_plain(
+            scene_m, ob_, db_, p_main[3], *p_main[:3]))
+        *k_two, k_dirty = two["closest"]
+        same = k_two[2] == p_fin[2]
+        dts = (k_two[0] - p_fin[0]).abs()[same & (p_fin[2] >= 0)]
+        tp_err = float(dts.max())
+        dirty_agree = float((k_dirty == p_main[3]).float().mean())
+        # The finisher changes only dirty rays: hold them on their own too.
+        on_dirty = float(same[p_main[3] != 0].float().mean())
+        print(f"[last] two-phase 1080p closest vs its plain version: gid agrees on "
+              f"{float(same.float().mean()):.6f} (on the {int((p_main[3] != 0).sum())} dirty "
+              f"rays {on_dirty:.6f}), |dt| <= 1e-3 on "
+              f"{float((dts <= 1e-3).float().mean()):.6f}, max |dt| {tp_err:.6g}; dirty words "
+              f"agree on {dirty_agree:.6f}; plain main {tp_main_ms:.1f} ms, plain finish "
+              f"{tp_fin_ms:.1f} ms", flush=True)
+        if float(same.float().mean()) < 0.9999 or dirty_agree < 0.9999 or on_dirty < 0.999:
+            raise AssertionError("two-phase 1080p pass disagrees with its plain version")
+
+        print(f"[last] 1080p two-phase done {time.perf_counter() - t11:.1f} s into the phase",
+              flush=True)
+
+        # (f) two-phase against its plain version on 320x180 ray batches: per
+        # scene the camera rays (closest, level 0), their reflections
+        # (closest, level 1: the finisher marches at the level-0 budget where
+        # the single pass takes the bounce budget) and, for the builtin scene,
+        # the shadow rays (level 0; at level 1 the main pass's cap is the
+        # plain budget, so capped shadow rays are occluded there and the
+        # finisher has nothing to do). Each plain two-phase pass takes 3-6 s
+        # on the host; (e) holds the 1080p shadow pass to the single pass.
+        for name in three:
+            scene_b = build_scene(name, 320, 180)
+            pack_b = frame_kernel.pack_frame(scene_b)
+            px, py = cam.pixel_grid(320, 180, dev)
+            cb = scene_b.arrays.constants
+            o, d = cam.generate_camera_rays(px, py, 320, 180, cb.camera_position,
+                                            cb.projection_to_world)
+            o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+            hit = traverse.closest_hit(o, d, scene_b, level=0, plain=True)
+            hp = o + hit.t[:, None] * d
+            sh = hlsl.normalize(cb.light_position[:3] - hp)
+            batches = [("camera, closest, level 0", o, d, None, 0, False),
+                       ("reflection, closest, level 1", hp, hlsl.reflect(d, hit.normal),
+                        hit.hit, 1, False)]
+            if name == "builtin":
+                batches.append(("shadow, level 0", hp, sh, hit.hit, 0, True))
+            for label, o_, d_, a_, level, af in batches:
+                _, obb, dbb, ab, tb = traverse.pass_inputs(o_, d_, scene_b, active=a_,
+                                                           occlusion=af)
+                pt, _, pg, pdirty = scene_kernel.scene_two_phase_plain(
+                    scene_b, obb, dbb, ab, tb, level=level, accept_first=af)
+                line, ok = [], True
+                for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
+                    kt, _, kg, kdirty = scene_kernel.scene_closest_tiles(
+                        scene_b, obb, dbb, ab, tb, level=level, accept_first=af, two_phase=True,
+                        debug_dirty=True, pack=pack_b, lib=build.load("scene_kernel", fmad=fmad))
+                    same = kg == pg
+                    dt = (kt - pt).abs()[same & (pg >= 0)]
+                    agree = float(same.float().mean())
+                    # The finisher changes only dirty rays: hold them on their own too.
+                    on_dirty = float(same[pdirty != 0].float().mean()) if bool(
+                        (pdirty != 0).any()) else 1.0
+                    close = float((dt <= 1e-3).float().mean()) if dt.numel() else 1.0
+                    dt_max = float(dt.max()) if dt.numel() else 0.0
+                    dirty_ok = float((kdirty == pdirty).float().mean())
+                    ok = ok and agree >= 0.9999 and dirty_ok >= 0.9999 and on_dirty >= 0.99 and (
+                        close >= 0.98 if fmad == build.DEFAULT_FMAD else dt_max <= 1e-3)
+                    if fmad == build.DEFAULT_FMAD:
+                        tp_err = max(tp_err, dt_max)
+                    line.append(f"fmad={fmad}: gid agrees on {agree:.6f} (dirty rays "
+                                f"{on_dirty:.6f}), |dt| <= 1e-3 on {close:.6f}, max |dt| "
+                                f"{dt_max:.6g}, dirty words agree on {dirty_ok:.6f}")
+                print(f"[last] two-phase {name} 320x180 {label}: {int(ab.sum())} live rays, "
+                      f"{int((pdirty != 0).sum())} dirty; " + "; ".join(line), flush=True)
+                if not ok:
+                    raise AssertionError(f"two-phase {name} {label}: disagrees with plain")
+
+        print(f"[last] 320x180 two-phase batches done {time.perf_counter() - t11:.1f} s into "
+              f"the phase", flush=True)
+
+        # (g) the op probe: every variant against its plain version, then the
+        # reference's run (2000 iterations) through apps/op_probe.py.
+        probe_err = 0.0
+        for name, dtype in op_probe.DTYPES.items():
+            x = torch.full(op_probe.SHAPE, op_probe.FILL, dtype=dtype, device=dev)
+            for opn in op_probe.OPS:
+                for iters in (1, 4):  # the fma chain is inf from the second iteration
+                    got = op_probe.op_probe(x, opn, iters).float()
+                    want = op_probe.op_probe_plain(x, opn, iters).float()
+                    inf = torch.isinf(want)
+                    diff = (got - want)[~inf].abs()
+                    rel = float((diff / want[~inf].abs().clamp(min=1e-30)).max()) if diff.numel() else 0.0
+                    tol = 1e-6 if name == "f32" else 2.0 ** -7
+                    ok = bool(torch.equal(got[inf], want[inf])) and rel <= tol
+                    if diff.numel() and iters == 4:  # the bounded mixes (fma is inf)
+                        probe_err = max(probe_err, float(diff.max()))
+                    print(f"[last] op probe {opn} {name}, {iters} iterations: max relative diff "
+                          f"{rel:.3g} (bar {tol:.3g}), inf where plain is inf: "
+                          f"{bool(torch.equal(got[inf], want[inf]))}", flush=True)
+                    if not ok:
+                        raise AssertionError(f"op probe {opn} {name} disagrees with its plain "
+                                             f"version")
+        reset_counts()
+        op_probe.LAUNCHES = 0
+        probe = probe_app.run(2000, 20, dev)
+        probe_launches = op_probe.LAUNCHES
+        probe_ms = probe_plain_ms = probe_bound = 0.0
+        bound_share = {"bytes": 0.0, "operations": 0.0}
+        rates = {"f32": F32_OPS_PER_S, "bf16": BF16_OPS_PER_S}
+        for key, r in probe["variants"].items():
+            opn, name = key.split("_")
+            x = torch.full(op_probe.SHAPE, op_probe.FILL, dtype=op_probe.DTYPES[name], device=dev)
+            p_ms, _ = plain_run(lambda: op_probe.op_probe_plain(x, opn, 2000))
+            nbytes = 2 * x.numel() * x.element_size()
+            n_ops = 2000 * x.numel() * op_probe.FLOPS_PER_ITER[opn]
+            b_ms, b_by = bound(nbytes, n_ops, rates[name])
+            probe_ms += r["ms"]
+            probe_plain_ms += p_ms
+            probe_bound += b_ms
+            bound_share[b_by] += b_ms
+            print(f"[last] op probe {key}, 2000 iterations over {x.numel()} elements: "
+                  f"{r['ms']:.4f} ms, {r['ns_per_elem_iter']:.6f} ns/elem-iter ({n_ops} {name} "
+                  f"FLOPs at {rates[name] / 1e12:.1f} TFLOP/s, {nbytes} bytes: bound {b_ms:.4f} ms "
+                  f"by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+        print(f"[last] op probe bf16/f32: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in probe["bf16_over_f32"].items()) + f"; {probe_launches} "
+            f"launches; bound over the ten variants {probe_bound:.4f} ms; {card}", flush=True)
+        probe_bound_by = max(bound_share, key=bound_share.get)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
@@ -1063,7 +1539,39 @@ def main() -> int:
         ("frame_defer", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1075",
          windows["defer"]["defer"]),
         ("shadow_queue", "scene_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1016",
-         windows["defer"]["queue"]))]}))
+         windows["defer"]["queue"]),
+        ("frame_kernel_merged", "frame_kernel.cu", "gpuraytracer_tpu/kernels/scene_kernel.py:466",
+         merged_windows["merged"]["merged"]),
+        ("frame_dense_merged", "frame_kernel.cu", "gpuraytracer_tpu/kernels/scene_kernel.py:466",
+         merged_windows["compact merged"]["dense_merged"]),
+        ("shadow_queue_merged", "scene_kernel.cu", "gpuraytracer_tpu/kernels/scene_kernel.py:466",
+         merged_windows["defer merged"]["queue_merged"]))] + [{
+        "name": f"scene_two_phase_{entry}",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/scene_kernel.cu",
+        "replaces": f"gpuraytracer_tpu/kernels/scene_kernel.py:{line}",
+        "launches": launches,
+        "max_abs_err": tp_err,
+        "ms": two_phase["closest"][f"{key}_ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound(two_phase["closest"][f"{key}_bytes"], two_phase["closest"][f"{key}_ops"])[0],
+        "bound_by": bound(two_phase["closest"][f"{key}_bytes"], two_phase["closest"][f"{key}_ops"])[1],
+        "library_ms": None,
+    } for entry, key, line, launches, plain_ms in (
+        ("main", "main", 2008, two_phase_launches[0], tp_main_ms),
+        ("finish", "fin", 2017, two_phase_launches[1], tp_fin_ms))] + [{
+        "name": "op_probe",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/op_probe.cu",
+        "replaces": "tools/profile_vpu.py:36",
+        "launches": probe_launches,
+        "max_abs_err": probe_err,
+        "ms": probe_ms,
+        "plain_ms": probe_plain_ms,
+        "bound_ms": probe_bound,
+        "bound_by": probe_bound_by,
+        "library_ms": None,
+    }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

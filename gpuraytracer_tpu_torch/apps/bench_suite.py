@@ -30,8 +30,9 @@ for example the parent commit unpacked with ``git archive`` into a
 directory that .gitignore lists), a fresh process imports that checkout's
 package, builds its kernels and times with CUDA events (one warm-up
 launch, then ``--reps`` launches) the frame kernel on the builtin
-1920x1080 frame at t = 0.2664 and the scene kernel's level-0 closest pass
-over that frame's camera rays; one JSON line per root.
+1920x1080 frame at t = 0.2664, the scene kernel's level-0 closest pass
+over that frame's camera rays and the defer entry (GPURT_FRAME_MODE=defer's
+main pass at shadow cap 32) on that frame; one JSON line per root.
 
 Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
 the host clock, for tiny smoke runs only):
@@ -213,8 +214,13 @@ def timed(fn):
 
 frame_ms = timed(lambda: frame_kernel.render_frame_tiles(pack, width=w, height=h))
 scene_ms = timed(lambda: scene_kernel.scene_closest_tiles(scene, ob, db, act, t0, pack=pack))
+# Each call takes its 34 planes from the allocator's cache (the block the
+# previous call freed).
+defer_ms = timed(lambda: frame_kernel.render_frame_deferred_main(pack, width=w, height=h,
+                                                                 shadow_cap=32))
 print(json.dumps({"root": ROOT, "frame_kernel_ms": frame_ms, "scene_kernel_pass_ms": scene_ms,
-                  "reps": REPS, "card": torch.cuda.get_device_name(0)}), flush=True)
+                  "defer_main_ms": defer_ms, "reps": REPS,
+                  "card": torch.cuda.get_device_name(0)}), flush=True)
 """
 
 

@@ -145,26 +145,37 @@ _UNIT_LO = torch.tensor([-1.0, -1.0, -1.0])
 _UNIT_HI = torch.tensor([1.0, 1.0, 1.0])
 
 
-def _make_sdf(code: int):
-    windowed = code in sdf.AABB_WINDOWED_CODES
+def sdf_march_args(code: int, o, d, *, t_min, t_max, cull_backface, active, natural_budget,
+                   occlusion, level, budget_cap=None):
+    """(gate, t_max, keyword arguments of sdf.march) of SDF code ``code``'s
+    march over (N, 3) local rays, as its registry entry sets it up: the
+    window of an AABB-windowed code, the level's budget and capped-hit rule,
+    the relaxation."""
+    windowed = int(code) in sdf.AABB_WINDOWED_CODES
+    cull, gate, t_hi = cull_backface, active, t_max
+    t_start = None if t_min == 0.0 else torch.full_like(t_max, t_min)
+    if windowed:
+        # [max(entry, t_min), min(exit, t_max)] of the local unit box;
+        # lanes whose window is empty are not marched.
+        cull = False
+        w_lo, w_hi = analytic.aabb_interval(o, d, _UNIT_LO.to(o.device), _UNIT_HI.to(o.device))
+        t_start = torch.clamp(w_lo, min=t_min)
+        t_hi = torch.minimum(t_max, w_hi)
+        gate = gate & (w_hi > w_lo) & (t_hi > t_start)
+    budget, capped_hit = sdf.march_budget(natural_budget, occlusion=occlusion, level=level,
+                                          cap=budget_cap)
+    kw = dict(prim_code=int(code), cull_backface=cull, max_steps=budget, t_start=t_start,
+              relax=sdf.relax_for_code(code, occlusion=occlusion), capped_hit=capped_hit)
+    return gate, t_hi, kw
 
+
+def _make_sdf(code: int):
     def _fn(o, d, *, t_min, t_max, cull_backface, active, step_scale, natural_budget,
             occlusion, level, with_normal, march, budget_cap, return_capped, **_):
-        cull, gate, t_hi = cull_backface, active, t_max
-        t_start = None if t_min == 0.0 else torch.full_like(t_max, t_min)
-        if windowed:
-            # [max(entry, t_min), min(exit, t_max)] of the local unit box;
-            # lanes whose window is empty are not marched.
-            cull = False
-            w_lo, w_hi = analytic.aabb_interval(o, d, _UNIT_LO.to(o.device),
-                                                _UNIT_HI.to(o.device))
-            t_start = torch.clamp(w_lo, min=t_min)
-            t_hi = torch.minimum(t_max, w_hi)
-            gate = gate & (w_hi > w_lo) & (t_hi > t_start)
-        budget, capped_hit = sdf.march_budget(natural_budget, occlusion=occlusion, level=level,
-                                              cap=budget_cap)
-        kw = dict(prim_code=code, cull_backface=cull, max_steps=budget, t_start=t_start,
-                  relax=sdf.relax_for_code(code, occlusion=occlusion), capped_hit=capped_hit)
+        gate, t_hi, kw = sdf_march_args(code, o, d, t_min=t_min, t_max=t_max,
+                                        cull_backface=cull_backface, active=active,
+                                        natural_budget=natural_budget, occlusion=occlusion,
+                                        level=level, budget_cap=budget_cap)
         if return_capped:
             if march is not None:
                 raise ValueError("a capped march runs in its plain form only")

@@ -410,41 +410,65 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
     them (scene_kernel.py:459-463): active, the budget spent, no valid
     crossing (whatever ``capped_hit`` then reports).
     """
-    n = origins.shape[0]
-    dev = origins.device
-    t_hit = torch.full((n,), torch.inf, dtype=origins.dtype, device=dev)
-    capped_all = torch.zeros(n, dtype=torch.bool, device=dev)
-    lanes = torch.nonzero(active).squeeze(1)
-    if lanes.numel() == 0:
-        return (t_hit < torch.inf, t_hit) + ((capped_all,) if return_capped else ())
-    o, d, tm = origins[lanes], directions[lanes], t_max[lanes]
-    if escape_bound:
-        t_esc = torch.minimum(tm, march_escape_t(hlsl.length(o), hlsl.length(d)))
-    else:
-        t_esc = tm
-    m = lanes.numel()
-    if torch.is_tensor(t_min):
-        t_lo = t_min[lanes]
-    else:
-        t_lo = torch.full((m,), float(t_min), dtype=origins.dtype, device=dev)
-    t = t_lo.clone()
-    steps = torch.zeros(m, dtype=torch.int32, device=dev)
-    found = torch.full_like(t, torch.inf)
-    relaxed = relax > 1.0
-    if relaxed:
-        rprev = torch.zeros_like(t)
-        oon = torch.ones(m, dtype=torch.bool, device=dev)
-        fail_scale = (1.0 - relax) * relax
-    else:
-        t_prev = torch.full_like(t, -1.0)
-    cur = torch.arange(m, device=dev)
-    while cur.numel():
-        tc, oc, dc, sc = t[cur], o[cur], d[cur], steps[cur]
+    march = SphereTrace(origins, directions, distance_fn, step_scale=step_scale, t_min=t_min,
+                        t_max=t_max, cull_backface=cull_backface, active=active,
+                        max_steps=max_steps, escape_bound=escape_bound, relax=relax)
+    while march.marching:
+        march.step()
+    return march.result(capped_hit=capped_hit, capped_t=capped_t, return_capped=return_capped)
+
+
+class SphereTrace:
+    """``sphere_trace``'s march, resumable: ``step`` takes one sample on
+    every lane still marching (one pass of sphere_trace's loop), ``kill``
+    retires lanes, ``result`` answers as sphere_trace does. The merged
+    occlusion march (kernels/scene_kernel.occluded_merged_plain) advances
+    one per geometry in turns."""
+
+    def __init__(self, origins, directions, distance_fn, *, step_scale, t_min=0.0, t_max,
+                 cull_backface, active, max_steps: int = SDF_MAX_STEPS,
+                 escape_bound: bool = True, relax: float = 1.0):
+        n = origins.shape[0]
+        dev = origins.device
+        self.n, self.fn, self.step_scale = n, distance_fn, step_scale
+        self.cull, self.max_steps, self.relax = cull_backface, max_steps, relax
+        self.lanes = torch.nonzero(active).squeeze(1)
+        lanes = self.lanes
+        self.o, self.d, self.tm = origins[lanes], directions[lanes], t_max[lanes]
+        if escape_bound:
+            self.t_esc = torch.minimum(self.tm, march_escape_t(hlsl.length(self.o),
+                                                               hlsl.length(self.d)))
+        else:
+            self.t_esc = self.tm
+        m = lanes.numel()
+        if torch.is_tensor(t_min):
+            self.t_lo = t_min[lanes]
+        else:
+            self.t_lo = torch.full((m,), float(t_min), dtype=origins.dtype, device=dev)
+        self.t = self.t_lo.clone()
+        self.steps = torch.zeros(m, dtype=torch.int32, device=dev)
+        self.found = torch.full_like(self.t, torch.inf)
+        if relax > 1.0:
+            self.rprev = torch.zeros_like(self.t)
+            self.oon = torch.ones(m, dtype=torch.bool, device=dev)
+        else:
+            self.t_prev = torch.full_like(self.t, -1.0)
+        self.cur = torch.arange(m, device=dev)
+
+    @property
+    def marching(self) -> bool:
+        return self.cur.numel() > 0
+
+    def step(self):
+        """One sample on every marching lane."""
+        cur, relax, step_scale, max_steps = self.cur, self.relax, self.step_scale, self.max_steps
+        tc, oc, dc, sc = self.t[cur], self.o[cur], self.d[cur], self.steps[cur]
         live = sc < max_steps
         pos = oc + tc[:, None] * dc
-        dist = distance_fn(pos)
+        dist = self.fn(pos)
+        relaxed = relax > 1.0
         if relaxed:
-            rp, on = rprev[cur], oon[cur]
+            rp, on = self.rprev[cur], self.oon[cur]
             fail = live & on & (dist + rp < relax * rp)
             crossed = live & (dist <= SDF_HIT_THRESHOLD * tc) & ~fail
         else:
@@ -452,43 +476,60 @@ def sphere_trace(origins, directions, distance_fn, *, step_scale, t_min=0.0, t_m
         valid = torch.zeros_like(crossed)
         if bool(crossed.any()):
             ci = torch.nonzero(crossed).squeeze(1)
-            ok = (tc[ci] >= t_lo[cur[ci]]) & (tc[ci] <= tm[cur[ci]])
-            if cull_backface:
-                nrm = calculate_normal(pos[ci], distance_fn)
+            ok = (tc[ci] >= self.t_lo[cur[ci]]) & (tc[ci] <= self.tm[cur[ci]])
+            if self.cull:
+                nrm = calculate_normal(pos[ci], self.fn)
                 ok = ok & (hlsl.dot(dc[ci], nrm) <= 0.0)
             valid[ci] = ok
-        found[cur[valid]] = tc[valid]
+        self.found[cur[valid]] = tc[valid]
         moved = live & ~valid
         plain = step_scale * dist
         if relaxed:
             resumed = crossed & ~valid
             stepv = torch.where(
-                fail, fail_scale * (step_scale * rp),
+                fail, (1.0 - relax) * relax * (step_scale * rp),
                 torch.where(on & ~resumed, relax * plain, plain))
-            escaped = moved & ~fail & (tc + plain > t_esc[cur])
+            escaped = moved & ~fail & (tc + plain > self.t_esc[cur])
             t_new = tc + stepv
-            oon[cur] = on & ~fail & ~resumed
-            rprev[cur] = torch.where(moved, dist, rp)
+            self.oon[cur] = on & ~fail & ~resumed
+            self.rprev[cur] = torch.where(moved, dist, rp)
             go = moved & ~escaped
-            steps[cur] = sc + live.to(sc.dtype)
+            self.steps[cur] = sc + live.to(sc.dtype)
         else:
             t_new = tc + plain
-            tp = t_prev[cur]
+            tp = self.t_prev[cur]
             stuck = moved & ((t_new == tc) | (t_new == tp))
-            t_prev[cur] = torch.where(moved, tc, tp)
-            go = moved & ~(t_new > t_esc[cur]) & ~stuck
-            steps[cur] = torch.where(stuck, max_steps, sc + live.to(sc.dtype))
-        t[cur] = torch.where(moved, t_new, tc)
-        cur = cur[go]
-    capped = (steps >= max_steps) & ~torch.isfinite(found)
-    if capped_hit:
-        found = torch.where(capped, t if capped_t is None else torch.full_like(t, capped_t),
-                            found)
-    t_hit[lanes] = found
-    if return_capped:
-        capped_all[lanes] = capped
-        return torch.isfinite(t_hit), t_hit, capped_all
-    return torch.isfinite(t_hit), t_hit
+            self.t_prev[cur] = torch.where(moved, tc, tp)
+            go = moved & ~(t_new > self.t_esc[cur]) & ~stuck
+            self.steps[cur] = torch.where(stuck, max_steps, sc + live.to(sc.dtype))
+        self.t[cur] = torch.where(moved, t_new, tc)
+        self.cur = cur[go]
+
+    def hits(self):
+        """The (N,) lanes that have met a valid crossing so far."""
+        out = torch.zeros(self.n, dtype=torch.bool, device=self.o.device)
+        out[self.lanes[torch.isfinite(self.found)]] = True
+        return out
+
+    def kill(self, mask):
+        """Retire the marching lanes set in the (N,) bool ``mask``."""
+        self.cur = self.cur[~mask[self.lanes[self.cur]]]
+
+    def result(self, *, capped_hit: bool = False, capped_t=None, return_capped: bool = False):
+        """(hit, t_hit[, capped]) as ``sphere_trace`` returns them."""
+        dev = self.o.device
+        t_hit = torch.full((self.n,), torch.inf, dtype=self.o.dtype, device=dev)
+        capped_all = torch.zeros(self.n, dtype=torch.bool, device=dev)
+        capped = (self.steps >= self.max_steps) & ~torch.isfinite(self.found)
+        found = self.found
+        if capped_hit:
+            found = torch.where(capped, self.t if capped_t is None
+                                else torch.full_like(self.t, capped_t), found)
+        t_hit[self.lanes] = found
+        if return_capped:
+            capped_all[self.lanes] = capped
+            return torch.isfinite(t_hit), t_hit, capped_all
+        return torch.isfinite(t_hit), t_hit
 
 
 def march(o, d, gate, t_max, step_scale, *, prim_code: int, cull_backface: bool = True,
@@ -515,3 +556,14 @@ def march(o, d, gate, t_max, step_scale, *, prim_code: int, cull_backface: bool 
             hi = torch.nonzero(hit).squeeze(1)
             normal[hi] = calculate_normal(o[hi] + t[hi][:, None] * d[hi], fn)
     return (hit, t, normal, *capped)
+
+
+def march_state(o, d, gate, t_max, step_scale, *, prim_code: int, cull_backface: bool = True,
+                max_steps: int = SDF_MAX_STEPS, t_start=None, relax: float = 1.0):
+    """``march``'s sphere trace as a resumable ``SphereTrace`` (no normal;
+    its ``result`` takes the capped-hit rule)."""
+    code = int(prim_code)
+    return SphereTrace(o, d, DISTANCE_FUNCTIONS[code], step_scale=step_scale,
+                       t_min=0.0 if t_start is None else t_start, t_max=t_max,
+                       cull_backface=cull_backface, active=gate, max_steps=int(max_steps),
+                       escape_bound=code in ESCAPE_SAFE_CODES, relax=float(relax))

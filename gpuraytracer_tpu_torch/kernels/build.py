@@ -103,16 +103,17 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> ctype
     path, _ = compile_kernel(name, fmad, count_ops)
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "frame_kernel":
-        for fn, n_ptr, n_int in (("gprt_frame_render", 4, 5), ("gprt_frame_compact", 5, 9),
-                                 ("gprt_frame_dense", 6, 6), ("gprt_frame_defer", 7, 7)):
-            getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
-            getattr(lib, fn).restype = ci
-    elif name == "scene_kernel":
-        lib.gprt_scene_closest.argtypes = [vp] * 10 + [ci] * 6 + [vp, ci, vp]
-        lib.gprt_scene_closest.restype = ci
-        lib.gprt_shadow_queue.argtypes = [vp] * 6 + [ci] * 4 + [vp, ci, vp]
-        lib.gprt_shadow_queue.restype = ci
+    # (entry, pointers, ints) of the entries that end in (ops, device, stream)
+    entries = {
+        "frame_kernel": (("gprt_frame_render", 4, 6), ("gprt_frame_compact", 5, 9),
+                         ("gprt_frame_dense", 6, 7), ("gprt_frame_defer", 7, 7)),
+        "scene_kernel": (("gprt_scene_closest", 11, 8), ("gprt_scene_finish", 9, 5),
+                         ("gprt_shadow_queue", 6, 5)),
+    }
+    for fn, n_ptr, n_int in entries.get(name, ()):
+        getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
+        getattr(lib, fn).restype = ci
+    if name == "scene_kernel":
         lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
         lib.gprt_sdf_distance.restype = ci
     elif name == "megakernel":
@@ -121,6 +122,9 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> ctype
         lib.gprt_sphere_trace.restype = ci
         lib.gprt_trimesh.argtypes = [vp, ci] + [vp] * 6 + [ci, ci, vp, ci, vp]
         lib.gprt_trimesh.restype = ci
+    elif name == "op_probe":
+        lib.gprt_op_probe.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp]
+        lib.gprt_op_probe.restype = ci
     lib.gprt_error_string.argtypes = [ci]
     lib.gprt_error_string.restype = ctypes.c_char_p
     return lib

@@ -54,6 +54,13 @@
 // arise (each thread already ends its own march): they are ported for the
 // reference's semantics and measured, not for speed.
 //
+// The plain and dense entries have a second instantiation (kMerged) whose
+// occlusion traversal merges the SDF marches (traverse.cuh
+// occluded_merged; the reference's _march_sdf_multi, which its frame kernel
+// runs under GPURT_MERGED_SHADOW where it allocates the merged banks); the
+// host picks it under the knob, so the default instantiation carries none
+// of its state. The image is the sequential one.
+//
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py packs
 // them (header, then the reference's pack_frame_params blocks); tri, the
 // F x 12 mesh face table (null without meshes); out is an (H, W, 4) f32
@@ -115,11 +122,14 @@ __device__ Hit closest_hit(const Scene& s, V3 o, V3 d, int level, CapSpec caps,
   return h;
 }
 
-// Accept-first occlusion over [0, RAY_TMAX] with back-face culling.
-template <bool kCaps>
+// Accept-first occlusion over [0, RAY_TMAX] with back-face culling; kMerged:
+// the SDF marches merged (traverse.cuh occluded_merged), never capped.
+template <bool kCaps, bool kMerged>
 __device__ bool occluded(const Scene& s, V3 o, V3 d, int level, CapSpec caps, unsigned* dirty) {
+  static_assert(!(kCaps && kMerged), "a capped pass never merges (scene_kernel.py:1653-1655)");
   float tp;
   if (plane_test(s, o, d, &tp)) return true;
+  if (kMerged) return occluded_merged(s, to_blas(s, o), d, kRayTMax, level);
   return occluded_procedural<kCaps>(s, to_blas(s, o), d, kRayTMax, level, caps, dirty) >= 0;
 }
 
@@ -164,8 +174,9 @@ struct DeferOut {
 // the shadow ray, the shading and the bounce; returns the colour (the
 // defer form records its planes at `pix` instead and returns zeros).
 // kCompactForm: caps as closest_caps / shadow_caps, *dirty the mask.
-// kDeferForm: occlusion capped as shadow_caps.
-template <int kForm>
+// kDeferForm: occlusion capped as shadow_caps. kMerged (plain form only):
+// the occlusion traversal merges the SDF marches (GPURT_MERGED_SHADOW).
+template <int kForm, bool kMerged = false>
 __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int height,
                                int max_depth, CapSpec closest_caps, CapSpec shadow_caps,
                                unsigned* dirty, const DeferOut& rec, int pix) {
@@ -216,8 +227,8 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
         GPRT_OPS(13);
         sd = normalize(sub(light, hp));
       }
-      in_shadow = occluded<kForm != kPlainForm>(s, hp, sd, level, shadow_caps,
-                                                kForm == kDeferForm ? &sdirty : dirty);
+      in_shadow = occluded<kForm != kPlainForm, kMerged>(s, hp, sd, level, shadow_caps,
+                                                         kForm == kDeferForm ? &sdirty : dirty);
     }
     if (kForm == kCompactForm && *dirty) break;
     const float a = 1.0f - saturate(dot3(n, v3(0.0f, -1.0f, 0.0f)));
@@ -307,6 +318,9 @@ __device__ __forceinline__ void add_block_ops(unsigned long long* ops) {
 #endif
 }
 
+// kMerged: the instantiation with merged occlusion marches; the default one
+// carries none of their state.
+template <bool kMerged>
 __global__ void __launch_bounds__(128)
     frame_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                  const float* __restrict__ tri, float4* __restrict__ out, int width, int height, int max_depth, int G, int M,
@@ -315,8 +329,8 @@ __global__ void __launch_bounds__(128)
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {
-    out[py * width + px] = render_pixel<kPlainForm>(s, px, py, width, height, max_depth,
-                                                    CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0);
+    out[py * width + px] = render_pixel<kPlainForm, kMerged>(
+        s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0);
   }
   add_block_ops(ops);
 }
@@ -340,6 +354,7 @@ __global__ void __launch_bounds__(128)
   add_block_ops(ops);
 }
 
+template <bool kMerged>
 __global__ void __launch_bounds__(128)
     frame_dense_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                        const float* __restrict__ tri, const int* __restrict__ qpx,
@@ -350,8 +365,9 @@ __global__ void __launch_bounds__(128)
   if (i < n) {
     const int px = qpx[i], py = qpy[i];
     out[i] = px < 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-                    : render_pixel<kPlainForm>(s, px, py, width, height, max_depth, CapSpec{},
-                                               CapSpec{}, nullptr, DeferOut{}, 0);
+                    : render_pixel<kPlainForm, kMerged>(s, px, py, width, height, max_depth,
+                                                        CapSpec{}, CapSpec{}, nullptr,
+                                                        DeferOut{}, 0);
   }
   add_block_ops(ops);
 }
@@ -373,25 +389,6 @@ __global__ void __launch_bounds__(128)
 
 }  // namespace gprt
 
-// ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds
-// the frame's f32 FLOPs to; the default build ignores it.
-extern "C" int gprt_frame_render(const float* params, const int* layout, const float* tri,
-                                 float* out, int width,
-                                 int height, int max_depth, int num_geometries, int num_materials,
-                                 unsigned long long* ops, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int G = num_geometries, M = num_materials;
-  const size_t shmem = gprt::shared_bytes(true, G, M);
-  err = gprt::reserve_shared(gprt::frame_kernel, shmem, device);
-  if (err != cudaSuccess) return (int)err;
-  dim3 block(16, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  gprt::frame_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth, G, M, ops);
-  return (int)cudaGetLastError();
-}
-
 // Checks the device and takes the dynamic shared memory `kernel` needs.
 template <typename Kernel>
 static cudaError_t setup(Kernel kernel, int G, int M, int device, size_t* shmem) {
@@ -399,6 +396,25 @@ static cudaError_t setup(Kernel kernel, int G, int M, int device, size_t* shmem)
   if (err != cudaSuccess) return err;
   *shmem = gprt::shared_bytes(true, G, M);
   return gprt::reserve_shared(kernel, *shmem, device);
+}
+
+// ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds
+// the frame's f32 FLOPs to; the default build ignores it. merged: launch
+// the instantiation with merged occlusion marches.
+extern "C" int gprt_frame_render(const float* params, const int* layout, const float* tri,
+                                 float* out, int width,
+                                 int height, int max_depth, int num_geometries, int num_materials,
+                                 int merged, unsigned long long* ops, int device, void* stream) {
+  const auto kernel = merged ? gprt::frame_kernel<true> : gprt::frame_kernel<false>;
+  size_t shmem;
+  cudaError_t err = setup(kernel, num_geometries, num_materials, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(16, 8);
+  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth,
+      num_geometries, num_materials, ops);
+  return (int)cudaGetLastError();
 }
 
 // The compact form's main pass: out (H, W, 4), dirty (H, W) int32; the
@@ -420,16 +436,18 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
   return (int)cudaGetLastError();
 }
 
-// The dense pass: n queue entries (qpx, qpy; -1 padding) -> out (n, 4).
+// The dense pass: n queue entries (qpx, qpy; -1 padding) -> out (n, 4);
+// merged as for gprt_frame_render.
 extern "C" int gprt_frame_dense(const float* params, const int* layout, const float* tri,
                                 const int* qpx, const int* qpy, float* out, int n, int width,
                                 int height, int max_depth, int num_geometries, int num_materials,
-                                unsigned long long* ops, int device, void* stream) {
+                                int merged, unsigned long long* ops, int device, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = merged ? gprt::frame_dense_kernel<true> : gprt::frame_dense_kernel<false>;
   size_t shmem;
-  cudaError_t err = setup(gprt::frame_dense_kernel, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, num_geometries, num_materials, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  gprt::frame_dense_kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, qpx, qpy, reinterpret_cast<float4*>(out), n, width, height, max_depth,
       num_geometries, num_materials, ops);
   return (int)cudaGetLastError();

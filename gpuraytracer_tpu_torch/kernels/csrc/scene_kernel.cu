@@ -11,9 +11,22 @@
 // over the live lanes of a level, so N varies per call.
 //
 // The device code is traverse.cuh, the same the frame kernel runs. The TPU
-// schedule (VMEM scratch planes, pl.when tile gates, the two-phase
-// "main"/"finish" split, the tile policy) is not behaviour and is not
-// carried over.
+// schedule (VMEM scratch planes, pl.when tile gates, the tile policy) is not
+// behaviour and is not carried over.
+//
+// The two-phase form (scene_closest_tiles(two_phase=True), the reference's
+// phases "main" and "finish", scene_kernel.py:2008, :2017) is two more
+// entries: the main pass (scene_kernel<true>) caps every SDF and metaball
+// march at PHASE_BUDGET = 64 steps, sets the geometry's bit of the ray's
+// dirty word where a capped march ran out below its natural budget, and
+// goes on with the next geometry (no kill-on-cap, :1362-1369); the finisher
+// (scene_finish_kernel), one thread per ray, marches the dirty (ray,
+// geometry) pairs again at the level-0 plain budgets and updates the main
+// pass's outputs in place; a ray with a zero dirty word exits at once. On
+// the TPU the split bounded a tile's convoy by its honest work; each thread
+// here already ends its own march, so it is ported for the reference's
+// semantics (the finisher's level-0 budgets and its post-pass metaball
+// step change some answers) and measured, not for speed.
 //
 // What bounds it on an H100: the same divergent per-lane march loops as the
 // frame kernel (ALU- and latency-bound); its bytes are 29 per ray in (o, d,
@@ -36,13 +49,16 @@
 
 namespace gprt {
 
+// kMain: the two-phase main pass (marches capped by caps, the dirty word
+// written to dirty_out); else the single pass (caps and dirty_out unread).
+template <bool kMain>
 __global__ void __launch_bounds__(128)
     scene_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                  const float* __restrict__ tri, const float* __restrict__ o, const float* __restrict__ d,
                  const bool* __restrict__ active, const float* __restrict__ t0,
                  float* __restrict__ best_t, float* __restrict__ normal, int* __restrict__ gid,
-                 int n, int G, int M, int level, int accept_first, int cull,
-                 unsigned long long* ops) {
+                 int* __restrict__ dirty_out, int n, int G, int M, int level, int accept_first,
+                 int cull, CapSpec caps, unsigned long long* ops) {
   extern __shared__ float smem[];
 #ifdef GPRT_COUNT_OPS
   if (threadIdx.x == 0) gprt_block_ops = 0;
@@ -53,14 +69,52 @@ __global__ void __launch_bounds__(128)
     const V3 ob = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
     const V3 dir = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
     Hit h{t0[i], -1, v3(0.0f, 0.0f, 0.0f)};
+    unsigned dirty = 0;
     if (active[i]) {
       if (accept_first) {
-        h.gid = occluded_procedural(s, ob, dir, h.t, level);
+        h.gid = occluded_procedural<kMain, false>(s, ob, dir, h.t, level, caps, &dirty);
         if (h.gid >= 0) h.t = 0.0f;
       } else {
-        closest_procedural(s, ob, dir, level, cull != 0, &h);
+        closest_procedural<kMain, false>(s, ob, dir, level, cull != 0, &h, caps, &dirty);
       }
     }
+    best_t[i] = h.t;
+    normal[3 * i] = h.n.x;
+    normal[3 * i + 1] = h.n.y;
+    normal[3 * i + 2] = h.n.z;
+    gid[i] = h.gid;
+    if (kMain) dirty_out[i] = (int)dirty;
+  }
+#ifdef GPRT_COUNT_OPS
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(ops, gprt_block_ops);
+#endif
+}
+
+// The two-phase finisher (replaces _finish_tile, scene_kernel.py:1028):
+// best_t, normal, gid hold the main pass's outputs and are updated in place
+// (traverse.cuh finish_procedural) for the rays whose dirty word is not 0
+// (those were active in the main pass); the rest are not touched. Bound like
+// the scene kernel over the dirty rays; 4 bytes read per clean ray.
+__global__ void __launch_bounds__(128)
+    scene_finish_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                        const float* __restrict__ tri, const float* __restrict__ o,
+                        const float* __restrict__ d, const int* __restrict__ dirty,
+                        float* __restrict__ best_t, float* __restrict__ normal,
+                        int* __restrict__ gid, int n, int G, int M, int accept_first, int cull,
+                        unsigned long long* ops) {
+  extern __shared__ float smem[];
+#ifdef GPRT_COUNT_OPS
+  if (threadIdx.x == 0) gprt_block_ops = 0;
+#endif
+  const Scene s = load_scene<false>(params, layout, tri, G, M, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned bits = i < n ? (unsigned)dirty[i] : 0u;
+  if (bits != 0) {
+    Hit h{best_t[i], gid[i], v3(normal[3 * i], normal[3 * i + 1], normal[3 * i + 2])};
+    finish_procedural(s, v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]),
+                      v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]), bits, accept_first != 0,
+                      cull != 0, &h);
     best_t[i] = h.t;
     normal[3 * i] = h.n.x;
     normal[3 * i + 1] = h.n.y;
@@ -82,7 +136,10 @@ __global__ void __launch_bounds__(128)
 // level's budgets (the occluded-on-cap rule of the plain kernel included);
 // occ = active && occluded. Bound like the scene kernel: divergent marches
 // (the entries are the lanes whose capped occlusion march found nothing,
-// the long tail); 25 bytes in and 4 out per entry.
+// the long tail); 25 bytes in and 4 out per entry. kMerged: the occlusion
+// traversal merges the SDF marches (GPURT_MERGED_SHADOW; the reference
+// allocates the merged banks for this kernel, frame_kernel.py:1259).
+template <bool kMerged>
 __global__ void __launch_bounds__(128)
     shadow_queue_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                         const float* __restrict__ tri, const float* __restrict__ rays,
@@ -98,8 +155,9 @@ __global__ void __launch_bounds__(128)
     bool hit = false;
     if (active[i]) {
       const float* r = rays + 6 * (size_t)i;
-      hit = occluded_procedural(s, v3(r[0], r[1], r[2]), v3(r[3], r[4], r[5]), kRayTMax,
-                                i / seg) >= 0;
+      const V3 ob = v3(r[0], r[1], r[2]), dir = v3(r[3], r[4], r[5]);
+      hit = kMerged ? occluded_merged(s, ob, dir, kRayTMax, i / seg)
+                    : occluded_procedural(s, ob, dir, kRayTMax, i / seg) >= 0;
     }
     occ[i] = hit ? 1 : 0;
   }
@@ -120,43 +178,67 @@ __global__ void __launch_bounds__(128)
 
 }  // namespace gprt
 
+// Checks the device and the ray count and takes the dynamic shared memory
+// `kernel` needs.
+template <typename Kernel>
+static cudaError_t setup(Kernel kernel, int n, int G, int M, int device, size_t* shmem) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n <= 0) return cudaErrorInvalidValue;
+  *shmem = gprt::shared_bytes(false, G, M);
+  return gprt::reserve_shared(kernel, *shmem, device);
+}
+
 // ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds the
-// pass's f32 FLOPs to; the default build ignores it.
+// pass's f32 FLOPs to; the default build ignores it. dirty: null for the
+// single pass; else the two-phase main pass's (N,) int32 dirty words, its
+// marches capped at sdf_cap / mb_cap steps.
 extern "C" int gprt_scene_closest(const float* params, const int* layout, const float* tri,
                                   const float* o, const float* d, const bool* active, const float* t0,
-                                  float* best_t, float* normal, int* gid, int n,
+                                  float* best_t, float* normal, int* gid, int* dirty, int n,
                                   int num_geometries, int num_materials, int level,
-                                  int accept_first, int cull, unsigned long long* ops, int device,
-                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                  int accept_first, int cull, int sdf_cap, int mb_cap,
+                                  unsigned long long* ops, int device, void* stream) {
+  const auto kernel = dirty ? gprt::scene_kernel<true> : gprt::scene_kernel<false>;
+  size_t shmem;
+  cudaError_t err = setup(kernel, n, num_geometries, num_materials, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  const int G = num_geometries, M = num_materials;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  const size_t shmem = gprt::shared_bytes(false, G, M);
-  err = gprt::reserve_shared(gprt::scene_kernel, shmem, device);
-  if (err != cudaSuccess) return (int)err;
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  gprt::scene_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, o, d, active, t0, best_t, normal, gid, n, G, M, level, accept_first, cull,
-      ops);
+  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, o, d, active, t0, best_t, normal, gid, dirty, n, num_geometries,
+      num_materials, level, accept_first, cull, gprt::CapSpec{sdf_cap, mb_cap}, ops);
   return (int)cudaGetLastError();
 }
 
-// ops: as for gprt_scene_closest.
+// The two-phase finisher over the main pass's outputs (updated in place);
+// ops as for gprt_scene_closest.
+extern "C" int gprt_scene_finish(const float* params, const int* layout, const float* tri,
+                                 const float* o, const float* d, const int* dirty, float* best_t,
+                                 float* normal, int* gid, int n, int num_geometries,
+                                 int num_materials, int accept_first, int cull,
+                                 unsigned long long* ops, int device, void* stream) {
+  size_t shmem;
+  cudaError_t err = setup(gprt::scene_finish_kernel, n, num_geometries, num_materials, device,
+                          &shmem);
+  if (err != cudaSuccess) return (int)err;
+  gprt::scene_finish_kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, o, d, dirty, best_t, normal, gid, n, num_geometries, num_materials,
+      accept_first, cull, ops);
+  return (int)cudaGetLastError();
+}
+
+// ops: as for gprt_scene_closest; merged: launch the instantiation with
+// merged occlusion marches.
 extern "C" int gprt_shadow_queue(const float* params, const int* layout, const float* tri,
                                  const float* rays, const bool* active, int* occ, int n, int seg,
-                                 int num_geometries, int num_materials, unsigned long long* ops,
-                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+                                 int num_geometries, int num_materials, int merged,
+                                 unsigned long long* ops, int device, void* stream) {
+  if (seg <= 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = merged ? gprt::shadow_queue_kernel<true> : gprt::shadow_queue_kernel<false>;
+  size_t shmem;
+  cudaError_t err = setup(kernel, n, num_geometries, num_materials, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  const int G = num_geometries, M = num_materials;
-  if (n <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
-  const size_t shmem = gprt::shared_bytes(false, G, M);
-  err = gprt::reserve_shared(gprt::shadow_queue_kernel, shmem, device);
-  if (err != cudaSuccess) return (int)err;
-  gprt::shadow_queue_kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, rays, active, occ, n, seg, G, M, ops);
+  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, rays, active, occ, n, seg, num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
 }
 

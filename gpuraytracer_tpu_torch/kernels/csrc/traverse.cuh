@@ -29,7 +29,10 @@
 // march that spends a capped budget below the geometry's natural one sets
 // the geometry's bit of the lane's dirty mask (:1506-1529) and ends the
 // lane's traversal (kill-on-cap, :1362-1369). The plain instantiation
-// carries no cap and no mask.
+// carries no cap and no mask. The two-phase scene pass's main pass runs
+// the capped traversal without the kill (kKill), and finish_procedural is
+// its finisher. occluded_merged is the accept-first traversal with the SDF
+// marches merged (GPURT_MERGED_SHADOW).
 //
 // Parameters: the f32 and int32 buffers of kernels/frame_kernel.py
 // pack_frame, copied to shared memory once per block (load_scene): the
@@ -252,6 +255,17 @@ __device__ __noinline__ bool intersect_trimesh(const float* __restrict__ tri, in
   return true;
 }
 
+// An AABB-windowed code's march window: [max(entry, 0), min(exit, t_max)]
+// of the local unit box; false where it is empty (the lane is not marched).
+__device__ __forceinline__ bool unit_box_window(V3 ol, V3 dl, float t_max, float* t_lo,
+                                                float* t_hi) {
+  GPRT_OPS(3 * 5 + 4 + 2);
+  Interval w = slab(ol, dl, v3(-1.0f, -1.0f, -1.0f), v3(1.0f, 1.0f, 1.0f));
+  *t_lo = nmax(w.tmin, 0.0f);
+  *t_hi = nmin(t_max, w.tmax);
+  return w.tmax > w.tmin && *t_hi > *t_lo;
+}
+
 // Geometry g's intersector on the local ray over [0, t_max]; *nl is the
 // local normal of a closed-form or mesh hit (a march's is computed by the
 // caller). Returns IntersectBits; kDirtyBit only under kCaps.
@@ -276,15 +290,7 @@ __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool 
   }
   float t_lo = 0.0f, t_hi = t_max;
   const bool windowed = q[kGeoWindowed] != 0;
-  if (windowed) {
-    // An AABB-windowed code's window: [max(entry, 0), min(exit, t_max)] of
-    // the local unit box, empty windows skipped.
-    GPRT_OPS(3 * 5 + 4 + 2);
-    Interval w = slab(ol, dl, v3(-1.0f, -1.0f, -1.0f), v3(1.0f, 1.0f, 1.0f));
-    t_lo = nmax(w.tmin, 0.0f);
-    t_hi = nmin(t_max, w.tmax);
-    if (!(w.tmax > w.tmin && t_hi > t_lo)) return false;
-  }
+  if (windowed && !unit_box_window(ol, dl, t_max, &t_lo, &t_hi)) return 0;
   MarchSpec m = spec(s, g, occlusion, level, cull, windowed);
   bool marks_dirty = false;
   if (kCaps) {
@@ -301,13 +307,25 @@ __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool 
   return (march_hit(r, m) ? kHitBit : 0) | (r == kMarchCapped && marks_dirty ? kDirtyBit : 0);
 }
 
+// The world normal of march geometry g's hit at t on BLAS-space ray (ob, d).
+__device__ __forceinline__ V3 march_normal(const Scene& s, int g, V3 ob, V3 d, float t) {
+  V3 ol, dl;
+  local_ray(s, g, ob, d, &ol, &dl);
+  V3 pos = along(ol, t, dl);
+  V3 nl = s.geo[kGeoStride * g] == kVolumetric ? metaballs_normal(pos, s.mb)
+                                               : sdf_normal(s.geo[kGeoStride * g + 1], pos);
+  return normal_to_world(s, g, nl);
+}
+
 // Closest procedural hit over BLAS-space ray (ob, d): h holds the running
 // best (the plane's hit, or the caller's bound with gid -1) and takes any
 // geometry whose hit is strictly closer. kCaps: marches capped by caps; a
-// march that marks the lane dirty ORs its bit into *dirty and ends the
-// traversal, and a dirty lane's normal is not computed (its hit is not
-// used).
-template <bool kCaps = false>
+// march that marks the lane dirty ORs its bit into *dirty and gives no hit.
+// kKill (the compacted frame modes' kill-on-cap) then ends the traversal,
+// and a dirty lane's normal is not computed (its hit is not used); without
+// it (the two-phase main pass, whose traversal goes on, scene_kernel.py:
+// 1362-1369) the later geometries run against the unchanged best t.
+template <bool kCaps = false, bool kKill = true>
 __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool cull, Hit* h,
                                    CapSpec caps = CapSpec{}, unsigned* dirty = nullptr) {
   bool deferred_normal = false;
@@ -323,7 +341,7 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
     const int r = intersect<kCaps>(s, g, ol, dl, running, false, level, cull, caps, &t, &nl);
     if (kCaps && (r & kDirtyBit)) {
       *dirty |= dirty_bit(g);
-      return;
+      if (kKill) return;
     }
     if ((r & kHitBit) && t < h->t) {
       h->t = t;
@@ -332,23 +350,15 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
       if (!marched) h->n = normal_to_world(s, g, nl);
     }
   }
-  if (deferred_normal) {
-    // The winning march's normal, at its own hit, computed once.
-    const int g = h->gid;
-    V3 ol, dl;
-    local_ray(s, g, ob, d, &ol, &dl);
-    V3 pos = along(ol, h->t, dl);
-    V3 nl = s.geo[kGeoStride * g] == kVolumetric ? metaballs_normal(pos, s.mb)
-                                                 : sdf_normal(s.geo[kGeoStride * g + 1], pos);
-    h->n = normal_to_world(s, g, nl);
-  }
+  // The winning march's normal, at its own hit, computed once.
+  if (deferred_normal) h->n = march_normal(s, h->gid, ob, d, h->t);
 }
 
 // Accept-first occlusion over [0, t_max] with back-face culling: the first
-// geometry with a valid (or capped) hit, or -1. kCaps: as in
-// closest_procedural; a march that marks the lane dirty ends the search
-// (with its hit, where the occluded-on-cap rule gives one).
-template <bool kCaps = false>
+// geometry with a valid (or capped) hit, or -1. kCaps, kKill: as in
+// closest_procedural; with kKill a march that marks the lane dirty ends the
+// search (with its hit, where the occluded-on-cap rule gives one).
+template <bool kCaps = false, bool kKill = true>
 __device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int level,
                                    CapSpec caps = CapSpec{}, unsigned* dirty = nullptr) {
   for (int g = 0; g < s.G; ++g) {
@@ -360,11 +370,126 @@ __device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int
     const int r = intersect<kCaps>(s, g, ol, dl, t_max, true, level, true, caps, &t, &nl);
     if (kCaps && (r & kDirtyBit)) {
       *dirty |= dirty_bit(g);
-      return (r & kHitBit) ? g : -1;
+      if (kKill) return (r & kHitBit) ? g : -1;
     }
     if (r & kHitBit) return g;
   }
   return -1;
+}
+
+// SDF marches in flight at once in the merged occlusion march: a lane whose
+// gate admits more SDF geometries marches them in windows of this many,
+// which gives the same answer (occlusion is the OR over the geometries).
+constexpr int kMergeWindow = 4;
+
+// One march of the merged occlusion march: its state and spec.
+struct MarchBank {
+  MarchState st;
+  MarchSpec m;
+  float step_scale;
+  int code;
+};
+
+// One sample of a bank's march (march_step), out of line: the banks live in
+// the thread's local memory and one copy of the step serves them all.
+__device__ __noinline__ int bank_step(MarchBank* b) {
+  float t;
+  return march_step(b->code, &b->st, b->step_scale, b->m, &t);
+}
+
+// Accept-first occlusion with the SDF marches merged (the reference's
+// _march_sdf_multi, scene_kernel.py:466-705, and its call site :1646-1789,
+// under GPURT_MERGED_SHADOW): the closed forms, meshes and metaballs first,
+// in definition order; then every gated SDF geometry's march, started once
+// (gate, local ray, window, escape bound and the level's budget and rule,
+// as occluded_procedural takes them) and advanced one sample per turn,
+// round robin, until one reports a hit (a valid crossing, or a spent budget
+// where the occluded-on-cap rule holds), which ends the lane's search, or
+// every march has ended. Each march takes the steps it takes in
+// occluded_procedural and a kill only drops steps whose answer the OR
+// already has, so the answer is the sequential one. The TPU ran this as one
+// loop over per-geometry VMEM banks to shorten its tile convoys; here one
+// thread keeps up to kMergeWindow banks in local memory.
+__device__ __noinline__ bool occluded_merged(const Scene& s, V3 ob, V3 d, float t_max,
+                                             int level) {
+  for (int g = 0; g < s.G; ++g) {
+    if (s.geo[kGeoStride * g] == kSignedDistance || !gate(s, g, ob, d, t_max)) continue;
+    V3 ol, dl;
+    local_ray(s, g, ob, d, &ol, &dl);
+    float t;
+    V3 nl;
+    if (intersect<false>(s, g, ol, dl, t_max, true, level, true, CapSpec{}, &t, &nl) & kHitBit)
+      return true;
+  }
+  MarchBank bank[kMergeWindow];
+  int g = 0;
+  for (;;) {
+    int n = 0;
+    for (; g < s.G && n < kMergeWindow; ++g) {
+      const int* q = s.geo + kGeoStride * g;
+      if (q[0] != kSignedDistance || !gate(s, g, ob, d, t_max)) continue;
+      V3 ol, dl;
+      local_ray(s, g, ob, d, &ol, &dl);
+      float t_lo = 0.0f, t_hi = t_max;
+      const bool windowed = q[kGeoWindowed] != 0;
+      if (windowed && !unit_box_window(ol, dl, t_max, &t_lo, &t_hi)) continue;
+      MarchBank& b = bank[n++];
+      b.m = spec(s, g, true, level, true, windowed);
+      b.step_scale = s.sscale[g];
+      b.code = q[1];
+      march_begin(&b.st, ol, dl, t_lo, t_hi, b.m);
+    }
+    if (n == 0) return false;
+    while (n > 0) {
+      for (int k = 0; k < n;) {
+        const int r = bank_step(&bank[k]);
+        if (r == kMarchOn) {
+          ++k;
+          continue;
+        }
+        if (march_hit(r, bank[k].m)) return true;
+        bank[k] = bank[--n];  // ended without a hit: its slot takes the last bank
+      }
+    }
+  }
+}
+
+// The two-phase pass's finisher (scene_kernel._finish_tile, :1028-1150) on
+// one ray whose main pass left dirty bits: h holds the main pass's answer.
+// Each march geometry whose bit is set is marched again, in definition
+// order, behind its gate against the current best t, at the level-0 plain
+// budgets with their occluded-on-cap rule (_finish_tile takes no level);
+// accept-first skips a lane that is already occluded. The metaballs cull
+// back faces always (_march_metaballs_inline's facing check), SDF marches
+// as the pass does. Closest: a strictly closer hit takes the lane, and the
+// normal is computed once for a lane whose winner changed.
+__device__ void finish_procedural(const Scene& s, V3 ob, V3 d, unsigned dirty, bool accept_first,
+                                  bool cull, Hit* h) {
+  bool updated = false;
+  for (int g = 0; g < s.G; ++g) {
+    const int kind = s.geo[kGeoStride * g];
+    if ((kind != kVolumetric && kind != kSignedDistance) || !(dirty & dirty_bit(g))) continue;
+    if (accept_first && h->gid >= 0) break;
+    const float running = accept_first ? h->t : fminf(h->t, kRayTMax);
+    if (!gate(s, g, ob, d, running)) continue;
+    V3 ol, dl;
+    local_ray(s, g, ob, d, &ol, &dl);
+    float t = kInf;
+    V3 nl;
+    const bool cull_g = accept_first || kind == kVolumetric || cull;
+    const int r = intersect<false>(s, g, ol, dl, running, accept_first, 0, cull_g, CapSpec{}, &t,
+                                   &nl);
+    if (!(r & kHitBit)) continue;
+    if (accept_first) {
+      h->gid = g;
+      h->t = 0.0f;
+    } else if (t < h->t) {
+      h->t = t;
+      h->gid = g;
+      updated = true;
+    }
+  }
+  if (updated) h->n = march_normal(s, h->gid, ob, d, h->t);
 }
 
 }  // namespace gprt

@@ -17,6 +17,13 @@ level, the occlusion repair queue of scene_kernel.shadow_queue, and the
 recomposition). Their host code is the same on both devices; each of the
 kernels' wrappers runs its plain version on a CPU tensor.
 
+Under GPURT_MERGED_SHADOW=1 (``merges``) the plain entry and the dense
+entry launch their instantiation whose occlusion traversal merges the SDF
+marches (the reference's scene_kernel._march_sdf_multi, which its frame
+kernel family runs where it allocates the merged banks); the image is the
+sequential one. The plain versions ignore the knob, as the reference's XLA
+path does.
+
 Parameters reach the kernel as one contiguous f32 buffer and one int32
 layout buffer (``pack_frame``), packed from the same blocks as the
 reference's ``pack_frame_params``, and the mesh face table
@@ -49,12 +56,17 @@ from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 
 # Kernel launches since import (or since a caller reset it), per entry of
 # csrc/frame_kernel.cu; chip runs read them to show that a frame went
-# through the kernels. HOST_SYNCS counts the compacted modes' reads of a
-# queue's size (one torch.nonzero each) and QUEUED_LANES the pixels those
-# queues held (compact: dirty; defer: unknown, summed over levels).
+# through the kernels. MERGED_LAUNCHES and MERGED_DENSE_LAUNCHES count the
+# plain and dense entries' merged instantiations (``merges``), LAUNCHES and
+# DENSE_LAUNCHES their default ones. HOST_SYNCS counts the compacted modes'
+# reads of a queue's size (one torch.nonzero each) and QUEUED_LANES the
+# pixels those queues held (compact: dirty; defer: unknown, summed over
+# levels).
 LAUNCHES = 0
+MERGED_LAUNCHES = 0
 COMPACT_LAUNCHES = 0
 DENSE_LAUNCHES = 0
+MERGED_DENSE_LAUNCHES = 0
 DEFER_LAUNCHES = 0
 HOST_SYNCS = 0
 QUEUED_LANES = 0
@@ -135,7 +147,17 @@ def frame_mode() -> str:
 
 
 def merged_shadow_enabled() -> bool:
+    """GPURT_MERGED_SHADOW as the reference reads it ("1" on; default off)."""
     return os.environ.get("GPURT_MERGED_SHADOW", "") == "1"
+
+
+def merges(pack: "FramePack") -> bool:
+    """Whether the kernels that the reference gives the merged banks (the
+    plain frame, the dense pass, the occlusion queue) merge the packed
+    scene's occlusion marches: GPURT_MERGED_SHADOW=1 and at least two SDF
+    geometries (scene_kernel.py:1653-1662)."""
+    n_sdf = sum(kind == IntersectorKind.SIGNED_DISTANCE for kind, _ in pack.budgets)
+    return merged_shadow_enabled() and n_sdf >= 2
 
 
 def fused_eligible_layout(layout: SceneLayout, num_materials: int,
@@ -155,18 +177,14 @@ def fused_eligible_layout(layout: SceneLayout, num_materials: int,
 
 
 def check_kernel_covers(layout: SceneLayout, route: str = "frame") -> None:
-    """Raise, naming the reference kernel that is not ported yet, for a
-    CUDA frame that the ported kernels of its ``route`` do not render:
-    "frame" (the frame kernel, in every GPURT_FRAME_MODE), "scene" (the
-    wavefront with the scene kernel) or "per_geometry" (the wavefront on
-    csrc/megakernel.cu). GPURT_MERGED_SHADOW raises on the first two only:
-    the reference reaches _march_sdf_multi only from the traversal of its
-    frame and scene kernels (scene_kernel.py:1653), never on the
-    per-geometry route. Never falls back."""
-    if merged_shadow_enabled() and route in ("frame", "scene"):
-        raise NotImplementedError(
-            "GPURT_MERGED_SHADOW: scene_kernel._march_sdf_multi is not ported "
-            "to CUDA yet")
+    """Raise, naming what has no CUDA form, for a CUDA frame that the
+    kernels of its ``route`` do not render: "frame" (the frame kernel, in
+    every GPURT_FRAME_MODE), "scene" (the wavefront with the scene kernel)
+    or "per_geometry" (the wavefront on csrc/megakernel.cu). Every route
+    renders under GPURT_MERGED_SHADOW: the frame kernel family merges
+    (``merges``), the other two march in sequence, as the reference's scene
+    kernel does without the merged banks (scene_kernel.py:1660-1661).
+    Never falls back."""
     for kind, code in zip(layout.kinds, layout.prim_types):
         if kind == IntersectorKind.SIGNED_DISTANCE and int(code) not in KERNEL_SDF_CODES:
             raise NotImplementedError(
@@ -396,19 +414,24 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
 
     CUDA: launches csrc/frame_kernel.cu on the current stream (``lib``: a
     loaded build of it, default the shipped one; ``ops``: the counter a
-    counting build adds to) and counts the launch in LAUNCHES. CPU: runs
-    ``render_frame_plain``."""
-    global LAUNCHES
+    counting build adds to), its merged instantiation where ``merges``
+    says so, and counts the launch in LAUNCHES or MERGED_LAUNCHES. CPU:
+    runs ``render_frame_plain``."""
+    global LAUNCHES, MERGED_LAUNCHES
     check_pack(pack)
     dev = pack.params.device
     if dev.type == "cpu":
         return render_frame_plain(pack, width=width, height=height, max_depth=max_depth)
     lib = _launch_setup(pack, width, height, max_depth, lib)
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    merged = merges(pack)
     _raise_on(lib.gprt_frame_render(*_buffers(pack), _ptr(out), width, height, max_depth,
-                                    pack.num_geometries, pack.num_materials, ops_pointer(ops),
-                                    *_where(dev)), lib, "frame kernel")
-    LAUNCHES += 1
+                                    pack.num_geometries, pack.num_materials, int(merged),
+                                    ops_pointer(ops), *_where(dev)), lib, "frame kernel")
+    if merged:
+        MERGED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -547,9 +570,10 @@ def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
     """The dense pass: the plain frame's colour at each queued pixel (qpx,
     qpy (N,) int32 contiguous, -1 for padding), (N, 4) f32. CUDA: the
     dense entry of csrc/frame_kernel.cu, one thread per queue entry with
-    the plain kernel's device code (counted in DENSE_LAUNCHES); CPU: the
-    plain version."""
-    global DENSE_LAUNCHES
+    the plain kernel's device code (merged where ``merges`` says so;
+    counted in DENSE_LAUNCHES or MERGED_DENSE_LAUNCHES); CPU: the plain
+    version."""
+    global DENSE_LAUNCHES, MERGED_DENSE_LAUNCHES
     check_pack(pack)
     dev = pack.params.device
     for name, q in (("qpx", qpx), ("qpy", qpy)):
@@ -564,10 +588,15 @@ def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    merged = merges(pack)
     _raise_on(lib.gprt_frame_dense(*_buffers(pack), _ptr(qpx), _ptr(qpy), _ptr(out), n, width,
                                    height, max_depth, pack.num_geometries, pack.num_materials,
-                                   ops_pointer(ops), *_where(dev)), lib, "dense kernel")
-    DENSE_LAUNCHES += 1
+                                   int(merged), ops_pointer(ops), *_where(dev)), lib,
+              "dense kernel")
+    if merged:
+        MERGED_DENSE_LAUNCHES += 1
+    else:
+        DENSE_LAUNCHES += 1
     return out
 
 
@@ -586,10 +615,13 @@ def render_frame_deferred_plain(pack: FramePack, *, width: int, height: int,
 
 def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
                                max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
-                               mb_shadow_cap=None, lib=None, ops=None):
+                               mb_shadow_cap=None, lib=None, ops=None, planes=None):
     """Defer's main pass, the ``trace.DeferPlanes`` of the (H, W) frame:
     on CUDA the defer entry of csrc/frame_kernel.cu (counted in
-    DEFER_LAUNCHES), on the CPU the plain version. Needs max_depth >= 2."""
+    DEFER_LAUNCHES), on the CPU the plain version. Needs max_depth >= 2.
+    ``planes``: CUDA only, DeferPlanes of the entry's shapes to write into
+    instead of new ones (a timing loop keeps its 34 planes out of the
+    allocator)."""
     global DEFER_LAUNCHES
     from gpuraytracer_tpu_torch.render import trace
 
@@ -603,12 +635,16 @@ def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
                                            mb_shadow_cap=mb_shadow_cap)
     lib = _launch_setup(pack, width, height, max_depth, lib)
     nsl = max_depth - 1
-    f32 = dict(dtype=torch.float32, device=dev)
-    planes = trace.DeferPlanes(
-        lit=torch.empty((max_depth, height, width, 4), **f32),
-        shadowed=torch.empty((nsl, height, width, 4), **f32),
-        sinfo=torch.empty((nsl, height, width), dtype=torch.int32, device=dev),
-        rays=torch.empty((nsl, height, width, 6), **f32))
+    want = trace.DeferPlanes(
+        lit=((max_depth, height, width, 4), torch.float32),
+        shadowed=((nsl, height, width, 4), torch.float32),
+        sinfo=((nsl, height, width), torch.int32),
+        rays=((nsl, height, width, 6), torch.float32))
+    if planes is None:
+        planes = trace.DeferPlanes(*(torch.empty(s, dtype=t, device=dev) for s, t in want))
+    elif any(tuple(p.shape) != s or p.dtype != t or p.device != dev or not p.is_contiguous()
+             for p, (s, t) in zip(planes, want)):
+        raise ValueError("planes must be contiguous DeferPlanes of the entry's shapes on its device")
     _raise_on(lib.gprt_frame_defer(
         *_buffers(pack), *(_ptr(p) for p in planes), width, height, max_depth,
         pack.num_geometries, pack.num_materials,
@@ -660,7 +696,7 @@ def render_frame_compact(pack: FramePack, *, width: int, height: int,
     (frame_kernel.py:860-889); where the queue holds more than
     ``queue_capacity`` pixels the plain kernel renders it again, as the
     reference's lax.cond does (frame_kernel.py:1004), and counts in
-    LAUNCHES. Either way the frame's kernels run on the pack's device (the
+    LAUNCHES (MERGED_LAUNCHES under GPURT_MERGED_SHADOW). Either way the frame's kernels run on the pack's device (the
     plain versions on the CPU). ``debug_count``: also return the number of
     dirty pixels. Costs one host sync (the queue's size)."""
     if budget_cap is None:

@@ -15,6 +15,14 @@ the frame kernel runs (csrc/traverse.cuh), reading the buffers
 ``frame_kernel.pack_frame`` builds. On a CPU tensor the wrapper runs the
 plain version below, the per-geometry loop of the wavefront; on a CUDA
 tensor it launches the kernel or raises.
+
+``scene_closest_tiles(two_phase=True)`` is the reference's two-phase form
+(its phases "main" and "finish"): a main pass with every march capped at
+PHASE_BUDGET steps that writes a dirty word per ray, then a finisher that
+marches the dirty (ray, geometry) pairs again at the level-0 plain budgets
+(``scene_finish_plain``). ``occluded_merged_plain`` is the plain version of
+the merged occlusion march (GPURT_MERGED_SHADOW) that the frame kernel
+family and the occlusion queue run on the card.
 """
 
 from __future__ import annotations
@@ -24,16 +32,34 @@ import ctypes
 import torch
 
 from gpuraytracer_tpu_torch.accel.instances import Scene, normal_to_world, ray_to_local
-from gpuraytracer_tpu_torch.core.types import RAY_TMAX, RAY_TMIN, SDF_MAX_STEPS, IntersectorKind
-from gpuraytracer_tpu_torch.geometry import analytic, registry
+from gpuraytracer_tpu_torch.core.types import (
+    METABALL_MAX_STEPS,
+    RAY_TMAX,
+    RAY_TMIN,
+    SDF_MAX_STEPS,
+    IntersectorKind,
+)
+from gpuraytracer_tpu_torch.geometry import analytic, registry, sdf
 from gpuraytracer_tpu_torch.kernels import frame_kernel
 
 # Kernel launches since import (or since a caller reset it); PROBE_LAUNCHES
-# counts the check-only distance probe (``sdf_distance``) apart, and
-# QUEUE_LAUNCHES the occlusion repair queue's kernel (``shadow_queue``).
+# counts the check-only distance probe (``sdf_distance``) apart,
+# QUEUE_LAUNCHES and MERGED_QUEUE_LAUNCHES the occlusion repair queue's
+# default and merged instantiations (``shadow_queue``), MAIN_LAUNCHES and
+# FINISH_LAUNCHES the two-phase form's main pass and finisher.
 LAUNCHES = 0
 PROBE_LAUNCHES = 0
 QUEUE_LAUNCHES = 0
+MERGED_QUEUE_LAUNCHES = 0
+MAIN_LAUNCHES = 0
+FINISH_LAUNCHES = 0
+
+# The two-phase main pass's step cap (the reference's PHASE_BUDGET,
+# scene_kernel.py:92), on SDF and metaball marches alike.
+PHASE_BUDGET = 64
+# SDF marches in flight at once in the merged occlusion march
+# (csrc/traverse.cuh kMergeWindow).
+MERGE_WINDOW = 4
 
 
 def dirty_bit(g: int) -> int:
@@ -85,22 +111,20 @@ def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
         caps = dict(budget_cap=budget_cap, mb_budget_cap=mb_budget_cap, return_capped=True)
     elif budget_cap is not None or mb_budget_cap is not None:
         raise ValueError("a capped traversal needs a dirty mask")
-    for i, (kind, prim_type) in enumerate(zip(layout.kinds, layout.prim_types)):
+    for i in range(len(layout.kinds)):
         gate = analytic.aabb_hit_mask(o_blas, d_blas, arrays.aabb_min[i], arrays.aabb_max[i],
                                       t_min=RAY_TMIN, t_max=best_t) & active
         if accept_first:
             gate = gate & (gid < 0)
         if kill_on_cap and dirty is not None:
             gate = gate & (dirty == 0)
-        o_loc, d_loc = ray_to_local(o_blas, d_blas, tr.blas_to_local[i])
+        kind, prim_type, o_loc, d_loc, kw = _geometry_args(scene, i, o_blas, d_blas, gate,
+                                                           step_scales)
         hit, t, n_loc, *capped = registry.intersect(
-            kind, prim_type, o_loc, d_loc, t_min=RAY_TMIN, t_max=best_t, active=gate,
+            kind, prim_type, o_loc, d_loc, t_min=RAY_TMIN, t_max=best_t,
             cull_backface=True if accept_first else cull_backface,
-            step_scale=step_scales[i], elapsed_time=arrays.constants.elapsed_time,
-            natural_budget=layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS,
             occlusion=accept_first, level=march_level, with_normal=not accept_first,
-            mesh=arrays.meshes[prim_type] if kind == IntersectorKind.TRIANGLE else None,
-            march=march, mesh_closest=mesh_closest, **caps,
+            march=march, mesh_closest=mesh_closest, **caps, **kw,
         )
         if capped:
             dirty.bitwise_or_(torch.where(capped[0], dirty_bit(i), 0).to(torch.int32))
@@ -117,6 +141,160 @@ def scene_closest_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
     return best_t, normal, gid
 
 
+def _geometry_args(scene: Scene, i: int, o_blas, d_blas, gate, step_scales):
+    """(kind, code, local rays, the registry's keyword arguments) of
+    geometry i over the gated lanes; ``step_scales`` is the scene's
+    step_scale as a list (read from the device once per pass)."""
+    layout, arrays = scene.layout, scene.arrays
+    kind, code = layout.kinds[i], layout.prim_types[i]
+    o_loc, d_loc = ray_to_local(o_blas, d_blas, arrays.transforms.blas_to_local[i])
+    kw = dict(active=gate, step_scale=step_scales[i],
+              elapsed_time=arrays.constants.elapsed_time,
+              natural_budget=layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS,
+              mesh=arrays.meshes[code] if kind == IntersectorKind.TRIANGLE else None)
+    return kind, code, o_loc, d_loc, kw
+
+
+def occluded_merged_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
+                          window: int = MERGE_WINDOW):
+    """Plain version of the merged occlusion march (csrc/traverse.cuh
+    occluded_merged; the reference's _march_sdf_multi and its call site,
+    scene_kernel.py:466-705, :1646-1789): (N,) bool, the accept-first
+    occlusion of the procedural geometries over [0, t0] that
+    ``scene_closest_plain(accept_first=True)`` answers with gid >= 0.
+
+    The closed forms, meshes and metaballs run first, in definition order;
+    then the SDF geometries, ``window`` at a time, each march set up once
+    (gate, window, the level's budget and rule) and advanced one sample per
+    turn, round robin; a valid crossing kills the lane's marches on every
+    geometry, and after the loop a march that spent its budget occludes
+    where the level's occluded-on-cap rule holds (the reference's post-loop
+    rule, :682-705)."""
+    layout, arrays = scene.layout, scene.arrays
+    step_scales = arrays.materials.step_scale.tolist()
+    occ = torch.zeros(o_blas.shape[0], dtype=torch.bool, device=o_blas.device)
+    sdf_ids = []
+
+    def gate_of(i):
+        return analytic.aabb_hit_mask(o_blas, d_blas, arrays.aabb_min[i], arrays.aabb_max[i],
+                                      t_min=RAY_TMIN, t_max=t0) & active & ~occ
+
+    for i, kind in enumerate(layout.kinds):
+        if kind == IntersectorKind.SIGNED_DISTANCE:
+            sdf_ids.append(i)
+            continue
+        kind, code, o_loc, d_loc, kw = _geometry_args(scene, i, o_blas, d_blas, gate_of(i),
+                                                      step_scales)
+        hit, _, _ = registry.intersect(kind, code, o_loc, d_loc, t_min=RAY_TMIN, t_max=t0,
+                                       cull_backface=True, occlusion=True, level=level,
+                                       with_normal=False, **kw)
+        occ = occ | hit
+    for w in range(0, len(sdf_ids), window):
+        marches = []
+        for i in sdf_ids[w:w + window]:
+            _, code, o_loc, d_loc, kw = _geometry_args(scene, i, o_blas, d_blas, gate_of(i),
+                                                       step_scales)
+            gate, t_hi, mkw = registry.sdf_march_args(
+                code, o_loc, d_loc, t_min=RAY_TMIN, t_max=t0, cull_backface=True,
+                active=kw["active"], natural_budget=kw["natural_budget"], occlusion=True,
+                level=level)
+            capped_hit = mkw.pop("capped_hit")
+            marches.append((sdf.march_state(o_loc, d_loc, gate, t_hi, kw["step_scale"], **mkw),
+                            capped_hit))
+        while any(m.marching for m, _ in marches):
+            for m, _ in marches:
+                if not m.marching:
+                    continue
+                m.step()
+                hits = m.hits()
+                if bool(hits.any()):
+                    occ = occ | hits
+                    for other, _ in marches:
+                        other.kill(hits)
+        for m, capped_hit in marches:
+            occ = occ | m.result(capped_hit=capped_hit)[0]
+    return occ
+
+
+def scene_finish_plain(scene: Scene, o_blas, d_blas, dirty, best_t, normal, gid, *,
+                       accept_first: bool = False, cull_backface: bool = True):
+    """Plain version of the two-phase finisher (csrc/traverse.cuh
+    finish_procedural; the reference's _finish_tile, scene_kernel.py:
+    1028-1150) over the main pass's outputs (best_t, normal, gid) and its
+    (N,) int32 dirty words: every march geometry whose bit a ray's word
+    holds is marched again for that ray, in definition order, behind its
+    gate against the current best t, at the level-0 plain budgets with their
+    occluded-on-cap rule; accept-first skips occluded rays; the metaballs
+    always cull back faces (_march_metaballs_inline). Closest: a strictly
+    closer hit takes the ray, with its normal. Returns new (best_t, normal,
+    gid)."""
+    best_t, normal, gid = best_t.clone(), normal.clone(), gid.clone()
+    tr = scene.arrays.transforms
+    step_scales = scene.arrays.materials.step_scale.tolist()
+    for i, kind in enumerate(scene.layout.kinds):
+        if kind not in (IntersectorKind.SIGNED_DISTANCE, IntersectorKind.VOLUMETRIC):
+            continue
+        gate = ((dirty >> min(i, 31)) & 1) != 0
+        if accept_first:
+            gate = gate & (gid < 0)
+        gate = gate & analytic.aabb_hit_mask(o_blas, d_blas, scene.arrays.aabb_min[i],
+                                             scene.arrays.aabb_max[i], t_min=RAY_TMIN,
+                                             t_max=best_t)
+        kind, code, o_loc, d_loc, kw = _geometry_args(scene, i, o_blas, d_blas, gate, step_scales)
+        cull = accept_first or kind == IntersectorKind.VOLUMETRIC or cull_backface
+        hit, t, n_loc = registry.intersect(kind, code, o_loc, d_loc, t_min=RAY_TMIN,
+                                           t_max=best_t, cull_backface=cull,
+                                           occlusion=accept_first, level=0,
+                                           with_normal=not accept_first, **kw)
+        if accept_first:
+            win = hit
+            best_t = torch.where(win, 0.0, best_t)
+        else:
+            win = hit & (t < best_t)
+            best_t = torch.where(win, t, best_t)
+            normal = torch.where(win[:, None], normal_to_world(n_loc, tr.local_to_blas[i]),
+                                 normal)
+        gid = torch.where(win, i, gid)
+    return best_t, normal, gid
+
+
+def two_phase_runs(scene: Scene) -> bool:
+    """Whether the two-phase form splits the pass: some march's budget
+    exceeds PHASE_BUDGET (an SDF geometry's natural budget, or the
+    metaballs' 128 steps; scene_kernel.py:1928-1934)."""
+    layout = scene.layout
+    for i, kind in enumerate(layout.kinds):
+        natural = layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS
+        if (kind == IntersectorKind.SIGNED_DISTANCE and natural > PHASE_BUDGET) or (
+                kind == IntersectorKind.VOLUMETRIC and METABALL_MAX_STEPS > PHASE_BUDGET):
+            return True
+    return False
+
+
+def scene_main_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
+                     accept_first: bool = False, cull_backface: bool = True):
+    """Plain version of the two-phase main pass: ``scene_closest_plain``
+    with every march capped at PHASE_BUDGET steps and a dirty mask, without
+    kill-on-cap (the traversal goes on past a capped march). Returns
+    (best_t, normal, gid, dirty)."""
+    dirty = torch.zeros(o_blas.shape[0], dtype=torch.int32, device=o_blas.device)
+    out = scene_closest_plain(scene, o_blas, d_blas, active, t0, level=level,
+                              accept_first=accept_first, cull_backface=cull_backface,
+                              budget_cap=PHASE_BUDGET, mb_budget_cap=PHASE_BUDGET, dirty=dirty,
+                              kill_on_cap=False)
+    return out + (dirty,)
+
+
+def scene_two_phase_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
+                          accept_first: bool = False, cull_backface: bool = True):
+    """Plain version of the two-phase form: ``scene_main_plain``, then
+    ``scene_finish_plain``. Returns (best_t, normal, gid, dirty)."""
+    *main, dirty = scene_main_plain(scene, o_blas, d_blas, active, t0, level=level,
+                                    accept_first=accept_first, cull_backface=cull_backface)
+    return scene_finish_plain(scene, o_blas, d_blas, dirty, *main, accept_first=accept_first,
+                              cull_backface=cull_backface) + (dirty,)
+
+
 def _check_rays(o_blas, d_blas, active, t0):
     n = o_blas.shape[0]
     for name, x, shape, dtype in (("o_blas", o_blas, (n, 3), torch.float32),
@@ -129,23 +307,9 @@ def _check_rays(o_blas, d_blas, active, t0):
             raise ValueError(f"{name} on {x.device}, o_blas on {o_blas.device}")
 
 
-def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
-                        accept_first: bool = False, cull_backface: bool = True,
-                        pack: frame_kernel.FramePack | None = None, lib=None, ops=None):
-    """(best_t, normal, gid) of one traversal pass over (N, 3) BLAS-space
-    rays; see ``scene_closest_plain`` for the semantics.
-
-    CUDA: launches csrc/scene_kernel.cu on the current stream over the
-    buffers of ``pack`` (default: ``frame_kernel.pack_frame(scene)``; pass
-    one to reuse it across the passes of a frame; ``lib``, ``ops`` as for
-    frame_kernel.render_frame_tiles) and counts the launch in LAUNCHES.
-    CPU: runs ``scene_closest_plain``."""
-    global LAUNCHES
-    _check_rays(o_blas, d_blas, active, t0)
+def _prepare(scene: Scene, o_blas, pack, lib):
+    """(pack, library) of a CUDA launch over rays on o_blas's device."""
     dev = o_blas.device
-    if dev.type == "cpu":
-        return scene_closest_plain(scene, o_blas, d_blas, active, t0, level=level,
-                                   accept_first=accept_first, cull_backface=cull_backface)
     if dev.type != "cuda":
         raise ValueError(f"no scene kernel for device {dev}")
     pack = pack if pack is not None else frame_kernel.pack_frame(scene)
@@ -154,33 +318,134 @@ def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
         raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
     frame_kernel.check_shared("scene kernel", pack.num_geometries, pack.num_materials,
                               shading=False)
-    n = o_blas.shape[0]
+    from gpuraytracer_tpu_torch.kernels import build
+
+    return pack, lib if lib is not None else build.load("scene_kernel")
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.gprt_error_string(rc).decode()})")
+
+
+def _closest_launch(scene, o_blas, d_blas, active, t0, level, accept_first, cull_backface,
+                    main, pack, lib, ops):
+    """One launch of the single-pass or the main-pass entry of
+    csrc/scene_kernel.cu: (best_t, normal, gid, dirty or None)."""
+    dev, n = o_blas.device, o_blas.shape[0]
     best_t = torch.empty(n, dtype=torch.float32, device=dev)
     normal = torch.empty(n, 3, dtype=torch.float32, device=dev)
     gid = torch.empty(n, dtype=torch.int32, device=dev)
+    dirty = torch.zeros(n, dtype=torch.int32, device=dev) if main else None
     if n == 0:
-        return best_t, normal, gid
-    from gpuraytracer_tpu_torch.kernels import build
-
-    lib = lib if lib is not None else build.load("scene_kernel")
+        return best_t, normal, gid, dirty
+    pack, lib = _prepare(scene, o_blas, pack, lib)
     o_blas, d_blas = o_blas.contiguous(), d_blas.contiguous()
     active, t0 = active.contiguous(), t0.contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib.gprt_scene_closest(
+        _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(o_blas), _ptr(d_blas),
+        _ptr(active), _ptr(t0), _ptr(best_t), _ptr(normal), _ptr(gid),
+        _ptr(dirty) if main else ctypes.c_void_p(None), n, pack.num_geometries,
+        pack.num_materials, int(level), int(accept_first), int(cull_backface), PHASE_BUDGET,
+        PHASE_BUDGET, frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib,
+        "two-phase main pass" if main else "scene kernel")
+    return best_t, normal, gid, dirty
 
-    def ptr(x):
-        return ctypes.c_void_p(x.data_ptr())
 
-    rc = lib.gprt_scene_closest(
-        ptr(pack.params), ptr(pack.layout), ptr(pack.tri), ptr(o_blas), ptr(d_blas), ptr(active), ptr(t0),
-        ptr(best_t), ptr(normal), ptr(gid), n, pack.num_geometries, pack.num_materials,
-        int(level), int(accept_first), int(cull_backface), frame_kernel.ops_pointer(ops),
-        dev.index, ctypes.c_void_p(stream),
-    )
-    if rc != 0:
-        raise RuntimeError(f"scene kernel launch failed: CUDA error {rc} "
-                           f"({lib.gprt_error_string(rc).decode()})")
-    LAUNCHES += 1
+def scene_main_pass(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
+                    accept_first: bool = False, cull_backface: bool = True,
+                    pack: frame_kernel.FramePack | None = None, lib=None, ops=None):
+    """The two-phase form's main pass, (best_t, normal, gid, dirty) as
+    ``scene_main_plain`` gives them: on CUDA the main-pass entry of
+    csrc/scene_kernel.cu (counted in MAIN_LAUNCHES; ``pack``, ``lib``,
+    ``ops`` as for ``scene_closest_tiles``), on the CPU the plain
+    version."""
+    global MAIN_LAUNCHES
+    _check_rays(o_blas, d_blas, active, t0)
+    kw = dict(level=level, accept_first=accept_first, cull_backface=cull_backface)
+    if o_blas.device.type == "cpu":
+        return scene_main_plain(scene, o_blas, d_blas, active, t0, **kw)
+    out = _closest_launch(scene, o_blas, d_blas, active, t0, level, accept_first,
+                          cull_backface, True, pack, lib, ops)
+    if o_blas.shape[0]:
+        MAIN_LAUNCHES += 1
+    return out
+
+
+def scene_finish(scene: Scene, o_blas, d_blas, dirty, best_t, normal, gid, *,
+                 accept_first: bool = False, cull_backface: bool = True,
+                 pack: frame_kernel.FramePack | None = None, lib=None, ops=None):
+    """The two-phase finisher over the main pass's outputs, (best_t, normal,
+    gid) as ``scene_finish_plain`` gives them: on CUDA the finisher entry of
+    csrc/scene_kernel.cu, which updates the (contiguous) outputs in place
+    and returns them (counted in FINISH_LAUNCHES), on the CPU the plain
+    version."""
+    global FINISH_LAUNCHES
+    dev, n = o_blas.device, o_blas.shape[0]
+    if dev.type == "cpu":
+        return scene_finish_plain(scene, o_blas, d_blas, dirty, best_t, normal, gid,
+                                  accept_first=accept_first, cull_backface=cull_backface)
+    for name, x, dtype in (("dirty", dirty, torch.int32), ("best_t", best_t, torch.float32),
+                           ("normal", normal, torch.float32), ("gid", gid, torch.int32)):
+        if x.dtype != dtype or x.shape[0] != n or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} tensor of {n} rows on {dev}")
+    if n == 0:
+        return best_t, normal, gid
+    pack, lib = _prepare(scene, o_blas, pack, lib)
+    o_blas, d_blas = o_blas.contiguous(), d_blas.contiguous()
+    _raise_on(lib.gprt_scene_finish(
+        _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(o_blas), _ptr(d_blas),
+        _ptr(dirty), _ptr(best_t), _ptr(normal), _ptr(gid), n, pack.num_geometries,
+        pack.num_materials, int(accept_first), int(cull_backface),
+        frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "two-phase finisher")
+    FINISH_LAUNCHES += 1
     return best_t, normal, gid
+
+
+def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
+                        accept_first: bool = False, cull_backface: bool = True,
+                        two_phase: bool = False, debug_dirty: bool = False,
+                        pack: frame_kernel.FramePack | None = None, lib=None, ops=None):
+    """(best_t, normal, gid) of one traversal pass over (N, 3) BLAS-space
+    rays; see ``scene_closest_plain`` for the semantics.
+
+    ``two_phase``: the reference's two-phase form where it splits the pass
+    (``two_phase_runs``): ``scene_main_pass``, then ``scene_finish``.
+    ``debug_dirty``: also return the main pass's (N,) int32 dirty words
+    (zeros for a single pass).
+
+    CUDA: launches csrc/scene_kernel.cu on the current stream over the
+    buffers of ``pack`` (default: ``frame_kernel.pack_frame(scene)``; pass
+    one to reuse it across the passes of a frame; ``lib``, ``ops`` as for
+    frame_kernel.render_frame_tiles), a single pass counted in LAUNCHES.
+    CPU: runs the plain versions."""
+    global LAUNCHES
+    _check_rays(o_blas, d_blas, active, t0)
+    kw = dict(level=level, accept_first=accept_first, cull_backface=cull_backface)
+    if two_phase and two_phase_runs(scene):
+        dev = dict(pack=pack, lib=lib, ops=ops)
+        *main, dirty = scene_main_pass(scene, o_blas, d_blas, active, t0, **kw, **dev)
+        out = scene_finish(scene, o_blas, d_blas, dirty, *main, accept_first=accept_first,
+                           cull_backface=cull_backface, **dev)
+    elif o_blas.device.type == "cpu":
+        out = scene_closest_plain(scene, o_blas, d_blas, active, t0, **kw)
+        dirty = torch.zeros(o_blas.shape[0], dtype=torch.int32)
+    else:
+        *out, _ = _closest_launch(scene, o_blas, d_blas, active, t0, level, accept_first,
+                                  cull_backface, False, pack, lib, ops)
+        dirty = torch.zeros(o_blas.shape[0], dtype=torch.int32, device=o_blas.device)
+        if o_blas.shape[0]:
+            LAUNCHES += 1
+    return tuple(out) + ((dirty,) if debug_dirty else ())
 
 
 def sdf_distance(code: int, points, lib=None):
@@ -209,29 +474,31 @@ def sdf_distance(code: int, points, lib=None):
     out = torch.empty(points.shape[0], dtype=torch.float32, device=dev)
     if points.shape[0] == 0:
         return out
-    rc = lib.gprt_sdf_distance(int(code), ctypes.c_void_p(points.data_ptr()),
-                               ctypes.c_void_p(out.data_ptr()), points.shape[0], dev.index,
-                               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"distance probe launch failed: CUDA error {rc} "
-                           f"({lib.gprt_error_string(rc).decode()})")
+    _raise_on(lib.gprt_sdf_distance(int(code), _ptr(points), _ptr(out), points.shape[0],
+                                    dev.index, _stream(dev)), lib, "distance probe")
     PROBE_LAUNCHES += 1
     return out
 
 
-def shadow_queue_plain(pack: frame_kernel.FramePack, rays, active, seg: int):
+def shadow_queue_plain(pack: frame_kernel.FramePack, rays, active, seg: int, *,
+                       merged: bool = False):
     """Plain version of the occlusion repair (``shadow_queue``): each
     segment of ``seg`` queue entries is one accept-first
     ``scene_closest_plain`` pass at its level's plain budgets, from t = 0
-    to RAY_TMAX, on the scene unpacked from the pack."""
+    to RAY_TMAX, on the scene unpacked from the pack; ``merged``: the
+    merged instantiation's plain version, ``occluded_merged_plain``."""
     scene = frame_kernel.unpack_frame(pack)
     occ = torch.zeros(rays.shape[0], dtype=torch.int32, device=rays.device)
     t0 = torch.full((seg,), RAY_TMAX, dtype=torch.float32, device=rays.device)
     for k in range(rays.shape[0] // seg):
         part = slice(k * seg, (k + 1) * seg)
-        _, _, gid = scene_closest_plain(scene, rays[part, :3], rays[part, 3:], active[part], t0,
-                                        level=k, accept_first=True)
-        occ[part] = ((gid >= 0) & active[part]).to(torch.int32)
+        if merged:
+            hit = occluded_merged_plain(scene, rays[part, :3], rays[part, 3:], active[part], t0,
+                                        level=k)
+        else:
+            hit = scene_closest_plain(scene, rays[part, :3], rays[part, 3:], active[part], t0,
+                                      level=k, accept_first=True)[2] >= 0
+        occ[part] = (hit & active[part]).to(torch.int32)
     return occ
 
 
@@ -243,9 +510,10 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
     entries per shadowed level, in level order; an entry's level is its
     index // seg, and its occlusion query runs at full budgets with that
     level's knobs. CUDA: the queue entry of csrc/scene_kernel.cu, one
-    thread per entry (counted in QUEUE_LAUNCHES); CPU: the plain
-    version."""
-    global QUEUE_LAUNCHES
+    thread per entry, its merged instantiation where frame_kernel.merges
+    says so (counted in QUEUE_LAUNCHES or MERGED_QUEUE_LAUNCHES); CPU: the
+    plain version."""
+    global QUEUE_LAUNCHES, MERGED_QUEUE_LAUNCHES
     n = rays.shape[0]
     dev = rays.device
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[1] != 6 \
@@ -270,14 +538,13 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
 
     lib = lib if lib is not None else build.load("scene_kernel")
     occ = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.gprt_shadow_queue(
-        ctypes.c_void_p(pack.params.data_ptr()), ctypes.c_void_p(pack.layout.data_ptr()),
-        ctypes.c_void_p(pack.tri.data_ptr()), ctypes.c_void_p(rays.data_ptr()),
-        ctypes.c_void_p(active.data_ptr()), ctypes.c_void_p(occ.data_ptr()), n, seg,
-        pack.num_geometries, pack.num_materials, frame_kernel.ops_pointer(ops), dev.index,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"shadow queue kernel launch failed: CUDA error {rc} "
-                           f"({lib.gprt_error_string(rc).decode()})")
-    QUEUE_LAUNCHES += 1
+    merged = frame_kernel.merges(pack)
+    _raise_on(lib.gprt_shadow_queue(
+        _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), _ptr(active), _ptr(occ),
+        n, seg, pack.num_geometries, pack.num_materials, int(merged),
+        frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "shadow queue kernel")
+    if merged:
+        MERGED_QUEUE_LAUNCHES += 1
+    else:
+        QUEUE_LAUNCHES += 1
     return occ

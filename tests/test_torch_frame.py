@@ -111,8 +111,8 @@ def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
     # (in every GPURT_FRAME_MODE), every other covered scene to the
     # wavefront (the scene kernel, or the per-geometry route past the mesh
     # face cap), and what no route covers raises, naming the unported
-    # kernel. Meshes and the compacted frame modes are covered now;
-    # GPURT_MERGED_SHADOW raises on the frame and scene kernels' routes.
+    # kernel. Meshes, the compacted frame modes and GPURT_MERGED_SHADOW are
+    # covered on every route now.
     layout = builtin.LAYOUT
     frame_kernel.check_kernel_covers(layout)
     assert frame_kernel.fused_eligible_layout(layout, 11)
@@ -122,8 +122,9 @@ def test_cuda_path_refuses_what_the_kernel_does_not_cover(monkeypatch):
             frame_kernel.check_kernel_covers(layout)
     with monkeypatch.context() as m:
         m.setenv("GPURT_MERGED_SHADOW", "1")
-        with pytest.raises(NotImplementedError, match="_march_sdf_multi"):
-            frame_kernel.check_kernel_covers(layout)
+        for route in ("frame", "scene", "per_geometry"):
+            frame_kernel.check_kernel_covers(layout, route)
+        assert frame_kernel.fused_eligible_layout(layout, 11)
     meshes = dataclasses.replace(
         layout, kinds=layout.kinds[:-1] + (IntersectorKind.TRIANGLE,))
     frame_kernel.check_kernel_covers(meshes)

@@ -25,8 +25,8 @@ the port's kernels runs its plain version under the same host code.
   committed golden; a queue that overflows renders the plain kernel; a
   scene no cap can touch takes the plain kernel at once.
 - The routes: GPURT_FRAME_MODE reaches only fused-eligible scenes and
-  raises on no CUDA route; GPURT_MERGED_SHADOW raises only on the routes
-  whose reference traversal runs _march_sdf_multi.
+  raises on no CUDA route; GPURT_MERGED_SHADOW raises on no route either
+  and moves no scene to another one.
 
 On a GPU (the ``cuda`` marker) the compact, dense and defer entries of
 csrc/frame_kernel.cu and the queue kernel of csrc/scene_kernel.cu are held
@@ -319,17 +319,28 @@ def test_frame_mode_reaches_only_fused_scenes(monkeypatch, mode):
 
 
 def test_merged_shadow_raises_only_on_the_kernels_that_reach_it(monkeypatch):
-    # The reference reaches _march_sdf_multi only from the traversal of its
-    # frame and scene kernels (scene_kernel.py:1653), never on the
-    # per-geometry route.
-    monkeypatch.setenv("GPURT_MERGED_SHADOW", "1")
-    layout = builtin.LAYOUT
-    for route in ("frame", "scene"):
-        with pytest.raises(NotImplementedError, match="_march_sdf_multi"):
-            frame_kernel.check_kernel_covers(layout, route)
+    # GPURT_MERGED_SHADOW raises on no route: the reference merges only in
+    # its frame kernel family, where the merged banks are allocated
+    # (frame_kernel._frame_scratch), and its scene kernel, which has no
+    # banks (scene_kernel.py:1660-1661), marches in sequence and renders. The
+    # knob moves no scene to another route, and a 17-material scene (the
+    # scene kernel's route) renders on the CPU exactly what it renders
+    # without it.
+    fused = builtin.build_scene(aspect=1.0, device="cpu")
+    many = instance_scene(16)
     past_cap = meshes.get_config("mesh_heightfield_sdf").build(1.0, 0.0, device="cpu")
-    route, _ = trace.frame_route(past_cap)
-    frame_kernel.check_kernel_covers(past_cap.layout, route)
+    routes = [trace.frame_route(s) for s in (fused, many, past_cap)]
+    image = trace.render_frame(many, 16, 9)
+    monkeypatch.setenv("GPURT_MERGED_SHADOW", "1")
+    assert [trace.frame_route(s) for s in (fused, many, past_cap)] == routes
+    for scene, (route, _) in zip((fused, many, past_cap), routes):
+        frame_kernel.check_kernel_covers(scene.layout, route)
+    with monkeypatch.context() as m:
+        m.setenv("GPURT_DISABLE_FUSED", "1")
+        assert trace.frame_route(fused) == ("scene", "plain")
+        frame_kernel.check_kernel_covers(fused.layout, "scene")
+    assert routes[1] == ("scene", "plain")
+    assert torch.equal(trace.render_frame(many, 16, 9), image)
 
 
 def test_queue_capacity_follows_the_reference_rule():

@@ -19,7 +19,8 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     __import__(mod.name)
     names.add(mod.name[len(pkg.__name__) + 1:])
 slice_modules = {"geometry.fractal", "geometry.registry", "accel.bvh", "models.builder",
-                 "models.scenes", "kernels.scene_kernel", "utils.stats", "apps.bench_suite"}
+                 "models.scenes", "kernels.scene_kernel", "utils.stats", "apps.bench_suite",
+                 "kernels.op_probe", "apps.op_probe"}
 assert slice_modules <= names, sorted(slice_modules - names)
 from gpuraytracer_tpu_torch.apps import bench_suite, render_cli
 assert bench_suite.main(["--device", "cpu", "--configs", "single_sphere_plane_256",
