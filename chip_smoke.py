@@ -8,40 +8,44 @@ exits non-zero):
   1. device   fail without CUDA; print the card's name and power limit
   2. build    build the three kernel libraries from csrc/ with nvcc, all
               builds at once (each with --fmad true and false, and the
-              op-counting build of each); print ptxas' registers
+              op-counting build of each; the SIMT-counting builds of the
+              frame and scene kernels); print ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
   5. golden   frame kernel vs tests/golden_builtin_96x54_t0p7.npz, both
               fmad modes
-  6. main     Renderer(1920, 1080, device="cuda") over a 16-frame animated
+  6. main     Renderer(1920, 1080, device="cuda") over a 64-frame animated
               window: every frame through the frame kernel (launch count),
               finite, not background; ms/frame from CUDA events; the kernel
-              alone, its op count and bound, and one plain 1080p frame
+              alone, its op count and bound, its resident blocks, and one
+              plain 1080p frame
   7. suite    the five BENCH_CONFIGS through trace.render_frame: 96x54
               t=0.7 against their goldens, 320x180 against the frame
-              kernel's plain version, and a 16-frame animated window at
+              kernel's plain version, and a 64-frame animated window at
               their published sizes through the frame kernel
   8. scene    GPURT_DISABLE_FUSED=1: the scene kernel against its plain
               version on ray batches (builtin, sdf_primitives_720p, the
               fractal scene; 320x180; closest at levels 0/1, accept-first
               at levels 0/1); a builtin 320x180 frame through the
               wavefront with the scene kernel against the frame kernel and
-              the plain version; the builtin 1080p 16-frame window on this
+              the plain version; the builtin 1080p 64-frame window on this
               path with its exact launch count; the 1080p level-0 closest
-              pass timed; then two builder scenes at 160x90 against the
-              plain version, with GPURT_DISABLE_FUSED unset and set: 16
+              pass timed; then three builder scenes against the plain
+              version, with GPURT_DISABLE_FUSED unset and set: 16
               instances of 16 materials (17 with the plane, past the frame
-              kernel's cap, so the scene kernel renders it either way),
-              and 384 instances, whose buffers take over the 48 KB of
-              shared memory a block gets without opting in
+              kernel's cap, so the scene kernel renders it either way) and
+              384 instances, whose buffers take over the 48 KB of shared
+              memory a block gets without opting in, at 160x90, and 1,600
+              instances at 64x36 and depth 2, whose tables fit no block's
+              shared memory (both kernels read them from global memory)
   9. mesh     the march kernel (csrc/megakernel.cu) against its plain version
               on ray batches for every SDF code, closest and occlusion, at
               the level-0 and the bounce budget; the three mesh scenes of
               models/meshes.py at 96x54 against their goldens and at
               320x180 against their route's plain version (the octahedra
               also with GPURT_DISABLE_FUSED=1, through the scene kernel);
-              16-frame 1080p windows of mesh_octahedra and
+              64-frame 1080p windows of mesh_octahedra and
               mesh_heightfield_512 (frame kernel) and mesh_heightfield_sdf
               (per-geometry route, its exact march and mesh launch counts);
               the march and mesh calls of the 1080p level-0 closest pass
@@ -60,7 +64,7 @@ exits non-zero):
               the --fmad=false compact frame equals its plain kernel bit for
               bit; the bench scenes and mesh_octahedra at 320x180 in both
               modes against the plain kernel; a 17-material scene under
-              compact through the scene kernel; a 16-frame 1080p builtin
+              compact through the scene kernel; a 64-frame 1080p builtin
               window in each mode (launches, host syncs and queued lanes
               per frame); each new kernel alone at the 1080p frame's
               shapes against its plain version, with op counts and bounds
@@ -73,7 +77,7 @@ exits non-zero):
               cap 8; the merged builtin frame against the plain version at
               320x180;
               a 17-material scene under the knob through the scene kernel;
-              16-frame 1080p windows with and without the knob (plain,
+              64-frame 1080p windows with and without the knob (plain,
               compact, defer) and each merged kernel alone; the two-phase
               scene pass (scene_closest_tiles(two_phase=True): main and
               finish entries of csrc/scene_kernel.cu) on the builtin 1080p
@@ -81,11 +85,19 @@ exits non-zero):
               (every differing ray named by its cause) and its plain
               version, dirty rays per geometry, each entry alone; the
               two-phase pass against its plain version on 320x180 ray
-              batches of the three scenes (camera rays at level 0, shadow
-              rays at level 1) in both fmad builds; the op probe (csrc/op_probe.cu) against its plain
+              batches (the three scenes' reflection rays at level 1, the
+              builtin scene's camera and shadow rays at level 0) in both
+              fmad builds; the op probe (csrc/op_probe.cu) against its plain
               version in all ten variants, then timed at the reference's
               2000 iterations (ns per element-iteration, bf16/f32)
-Then the kernel JSON line, the card line, and the final JSON status line.
+ 12. simt     the SIMT-counting builds (-DGPRT_COUNT_SIMT): the share of a
+              warp's 32 lanes that march at each march sample, for the frame
+              kernel on the builtin and the fractal 1080p frames per level
+              and ray kind, and for the builtin 1080p level-0 closest and
+              shadow passes of the scene kernel; one [simt] line each
+Then the kernel JSON line (with each entry's registers from ptxas, and
+the resident blocks per SM of rows 1, 1m and 5 and the two-phase main
+pass), the card line, and the final JSON status line.
 
 Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
 kernel to its XLA path): fewer than 2% of pixels with max-channel |diff| >
@@ -96,9 +108,8 @@ contraction (--fmad=false), which repeats the plain arithmetic; on >= 98%
 of them for the shipped build, where contraction moves a march crossing by
 a step on a few rays. The one-geometry calls of phase 9 are held to the
 same bar over the rays their gate admits (hits for gid), and in addition:
-normals within 1e-2 on >= 98% of the valid hits whose t agrees (printed
-only for the shipped build's code-8 batches, see phase 9), and every ray
-outside the gate a miss.
+normals within 1e-2 on >= 98% of the valid hits whose t agrees, and
+every ray outside the gate a miss.
 
 Bounds: the larger of the bytes a call must move (inputs read once,
 outputs written once) over 3.35 TB/s and its f32 FLOPs over 67 TFLOP/s,
@@ -117,7 +128,7 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-W_MAIN, H_MAIN, FRAMES = 1920, 1080, 16
+W_MAIN, H_MAIN, FRAMES = 1920, 1080, 64
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # bf16 outside the tensor cores: twice the f32 rate (packed bf16x2 FMAs,
@@ -243,11 +254,15 @@ def ptxas_summary(report):
     import re
 
     def pretty(mangled):
-        m = re.match(r"_ZN4gprt(\d+)(\w+)", mangled)
+        m = re.match(r"_ZN4gprt(\d+)(\w+)", mangled) or re.match(r"_Z(\d+)(\w+)", mangled)
         if not m:
             return mangled
         n, rest = int(m.group(1)), m.group(2)
-        return rest[:n] + {"ILb1E": "<true>", "ILb0E": "<false>"}.get(rest[n:n + 5], "")
+        flags = re.match(r"I((?:Lb[01]E)+)E", rest[n:])
+        if not flags:
+            return rest[:n]
+        names = ["true" if f == "1" else "false" for f in re.findall(r"Lb([01])E", flags.group(1))]
+        return rest[:n] + "<" + ", ".join(names) + ">"
 
     out, entry, props, stack = [], None, None, ""
     for line in report.splitlines():
@@ -264,6 +279,17 @@ def ptxas_summary(report):
             out.append(f"{pretty(entry)}: {line.split(':')[-1].strip()}; {stack}")
             entry = None
     return " | ".join(out)
+
+
+def ptxas_registers(report):
+    """{entry: registers} of a ptxas -v report, entries named as
+    ptxas_summary names them."""
+    out = {}
+    for item in ptxas_summary(report).split(" | "):
+        if ": Used " in item:
+            name, rest = item.split(": Used ", 1)
+            out[name] = int(rest.split()[0])
+    return out
 
 
 @contextlib.contextmanager
@@ -298,7 +324,7 @@ def counts():
 
 
 def animated_window(renderer, dev, label, w, h):
-    """16 animated frames through renderer.render, timed by CUDA events:
+    """FRAMES animated frames through renderer.render, timed by CUDA events:
     (ms/frame, counts(), max background share); every frame is checked
     finite and not mostly background."""
     renderer.render(0.0)  # warm-up (module load), not counted
@@ -319,26 +345,6 @@ def animated_window(renderer, dev, label, w, h):
     if max(bg_frac) >= 0.70:
         raise AssertionError(f"{label}: a frame is mostly background ({max(bg_frac):.3f})")
     return start.elapsed_time(end) / FRAMES, launched, max(bg_frac)
-
-
-def instance_grid(nx, nz, n_materials):
-    """A SceneBuilder with nx * nz closed-form instances (spheres and hollow
-    boxes, alternating) over the builtin grid's footprint, cycling through
-    n_materials albedos."""
-    from gpuraytracer_tpu_torch.core.types import AnalyticPrimitive, IntersectorKind
-    from gpuraytracer_tpu_torch.models import builder
-
-    b = builder.SceneBuilder()
-    for k in range(nx * nz):
-        ix, iz = divmod(k, nz)
-        mn = (-7.0 + 14.0 * ix / nx, -1.0, -7.0 + 14.0 * iz / nz)
-        mx = (mn[0] + 7.0 / nx, mn[1] + 14.0 / nx, mn[2] + 7.0 / nz)
-        kind = AnalyticPrimitive.SPHERES if (ix + iz) % 2 else AnalyticPrimitive.AABB
-        albedo = (0.2 + 0.8 * (k % n_materials) / n_materials, 0.5, 0.5, 1.0)
-        b.add_instance(builder.InstanceSpec(
-            kind=IntersectorKind.ANALYTIC, prim_type=int(kind), aabb_min=mn, aabb_max=mx,
-            material=builder.Material(albedo)))
-    return b
 
 
 def main() -> int:
@@ -381,10 +387,15 @@ def main() -> int:
                   for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
                                       (build.DEFAULT_FMAD, True))]
         builds.append(("op_probe", build.DEFAULT_FMAD, False))
+        builds += [(name, build.DEFAULT_FMAD, False, True) for name in ("frame_kernel",
+                                                                        "scene_kernel")]
         reports = build.compile_all(builds)
-        for (name, fmad, count), report in reports.items():
-            print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}: "
-                  f"{ptxas_summary(report)}", flush=True)
+        registers = {}
+        for (name, fmad, count, *simt), report in reports.items():
+            print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}"
+                  f"{' count_simt' if simt else ''}: {ptxas_summary(report)}", flush=True)
+            if fmad == build.DEFAULT_FMAD and not count and not simt:
+                registers.update(ptxas_registers(report))
 
     # 3. the fractals' device distance functions, before any render ----------
     with Phase("probe"):
@@ -430,7 +441,7 @@ def main() -> int:
         if not ok:
             raise AssertionError("frame kernel disagrees with the golden image")
 
-    # 6. main path: Renderer at 1920x1080, 16 animated frames -----------------
+    # 6. main path: Renderer at 1920x1080, 64 animated frames -----------------
     with Phase("main"):
         ms_frame, launched, bg_max = animated_window(
             Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p", W_MAIN, H_MAIN)
@@ -452,11 +463,18 @@ def main() -> int:
             lambda: frame_kernel.render_frame_plain(pack_m, width=W_MAIN, height=H_MAIN), 1,
             warmup=False)
         ok, frac, tight, frame_err = bar(kimg, pimg)
-        plain_m = pimg
+        plain_m, main_img = pimg, kimg
         print(f"[main] kernel vs plain 1920x1080 t={0.0333 * 8:.4f}: flipped {frac:.6f}, "
               f"within 1e-5 {tight:.6f}, max |diff| {frame_err:.6g}", flush=True)
         if not ok:
             raise AssertionError("frame kernel disagrees with its plain version at 1080p")
+        resident = {"frame_kernel": frame_kernel.residency(pack_m)}
+        with env(GPURT_MERGED_SHADOW="1"):
+            resident["frame_kernel_merged"] = frame_kernel.residency(pack_m)
+        resident["scene_kernel"] = scene_kernel.residency(pack_m)
+        print(f"[main] resident blocks (per SM, in all): {resident}; registers: " + ", ".join(
+            f"{k} {registers.get(k)}" for k in ("frame_kernel<false, true>", "frame_kernel<true, true>",
+                                                "scene_kernel<false, true>")), flush=True)
         print(f"[main] Renderer 1920x1080, {FRAMES} frames t=0.0333k: {f_launch} frame kernel "
               f"launches, all finite, background <= {bg_max:.3f}; {ms_frame:.3f} ms/frame, "
               f"{W_MAIN * H_MAIN / ms_frame / 1e3:.3f} Mrays/s (W*H*fps/1e6); kernel alone "
@@ -620,32 +638,41 @@ def main() -> int:
         if float(same.float().mean()) < 0.98 or close < 0.98:
             raise AssertionError("1080p pass: scene kernel disagrees with its plain version")
 
-        w, h = 160, 90
-        for nx, nz, n_mat in ((4, 4, 16), (24, 16, 8)):
-            scene_x = instance_grid(nx, nz, n_mat).build(w / h, 0.7, device=dev)
+        # The 1,600-instance frame at depth 2 (closest, shadow and reflection
+        # queries on the global-memory tables): its plain version runs
+        # 1,600 geometries a pass on the host, ~4.5 s a pass.
+        for nx, nz, n_mat, w, h, depth in ((4, 4, 16, 160, 90, 3), (24, 16, 8, 160, 90, 3),
+                                           (40, 40, 8, 64, 36, 2)):
+            scene_x = scenes.instance_grid(nx, nz, n_mat).build(w / h, 0.7, device=dev)
             pack_x = frame_kernel.pack_frame(scene_x)
-            plain = frame_kernel.render_frame_plain(pack_x, width=w, height=h)
+            t0_plain = time.perf_counter()
+            plain = frame_kernel.render_frame_plain(pack_x, width=w, height=h, max_depth=depth)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0_plain
             shared = frame_kernel.shared_bytes(pack_x.num_geometries, pack_x.num_materials,
                                                shading=True)
+            layout = {kind: "shared" if frame_kernel.tables_in_shared(
+                          pack_x.num_geometries, pack_x.num_materials, shading=sh) else "global"
+                      for kind, sh in (("frame", True), ("scene", False))}
             for disabled in (False, True):
                 if disabled:
                     os.environ["GPURT_DISABLE_FUSED"] = "1"
                 else:
                     del os.environ["GPURT_DISABLE_FUSED"]
                 reset_counts()
-                img = trace.render_frame(scene_x, w, h)
+                img = trace.render_frame(scene_x, w, h, max_depth=depth)
                 torch.cuda.synchronize()
                 f_n, s_n, m_n, t_n = counts()
                 fused = not disabled and pack_x.num_materials <= frame_kernel.MAX_MATERIALS
                 if (m_n, t_n) != (0, 0) or (
-                        (f_n, s_n) != (1, 0) if fused else not (f_n == 0 and 1 <= s_n <= 5)):
+                        (f_n, s_n) != (1, 0) if fused else not (f_n == 0 and 1 <= s_n <= 2 * depth - 1)):
                     raise AssertionError(f"{nx * nz} instances: launched {(f_n, s_n)}")
                 ok, frac, tight, err = bar(img, plain)
                 print(f"[scene] {nx * nz} instances, {pack_x.num_materials} materials "
-                      f"({shared} B of frame-kernel shared memory) 160x90, "
+                      f"({shared} B of frame-kernel tables; tables in {layout}) {w}x{h} depth {depth}, "
                       f"GPURT_DISABLE_FUSED={int(disabled)}: {f_n} frame / {s_n} scene "
                       f"launches; vs plain flipped {frac:.6f}, within 1e-5 {tight:.6f}, "
-                      f"max |diff| {err:.6g}", flush=True)
+                      f"max |diff| {err:.6g} (plain {t_plain:.1f} s)", flush=True)
                 if not ok:
                     raise AssertionError(f"{nx * nz} instances: frame disagrees with plain")
     del os.environ["GPURT_DISABLE_FUSED"]
@@ -689,15 +716,10 @@ def main() -> int:
                             o, d, gate, t_max, 0.9, lib=build.load("megakernel", fmad=fmad), **kw)
                         agree, close, dt_max, n_close, dn_max, outside = ray_agreement(
                             k_out, p_out, gate)
-                        # Code 8's 11 quaternion Julia iterations are chaotic:
-                        # contraction changes the last bits of its distances and
-                        # the tetrahedral normal (a difference at offset 5.8e-5)
-                        # amplifies them, so the shipped build's code-8 normals
-                        # are printed, not held; the build without contraction,
-                        # which repeats the plain arithmetic, holds them.
-                        normals_held = code != 8 or fmad != build.DEFAULT_FMAD
-                        ok = ok and agree >= 0.98 and outside and (
-                            n_close >= 0.98 or not normals_held) and (
+                        # Every code's normals, code 8 (the Julia set) too: its
+                        # normal is rounded op by op (csrc/frame_math.cuh), so
+                        # contraction no longer changes it.
+                        ok = ok and agree >= 0.98 and outside and n_close >= 0.98 and (
                             close >= 0.98 if fmad == build.DEFAULT_FMAD else dt_max <= 1e-3)
                         if fmad == build.DEFAULT_FMAD:
                             mega_err = max(mega_err, dt_max)
@@ -766,7 +788,7 @@ def main() -> int:
             if disabled:
                 del os.environ["GPURT_DISABLE_FUSED"]
 
-        # 16-frame 1080p windows: the octahedra and the 512-face heightfield
+        # 64-frame 1080p windows: the octahedra and the 512-face heightfield
         # through the frame kernel, the 544-face scene on the per-geometry
         # route.
         for name in ("mesh_octahedra", "mesh_heightfield_512", "mesh_heightfield_sdf"):
@@ -935,7 +957,7 @@ def main() -> int:
         # A 17-material scene takes the scene kernel in any mode (the
         # reference reads the mode only for fused-eligible scenes).
         os.environ["GPURT_FRAME_MODE"] = "compact"
-        scene_x = instance_grid(4, 4, 16).build(160 / 90, 0.7, device=dev)
+        scene_x = scenes.instance_grid(4, 4, 16).build(160 / 90, 0.7, device=dev)
         reset_counts()
         img = trace.render_frame(scene_x, 160, 90)
         torch.cuda.synchronize()
@@ -947,7 +969,7 @@ def main() -> int:
         if not ok or launched[1] == 0 or c["plain"] + c["compact"] + c["defer"] != 0:
             raise AssertionError("17-material scene under compact: wrong route or image")
 
-        # 16-frame 1080p windows of the main path in each mode, beside a
+        # 64-frame 1080p windows of the main path in each mode, beside a
         # plain one of the same call.
         windows = {}
         for mode in ("plain",) + tuple(modes):
@@ -1135,7 +1157,7 @@ def main() -> int:
         merged_err = bar(merged_imgs[("builtin", W_MAIN)], plain_m)[3]
 
         # (c) a 17-material scene under the knob: the scene kernel, in sequence.
-        scene_x = instance_grid(4, 4, 16).build(160 / 90, 0.7, device=dev)
+        scene_x = scenes.instance_grid(4, 4, 16).build(160 / 90, 0.7, device=dev)
         seq = trace.render_frame(scene_x, 160, 90)
         reset_counts()
         with env(**merged_env):
@@ -1151,7 +1173,7 @@ def main() -> int:
                 and c["plain"] == 0):
             raise AssertionError("17-material scene under the knob: wrong route or image")
 
-        # (d) 16-frame 1080p windows with and without the knob, and each
+        # (d) 64-frame 1080p windows with and without the knob, and each
         # merged kernel alone at the shapes of phase 6 and 10.
         merged_windows = {}
         for label, mode, knob in (("plain", "plain", False), ("merged", "plain", True),
@@ -1364,13 +1386,14 @@ def main() -> int:
               flush=True)
 
         # (f) two-phase against its plain version on 320x180 ray batches: per
-        # scene the camera rays (closest, level 0), their reflections
-        # (closest, level 1: the finisher marches at the level-0 budget where
-        # the single pass takes the bounce budget) and, for the builtin scene,
-        # the shadow rays (level 0; at level 1 the main pass's cap is the
-        # plain budget, so capped shadow rays are occluded there and the
-        # finisher has nothing to do). Each plain two-phase pass takes 3-6 s
-        # on the host; (e) holds the 1080p shadow pass to the single pass.
+        # scene the reflections of the camera rays (closest, level 1: the
+        # finisher marches at the level-0 budget where the single pass takes
+        # the bounce budget) and, for the builtin scene, the camera rays
+        # (closest, level 0) and the shadow rays (level 0; at level 1 the main
+        # pass's cap is the plain budget, so capped shadow rays are occluded
+        # there and the finisher has nothing to do). Each plain two-phase
+        # pass takes 3-6 s on the host; (e) holds the 1080p closest and
+        # shadow passes to the single pass.
         for name in three:
             scene_b = build_scene(name, 320, 180)
             pack_b = frame_kernel.pack_frame(scene_b)
@@ -1382,11 +1405,11 @@ def main() -> int:
             hit = traverse.closest_hit(o, d, scene_b, level=0, plain=True)
             hp = o + hit.t[:, None] * d
             sh = hlsl.normalize(cb.light_position[:3] - hp)
-            batches = [("camera, closest, level 0", o, d, None, 0, False),
-                       ("reflection, closest, level 1", hp, hlsl.reflect(d, hit.normal),
+            batches = [("reflection, closest, level 1", hp, hlsl.reflect(d, hit.normal),
                         hit.hit, 1, False)]
             if name == "builtin":
-                batches.append(("shadow, level 0", hp, sh, hit.hit, 0, True))
+                batches += [("camera, closest, level 0", o, d, None, 0, False),
+                            ("shadow, level 0", hp, sh, hit.hit, 0, True)]
             for label, o_, d_, a_, level, af in batches:
                 _, obb, dbb, ab, tb = traverse.pass_inputs(o_, d_, scene_b, active=a_,
                                                            occlusion=af)
@@ -1470,8 +1493,41 @@ def main() -> int:
             f"launches; bound over the ten variants {probe_bound:.4f} ms; {card}", flush=True)
         probe_bound_by = max(bound_share, key=bound_share.get)
 
+    # 12. SIMT efficiency of the frame kernel and the scene pass --------------
+    with Phase("simt"):
+        simt_libs = {name: build.load(name, count_simt=True)
+                     for name in ("frame_kernel", "scene_kernel")}
+        fr_cfg = scenes.get_config("fractal_mandelbulb_julia_1080p")
+        pack_fr = frame_kernel.pack_frame(fr_cfg.build(W_MAIN / H_MAIN, 0.0333 * 8, device=dev))
+        simt = {}
+
+        def simt_report(label, cnt):
+            eff = frame_kernel.simt_efficiency(cnt)
+            simt[label] = eff
+            for key, (e, lanes, warps) in eff.items():
+                where = "all levels" if key == "all" else f"level {key[0]} {key[1]}"
+                print(f"[simt] {label}, {where}: {100 * e:.2f}% of the warp's lanes march "
+                      f"({lanes} lane-samples, {warps:.1f} warp-samples)", flush=True)
+
+        for label, pack_x, depth, ref in (("builtin", pack_m, 3, main_img),
+                                          ("fractal_mandelbulb_julia_1080p", pack_fr,
+                                           fr_cfg.max_depth, None)):
+            cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+            img = frame_kernel.render_frame_tiles(pack_x, width=W_MAIN, height=H_MAIN,
+                                                  max_depth=depth, lib=simt_libs["frame_kernel"],
+                                                  ops=cnt)
+            # The counting build adds atomics only: the shipped build's frame.
+            if ref is not None and not torch.equal(img, ref):
+                raise AssertionError("the SIMT-counting frame kernel changed the frame")
+            simt_report(f"frame kernel {label} 1080p", cnt)
+        for kind, (o_, d_, a_, t_, af) in passes.items():
+            cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+            scene_kernel.scene_closest_tiles(scene_m, o_, d_, a_, t_, accept_first=af,
+                                             pack=pack_m, lib=simt_libs["scene_kernel"], ops=cnt)
+            simt_report(f"scene kernel builtin 1080p level-0 {kind} pass", cnt)
+
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "frame_kernel",
         "route": "cuda",
         "source": "gpuraytracer_tpu_torch/kernels/csrc/frame_kernel.cu",
@@ -1571,7 +1627,26 @@ def main() -> int:
         "bound_ms": probe_bound,
         "bound_by": probe_bound_by,
         "library_ms": None,
-    }]}))
+    }]
+    # Registers of the shipped build's shared-layout instantiations (ptxas)
+    # and, for rows 1, 1m, 5 and the two-phase main pass, resident blocks
+    # per SM.
+    ptxas_name = {
+        "frame_kernel": "frame_kernel<false, true>", "scene_kernel": "scene_kernel<false, true>",
+        "megakernel_sphere_trace": "sphere_trace", "megakernel_trimesh": "trimesh",
+        "frame_compact": "frame_compact_kernel<true>",
+        "frame_dense": "frame_dense_kernel<false, true>", "frame_defer": "frame_defer_kernel<true>",
+        "shadow_queue": "shadow_queue_kernel<false, true>",
+        "frame_kernel_merged": "frame_kernel<true, true>",
+        "frame_dense_merged": "frame_dense_kernel<true, true>",
+        "shadow_queue_merged": "shadow_queue_kernel<true, true>",
+        "scene_two_phase_main": "scene_kernel<true, true>",
+        "scene_two_phase_finish": "scene_finish_kernel<true>", "op_probe": "op_probe_kernel"}
+    resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, main=True)
+    for k in kernels:
+        k["registers"] = registers.get(ptxas_name.get(k["name"], ""))
+        k["resident_blocks"] = resident[k["name"]][0] if k["name"] in resident else None
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ Mrays/s variants: fps-derived (W*H*fps/1e6, Renderer.cpp:391) and
 dispatch-time-derived (W*H/(ms*1e3), RendererRaytracingHelper.h:673-678).
 
 - Wall throughput: each of ``--reps`` repetitions issues ``--frames``
-  windows of ``--wall-chain`` animated frames asynchronously; ms/frame is
+  windows of ``--wall-chain`` animated frames (default 64, the reference's
+  window, bench.py) asynchronously; ms/frame is
   the CUDA-event time of the repetition over its frame count, median over
   the repetitions. Every frame is consumed: a ``torch.sum`` checksum of
   each image accumulates across the window and the host reads it at the
@@ -29,18 +30,30 @@ one card inside one call: for each root (a checkout of this repository,
 for example the parent commit unpacked with ``git archive`` into a
 directory that .gitignore lists), a fresh process imports that checkout's
 package, builds its kernels and times with CUDA events (one warm-up
-launch, then ``--reps`` launches) the frame kernel on the builtin
-1920x1080 frame at t = 0.2664, the scene kernel's level-0 closest pass
-over that frame's camera rays and the defer entry (GPURT_FRAME_MODE=defer's
-main pass at shadow cap 32) on that frame; one JSON line per root.
+launch, then ``--reps`` launches) on the builtin 1920x1080 frame at
+t = 0.2664: the frame kernel, the same under GPURT_MERGED_SHADOW=1, the
+scene kernel's level-0 closest pass over that frame's camera rays, the
+defer entry (GPURT_FRAME_MODE=defer's main pass at shadow cap 32), the
+fractal_mandelbulb_julia_1080p frame kernel, and a 64-frame animated
+window through Renderer.render (ms/frame). Where the checkout has the SIMT
+counting build (build.load(count_simt=True)), it reports the SIMT
+efficiency of the builtin and fractal 1080p frame kernels per level and
+ray kind and of the level-0 closest and shadow passes. Each process also
+saves its outputs, made with the ``--fmad`` build (default: the shipped
+one): the builtin 1080p frame, the five bench scenes and mesh_octahedra at
+320x180, and the 1080p level-0 closest and shadow passes (shadow rays from
+the plain closest pass, so that every root gets the same rays). One JSON
+line per root, then one per root after the first with the share of
+bit-equal pixels and rays against the first root and the largest
+difference.
 
 Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
 the host clock, for tiny smoke runs only):
   python -m gpuraytracer_tpu_torch.apps.bench_suite [--configs a,b]
-         [--frames 4] [--reps 3] [--wall-chain 16] [--scale 1.0]
+         [--frames 4] [--reps 3] [--wall-chain 64] [--scale 1.0]
          [--json out.json] [--device cuda]
   python -m gpuraytracer_tpu_torch.apps.bench_suite --ab-roots PARENT,.,.,PARENT
-         [--reps 20]
+         [--reps 20] [--fmad false]
 """
 
 from __future__ import annotations
@@ -57,6 +70,9 @@ import torch
 
 # Frames of the longer window the device-time slope is taken against.
 CHAIN = 3
+# Animated frames per timed window: the reference's 64 (bench.py,
+# gpuraytracer_tpu/apps/bench_suite.py).
+WALL_CHAIN = 64
 
 
 class _Clock:
@@ -98,7 +114,7 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = 16,
+def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = WALL_CHAIN,
                  scale: float = 1.0, device="cuda") -> dict:
     from gpuraytracer_tpu_torch.accel.instances import Scene
     from gpuraytracer_tpu_torch.kernels import frame_kernel
@@ -180,24 +196,49 @@ def bench_config(cfg, *, frames: int = 4, reps: int = 3, wall_chain: int = 16,
 
 
 _KERNEL_TIMING = r"""
-import json, sys, torch
+import inspect, json, os, sys, torch
 sys.path.insert(0, ROOT)
 from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.accel.instances import Scene
 from gpuraytracer_tpu_torch.core import camera as cam
-from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
-from gpuraytracer_tpu_torch.models import builtin
+from gpuraytracer_tpu_torch.core import hlsl
+from gpuraytracer_tpu_torch.kernels import build, frame_kernel, scene_kernel
+from gpuraytracer_tpu_torch.models import builtin, meshes, scenes
+from gpuraytracer_tpu_torch.render.renderer import Renderer
 
 assert frame_kernel.__file__.startswith(ROOT), frame_kernel.__file__
 dev = torch.device("cuda:0")
+simt = "count_simt" in inspect.signature(build.load).parameters
+builds = [(k, f, False) for k in ("frame_kernel", "scene_kernel") for f in {True, FMAD}]
+builds += [(k, True, False, True) for k in ("frame_kernel", "scene_kernel")] if simt else []
+build.compile_all(builds)
 w, h = 1920, 1080
-arrays = builtin.animate_arrays(builtin.build_scene(aspect=w / h, device=dev).arrays, 0.0333 * 8)
-scene = Scene(builtin.LAYOUT, arrays)
+t_frame = 0.0333 * 8
+
+
+def frame_pack(name, width, height, t):
+    if name == "builtin":
+        a = builtin.animate_arrays(builtin.build_scene(aspect=width / height, device=dev).arrays, t)
+        return Scene(builtin.LAYOUT, a), 3
+    cfg = scenes.get_config(name) if name in [c.name for c in scenes.BENCH_CONFIGS] \
+        else meshes.get_config(name)
+    return cfg.build(width / height, t, device=dev), cfg.max_depth
+
+
+scene, _ = frame_pack("builtin", w, h, t_frame)
 pack = frame_kernel.pack_frame(scene)
+fractal, fractal_depth = frame_pack("fractal_mandelbulb_julia_1080p", w, h, t_frame)
+pack_fr = frame_kernel.pack_frame(fractal)
 px, py = cam.pixel_grid(w, h, dev)
-c = arrays.constants
+c = scene.arrays.constants
 o, d = cam.generate_camera_rays(px, py, w, h, c.camera_position, c.projection_to_world)
-_, ob, db, act, t0 = traverse.pass_inputs(o.reshape(-1, 3), d.reshape(-1, 3), scene)
+o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+hit_p, ob, db, act, t0 = traverse.pass_inputs(o, d, scene)
+# Shadow rays off the plain closest pass, the same in every checkout.
+st, _, sg = scene_kernel.scene_closest_plain(scene, ob, db, act, t0)
+hp = o + torch.where(sg >= 0, st, t0)[:, None] * d
+_, obs, dbs, acts, t0s = traverse.pass_inputs(hp, hlsl.normalize(c.light_position[:3] - hp), scene,
+                                              active=(sg >= 0) | hit_p, occlusion=True)
 
 
 def timed(fn):
@@ -212,31 +253,110 @@ def timed(fn):
     return start.elapsed_time(end) / REPS
 
 
-frame_ms = timed(lambda: frame_kernel.render_frame_tiles(pack, width=w, height=h))
-scene_ms = timed(lambda: scene_kernel.scene_closest_tiles(scene, ob, db, act, t0, pack=pack))
+def frame():
+    return frame_kernel.render_frame_tiles(pack, width=w, height=h)
+
+
+res = {"root": ROOT, "card": torch.cuda.get_device_name(0), "reps": REPS}
+res["frame_kernel_ms"] = timed(frame)
+os.environ["GPURT_MERGED_SHADOW"] = "1"
+res["frame_kernel_merged_ms"] = timed(frame)
+del os.environ["GPURT_MERGED_SHADOW"]
+res["scene_kernel_pass_ms"] = timed(
+    lambda: scene_kernel.scene_closest_tiles(scene, ob, db, act, t0, pack=pack))
 # Each call takes its 34 planes from the allocator's cache (the block the
 # previous call freed).
-defer_ms = timed(lambda: frame_kernel.render_frame_deferred_main(pack, width=w, height=h,
-                                                                 shadow_cap=32))
-print(json.dumps({"root": ROOT, "frame_kernel_ms": frame_ms, "scene_kernel_pass_ms": scene_ms,
-                  "defer_main_ms": defer_ms, "reps": REPS,
-                  "card": torch.cuda.get_device_name(0)}), flush=True)
+res["defer_main_ms"] = timed(lambda: frame_kernel.render_frame_deferred_main(
+    pack, width=w, height=h, shadow_cap=32))
+res["fractal_frame_kernel_ms"] = timed(lambda: frame_kernel.render_frame_tiles(
+    pack_fr, width=w, height=h, max_depth=fractal_depth))
+renderer = Renderer(w, h, device=dev)
+renderer.render(0.0)
+torch.cuda.synchronize()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+acc = torch.zeros((), device=dev)
+for k in range(64):
+    acc = acc + renderer.render(0.0333 * k).sum()
+end.record()
+torch.cuda.synchronize()
+assert torch.isfinite(acc), "non-finite window"
+res["window_64_ms_per_frame"] = start.elapsed_time(end) / 64
+
+
+def efficiency(ops):
+    eff = frame_kernel.simt_efficiency(ops)
+    return {"all" if k == "all" else f"level {k[0]} {k[1]}": v[0] for k, v in eff.items()}
+
+
+if simt:
+    for label, fn in (
+            ("builtin", lambda lib, ops: frame_kernel.render_frame_tiles(
+                pack, width=w, height=h, lib=lib, ops=ops)),
+            ("fractal", lambda lib, ops: frame_kernel.render_frame_tiles(
+                pack_fr, width=w, height=h, max_depth=fractal_depth, lib=lib, ops=ops))):
+        ops = torch.zeros(33, dtype=torch.int64, device=dev)
+        fn(build.load("frame_kernel", count_simt=True), ops)
+        res[f"simt_frame_{label}"] = efficiency(ops)
+    for label, args, af in (("closest", (ob, db, act, t0), False), ("shadow", (obs, dbs, acts, t0s), True)):
+        ops = torch.zeros(33, dtype=torch.int64, device=dev)
+        scene_kernel.scene_closest_tiles(scene, *args, accept_first=af, pack=pack, ops=ops,
+                                         lib=build.load("scene_kernel", count_simt=True))
+        res[f"simt_pass_{label}"] = efficiency(ops)
+
+flib, slib = build.load("frame_kernel", fmad=FMAD), build.load("scene_kernel", fmad=FMAD)
+outs = {"builtin 1080p": frame_kernel.render_frame_tiles(pack, width=w, height=h, lib=flib)}
+for name in [cfg.name for cfg in scenes.BENCH_CONFIGS] + ["mesh_octahedra"]:
+    sc, depth = frame_pack(name, 320, 180, 0.7)
+    outs[f"{name} 320x180"] = frame_kernel.render_frame_tiles(
+        frame_kernel.pack_frame(sc), width=320, height=180, max_depth=depth, lib=flib)
+for label, args, af in (("closest", (ob, db, act, t0), False), ("shadow", (obs, dbs, acts, t0s), True)):
+    bt, nrm, g = scene_kernel.scene_closest_tiles(scene, *args, accept_first=af, pack=pack, lib=slib)
+    outs[f"1080p level-0 {label} pass"] = torch.cat([bt[:, None], nrm, g[:, None].float()], dim=1)
+torch.save({k: v.cpu() for k, v in outs.items()}, OUT)
+print(json.dumps(res), flush=True)
 """
 
 
-def ab_kernels(roots, reps: int) -> int:
-    """The builtin 1080p frame kernel and scene pass of each checkout in
-    ``roots``, in that order, each in a fresh process (see the module
-    docstring); prints one JSON line per root."""
-    for root in roots:
+def _compare(a: dict, b: dict) -> dict:
+    """Per output: the share of pixels (frames) or rays (passes) whose
+    every value is bit-equal, and the largest absolute difference."""
+    out = {}
+    for name, x in a.items():
+        y = b[name]
+        equal = (x == y) | (torch.isnan(x) & torch.isnan(y))
+        rows = equal.reshape(-1, x.shape[-1]).all(dim=1)
+        diff = (x - y).abs()
+        out[name] = {"bit_equal": float(rows.float().mean()),
+                     "max_abs_diff": float(diff[~torch.isnan(diff)].max()) if diff.numel() else 0.0}
+    return out
+
+
+def ab_kernels(roots, reps: int, fmad: bool = True) -> int:
+    """The builtin 1080p kernels of each checkout in ``roots``, in that
+    order, each in a fresh process (see the module docstring); prints one
+    JSON line per root, then the outputs of each later root against the
+    first root's."""
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "build", "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    saved = []
+    for k, root in enumerate(roots):
         root = os.path.abspath(root)
-        code = f"ROOT = {root!r}\nREPS = {reps}\n" + _KERNEL_TIMING
+        path = os.path.join(out_dir, f"root{k}.pt")
+        code = (f"ROOT = {root!r}\nREPS = {reps}\nFMAD = {fmad!r}\nOUT = {path!r}\n"
+                + _KERNEL_TIMING)
         proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                               text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
         print(proc.stdout.strip().splitlines()[-1], flush=True)
+        saved.append((root, path))
+    first = torch.load(saved[0][1])
+    for root, path in saved[1:]:
+        print(json.dumps({"root": root, "against": saved[0][0], "fmad": fmad,
+                          "outputs": _compare(first, torch.load(path))}), flush=True)
     return 0
 
 
@@ -249,17 +369,19 @@ def main(argv=None) -> int:
                    help="comma-separated names (default: all five)")
     p.add_argument("--frames", type=int, default=4, help="windows per timed repetition")
     p.add_argument("--reps", type=int, default=3, help="timed repetitions (median reported)")
-    p.add_argument("--wall-chain", type=int, default=16,
+    p.add_argument("--wall-chain", type=int, default=WALL_CHAIN,
                    help="animated frames per window (1 = every frame its own window)")
     p.add_argument("--scale", type=float, default=1.0, help="resolution scale factor")
     p.add_argument("--json", type=str, default="")
     p.add_argument("--device", default="cuda", help="torch device: cuda, cuda:N or cpu")
     p.add_argument("--ab-roots", type=str, default="",
                    help="comma-separated checkout roots: time their kernels in turns instead")
+    p.add_argument("--fmad", choices=("true", "false"), default="true",
+                   help="--ab-roots: the contraction mode of the builds whose outputs are compared")
     args = p.parse_args(argv)
     if args.ab_roots:
         print(card_line(), flush=True)
-        return ab_kernels(args.ab_roots.split(","), args.reps)
+        return ab_kernels(args.ab_roots.split(","), args.reps, fmad=args.fmad == "true")
 
     configs = ([get_config(n) for n in args.configs.split(",") if n] if args.configs
                else list(BENCH_CONFIGS))

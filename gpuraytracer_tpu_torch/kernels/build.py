@@ -9,7 +9,10 @@ Each kernel source compiles to a shared library with a plain C interface
 never with --use_fast_math (the fog kill depends on expf underflowing to
 an exact 0, and march crossings are ulp-sensitive). ``count_ops`` adds
 -DGPRT_COUNT_OPS: a build that counts the f32 operations it performs (for
-a measurement's operation bound; never the shipped build). The library
+a measurement's operation bound; never the shipped build); ``count_simt``
+adds -DGPRT_COUNT_SIMT: a build that counts, at every march sample, how
+many lanes of the warp marched (SIMT efficiency; csrc/frame_math.cuh;
+never the shipped build). The library
 lands in build/gpuraytracer_tpu_torch/ at the repository root, named after
 a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing build. A failed build raises with nvcc's
@@ -52,32 +55,35 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(fmad: bool, count_ops: bool = False):
+def _flags(fmad: bool, count_ops: bool = False, count_simt: bool = False):
     return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
-             "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else []))
+             "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else [])
+            + (["-DGPRT_COUNT_SIMT"] if count_simt else []))
 
 
-def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> Path:
+def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
+                 count_simt: bool = False) -> Path:
     """Where the build of csrc/<name>.cu with these flags lives."""
-    h = hashlib.sha256(" ".join(_flags(fmad, count_ops)).encode())
+    h = hashlib.sha256(" ".join(_flags(fmad, count_ops, count_simt)).encode())
     for src in (f"{name}.cu",) + _HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD,
-                   count_ops: bool = False) -> tuple[Path, str]:
+def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
+                   count_simt: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills; empty when reused)."""
-    out = library_path(name, fmad, count_ops)
+    out = library_path(name, fmad, count_ops, count_simt)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path()] + _flags(fmad, count_ops) + ["-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path()] + _flags(fmad, count_ops, count_simt) + ["-o", tmp,
+                                                                  str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -88,8 +94,9 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD,
 
 
 def compile_all(builds) -> dict:
-    """Run compile_kernel for every (name, fmad, count_ops) in ``builds``
-    at once (one nvcc process each); returns {build: ptxas report}."""
+    """Run compile_kernel for every (name, fmad, count_ops[, count_simt])
+    in ``builds`` at once (one nvcc process each); returns {build: ptxas
+    report}."""
     builds = list(builds)
     with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
         reports = list(pool.map(lambda b: compile_kernel(*b)[1], builds))
@@ -97,23 +104,29 @@ def compile_all(builds) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False) -> ctypes.CDLL:
+def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
+         count_simt: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; declares the C interface
     (every pointer and the stream as c_void_p)."""
-    path, _ = compile_kernel(name, fmad, count_ops)
+    path, _ = compile_kernel(name, fmad, count_ops, count_simt)
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
     entries = {
-        "frame_kernel": (("gprt_frame_render", 4, 6), ("gprt_frame_compact", 5, 9),
-                         ("gprt_frame_dense", 6, 7), ("gprt_frame_defer", 7, 7)),
-        "scene_kernel": (("gprt_scene_closest", 11, 8), ("gprt_scene_finish", 9, 5),
-                         ("gprt_shadow_queue", 6, 5)),
+        "frame_kernel": (("gprt_frame_render", 4, 7), ("gprt_frame_compact", 5, 10),
+                         ("gprt_frame_dense", 6, 8), ("gprt_frame_defer", 7, 8)),
+        "scene_kernel": (("gprt_scene_closest", 11, 9), ("gprt_scene_finish", 9, 6),
+                         ("gprt_shadow_queue", 6, 6)),
     }
     for fn, n_ptr, n_int in entries.get(name, ()):
         getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
         getattr(lib, fn).restype = ci
-    if name == "scene_kernel":
+    if name == "frame_kernel":
+        lib.gprt_frame_residency.argtypes = [ci] * 5 + [vp, vp]
+        lib.gprt_frame_residency.restype = ci
+    elif name == "scene_kernel":
+        lib.gprt_scene_residency.argtypes = [ci] * 5 + [vp, vp]
+        lib.gprt_scene_residency.restype = ci
         lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
         lib.gprt_sdf_distance.restype = ci
     elif name == "megakernel":

@@ -30,8 +30,12 @@
 // escape bound, cycle retirement, the shrinking best t, the shadow-
 // necessity gate and the dead-throughput kill). The TPU schedule (VMEM
 // scratch banks, pl.when tile gates, unroll and tile knobs) never changed
-// the image and is not carried over. Register pressure and divergence are
-// left to later work.
+// the image and is not carried over. A persistent schedule (as many blocks
+// as stay resident, warps taking 8x4 tiles from a global counter), with or
+// without refilling idle lanes per ray query, read 1.5-2.2x slower on an
+// H100 than this launch, even where it raised the share of lanes that
+// march together (PERF.md), and is not used. Register pressure and
+// divergence are left to later work.
 //
 // The compacted frame modes (GPURT_FRAME_MODE; the reference's
 // render_frame_compact, frame_kernel.py:803, and render_frame_deferred,
@@ -60,6 +64,10 @@
 // runs under GPURT_MERGED_SHADOW where it allocates the merged banks); the
 // host picks it under the knob, so the default instantiation carries none
 // of its state. The image is the sequential one.
+//
+// Every entry has an instantiation per layout of the scene's tables
+// (kShared: copied to shared memory; else read in place, for a scene past a
+// block's shared memory), picked on the host (traverse.cuh GPRT_PICK1/2).
 //
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py packs
 // them (header, then the reference's pack_frame_params blocks); tri, the
@@ -194,6 +202,7 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
   for (int level = 0; level < max_depth; ++level) {
     GPRT_OPS(6 + 13 + 7 + 22 + 18 + 1 + 3 + 8 + 4 * 9 + 7 + 2 + 5 + 3 * 14 + 11);
     reached = level + 1;
+    GPRT_SIMT_BUCKET(2 * level);
     Hit h = closest_hit<kForm == kCompactForm>(s, o, d, level, closest_caps, dirty);
     // compact: a capped pixel is rendered again by the dense pass.
     if (kForm == kCompactForm && *dirty) break;
@@ -227,6 +236,7 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
         GPRT_OPS(13);
         sd = normalize(sub(light, hp));
       }
+      GPRT_SIMT_BUCKET(2 * level + 1);
       in_shadow = occluded<kForm != kPlainForm, kMerged>(s, hp, sd, level, shadow_caps,
                                                          kForm == kDeferForm ? &sdirty : dirty);
     }
@@ -299,49 +309,44 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
   return make_float4(color[0], color[1], color[2], color[3]);
 }
 
-// The block's scene in shared memory, after resetting the op counter of a
-// counting build.
+// The block's scene (in shared memory, or read in place: kShared), after
+// resetting a counting build's counters.
+template <bool kShared>
 __device__ __forceinline__ Scene block_scene(const float* __restrict__ params,
                                              const int* __restrict__ layout,
-                                             const float* __restrict__ tri, int G, int M) {
+                                             const float* __restrict__ tri, int G, int M,
+                                             unsigned long long* ops) {
   extern __shared__ float smem[];
-#ifdef GPRT_COUNT_OPS
-  if (threadIdx.x == 0 && threadIdx.y == 0) gprt_block_ops = 0;
-#endif
-  return load_scene<true>(params, layout, tri, G, M, smem);
-}
-
-__device__ __forceinline__ void add_block_ops(unsigned long long* ops) {
-#ifdef GPRT_COUNT_OPS
-  __syncthreads();
-  if (threadIdx.x == 0 && threadIdx.y == 0) atomicAdd(ops, gprt_block_ops);
-#endif
+  counters_begin(ops);
+  return load_scene<true, kShared>(params, layout, tri, G, M, smem);
 }
 
 // kMerged: the instantiation with merged occlusion marches; the default one
-// carries none of their state.
-template <bool kMerged>
+// carries none of their state. kShared: the scene's tables in shared memory
+// (else read in place).
+template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     frame_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                  const float* __restrict__ tri, float4* __restrict__ out, int width, int height, int max_depth, int G, int M,
                  unsigned long long* ops) {
-  const Scene s = block_scene(params, layout, tri, G, M);
+  const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {
     out[py * width + px] = render_pixel<kPlainForm, kMerged>(
         s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0);
   }
-  add_block_ops(ops);
+  counters_end(ops);
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_compact_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                          const float* __restrict__ tri, float4* __restrict__ out,
                          int* __restrict__ dirty_out, int width, int height, int max_depth, int G,
                          int M, CapSpec closest_caps, CapSpec shadow_caps,
                          unsigned long long* ops) {
-  const Scene s = block_scene(params, layout, tri, G, M);
+  const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {
@@ -351,16 +356,16 @@ __global__ void __launch_bounds__(128)
                                                       DeferOut{}, 0);
     dirty_out[py * width + px] = (int)dirty;
   }
-  add_block_ops(ops);
+  counters_end(ops);
 }
 
-template <bool kMerged>
+template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     frame_dense_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                        const float* __restrict__ tri, const int* __restrict__ qpx,
                        const int* __restrict__ qpy, float4* __restrict__ out, int n, int width,
                        int height, int max_depth, int G, int M, unsigned long long* ops) {
-  const Scene s = block_scene(params, layout, tri, G, M);
+  const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     const int px = qpx[i], py = qpy[i];
@@ -369,45 +374,54 @@ __global__ void __launch_bounds__(128)
                                                         CapSpec{}, CapSpec{}, nullptr,
                                                         DeferOut{}, 0);
   }
-  add_block_ops(ops);
+  counters_end(ops);
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_defer_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                        const float* __restrict__ tri, DeferOut rec, int width, int height,
                        int max_depth, int G, int M, CapSpec shadow_caps,
                        unsigned long long* ops) {
-  const Scene s = block_scene(params, layout, tri, G, M);
+  const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {
     render_pixel<kDeferForm>(s, px, py, width, height, max_depth, CapSpec{}, shadow_caps,
                              nullptr, rec, py * width + px);
   }
-  add_block_ops(ops);
+  counters_end(ops);
 }
 
 }  // namespace gprt
 
-// Checks the device and takes the dynamic shared memory `kernel` needs.
+// Checks the device and takes the dynamic shared memory `kernel` needs:
+// the buffers' bytes where the host put the scene's tables in shared
+// memory (`shared`), else none.
 template <typename Kernel>
-static cudaError_t setup(Kernel kernel, int G, int M, int device, size_t* shmem) {
+static cudaError_t setup(Kernel kernel, int G, int M, int shared, int device, size_t* shmem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  *shmem = gprt::shared_bytes(true, G, M);
+  if (GPRT_COUNTING && !shared) return cudaErrorNotSupported;
+  *shmem = shared ? gprt::shared_bytes(true, G, M) : 0;
   return gprt::reserve_shared(kernel, *shmem, device);
 }
 
-// ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds
-// the frame's f32 FLOPs to; the default build ignores it. merged: launch
-// the instantiation with merged occlusion marches.
+static auto frame_entry(int merged, int shared) {
+  return GPRT_PICK2(gprt::frame_kernel, merged, shared);
+}
+
+// ops: a device counter that the counting builds add to (-DGPRT_COUNT_OPS:
+// the frame's f32 FLOPs; -DGPRT_COUNT_SIMT: 2 x 16 + 1 SIMT counters); the
+// default build ignores it. merged: launch the instantiation with merged
+// occlusion marches. shared: the scene's tables in shared memory.
 extern "C" int gprt_frame_render(const float* params, const int* layout, const float* tri,
-                                 float* out, int width,
-                                 int height, int max_depth, int num_geometries, int num_materials,
-                                 int merged, unsigned long long* ops, int device, void* stream) {
-  const auto kernel = merged ? gprt::frame_kernel<true> : gprt::frame_kernel<false>;
+                                 float* out, int width, int height, int max_depth,
+                                 int num_geometries, int num_materials, int shared, int merged,
+                                 unsigned long long* ops, int device, void* stream) {
+  const auto kernel = frame_entry(merged, shared);
   size_t shmem;
-  cudaError_t err = setup(kernel, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(16, 8);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
@@ -417,19 +431,32 @@ extern "C" int gprt_frame_render(const float* params, const int* layout, const f
   return (int)cudaGetLastError();
 }
 
+// The frame kernel's resident blocks per SM and in all (a report; nothing is
+// launched).
+extern "C" int gprt_frame_residency(int num_geometries, int num_materials, int shared, int merged,
+                                    int device, int* per_sm, int* total) {
+  const auto kernel = frame_entry(merged, shared);
+  size_t shmem;
+  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gprt::resident_blocks(kernel, shmem, device, per_sm, total);
+}
+
 // The compact form's main pass: out (H, W, 4), dirty (H, W) int32; the
 // closest and occlusion passes' SDF and metaball step caps.
 extern "C" int gprt_frame_compact(const float* params, const int* layout, const float* tri,
                                   float* out, int* dirty, int width, int height, int max_depth,
-                                  int num_geometries, int num_materials, int closest_sdf_cap,
-                                  int closest_mb_cap, int shadow_sdf_cap, int shadow_mb_cap,
-                                  unsigned long long* ops, int device, void* stream) {
+                                  int num_geometries, int num_materials, int shared,
+                                  int closest_sdf_cap, int closest_mb_cap, int shadow_sdf_cap,
+                                  int shadow_mb_cap, unsigned long long* ops, int device,
+                                  void* stream) {
+  const auto kernel = GPRT_PICK1(gprt::frame_compact_kernel, shared);
   size_t shmem;
-  cudaError_t err = setup(gprt::frame_compact_kernel, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(16, 8);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  gprt::frame_compact_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), dirty, width, height, max_depth,
       num_geometries, num_materials, gprt::CapSpec{closest_sdf_cap, closest_mb_cap},
       gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
@@ -441,11 +468,12 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
 extern "C" int gprt_frame_dense(const float* params, const int* layout, const float* tri,
                                 const int* qpx, const int* qpy, float* out, int n, int width,
                                 int height, int max_depth, int num_geometries, int num_materials,
-                                int merged, unsigned long long* ops, int device, void* stream) {
+                                int shared, int merged, unsigned long long* ops, int device,
+                                void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const auto kernel = merged ? gprt::frame_dense_kernel<true> : gprt::frame_dense_kernel<false>;
+  const auto kernel = GPRT_PICK2(gprt::frame_dense_kernel, merged, shared);
   size_t shmem;
-  cudaError_t err = setup(kernel, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, qpx, qpy, reinterpret_cast<float4*>(out), n, width, height, max_depth,
@@ -459,17 +487,18 @@ extern "C" int gprt_frame_dense(const float* params, const int* layout, const fl
 extern "C" int gprt_frame_defer(const float* params, const int* layout, const float* tri,
                                 float* lit, float* shadowed, int* sinfo, float* rays, int width,
                                 int height, int max_depth, int num_geometries, int num_materials,
-                                int shadow_sdf_cap, int shadow_mb_cap, unsigned long long* ops,
-                                int device, void* stream) {
+                                int shared, int shadow_sdf_cap, int shadow_mb_cap,
+                                unsigned long long* ops, int device, void* stream) {
   if (max_depth < 2) return (int)cudaErrorInvalidValue;
+  const auto kernel = GPRT_PICK1(gprt::frame_defer_kernel, shared);
   size_t shmem;
-  cudaError_t err = setup(gprt::frame_defer_kernel, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(16, 8);
   dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
                            sinfo, rays, width * height};
-  gprt::frame_defer_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, rec, width, height, max_depth, num_geometries, num_materials,
       gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
   return (int)cudaGetLastError();

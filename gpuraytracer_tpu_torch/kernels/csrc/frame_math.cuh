@@ -23,6 +23,17 @@
 // transcendental call is one; comparisons, selects, negations and
 // arithmetic on constants alone (folded by the compiler) are not counted.
 // Only the operation bound of a measurement reads it.
+//
+// Built with -DGPRT_COUNT_SIMT, every march sample (an SDF distance or a
+// metaball field evaluation of a march step) counts how full its warp was:
+// the lanes marching together are grouped by the bucket their thread set
+// (GPRT_SIMT_BUCKET: level * 2 + 1 for an occlusion query, level * 2 for a
+// closest one); each group adds its lane count to its bucket's lane-samples
+// and its share of the warp-sample (lanes of the group over active lanes,
+// in units of 2^-20) to its bucket's warp-samples, and the warp's lowest
+// active lane adds one to the total warp-samples. SIMT efficiency is
+// lane-samples / (32 x warp-samples). The kernel's ops pointer then holds
+// 2 x kSimtBuckets + 1 counters; the default build compiles it away.
 #pragma once
 
 #include <math.h>
@@ -36,6 +47,40 @@ __shared__ unsigned long long gprt_block_ops;
 #define GPRT_OPS(n) atomicAdd(&gprt_block_ops, (unsigned long long)(n))
 #else
 #define GPRT_OPS(n) ((void)0)
+#endif
+
+namespace gprt {
+
+constexpr int kSimtBuckets = 16;  // 8 levels x (closest, occlusion)
+constexpr int kSimtShift = 20;    // fixed-point unit of a warp-sample share
+
+}  // namespace gprt
+
+#ifdef GPRT_COUNT_SIMT
+__shared__ unsigned long long* gprt_simt_out;
+__shared__ int gprt_simt_bucket[128];  // one slot per thread of a 128-thread block
+
+__device__ __forceinline__ int gprt_thread() {
+  return (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ void gprt_simt_sample() {
+  const unsigned active = __activemask();
+  const unsigned lane = gprt_thread() & 31;
+  const int b = gprt_simt_bucket[gprt_thread()];
+  const unsigned group = __match_any_sync(active, b);
+  if (lane == (unsigned)(__ffs(group) - 1)) {
+    atomicAdd(gprt_simt_out + 2 * b, (unsigned long long)__popc(group));
+    atomicAdd(gprt_simt_out + 2 * b + 1,
+              ((unsigned long long)__popc(group) << gprt::kSimtShift) / __popc(active));
+  }
+  if (lane == (unsigned)(__ffs(active) - 1)) atomicAdd(gprt_simt_out + 2 * gprt::kSimtBuckets, 1ull);
+}
+#define GPRT_SIMT_SAMPLE() gprt_simt_sample()
+#define GPRT_SIMT_BUCKET(b) (gprt_simt_bucket[gprt_thread()] = (b))
+#else
+#define GPRT_SIMT_SAMPLE() ((void)0)
+#define GPRT_SIMT_BUCKET(b) ((void)0)
 #endif
 
 namespace gprt {
@@ -284,6 +329,88 @@ __device__ __noinline__ V3 sdf_normal(int code, V3 p) {
   return normalize(n);
 }
 
+// distance_julia with every product and sum rounded on its own
+// (__fmul_rn, __fadd_rn, __fsub_rn, which nvcc never contracts into an
+// FMA, whatever --fmad says), in the same association.
+__device__ __forceinline__ float distance_julia_exact(V3 p) {
+  auto mul = [](float a, float b) { return __fmul_rn(a, b); };
+  // a*b + c*d + e*f + g*h left to right, the second to fourth terms added
+  // (true) or subtracted (false).
+  auto sum4 = [](float ab, float cd, float ef, float gh, bool p2, bool p3, bool p4) {
+    float r = p2 ? __fadd_rn(ab, cd) : __fsub_rn(ab, cd);
+    r = p3 ? __fadd_rn(r, ef) : __fsub_rn(r, ef);
+    return p4 ? __fadd_rn(r, gh) : __fsub_rn(r, gh);
+  };
+  const float scale = F(1.1);
+  const float cw = F(-0.2), cx = F(0.6), cy = F(0.2), cz = F(0.2);
+  float zw = mul(p.x, scale), zx = mul(p.y, scale), zy = mul(p.z, scale), zz = 0.0f;
+  float dw = 1.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  bool escaped = false;
+  int it = 0;
+  for (; it < 11; ++it) {
+    const float m2 = sum4(mul(zw, zw), mul(zx, zx), mul(zy, zy), mul(zz, zz), true, true, true);
+    if (m2 > 16.0f) {
+      escaped = true;
+      break;
+    }
+    const float ew = sum4(mul(zw, dw), mul(zx, dx), mul(zy, dy), mul(zz, dz), false, false, false);
+    const float ex = sum4(mul(zw, dx), mul(zx, dw), mul(zy, dz), mul(zz, dy), true, true, false);
+    const float ey = sum4(mul(zw, dy), mul(zx, dz), mul(zy, dw), mul(zz, dx), false, true, true);
+    const float ez = sum4(mul(zw, dz), mul(zx, dy), mul(zy, dx), mul(zz, dw), true, false, true);
+    const float qw = sum4(mul(zw, zw), mul(zx, zx), mul(zy, zy), mul(zz, zz), false, false, false);
+    const float qx = sum4(mul(zw, zx), mul(zx, zw), mul(zy, zz), mul(zz, zy), true, true, false);
+    const float qy = sum4(mul(zw, zy), mul(zx, zz), mul(zy, zw), mul(zz, zx), false, true, true);
+    const float qz = sum4(mul(zw, zz), mul(zx, zy), mul(zy, zx), mul(zz, zw), true, false, true);
+    dw = mul(2.0f, ew);
+    dx = mul(2.0f, ex);
+    dy = mul(2.0f, ey);
+    dz = mul(2.0f, ez);
+    zw = __fadd_rn(qw, cw);
+    zx = __fadd_rn(qx, cx);
+    zy = __fadd_rn(qy, cy);
+    zz = __fadd_rn(qz, cz);
+  }
+  GPRT_OPS(3 + 71 * it + (escaped ? 7 : 0) + 23);
+  const float mz = fmaxf(
+      sqrtf(sum4(mul(zw, zw), mul(zx, zx), mul(zy, zy), mul(zz, zz), true, true, true)), F(1e-9));
+  const float mdz = fmaxf(
+      sqrtf(sum4(mul(dw, dw), mul(dx, dx), mul(dy, dy), mul(dz, dz), true, true, true)), F(1e-6));
+  const float de = mul(mul(0.5f, mz), logf(mz)) / mdz;
+  return (escaped ? de : F(-1e-3)) / scale;
+}
+
+// Code 8's (the Julia set's) normal, as sdf_normal but with every product
+// and sum rounded on its own: its 11 chaotic iterations amplify a
+// contracted multiply-add's last bit, and the division by the offset
+// (5.8e-5) turns that into a different normal; rounded op by op it is the
+// plain version's (PERF.md). A function of its own, called only at a
+// code-8 hit (hit_normal): written into sdf_normal, which the marches'
+// back-face test calls, it raised the kernels' registers and cost the
+// frame, merged, defer and scene kernels 2-10% in same-call A/Bs on an H100.
+__device__ __noinline__ V3 julia_normal(V3 p) {
+  GPRT_OPS(12 + 21 + 10);
+  const float e = F(0.5773 * 0.0001);
+  const float d0 = distance_julia_exact(v3(p.x + e, p.y + -e, p.z + -e));
+  const float d1 = distance_julia_exact(v3(p.x + -e, p.y + -e, p.z + e));
+  const float d2 = distance_julia_exact(v3(p.x + -e, p.y + e, p.z + -e));
+  const float d3 = distance_julia_exact(v3(p.x + e, p.y + e, p.z + e));
+  auto term = [e](float a, float b, float c, float d, float x0, float x1, float x2, float x3) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x0, a), __fmul_rn(x1, b)), __fmul_rn(x2, c)),
+                     __fmul_rn(x3, d));
+  };
+  const V3 n = v3(term(d0, d1, d2, d3, e, -e, -e, e), term(d0, d1, d2, d3, -e, -e, e, e),
+                  term(d0, d1, d2, d3, -e, e, -e, e));
+  const float l = fmaxf(
+      sqrtf(__fadd_rn(__fadd_rn(__fmul_rn(n.x, n.x), __fmul_rn(n.y, n.y)), __fmul_rn(n.z, n.z))),
+      1e-20f);
+  return v3(n.x / l, n.y / l, n.z / l);
+}
+
+// The normal at a hit of SDF code `code`: sdf_normal, code 8's julia_normal.
+__device__ __forceinline__ V3 hit_normal(int code, V3 p) {
+  return code == 8 ? julia_normal(p) : sdf_normal(code, p);
+}
+
 // ---------------------------------------------------------------------------
 // Analytic primitives (geometry/analytic.py)
 // ---------------------------------------------------------------------------
@@ -446,6 +573,7 @@ __device__ int march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cu
   float t = tmin;
   for (int s = 0; s < max_steps; ++s) {
     GPRT_OPS(7);
+    GPRT_SIMT_SAMPLE();
     V3 pos = along(o, t, d);
     if (metaballs_potential(pos, mb) >= F(0.25)) {
       bool ok = t >= 0.0f && t <= t_max;
@@ -513,6 +641,7 @@ __device__ __forceinline__ int march_loop(int code, V3 o, V3 d, float t_start, f
   const bool relaxed = m.relax > 1.0f;
   while (steps < m.max_steps) {
     GPRT_OPS(relaxed ? 13 : 9);
+    GPRT_SIMT_SAMPLE();
     V3 pos = along(o, t, d);
     float dist = sdf_distance(code, pos);
     ++steps;

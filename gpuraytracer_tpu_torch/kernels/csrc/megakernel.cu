@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(128)
       if (march_hit(r, m)) {
         GPRT_OPS(6);
         t = r == kMarchCapped ? 0.0f : th;
-        nl = sdf_normal(code, along(ol, t, dl));
+        nl = hit_normal(code, along(ol, t, dl));
       }
     }
     t_hit[i] = t;

@@ -32,11 +32,14 @@
 // frame kernel (ALU- and latency-bound); its bytes are 29 per ray in (o, d,
 // active, t0) and 20 out (best_t, normal, gid). What the design does about
 // it: the traversal's parameters sit in shared memory per block (the
-// shading blocks of the buffers are not copied), rays are read and
-// written once, and every march stops early by the reference's
-// result-exact rules. The wavefront keeps rays in pixel
-// order, so a warp's rays stay spatially coherent; sorting rays by
-// direction or geometry is left to later work.
+// shading blocks of the buffers are not copied; a scene whose tables do not
+// fit there is read in place, kShared), rays are read and written once, and
+// every march stops early by the reference's result-exact rules. The
+// wavefront keeps rays in pixel order, so a warp's rays stay spatially
+// coherent; sorting rays by direction or geometry is left to later work. A
+// persistent form (resident blocks, warps taking 32-ray batches from a
+// global counter) read 9-13% slower on an H100 at the same occupancy
+// (PERF.md).
 //
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py
 // pack_frame builds them; tri, the F x 12 mesh face table (null without
@@ -51,7 +54,8 @@ namespace gprt {
 
 // kMain: the two-phase main pass (marches capped by caps, the dirty word
 // written to dirty_out); else the single pass (caps and dirty_out unread).
-template <bool kMain>
+// kShared: the traversal's tables in shared memory (else read in place).
+template <bool kMain, bool kShared>
 __global__ void __launch_bounds__(128)
     scene_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                  const float* __restrict__ tri, const float* __restrict__ o, const float* __restrict__ d,
@@ -60,10 +64,8 @@ __global__ void __launch_bounds__(128)
                  int* __restrict__ dirty_out, int n, int G, int M, int level, int accept_first,
                  int cull, CapSpec caps, unsigned long long* ops) {
   extern __shared__ float smem[];
-#ifdef GPRT_COUNT_OPS
-  if (threadIdx.x == 0) gprt_block_ops = 0;
-#endif
-  const Scene s = load_scene<false>(params, layout, tri, G, M, smem);
+  counters_begin(ops);
+  const Scene s = load_scene<false, kShared>(params, layout, tri, G, M, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     const V3 ob = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
@@ -85,10 +87,7 @@ __global__ void __launch_bounds__(128)
     gid[i] = h.gid;
     if (kMain) dirty_out[i] = (int)dirty;
   }
-#ifdef GPRT_COUNT_OPS
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(ops, gprt_block_ops);
-#endif
+  counters_end(ops);
 }
 
 // The two-phase finisher (replaces _finish_tile, scene_kernel.py:1028):
@@ -96,6 +95,7 @@ __global__ void __launch_bounds__(128)
 // (traverse.cuh finish_procedural) for the rays whose dirty word is not 0
 // (those were active in the main pass); the rest are not touched. Bound like
 // the scene kernel over the dirty rays; 4 bytes read per clean ray.
+template <bool kShared>
 __global__ void __launch_bounds__(128)
     scene_finish_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                         const float* __restrict__ tri, const float* __restrict__ o,
@@ -104,10 +104,8 @@ __global__ void __launch_bounds__(128)
                         int* __restrict__ gid, int n, int G, int M, int accept_first, int cull,
                         unsigned long long* ops) {
   extern __shared__ float smem[];
-#ifdef GPRT_COUNT_OPS
-  if (threadIdx.x == 0) gprt_block_ops = 0;
-#endif
-  const Scene s = load_scene<false>(params, layout, tri, G, M, smem);
+  counters_begin(ops);
+  const Scene s = load_scene<false, kShared>(params, layout, tri, G, M, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned bits = i < n ? (unsigned)dirty[i] : 0u;
   if (bits != 0) {
@@ -121,10 +119,7 @@ __global__ void __launch_bounds__(128)
     normal[3 * i + 2] = h.n.z;
     gid[i] = h.gid;
   }
-#ifdef GPRT_COUNT_OPS
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(ops, gprt_block_ops);
-#endif
+  counters_end(ops);
 }
 
 // The deferred-shadow mode's occlusion repair queue (replaces the
@@ -139,17 +134,15 @@ __global__ void __launch_bounds__(128)
 // the long tail); 25 bytes in and 4 out per entry. kMerged: the occlusion
 // traversal merges the SDF marches (GPURT_MERGED_SHADOW; the reference
 // allocates the merged banks for this kernel, frame_kernel.py:1259).
-template <bool kMerged>
+template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     shadow_queue_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                         const float* __restrict__ tri, const float* __restrict__ rays,
                         const bool* __restrict__ active, int* __restrict__ occ, int n, int seg,
                         int G, int M, unsigned long long* ops) {
   extern __shared__ float smem[];
-#ifdef GPRT_COUNT_OPS
-  if (threadIdx.x == 0) gprt_block_ops = 0;
-#endif
-  const Scene s = load_scene<false>(params, layout, tri, G, M, smem);
+  counters_begin(ops);
+  const Scene s = load_scene<false, kShared>(params, layout, tri, G, M, smem);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
     bool hit = false;
@@ -161,10 +154,7 @@ __global__ void __launch_bounds__(128)
     }
     occ[i] = hit ? 1 : 0;
   }
-#ifdef GPRT_COUNT_OPS
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(ops, gprt_block_ops);
-#endif
+  counters_end(ops);
 }
 
 // Check entry, not on any render path: the distance function of SDF code
@@ -179,29 +169,33 @@ __global__ void __launch_bounds__(128)
 }  // namespace gprt
 
 // Checks the device and the ray count and takes the dynamic shared memory
-// `kernel` needs.
+// `kernel` needs: the traversal prefix's bytes where the host put the
+// tables in shared memory (`shared`), else none.
 template <typename Kernel>
-static cudaError_t setup(Kernel kernel, int n, int G, int M, int device, size_t* shmem) {
+static cudaError_t setup(Kernel kernel, int n, int G, int M, int shared, int device,
+                         size_t* shmem) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaErrorInvalidValue;
-  *shmem = gprt::shared_bytes(false, G, M);
+  if (GPRT_COUNTING && !shared) return cudaErrorNotSupported;
+  *shmem = shared ? gprt::shared_bytes(false, G, M) : 0;
   return gprt::reserve_shared(kernel, *shmem, device);
 }
 
-// ops: a device counter that the counting build (-DGPRT_COUNT_OPS) adds the
-// pass's f32 FLOPs to; the default build ignores it. dirty: null for the
-// single pass; else the two-phase main pass's (N,) int32 dirty words, its
-// marches capped at sdf_cap / mb_cap steps.
+// ops: a device counter that the counting builds add to (-DGPRT_COUNT_OPS:
+// the pass's f32 FLOPs; -DGPRT_COUNT_SIMT: 2 x 16 + 1 SIMT counters); the
+// default build ignores it. dirty: null for the single pass; else the
+// two-phase main pass's (N,) int32 dirty words, its marches capped at
+// sdf_cap / mb_cap steps. shared: the tables in shared memory.
 extern "C" int gprt_scene_closest(const float* params, const int* layout, const float* tri,
                                   const float* o, const float* d, const bool* active, const float* t0,
                                   float* best_t, float* normal, int* gid, int* dirty, int n,
-                                  int num_geometries, int num_materials, int level,
+                                  int num_geometries, int num_materials, int shared, int level,
                                   int accept_first, int cull, int sdf_cap, int mb_cap,
                                   unsigned long long* ops, int device, void* stream) {
-  const auto kernel = dirty ? gprt::scene_kernel<true> : gprt::scene_kernel<false>;
+  const auto kernel = GPRT_PICK2(gprt::scene_kernel, dirty != nullptr, shared);
   size_t shmem;
-  cudaError_t err = setup(kernel, n, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, n, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, o, d, active, t0, best_t, normal, gid, dirty, n, num_geometries,
@@ -209,33 +203,45 @@ extern "C" int gprt_scene_closest(const float* params, const int* layout, const 
   return (int)cudaGetLastError();
 }
 
+// The pass's resident blocks per SM and in all, as gprt_scene_closest
+// launches it (main: the two-phase main pass); a report, nothing is
+// launched.
+extern "C" int gprt_scene_residency(int num_geometries, int num_materials, int shared, int main,
+                                    int device, int* per_sm, int* total) {
+  const auto kernel = GPRT_PICK2(gprt::scene_kernel, main, shared);
+  size_t shmem;
+  cudaError_t err = setup(kernel, 1, num_geometries, num_materials, shared, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gprt::resident_blocks(kernel, shmem, device, per_sm, total);
+}
+
 // The two-phase finisher over the main pass's outputs (updated in place);
-// ops as for gprt_scene_closest.
+// ops and shared as for gprt_scene_closest.
 extern "C" int gprt_scene_finish(const float* params, const int* layout, const float* tri,
                                  const float* o, const float* d, const int* dirty, float* best_t,
                                  float* normal, int* gid, int n, int num_geometries,
-                                 int num_materials, int accept_first, int cull,
+                                 int num_materials, int shared, int accept_first, int cull,
                                  unsigned long long* ops, int device, void* stream) {
+  const auto kernel = GPRT_PICK1(gprt::scene_finish_kernel, shared);
   size_t shmem;
-  cudaError_t err = setup(gprt::scene_finish_kernel, n, num_geometries, num_materials, device,
-                          &shmem);
+  cudaError_t err = setup(kernel, n, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  gprt::scene_finish_kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, o, d, dirty, best_t, normal, gid, n, num_geometries, num_materials,
       accept_first, cull, ops);
   return (int)cudaGetLastError();
 }
 
-// ops: as for gprt_scene_closest; merged: launch the instantiation with
-// merged occlusion marches.
+// ops and shared as for gprt_scene_closest; merged: launch the
+// instantiation with merged occlusion marches.
 extern "C" int gprt_shadow_queue(const float* params, const int* layout, const float* tri,
                                  const float* rays, const bool* active, int* occ, int n, int seg,
-                                 int num_geometries, int num_materials, int merged,
+                                 int num_geometries, int num_materials, int shared, int merged,
                                  unsigned long long* ops, int device, void* stream) {
   if (seg <= 0) return (int)cudaErrorInvalidValue;
-  const auto kernel = merged ? gprt::shadow_queue_kernel<true> : gprt::shadow_queue_kernel<false>;
+  const auto kernel = GPRT_PICK2(gprt::shadow_queue_kernel, merged, shared);
   size_t shmem;
-  cudaError_t err = setup(kernel, n, num_geometries, num_materials, device, &shmem);
+  cudaError_t err = setup(kernel, n, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
       params, layout, tri, rays, active, occ, n, seg, num_geometries, num_materials, ops);

@@ -37,9 +37,15 @@
 // Parameters: the f32 and int32 buffers of kernels/frame_kernel.py
 // pack_frame, copied to shared memory once per block (load_scene): the
 // whole buffers for the frame kernel, only their traversal prefix for the
-// scene kernel. The F x 12 face table stays in global memory and is read
-// through the read-only cache: faces are many and read once per ray, and
-// shared memory keeps only what every ray of the block reads.
+// scene kernel. A scene whose copy would not fit in a block's shared
+// memory (past 227 KB on an H100: about 1,410 geometries for the frame
+// kernel) is read from global memory instead: the host picks this layout
+// once per launch from the sizes (kernels/frame_kernel.py
+// tables_in_shared), launches the kernels' kShared = false instantiation
+// and takes no dynamic shared memory. The F x 12 face table stays in global
+// memory and is read through the read-only cache: faces are many and read
+// once per ray, and shared memory keeps only what every ray of the block
+// reads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -131,25 +137,67 @@ __host__ cudaError_t reserve_shared(Kernel kernel, size_t bytes, int device) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Copies the buffers into the block's shared memory (every thread of the
-// block must call it) and points a Scene at them. Without kShading only
-// the traversal prefix is copied, and the shading blocks (materials,
-// camera, light, plane, material slots) are null.
-template <bool kShading>
+// Blocks of 128 threads of `kernel` that the device keeps resident at once
+// with `shmem` bytes of dynamic shared memory each (per SM, and in all).
+template <typename Kernel>
+__host__ cudaError_t resident_blocks(Kernel kernel, size_t shmem, int device, int* per_sm,
+                                     int* total) {
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 128, shmem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *total = *per_sm * sms;
+  return *total > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// The instantiation of a kernel template, <kShared> (GPRT_PICK1) or <kFlag,
+// kShared> (GPRT_PICK2), that the host's flags pick. A counting build
+// (-DGPRT_COUNT_OPS, -DGPRT_COUNT_SIMT) compiles the shared-memory layout
+// only (it measures scenes whose tables fit there), and its launchers
+// refuse the other (GPRT_COUNTING).
+#if defined(GPRT_COUNT_OPS) || defined(GPRT_COUNT_SIMT)
+#define GPRT_COUNTING 1
+#define GPRT_PICK1(Kernel, shared) (Kernel<true>)
+#define GPRT_PICK2(Kernel, flag, shared) ((flag) ? Kernel<true, true> : Kernel<false, true>)
+#else
+#define GPRT_COUNTING 0
+#define GPRT_PICK1(Kernel, shared) ((shared) ? Kernel<true> : Kernel<false>)
+#define GPRT_PICK2(Kernel, flag, shared)                          \
+  ((flag) ? ((shared) ? Kernel<true, true> : Kernel<true, false>) \
+          : ((shared) ? Kernel<false, true> : Kernel<false, false>))
+#endif
+
+// Points a Scene at the buffers: with kShared, copies them into the block's
+// shared memory first (every thread of the block must call it), else reads
+// them where they are in global memory. The host picks the instantiation
+// once per launch (kShared is a template parameter, so that the shared
+// layout's loads stay shared-memory loads). Without kShading only the
+// traversal prefix is copied, and the shading blocks (materials, camera,
+// light, plane, material slots) are null. The block synchronizes either
+// way, which also publishes the counters a counting build reset before the
+// call.
+template <bool kShading, bool kShared>
 __device__ __forceinline__ Scene load_scene(const float* __restrict__ params,
                                             const int* __restrict__ layout,
                                             const float* __restrict__ tri, int G, int M,
                                             float* smem) {
   const int nf = kShading ? param_floats(G, M) : traversal_floats(G);
   const int ni = kShading ? layout_ints(G) : traversal_ints(G);
-  int* ismem = reinterpret_cast<int*>(smem + nf);
-  const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y * blockDim.z;
-  for (int k = tid; k < nf; k += nthreads) smem[k] = params[k];
-  for (int k = tid; k < ni; k += nthreads) ismem[k] = layout[k];
+  const float* fbase = params;
+  const int* ibase = layout;
+  if (kShared) {
+    int* ismem = reinterpret_cast<int*>(smem + nf);
+    const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+    const int nthreads = blockDim.x * blockDim.y * blockDim.z;
+    for (int k = tid; k < nf; k += nthreads) smem[k] = params[k];
+    for (int k = tid; k < ni; k += nthreads) ismem[k] = layout[k];
+    fbase = smem;
+    ibase = ismem;
+  }
   __syncthreads();
   Scene s;
-  s.hdr = smem;
+  s.hdr = fbase;
   s.b2l = s.hdr + kFHeader;
   s.l2b = s.b2l + 12 * G;
   s.sscale = s.l2b + 9 * G;
@@ -158,14 +206,39 @@ __device__ __forceinline__ Scene load_scene(const float* __restrict__ params,
   s.mat = kShading ? s.mb + 12 : nullptr;
   s.p2w = kShading ? s.mat + 8 * M : nullptr;
   s.cvec = kShading ? s.p2w + 16 : nullptr;
-  s.geo = ismem + kIHeader;
+  s.geo = ibase + kIHeader;
   s.mat_ids = kShading ? s.geo + kGeoStride * G : nullptr;
   s.G = G;
   s.M = M;
-  s.plane_gid = ismem[2];
-  s.has_plane = ismem[3];
+  s.plane_gid = ibase[2];
+  s.has_plane = ibase[3];
   s.tri = tri;
   return s;
+}
+
+// Resets a counting build's counters of the block (before load_scene, whose
+// barrier publishes them): the op counter, and the SIMT build's counter
+// pointer and every thread's bucket (0 until the thread sets its own).
+__device__ __forceinline__ void counters_begin(unsigned long long* ops) {
+  const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+#ifdef GPRT_COUNT_OPS
+  if (tid == 0) gprt_block_ops = 0;
+#endif
+#ifdef GPRT_COUNT_SIMT
+  if (tid == 0) gprt_simt_out = ops;
+  gprt_simt_bucket[tid] = 0;
+#endif
+  (void)tid;
+  (void)ops;
+}
+
+// Adds the block's op count to the launch's total (counting build).
+__device__ __forceinline__ void counters_end(unsigned long long* ops) {
+#ifdef GPRT_COUNT_OPS
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0) atomicAdd(ops, gprt_block_ops);
+#endif
+  (void)ops;
 }
 
 __device__ __forceinline__ void local_ray(const Scene& s, int g, V3 o, V3 d, V3* ol, V3* dl) {
@@ -313,7 +386,7 @@ __device__ __forceinline__ V3 march_normal(const Scene& s, int g, V3 ob, V3 d, f
   local_ray(s, g, ob, d, &ol, &dl);
   V3 pos = along(ol, t, dl);
   V3 nl = s.geo[kGeoStride * g] == kVolumetric ? metaballs_normal(pos, s.mb)
-                                               : sdf_normal(s.geo[kGeoStride * g + 1], pos);
+                                               : hit_normal(s.geo[kGeoStride * g + 1], pos);
   return normal_to_world(s, g, nl);
 }
 

@@ -87,7 +87,9 @@ I_HEADER = 8
 GEO_STRIDE = 12
 MAX_MATERIALS = 16
 # Most dynamic shared memory a block of either kernel may take (an H100's
-# per-block opt-in limit); the buffers are copied there (``shared_bytes``).
+# per-block opt-in limit); the buffers are copied there (``shared_bytes``)
+# where they fit, and read from global memory where they do not
+# (``tables_in_shared``).
 SHARED_BYTES_MAX = 227 * 1024
 # SDF codes with a device function in csrc/frame_math.cuh.
 KERNEL_SDF_CODES = frozenset(range(9))
@@ -290,14 +292,14 @@ def shared_bytes(g: int, m: int, *, shading: bool) -> int:
     return 4 * (floats + ints)
 
 
-def check_shared(kernel: str, g: int, m: int, *, shading: bool) -> None:
-    """Raise, naming the kernel, for a scene whose buffers do not fit in a
-    block's shared memory."""
-    nbytes = shared_bytes(g, m, shading=shading)
-    if nbytes > SHARED_BYTES_MAX:
-        raise ValueError(
-            f"{kernel}: {g} geometries and {m} materials need {nbytes} bytes of shared "
-            f"memory a block, over the {SHARED_BYTES_MAX} a block can take")
+def tables_in_shared(g: int, m: int, *, shading: bool) -> bool:
+    """The layout of a launch's scene tables, chosen on the host from their
+    size: True where they fit in a block's shared memory (the kernel
+    copies them there), False past SHARED_BYTES_MAX (about 1,410
+    geometries for the frame kernel, 1,452 for the scene kernel), where the
+    kernel reads them from global memory and takes no dynamic shared
+    memory. Either way the scene renders."""
+    return shared_bytes(g, m, shading=shading) <= SHARED_BYTES_MAX
 
 
 def unpack_frame(pack: FramePack) -> Scene:
@@ -398,14 +400,41 @@ def check_pack(pack: FramePack) -> None:
         raise ValueError(f"tri_offsets {pack.tri_offsets} do not cover {tri.shape[0]} faces")
 
 
+# Counters of a -DGPRT_COUNT_SIMT build (csrc/frame_math.cuh): lane-samples
+# and warp-sample shares (units of 2**-SIMT_SHIFT) of SIMT_BUCKETS buckets
+# (level * 2 + 1 for occlusion queries, level * 2 for closest ones), then
+# the total warp-samples.
+SIMT_BUCKETS = 16
+SIMT_SHIFT = 20
+SIMT_COUNTERS = 2 * SIMT_BUCKETS + 1
+
+
 def ops_pointer(ops):
-    """The device address of an op counter ((1,) int64 CUDA tensor, read
-    by a counting build of a kernel) or NULL."""
+    """The device address of a counting build's counters (a contiguous
+    int64 CUDA tensor: (1,) for -DGPRT_COUNT_OPS, (SIMT_COUNTERS,) for
+    -DGPRT_COUNT_SIMT) or NULL."""
     if ops is None:
         return ctypes.c_void_p(None)
-    if ops.dtype != torch.int64 or ops.numel() != 1 or ops.device.type != "cuda":
-        raise ValueError("ops must be a (1,) int64 CUDA tensor")
+    if ops.dtype != torch.int64 or ops.dim() != 1 or ops.device.type != "cuda" \
+            or not ops.is_contiguous():
+        raise ValueError("ops must be a 1-D contiguous int64 CUDA tensor")
     return ctypes.c_void_p(ops.data_ptr())
+
+
+def simt_efficiency(counts) -> dict:
+    """SIMT efficiency from a -DGPRT_COUNT_SIMT build's counters: per
+    bucket (level, "closest" or "occlusion") that marched, and "all",
+    (lane-samples / (32 x warp-samples), lane-samples, warp-samples)."""
+    c = [int(x) for x in counts.tolist()]
+    out = {}
+    for b in range(SIMT_BUCKETS):
+        lanes, share = c[2 * b], c[2 * b + 1] / 2 ** SIMT_SHIFT
+        if lanes:
+            out[(b // 2, "occlusion" if b % 2 else "closest")] = (lanes / (32 * share), lanes,
+                                                                   share)
+    lanes, warps = sum(c[0:2 * SIMT_BUCKETS:2]), c[-1]
+    out["all"] = (lanes / (32 * warps) if warps else 0.0, lanes, warps)
+    return out
 
 
 def render_frame_tiles(pack: FramePack, *, width: int, height: int,
@@ -413,10 +442,10 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     """(H, W, 4) f32 radiance image of the packed frame.
 
     CUDA: launches csrc/frame_kernel.cu on the current stream (``lib``: a
-    loaded build of it, default the shipped one; ``ops``: the counter a
-    counting build adds to), its merged instantiation where ``merges``
-    says so, and counts the launch in LAUNCHES or MERGED_LAUNCHES. CPU:
-    runs ``render_frame_plain``."""
+    loaded build of it, default the shipped one; ``ops``: the counters a
+    counting build adds to), its merged instantiation where ``merges`` says
+    so, and counts the launch in LAUNCHES or MERGED_LAUNCHES. CPU: runs
+    ``render_frame_plain``."""
     global LAUNCHES, MERGED_LAUNCHES
     check_pack(pack)
     dev = pack.params.device
@@ -426,13 +455,38 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     merged = merges(pack)
     _raise_on(lib.gprt_frame_render(*_buffers(pack), _ptr(out), width, height, max_depth,
-                                    pack.num_geometries, pack.num_materials, int(merged),
-                                    ops_pointer(ops), *_where(dev)), lib, "frame kernel")
+                                    pack.num_geometries, pack.num_materials, int(_shared(pack)),
+                                    int(merged), ops_pointer(ops), *_where(dev)), lib,
+              "frame kernel")
     if merged:
         MERGED_LAUNCHES += 1
     else:
         LAUNCHES += 1
     return out
+
+
+def residency(pack: FramePack, lib=None) -> tuple:
+    """(blocks per SM, blocks in all) of the frame kernel that the card
+    keeps resident for the packed scene, as ``render_frame_tiles`` launches
+    it (its merged instantiation where ``merges`` says so); launches
+    nothing."""
+    check_pack(pack)
+    dev = pack.params.device
+    if dev.type != "cuda":
+        raise ValueError(f"no frame kernel for device {dev}")
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("frame_kernel")
+    per_sm, total = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib.gprt_frame_residency(pack.num_geometries, pack.num_materials,
+                                       int(_shared(pack)), int(merges(pack)), dev.index,
+                                       ctypes.byref(per_sm), ctypes.byref(total)), lib,
+              "frame kernel residency")
+    return per_sm.value, total.value
+
+
+def _shared(pack: FramePack) -> bool:
+    return tables_in_shared(pack.num_geometries, pack.num_materials, shading=True)
 
 
 def _ptr(x):
@@ -464,7 +518,6 @@ def _launch_setup(pack: FramePack, width, height, max_depth, lib):
     if pack.num_materials > MAX_MATERIALS:
         raise ValueError(f"{pack.num_materials} materials: the frame kernel takes at most "
                          f"{MAX_MATERIALS} (render_frame routes such scenes to the wavefront)")
-    check_shared("frame kernel", pack.num_geometries, pack.num_materials, shading=True)
     from gpuraytracer_tpu_torch.kernels import build
 
     return lib if lib is not None else build.load("frame_kernel")
@@ -538,7 +591,8 @@ def render_frame_capped(pack: FramePack, *, width: int, height: int,
     dirty = torch.empty((height, width), dtype=torch.int32, device=dev)
     _raise_on(lib.gprt_frame_compact(
         *_buffers(pack), _ptr(out), _ptr(dirty), width, height, max_depth,
-        pack.num_geometries, pack.num_materials, *_kernel_caps(caps, mb_caps, 0),
+        pack.num_geometries, pack.num_materials, int(_shared(pack)),
+        *_kernel_caps(caps, mb_caps, 0),
         *_kernel_caps(caps, mb_caps, 1), ops_pointer(ops), *_where(dev)), lib, "compact kernel")
     COMPACT_LAUNCHES += 1
     return out, dirty
@@ -591,7 +645,8 @@ def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
     merged = merges(pack)
     _raise_on(lib.gprt_frame_dense(*_buffers(pack), _ptr(qpx), _ptr(qpy), _ptr(out), n, width,
                                    height, max_depth, pack.num_geometries, pack.num_materials,
-                                   int(merged), ops_pointer(ops), *_where(dev)), lib,
+                                   int(_shared(pack)), int(merged), ops_pointer(ops),
+                                   *_where(dev)), lib,
               "dense kernel")
     if merged:
         MERGED_DENSE_LAUNCHES += 1
@@ -647,7 +702,7 @@ def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
         raise ValueError("planes must be contiguous DeferPlanes of the entry's shapes on its device")
     _raise_on(lib.gprt_frame_defer(
         *_buffers(pack), *(_ptr(p) for p in planes), width, height, max_depth,
-        pack.num_geometries, pack.num_materials,
+        pack.num_geometries, pack.num_materials, int(_shared(pack)),
         *_kernel_caps((None, shadow_cap), (None, mb_shadow_cap), 1), ops_pointer(ops),
         *_where(dev)), lib, "defer kernel")
     DEFER_LAUNCHES += 1

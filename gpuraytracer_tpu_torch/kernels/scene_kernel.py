@@ -316,11 +316,34 @@ def _prepare(scene: Scene, o_blas, pack, lib):
     frame_kernel.check_pack(pack)
     if pack.params.device != dev:
         raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
-    frame_kernel.check_shared("scene kernel", pack.num_geometries, pack.num_materials,
-                              shading=False)
     from gpuraytracer_tpu_torch.kernels import build
 
     return pack, lib if lib is not None else build.load("scene_kernel")
+
+
+def _shared(pack: frame_kernel.FramePack) -> int:
+    """The scene kernel library's table layout flag for the pack (its
+    traversal prefix in shared memory, or read in place)."""
+    return int(frame_kernel.tables_in_shared(pack.num_geometries, pack.num_materials,
+                                             shading=False))
+
+
+def residency(pack: frame_kernel.FramePack, *, main: bool = False, lib=None) -> tuple:
+    """(blocks per SM, blocks in all) of the pass (``main``: the two-phase
+    main pass) that the card keeps resident for the packed scene, as
+    ``scene_closest_tiles`` launches it; launches nothing."""
+    frame_kernel.check_pack(pack)
+    dev = pack.params.device
+    if dev.type != "cuda":
+        raise ValueError(f"no scene kernel for device {dev}")
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("scene_kernel")
+    per_sm, total = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib.gprt_scene_residency(pack.num_geometries, pack.num_materials, _shared(pack),
+                                       int(main), dev.index, ctypes.byref(per_sm),
+                                       ctypes.byref(total)), lib, "scene kernel residency")
+    return per_sm.value, total.value
 
 
 def _ptr(x):
@@ -355,8 +378,8 @@ def _closest_launch(scene, o_blas, d_blas, active, t0, level, accept_first, cull
         _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(o_blas), _ptr(d_blas),
         _ptr(active), _ptr(t0), _ptr(best_t), _ptr(normal), _ptr(gid),
         _ptr(dirty) if main else ctypes.c_void_p(None), n, pack.num_geometries,
-        pack.num_materials, int(level), int(accept_first), int(cull_backface), PHASE_BUDGET,
-        PHASE_BUDGET, frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib,
+        pack.num_materials, _shared(pack), int(level), int(accept_first), int(cull_backface),
+        PHASE_BUDGET, PHASE_BUDGET, frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib,
         "two-phase main pass" if main else "scene kernel")
     return best_t, normal, gid, dirty
 
@@ -405,7 +428,7 @@ def scene_finish(scene: Scene, o_blas, d_blas, dirty, best_t, normal, gid, *,
     _raise_on(lib.gprt_scene_finish(
         _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(o_blas), _ptr(d_blas),
         _ptr(dirty), _ptr(best_t), _ptr(normal), _ptr(gid), n, pack.num_geometries,
-        pack.num_materials, int(accept_first), int(cull_backface),
+        pack.num_materials, _shared(pack), int(accept_first), int(cull_backface),
         frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "two-phase finisher")
     FINISH_LAUNCHES += 1
     return best_t, normal, gid
@@ -532,8 +555,6 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
         return shadow_queue_plain(pack, rays, active, seg)
     if dev.type != "cuda":
         raise ValueError(f"no scene kernel for device {dev}")
-    frame_kernel.check_shared("scene kernel", pack.num_geometries, pack.num_materials,
-                              shading=False)
     from gpuraytracer_tpu_torch.kernels import build
 
     lib = lib if lib is not None else build.load("scene_kernel")
@@ -541,7 +562,7 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
     merged = frame_kernel.merges(pack)
     _raise_on(lib.gprt_shadow_queue(
         _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), _ptr(active), _ptr(occ),
-        n, seg, pack.num_geometries, pack.num_materials, int(merged),
+        n, seg, pack.num_geometries, pack.num_materials, _shared(pack), int(merged),
         frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "shadow queue kernel")
     if merged:
         MERGED_QUEUE_LAUNCHES += 1

@@ -145,6 +145,25 @@ BENCH_CONFIGS: Tuple[BenchConfig, ...] = (
 )
 
 
+def instance_grid(nx: int, nz: int, n_materials: int) -> SceneBuilder:
+    """A check scene, not a bench config: nx * nz closed-form instances
+    (spheres and hollow boxes, alternating) over the builtin grid's
+    footprint, cycling through n_materials albedos. Many instances test
+    the kernels' scene tables past what a block's shared memory holds
+    (40 x 40), many materials the frame kernel's material cap."""
+    b = SceneBuilder()
+    for k in range(nx * nz):
+        ix, iz = divmod(k, nz)
+        mn = (-7.0 + 14.0 * ix / nx, -1.0, -7.0 + 14.0 * iz / nz)
+        mx = (mn[0] + 7.0 / nx, mn[1] + 14.0 / nx, mn[2] + 7.0 / nz)
+        kind = AnalyticPrimitive.SPHERES if (ix + iz) % 2 else AnalyticPrimitive.AABB
+        albedo = (0.2 + 0.8 * (k % n_materials) / n_materials, 0.5, 0.5, 1.0)
+        b.add_instance(InstanceSpec(
+            kind=IntersectorKind.ANALYTIC, prim_type=int(kind), aabb_min=mn, aabb_max=mx,
+            material=Material(albedo)))
+    return b
+
+
 def get_config(name: str) -> BenchConfig:
     for c in BENCH_CONFIGS:
         if c.name == name:

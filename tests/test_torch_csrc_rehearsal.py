@@ -1,0 +1,282 @@
+"""The CUDA kernels' device code rehearsed on the CPU with g++.
+
+csrc/frame_kernel.cu and csrc/scene_kernel.cu are compiled, up to their
+host launchers, against csrc/host_rehearsal.h (host stand-ins for the CUDA
+keywords, intrinsics and runtime calls) with -ffp-contract=off, which
+repeats the plain versions' arithmetic, into
+build/gpuraytracer_tpu_torch/rehearsal/, and every block runs on one
+thread: one pixel (one ray) per block.
+
+This is the CPU check of the kernels' own logic, in both layouts of the
+scene tables (copied to shared memory, or read in place from global memory
+as for a scene past a block's shared memory): the frame kernel must give
+its plain version (kernels/frame_kernel.render_frame_plain) and the scene
+kernel its plain version (kernels/scene_kernel.scene_closest_plain) on
+every pixel and ray. The two sides compute the same float32 operations in
+the same order, but sqrt, pow, exp, log and the trigonometric functions
+come from different libraries (glibc here, PyTorch's kernels there), which
+may differ in the last ulp. So: every pixel within 1e-5 of the plain
+version (max channel), and every ray's geometry id equal and its t within
+1e-5; normals within 1e-3, because the tetrahedral normal divides its
+distance differences by the offset (5.8e-5), which turns a last-ulp
+difference of one distance into about 1e-4 (one ray of the builtin pass,
+on a twisted or cog SDF). Skips without g++.
+
+The Julia set's normal (SDF code 8) is also built the way the shipped CUDA
+build compiles, with multiply-adds contracted into FMAs (-mfma
+-ffp-contract=fast, on a CPU that has them): its 11 chaotic iterations
+amplify a contracted product's last bit, so csrc/frame_math.cuh
+(julia_normal, which hit_normal calls for code 8) rounds each of its
+products and sums (__fmul_rn, __fadd_rn), which no compiler fuses. Contracted, the normals at points within 0.02 of the set agree
+with the plain version (geometry/sdf.calculate_normal) bit for bit on
+about 77% of them and differ by up to 1.3e-3; rounded op by op, on >= 99%
+and by at most 1e-4 (the rest is the libraries' log and sqrt).
+"""
+
+import ctypes
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from gpuraytracer_tpu_torch.accel import traverse
+from gpuraytracer_tpu_torch.core import camera as cam
+from gpuraytracer_tpu_torch.core import hlsl
+from gpuraytracer_tpu_torch.geometry import sdf
+from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+from gpuraytracer_tpu_torch.models import builtin, scenes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "gpuraytracer_tpu_torch", "kernels", "csrc")
+BUILD = os.path.join(ROOT, "build", "gpuraytracer_tpu_torch", "rehearsal")
+W, H = 24, 14
+T_ANIM = 0.7
+TOL = 1e-5
+NORMAL_TOL = 1e-3
+
+# Runs every block of a launch on one thread, after the kernel source.
+ENTRIES = {
+    "frame_math": r"""
+#include <cuda_runtime.h>
+#include "frame_math.cuh"
+
+extern "C" void rh_normal(int code, const float* p, float* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    const gprt::V3 v = gprt::hit_normal(code, gprt::v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]));
+    out[3 * i] = v.x;
+    out[3 * i + 1] = v.y;
+    out[3 * i + 2] = v.z;
+  }
+}
+""",
+    "frame_kernel": r"""
+namespace gprt { float smem[1 << 16]; }
+
+// The frame kernel, one pixel per one-thread block; returns the pixels.
+extern "C" int rh_frame(const float* params, const int* layout, const float* tri, float* out,
+                        int width, int height, int max_depth, int G, int M, int shared) {
+  blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)width, (unsigned)height, 1};
+  threadIdx = dim3{0, 0, 0};
+  const auto kernel = shared ? gprt::frame_kernel<false, true> : gprt::frame_kernel<false, false>;
+  for (int y = 0; y < height; ++y) {
+    for (int x = 0; x < width; ++x) {
+      blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
+      kernel(params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth, G, M,
+             nullptr);
+    }
+  }
+  return width * height;
+}
+""",
+    "scene_kernel": r"""
+namespace gprt { float smem[1 << 16]; }
+
+// The scene pass, one ray per one-thread block; returns the rays.
+extern "C" int rh_scene(const float* params, const int* layout, const float* tri, const float* o,
+                        const float* d, const bool* active, const float* t0, float* best_t,
+                        float* normal, int* gid, int n, int G, int M, int shared, int level,
+                        int accept_first, int cull) {
+  blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)n, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const auto kernel = shared ? gprt::scene_kernel<false, true> : gprt::scene_kernel<false, false>;
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    kernel(params, layout, tri, o, d, active, t0, best_t, normal, gid, nullptr, n, G, M, level,
+           accept_first, cull, gprt::CapSpec{0, 0}, nullptr);
+  }
+  return n;
+}
+""",
+}
+
+
+def _device_part(name):
+    """csrc/<name>.cu up to the end of its device code (namespace gprt);
+    nothing for the header-only frame_math build."""
+    if name == "frame_math":
+        return ""
+    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+        src = f.read()
+    end = src.rindex("}  // namespace gprt")
+    return src[:end] + "}  // namespace gprt\n"
+
+
+@pytest.fixture(scope="module")
+def libs():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to rehearse the CUDA sources")
+    fma = _has_fma()
+    os.makedirs(os.path.join(BUILD, "include"), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".h", dir=os.path.join(BUILD, "include"))
+    with os.fdopen(fd, "w") as f:
+        f.write('#pragma once\n#include "host_rehearsal.h"\n')
+    os.replace(tmp, os.path.join(BUILD, "include", "cuda_runtime.h"))
+    headers = b"".join(open(os.path.join(CSRC, h), "rb").read()
+                       for h in ("frame_math.cuh", "traverse.cuh", "host_rehearsal.h"))
+    procs, paths = {}, {}
+    for name, entry in ENTRIES.items():
+        if name == "frame_math" and not fma:
+            continue
+        text = _device_part(name) + entry
+        tag = hashlib.sha256(headers + text.encode()).hexdigest()[:16]
+        paths[name] = os.path.join(BUILD, f"{name}_{tag}.so")
+        if os.path.exists(paths[name]):
+            continue
+        # Unique temporary names: processes that build at once do not clash.
+        fd, cpp = tempfile.mkstemp(suffix=".cpp", dir=BUILD)
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        # The normal probe contracts as the shipped CUDA build does; the
+        # kernels repeat the plain arithmetic.
+        fp = (["-O2", "-mfma", "-ffp-contract=fast"] if name == "frame_math"
+              else ["-O1", "-ffp-contract=off"])
+        cmd = [gxx, "-std=c++17", *fp, "-fPIC", "-shared", "-w", "-I",
+               os.path.join(BUILD, "include"), "-I", CSRC, "-o", cpp[:-4] + ".so", cpp]
+        procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), cpp)
+    for name, (proc, cpp) in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"g++ failed for {name}.cu:\n{err[-4000:]}"
+        os.replace(cpp[:-4] + ".so", paths[name])
+        os.unlink(cpp)
+    return {name: ctypes.CDLL(path) for name, path in paths.items()}
+
+
+def _has_fma():
+    """Whether this CPU runs FMA instructions (x86-64 with the fma flag)."""
+    if platform.machine() not in ("x86_64", "AMD64"):
+        return False
+    try:
+        with open("/proc/cpuinfo") as f:
+            return " fma " in f.read()
+    except OSError:
+        return False
+
+
+def _p(a):
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _np(t):
+    return np.ascontiguousarray(t.detach().cpu().numpy())
+
+
+def _scene(name):
+    if name == "builtin":
+        return builtin.build_scene(aspect=W / H, elapsed_time=T_ANIM, device="cpu")
+    return scenes.get_config(name).build(W / H, T_ANIM, device="cpu")
+
+
+def _tri(pack):
+    # A mesh-free scene's face table is empty; the kernel never reads it.
+    return _np(pack.tri) if pack.tri.numel() else np.zeros((1, 12), np.float32)
+
+
+@pytest.mark.parametrize("name, shared", [("builtin", 1), ("sdf_primitives_720p", 0)],
+                         ids=["builtin_shared", "sdf_primitives_global"])
+def test_frame_kernel_matches_plain(libs, name, shared):
+    # shared: the scene tables in shared memory (as every bench scene on
+    # the card), or read in place (a scene past SHARED_BYTES_MAX).
+    depth = 3 if name == "builtin" else scenes.get_config(name).max_depth
+    pack = frame_kernel.pack_frame(_scene(name))
+    out = np.full((H, W, 4), np.nan, np.float32)
+    params, layout, tri = _np(pack.params), _np(pack.layout), _tri(pack)
+    lib = libs["frame_kernel"]
+    lib.rh_frame.restype = ctypes.c_int
+    handed = lib.rh_frame(_p(params), _p(layout), _p(tri), _p(out), W, H, depth,
+                          pack.num_geometries, pack.num_materials, shared)
+    assert handed == W * H
+    plain = _np(frame_kernel.render_frame_plain(pack, width=W, height=H, max_depth=depth))
+    assert np.isfinite(out).all()
+    diff = np.abs(out - plain).max(axis=-1)
+    assert diff.max() <= TOL, f"{int((diff > TOL).sum())} pixels differ, max {diff.max():.3g}"
+
+
+def _pass_inputs(scene, kind):
+    """The builtin W x H frame's level-0 closest pass (camera rays) or
+    shadow pass (from the closest hits toward the light) as the wavefront
+    builds them: (o, d, active, t0, accept_first)."""
+    px, py = cam.pixel_grid(W, H, "cpu")
+    c = scene.arrays.constants
+    o, d = cam.generate_camera_rays(px, py, W, H, c.camera_position, c.projection_to_world)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    hit_p, ob, db, act, t0 = traverse.pass_inputs(o, d, scene)
+    if kind == "closest":
+        return ob, db, act, t0, False
+    st, _, sg = scene_kernel.scene_closest_plain(scene, ob, db, act, t0)
+    t_hit = torch.where(sg >= 0, st, t0)
+    hp = o + t_hit[:, None] * d
+    sd = hlsl.normalize(c.light_position[:3] - hp)
+    _, obs, dbs, acts, t0s = traverse.pass_inputs(hp, sd, scene, active=(sg >= 0) | hit_p,
+                                                  occlusion=True)
+    return obs, dbs, acts, t0s, True
+
+
+@pytest.mark.parametrize("kind, shared", [("closest", 1), ("shadow", 0)],
+                         ids=["closest_shared", "shadow_global"])
+def test_scene_pass_matches_plain(libs, kind, shared):
+    scene = _scene("builtin")
+    pack = frame_kernel.pack_frame(scene)
+    o, d, act, t0, accept_first = _pass_inputs(scene, kind)
+    n = o.shape[0]
+    best_t = np.full(n, np.nan, np.float32)
+    normal = np.full((n, 3), np.nan, np.float32)
+    gid = np.full(n, -7, np.int32)
+    arrays = [_np(x) for x in (pack.params, pack.layout)] + [_tri(pack)] + [
+        _np(x) for x in (o, d, act, t0)]
+    lib = libs["scene_kernel"]
+    lib.rh_scene.restype = ctypes.c_int
+    handed = lib.rh_scene(*(_p(a) for a in arrays), _p(best_t), _p(normal), _p(gid), n,
+                          pack.num_geometries, pack.num_materials, shared, 0, int(accept_first), 1)
+    assert handed == n
+    pt, pn, pg = (_np(x) for x in scene_kernel.scene_closest_plain(
+        scene, o, d, act, t0, level=0, accept_first=accept_first))
+    assert (gid == pg).all(), f"{int((gid != pg).sum())} of {n} rays differ in gid"
+    assert (pg >= 0).any() and (pg < 0).any()
+    assert np.abs(best_t - pt).max() <= TOL
+    assert np.abs(normal - pn).max() <= NORMAL_TOL
+
+
+def test_julia_normal_is_exact_under_contraction(libs):
+    if "frame_math" not in libs:
+        pytest.skip("needs a CPU with FMA instructions to contract as the CUDA build does")
+    rng = np.random.default_rng(5)
+    pts = (rng.random((20000, 3)) * 2.2 - 1.1).astype(np.float32)
+    code = 8
+    dist = sdf.DISTANCE_FUNCTIONS[code](torch.from_numpy(pts)).numpy()
+    near = np.ascontiguousarray(pts[np.abs(dist) < 0.02])
+    assert len(near) > 1000
+    out = np.zeros_like(near)
+    libs["frame_math"].rh_normal(code, _p(near), _p(out), len(near))
+    plain = sdf.calculate_normal(torch.from_numpy(near), sdf.DISTANCE_FUNCTIONS[code]).numpy()
+    dn = np.abs(out - plain).max(axis=-1)
+    assert (dn == 0).mean() >= 0.99, f"bit-equal on {(dn == 0).mean():.4f}"
+    assert dn.max() <= 1e-4, f"max |diff| {dn.max():.3g}"

@@ -169,3 +169,51 @@ def test_frame_kernel_matches_plain_on_cuda(cuda_device):
     plain = frame_kernel.render_frame_plain(pack, width=w, height=h)
     assert torch.isfinite(img).all()
     assert_bar(img.cpu().numpy(), plain.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w, h", [(320, 180), (321, 181)])
+def test_frame_kernel_matches_plain_at_ragged_sizes_on_cuda(cuda_device, w, h):
+    # 320x180 fills the 16x8 blocks; 321x181 leaves ragged blocks on the
+    # right and bottom edges.
+    scene = builtin.build_scene(aspect=w / h, elapsed_time=T_ANIM, device=cuda_device)
+    pack = frame_kernel.pack_frame(scene)
+    img = frame_kernel.render_frame_tiles(pack, width=w, height=h)
+    torch.cuda.synchronize()
+    assert torch.isfinite(img).all()
+    plain = frame_kernel.render_frame_plain(pack, width=w, height=h)
+    assert_bar(img.cpu().numpy(), plain.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_frame_kernel_launched_twice_gives_the_same_frame_on_cuda(cuda_device):
+    # Two launches in a row render the same frame bit for bit, and the
+    # card keeps at least one block of the kernel resident.
+    w, h = 320, 180
+    pack = frame_kernel.pack_frame(builtin.build_scene(aspect=w / h, elapsed_time=T_ANIM,
+                                                       device=cuda_device))
+    launches = frame_kernel.LAUNCHES
+    first = frame_kernel.render_frame_tiles(pack, width=w, height=h)
+    second = frame_kernel.render_frame_tiles(pack, width=w, height=h)
+    torch.cuda.synchronize()
+    assert frame_kernel.LAUNCHES == launches + 2
+    assert torch.equal(first, second)
+    per_sm, total = frame_kernel.residency(pack)
+    assert per_sm >= 1 and total >= per_sm
+
+
+@pytest.mark.cuda
+def test_frame_kernel_renders_past_shared_memory_on_cuda(cuda_device):
+    # 1,600 instances: the tables do not fit in a block's shared memory, so
+    # the kernel reads them from global memory (and takes none).
+    from gpuraytracer_tpu_torch.models import scenes
+
+    w, h = 64, 36
+    scene = scenes.instance_grid(40, 40, 8).build(w / h, T_ANIM, device=cuda_device)
+    pack = frame_kernel.pack_frame(scene)
+    assert not frame_kernel.tables_in_shared(pack.num_geometries, pack.num_materials,
+                                             shading=True)
+    img = frame_kernel.render_frame_tiles(pack, width=w, height=h)
+    torch.cuda.synchronize()
+    plain = frame_kernel.render_frame_plain(pack, width=w, height=h)
+    assert_bar(img.cpu().numpy(), plain.cpu().numpy())

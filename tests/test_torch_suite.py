@@ -1,6 +1,7 @@
 """The five bench scenes through the port's wavefront on the CPU against
 their committed goldens (tests/golden_<name>_96x54_t0p7.npz, rendered by
-the reference's XLA path), and the material gather of deduplicated tables.
+the reference's XLA path), the material gather of deduplicated tables, and
+the bench's window.
 
 The bar is the one tests/test_frame_kernel.py holds the reference's Pallas
 kernel to its XLA path: fewer than 2% of pixels with a max-channel |diff|
@@ -9,6 +10,7 @@ within 1e-5.
 """
 
 import dataclasses
+import inspect
 import os
 
 import numpy as np
@@ -72,3 +74,17 @@ def test_material_gather_maps_through_material_ids():
     dedup = Scene(dataclasses.replace(scene.layout, material_ids=tuple(ids.tolist())),
                   dataclasses.replace(scene.arrays, materials=table))
     assert torch.equal(trace.render_frame(dedup, w, h), trace.render_frame(scene, w, h))
+
+
+def test_bench_window_is_the_references_64_frames():
+    # Mrays/s is taken over animated windows of the reference's length: 64
+    # frames (gpuraytracer_tpu/apps/bench_suite.py, bench.py), in the
+    # function and on the command line.
+    from gpuraytracer_tpu.apps import bench_suite as ref
+    from gpuraytracer_tpu_torch.apps import bench_suite
+
+    want = inspect.signature(ref.bench_config).parameters["wall_chain"].default
+    assert want == 64
+    assert bench_suite.WALL_CHAIN == want
+    assert inspect.signature(bench_suite.bench_config).parameters["wall_chain"].default == want
+    assert "default=WALL_CHAIN" in inspect.getsource(bench_suite.main)
