@@ -53,21 +53,32 @@ exits non-zero):
               rays, normals, gated-out rays miss) and alone, with op counts
               and bounds; one 1080p mesh_octahedra frame-kernel frame
               against its plain version
- 10. modes    GPURT_FRAME_MODE=compact|defer (the compact, dense and defer
-              entries of csrc/frame_kernel.cu, the queue kernel of
-              csrc/scene_kernel.cu): builtin 96x54 against the golden and
+ 10. modes    GPURT_FRAME_MODE=compact|defer (the compact, dense, defer,
+              compose and gated entries of csrc/frame_kernel.cu, the queue
+              kernel of csrc/scene_kernel.cu; device-side queues, no host
+              read in a frame): builtin 96x54 against the golden and
               320x180 against the plain frame kernel, each at the default
               cap, at cap 8 with a queue that holds every pixel (the dense
               pass and the queue kernel run) and at cap 1 with a one-tile
-              queue (the overflow renders the plain kernel), in both fmad
-              builds (bit-equal share, flips, max |diff|, queued lanes);
-              the --fmad=false compact frame equals its plain kernel bit for
-              bit; the bench scenes and mesh_octahedra at 320x180 in both
-              modes against the plain kernel; a 17-material scene under
-              compact through the scene kernel; a 64-frame 1080p builtin
-              window in each mode (launches, host syncs and queued lanes
-              per frame); each new kernel alone at the 1080p frame's
-              shapes against its plain version, with op counts and bounds
+              queue (the overflow, read from the device flag that
+              debug_count returns: the gated plain kernel renders), in both
+              fmad builds (bit-equal share, flips, max |diff|, queued
+              lanes); the --fmad=false compact frame equals its plain kernel
+              bit for bit; the bench scenes and mesh_octahedra at 320x180 in
+              both modes against the plain kernel; a 17-material scene under
+              compact through the scene kernel; a 1080p frame in each mode
+              under torch.cuda.set_sync_debug_mode("error"); a 64-frame 1080p
+              builtin window in each mode (launches, host syncs, which must
+              stay 0, and queued lanes per frame); each kernel alone at the
+              1080p frame's shapes against its plain version, with op counts
+              and bounds: the compact entry with its queue (the queue's set
+              against the dirty plane, the level histogram), the dense pass
+              resumed from that queue in its binned order (bit-equal to the
+              plain kernel's pixels in the --fmad=false build; in the
+              shipped build every differing pixel counted), the bin entry
+              (histogram, scan, scatter: the plain version's key order), the
+              defer entry with its queues, the repair over them, the compose
+              entry and the gated entry
  11. last     the last three kernel-table items: GPURT_MERGED_SHADOW=1 (the
               merged instantiations of the frame kernel's plain and dense
               entries and of the occlusion queue) against the sequential
@@ -135,6 +146,12 @@ F32_OPS_PER_S = 67e12
 # NVIDIA's H100 SXM data: 133.8 TFLOP/s). The 989 TFLOP/s bf16 peak is the
 # tensor cores', which no element-wise chain reaches.
 BF16_OPS_PER_S = 133.8e12
+# Launches timed for a kernel of well under a millisecond: ten launches of
+# the compose kernel (0.054 ms over 50 launches in apps/bench_suite.py) read
+# 0.08-0.14 ms here, after the long, host-bound plain versions. At 100 the
+# queued launches (the bin entry makes four a call) stay well inside what
+# the host can queue ahead of the card.
+SHORT_REPS = 100
 
 
 def bar(img, ref):
@@ -150,11 +167,18 @@ def bar(img, ref):
 
 
 def cuda_ms(fn, reps, warmup=True):
-    """Mean device-clock ms of fn() over reps launches, and the last output."""
+    """Mean device-clock ms of fn() over reps launches, and the last output.
+    With a warm-up (a kernel's timing) the card waits first (about 0.06 s),
+    so that the host has queued every launch before the first runs: the
+    events time the card, not the host's launch rate, which bounds the
+    sub-0.1 ms kernels. Without one (a plain version's single run) the
+    host's time is part of what is timed."""
     if warmup:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if warmup:
+        torch.cuda._sleep(10 ** 8)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -204,6 +228,10 @@ class Phase:
             print(f"[{self.name}] done in {time.perf_counter() - self.t0:.1f} s", flush=True)
 
 
+# queued_lanes() at the last reset_counts().
+_QUEUED_BASE = [0]
+
+
 def reset_counts():
     from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
 
@@ -213,7 +241,10 @@ def reset_counts():
     megakernel.MESH_LAUNCHES = 0
     frame_kernel.COMPACT_LAUNCHES = frame_kernel.DENSE_LAUNCHES = 0
     frame_kernel.DEFER_LAUNCHES = scene_kernel.QUEUE_LAUNCHES = 0
-    frame_kernel.HOST_SYNCS = frame_kernel.QUEUED_LANES = 0
+    frame_kernel.GATED_FALLBACK_LAUNCHES = frame_kernel.COMPOSE_LAUNCHES = 0
+    frame_kernel.BIN_LAUNCHES = 0
+    frame_kernel.HOST_SYNCS = 0
+    _QUEUED_BASE[0] = frame_kernel.queued_lanes()
     frame_kernel.MERGED_LAUNCHES = frame_kernel.MERGED_DENSE_LAUNCHES = 0
     scene_kernel.MERGED_QUEUE_LAUNCHES = 0
     scene_kernel.MAIN_LAUNCHES = scene_kernel.FINISH_LAUNCHES = 0
@@ -221,14 +252,18 @@ def reset_counts():
 
 def mode_counts():
     """The compacted modes' counters: launches of the plain frame kernel,
-    the compact, dense and defer entries and the queue kernel; host syncs;
-    queued lanes."""
+    the compact, dense, defer, compose, bin and gated entries and the
+    queue kernel; host syncs; queued lanes (read from the device: one
+    sync)."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
 
     return dict(plain=frame_kernel.LAUNCHES, compact=frame_kernel.COMPACT_LAUNCHES,
                 dense=frame_kernel.DENSE_LAUNCHES, defer=frame_kernel.DEFER_LAUNCHES,
-                queue=scene_kernel.QUEUE_LAUNCHES, syncs=frame_kernel.HOST_SYNCS,
-                queued=frame_kernel.QUEUED_LANES, merged=frame_kernel.MERGED_LAUNCHES,
+                queue=scene_kernel.QUEUE_LAUNCHES, compose=frame_kernel.COMPOSE_LAUNCHES,
+                bin=frame_kernel.BIN_LAUNCHES,
+                gated=frame_kernel.GATED_FALLBACK_LAUNCHES, syncs=frame_kernel.HOST_SYNCS,
+                queued=frame_kernel.queued_lanes() - _QUEUED_BASE[0],
+                merged=frame_kernel.MERGED_LAUNCHES,
                 dense_merged=frame_kernel.MERGED_DENSE_LAUNCHES,
                 queue_merged=scene_kernel.MERGED_QUEUE_LAUNCHES)
 
@@ -894,11 +929,19 @@ def main() -> int:
         cap_arg = {"compact": "budget_cap", "defer": "shadow_cap"}
 
         def mode_frame(mode, pack_x, w, h, cap, cap_lanes, max_depth=3):
+            """(image, QueueCount, counters) of one frame; the chain ran whole
+            (main entry, dense or queue and compose, gated) or the scene had
+            no cappable march."""
             reset_counts()
             img, n = modes[mode](pack_x, width=w, height=h, max_depth=max_depth,
                                  cap_lanes=cap_lanes, debug_count=True, **{cap_arg[mode]: cap})
             torch.cuda.synchronize()
-            return img, n, mode_counts()
+            c = mode_counts()
+            chain = ({"compact": 1, "bin": 1, "dense": 1, "gated": 1} if mode == "compact" else
+                     {"defer": 1, "bin": 1, "queue": 1, "compose": 1, "gated": 1})
+            if c["plain"] == 0 and any(c[k] != v for k, v in chain.items()):
+                raise AssertionError(f"{mode} {w}x{h}: the chain launched {c}")
+            return img, n, c
 
         # builtin 96x54 vs the golden, 320x180 vs the plain frame kernel:
         # default cap; cap 8 with a queue that holds every pixel (the dense
@@ -918,13 +961,12 @@ def main() -> int:
                             ok, frac, tight, err = bar(img, ref)
                             exact, flips, _ = exactness(img, ref)
                             # 96x54 has too few pixels to overflow a one-tile queue.
-                            ran = {"main": c["plain"] == 0,
-                                   "overflow": c["plain"] == 1 or w == 96,
-                                   "repair": c["plain"] == 0 and c["dense" if mode == "compact"
-                                                                   else "queue"] == 1}[form]
+                            ran = {"main": not n.overflow,
+                                   "overflow": n.overflow or w == 96,
+                                   "repair": not n.overflow}[form] and c["plain"] == 0
                             print(f"[modes] {mode} {w}x{h} fmad={fmad} cap {cap}"
                                   f"{'' if cap_lanes is None else f' queue {cap_lanes}'}: "
-                                  f"{n} queued, launches {c}; vs "
+                                  f"{int(n)} queued, overflow {n.overflow}, launches {c}; vs "
                                   f"{'golden' if w == 96 else 'plain kernel'}: bit-equal "
                                   f"{exact:.6f}, flipped {flips:.6f}, within 1e-5 {tight:.6f}, "
                                   f"max |diff| {err:.6g}", flush=True)
@@ -948,7 +990,7 @@ def main() -> int:
                 img, n, c = mode_frame(mode, pack_x, w, h, None, None, cfg.max_depth)
                 ok, frac, tight, err = bar(img, ref)
                 exact, _, _ = exactness(img, ref)
-                print(f"[modes] {cfg.name} {mode} {w}x{h}: {n} queued, launches {c}; vs plain "
+                print(f"[modes] {cfg.name} {mode} {w}x{h}: {int(n)} queued, launches {c}; vs plain "
                       f"kernel bit-equal {exact:.6f}, flipped {frac:.6f}, max |diff| {err:.6g}",
                       flush=True)
                 if not ok:
@@ -982,12 +1024,31 @@ def main() -> int:
             print(f"[modes] Renderer 1920x1080 GPURT_FRAME_MODE={mode}, {FRAMES} frames: "
                   f"{ms:.3f} ms/frame, {W_MAIN * H_MAIN / ms / 1e3:.3f} Mrays/s; per frame: "
                   f"launches {per}; background <= {bg_max:.3f}; {card}", flush=True)
-            want = {"plain": ("plain",), "compact": ("compact", "dense"),
-                    "defer": ("defer", "queue")}[mode]
-            if c[want[0]] != FRAMES or any(c[k] == 0 for k in want) or (
+            want = {"plain": ("plain",), "compact": ("compact", "bin", "dense", "gated"),
+                    "defer": ("defer", "bin", "queue", "compose", "gated")}[mode]
+            if any(c[k] != FRAMES for k in want) or c["syncs"] != 0 or (
                     mode != "plain" and c["plain"] != 0):
                 raise AssertionError(f"{mode} window: launches {c}")
         del os.environ["GPURT_FRAME_MODE"]
+
+        # One 1080p frame in each mode with every synchronizing torch call an
+        # error: the chain reads nothing back.
+        for mode, fn in modes.items():
+            fn(pack_m, width=W_MAIN, height=H_MAIN)
+            torch.cuda.synchronize()
+            syncs = frame_kernel.HOST_SYNCS
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img = fn(pack_m, width=W_MAIN, height=H_MAIN)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            exact, flips, err = exactness(img, main_img)
+            print(f"[modes] {mode} 1920x1080 under set_sync_debug_mode('error'): completed, host "
+                  f"syncs {frame_kernel.HOST_SYNCS - syncs}; vs the plain kernel bit-equal "
+                  f"{exact:.6f}, flipped {flips:.6f}, max |diff| {err:.6g}", flush=True)
+            if frame_kernel.HOST_SYNCS != syncs or not bar(img, main_img)[0]:
+                raise AssertionError(f"{mode} 1080p frame synced or disagrees")
 
         # Each new kernel alone at the 1080p frame's shapes (phase 6's frame),
         # against its plain version on the same inputs.
@@ -1015,7 +1076,8 @@ def main() -> int:
             """(ms, output) of one call of a plain version."""
             return cuda_ms(fn, 1, warmup=False)
 
-        # compact's main pass
+        # compact's main pass: the dirty plane against its plain version, then
+        # the path's form, the queue, against that plane
         k_img, k_dirty = frame_kernel.render_frame_capped(pack_m, budget_cap=64, **kw_m)
         p_ms, (p_img, p_dirty) = plain_run(
             lambda: frame_kernel.render_frame_capped_plain(pack_m, budget_cap=64, **kw_m))
@@ -1024,15 +1086,84 @@ def main() -> int:
         agree = float((k_dirty == p_dirty).float().mean())
         if not ok or agree < 0.999:
             raise AssertionError("compact main pass disagrees with its plain version")
-        record("frame_compact", lambda: frame_kernel.render_frame_capped(
-                   pack_m, budget_cap=64, **kw_m), p_ms, err,
-               frame_in + npix * (16 + 4), lambda: frame_kernel.render_frame_capped(
-                   pack_m, budget_cap=64, ops=ops, lib=count_lib, **kw_m),
+        cap_m = frame_kernel.queue_capacity(W_MAIN, H_MAIN)
+        q_img, queue_m = frame_kernel.render_frame_compact_main(pack_m, budget_cap=64, cap=cap_m,
+                                                                **kw_m)
+        n_q = int(queue_m.count[0])
+        q_pix = queue_m.entries[:n_q, 0].long()
+        q_levels = queue_m.entries[:n_q, 1] & 255
+        same_set = bool(torch.equal(torch.sort(q_pix).values,
+                                    torch.nonzero(k_dirty.reshape(-1)).squeeze(1)))
+        same_img = bool(torch.equal(q_img[k_dirty == 0], k_img[k_dirty == 0]))
+        hist = torch.bincount(q_levels.long(), minlength=3).tolist()
+        print(f"[modes] compact queue 1920x1080 cap 64: {n_q} queued of capacity {cap_m}; the "
+              f"queue's set is the dirty plane's: {same_set}; clean pixels as the dirty-plane "
+              f"form's: {same_img}; level histogram (where the cap stopped the pixel, the "
+              f"dense pass resumes): {hist}", flush=True)
+        if not (same_set and same_img and 0 < n_q <= cap_m):
+            raise AssertionError("the compact queue is not the dirty plane's set")
+        record("frame_compact", lambda: frame_kernel.render_frame_compact_main(
+                   pack_m, budget_cap=64, cap=cap_m, **kw_m), p_ms, err,
+               frame_in + npix * 16 + n_q * 64 + 4, lambda: frame_kernel.render_frame_compact_main(
+                   pack_m, budget_cap=64, cap=cap_m, ops=ops, lib=count_lib, **kw_m),
                f"{int((k_dirty != 0).sum())} dirty ({int((p_dirty != 0).sum())} plain), masks "
                f"agree on {agree:.6f}; clean pixels flipped {frac:.6f}, max |diff| {err:.6g}")
-        # the dense pass at this frame's queue, against its plain version and
-        # the plain kernel's pixels
+        # the queue's binned order: the plain version's key order, the same set
+        queue_a = queue_m
+        queue_m = frame_kernel.bin_queue(queue_a)
+        b_keys = frame_kernel.bin_keys(queue_m)[:n_q]
+        p_ms, queue_p = plain_run(lambda: frame_kernel.bin_queue_plain(queue_a))
+        b_ok = (bool(torch.equal(b_keys, frame_kernel.bin_keys(queue_p)[:n_q]))
+                and bool(torch.equal(torch.sort(queue_m.entries[:n_q, 0]).values,
+                                     torch.sort(queue_a.entries[:n_q, 0]).values)))
+        if not b_ok:
+            raise AssertionError("the compact queue's binned order is not its plain version's")
+        torch.cuda.empty_cache()
+        bin_ms, _ = cuda_ms(lambda: frame_kernel.bin_queue(queue_a), SHORT_REPS)
+        bin_bytes = n_q * (64 + 64) + 4 + 32 * 4
+        b_ms, b_by = bound(bin_bytes, 0)
+        alone_m["queue_bin"] = dict(ms=bin_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                    err=0.0)
+        print(f"[modes] queue_bin alone, compact queue 1920x1080: {n_q} entries in "
+              f"{len(set(b_keys.tolist()))} keys, the plain version's key order: {b_ok}; kernels "
+              f"{bin_ms:.4f} ms (histogram, scan, scatter; {bin_bytes} bytes: bound {b_ms:.4f} "
+              f"ms by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+        # the dense pass resumed from the binned queue, against its plain
+        # version and the plain kernel's pixels (bit for bit without
+        # contraction; every differing pixel counted in the shipped build)
         m_img = frame_kernel.render_frame_tiles(pack_m, **kw_m)
+        r_img = frame_kernel.render_frame_resume(pack_m, queue_m, q_img.clone(), **kw_m)
+        p_ms, pr_img = plain_run(lambda: frame_kernel.render_frame_resume_plain(
+            pack_m, queue_m, q_img.clone(), **kw_m))
+        r_out, pr_out, m_out = (x.reshape(-1, 4)[q_pix] for x in (r_img, pr_img, m_img))
+        ok, frac, tight, err = bar(r_out[:, None], pr_out[:, None])
+        differ = ~(r_out == m_out).all(dim=-1)
+        d_max = float((r_out - m_out).abs().max())
+        with fmad_build(False):
+            _, queue_f = frame_kernel.render_frame_compact_main(pack_m, budget_cap=64, cap=cap_m,
+                                                                **kw_m)
+            queue_f = frame_kernel.bin_queue(queue_f)
+            rf_img = frame_kernel.render_frame_resume(pack_m, queue_f, torch.zeros_like(m_img),
+                                                      **kw_m)
+            mf_img = frame_kernel.render_frame_tiles(pack_m, **kw_m)
+        f_pix = queue_f.entries[:int(queue_f.count[0]), 0].long()
+        exact_f = bool(torch.equal(rf_img.reshape(-1, 4)[f_pix], mf_img.reshape(-1, 4)[f_pix]))
+        print(f"[modes] resumed dense pass 1920x1080: --fmad=false build, {f_pix.shape[0]} "
+              f"queued pixels bit-equal to the plain kernel's: {exact_f}; shipped build, "
+              f"{int(differ.sum())} of {n_q} queued pixels differ from the plain kernel's "
+              f"(max |diff| {d_max:.6g}); vs its plain version flipped {frac:.6f}, max |diff| "
+              f"{err:.6g}", flush=True)
+        if not (ok and exact_f and bar(r_out[:, None], m_out[:, None])[0]):
+            raise AssertionError("the resumed dense pass disagrees with the plain kernel")
+        record("frame_dense", lambda: frame_kernel.render_frame_resume(pack_m, queue_m, r_img,
+                                                                       **kw_m),
+               p_ms, err, frame_in + n_q * (64 + 16) + 4, lambda: frame_kernel.render_frame_resume(
+                   pack_m, queue_m, r_img, ops=ops, lib=count_lib, **kw_m),
+               f"{n_q} queued pixels resumed at levels {hist}; {int(differ.sum())} differ from "
+               f"the plain kernel's (max {d_max:.6g})")
+        # the same entry from the camera ray (render_frame_dense) at this
+        # frame's queue sorted by dirty mask (the earlier host-sorted form's
+        # queue), against its plain version and the plain kernel's pixels
         q = torch.nonzero(k_dirty.reshape(-1)).squeeze(1)
         q = q[torch.argsort(k_dirty.reshape(-1)[q], stable=True)].to(torch.int32)
         qpx, qpy = (q % W_MAIN).contiguous(), (q // W_MAIN).contiguous()
@@ -1043,12 +1174,17 @@ def main() -> int:
         same = bool(torch.equal(k_out, m_img.reshape(-1, 4)[q.long()]))
         if not ok or not same:
             raise AssertionError("dense pass disagrees with its plain version or the plain kernel")
-        record("frame_dense", lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m),
-               p_ms, err, frame_in + q.shape[0] * (8 + 16), lambda: frame_kernel.render_frame_dense(
-                   pack_m, qpx, qpy, ops=ops, lib=count_lib, **kw_m),
-               f"{q.shape[0]} queued pixels; equal to the plain kernel's: {same}; vs plain "
-               f"flipped {frac:.6f}, max |diff| {err:.6g}")
-        # defer's main pass
+        dense_cam_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m),
+                                  10)
+        dense_append_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_resume(
+            pack_m, queue_a, r_img, **kw_m), 10)
+        print(f"[modes] dense pass from the camera ray (render_frame_dense) at the same "
+              f"{q.shape[0]} pixels sorted by mask: {dense_cam_ms:.3f} ms (with its scratch "
+              f"image and gather); equal to the plain kernel's: {same}; vs plain flipped "
+              f"{frac:.6f}, max |diff| {err:.6g}; the resumed pass at the queue in append "
+              f"order (unbinned) {dense_append_ms:.3f} ms; {card}", flush=True)
+        # defer's main pass: the planes against their plain version, then the
+        # path's form with its queues
         k_pl = frame_kernel.render_frame_deferred_main(pack_m, shadow_cap=32, **kw_m)
         p_ms, p_pl = plain_run(
             lambda: frame_kernel.render_frame_deferred_plain(pack_m, shadow_cap=32, **kw_m))
@@ -1059,41 +1195,106 @@ def main() -> int:
         if agree < 0.999 or not all(r[0] for r in res):
             raise AssertionError("defer main pass disagrees with its plain version")
         nsl = 2
-        # Timed into planes allocated once: the 34 planes (282 MB) stay out
-        # of the loop and the allocator.
         del p_pl
-        record("frame_defer", lambda: frame_kernel.render_frame_deferred_main(
-                   pack_m, shadow_cap=32, planes=k_pl, **kw_m), p_ms,
-               err, frame_in + npix * (16 * 3 + (16 + 4 + 24) * nsl),
-               lambda: frame_kernel.render_frame_deferred_main(
-                   pack_m, shadow_cap=32, ops=ops, lib=count_lib, **kw_m),
-               f"status agrees on {agree:.6f} of lanes ({int(((k_pl.sinfo & 3) == 2).sum())} "
-               f"unknown); contribution planes flipped <= {max(r[1] for r in res):.6f}, max "
+        d_pl, d_queue = frame_kernel.render_frame_deferred_queue(pack_m, shadow_cap=32,
+                                                                 cap=cap_m, **kw_m)
+        d_counts = d_queue.count.tolist()
+        for k in range(nsl):
+            want = torch.nonzero((d_pl.sinfo[k].reshape(-1) & 3) == 2).squeeze(1)
+            got = torch.sort(d_queue.idx[k, :d_counts[k]].long()).values
+            if not torch.equal(got, want):
+                raise AssertionError(f"defer queue {k} is not the unknown lanes' set")
+        n_unknown = sum(d_counts)
+        d_queue_a = d_queue
+        d_queue = frame_kernel.bin_queue(d_queue_a, d_pl.sinfo)
+        d_keys = frame_kernel.bin_keys(d_queue, d_pl.sinfo)
+        pd_keys = frame_kernel.bin_keys(frame_kernel.bin_queue_plain(d_queue_a, d_pl.sinfo),
+                                        d_pl.sinfo)
+        for k in range(nsl):
+            n = d_counts[k]
+            if not (torch.equal(d_keys[k, :n], pd_keys[k, :n]) and torch.equal(
+                    torch.sort(d_queue.idx[k, :n]).values, torch.sort(d_queue_a.idx[k, :n]).values)):
+                raise AssertionError(f"defer queue {k}: binned order is not its plain version's")
+        d_bin_ms, _ = cuda_ms(lambda: frame_kernel.bin_queue(d_queue_a, d_pl.sinfo),
+                              SHORT_REPS)
+        repair_append_ms, _ = cuda_ms(lambda: scene_kernel.shadow_queue_planes(
+            pack_m, d_pl.rays, d_queue_a.idx, d_queue_a.count), 10)
+        print(f"[modes] queue_bin, defer queues 1920x1080 {d_counts}: {d_bin_ms:.4f} ms; the "
+              f"repair at the queues in append order (unbinned) {repair_append_ms:.3f} ms; "
+              f"{card}", flush=True)
+        record("frame_defer", lambda: frame_kernel.render_frame_deferred_queue(
+                   pack_m, shadow_cap=32, cap=cap_m, **kw_m), p_ms,
+               err, frame_in + npix * (16 * 3 + (16 + 4 + 24) * nsl) + n_unknown * 4 + 4 * nsl,
+               lambda: frame_kernel.render_frame_deferred_queue(
+                   pack_m, shadow_cap=32, cap=cap_m, ops=ops, lib=count_lib, **kw_m),
+               f"status agrees on {agree:.6f} of lanes; queues {d_counts} (each the unknown "
+               f"lanes' set); contribution planes flipped <= {max(r[1] for r in res):.6f}, max "
                f"|diff| {err:.6g}")
-        # the occlusion repair queue at this frame's unknown lanes
-        idxs = [torch.nonzero((k_pl.sinfo[k].reshape(-1) & 3) == 2).squeeze(1) for k in range(nsl)]
-        seg = max(i.shape[0] for i in idxs)
-        q_rays = torch.zeros((nsl, seg, 6), device=dev)
-        q_act = torch.zeros((nsl, seg), dtype=torch.bool, device=dev)
-        for k, i in enumerate(idxs):
-            q_rays[k, :i.shape[0]] = k_pl.rays[k].reshape(-1, 6)[i]
-            q_act[k, :i.shape[0]] = True
-        q_rays, q_act = q_rays.reshape(-1, 6), q_act.reshape(-1)
-        k_occ = scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg)
-        p_ms, p_occ = plain_run(lambda: scene_kernel.shadow_queue_plain(pack_m, q_rays, q_act, seg))
-        agree = float((k_occ == p_occ).float().mean())
+        # the occlusion repair over those queues, against its plain version at
+        # the queued pixels
+        k_occ_p = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx, d_queue.count)
+        p_ms, p_occ_p = plain_run(lambda: scene_kernel.shadow_queue_planes_plain(
+            pack_m, d_pl.rays, d_queue.idx, d_queue.count))
+        unknown = (d_pl.sinfo & 3) == 2
+        agree = float((k_occ_p[unknown] == p_occ_p[unknown]).float().mean())
         if agree < 0.999:
             raise AssertionError("queue kernel disagrees with its plain version")
-        # An inactive entry reads its flag and writes its answer only.
-        n_act = int(q_act.sum())
-        record("shadow_queue", lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg),
-               p_ms, float((k_occ - p_occ).abs().max()),
-               frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
-                                         shading=False) + n_act * 24 + q_rays.shape[0] * (1 + 4),
-               lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg, ops=ops,
-                                                 lib=build.load("scene_kernel", count_ops=True)),
-               f"{n_act} queued rays in {nsl} segments of {seg}; occlusion agrees on "
-               f"{agree:.6f}")
+        trav = frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
+                                         shading=False)
+        record("shadow_queue", lambda: scene_kernel.shadow_queue_planes(
+                   pack_m, d_pl.rays, d_queue.idx, d_queue.count),
+               p_ms, float((k_occ_p[unknown] - p_occ_p[unknown]).abs().max()),
+               trav + n_unknown * (4 + 24 + 4) + 4 * nsl,
+               lambda: scene_kernel.shadow_queue_planes(
+                   pack_m, d_pl.rays, d_queue.idx, d_queue.count, ops=ops,
+                   lib=build.load("scene_kernel", count_ops=True)),
+               f"{n_unknown} queued rays in {nsl} levels {d_counts}; occlusion agrees on "
+               f"{agree:.6f} of them")
+        # the recomposition, against its plain version on the same planes
+        c_img = frame_kernel.frame_compose(d_pl, k_occ_p)
+        p_ms, pc_img = plain_run(lambda: frame_kernel.frame_compose_plain(d_pl, k_occ_p))
+        c_exact = bool(torch.equal(c_img, pc_img))
+        c_ok, _, _, c_err = bar(c_img, main_img)
+        if not (c_exact and c_ok):
+            raise AssertionError("compose kernel disagrees with its plain version or the frame")
+        # Per pixel and level one contribution (lit or shadowed) and the
+        # status, the occlusion plane at the unknown lanes, the image out.
+        depth = 3
+        compose_bytes = npix * (16 * depth + 4 * nsl + 16) + 4 * n_unknown
+        torch.cuda.empty_cache()
+        compose_ms, _ = cuda_ms(lambda: frame_kernel.frame_compose(d_pl, k_occ_p), SHORT_REPS)
+        compose_ops = npix * 4 * (depth - 1)
+        b_ms, b_by = bound(compose_bytes, compose_ops)
+        alone_m["frame_compose"] = dict(ms=compose_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                        err=0.0)
+        print(f"[modes] frame_compose alone 1920x1080: bit-equal to its plain version: "
+              f"{c_exact}; the deferred frame vs the plain kernel max |diff| {c_err:.6g}; kernel "
+              f"{compose_ms:.3f} ms ({compose_ops} f32 adds, {compose_bytes} bytes: bound "
+              f"{b_ms:.4f} ms by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+        # the gated plain frame: the path's launch (no overflow: every block
+        # returns at once), and an overflowing count (the plain kernel's frame)
+        g_img = m_img.clone()
+        frame_kernel.render_frame_gated(pack_m, g_img, queue_m.count, cap_m, **kw_m)
+        over = torch.full((1,), cap_m + 1, dtype=torch.int32, device=dev)
+        o_img = torch.zeros_like(m_img)
+        frame_kernel.render_frame_gated(pack_m, o_img, over, cap_m, **kw_m)
+        p_ms, po_img = plain_run(lambda: frame_kernel.render_frame_gated_plain(
+            pack_m, torch.zeros_like(m_img), over, cap_m, **kw_m))
+        g_ok = bool(torch.equal(g_img, m_img)) and bool(torch.equal(o_img, m_img))
+        if not g_ok or not bar(o_img, po_img)[0]:
+            raise AssertionError("gated frame kernel: wrong image")
+        gated_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_gated(
+            pack_m, g_img, queue_m.count, cap_m, **kw_m), SHORT_REPS)
+        gated_over_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_gated(
+            pack_m, o_img, over, cap_m, **kw_m), 10)
+        n_blocks = ((W_MAIN + 15) // 16) * ((H_MAIN + 7) // 8)
+        b_ms, b_by = bound(4, 0)
+        alone_m["frame_gated"] = dict(ms=gated_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                      err=float((o_img - po_img).abs().max()))
+        print(f"[modes] frame_gated alone 1920x1080: no overflow {gated_ms:.4f} ms ({n_blocks} "
+              f"blocks read the count and return; bound {b_ms:.6f} ms by {b_by}); overflow "
+              f"{gated_over_ms:.3f} ms, the plain kernel's frame bit for bit: {g_ok}; plain "
+              f"{p_ms:.1f} ms; {card}", flush=True)
 
     # 11. the last kernel-table items: merged occlusion, two-phase, op probe --
     with Phase("last"):
@@ -1216,32 +1417,34 @@ def main() -> int:
                      f"the sequential instantiation {seq_ms:.3f} ms in the same call; vs plain "
                      f"max |diff| {merged_err:.6g}")
         with env(**merged_env):
-            d_out = frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m)
-        if not torch.equal(d_out, k_out):
+            rm_img = frame_kernel.render_frame_resume(pack_m, queue_m, q_img.clone(), **kw_m)
+        rm_out = rm_img.reshape(-1, 4)[q_pix]
+        if not torch.equal(rm_img, r_img):
             raise AssertionError("merged dense pass is not the sequential one")
         merged_alone("frame_dense_merged",
-                     lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, **kw_m),
-                     lambda: frame_kernel.render_frame_dense(pack_m, qpx, qpy, ops=ops,
-                                                             lib=count_lib, **kw_m),
-                     frame_in + q.shape[0] * (8 + 16), alone_m["frame_dense"]["plain_ms"],
-                     float((d_out - p_out).abs().max()),
-                     f"{q.shape[0]} queued pixels, equal to the sequential dense pass")
+                     lambda: frame_kernel.render_frame_resume(pack_m, queue_m, rm_img, **kw_m),
+                     lambda: frame_kernel.render_frame_resume(pack_m, queue_m, rm_img, ops=ops,
+                                                              lib=count_lib, **kw_m),
+                     frame_in + n_q * (64 + 16) + 4, alone_m["frame_dense"]["plain_ms"],
+                     float((rm_out - pr_out).abs().max()),
+                     f"{n_q} queued pixels resumed, equal to the sequential dense pass")
         with env(**merged_env):
-            m_occ = scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg)
-        mq_ms, p_m_occ = plain_run(lambda: scene_kernel.shadow_queue_plain(
-            pack_m, q_rays, q_act, seg, merged=True))
-        if not torch.equal(m_occ, k_occ) or float((m_occ == p_m_occ).float().mean()) < 0.999:
+            m_occ = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx, d_queue.count)
+        mq_ms, p_m_occ = plain_run(lambda: scene_kernel.shadow_queue_planes_plain(
+            pack_m, d_pl.rays, d_queue.idx, d_queue.count, merged=True))
+        m_agree = float((m_occ[unknown] == p_m_occ[unknown]).float().mean())
+        if not torch.equal(m_occ[unknown], k_occ_p[unknown]) or m_agree < 0.999:
             raise AssertionError("merged queue disagrees with the sequential one or its plain version")
         merged_alone("shadow_queue_merged",
-                     lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg),
-                     lambda: scene_kernel.shadow_queue(pack_m, q_rays, q_act, seg, ops=ops,
-                                                       lib=build.load("scene_kernel",
-                                                                      count_ops=True)),
-                     frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
-                                               shading=False) + n_act * 24 + q_rays.shape[0] * 5,
-                     mq_ms, float((m_occ - p_m_occ).abs().max()),
-                     f"{n_act} queued rays; equal to the sequential queue; vs its plain version "
-                     f"(occluded_merged_plain) agrees on {float((m_occ == p_m_occ).float().mean()):.6f}")
+                     lambda: scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx,
+                                                              d_queue.count),
+                     lambda: scene_kernel.shadow_queue_planes(
+                         pack_m, d_pl.rays, d_queue.idx, d_queue.count, ops=ops,
+                         lib=build.load("scene_kernel", count_ops=True)),
+                     trav + n_unknown * (4 + 24 + 4) + 4 * nsl,
+                     mq_ms, float((m_occ[unknown] - p_m_occ[unknown]).abs().max()),
+                     f"{n_unknown} queued rays; equal to the sequential queue; vs its plain version "
+                     f"(occluded_merged_plain) agrees on {m_agree:.6f}")
 
         print(f"[last] merged checks done {time.perf_counter() - t11:.1f} s into the phase",
               flush=True)
@@ -1596,6 +1799,12 @@ def main() -> int:
          windows["defer"]["defer"]),
         ("shadow_queue", "scene_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1016",
          windows["defer"]["queue"]),
+        ("frame_compose", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1075",
+         windows["defer"]["compose"]),
+        ("frame_gated", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
+         windows["compact"]["gated"] + windows["defer"]["gated"]),
+        ("queue_bin", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:934",
+         windows["compact"]["bin"] + windows["defer"]["bin"]),
         ("frame_kernel_merged", "frame_kernel.cu", "gpuraytracer_tpu/kernels/scene_kernel.py:466",
          merged_windows["merged"]["merged"]),
         ("frame_dense_merged", "frame_kernel.cu", "gpuraytracer_tpu/kernels/scene_kernel.py:466",
@@ -1637,6 +1846,8 @@ def main() -> int:
         "frame_compact": "frame_compact_kernel<true>",
         "frame_dense": "frame_dense_kernel<false, true>", "frame_defer": "frame_defer_kernel<true>",
         "shadow_queue": "shadow_queue_kernel<false, true>",
+        "frame_compose": "frame_compose_kernel", "frame_gated": "frame_gated_kernel<false, true>",
+        "queue_bin": "queue_bin_kernel<false, true>",
         "frame_kernel_merged": "frame_kernel<true, true>",
         "frame_dense_merged": "frame_dense_kernel<true, true>",
         "shadow_queue_merged": "shadow_queue_kernel<true, true>",

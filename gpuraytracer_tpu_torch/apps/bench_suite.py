@@ -34,14 +34,25 @@ launch, then ``--reps`` launches) on the builtin 1920x1080 frame at
 t = 0.2664: the frame kernel, the same under GPURT_MERGED_SHADOW=1, the
 scene kernel's level-0 closest pass over that frame's camera rays, the
 defer entry (GPURT_FRAME_MODE=defer's main pass at shadow cap 32), the
-fractal_mandelbulb_julia_1080p frame kernel, and a 64-frame animated
-window through Renderer.render (ms/frame). Where the checkout has the SIMT
+fractal_mandelbulb_julia_1080p frame kernel; the compacted modes' kernels
+alone, each checkout's own form (``compact_main_ms``, ``dense_ms`` at its
+queue, ``defer_main_queue_ms``, ``queue_ms``; with device queues also the
+binning, ``bin_compact_ms`` and ``bin_defer_ms``, the dense pass and the
+repair at the queues in append order, ``compose_ms``, ``gated_ms`` and the
+level histogram of the compact queue)
+beside the calls both forms have (``compact_capped_ms``,
+``dense_camera_ms``, ``queue_compacted_ms``, ``compose_torch_ms``: the host
+recomposition of torch ops); and 64-frame animated windows through
+Renderer.render (ms/frame) in each GPURT_FRAME_MODE, with the modes' host
+syncs and queued lanes per frame (on a device queue read once after the
+window). Where the checkout has the SIMT
 counting build (build.load(count_simt=True)), it reports the SIMT
 efficiency of the builtin and fractal 1080p frame kernels per level and
 ray kind and of the level-0 closest and shadow passes. Each process also
 saves its outputs, made with the ``--fmad`` build (default: the shipped
-one): the builtin 1080p frame, the five bench scenes and mesh_octahedra at
-320x180, and the 1080p level-0 closest and shadow passes (shadow rays from
+one): the builtin 1080p frame (plain, compact and defer), the five bench
+scenes and mesh_octahedra at 320x180, and the 1080p level-0 closest and
+shadow passes (shadow rays from
 the plain closest pass, so that every root gets the same rays). One JSON
 line per root, then one per root after the first with the share of
 bit-equal pixels and rays against the first root and the largest
@@ -97,14 +108,17 @@ class _Clock:
 
 def _launch_counts():
     """Launches of each kernel entry, and the compacted frame modes' host
-    syncs and queued (dirty or unknown) lanes."""
+    syncs and queued (dirty or unknown) lanes (read from the device: call
+    it outside a timed window)."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
 
     return {"frame_kernel": frame_kernel.LAUNCHES, "scene_kernel": scene_kernel.LAUNCHES,
             "frame_compact": frame_kernel.COMPACT_LAUNCHES,
             "frame_dense": frame_kernel.DENSE_LAUNCHES,
             "frame_defer": frame_kernel.DEFER_LAUNCHES, "shadow_queue": scene_kernel.QUEUE_LAUNCHES,
-            "host_syncs": frame_kernel.HOST_SYNCS, "queued_lanes": frame_kernel.QUEUED_LANES}
+            "frame_compose": frame_kernel.COMPOSE_LAUNCHES,
+            "frame_gated": frame_kernel.GATED_FALLBACK_LAUNCHES,
+            "host_syncs": frame_kernel.HOST_SYNCS, "queued_lanes": frame_kernel.queued_lanes()}
 
 
 def card_line() -> str:
@@ -245,6 +259,10 @@ def timed(fn):
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    # The card waits first (about 0.06 s), so that the host has queued every
+    # launch before the first runs: the events then time the card, not the
+    # host's launch rate, which bounds the sub-0.1 ms kernels.
+    torch.cuda._sleep(10 ** 8)
     start.record()
     for _ in range(REPS):
         fn()
@@ -270,18 +288,105 @@ res["defer_main_ms"] = timed(lambda: frame_kernel.render_frame_deferred_main(
     pack, width=w, height=h, shadow_cap=32))
 res["fractal_frame_kernel_ms"] = timed(lambda: frame_kernel.render_frame_tiles(
     pack_fr, width=w, height=h, max_depth=fractal_depth))
-renderer = Renderer(w, h, device=dev)
-renderer.render(0.0)
-torch.cuda.synchronize()
-start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-start.record()
-acc = torch.zeros((), device=dev)
-for k in range(64):
-    acc = acc + renderer.render(0.0333 * k).sum()
-end.record()
-torch.cuda.synchronize()
-assert torch.isfinite(acc), "non-finite window"
-res["window_64_ms_per_frame"] = start.elapsed_time(end) / 64
+
+# The compacted modes' kernels alone, each root's own form at its own queue
+# (the queues come from each root's main pass, so each dense pass and repair
+# takes the same set of lanes), and the calls that both roots have.
+device_queue = hasattr(frame_kernel, "render_frame_compact_main")
+cap = frame_kernel.queue_capacity(w, h)
+kw = dict(width=w, height=h)
+res["compact_capped_ms"] = timed(lambda: frame_kernel.render_frame_capped(pack, budget_cap=64, **kw))
+c_img, dirty = frame_kernel.render_frame_capped(pack, budget_cap=64, **kw)
+q = torch.nonzero(dirty.reshape(-1)).squeeze(1)
+q = q[torch.argsort(dirty.reshape(-1)[q], stable=True)].to(torch.int32)
+qpx, qpy = (q % w).contiguous(), (q // w).contiguous()
+res["dense_camera_ms"] = timed(lambda: frame_kernel.render_frame_dense(pack, qpx, qpy, **kw))
+res["compact_queued"] = q.shape[0]
+planes = frame_kernel.render_frame_deferred_main(pack, shadow_cap=32, **kw)
+idxs = [torch.nonzero((planes.sinfo[k].reshape(-1) & 3) == 2).squeeze(1) for k in range(2)]
+seg = max(i.shape[0] for i in idxs)
+q_rays = torch.zeros((2, seg, 6), device=dev)
+q_act = torch.zeros((2, seg), dtype=torch.bool, device=dev)
+for k, i in enumerate(idxs):
+    q_rays[k, :i.shape[0]] = planes.rays[k].reshape(-1, 6)[i]
+    q_act[k, :i.shape[0]] = True
+q_rays, q_act = q_rays.reshape(-1, 6), q_act.reshape(-1)
+res["queue_compacted_ms"] = timed(lambda: scene_kernel.shadow_queue(pack, q_rays, q_act, seg))
+res["defer_queued"] = [i.shape[0] for i in idxs]
+if device_queue:
+    res["compact_main_ms"] = timed(lambda: frame_kernel.render_frame_compact_main(
+        pack, budget_cap=64, cap=cap, **kw))
+    m_img, appended = frame_kernel.render_frame_compact_main(pack, budget_cap=64, cap=cap, **kw)
+    queue = frame_kernel.bin_queue(appended)
+    res["bin_compact_ms"] = timed(lambda: frame_kernel.bin_queue(appended))
+    res["dense_ms"] = timed(lambda: frame_kernel.render_frame_resume(pack, queue, m_img, **kw))
+    res["dense_append_order_ms"] = timed(lambda: frame_kernel.render_frame_resume(
+        pack, appended, m_img, **kw))
+    d_planes, d_appended = frame_kernel.render_frame_deferred_queue(pack, shadow_cap=32, cap=cap,
+                                                                    **kw)
+    d_queue = frame_kernel.bin_queue(d_appended, d_planes.sinfo)
+    res["defer_main_queue_ms"] = timed(lambda: frame_kernel.render_frame_deferred_queue(
+        pack, shadow_cap=32, cap=cap, **kw))
+    res["bin_defer_ms"] = timed(lambda: frame_kernel.bin_queue(d_appended, d_planes.sinfo))
+    res["queue_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
+        pack, d_planes.rays, d_queue.idx, d_queue.count))
+    res["queue_append_order_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
+        pack, d_planes.rays, d_appended.idx, d_appended.count))
+    occ = scene_kernel.shadow_queue_planes(pack, d_planes.rays, d_queue.idx, d_queue.count)
+    res["compose_ms"] = timed(lambda: frame_kernel.frame_compose(d_planes, occ))
+    res["gated_ms"] = timed(lambda: frame_kernel.render_frame_gated(pack, m_img, queue.count, cap,
+                                                                    **kw))
+    levels = queue.entries[:int(queue.count[0]), 1].long() & 255
+    res["compact_queue_levels"] = torch.bincount(levels, minlength=3).tolist()
+else:
+    res["compact_main_ms"] = res["compact_capped_ms"]
+    res["dense_ms"] = res["dense_camera_ms"]
+    res["defer_main_queue_ms"] = res["defer_main_ms"]
+    res["queue_ms"] = res["queue_compacted_ms"]
+
+
+def recompose():
+    # The host recomposition of the parent's render_frame_deferred.
+    occ = [torch.zeros(h * w, dtype=torch.int32, device=dev) for _ in range(2)]
+    acc = None
+    for k in range(3):
+        term = planes.lit[k]
+        if k < 2:
+            stat = planes.sinfo[k] & 3
+            shad = (stat == 1) | ((stat == 2) & (occ[k].reshape(h, w) != 0))
+            term = torch.where(shad[..., None], planes.shadowed[k], term)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+res["compose_torch_ms"] = timed(recompose)
+
+
+def queued_lanes():
+    return frame_kernel.queued_lanes() if device_queue else frame_kernel.QUEUED_LANES
+
+
+for mode in ("plain", "compact", "defer"):
+    os.environ["GPURT_FRAME_MODE"] = mode
+    renderer = Renderer(w, h, device=dev)
+    renderer.render(0.0)
+    torch.cuda.synchronize()
+    syncs, lanes = frame_kernel.HOST_SYNCS, queued_lanes()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    acc = torch.zeros((), device=dev)
+    for k in range(64):
+        acc = acc + renderer.render(0.0333 * k).sum()
+    end.record()
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc), "non-finite window"
+    key = "window_64_ms_per_frame" if mode == "plain" else f"window_{mode}_64_ms_per_frame"
+    res[key] = start.elapsed_time(end) / 64
+    if mode != "plain":
+        # read once after the window, outside the timing
+        res[f"{mode}_host_syncs_per_frame"] = (frame_kernel.HOST_SYNCS - syncs) / 64
+        res[f"{mode}_queued_lanes_per_frame"] = (queued_lanes() - lanes) / 64
+del os.environ["GPURT_FRAME_MODE"]
 
 
 def efficiency(ops):
@@ -306,6 +411,12 @@ if simt:
 
 flib, slib = build.load("frame_kernel", fmad=FMAD), build.load("scene_kernel", fmad=FMAD)
 outs = {"builtin 1080p": frame_kernel.render_frame_tiles(pack, width=w, height=h, lib=flib)}
+# The modes' frames through the --fmad build (their host code takes no library).
+real_load = build.load
+build.load = lambda name, count_ops=False: real_load(name, fmad=FMAD, count_ops=count_ops)
+outs["builtin 1080p compact"] = frame_kernel.render_frame_compact(pack, width=w, height=h)
+outs["builtin 1080p defer"] = frame_kernel.render_frame_deferred(pack, width=w, height=h)
+build.load = real_load
 for name in [cfg.name for cfg in scenes.BENCH_CONFIGS] + ["mesh_octahedra"]:
     sc, depth = frame_pack(name, 320, 180, 0.7)
     outs[f"{name} 320x180"] = frame_kernel.render_frame_tiles(

@@ -113,10 +113,11 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
     entries = {
-        "frame_kernel": (("gprt_frame_render", 4, 7), ("gprt_frame_compact", 5, 10),
-                         ("gprt_frame_dense", 6, 8), ("gprt_frame_defer", 7, 8)),
+        "frame_kernel": (("gprt_frame_render", 4, 7), ("gprt_frame_compact", 7, 11),
+                         ("gprt_frame_dense", 6, 8), ("gprt_frame_gated", 5, 9),
+                         ("gprt_frame_defer", 9, 9)),
         "scene_kernel": (("gprt_scene_closest", 11, 9), ("gprt_scene_finish", 9, 6),
-                         ("gprt_shadow_queue", 6, 6)),
+                         ("gprt_shadow_queue", 8, 7)),
     }
     for fn, n_ptr, n_int in entries.get(name, ()):
         getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
@@ -124,6 +125,10 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
     if name == "frame_kernel":
         lib.gprt_frame_residency.argtypes = [ci] * 5 + [vp, vp]
         lib.gprt_frame_residency.restype = ci
+        lib.gprt_frame_compose.argtypes = [vp] * 5 + [ci, ci, ci, vp]
+        lib.gprt_frame_compose.restype = ci
+        lib.gprt_queue_bin.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+        lib.gprt_queue_bin.restype = ci
     elif name == "scene_kernel":
         lib.gprt_scene_residency.argtypes = [ci] * 5 + [vp, vp]
         lib.gprt_scene_residency.restype = ci

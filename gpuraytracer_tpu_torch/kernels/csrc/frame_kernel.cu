@@ -45,20 +45,43 @@
 //             touches gets its dirty mask (sticky over levels and both kinds
 //             of ray) and stops (the reference's kill-on-cap and dropped
 //             lanes); writes the image and the (H, W) int32 mask.
-//   dense     one thread per entry of the dirty queue (px, py; -1 is
-//             padding), rendered with the plain form's device code, so a
-//             re-rendered pixel is the plain kernel's pixel.
+//             With a queue, it appends each dirty pixel's state at the
+//             start of the level where the cap stopped it (QueueEntry) to a
+//             fixed-capacity device queue.
+//   dense     the dense pass: one thread per slot of that queue, launched
+//             over the capacity; it reads the live count from the queue and
+//             continues each pixel from its saved level with the plain
+//             form's device code at full budgets, writing the colour into the
+//             image. The levels before were the plain kernel's bit for bit (a
+//             march that resolves within its cap is a strict prefix of the
+//             full one), so the pixel is the plain kernel's pixel. An entry
+//             at level -1 starts from the camera ray (render_frame_dense).
 //   defer     the occlusion marches capped, each level with a dirty mask of
 //             its own; per level the colour contribution with the light
 //             visible and (shadowed levels) in shadow, the status (0 lit, 1
 //             shadowed, 2 unknown) | mask << 2, and the shadow ray in BLAS
-//             space; a level the pixel never reaches reads zeros.
-// The host (kernels/frame_kernel.py) builds the queues and recomposes. On
-// Hopper the modes' purpose on the TPU, breaking its tile convoys, does not
-// arise (each thread already ends its own march): they are ported for the
-// reference's semantics and measured, not for speed.
+//             space; a level the pixel never reaches reads zeros. With a
+//             queue, it appends each unknown pixel's index to its level's
+//             device queue; the queue entry of scene_kernel.cu repairs them
+//             into occlusion planes, and the compose entry sums the levels.
+//   gated     the plain frame behind a device-side flag: its blocks return
+//             before loading the scene unless a queue overflowed (the
+//             reference's lax.cond, decided on the device).
+// Each mode is one stream-ordered chain of these entries: the queues' counts
+// stay on the device and the host reads nothing back. On Hopper the modes'
+// purpose on the TPU, breaking its tile convoys, does not arise (each thread
+// already ends its own march): they are ported for the reference's
+// semantics and measured, not for speed.
 //
-// The plain and dense entries have a second instantiation (kMerged) whose
+// Queue order is a schedule, not behaviour. Between the main entry and the
+// dense pass or the repair, the bin entries reorder each queue by a key on
+// the device (the reference's ray sorting): compact by the capped geometry,
+// defer by raster block, then capped geometry, so that a warp of the dense
+// pass or the repair marches one geometry. In append order (each group of
+// lanes that a cap stops together) the dense pass read 1.7x and the repair
+// 1.1-1.3x slower on an H100 (PERF.md).
+//
+// The plain, dense and gated entries have a second instantiation (kMerged) whose
 // occlusion traversal merges the SDF marches (traverse.cuh
 // occluded_merged; the reference's _march_sdf_multi, which its frame kernel
 // runs under GPURT_MERGED_SHADOW where it allocates the merged banks); the
@@ -169,6 +192,38 @@ __device__ float checkers(const Scene& s, V3 hp, V3 n, int px, int py, int width
 
 enum Form { kPlainForm = 0, kCompactForm = 1, kDeferForm = 2 };
 
+// One entry of the compact form's queue (64 bytes): the pixel's raster
+// index, its level | the lowest set bit of its dirty mask << 8 (the key of
+// the binned order), and its state at the start of the level where a cap
+// stopped it (the ray, the colour so far and the throughput), which the
+// dense pass resumes from; level -1 stands for the camera ray.
+struct alignas(16) QueueEntry {
+  int pix, level;
+  float o[3], d[3], color[4], tw[4];
+};
+
+// Appends the lanes of `group` (lanes of one warp that execute this call
+// together, the caller among them) to a queue with one atomicAdd on *count.
+// Returns the caller's slot, which may lie past the queue's capacity (the
+// caller stores only below it; the count still counts it).
+__device__ __forceinline__ int group_append(unsigned group, int* count) {
+  const int lane =
+      (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
+  const int leader = __ffs((int)group) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(group));
+  base = __shfl_sync(group, base, leader);
+  return base + __popc(group & ((1u << lane) - 1u));
+}
+
+// A device queue: `cap` slots, count[k] the lanes appended to segment k
+// (stored or not).
+struct DeviceQueue {
+  void* slots;  // QueueEntry (compact) or int pixel indices (defer, per level)
+  int* count;
+  int cap;
+};
+
 // Where the defer form writes: planes of n = W * H pixels, level-major.
 struct DeferOut {
   float4* lit;       // D x n
@@ -181,31 +236,62 @@ struct DeferOut {
 // One pixel: raygen, then per level the closest hit, the material pick,
 // the shadow ray, the shading and the bounce; returns the colour (the
 // defer form records its planes at `pix` instead and returns zeros).
-// kCompactForm: caps as closest_caps / shadow_caps, *dirty the mask.
-// kDeferForm: occlusion capped as shadow_caps. kMerged (plain form only):
-// the occlusion traversal merges the SDF marches (GPURT_MERGED_SHADOW).
-template <int kForm, bool kMerged = false>
+// kCompactForm: caps as closest_caps / shadow_caps, *dirty the mask; a pixel
+// that a cap touches stops, and goes with its state at the start of that
+// level to *queue (where not null): the lanes that stop together take their
+// slots with one atomicAdd. kDeferForm: occlusion capped as shadow_caps;
+// bit k of *dirty set where level k's status is unknown. kMerged (plain form
+// only): the occlusion traversal merges the SDF marches
+// (GPURT_MERGED_SHADOW). kResume (plain form only): start from the state in
+// *from instead of the camera ray, unless its level is -1.
+template <int kForm, bool kMerged = false, bool kResume = false>
 __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int height,
                                int max_depth, CapSpec closest_caps, CapSpec shadow_caps,
-                               unsigned* dirty, const DeferOut& rec, int pix) {
+                               unsigned* dirty, const DeferOut& rec, int pix,
+                               const QueueEntry* from, const DeviceQueue* queue) {
+  static_assert(!kResume || kForm == kPlainForm, "only the plain form resumes");
   const V3 light = v3(s.cvec[4], s.cvec[5], s.cvec[6]);
   const float* amb = s.cvec + 8;
   const float* ldiff = s.cvec + 12;
   const float bg[4] = {F(0.8), F(0.9), F(1.0), F(1.0)};
 
   V3 o, d;
-  raygen(s, px, py, width, height, &o, &d);
   float color[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float tw[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+  int first = 0;
+  if (kResume && from->level >= 0) {
+    o = v3(from->o[0], from->o[1], from->o[2]);
+    d = v3(from->d[0], from->d[1], from->d[2]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) color[c] = from->color[c], tw[c] = from->tw[c];
+    first = from->level & 255;
+  } else {
+    raygen(s, px, py, width, height, &o, &d);
+  }
   int reached = 0;
+  // compact: queue a capped pixel with its state, for the dense pass.
+  auto stop = [&](int level) {
+    if (queue == nullptr) return;
+    const int slot = group_append(__activemask(), queue->count);
+    if (slot >= queue->cap) return;
+    QueueEntry& e = static_cast<QueueEntry*>(queue->slots)[slot];
+    e.pix = py * width + px;
+    e.level = level | ((__ffs((int)*dirty) - 1) << 8);
+    e.o[0] = o.x, e.o[1] = o.y, e.o[2] = o.z;
+    e.d[0] = d.x, e.d[1] = d.y, e.d[2] = d.z;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e.color[c] = color[c], e.tw[c] = tw[c];
+  };
 
-  for (int level = 0; level < max_depth; ++level) {
+  for (int level = first; level < max_depth; ++level) {
     GPRT_OPS(6 + 13 + 7 + 22 + 18 + 1 + 3 + 8 + 4 * 9 + 7 + 2 + 5 + 3 * 14 + 11);
     reached = level + 1;
     GPRT_SIMT_BUCKET(2 * level);
     Hit h = closest_hit<kForm == kCompactForm>(s, o, d, level, closest_caps, dirty);
-    // compact: a capped pixel is rendered again by the dense pass.
-    if (kForm == kCompactForm && *dirty) break;
+    if (kForm == kCompactForm && *dirty) {
+      stop(level);
+      break;
+    }
     const bool hit = h.gid >= 0;
     const float t = hit ? h.t : kRayTMax;
     const V3 n = h.n;
@@ -240,7 +326,10 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
       in_shadow = occluded<kForm != kPlainForm, kMerged>(s, hp, sd, level, shadow_caps,
                                                          kForm == kDeferForm ? &sdirty : dirty);
     }
-    if (kForm == kCompactForm && *dirty) break;
+    if (kForm == kCompactForm && *dirty) {
+      stop(level);
+      break;
+    }
     const float a = 1.0f - saturate(dot3(n, v3(0.0f, -1.0f, 0.0f)));
 
     // Phong with the shadow factor and specular of `shadowed`.
@@ -284,6 +373,7 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
         rec.shadowed[at] = make_float4(shadowed[0], shadowed[1], shadowed[2], shadowed[3]);
         const int status = in_shadow ? 1 : (sdirty != 0 ? 2 : 0);
         rec.sinfo[at] = status | (int)(sdirty << 2);
+        if (status == 2) *dirty |= 1u << level;
       }
     }
     // Exact kills: a non-reflective hit or a throughput that is exactly
@@ -334,63 +424,229 @@ __global__ void __launch_bounds__(128)
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {
     out[py * width + px] = render_pixel<kPlainForm, kMerged>(
-        s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0);
+        s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0,
+        nullptr, nullptr);
   }
   counters_end(ops);
 }
 
+// Whether any of the n queue counts passed the capacity.
+__device__ __forceinline__ bool overflowed(const int* count, int n, int cap) {
+  bool over = false;
+  for (int k = 0; k < n; ++k) over = over || count[k] > cap;
+  return over;
+}
+
+// The plain frame kernel behind the queues' overflow flag: every block
+// returns before loading the scene unless one of the n counts passed cap.
+template <bool kMerged, bool kShared>
+__global__ void __launch_bounds__(128)
+    frame_gated_kernel(const float* __restrict__ params, const int* __restrict__ layout,
+                       const float* __restrict__ tri, float4* __restrict__ out,
+                       const int* __restrict__ count, int n, int cap, int width, int height,
+                       int max_depth, int G, int M, unsigned long long* ops) {
+  if (!overflowed(count, n, cap)) return;
+  const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px < width && py < height) {
+    out[py * width + px] = render_pixel<kPlainForm, kMerged>(
+        s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0,
+        nullptr, nullptr);
+  }
+  counters_end(ops);
+}
+
+// dirty_out (may be null): the (H, W) int32 dirty masks. q.count (may be
+// null): append each dirty pixel's QueueEntry to q where the cap stops it.
 template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_compact_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                          const float* __restrict__ tri, float4* __restrict__ out,
-                         int* __restrict__ dirty_out, int width, int height, int max_depth, int G,
-                         int M, CapSpec closest_caps, CapSpec shadow_caps,
+                         int* __restrict__ dirty_out, DeviceQueue q, int width, int height,
+                         int max_depth, int G, int M, CapSpec closest_caps, CapSpec shadow_caps,
                          unsigned long long* ops) {
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px < width && py < height) {
     unsigned dirty = 0;
-    out[py * width + px] = render_pixel<kCompactForm>(s, px, py, width, height, max_depth,
-                                                      closest_caps, shadow_caps, &dirty,
-                                                      DeferOut{}, 0);
-    dirty_out[py * width + px] = (int)dirty;
+    out[py * width + px] = render_pixel<kCompactForm>(
+        s, px, py, width, height, max_depth, closest_caps, shadow_caps, &dirty, DeferOut{}, 0,
+        nullptr, q.count != nullptr ? &q : nullptr);
+    if (dirty_out != nullptr) dirty_out[py * width + px] = (int)dirty;
   }
   counters_end(ops);
 }
 
+// The dense pass over the compact queue q, one thread per slot over its
+// capacity: a block past the live count (every block, where the queue
+// overflowed) returns before loading the scene. An entry resumes from its
+// level, or renders from the camera ray where its level is -1.
 template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     frame_dense_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                       const float* __restrict__ tri, const int* __restrict__ qpx,
-                       const int* __restrict__ qpy, float4* __restrict__ out, int n, int width,
-                       int height, int max_depth, int G, int M, unsigned long long* ops) {
+                       const float* __restrict__ tri, DeviceQueue q, float4* __restrict__ out,
+                       int width, int height, int max_depth, int G, int M,
+                       unsigned long long* ops) {
+  const int n = *q.count;
+  const int live = n > q.cap ? 0 : n;
+  if ((int)(blockIdx.x * blockDim.x) >= live) return;
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int px = qpx[i], py = qpy[i];
-    out[i] = px < 0 ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-                    : render_pixel<kPlainForm, kMerged>(s, px, py, width, height, max_depth,
-                                                        CapSpec{}, CapSpec{}, nullptr,
-                                                        DeferOut{}, 0);
+  if (i < live) {
+    const QueueEntry* e = static_cast<const QueueEntry*>(q.slots) + i;
+    const int pix = e->pix;
+    out[pix] = render_pixel<kPlainForm, kMerged, true>(
+        s, pix % width, pix / width, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr,
+        DeferOut{}, 0, e, nullptr);
   }
   counters_end(ops);
 }
 
+// q.count (may be null): append each pixel whose status is unknown at
+// shadowed level k to segment k of q (int raster indices, q.cap per level).
 template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_defer_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                       const float* __restrict__ tri, DeferOut rec, int width, int height,
-                       int max_depth, int G, int M, CapSpec shadow_caps,
+                       const float* __restrict__ tri, DeferOut rec, DeviceQueue q, int width,
+                       int height, int max_depth, int G, int M, CapSpec shadow_caps,
                        unsigned long long* ops) {
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && py < height) {
+  const bool inside = px < width && py < height;
+  unsigned unknown = 0;
+  if (inside) {
     render_pixel<kDeferForm>(s, px, py, width, height, max_depth, CapSpec{}, shadow_caps,
-                             nullptr, rec, py * width + px);
+                             &unknown, rec, py * width + px, nullptr, nullptr);
+  }
+  if (q.count != nullptr) {
+    // Every lane of the warp is here: one ballot per level.
+    for (int k = 0; k + 1 < max_depth; ++k) {
+      const bool queued = (unknown >> k) & 1u;
+      const unsigned group = __ballot_sync(0xffffffffu, queued);
+      if (!queued) continue;
+      const int slot = group_append(group, q.count + k);
+      if (slot < q.cap) static_cast<int*>(q.slots)[(size_t)k * q.cap + slot] = py * width + px;
+    }
   }
   counters_end(ops);
+}
+
+// The defer form's recomposition, one thread per pixel of n: acc = term_0;
+// acc = acc + term_1; ... (the defer kernel's association order), where
+// term_k is level k's shadowed contribution if its status is 1, or 2 and
+// its occlusion plane says occluded, else its lit one. Bytes-bound: per
+// pixel and level it reads the status, the occlusion plane only where the
+// status is unknown, and only the chosen contribution; the image is written
+// once.
+__global__ void __launch_bounds__(128)
+    frame_compose_kernel(const float4* __restrict__ lit, const float4* __restrict__ shadowed,
+                         const int* __restrict__ sinfo, const int* __restrict__ occ,
+                         float4* __restrict__ out, int n, int max_depth) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < max_depth; ++k) {
+    const size_t at = (size_t)k * n + i;
+    bool shadow = false;
+    if (k + 1 < max_depth) {
+      const int status = sinfo[at] & 3;
+      shadow = status == 1 || (status == 2 && occ[at] != 0);
+    }
+    const float4 term = shadow ? shadowed[at] : lit[at];
+    acc = k == 0 ? term
+                 : make_float4(acc.x + term.x, acc.y + term.y, acc.z + term.z, acc.w + term.w);
+  }
+  out[i] = acc;
+}
+
+// The binned order of device queues: nseg segments of cap slots, segment k
+// holding count[k] live entries (none where a count passed cap), each with
+// a key in [0, nbins). A histogram counts the keys (lanes of a warp with
+// one key add with one atomicAdd, __match_any_sync), an exclusive scan makes
+// the counts offsets, and a scatter copies each entry to its key's next
+// slot (the same grouping); within a key the order is the atomics'. Bytes-
+// bound: the live entries are read twice and written once.
+struct BinQueue {
+  const void* in;    // QueueEntry slots (compact) or int pixel indices (defer)
+  void* out;         // the same, binned
+  const int* count;  // nseg
+  const int* sinfo;  // defer: the status planes, nseg x npix
+  int* bins;         // nseg x nbins: counts, then offsets, then cursors
+  int nseg, cap, npix, nbins;
+};
+
+// Compact: the lowest set bit of the dirty mask (32 keys). Defer: the
+// pixel's block of 2^15 raster pixels * 32 + the lowest set bit of the
+// level's capped-geometry mask, whose bits 0-29 the status word keeps
+// (sinfo >> 2): a lane whose capped geometries are all past 29 has none
+// there, and takes key 30.
+template <bool kDefer>
+__device__ __forceinline__ int bin_key(const BinQueue& b, int seg, int i) {
+  if (kDefer) {
+    const int pix = static_cast<const int*>(b.in)[(size_t)seg * b.cap + i];
+    const int code = (int)((unsigned)b.sinfo[(size_t)seg * b.npix + pix] >> 2);
+    return (pix >> 15) * 32 + (code != 0 ? __ffs(code) - 1 : 30);
+  }
+  return static_cast<const QueueEntry*>(b.in)[i].level >> 8;
+}
+
+// One thread per slot of segment blockIdx.y: the histogram (kScatter
+// false) or the scatter into b.out (kScatter true).
+template <bool kDefer, bool kScatter>
+__global__ void __launch_bounds__(128) queue_bin_kernel(BinQueue b) {
+  const int seg = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (overflowed(b.count, b.nseg, b.cap) ? 0 : b.count[seg])) return;
+  const int key = bin_key<kDefer>(b, seg, i);
+  int* bin = b.bins + (size_t)seg * b.nbins + key;
+  const unsigned group = __match_any_sync(__activemask(), key);
+  if (!kScatter) {
+    const int lane =
+        (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
+    if (lane == __ffs((int)group) - 1) atomicAdd(bin, __popc(group));
+    return;
+  }
+  const int slot = group_append(group, bin);
+  if (kDefer) {
+    static_cast<int*>(b.out)[(size_t)seg * b.cap + slot] =
+        static_cast<const int*>(b.in)[(size_t)seg * b.cap + i];
+  } else {
+    static_cast<QueueEntry*>(b.out)[slot] = static_cast<const QueueEntry*>(b.in)[i];
+  }
+}
+
+// The exclusive scan of segment blockIdx.x's nbins counts, in place: each
+// thread sums a run of bins, the block scans the sums (Hillis-Steele in
+// shared memory), each thread writes its run's offsets. Thread 0 adds the
+// segment's count to *total (where given: a running count of the lanes
+// the binned queues counted, across launches).
+__global__ void __launch_bounds__(1024)
+    queue_scan_kernel(int* bins, int nbins, const int* count, unsigned long long* total) {
+  __shared__ int part[1024];
+  int* h = bins + (size_t)blockIdx.x * nbins;
+  const int t = threadIdx.x, n = blockDim.x;
+  if (t == 0 && total != nullptr) atomicAdd(total, (unsigned long long)count[blockIdx.x]);
+  const int per = (nbins + n - 1) / n;
+  const int lo = min(t * per, nbins), hi = min(lo + per, nbins);
+  int sum = 0;
+  for (int k = lo; k < hi; ++k) sum += h[k];
+  part[t] = sum;
+  __syncthreads();
+  for (int off = 1; off < n; off <<= 1) {
+    const int v = t >= off ? part[t - off] : 0;
+    __syncthreads();
+    part[t] += v;
+    __syncthreads();
+  }
+  int run = part[t] - sum;
+  for (int k = lo; k < hi; ++k) {
+    const int c = h[k];
+    h[k] = run;
+    run += c;
+  }
 }
 
 }  // namespace gprt
@@ -405,6 +661,11 @@ static cudaError_t setup(Kernel kernel, int G, int M, int shared, int device, si
   if (GPRT_COUNTING && !shared) return cudaErrorNotSupported;
   *shmem = shared ? gprt::shared_bytes(true, G, M) : 0;
   return gprt::reserve_shared(kernel, *shmem, device);
+}
+
+// The grid of the 16x8 blocks that cover a width x height frame.
+static dim3 frame_grid(int width, int height) {
+  return dim3((width + 15) / 16, (height + 7) / 8);
 }
 
 static auto frame_entry(int merged, int shared) {
@@ -423,9 +684,7 @@ extern "C" int gprt_frame_render(const float* params, const int* layout, const f
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 block(16, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth,
       num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
@@ -442,11 +701,14 @@ extern "C" int gprt_frame_residency(int num_geometries, int num_materials, int s
   return (int)gprt::resident_blocks(kernel, shmem, device, per_sm, total);
 }
 
-// The compact form's main pass: out (H, W, 4), dirty (H, W) int32; the
-// closest and occlusion passes' SDF and metaball step caps.
+// The compact form's main pass: out (H, W, 4); dirty (H, W) int32 or null;
+// the closest and occlusion passes' SDF and metaball step caps. queue (may
+// be null): `cap` QueueEntry slots (64 bytes each) that the dirty pixels are
+// appended to, count one int32 that is zeroed on the stream first.
 extern "C" int gprt_frame_compact(const float* params, const int* layout, const float* tri,
-                                  float* out, int* dirty, int width, int height, int max_depth,
-                                  int num_geometries, int num_materials, int shared,
+                                  float* out, int* dirty, void* queue, int* count, int cap,
+                                  int width, int height,
+                                  int max_depth, int num_geometries, int num_materials, int shared,
                                   int closest_sdf_cap, int closest_mb_cap, int shadow_sdf_cap,
                                   int shadow_mb_cap, unsigned long long* ops, int device,
                                   void* stream) {
@@ -454,39 +716,67 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 block(16, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, reinterpret_cast<float4*>(out), dirty, width, height, max_depth,
-      num_geometries, num_materials, gprt::CapSpec{closest_sdf_cap, closest_mb_cap},
+  if (count != nullptr) {
+    if (queue == nullptr || cap <= 0) return (int)cudaErrorInvalidValue;
+    err = cudaMemsetAsync(count, 0, sizeof(int), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, reinterpret_cast<float4*>(out), dirty,
+      gprt::DeviceQueue{queue, count, cap}, width, height, max_depth, num_geometries,
+      num_materials, gprt::CapSpec{closest_sdf_cap, closest_mb_cap},
       gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
   return (int)cudaGetLastError();
 }
 
-// The dense pass: n queue entries (qpx, qpy; -1 padding) -> out (n, 4);
-// merged as for gprt_frame_render.
+// The dense pass over a compact queue (queue, count, cap as
+// gprt_frame_compact fills them) into the image out (H, W, 4), launched
+// over the capacity; merged as for gprt_frame_render.
 extern "C" int gprt_frame_dense(const float* params, const int* layout, const float* tri,
-                                const int* qpx, const int* qpy, float* out, int n, int width,
-                                int height, int max_depth, int num_geometries, int num_materials,
-                                int shared, int merged, unsigned long long* ops, int device,
-                                void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                                const void* queue, const int* count, float* out, int cap,
+                                int width, int height, int max_depth, int num_geometries,
+                                int num_materials, int shared, int merged,
+                                unsigned long long* ops, int device, void* stream) {
+  if (cap <= 0) return (int)cudaErrorInvalidValue;
   const auto kernel = GPRT_PICK2(gprt::frame_dense_kernel, merged, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, qpx, qpy, reinterpret_cast<float4*>(out), n, width, height, max_depth,
-      num_geometries, num_materials, ops);
+  kernel<<<(cap + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, gprt::DeviceQueue{const_cast<void*>(queue), const_cast<int*>(count),
+                                             cap},
+      reinterpret_cast<float4*>(out), width, height, max_depth, num_geometries, num_materials,
+      ops);
+  return (int)cudaGetLastError();
+}
+
+// The plain frame into out (H, W, 4) if any of the n counts passed cap;
+// merged as for gprt_frame_render.
+extern "C" int gprt_frame_gated(const float* params, const int* layout, const float* tri,
+                                float* out, const int* count, int n, int cap, int width,
+                                int height, int max_depth, int num_geometries, int num_materials,
+                                int shared, int merged, unsigned long long* ops, int device,
+                                void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = GPRT_PICK2(gprt::frame_gated_kernel, merged, shared);
+  size_t shmem;
+  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, reinterpret_cast<float4*>(out), count, n, cap, width, height,
+      max_depth, num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
 }
 
 // The defer form's main pass: lit (D, H, W, 4), shadowed (D-1, H, W, 4),
 // sinfo (D-1, H, W) int32, rays (D-1, H, W, 6); the occlusion passes' SDF
-// and metaball step caps.
+// and metaball step caps. queue (may be null): (D-1, cap) int32 pixel
+// indices of the unknown lanes per shadowed level, counted in count (D-1
+// int32, zeroed on the stream first).
 extern "C" int gprt_frame_defer(const float* params, const int* layout, const float* tri,
-                                float* lit, float* shadowed, int* sinfo, float* rays, int width,
-                                int height, int max_depth, int num_geometries, int num_materials,
+                                float* lit, float* shadowed, int* sinfo, float* rays, int* queue,
+                                int* count, int cap, int width, int height, int max_depth,
+                                int num_geometries, int num_materials,
                                 int shared, int shadow_sdf_cap, int shadow_mb_cap,
                                 unsigned long long* ops, int device, void* stream) {
   if (max_depth < 2) return (int)cudaErrorInvalidValue;
@@ -494,13 +784,55 @@ extern "C" int gprt_frame_defer(const float* params, const int* layout, const fl
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 block(16, 8);
-  dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  if (count != nullptr) {
+    if (queue == nullptr || cap <= 0) return (int)cudaErrorInvalidValue;
+    err = cudaMemsetAsync(count, 0, sizeof(int) * (max_depth - 1), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
                            sinfo, rays, width * height};
-  kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, rec, width, height, max_depth, num_geometries, num_materials,
-      gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
+  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, rec, gprt::DeviceQueue{queue, count, cap}, width, height,
+      max_depth, num_geometries, num_materials, gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap},
+      ops);
+  return (int)cudaGetLastError();
+}
+
+// The defer form's recomposition of n pixels from lit (D, n, 4), shadowed,
+// sinfo and occ ((D-1, n, ...)) into out (n, 4).
+extern "C" int gprt_frame_compose(const float* lit, const float* shadowed, const int* sinfo,
+                                  const int* occ, float* out, int n, int max_depth, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || max_depth < 2) return (int)cudaErrorInvalidValue;
+  gprt::frame_compose_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(lit), reinterpret_cast<const float4*>(shadowed), sinfo, occ,
+      reinterpret_cast<float4*>(out), n, max_depth);
+  return (int)cudaGetLastError();
+}
+
+// The binned order of a compact queue (defer 0: queue, out cap QueueEntry
+// slots, count 1 int32) or of the defer queues (defer 1: queue, out nseg x
+// cap int32, count nseg int32, sinfo the (nseg, npix) status planes) into
+// out; bins: nseg x nbins int32 scratch (nbins: 32, or 32 per 2^15 pixels);
+// total (may be null): a uint64 that the counts are added to.
+extern "C" int gprt_queue_bin(const void* queue, void* out, const int* count, const int* sinfo,
+                              int* bins, unsigned long long* total, int nseg, int cap, int npix,
+                              int nbins, int defer, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nseg <= 0 || cap <= 0 || nbins <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = cudaMemsetAsync(bins, 0, sizeof(int) * (size_t)nseg * nbins, st);
+  if (err != cudaSuccess) return (int)err;
+  const gprt::BinQueue b{queue, out, count, sinfo, bins, nseg, cap, npix, nbins};
+  const dim3 grid((cap + 127) / 128, nseg);
+  (defer ? gprt::queue_bin_kernel<true, false> : gprt::queue_bin_kernel<false, false>)
+      <<<grid, 128, 0, st>>>(b);
+  gprt::queue_scan_kernel<<<nseg, 1024, 0, st>>>(bins, nbins, count, total);
+  (defer ? gprt::queue_bin_kernel<true, true> : gprt::queue_bin_kernel<false, true>)
+      <<<grid, 128, 0, st>>>(b);
   return (int)cudaGetLastError();
 }
 

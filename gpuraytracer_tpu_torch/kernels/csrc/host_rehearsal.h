@@ -5,8 +5,9 @@
 // scene_kernel.cu against it with -ffp-contract=off, which repeats the
 // plain versions' arithmetic, and runs every block with one thread.
 //
-// A block of one thread is a warp of one lane: __activemask() is that lane,
-// a ballot is its predicate, a shuffle its own value; atomics are plain
+// A block of one thread is a warp of one lane: __activemask() and
+// __match_any_sync() are that lane, a ballot is its predicate, a shuffle its
+// own value; atomics are plain
 // read-modify-writes; __syncthreads() has nothing to wait for. The rounded
 // intrinsics (__fmul_rn, ...) are the plain operators, which this build
 // never contracts. Dynamic shared memory (`extern __shared__ float smem[]`)
@@ -51,6 +52,7 @@ inline T __ldg(const T* p) { return *p; }
 inline void __syncthreads() {}
 inline unsigned __activemask() { return 1u; }
 inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }
+inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 template <typename T>
 inline T __shfl_sync(unsigned, T v, int) { return v; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }

@@ -43,7 +43,8 @@
 //
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py
 // pack_frame builds them; tri, the F x 12 mesh face table (null without
-// meshes); o, d (N, 3) f32; active (N,) bool; t0 (N,) f32.
+// meshes); o, d (N, 3) f32; active (N,) bool; t0 (N,) f32. The repair
+// queue entries take their own inputs (below).
 // The C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
@@ -122,37 +123,60 @@ __global__ void __launch_bounds__(128)
   counters_end(ops);
 }
 
-// The deferred-shadow mode's occlusion repair queue (replaces the
-// reference's frame_kernel._shadow_queue_kernel, frame_kernel.py:1016):
-// one thread per queue entry, rays (N, 6) f32 (BLAS-space origin,
-// direction), active (N,) bool; the queue holds one segment of `seg`
-// entries per shadowed level, so an entry's level is i / seg. An active
-// entry runs the plain accept-first traversal from 0 to RAY_TMAX at that
-// level's budgets (the occluded-on-cap rule of the plain kernel included);
-// occ = active && occluded. Bound like the scene kernel: divergent marches
-// (the entries are the lanes whose capped occlusion march found nothing,
-// the long tail); 25 bytes in and 4 out per entry. kMerged: the occlusion
-// traversal merges the SDF marches (GPURT_MERGED_SHADOW; the reference
-// allocates the merged banks for this kernel, frame_kernel.py:1259).
+// The repair's query: the plain accept-first traversal of the shadow ray r
+// (BLAS-space origin, direction) at `level`; kMerged: merged SDF marches.
+template <bool kMerged>
+__device__ __forceinline__ bool queue_occluded(const Scene& s, const float* r, int level) {
+  const V3 ob = v3(r[0], r[1], r[2]), dir = v3(r[3], r[4], r[5]);
+  return kMerged ? occluded_merged(s, ob, dir, kRayTMax, level)
+                 : occluded_procedural(s, ob, dir, kRayTMax, level) >= 0;
+}
+
+// The deferred-shadow mode's occlusion repair (replaces the reference's
+// frame_kernel._shadow_queue_kernel, frame_kernel.py:1016) over the defer
+// main pass's device queues (render_frame_deferred): block row blockIdx.y
+// is shadowed level k, whose queue idx[k * cap ...] holds count[k] pixel
+// indices (stored up to cap). Launched over the capacity: the live count is
+// read from the device, and a block past it (every block, where any level's
+// count passed cap: the gated plain frame then replaces the image) returns
+// before loading the scene. A live slot runs the plain accept-first
+// traversal of its pixel's shadow ray in level k's ray plane (rays: (nsl,
+// npix, 6) f32, BLAS-space origin and direction) from 0 to RAY_TMAX at that
+// level's budgets (the occluded-on-cap rule of the plain kernel included),
+// and writes the answer to its pixel in level k's occlusion plane (occ:
+// (nsl, npix) int32; the other pixels are not written, and the composition
+// reads only the queued ones). Without idx and count every pixel of every
+// level is a live slot (cap = npix), and active ((nsl, npix) bool, may be
+// null) clears the answer of an inactive one (scene_kernel.shadow_queue's
+// flat queue of segments). Bound like the scene kernel: divergent marches
+// (the lanes whose capped occlusion march found nothing, the long tail);
+// 28 bytes in and 4 out per entry. kMerged: the occlusion traversal merges
+// the SDF marches (GPURT_MERGED_SHADOW; the reference allocates the merged
+// banks for this kernel, frame_kernel.py:1259).
 template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     shadow_queue_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                         const float* __restrict__ tri, const float* __restrict__ rays,
-                        const bool* __restrict__ active, int* __restrict__ occ, int n, int seg,
-                        int G, int M, unsigned long long* ops) {
+                        const int* __restrict__ idx, const int* __restrict__ count,
+                        const bool* __restrict__ active, int* __restrict__ occ, int npix,
+                        int nsl, int cap, int G, int M, unsigned long long* ops) {
+  const int level = blockIdx.y;
+  int live = cap;
+  if (count != nullptr) {
+    bool over = false;
+    for (int k = 0; k < nsl; ++k) over = over || count[k] > cap;
+    live = over ? 0 : count[level];
+  }
+  if ((int)(blockIdx.x * blockDim.x) >= live) return;
   extern __shared__ float smem[];
   counters_begin(ops);
   const Scene s = load_scene<false, kShared>(params, layout, tri, G, M, smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    bool hit = false;
-    if (active[i]) {
-      const float* r = rays + 6 * (size_t)i;
-      const V3 ob = v3(r[0], r[1], r[2]), dir = v3(r[3], r[4], r[5]);
-      hit = kMerged ? occluded_merged(s, ob, dir, kRayTMax, i / seg)
-                    : occluded_procedural(s, ob, dir, kRayTMax, i / seg) >= 0;
-    }
-    occ[i] = hit ? 1 : 0;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot < live) {
+    const size_t pix =
+        (size_t)level * npix + (idx != nullptr ? idx[(size_t)level * cap + slot] : slot);
+    const bool on = active == nullptr || active[pix];
+    occ[pix] = on && queue_occluded<kMerged>(s, rays + 6 * pix, level) ? 1 : 0;
   }
   counters_end(ops);
 }
@@ -232,19 +256,27 @@ extern "C" int gprt_scene_finish(const float* params, const int* layout, const f
   return (int)cudaGetLastError();
 }
 
+// The repair: rays (nsl, npix, 6), idx (nsl, cap) int32 and count (nsl,)
+// int32 (both null: every pixel, cap = npix), active (nsl, npix) bool (may
+// be null), occ (nsl, npix) int32; a grid of cap / 128 blocks per level.
 // ops and shared as for gprt_scene_closest; merged: launch the
 // instantiation with merged occlusion marches.
 extern "C" int gprt_shadow_queue(const float* params, const int* layout, const float* tri,
-                                 const float* rays, const bool* active, int* occ, int n, int seg,
+                                 const float* rays, const int* idx, const int* count,
+                                 const bool* active, int* occ, int npix, int nsl, int cap,
                                  int num_geometries, int num_materials, int shared, int merged,
                                  unsigned long long* ops, int device, void* stream) {
-  if (seg <= 0) return (int)cudaErrorInvalidValue;
+  if (npix <= 0 || nsl <= 0 || (idx == nullptr) != (count == nullptr)
+      || (idx == nullptr && cap != npix)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const auto kernel = GPRT_PICK2(gprt::shadow_queue_kernel, merged, shared);
   size_t shmem;
-  cudaError_t err = setup(kernel, n, num_geometries, num_materials, shared, device, &shmem);
+  cudaError_t err = setup(kernel, cap, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, rays, active, occ, n, seg, num_geometries, num_materials, ops);
+  kernel<<<dim3((cap + 127) / 128, nsl), 128, shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, rays, idx, count, active, occ, npix, nsl, cap, num_geometries,
+      num_materials, ops);
   return (int)cudaGetLastError();
 }
 

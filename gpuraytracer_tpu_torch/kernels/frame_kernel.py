@@ -9,13 +9,17 @@ shading and the bounce, and one float4 store.
 
 The same source holds the reference's compacted frame modes
 (GPURT_FRAME_MODE, ``frame_mode``): ``render_frame_compact`` (its
-render_frame_compact: a capped main pass that marks dirty pixels, a dense
-pass over the queue of dirty pixels, the plain kernel if the queue
-overflows) and ``render_frame_deferred`` (its render_frame_deferred: a
-main pass with capped occlusion that records both shadow variants per
-level, the occlusion repair queue of scene_kernel.shadow_queue, and the
-recomposition). Their host code is the same on both devices; each of the
-kernels' wrappers runs its plain version on a CPU tensor.
+render_frame_compact: a capped main pass that queues the dirty pixels, a
+dense pass over the queue that resumes each pixel where the cap stopped
+it, the plain kernel if the queue overflows) and ``render_frame_deferred``
+(its render_frame_deferred: a main pass with capped occlusion that records
+both shadow variants per level and queues the unknown lanes, the occlusion
+repair of scene_kernel.shadow_queue_planes, and the recomposition). On a
+GPU each mode is one stream-ordered chain of kernels: the queues and their
+counts stay on the device, the overflow is decided there (a gated launch of
+the plain kernel), and the host reads nothing back. Each of the kernels'
+wrappers runs its plain version on a CPU tensor, where the modes' host
+code reads the counts.
 
 Under GPURT_MERGED_SHADOW=1 (``merges``) the plain entry and the dense
 entry launch their instantiation whose occlusion traversal merges the SDF
@@ -39,6 +43,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
+import warnings
+from typing import NamedTuple
 
 import torch
 
@@ -58,18 +64,30 @@ from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 # csrc/frame_kernel.cu; chip runs read them to show that a frame went
 # through the kernels. MERGED_LAUNCHES and MERGED_DENSE_LAUNCHES count the
 # plain and dense entries' merged instantiations (``merges``), LAUNCHES and
-# DENSE_LAUNCHES their default ones. HOST_SYNCS counts the compacted modes'
-# reads of a queue's size (one torch.nonzero each) and QUEUED_LANES the
-# pixels those queues held (compact: dirty; defer: unknown, summed over
-# levels).
+# DENSE_LAUNCHES their default ones (the dense entry serves the compact
+# mode's ``render_frame_resume`` and ``render_frame_dense``).
+# GATED_FALLBACK_LAUNCHES counts the gated plain frame (either
+# instantiation), COMPOSE_LAUNCHES the defer recomposition and BIN_LAUNCHES
+# the queue binning (three kernels per call: histogram, scan, scatter). HOST_SYNCS
+# counts the compacted modes' reads of a queue's count on the host (the CPU
+# path, and ``debug_count``); QUEUED_LANES the lanes those reads counted
+# (compact: dirty; defer: unknown, summed over levels). On a GPU the bin
+# entry adds each binned queue's counts to a device counter instead
+# (``queued_lanes``); both modes bin every queue they build.
 LAUNCHES = 0
 MERGED_LAUNCHES = 0
 COMPACT_LAUNCHES = 0
 DENSE_LAUNCHES = 0
 MERGED_DENSE_LAUNCHES = 0
 DEFER_LAUNCHES = 0
+GATED_FALLBACK_LAUNCHES = 0
+COMPOSE_LAUNCHES = 0
+BIN_LAUNCHES = 0
 HOST_SYNCS = 0
 QUEUED_LANES = 0
+# Per CUDA device, the lanes that the binned device queues counted since
+# import: a (1,) int64 tensor the bin entry's scan adds each count to.
+_QUEUED_ON_DEVICE = {}
 
 # Buffer layout, shared with csrc/traverse.cuh (keep in step).
 # f32 header: elapsed_time, then (relax, fail_scale) of radiance and
@@ -579,23 +597,39 @@ def render_frame_capped(pack: FramePack, *, width: int, height: int,
     """Compact's main pass, (image, dirty mask) as ``render_frame_capped_plain``
     gives them: on CUDA the compact entry of csrc/frame_kernel.cu (counted
     in COMPACT_LAUNCHES), on the CPU the plain version."""
-    global COMPACT_LAUNCHES
     check_pack(pack)
-    dev = pack.params.device
-    if dev.type == "cpu":
+    if pack.params.device.type == "cpu":
         return render_frame_capped_plain(pack, width=width, height=height, max_depth=max_depth,
                                          budget_cap=budget_cap, mb_budget_cap=mb_budget_cap)
+    out, dirty, _ = _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap,
+                                    None, lib, ops)
+    return out, dirty
+
+
+def _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap, cap, lib, ops):
+    """One launch of the compact entry: (image, dirty mask, None) without a
+    queue capacity ``cap``, else (image, None, CompactQueue)."""
+    global COMPACT_LAUNCHES
+    dev = pack.params.device
     lib = _launch_setup(pack, width, height, max_depth, lib)
     caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
-    dirty = torch.empty((height, width), dtype=torch.int32, device=dev)
+    dirty = queue = None
+    null = ctypes.c_void_p(None)
+    if cap is None:
+        dirty = torch.empty((height, width), dtype=torch.int32, device=dev)
+        q_args = (_ptr(dirty), null, null, 0)
+    else:
+        queue = CompactQueue(torch.empty((cap, QUEUE_ENTRY_WORDS), dtype=torch.int32, device=dev),
+                             torch.empty(1, dtype=torch.int32, device=dev))
+        q_args = (null, _ptr(queue.entries), _ptr(queue.count), cap)
     _raise_on(lib.gprt_frame_compact(
-        *_buffers(pack), _ptr(out), _ptr(dirty), width, height, max_depth,
+        *_buffers(pack), _ptr(out), *q_args, width, height, max_depth,
         pack.num_geometries, pack.num_materials, int(_shared(pack)),
         *_kernel_caps(caps, mb_caps, 0),
         *_kernel_caps(caps, mb_caps, 1), ops_pointer(ops), *_where(dev)), lib, "compact kernel")
     COMPACT_LAUNCHES += 1
-    return out, dirty
+    return out, dirty, queue
 
 
 def render_frame_dense_plain(pack: FramePack, qpx, qpy, *, width: int, height: int,
@@ -621,13 +655,14 @@ def render_frame_dense_plain(pack: FramePack, qpx, qpy, *, width: int, height: i
 
 def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
                        max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None, ops=None):
-    """The dense pass: the plain frame's colour at each queued pixel (qpx,
-    qpy (N,) int32 contiguous, -1 for padding), (N, 4) f32. CUDA: the
-    dense entry of csrc/frame_kernel.cu, one thread per queue entry with
-    the plain kernel's device code (merged where ``merges`` says so;
-    counted in DENSE_LAUNCHES or MERGED_DENSE_LAUNCHES); CPU: the plain
-    version."""
-    global DENSE_LAUNCHES, MERGED_DENSE_LAUNCHES
+    """The plain frame's colour at each queued pixel (qpx, qpy (N,) int32
+    contiguous, -1 for padding), rendered from its camera ray, (N, 4) f32.
+    CUDA: the dense entry of csrc/frame_kernel.cu over a queue of N entries
+    at level -1 (from the camera ray), written into a scratch image and
+    gathered, with the plain kernel's device code (merged where ``merges``
+    says so; counted in DENSE_LAUNCHES or MERGED_DENSE_LAUNCHES); CPU: the
+    plain version. The compact mode's dense pass resumes its own queue
+    instead (``render_frame_resume``)."""
     check_pack(pack)
     dev = pack.params.device
     for name, q in (("qpx", qpx), ("qpy", qpy)):
@@ -637,22 +672,34 @@ def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
     if dev.type == "cpu":
         return render_frame_dense_plain(pack, qpx, qpy, width=width, height=height,
                                         max_depth=max_depth)
-    lib = _launch_setup(pack, width, height, max_depth, lib)
     n = qpx.shape[0]
-    out = torch.empty((n, 4), dtype=torch.float32, device=dev)
     if n == 0:
-        return out
+        return torch.empty((0, 4), dtype=torch.float32, device=dev)
+    pad = qpx < 0
+    pix = torch.where(pad, 0, qpy * width + qpx)
+    entries = torch.zeros((n, QUEUE_ENTRY_WORDS), dtype=torch.int32, device=dev)
+    entries[:, 0] = pix
+    entries[:, 1] = -1
+    image = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    _dense_launch(pack, CompactQueue(entries, torch.full((1,), n, dtype=torch.int32, device=dev)),
+                  image, width, height, max_depth, lib, ops)
+    return torch.where(pad[:, None], 0.0, image.view(-1, 4)[pix.long()])
+
+
+def _dense_launch(pack, queue, image, width, height, max_depth, lib, ops):
+    global DENSE_LAUNCHES, MERGED_DENSE_LAUNCHES
+    dev = pack.params.device
+    lib = _launch_setup(pack, width, height, max_depth, lib)
     merged = merges(pack)
-    _raise_on(lib.gprt_frame_dense(*_buffers(pack), _ptr(qpx), _ptr(qpy), _ptr(out), n, width,
-                                   height, max_depth, pack.num_geometries, pack.num_materials,
-                                   int(_shared(pack)), int(merged), ops_pointer(ops),
-                                   *_where(dev)), lib,
-              "dense kernel")
+    _raise_on(lib.gprt_frame_dense(
+        *_buffers(pack), _ptr(queue.entries), _ptr(queue.count), _ptr(image),
+        queue.entries.shape[0], width, height, max_depth, pack.num_geometries,
+        pack.num_materials, int(_shared(pack)), int(merged), ops_pointer(ops), *_where(dev)),
+        lib, "dense kernel")
     if merged:
         MERGED_DENSE_LAUNCHES += 1
     else:
         DENSE_LAUNCHES += 1
-    return out
 
 
 def render_frame_deferred_plain(pack: FramePack, *, width: int, height: int,
@@ -677,17 +724,25 @@ def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
     ``planes``: CUDA only, DeferPlanes of the entry's shapes to write into
     instead of new ones (a timing loop keeps its 34 planes out of the
     allocator)."""
-    global DEFER_LAUNCHES
-    from gpuraytracer_tpu_torch.render import trace
-
     check_pack(pack)
-    dev = pack.params.device
     if max_depth < 2:
         raise ValueError("the deferred-shadow pass needs a shadowed level (max_depth >= 2)")
-    if dev.type == "cpu":
+    if pack.params.device.type == "cpu":
         return render_frame_deferred_plain(pack, width=width, height=height,
                                            max_depth=max_depth, shadow_cap=shadow_cap,
                                            mb_shadow_cap=mb_shadow_cap)
+    return _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, None, lib,
+                         ops, planes)[0]
+
+
+def _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap, lib, ops,
+                  planes=None):
+    """One launch of the defer entry: (DeferPlanes, None) without a queue
+    capacity ``cap``, else (DeferPlanes, DeferQueue)."""
+    global DEFER_LAUNCHES
+    from gpuraytracer_tpu_torch.render import trace
+
+    dev = pack.params.device
     lib = _launch_setup(pack, width, height, max_depth, lib)
     nsl = max_depth - 1
     want = trace.DeferPlanes(
@@ -700,22 +755,21 @@ def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
     elif any(tuple(p.shape) != s or p.dtype != t or p.device != dev or not p.is_contiguous()
              for p, (s, t) in zip(planes, want)):
         raise ValueError("planes must be contiguous DeferPlanes of the entry's shapes on its device")
+    null = ctypes.c_void_p(None)
+    queue = None
+    if cap is None:
+        q_args = (null, null, 0)
+    else:
+        queue = DeferQueue(torch.empty((nsl, cap), dtype=torch.int32, device=dev),
+                           torch.empty(nsl, dtype=torch.int32, device=dev))
+        q_args = (_ptr(queue.idx), _ptr(queue.count), cap)
     _raise_on(lib.gprt_frame_defer(
-        *_buffers(pack), *(_ptr(p) for p in planes), width, height, max_depth,
+        *_buffers(pack), *(_ptr(p) for p in planes), *q_args, width, height, max_depth,
         pack.num_geometries, pack.num_materials, int(_shared(pack)),
         *_kernel_caps((None, shadow_cap), (None, mb_shadow_cap), 1), ops_pointer(ops),
         *_where(dev)), lib, "defer kernel")
     DEFER_LAUNCHES += 1
-    return planes
-
-
-def _count_queue(mask):
-    """Raster indices of the set lanes of a flat mask: one host sync."""
-    global HOST_SYNCS, QUEUED_LANES
-    idx = torch.nonzero(mask).squeeze(1)
-    HOST_SYNCS += 1
-    QUEUED_LANES += idx.shape[0]
-    return idx
+    return planes, queue
 
 
 def _cappable(pack: FramePack, sdf_caps, mb_caps) -> bool:
@@ -731,6 +785,410 @@ def _cappable(pack: FramePack, sdf_caps, mb_caps) -> bool:
     return False
 
 
+# ---------------------------------------------------------------------------
+# The modes' device queues
+# ---------------------------------------------------------------------------
+
+# Words (int32) of one compact queue entry (csrc/frame_kernel.cu QueueEntry,
+# 64 bytes): pixel index, level | the lowest set bit of the dirty mask << 8
+# (the key of the binned order; -1: the camera ray), then as float32 bits
+# the ray origin and direction, the colour and the throughput at the start
+# of that level.
+QUEUE_ENTRY_WORDS = 16
+
+
+class CompactQueue(NamedTuple):
+    """The compact main pass's queue of dirty pixels: ``entries`` (cap, 16)
+    int32, one QueueEntry per slot (``queue_entries``), the first
+    min(count, cap) of them live; ``count`` (1,) int32, every dirty pixel
+    counted, stored or not."""
+
+    entries: torch.Tensor
+    count: torch.Tensor
+
+
+class DeferQueue(NamedTuple):
+    """The defer main pass's queues of unknown lanes, one per shadowed
+    level: ``idx`` (D-1, cap) int32 raster indices, the first
+    min(count[k], cap) of row k live; ``count`` (D-1,) int32."""
+
+    idx: torch.Tensor
+    count: torch.Tensor
+
+
+class QueueCount(int):
+    """The lanes a compacted mode queued in a frame (what ``debug_count``
+    returns), with ``overflow``: whether a queue held more than its
+    capacity, so that the frame is the plain kernel's."""
+
+    overflow: bool
+
+    def __new__(cls, count: int, overflow: bool):
+        obj = super().__new__(cls, count)
+        obj.overflow = bool(overflow)
+        return obj
+
+
+def _queued_on_device(dev):
+    t = _QUEUED_ON_DEVICE.get(dev)
+    if t is None:
+        t = _QUEUED_ON_DEVICE[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return t
+
+
+def queued_lanes() -> int:
+    """Lanes the compacted modes queued since import: QUEUED_LANES (counted
+    on the host) plus what the binned device queues counted (read from each
+    device: one sync, outside any timed window)."""
+    return QUEUED_LANES + sum(int(t.item()) for t in _QUEUED_ON_DEVICE.values())
+
+
+def lowest_bit(mask):
+    """Index of the lowest set bit of each int32 of ``mask`` (-1 for 0)."""
+    m = mask.to(torch.int64) & 0xFFFFFFFF
+    low = m & -m
+    return torch.where(low > 0, torch.log2(low.to(torch.float64)).round().to(torch.int64), -1)
+
+
+def queue_entries(pix, state, dirty):
+    """(N, 16) int32 compact queue entries of the pixels ``pix`` (N,) with
+    their ``trace.PixelState`` and dirty masks ``dirty`` (N rows each)."""
+    floats = torch.cat([state.o, state.d, state.color, state.throughput], dim=1)
+    meta = state.level.to(torch.int64) | (lowest_bit(dirty) << 8)
+    return torch.cat([pix.to(torch.int32)[:, None], meta.to(torch.int32)[:, None],
+                      floats.to(torch.float32).contiguous().view(torch.int32)], dim=1)
+
+
+def entry_state(entries):
+    """(pixel indices (N,) int64, ``trace.PixelState``) of compact queue
+    entries (N, 16) int32."""
+    from gpuraytracer_tpu_torch.render import trace
+
+    f = entries[:, 2:].contiguous().view(torch.float32)
+    meta = entries[:, 1]
+    return entries[:, 0].to(torch.int64), trace.PixelState(
+        torch.where(meta >= 0, meta & 255, meta), f[:, 0:3], f[:, 3:6], f[:, 6:10], f[:, 10:14])
+
+
+def queue_plain(mask, cap: int):
+    """The reference's queue build for one flat mask (frame_kernel.py:934,
+    :1212): the raster indices of its set lanes as ``jnp.nonzero(mask,
+    size=cap, fill_value=-1)`` gives them ((cap,) int64, -1 past the last),
+    their count, and whether the count passed ``cap`` (the overflow). The
+    count is read on the host: one sync on a GPU, counted in HOST_SYNCS,
+    the lanes in QUEUED_LANES."""
+    global HOST_SYNCS, QUEUED_LANES
+    idx = torch.nonzero(mask.reshape(-1)).squeeze(1)
+    count = idx.shape[0]
+    HOST_SYNCS += 1
+    QUEUED_LANES += count
+    out = torch.full((cap,), -1, dtype=torch.int64, device=mask.device)
+    out[:min(count, cap)] = idx[:cap]
+    return out, count, count > cap
+
+
+def render_frame_compact_main_plain(pack: FramePack, *, width: int, height: int,
+                                    max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
+                                    mb_budget_cap=None, cap: int):
+    """Plain version of ``render_frame_compact_main``: the capped wavefront
+    keeping each dirty pixel's state (``trace.MainPass(resume=True)``), and
+    the queue that ``queue_plain`` builds over its dirty mask, in raster
+    order. Returns (image, CompactQueue)."""
+    from gpuraytracer_tpu_torch.render import trace
+
+    caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
+    main = trace.MainPass(closest=(caps[0], mb_caps[0]), shadow=(caps[1], mb_caps[1]),
+                          resume=True)
+    img, dirty, state = trace.render_wavefront(unpack_frame(pack), width, height,
+                                               max_depth=max_depth, plain=True, main=main)
+    idx, count, _ = queue_plain(dirty != 0, cap)
+    live = idx[:min(count, cap)]
+    flat = trace.PixelState(*(x.reshape((width * height,) + x.shape[2:]) for x in state))
+    entries = torch.zeros((cap, QUEUE_ENTRY_WORDS), dtype=torch.int32, device=img.device)
+    entries[:live.shape[0]] = queue_entries(live, trace.PixelState(*(x[live] for x in flat)),
+                                            dirty.reshape(-1)[live])
+    return img, CompactQueue(entries, torch.tensor([count], dtype=torch.int32,
+                                                   device=img.device))
+
+
+def render_frame_compact_main(pack: FramePack, *, width: int, height: int,
+                              max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
+                              mb_budget_cap=None, cap: int, lib=None, ops=None):
+    """Compact's main pass with its queue: (image, CompactQueue). The image
+    is the plain frame at every clean pixel; each dirty pixel goes to the
+    queue with its state at the start of the level where a cap stopped it.
+    CUDA: the compact entry of csrc/frame_kernel.cu appending warp by warp
+    to a queue of ``cap`` slots in device memory (append order; counted in
+    COMPACT_LAUNCHES; no host sync); CPU: the plain version."""
+    check_pack(pack)
+    if pack.params.device.type == "cpu":
+        return render_frame_compact_main_plain(pack, width=width, height=height,
+                                               max_depth=max_depth, budget_cap=budget_cap,
+                                               mb_budget_cap=mb_budget_cap, cap=cap)
+    out, _, queue = _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap,
+                                    cap, lib, ops)
+    return out, queue
+
+
+def bin_keys(queue, sinfo=None):
+    """The binned order's key of each slot of a queue (the device's
+    bin_key): compact (``sinfo`` None), the lowest set bit of the dirty mask
+    ((cap,) int64); defer, the pixel's block of 2**15 raster pixels * 32 +
+    the lowest set bit of its level's capped-geometry mask in ``sinfo``
+    ((D-1, H, W)), per level ((D-1, cap) int64); a lane whose capped
+    geometries are all past 29, which the status word's mask (bits 0-29)
+    does not hold, has key 30 in its block. Slots past a segment's count
+    hold no entry: their keys are meaningless."""
+    if sinfo is None:
+        return queue.entries[:, 1].to(torch.int64) >> 8
+    live = torch.arange(queue.idx.shape[1], device=queue.idx.device) < queue.count[:, None]
+    pix = torch.where(live, queue.idx, 0).to(torch.int64)
+    code = torch.gather(sinfo.reshape(sinfo.shape[0], -1), 1, pix) >> 2
+    return (pix >> 15) * 32 + torch.where(code != 0, lowest_bit(code), 30)
+
+
+def bin_queue_plain(queue, sinfo=None):
+    """Plain version of ``bin_queue``: each segment's live slots stably
+    sorted by key (``bin_keys``): one order the kernels may give, which
+    keep the keys' order and not the order within a key."""
+    slots = queue.entries if sinfo is None else queue.idx
+    segs = slots[None] if sinfo is None else slots
+    keys = bin_keys(queue, sinfo)
+    keys = keys[None] if sinfo is None else keys
+    counts = queue.count.tolist()
+    out = segs.clone()
+    if max(counts) <= segs.shape[1]:
+        for k, n in enumerate(counts):
+            out[k, :n] = segs[k, :n][torch.argsort(keys[k, :n], stable=True)]
+    return type(queue)(out[0] if sinfo is None else out, queue.count)
+
+
+def bin_queue(queue, sinfo=None, lib=None):
+    """A mode's queue in the binned order (the reference's ray sorting,
+    frame_kernel.py:937-947 and :1214-1230): compact (a CompactQueue,
+    ``sinfo`` None) grouped by the lowest set bit of the dirty mask, the
+    capped geometry; defer (a DeferQueue and the main pass's (D-1, H, W)
+    ``sinfo`` planes) grouped per level by raster block of 2**15 pixels,
+    then the capped geometry, so that a warp of the dense pass or the repair
+    marches one geometry. The order is a schedule: the frame does not depend
+    on it. CUDA: the bin entry of csrc/frame_kernel.cu (a histogram of keys,
+    an exclusive scan, a scatter; nothing read back; counted in
+    BIN_LAUNCHES); CPU: the plain version."""
+    global BIN_LAUNCHES
+    slots = queue.entries if sinfo is None else queue.idx
+    dev = slots.device
+    if dev.type == "cpu":
+        return bin_queue_plain(queue, sinfo)
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("frame_kernel")
+    nseg = 1 if sinfo is None else slots.shape[0]
+    cap = slots.shape[0] if sinfo is None else slots.shape[1]
+    npix = 0 if sinfo is None else sinfo.shape[1] * sinfo.shape[2]
+    nbins = 32 if sinfo is None else 32 * ((npix + 32767) >> 15)
+    if sinfo is not None and (sinfo.dtype != torch.int32 or sinfo.shape[0] != nseg
+                              or sinfo.device != dev or not sinfo.is_contiguous()):
+        raise ValueError(f"sinfo: expected contiguous ({nseg}, H, W) int32 planes on {dev}")
+    out = torch.empty_like(slots)
+    bins = torch.empty(nseg * nbins, dtype=torch.int32, device=dev)
+    _raise_on(lib.gprt_queue_bin(
+        _ptr(slots), _ptr(out), _ptr(queue.count),
+        ctypes.c_void_p(None) if sinfo is None else _ptr(sinfo), _ptr(bins),
+        _ptr(_queued_on_device(dev)), nseg, cap, npix, nbins, int(sinfo is not None),
+        *_where(dev)), lib, "queue bin kernels")
+    BIN_LAUNCHES += 1
+    return type(queue)(out, queue.count)
+
+
+def render_frame_resume_plain(pack: FramePack, queue: CompactQueue, image, *, width: int,
+                              height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH):
+    """Plain version of ``render_frame_resume``: the wavefront from each
+    live entry's saved state (``trace.trace_radiance(start=...)``) at plain
+    budgets, written into ``image`` at the entry's pixel; nothing where the
+    queue overflowed."""
+    from gpuraytracer_tpu_torch.render import trace
+
+    count, cap = int(queue.count[0]), queue.entries.shape[0]
+    if count > cap or count == 0:
+        return image
+    pix, state = entry_state(queue.entries[:count])
+    colour = trace.trace_radiance(state.o, state.d, pix % width, pix // width, width, height,
+                                  unpack_frame(pack), max_depth=max_depth, plain=True,
+                                  start=state)
+    image.view(-1, 4)[pix] = colour
+    return image
+
+
+def render_frame_resume(pack: FramePack, queue: CompactQueue, image, *, width: int,
+                        height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None,
+                        ops=None):
+    """The compact mode's dense pass: each queued pixel continued from the
+    level where the cap stopped it, at full budgets, its colour written into
+    ``image`` (H, W, 4) in place, which is returned. The pixel is the plain
+    kernel's: the levels before were its levels bit for bit, and the level
+    is traced again at full budget. Where the queue overflowed nothing is
+    written. CUDA: the dense entry of csrc/frame_kernel.cu, launched over
+    the queue's capacity, reading the live count on the device (merged where
+    ``merges`` says so; counted in DENSE_LAUNCHES or MERGED_DENSE_LAUNCHES);
+    CPU: the plain version."""
+    check_pack(pack)
+    dev = pack.params.device
+    _check_queue(queue.entries, queue.count, dev, (queue.entries.shape[0], QUEUE_ENTRY_WORDS), 1)
+    _check_image(image, width, height, dev)
+    if dev.type == "cpu":
+        return render_frame_resume_plain(pack, queue, image, width=width, height=height,
+                                         max_depth=max_depth)
+    _dense_launch(pack, queue, image, width, height, max_depth, lib, ops)
+    return image
+
+
+def render_frame_gated_plain(pack: FramePack, image, count, cap: int, *, width: int,
+                             height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH):
+    """Plain version of ``render_frame_gated``: the counts read on the host,
+    and ``image`` overwritten with ``render_frame_plain`` where one passed
+    ``cap``."""
+    if bool((count > cap).any()):
+        image.copy_(render_frame_plain(pack, width=width, height=height, max_depth=max_depth))
+    return image
+
+
+def render_frame_gated(pack: FramePack, image, count, cap: int, *, width: int, height: int,
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None):
+    """The queues' overflow, decided where the counts are: if any of
+    ``count`` ((K,) int32) passed ``cap``, ``image`` (H, W, 4) becomes the
+    plain kernel's frame, in place (the reference's lax.cond,
+    frame_kernel.py:1004, :1311); it is returned. CUDA: the gated entry of
+    csrc/frame_kernel.cu, whose blocks return before loading the scene
+    unless the flag is set (merged where ``merges`` says so; counted in
+    GATED_FALLBACK_LAUNCHES, launched every frame); CPU: the plain version.
+    """
+    global GATED_FALLBACK_LAUNCHES
+    check_pack(pack)
+    dev = pack.params.device
+    _check_image(image, width, height, dev)
+    if count.dtype != torch.int32 or count.dim() != 1 or count.device != dev \
+            or not count.is_contiguous() or count.numel() == 0:
+        raise ValueError(f"count: expected a contiguous (K,) int32 tensor on {dev}")
+    if dev.type == "cpu":
+        return render_frame_gated_plain(pack, image, count, cap, width=width, height=height,
+                                        max_depth=max_depth)
+    lib = _launch_setup(pack, width, height, max_depth, lib)
+    _raise_on(lib.gprt_frame_gated(
+        *_buffers(pack), _ptr(image), _ptr(count), count.numel(), cap, width, height, max_depth,
+        pack.num_geometries, pack.num_materials, int(_shared(pack)), int(merges(pack)),
+        ctypes.c_void_p(None), *_where(dev)), lib, "gated frame kernel")
+    GATED_FALLBACK_LAUNCHES += 1
+    return image
+
+
+def render_frame_deferred_queue_plain(pack: FramePack, *, width: int, height: int,
+                                      max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
+                                      mb_shadow_cap=None, cap: int):
+    """Plain version of ``render_frame_deferred_queue``: the plain main
+    pass's planes and, per shadowed level, ``queue_plain`` over its unknown
+    lanes (raster order)."""
+    planes = render_frame_deferred_plain(pack, width=width, height=height, max_depth=max_depth,
+                                         shadow_cap=shadow_cap, mb_shadow_cap=mb_shadow_cap)
+    built = [queue_plain((info & 3) == 2, cap) for info in planes.sinfo]
+    dev = planes.sinfo.device
+    idx = torch.stack([i.to(torch.int32) for i, _, _ in built])
+    return planes, DeferQueue(idx, torch.tensor([c for _, c, _ in built], dtype=torch.int32,
+                                                device=dev))
+
+
+def render_frame_deferred_queue(pack: FramePack, *, width: int, height: int,
+                                max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
+                                mb_shadow_cap=None, cap: int, lib=None, ops=None):
+    """Defer's main pass with its queues: (``trace.DeferPlanes``,
+    DeferQueue), the planes those of ``render_frame_deferred_main`` and per
+    shadowed level the pixels whose status is unknown. CUDA: the defer entry
+    appending warp by warp to per-level queues of ``cap`` slots in device
+    memory (append order; counted in DEFER_LAUNCHES; no host sync); CPU:
+    the plain version. Needs max_depth >= 2."""
+    check_pack(pack)
+    if max_depth < 2:
+        raise ValueError("the deferred-shadow pass needs a shadowed level (max_depth >= 2)")
+    if pack.params.device.type == "cpu":
+        return render_frame_deferred_queue_plain(pack, width=width, height=height,
+                                                 max_depth=max_depth, shadow_cap=shadow_cap,
+                                                 mb_shadow_cap=mb_shadow_cap, cap=cap)
+    return _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap, lib, ops)
+
+
+def frame_compose_plain(planes, occ):
+    """Plain version of ``frame_compose``: the recomposition in the defer
+    kernel's association order, acc = term_0; acc = acc + term_1; ..."""
+    acc = None
+    nsl = planes.shadowed.shape[0]
+    for k in range(planes.lit.shape[0]):
+        term = planes.lit[k]
+        if k < nsl:
+            stat = planes.sinfo[k] & 3
+            shad = (stat == 1) | ((stat == 2) & (occ[k] != 0))
+            term = torch.where(shad[..., None], planes.shadowed[k], term)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def frame_compose(planes, occ, lib=None):
+    """The deferred frame from its main pass's ``planes`` (trace.DeferPlanes
+    of an (H, W) frame) and the occlusion planes ``occ`` (D-1, H, W) int32
+    (read only where a level's status is unknown): (H, W, 4) f32, each
+    pixel's levels summed in the defer kernel's order, each level shadowed
+    where its status is 1 or, at status 2, where occ is set. CUDA: the
+    compose entry of csrc/frame_kernel.cu, one thread per pixel (counted in
+    COMPOSE_LAUNCHES); CPU: the plain version."""
+    global COMPOSE_LAUNCHES
+    lit, shadowed, sinfo, _ = planes
+    dev = lit.device
+    d, h, w = lit.shape[0], lit.shape[1], lit.shape[2]
+    for name, t, shape, dtype in (("lit", lit, (d, h, w, 4), torch.float32),
+                                  ("shadowed", shadowed, (d - 1, h, w, 4), torch.float32),
+                                  ("sinfo", sinfo, (d - 1, h, w), torch.int32),
+                                  ("occ", occ, (d - 1, h, w), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {shape} {dtype} tensor on {dev}")
+    if d < 2:
+        raise ValueError("the recomposition needs a shadowed level (D >= 2)")
+    if dev.type == "cpu":
+        return frame_compose_plain(planes, occ)
+    if dev.type != "cuda":
+        raise ValueError(f"no frame kernel for device {dev}")
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("frame_kernel")
+    out = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+    _raise_on(lib.gprt_frame_compose(_ptr(lit), _ptr(shadowed), _ptr(sinfo), _ptr(occ), _ptr(out),
+                                     h * w, d, *_where(dev)), lib, "compose kernel")
+    COMPOSE_LAUNCHES += 1
+    return out
+
+
+def _check_queue(slots, count, dev, shape, n_counts):
+    if tuple(slots.shape) != shape or slots.dtype != torch.int32 or slots.device != dev \
+            or not slots.is_contiguous():
+        raise ValueError(f"queue slots: expected a contiguous {shape} int32 tensor on {dev}")
+    if tuple(count.shape) != (n_counts,) or count.dtype != torch.int32 or count.device != dev:
+        raise ValueError(f"queue count: expected a ({n_counts},) int32 tensor on {dev}")
+
+
+def _check_image(image, width, height, dev):
+    if tuple(image.shape) != (height, width, 4) or image.dtype != torch.float32 \
+            or image.device != dev or not image.is_contiguous():
+        raise ValueError(f"image: expected a contiguous ({height}, {width}, 4) float32 tensor "
+                         f"on {dev}")
+
+
+def _debug_count(count, cap):
+    """``debug_count``'s QueueCount of a mode's device counts: one sync,
+    counted in HOST_SYNCS."""
+    global HOST_SYNCS
+    counts = count.tolist()
+    HOST_SYNCS += 1
+    return QueueCount(sum(counts), max(counts) > cap)
+
+
 def render_frame_compact(pack: FramePack, *, width: int, height: int,
                          max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap=None,
                          mb_budget_cap=None, cap_lanes: int | None = None,
@@ -739,42 +1197,44 @@ def render_frame_compact(pack: FramePack, *, width: int, height: int,
     (frame_kernel.py:803): the frame with every SDF march capped at
     ``budget_cap`` steps (default GPURT_COMPACT_BUDGET, 64; an int or
     (closest, occlusion)) and the metaball marches at ``mb_budget_cap``
-    (default uncapped), marking every pixel that a cap touched dirty
-    (``render_frame_capped``); the dirty pixels, sorted by their dirty
-    mask (stable, so raster order holds within a mask), rendered again
-    by the dense pass at full budgets (``render_frame_dense``) and
-    written back. The image equals the plain kernel's: a march that
-    resolves within its cap is a strict prefix of the full one, and a
-    dirty pixel is rendered again from its camera ray.
+    (default uncapped), queueing every pixel that a cap touched with its
+    state at the start of that level (``render_frame_compact_main``); the
+    queue grouped by capped geometry (``bin_queue``); the dense pass
+    continues each queued pixel from there at full budgets and writes it
+    into the image (``render_frame_resume``). The image equals the plain
+    kernel's: a march that resolves within its cap is a strict prefix of
+    the full one, so the levels before were the plain kernel's.
 
     Where no march can be capped the plain kernel renders the frame
     (frame_kernel.py:860-889); where the queue holds more than
-    ``queue_capacity`` pixels the plain kernel renders it again, as the
-    reference's lax.cond does (frame_kernel.py:1004), and counts in
-    LAUNCHES (MERGED_LAUNCHES under GPURT_MERGED_SHADOW). Either way the frame's kernels run on the pack's device (the
-    plain versions on the CPU). ``debug_count``: also return the number of
-    dirty pixels. Costs one host sync (the queue's size)."""
+    ``queue_capacity`` pixels the frame is the plain kernel's, as the
+    reference's lax.cond decides (frame_kernel.py:1004): on a GPU the gated
+    plain kernel (``render_frame_gated``) decides it on the device, and the
+    chain of launches reads nothing back; on the CPU the host reads the
+    count and renders the plain kernel (``render_frame_tiles``).
+    ``debug_count``: also return the number of dirty pixels, a QueueCount
+    whose ``overflow`` says whether the queue overflowed (a sync on a
+    GPU)."""
     if budget_cap is None:
         budget_cap = int(os.environ.get("GPURT_COMPACT_BUDGET", COMPACT_BUDGET))
     kw = dict(width=width, height=height, max_depth=max_depth)
     if not _cappable(pack, norm_caps(budget_cap), norm_caps(mb_budget_cap)):
         img = render_frame_tiles(pack, **kw)
-        return (img, 0) if debug_count else img
-    img, dirty = render_frame_capped(pack, budget_cap=budget_cap, mb_budget_cap=mb_budget_cap,
-                                     **kw)
-    codes = dirty.reshape(-1)
-    idx = _count_queue(codes != 0)
-    count = idx.shape[0]
-    if count > queue_capacity(width, height, cap_lanes):
-        img = render_frame_tiles(pack, **kw)
-    elif count:
-        # Group the queue by dirty mask (the reference's ray sorting,
-        # frame_kernel.py:937-947), stable so raster order holds in a group.
-        idx = idx[torch.argsort(codes[idx], stable=True)]
-        q = idx.to(torch.int32)
-        dense = render_frame_dense(pack, (q % width).contiguous(), (q // width).contiguous(), **kw)
-        img.view(-1, 4).index_copy_(0, idx, dense)
-    return (img, count) if debug_count else img
+        return (img, QueueCount(0, False)) if debug_count else img
+    cap = queue_capacity(width, height, cap_lanes)
+    img, queue = render_frame_compact_main(pack, budget_cap=budget_cap,
+                                           mb_budget_cap=mb_budget_cap, cap=cap, **kw)
+    cpu = pack.params.device.type == "cpu"
+    if cpu:
+        count = int(queue.count[0])
+        if count > cap:
+            img = render_frame_tiles(pack, **kw)
+            return (img, QueueCount(count, True)) if debug_count else img
+    render_frame_resume(pack, bin_queue(queue), img, **kw)
+    if cpu:
+        return (img, QueueCount(count, False)) if debug_count else img
+    render_frame_gated(pack, img, queue.count, cap, **kw)
+    return (img, _debug_count(queue.count, cap)) if debug_count else img
 
 
 def render_frame_deferred(pack: FramePack, *, width: int, height: int,
@@ -784,67 +1244,57 @@ def render_frame_deferred(pack: FramePack, *, width: int, height: int,
     """GPURT_FRAME_MODE=defer, the reference's render_frame_deferred
     (frame_kernel.py:1075): the main pass caps only the occlusion marches
     (at ``shadow_cap`` steps, default GPURT_SHADOW_CAP, 32; metaballs at
-    ``mb_shadow_cap``, default uncapped) and records per level both shadow
-    variants and a status (``render_frame_deferred_main``); per shadowed
-    level, the lanes whose status is unknown go to a queue, ordered by
-    ``qsort`` ("block-code": raster blocks of 2**15 pixels, then the
-    capped-geometry code within a block; "code"; "raster"), and the
-    occlusion repair (scene_kernel.shadow_queue) traces them at full
-    budgets, one segment per level; the image is recomposed in the
-    kernel's association order, acc = term_0; acc = acc + term_1; ...
-    The occlusion results are the plain kernel's, so the image agrees with
-    it to the last bits of the shading.
+    ``mb_shadow_cap``, default uncapped), records per level both shadow
+    variants and a status, and queues per shadowed level the lanes whose
+    status is unknown (``render_frame_deferred_queue``), grouped by raster
+    block and capped geometry (``bin_queue``); the occlusion repair
+    (scene_kernel.shadow_queue_planes) traces them at full budgets into
+    per-level occlusion planes, and ``frame_compose`` sums the levels
+    in the kernel's association order, acc = term_0; acc = acc + term_1;
+    ... The occlusion results are the plain kernel's, so the image agrees
+    with it to the last bits of the shading.
 
     Where no occlusion march can be capped the plain kernel renders the
     frame (frame_kernel.py:1136-1157); where a level's queue holds more
-    than ``queue_capacity`` lanes, the plain kernel renders it again
-    (frame_kernel.py:1311), counted in LAUNCHES. ``debug_count``: also
-    return the number of unknown lanes over the levels. Costs one host
-    sync per shadowed level."""
+    than ``queue_capacity`` lanes the frame is the plain kernel's
+    (frame_kernel.py:1311): on a GPU the gated plain kernel decides it on
+    the device (a chain of launches that reads nothing back), on the CPU
+    the host. ``debug_count``: also return the number of unknown lanes over
+    the levels, a QueueCount with ``overflow`` (a sync on a GPU).
+
+    ``qsort`` is deprecated and has no effect: it chose the queue's order
+    ("block-code", "code" or "raster") while the host sorted the queue. The
+    queues are now always binned by block and capped geometry on the
+    device, and the order is a schedule, not behaviour. The parameter stays
+    so that callers written against the host-sorted form still run; any
+    value but the default warns (DeprecationWarning)."""
     from gpuraytracer_tpu_torch.kernels import scene_kernel
 
+    if qsort not in ("block-code", "code", "raster"):
+        raise ValueError(f"unknown queue order {qsort!r}")
+    if qsort != "block-code":
+        warnings.warn("render_frame_deferred(qsort=...) has no effect: the queues are always "
+                      "binned by block and capped geometry on the device", DeprecationWarning,
+                      stacklevel=2)
     if shadow_cap is None:
         shadow_cap = int(os.environ.get("GPURT_SHADOW_CAP", SHADOW_CAP))
     kw = dict(width=width, height=height, max_depth=max_depth)
     if max_depth < 2 or not _cappable(pack, (shadow_cap,), (mb_shadow_cap,)):
         img = render_frame_tiles(pack, **kw)
-        return (img, 0) if debug_count else img
-    planes = render_frame_deferred_main(pack, shadow_cap=shadow_cap,
-                                        mb_shadow_cap=mb_shadow_cap, **kw)
-    nsl = max_depth - 1
+        return (img, QueueCount(0, False)) if debug_count else img
     cap = queue_capacity(width, height, cap_lanes)
-    idxs = []
-    for k in range(nsl):
-        info = planes.sinfo[k].reshape(-1)
-        idx = _count_queue((info & 3) == 2)
-        if qsort != "raster" and idx.numel():
-            codes = info[idx] >> 2
-            if qsort == "block-code":
-                codes = (idx >> 15).to(torch.int32) * 1024 + torch.clamp(codes, max=1023)
-            idx = idx[torch.argsort(codes, stable=True)]
-        idxs.append(idx)
-    counts = [i.shape[0] for i in idxs]
-    if max(counts) > cap:
-        img = render_frame_tiles(pack, **kw)
-        return (img, sum(counts)) if debug_count else img
-    occ = [torch.zeros(height * width, dtype=torch.int32, device=pack.params.device)
-           for _ in range(nsl)]
-    seg = max(counts)
-    if seg:
-        rays = planes.rays.new_zeros((nsl, seg, 6))
-        active = torch.zeros((nsl, seg), dtype=torch.bool, device=rays.device)
-        for k, idx in enumerate(idxs):
-            rays[k, :idx.shape[0]] = planes.rays[k].reshape(-1, 6)[idx]
-            active[k, :idx.shape[0]] = True
-        q_occ = scene_kernel.shadow_queue(pack, rays.reshape(-1, 6), active.reshape(-1), seg)
-        for k, idx in enumerate(idxs):
-            occ[k].index_copy_(0, idx, q_occ[k * seg: k * seg + idx.shape[0]])
-    acc = None
-    for k in range(max_depth):
-        term = planes.lit[k]
-        if k < nsl:
-            stat = planes.sinfo[k] & 3
-            shad = (stat == 1) | ((stat == 2) & (occ[k].reshape(height, width) != 0))
-            term = torch.where(shad[..., None], planes.shadowed[k], term)
-        acc = term if acc is None else acc + term
-    return (acc, sum(counts)) if debug_count else acc
+    planes, queue = render_frame_deferred_queue(pack, shadow_cap=shadow_cap,
+                                                mb_shadow_cap=mb_shadow_cap, cap=cap, **kw)
+    cpu = pack.params.device.type == "cpu"
+    if cpu:
+        counts = queue.count.tolist()
+        if max(counts) > cap:
+            img = render_frame_tiles(pack, **kw)
+            return (img, QueueCount(sum(counts), True)) if debug_count else img
+    queue = bin_queue(queue, planes.sinfo)
+    occ = scene_kernel.shadow_queue_planes(pack, planes.rays, queue.idx, queue.count)
+    img = frame_compose(planes, occ)
+    if cpu:
+        return (img, QueueCount(sum(counts), False)) if debug_count else img
+    render_frame_gated(pack, img, queue.count, cap, **kw)
+    return (img, _debug_count(queue.count, cap)) if debug_count else img

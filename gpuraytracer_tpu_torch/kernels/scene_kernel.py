@@ -44,8 +44,9 @@ from gpuraytracer_tpu_torch.kernels import frame_kernel
 
 # Kernel launches since import (or since a caller reset it); PROBE_LAUNCHES
 # counts the check-only distance probe (``sdf_distance``) apart,
-# QUEUE_LAUNCHES and MERGED_QUEUE_LAUNCHES the occlusion repair queue's
-# default and merged instantiations (``shadow_queue``), MAIN_LAUNCHES and
+# QUEUE_LAUNCHES and MERGED_QUEUE_LAUNCHES the occlusion repair's default
+# and merged instantiations (``shadow_queue_planes``, the deferred mode's,
+# and ``shadow_queue``), MAIN_LAUNCHES and
 # FINISH_LAUNCHES the two-phase form's main pass and finisher.
 LAUNCHES = 0
 PROBE_LAUNCHES = 0
@@ -532,10 +533,11 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
     direction) and ``active`` (N,) bool hold one segment of ``seg``
     entries per shadowed level, in level order; an entry's level is its
     index // seg, and its occlusion query runs at full budgets with that
-    level's knobs. CUDA: the queue entry of csrc/scene_kernel.cu, one
-    thread per entry, its merged instantiation where frame_kernel.merges
-    says so (counted in QUEUE_LAUNCHES or MERGED_QUEUE_LAUNCHES); CPU: the
-    plain version."""
+    level's knobs. CUDA: the queue entry of csrc/scene_kernel.cu (the
+    deferred mode's repair, ``shadow_queue_planes``) with each segment as a
+    level's plane and every entry live, one thread per entry, its merged
+    instantiation where frame_kernel.merges says so (counted in
+    QUEUE_LAUNCHES or MERGED_QUEUE_LAUNCHES); CPU: the plain version."""
     global QUEUE_LAUNCHES, MERGED_QUEUE_LAUNCHES
     n = rays.shape[0]
     dev = rays.device
@@ -560,9 +562,89 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
     lib = lib if lib is not None else build.load("scene_kernel")
     occ = torch.empty(n, dtype=torch.int32, device=dev)
     merged = frame_kernel.merges(pack)
+    null = ctypes.c_void_p(None)
     _raise_on(lib.gprt_shadow_queue(
-        _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), _ptr(active), _ptr(occ),
-        n, seg, pack.num_geometries, pack.num_materials, _shared(pack), int(merged),
+        _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), null, null,
+        _ptr(active), _ptr(occ), seg, n // seg, seg, pack.num_geometries, pack.num_materials,
+        _shared(pack), int(merged), frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib,
+        "shadow queue kernel")
+    if merged:
+        MERGED_QUEUE_LAUNCHES += 1
+    else:
+        QUEUE_LAUNCHES += 1
+    return occ
+
+
+def shadow_queue_planes_plain(pack: frame_kernel.FramePack, rays, idx, count, *,
+                              merged: bool = False):
+    """Plain version of ``shadow_queue_planes``: per shadowed level k, one
+    accept-first ``scene_closest_plain`` pass (``occluded_merged_plain``
+    where ``merged``) at level k's plain budgets over the shadow rays of the
+    first count[k] pixels of idx[k], written into level k's plane; zeros
+    elsewhere, and everywhere where a count passed the capacity."""
+    nsl, cap = idx.shape
+    occ = torch.zeros(rays.shape[:-1], dtype=torch.int32, device=rays.device)
+    counts = count.tolist()
+    if max(counts) > cap:
+        return occ
+    scene = frame_kernel.unpack_frame(pack)
+    for k, n in enumerate(counts):
+        pix = idx[k, :n].to(torch.int64)
+        r = rays[k].reshape(-1, 6)[pix]
+        active = torch.ones(n, dtype=torch.bool, device=rays.device)
+        t0 = torch.full((n,), RAY_TMAX, dtype=torch.float32, device=rays.device)
+        if merged:
+            hit = occluded_merged_plain(scene, r[:, :3], r[:, 3:], active, t0, level=k)
+        else:
+            hit = scene_closest_plain(scene, r[:, :3], r[:, 3:], active, t0, level=k,
+                                      accept_first=True)[2] >= 0
+        occ[k].view(-1)[pix] = hit.to(torch.int32)
+    return occ
+
+
+def shadow_queue_planes(pack: frame_kernel.FramePack, rays, idx, count, lib=None, ops=None):
+    """The deferred mode's occlusion repair over its device queues
+    (frame_kernel.render_frame_deferred_queue): ``rays`` (D-1, H, W, 6) f32,
+    the main pass's shadow-ray planes; ``idx`` (D-1, cap) int32, each
+    shadowed level's queued pixel indices, and ``count`` (D-1,) int32 their
+    counts. Returns (D-1, H, W) int32 occlusion planes: 1 where a queued
+    pixel's shadow ray is occluded at full budgets, 0 where it is not. Only
+    the queued pixels are defined (what frame_kernel.frame_compose reads);
+    where a count passed cap, none (the gated plain frame replaces the
+    image). CUDA: the queue entry of csrc/scene_kernel.cu, launched over
+    the capacity of every level, reading the counts on the device (no host
+    sync), its merged instantiation where frame_kernel.merges says so
+    (counted in QUEUE_LAUNCHES or MERGED_QUEUE_LAUNCHES); CPU: the plain
+    version."""
+    global QUEUE_LAUNCHES, MERGED_QUEUE_LAUNCHES
+    dev = rays.device
+    if rays.dtype != torch.float32 or rays.dim() != 4 or rays.shape[-1] != 6 \
+            or not rays.is_contiguous():
+        raise ValueError(f"rays: expected contiguous (D-1, H, W, 6) float32 planes, got "
+                         f"{tuple(rays.shape)} {rays.dtype}")
+    nsl = rays.shape[0]
+    if idx.dtype != torch.int32 or idx.dim() != 2 or idx.shape[0] != nsl or idx.device != dev \
+            or not idx.is_contiguous():
+        raise ValueError(f"idx: expected a contiguous ({nsl}, cap) int32 tensor on {dev}")
+    if count.dtype != torch.int32 or tuple(count.shape) != (nsl,) or count.device != dev \
+            or not count.is_contiguous():
+        raise ValueError(f"count: expected a contiguous ({nsl},) int32 tensor on {dev}")
+    frame_kernel.check_pack(pack)
+    if pack.params.device != dev:
+        raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
+    if dev.type == "cpu":
+        return shadow_queue_planes_plain(pack, rays, idx, count)
+    if dev.type != "cuda":
+        raise ValueError(f"no scene kernel for device {dev}")
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("scene_kernel")
+    occ = torch.empty(rays.shape[:-1], dtype=torch.int32, device=dev)
+    merged = frame_kernel.merges(pack)
+    _raise_on(lib.gprt_shadow_queue(
+        _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), _ptr(idx), _ptr(count),
+        ctypes.c_void_p(None), _ptr(occ), rays.shape[1] * rays.shape[2], nsl, idx.shape[1],
+        pack.num_geometries, pack.num_materials, _shared(pack), int(merged),
         frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "shadow queue kernel")
     if merged:
         MERGED_QUEUE_LAUNCHES += 1

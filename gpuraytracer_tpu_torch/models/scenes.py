@@ -94,8 +94,8 @@ _SDF_OBJECTS = (
 )
 
 
-def _sdf_showcase_builder() -> SceneBuilder:
-    b = SceneBuilder()
+def _sdf_showcase_builder(b: SceneBuilder | None = None) -> SceneBuilder:
+    b = SceneBuilder() if b is None else b
     cells = [(0, 0), (1, 0), (2, 0), (0, 2), (1, 2), (2, 2), (3, 1)]
     for (prim, mat, scale, rotates), (ix, iz) in zip(_SDF_OBJECTS, cells):
         size = ((6.0, 6.0, 6.0) if prim == SignedDistancePrimitive.FRACTAL_PYRAMID
@@ -162,6 +162,22 @@ def instance_grid(nx: int, nz: int, n_materials: int) -> SceneBuilder:
             kind=IntersectorKind.ANALYTIC, prim_type=int(kind), aabb_min=mn, aabb_max=mx,
             material=Material(albedo)))
     return b
+
+
+def padded_sdf_showcase(n_pad: int) -> SceneBuilder:
+    """A check scene, not a bench config: n_pad small closed-form spheres
+    along the back of the grid (geometries 0 to n_pad - 1) before the
+    sdf_primitives scene's seven marches, which so take the geometry ids
+    from n_pad on. Past 29 they test the deferred mode's queue keys, whose
+    capped-geometry mask keeps geometries 0-29 only."""
+    b = SceneBuilder()
+    for k in range(n_pad):
+        x = -7.0 + 14.0 * k / n_pad
+        b.add_instance(InstanceSpec(
+            kind=IntersectorKind.ANALYTIC, prim_type=int(AnalyticPrimitive.SPHERES),
+            aabb_min=(x, -1.0, 6.0), aabb_max=(x + 0.4, -0.6, 6.4), material=Material(RED),
+            scale=(0.2, 0.2, 0.2)))
+    return _sdf_showcase_builder(b)
 
 
 def get_config(name: str) -> BenchConfig:

@@ -66,14 +66,31 @@ class MainPass:
     compact (``defer`` False): one dirty mask per lane, sticky across
     levels and both kinds of ray; every capped traversal kills (a dirty
     lane passes no further gate), and a lane that is dirty after its
-    closest pass is dropped. defer: the closest passes are never capped;
-    each level's occlusion pass has a dirty mask of its own, and the
-    level's contributions under both shadow variants, its shadow status
+    closest pass is dropped. With ``resume``, a dirty lane's state at the
+    start of the level where it became dirty is kept (``PixelState``; the
+    CUDA compact entry's queue entry). defer: the closest passes are never
+    capped; each level's occlusion pass has a dirty mask of its own, and
+    the level's contributions under both shadow variants, its shadow status
     and its shadow ray are recorded (``DeferPlanes``)."""
 
     closest: tuple = (None, None)
     shadow: tuple = (None, None)
     defer: bool = False
+    resume: bool = False
+
+
+class PixelState(NamedTuple):
+    """Lanes' state at the start of a level (B lanes): ``level`` (B,)
+    int32, the ray ``o``, ``d`` (B, 3), the colour so far and the
+    throughput (B, 4). The compact main pass keeps it for its dirty lanes
+    (``MainPass.resume``), and ``trace_radiance(start=...)`` continues
+    from it."""
+
+    level: torch.Tensor
+    o: torch.Tensor
+    d: torch.Tensor
+    color: torch.Tensor
+    throughput: torch.Tensor
 
 
 class DeferPlanes(NamedTuple):
@@ -94,7 +111,8 @@ class DeferPlanes(NamedTuple):
 
 def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: Scene,
                    *, max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
-                   plain: bool = False, main: MainPass | None = None):
+                   plain: bool = False, main: MainPass | None = None,
+                   start: PixelState | None = None):
     """Trace radiance rays (..., 3) and return float4 colours (..., 4).
 
     pixel_x/pixel_y are the launch indices (DispatchRaysIndex), which the
@@ -109,9 +127,14 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
 
     ``main``: the plain version of a compacted frame mode's main pass
     (``MainPass``; the passes run as the scene kernel's plain version).
-    Compact returns (colours, dirty mask (...) int32); a dirty lane's
-    colour is not the frame's (the dense pass renders it again). Defer
-    returns the ``DeferPlanes``.
+    Compact returns (colours, dirty mask (...) int32), and with
+    ``main.resume`` also the dirty lanes' ``PixelState`` (valid where the
+    mask is set); a dirty lane's colour is not the frame's (the dense pass
+    renders it again). Defer returns the ``DeferPlanes``.
+
+    ``start``: each lane's ``PixelState`` (origins and directions are its
+    ``o`` and ``d``): a lane starts at its level with its colour and
+    throughput, as the resumed dense pass does.
     """
     arrays = scene.arrays
     constants = arrays.constants
@@ -130,10 +153,25 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     color = torch.zeros(n, 4, dtype=torch.float32, device=dev)
     throughput = torch.ones(n, 4, dtype=torch.float32, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
+    first = None
+    if start is not None:
+        color, throughput = start.color.reshape(-1, 4).clone(), start.throughput.reshape(-1, 4).clone()
+        first = start.level.reshape(-1)
     defer = main is not None and main.defer
-    dirty = None
+    dirty = saved = None
     if main is not None and not defer:
         dirty = torch.zeros(n, dtype=torch.int32, device=dev)
+        if main.resume:
+            saved = PixelState(torch.zeros(n, dtype=torch.int32, device=dev), o.clone(), d.clone(),
+                               color.clone(), throughput.clone())
+
+    def save(at, level, oa, da):
+        # at: indices into lanes of the lanes that a cap stopped at this level
+        if saved is not None and at.numel():
+            ln = lanes[at]
+            saved.level[ln] = level
+            saved.o[ln], saved.d[ln] = oa[at], da[at]
+            saved.color[ln], saved.throughput[ln] = color[ln], throughput[ln]
     if defer:
         nsl = max_depth - 1
         planes = DeferPlanes(
@@ -146,18 +184,23 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
         return dict(budget_cap=caps[0], mb_budget_cap=caps[1], dirty=mask, kill_on_cap=True)
 
     for level in range(max_depth):
-        lanes = torch.nonzero(active).squeeze(1)
+        lanes = torch.nonzero(active if first is None else active & (first <= level)).squeeze(1)
         if lanes.numel() == 0:
+            if first is not None and bool((active & (first > level)).any()):
+                continue
             break
         oa, da = o[lanes], d[lanes]
         mask = None if dirty is None else dirty[lanes]
+        clean = None if mask is None else mask == 0
         hit = closest_hit(oa, da, scene, t_min=RAY_TMIN, t_max=RAY_TMAX,
                           cull_backface=True, level=level, pack=pack, plain=plain,
                           caps=None if mask is None else capped(main.closest, mask))
         if mask is not None:
             # A lane capped in its closest pass is dropped here: the dense
-            # pass renders it again from its camera ray.
+            # pass renders it again from this level. (A dropped lane stays
+            # active; its mask kills it at every later gate.)
             dirty[lanes] = mask
+            save(torch.nonzero(clean & (mask != 0)).squeeze(1), level, oa, da)
             keep = torch.nonzero(mask == 0).squeeze(1)
             lanes, oa, da = lanes[keep], oa[keep], da[keep]
             hit = HitRecord(t=hit.t[keep], normal=hit.normal[keep],
@@ -193,6 +236,7 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
                                 caps=None if main is None else capped(main.shadow, mask))
             if dirty is not None:
                 dirty[lanes] = mask
+                save(torch.nonzero(mask != 0).squeeze(1), level, oa, da)
             elif defer:
                 unknown = ~in_shadow & (mask != 0)
                 status = torch.where(in_shadow, 1, torch.where(unknown, 2, 0)).to(torch.int32)
@@ -252,6 +296,9 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     if defer:
         return DeferPlanes(*(p.reshape(p.shape[:1] + batch + p.shape[2:]) for p in planes))
     color = color.reshape(batch + (4,))
+    if saved is not None:
+        return color, dirty.reshape(batch), PixelState(
+            *(x.reshape(batch + x.shape[1:]) for x in saved))
     return color if dirty is None else (color, dirty.reshape(batch))
 
 

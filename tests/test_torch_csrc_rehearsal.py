@@ -51,6 +51,7 @@ from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.geometry import sdf
 from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
 from gpuraytracer_tpu_torch.models import builtin, scenes
+from gpuraytracer_tpu_torch.render import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "gpuraytracer_tpu_torch", "kernels", "csrc")
@@ -94,6 +95,104 @@ extern "C" int rh_frame(const float* params, const int* layout, const float* tri
   }
   return width * height;
 }
+
+// The compact entry with a queue of `cap` slots (every SDF march capped at
+// `steps`, metaballs uncapped); returns the queue's count.
+extern "C" int rh_compact(const float* params, const int* layout, const float* tri, float* out,
+                          void* queue, int cap, int width, int height, int max_depth, int G, int M,
+                          int steps) {
+  int count = 0;
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const gprt::CapSpec caps{steps, gprt::kMetaballSteps};
+  for (int y = 0; y < height; ++y) {
+    for (int x = 0; x < width; ++x) {
+      blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
+      gprt::frame_compact_kernel<true>(params, layout, tri, reinterpret_cast<float4*>(out), nullptr,
+                                       gprt::DeviceQueue{queue, &count, cap}, width,
+                                       height, max_depth, G, M, caps, caps, nullptr);
+    }
+  }
+  return count;
+}
+
+// The dense entry over a compact queue with `count` entries counted.
+extern "C" void rh_dense(const float* params, const int* layout, const float* tri, void* queue,
+                          int count, int cap, float* out, int width, int height, int max_depth,
+                          int G, int M) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  for (int i = 0; i < cap; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    gprt::frame_dense_kernel<false, true>(params, layout, tri,
+                                           gprt::DeviceQueue{queue, &count, cap},
+                                           reinterpret_cast<float4*>(out), width, height,
+                                           max_depth, G, M, nullptr);
+  }
+}
+
+// The defer entry with per-level queues of `cap` slots (occlusion capped at
+// `steps`); counts (max_depth - 1) out.
+extern "C" void rh_defer(const float* params, const int* layout, const float* tri, float* lit,
+                         float* shadowed, int* sinfo, float* rays, int* queue, int* counts, int cap,
+                         int width, int height, int max_depth, int G, int M, int steps) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
+                           sinfo, rays, width * height};
+  for (int k = 0; k + 1 < max_depth; ++k) counts[k] = 0;
+  for (int y = 0; y < height; ++y) {
+    for (int x = 0; x < width; ++x) {
+      blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
+      gprt::frame_defer_kernel<true>(params, layout, tri, rec,
+                                     gprt::DeviceQueue{queue, counts, cap}, width, height,
+                                     max_depth, G, M, gprt::CapSpec{steps, gprt::kMetaballSteps},
+                                     nullptr);
+    }
+  }
+}
+
+// The bin entry's three kernels over nseg segments of cap slots (defer: int
+// pixel indices with the status planes; else compact QueueEntry slots); the
+// counts are added to *total.
+extern "C" void rh_bin(const void* queue, void* out, const int* count, const int* sinfo, int* bins,
+                       int nseg, int cap, int npix, int nbins, int defer,
+                       unsigned long long* total) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const gprt::BinQueue b{queue, out, count, sinfo, bins, nseg, cap, npix, nbins};
+  for (int k = 0; k < nseg * nbins; ++k) bins[k] = 0;
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int k = 0; k < nseg; ++k) {
+      if (pass == 1) {
+        blockIdx = dim3{(unsigned)k, 0, 0};
+        gprt::queue_scan_kernel(bins, nbins, count, total);
+        continue;
+      }
+      for (int i = 0; i < cap; ++i) {
+        blockIdx = dim3{(unsigned)i, (unsigned)k, 0};
+        const auto kernel = pass == 0 ? (defer ? gprt::queue_bin_kernel<true, false>
+                                               : gprt::queue_bin_kernel<false, false>)
+                                      : (defer ? gprt::queue_bin_kernel<true, true>
+                                               : gprt::queue_bin_kernel<false, true>);
+        kernel(b);
+      }
+    }
+  }
+}
+
+// The compose entry over n pixels.
+extern "C" void rh_compose(const float* lit, const float* shadowed, const int* sinfo,
+                           const int* occ, float* out, int n, int max_depth) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    gprt::frame_compose_kernel(reinterpret_cast<const float4*>(lit),
+                               reinterpret_cast<const float4*>(shadowed), sinfo, occ,
+                               reinterpret_cast<float4*>(out), n, max_depth);
+  }
+}
 """,
     "scene_kernel": r"""
 namespace gprt { float smem[1 << 16]; }
@@ -113,6 +212,23 @@ extern "C" int rh_scene(const float* params, const int* layout, const float* tri
            accept_first, cull, gprt::CapSpec{0, 0}, nullptr);
   }
   return n;
+}
+
+// The repair over device queues: nsl levels of cap slots (idx and count
+// null: every pixel, cap = npix, with the active mask).
+extern "C" void rh_queue_planes(const float* params, const int* layout, const float* tri,
+                                const float* rays, const int* idx, const int* count,
+                                const bool* active, int* occ, int npix, int nsl, int cap, int G,
+                                int M) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  for (int k = 0; k < nsl; ++k) {
+    for (int i = 0; i < cap; ++i) {
+      blockIdx = dim3{(unsigned)i, (unsigned)k, 0};
+      gprt::shadow_queue_kernel<false, true>(params, layout, tri, rays, idx, count, active, occ,
+                                             npix, nsl, cap, G, M, nullptr);
+    }
+  }
 }
 """,
 }
@@ -280,3 +396,187 @@ def test_julia_normal_is_exact_under_contraction(libs):
     dn = np.abs(out - plain).max(axis=-1)
     assert (dn == 0).mean() >= 0.99, f"bit-equal on {(dn == 0).mean():.4f}"
     assert dn.max() <= 1e-4, f"max |diff| {dn.max():.3g}"
+
+
+# ---------------------------------------------------------------------------
+# The compacted modes' device queues, resumed dense pass and recomposition
+# ---------------------------------------------------------------------------
+
+MODE_W, MODE_H, MODE_CAP_STEPS = 48, 27, 8
+
+
+def _assert_bar(img, ref):
+    """The image bar of tests/test_frame_kernel.py."""
+    diff = np.abs(img - ref).max(axis=-1)
+    flipped = diff > 1e-3
+    assert flipped.mean() < 0.02, f"{int(flipped.sum())} pixels flipped"
+    assert diff[~flipped].max() <= 1e-3 and (diff[~flipped] < 1e-5).mean() > 0.75
+
+
+def _mode_inputs():
+    pack = frame_kernel.pack_frame(builtin.build_scene(aspect=MODE_W / MODE_H,
+                                                       elapsed_time=T_ANIM, device="cpu"))
+    return pack, _np(pack.params), _np(pack.layout), _tri(pack)
+
+
+def test_compact_queue_and_resume_match_plain(libs):
+    # The compact entry's queue holds the plain builder's pixels with their
+    # saved levels and states; the dense entry then gives the rehearsed
+    # frame kernel's pixels bit for bit (the same compiler and arithmetic),
+    # and so the plain frame within the image bar (at 48x27 a last-ulp
+    # library difference moves a march crossing on a few pixels).
+    pack, params, layout, tri = _mode_inputs()
+    g, m = pack.num_geometries, pack.num_materials
+    cap = frame_kernel.queue_capacity(MODE_W, MODE_H)
+    lib = libs["frame_kernel"]
+    lib.rh_compact.restype = ctypes.c_int
+    img = np.full((MODE_H, MODE_W, 4), np.nan, np.float32)
+    entries = np.full((cap, frame_kernel.QUEUE_ENTRY_WORDS), -7, np.int32)
+    count = lib.rh_compact(_p(params), _p(layout), _p(tri), _p(img), _p(entries), cap, MODE_W,
+                           MODE_H, 3, g, m, MODE_CAP_STEPS)
+    p_img, p_queue = frame_kernel.render_frame_compact_main_plain(
+        pack, width=MODE_W, height=MODE_H, budget_cap=MODE_CAP_STEPS, cap=cap)
+    assert 0 < count == int(p_queue.count[0]) <= cap
+    got = torch.from_numpy(entries[:count])
+    got = got[torch.argsort(got[:, 0])]
+    want = p_queue.entries[:count]
+    assert torch.equal(got[:, :2], want[:, :2])
+    g_state = got[:, 2:].contiguous().view(torch.float32)
+    w_state = want[:, 2:].contiguous().view(torch.float32)
+    assert float((g_state - w_state).abs().max()) <= TOL
+    # The bin entry keeps the entries, orders them by key, and adds the
+    # count to the running total.
+    binned = np.full_like(entries, -7)
+    counts, bins = np.array([count], np.int32), np.zeros(32, np.int32)
+    total = np.array([5], np.uint64)
+    lib.rh_bin(_p(entries), _p(binned), _p(counts), None, _p(bins), 1, cap, 0, 32, 0, _p(total))
+    assert int(total[0]) == 5 + count
+    keys = binned[:count, 1] >> 8
+    assert (np.diff(keys) >= 0).all()
+    assert np.array_equal(binned[:count][np.argsort(binned[:count, 0])], got.numpy())
+    entries = binned
+    ref = np.full((MODE_H, MODE_W, 4), np.nan, np.float32)
+    lib.rh_frame(_p(params), _p(layout), _p(tri), _p(ref), MODE_W, MODE_H, 3, g, m, 1)
+    lib.rh_dense(_p(params), _p(layout), _p(tri), _p(entries), count, cap, _p(img), MODE_W,
+                  MODE_H, 3, g, m)
+    assert np.array_equal(img, ref)
+    _assert_bar(img, _np(frame_kernel.render_frame_plain(pack, width=MODE_W, height=MODE_H)))
+    # Entries at level -1 start from the camera ray (render_frame_dense).
+    entries[:count, 1] = -1
+    img[:] = np.nan
+    lib.rh_dense(_p(params), _p(layout), _p(tri), _p(entries), count, cap, _p(img), MODE_W,
+                 MODE_H, 3, g, m)
+    pix = entries[:count, 0]
+    assert np.array_equal(img.reshape(-1, 4)[pix], ref.reshape(-1, 4)[pix])
+
+
+def test_defer_queues_repair_and_compose_match_plain(libs):
+    # The defer entry's per-level queues hold the plain builder's pixels, the
+    # repair over them gives the plain repair's answers, the compose entry
+    # is its plain version bit for bit on the same planes, and the frame
+    # passes the image bar against the plain frame.
+    pack, params, layout, tri = _mode_inputs()
+    g, m = pack.num_geometries, pack.num_materials
+    depth, nsl, npix = 3, 2, MODE_W * MODE_H
+    cap = frame_kernel.queue_capacity(MODE_W, MODE_H)
+    lit = np.zeros((depth, MODE_H, MODE_W, 4), np.float32)
+    shadowed = np.zeros((nsl, MODE_H, MODE_W, 4), np.float32)
+    sinfo = np.zeros((nsl, MODE_H, MODE_W), np.int32)
+    rays = np.zeros((nsl, MODE_H, MODE_W, 6), np.float32)
+    queue = np.full((nsl, cap), -7, np.int32)
+    counts = np.zeros(nsl, np.int32)
+    libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
+                                  _p(sinfo), _p(rays), _p(queue), _p(counts), cap, MODE_W, MODE_H,
+                                  depth, g, m, MODE_CAP_STEPS)
+    p_planes, p_queue = frame_kernel.render_frame_deferred_queue_plain(
+        pack, width=MODE_W, height=MODE_H, shadow_cap=MODE_CAP_STEPS, cap=cap)
+    assert np.array_equal(counts, p_queue.count.numpy()) and counts.min() > 0
+    for k in range(nsl):
+        assert np.array_equal(np.sort(queue[k, :counts[k]]), p_queue.idx[k, :counts[k]].numpy())
+    # The bin entry keeps each level's pixels and orders them by block, then
+    # capped geometry.
+    binned = np.full_like(queue, -7)
+    nbins = 32 * ((npix + 32767) >> 15)
+    bins = np.zeros(nsl * nbins, np.int32)
+    total = np.zeros(1, np.uint64)
+    libs["frame_kernel"].rh_bin(_p(queue), _p(binned), _p(counts), _p(sinfo), _p(bins), nsl, cap,
+                                npix, nbins, 1, _p(total))
+    assert int(total[0]) == counts.sum()
+    keys = frame_kernel.bin_keys(frame_kernel.DeferQueue(torch.from_numpy(binned),
+                                                         torch.from_numpy(counts)),
+                                 torch.from_numpy(sinfo)).numpy()
+    for k in range(nsl):
+        assert (np.diff(keys[k, :counts[k]]) >= 0).all()
+        assert np.array_equal(np.sort(binned[k, :counts[k]]), np.sort(queue[k, :counts[k]]))
+    queue = binned
+    occ = np.full((nsl, MODE_H, MODE_W), -7, np.int32)
+    libs["scene_kernel"].rh_queue_planes(_p(params), _p(layout), _p(tri), _p(rays), _p(queue),
+                                         _p(counts), None, _p(occ), npix, nsl, cap, g, m)
+    planes = trace.DeferPlanes(*(torch.from_numpy(x) for x in (lit, shadowed, sinfo, rays)))
+    p_occ = scene_kernel.shadow_queue_planes_plain(pack, planes.rays, torch.from_numpy(queue),
+                                                   torch.from_numpy(counts))
+    unknown = (sinfo & 3) == 2
+    assert np.array_equal(occ[unknown], p_occ.numpy()[unknown])
+    assert (occ[~unknown] == -7).all()
+    out = np.full((MODE_H, MODE_W, 4), np.nan, np.float32)
+    libs["frame_kernel"].rh_compose(_p(lit), _p(shadowed), _p(sinfo), _p(occ), _p(out), npix,
+                                    depth)
+    assert np.array_equal(out, _np(frame_kernel.frame_compose_plain(planes,
+                                                                    torch.from_numpy(occ))))
+    _assert_bar(out, _np(frame_kernel.render_frame_plain(pack, width=MODE_W, height=MODE_H)))
+
+
+def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
+    # The padded sdf_primitives scene puts its marches at geometries 28-34,
+    # so most unknown lanes have no capped-geometry bit in the status word
+    # (bits 0-29): their key is 30 of their block, and the bin entry's
+    # counters and scatter stay inside their buffers (guards on both sides).
+    # Then the repair without a queue (scene_kernel.shadow_queue: every
+    # pixel of each level, an active mask) against its plain version.
+    pack = frame_kernel.pack_frame(scenes.padded_sdf_showcase(28).build(
+        MODE_W / MODE_H, T_ANIM, device="cpu"))
+    params, layout, tri = _np(pack.params), _np(pack.layout), _tri(pack)
+    g, m = pack.num_geometries, pack.num_materials
+    depth, nsl, npix = 3, 2, MODE_W * MODE_H
+    cap = frame_kernel.queue_capacity(MODE_W, MODE_H)
+    lit = np.zeros((depth, MODE_H, MODE_W, 4), np.float32)
+    shadowed = np.zeros((nsl, MODE_H, MODE_W, 4), np.float32)
+    sinfo = np.zeros((nsl, MODE_H, MODE_W), np.int32)
+    rays = np.zeros((nsl, MODE_H, MODE_W, 6), np.float32)
+    queue = np.full((nsl, cap), -7, np.int32)
+    counts = np.zeros(nsl, np.int32)
+    libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
+                                  _p(sinfo), _p(rays), _p(queue), _p(counts), cap, MODE_W, MODE_H,
+                                  depth, g, m, MODE_CAP_STEPS)
+    unknown = (sinfo & 3) == 2
+    assert counts.min() > 0 and (unknown & (((sinfo >> 2) & 0x3FFFFFFF) == 0)).any()
+    nbins = 32 * ((npix + 32767) >> 15)
+    guard = 64
+    bins = np.full(nsl * nbins + 2 * guard, -3, np.int32)
+    flat = np.full(nsl * cap + 2 * guard, -9, np.int32)
+    out = flat[guard:guard + nsl * cap]
+    total = np.zeros(1, np.uint64)
+    libs["frame_kernel"].rh_bin(_p(queue), _p(out), _p(counts), _p(sinfo), _p(bins[guard:]), nsl,
+                                cap, npix, nbins, 1, _p(total))
+    assert int(total[0]) == counts.sum()
+    assert (bins[:guard] == -3).all() and (bins[guard + nsl * nbins:] == -3).all()
+    assert (flat[:guard] == -9).all() and (flat[guard + nsl * cap:] == -9).all()
+    out = out.reshape(nsl, cap)
+    keys = frame_kernel.bin_keys(frame_kernel.DeferQueue(torch.from_numpy(out.copy()),
+                                                         torch.from_numpy(counts)),
+                                 torch.from_numpy(sinfo)).numpy()
+    for k in range(nsl):
+        n = counts[k]
+        assert ((keys[k, :n] >= 0) & (keys[k, :n] < nbins)).all()
+        assert (keys[k, :n] % 32 == 30).any() and (np.diff(keys[k, :n]) >= 0).all()
+        assert np.array_equal(np.sort(out[k, :n]), np.sort(queue[k, :n]))
+    # The repair without a queue: every other pixel of each level active.
+    active = np.zeros((nsl, npix), bool)
+    active[:, ::2] = True
+    occ = np.full((nsl, MODE_H, MODE_W), -7, np.int32)
+    libs["scene_kernel"].rh_queue_planes(_p(params), _p(layout), _p(tri), _p(rays), None, None,
+                                         _p(active), _p(occ), npix, nsl, npix, g, m)
+    p_occ = scene_kernel.shadow_queue_plain(pack, torch.from_numpy(rays.reshape(-1, 6)),
+                                            torch.from_numpy(active.reshape(-1)), npix)
+    assert np.array_equal(occ.reshape(-1), p_occ.numpy())
+    assert occ.reshape(nsl, -1)[active].any() and not occ.reshape(nsl, -1)[~active].any()
