@@ -47,11 +47,19 @@ exits non-zero):
               also with GPURT_DISABLE_FUSED=1, through the scene kernel);
               64-frame 1080p windows of mesh_octahedra and
               mesh_heightfield_512 (frame kernel) and mesh_heightfield_sdf
-              (per-geometry route, its exact march and mesh launch counts);
-              the march and mesh calls of the 1080p level-0 closest pass
-              against their plain versions (ray-batch bar over the gated
-              rays, normals, gated-out rays miss) and alone, with op counts
-              and bounds; one 1080p mesh_octahedra frame-kernel frame
+              (per-geometry route: exactly 5 pass-entry launches a frame,
+              no march or mesh entry); the pass entry on the 544-face
+              scene's 1080p level-0 closest and shadow passes against the
+              route's plain version (gid on >= 99.9% of rays, t within 1e-3
+              on >= 99.9% of both-hit rays) and against the one-geometry
+              chain the route ran before (march and mesh entries per
+              geometry; agreement, max |dt| and, without contraction, every
+              ray that differs), its three face loops bit-equal, each timed
+              alone with op counts (unculled and with the chunk skip),
+              bounds and SIMT; the chain's march and mesh calls against
+              their plain versions (ray-batch bar over the gated rays,
+              normals, gated-out rays miss) and alone, the mesh entry in
+              each face loop; one 1080p mesh_octahedra frame-kernel frame
               against its plain version
  10. modes    GPURT_FRAME_MODE=compact|defer (the compact, dense, defer,
               compose and gated entries of csrc/frame_kernel.cu, the queue
@@ -78,7 +86,8 @@ exits non-zero):
               shipped build every differing pixel counted), the bin entry
               (histogram, scan, scatter: the plain version's key order), the
               defer entry with its queues, the repair over them, the compose
-              entry and the gated entry
+              entry and the gated entry; beside the bin entry, its library
+              call (torch.sort of the live slots' keys, stable)
  11. last     the last three kernel-table items: GPURT_MERGED_SHADOW=1 (the
               merged instantiations of the frame kernel's plain and dense
               entries and of the occlusion queue) against the sequential
@@ -130,6 +139,7 @@ FLOPs on the same inputs, in the unit of that peak: a multiply-add is two
 """
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -239,6 +249,7 @@ def reset_counts():
     scene_kernel.LAUNCHES = 0
     megakernel.LAUNCHES = 0
     megakernel.MESH_LAUNCHES = 0
+    megakernel.PASS_LAUNCHES = 0
     frame_kernel.COMPACT_LAUNCHES = frame_kernel.DENSE_LAUNCHES = 0
     frame_kernel.DEFER_LAUNCHES = scene_kernel.QUEUE_LAUNCHES = 0
     frame_kernel.GATED_FALLBACK_LAUNCHES = frame_kernel.COMPOSE_LAUNCHES = 0
@@ -334,7 +345,7 @@ def fmad_build(fmad):
     from gpuraytracer_tpu_torch.kernels import build
 
     real = build.load
-    build.load = lambda name, count_ops=False: real(name, fmad=fmad, count_ops=count_ops)
+    build.load = lambda name, **kw: real(name, **{**kw, "fmad": fmad})
     try:
         yield
     finally:
@@ -350,12 +361,12 @@ def exactness(img, ref):
 
 
 def counts():
-    """(frame kernel, scene kernel, megakernel march, megakernel mesh entry)
-    launches."""
+    """(frame kernel, scene kernel, megakernel march, megakernel mesh entry,
+    megakernel pass entry) launches."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
 
     return (frame_kernel.LAUNCHES, scene_kernel.LAUNCHES, megakernel.LAUNCHES,
-            megakernel.MESH_LAUNCHES)
+            megakernel.MESH_LAUNCHES, megakernel.PASS_LAUNCHES)
 
 
 def animated_window(renderer, dev, label, w, h):
@@ -423,13 +434,23 @@ def main() -> int:
                                       (build.DEFAULT_FMAD, True))]
         builds.append(("op_probe", build.DEFAULT_FMAD, False))
         builds += [(name, build.DEFAULT_FMAD, False, True) for name in ("frame_kernel",
-                                                                        "scene_kernel")]
+                                                                        "scene_kernel",
+                                                                        "megakernel")]
+        # The megakernel's unculled face loop (-DGPRT_FACE_LOOP_GLOBAL): what
+        # phase 9 holds the shipped loop to, in both contraction modes, and
+        # its operation count.
+        builds += [("megakernel", fmad, count, False, True)
+                   for fmad, count in ((build.DEFAULT_FMAD, False),
+                                       (not build.DEFAULT_FMAD, False),
+                                       (build.DEFAULT_FMAD, True))]
         reports = build.compile_all(builds)
         registers = {}
-        for (name, fmad, count, *simt), report in reports.items():
+        for (name, fmad, count, *rest), report in reports.items():
+            simt, unculled = (rest + [False, False])[:2]
             print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}"
-                  f"{' count_simt' if simt else ''}: {ptxas_summary(report)}", flush=True)
-            if fmad == build.DEFAULT_FMAD and not count and not simt:
+                  f"{' count_simt' if simt else ''}{' faces_global' if unculled else ''}: "
+                  f"{ptxas_summary(report)}", flush=True)
+            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled):
                 registers.update(ptxas_registers(report))
 
     # 3. the fractals' device distance functions, before any render ----------
@@ -480,7 +501,7 @@ def main() -> int:
     with Phase("main"):
         ms_frame, launched, bg_max = animated_window(
             Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p", W_MAIN, H_MAIN)
-        if launched != (FRAMES, 0, 0, 0):
+        if launched != (FRAMES, 0, 0, 0, 0):
             raise AssertionError(f"{launched} launches for {FRAMES} frames")
         frame_launches = f_launch = launched[0]
         scene = builtin.animate_arrays(
@@ -523,7 +544,7 @@ def main() -> int:
             reset_counts()
             img = trace.render_frame(cfg.build(96 / 54, 0.7, device=dev), 96, 54,
                                      max_depth=cfg.max_depth)
-            if counts() != (1, 0, 0, 0):
+            if counts() != (1, 0, 0, 0, 0):
                 raise AssertionError(f"{cfg.name}: 96x54 frame launched {counts()}")
             ok, frac, tight, _ = bar(img, golden(cfg.name))
             print(f"[suite] {cfg.name} 96x54 vs golden: flipped {frac:.6f}, within 1e-5 "
@@ -546,7 +567,7 @@ def main() -> int:
             renderer = Renderer(cfg.width, cfg.height, device=dev, scene_factory=cfg.build,
                                 animate=cfg.builder().animator(), max_depth=cfg.max_depth)
             ms, launched, bg_max = animated_window(renderer, dev, cfg.name, cfg.width, cfg.height)
-            if launched != (FRAMES, 0, 0, 0):
+            if launched != (FRAMES, 0, 0, 0, 0):
                 raise AssertionError(f"{cfg.name}: {launched} launches for {FRAMES} frames")
             pack_f = frame_kernel.pack_frame(cfg.build(cfg.width / cfg.height, 0.0333 * 8,
                                                        device=dev))
@@ -620,7 +641,7 @@ def main() -> int:
         reset_counts()
         img = trace.render_frame(scene_s, w, h)
         torch.cuda.synchronize()
-        if counts() != (0, 5, 0, 0):
+        if counts() != (0, 5, 0, 0, 0):
             raise AssertionError(f"builtin 320x180 wavefront frame launched {counts()}")
         pack_s = frame_kernel.pack_frame(scene_s)
         for label, ref in (("frame kernel", frame_kernel.render_frame_tiles(pack_s, width=w, height=h)),
@@ -633,7 +654,7 @@ def main() -> int:
 
         ms_scene_frame, launched, bg_max = animated_window(
             Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p wavefront", W_MAIN, H_MAIN)
-        if launched != (0, 5 * FRAMES, 0, 0):
+        if launched != (0, 5 * FRAMES, 0, 0, 0):
             raise AssertionError(f"builtin 1080p wavefront: {launched} launches for {FRAMES} "
                                  f"frames (expected 0 frame, {5 * FRAMES} scene)")
         scene_launches = launched[1]
@@ -697,9 +718,9 @@ def main() -> int:
                 reset_counts()
                 img = trace.render_frame(scene_x, w, h, max_depth=depth)
                 torch.cuda.synchronize()
-                f_n, s_n, m_n, t_n = counts()
+                f_n, s_n, m_n, t_n, p_n = counts()
                 fused = not disabled and pack_x.num_materials <= frame_kernel.MAX_MATERIALS
-                if (m_n, t_n) != (0, 0) or (
+                if (m_n, t_n, p_n) != (0, 0, 0) or (
                         (f_n, s_n) != (1, 0) if fused else not (f_n == 0 and 1 <= s_n <= 2 * depth - 1)):
                     raise AssertionError(f"{nx * nz} instances: launched {(f_n, s_n)}")
                 ok, frac, tight, err = bar(img, plain)
@@ -781,13 +802,14 @@ def main() -> int:
         probe = sdf_cfg.build(1.0, 0.0, device=dev)
         n_sdf = sum(int(k) == 2 for k in probe.layout.kinds)
         n_mesh = len(probe.arrays.meshes)
-        per_frame = {"mesh_octahedra": (1, 0, 0, 0), "mesh_heightfield_512": (1, 0, 0, 0),
+        per_frame = {"mesh_octahedra": (1, 0, 0, 0, 0), "mesh_heightfield_512": (1, 0, 0, 0, 0),
                      # 3 closest + 2 occlusion passes (trace_radiance at depth
-                     # 3), each one launch per SDF geometry and one per mesh.
-                     "mesh_heightfield_sdf": (0, 0, 5 * n_sdf, 5 * n_mesh)}
+                     # 3), one pass-entry launch each; the one-geometry march
+                     # and mesh entries are not launched.
+                     "mesh_heightfield_sdf": (0, 0, 0, 0, 5)}
         for cfg, disabled in [(c, False) for c in meshes.MESH_CONFIGS] + [
                 (meshes.get_config("mesh_octahedra"), True)]:
-            expect = (0, 5, 0, 0) if disabled else per_frame[cfg.name]
+            expect = (0, 5, 0, 0, 0) if disabled else per_frame[cfg.name]
             if disabled:
                 os.environ["GPURT_DISABLE_FUSED"] = "1"
             label = cfg.name + (" GPURT_DISABLE_FUSED=1" if disabled else "")
@@ -836,61 +858,208 @@ def main() -> int:
                 raise AssertionError(f"{name}: {launched} launches for {FRAMES} frames, "
                                      f"not {expect}")
             if name == "mesh_heightfield_sdf":
-                mega_launches, mesh_launches = launched[2], launched[3]
+                mega_launches, mesh_launches, pass_launches = launched[2:5]
+                route_window_ms = ms
             print(f"[mesh] {name} {cfg.width}x{cfg.height} depth {cfg.max_depth}, {FRAMES} "
-                  f"frames: launches (frame, scene, march, mesh) {launched}, background <= "
+                  f"frames: launches (frame, scene, march, mesh, pass) {launched}, background <= "
                   f"{bg_max:.3f}; {ms:.3f} ms/frame, {cfg.width * cfg.height / ms / 1e3:.3f} "
                   f"Mrays/s; {card}", flush=True)
 
-        # The march kernel and the mesh entry alone, at the shapes of the 544-face
-        # scene's 1080p level-0 closest pass (the route's largest): the
-        # calls are recorded from the pass itself.
+        # The 544-face scene's 1080p level-0 closest and shadow passes (the
+        # route's largest): the pass entry against the route's plain version,
+        # bit for bit against its unculled face loop (the -DGPRT_FACE_LOOP_
+        # GLOBAL build: every face from global memory), and against the
+        # one-geometry chain the route ran before (the march and mesh
+        # entries launched per geometry over every ray, with torch ops
+        # between them, the mesh entry in the unculled loop the parent ran),
+        # in both contraction modes; then alone, with op counts (with the
+        # skip: the work it does, which its bound counts; unculled: the work
+        # the skip removed beside it), bounds and SIMT. The chain's march and
+        # mesh calls are recorded from its closest pass and held to their
+        # plain versions alone.
         scene_m9 = sdf_cfg.build(W_MAIN / H_MAIN, 0.0333 * 8, device=dev)
+        pack_9 = frame_kernel.pack_frame(scene_m9)
+        resident["megakernel_route_pass"] = megakernel.route_residency(pack_9)
         calls = {"march": [], "mesh": []}
-        real = {"march": megakernel.sphere_trace_tiles, "mesh": megakernel.trimesh_closest}
+
+        def unculled_lib(count_ops=False):
+            return build.load("megakernel", count_ops=count_ops, faces_global=True)
+
+        def unculled_mesh(*args, lib=None, **kw):
+            return megakernel.trimesh_closest(*args, lib=lib or unculled_lib(), **kw)
+
+        real = {"march": megakernel.sphere_trace_tiles, "mesh": unculled_mesh}
 
         def recorder(kind):
             def record(*args, **kw):
-                calls[kind].append((args, kw))
+                if recording[0]:
+                    calls[kind].append((args, kw))
                 return real[kind](*args, **kw)
             return record
 
-        megakernel.sphere_trace_tiles = recorder("march")
-        megakernel.trimesh_closest = recorder("mesh")
-        try:
-            px, py = cam.pixel_grid(W_MAIN, H_MAIN, dev)
-            c = scene_m9.arrays.constants
-            o, d = cam.generate_camera_rays(px, py, W_MAIN, H_MAIN, c.camera_position,
-                                            c.projection_to_world)
-            traverse.closest_hit(o.reshape(-1, 3), d.reshape(-1, 3), scene_m9, level=0)
-        finally:
-            megakernel.sphere_trace_tiles, megakernel.trimesh_closest = real["march"], real["mesh"]
+        recording = [True]
+        chain = functools.partial(scene_kernel.scene_closest_plain, budget_level=0,
+                                  march=recorder("march"), mesh_closest=recorder("mesh"))
+        px, py = cam.pixel_grid(W_MAIN, H_MAIN, dev)
+        c = scene_m9.arrays.constants
+        o9, d9 = cam.generate_camera_rays(px, py, W_MAIN, H_MAIN, c.camera_position,
+                                          c.projection_to_world)
+        o9, d9 = o9.reshape(-1, 3), d9.reshape(-1, 3)
+        hit_p9, ob9, db9, act9, t09 = traverse.pass_inputs(o9, d9, scene_m9)
+        st9, _, sg9 = chain(scene_m9, ob9, db9, act9, t09)
+        recording[0] = False
         if (len(calls["march"]), len(calls["mesh"])) != (n_sdf, n_mesh):
-            raise AssertionError(f"1080p pass made {len(calls['march'])} march and "
+            raise AssertionError(f"1080p chain made {len(calls['march'])} march and "
                                  f"{len(calls['mesh'])} mesh calls")
+        hp9 = o9 + torch.where(sg9 >= 0, st9, t09)[:, None] * d9
+        _, obs9, dbs9, acts9, t0s9 = traverse.pass_inputs(
+            hp9, hlsl.normalize(c.light_position[:3] - hp9), scene_m9, active=(sg9 >= 0) | hit_p9,
+            occlusion=True)
+        route_passes = {"closest": ((ob9, db9, act9, t09), False),
+                        "shadow": ((obs9, dbs9, acts9, t0s9), True)}
+        faces_9 = pack_9.tri.shape[0]
+        simt_lib = build.load("megakernel", count_simt=True)
+        route = {}
+        for kind, (args, af) in route_passes.items():
+            n_rays, live = args[0].shape[0], int(args[2].sum())
+
+            def run(lib=None, ops=None):
+                return megakernel.route_pass(scene_m9, *args, accept_first=af, pack=pack_9,
+                                             lib=lib, ops=ops)
+
+            k_out = run()
+            same = all(torch.equal(x, y) for x, y in zip(k_out, run(unculled_lib())))
+            p_ms, p_out = cuda_ms(lambda: megakernel.route_pass_plain(
+                scene_m9, *args, accept_first=af), 1, warmup=False)
+            chain_ms, c_out = cuda_ms(lambda: chain(scene_m9, *args, accept_first=af), 5)
+            line, agree_plain = [], {}
+            for ref_name, ref in (("plain", p_out), ("chain", c_out)):
+                g_eq = k_out[2] == ref[2]
+                both = g_eq & (ref[2] >= 0)
+                dt = (k_out[0] - ref[0]).abs()[both]
+                close = float((dt <= 1e-3).float().mean()) if dt.numel() else 1.0
+                dt_max = float(dt.max()) if dt.numel() else 0.0
+                agree = float(g_eq.float().mean())
+                if ref_name == "plain":
+                    agree_plain = dict(agree=agree, close=close, err=dt_max)
+                line.append(f"vs {ref_name}: gid agrees on {agree:.6f} ({int((~g_eq).sum())} rays "
+                            f"differ), t within 1e-3 on {close:.6f} of both-hit rays (max |dt| "
+                            f"{dt_max:.6g})")
+            # Without contraction the pass entry and the chain (the parent's
+            # route) take the same operations: every differing ray printed.
+            with fmad_build(False):
+                k_nf = run()
+                same = same and all(torch.equal(x, y) for x, y in zip(k_nf, run(unculled_lib())))
+                c_nf = chain(scene_m9, *args, accept_first=af)
+            diff_nf = torch.nonzero(k_nf[2] != c_nf[2]).squeeze(1)
+            both_nf = (k_nf[2] == c_nf[2]) & (c_nf[2] >= 0)
+            dt_nf = (k_nf[0] - c_nf[0]).abs()[both_nf]
+            line.append(f"fmad=false vs the chain: gid differs on {diff_nf.numel()} rays, t "
+                        f"bit-equal on {float((k_nf[0] == c_nf[0])[both_nf].float().mean()):.6f} of "
+                        f"both-hit rays (max |dt| {float(dt_nf.max()) if dt_nf.numel() else 0.0:.6g})")
+            for r in diff_nf[:8].tolist():
+                line.append(f"ray {r}: pass gid {int(k_nf[2][r])} t {float(k_nf[0][r]):.9g}, "
+                            f"chain gid {int(c_nf[2][r])} t {float(c_nf[0][r]):.9g}")
+            print(f"[mesh] 1080p level-0 {kind} pass ({n_rays} rays, {live} live): bit-equal to "
+                  f"the unculled face loop in both builds: {same}; " + "; ".join(line), flush=True)
+            if not (same and agree_plain["agree"] >= 0.999 and agree_plain["close"] >= 0.999):
+                raise AssertionError(f"1080p {kind} pass: the pass entry disagrees")
+            k_ms = cuda_ms(run, 20)[0]
+            u_ms = cuda_ms(lambda: run(unculled_lib()), 20)[0]
+            n_ops = {}
+            for label, lib in (("skip", build.load("megakernel", count_ops=True)),
+                               ("unculled", unculled_lib(count_ops=True))):
+                ops.zero_()
+                run(lib, ops)
+                n_ops[label] = int(ops.item())
+            cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+            run(simt_lib, cnt)
+            sim = megakernel.route_simt(cnt)
+            # Rays read once (o, d, active, t0: 29 B), outputs written once
+            # (best_t, normal, gid: 20 B), the face rows once; the operations
+            # the shipped loop performs.
+            nbytes = n_rays * (29 + 20) + faces_9 * 48
+            b_ms, b_by = bound(nbytes, n_ops["skip"])
+            u_b_ms = bound(nbytes, n_ops["unculled"])[0]
+            route[kind] = dict(ms=k_ms, plain_ms=p_ms, chain_ms=chain_ms, bound_ms=b_ms,
+                               bound_by=b_by, err=agree_plain["err"])
+            print(f"[mesh] pass entry alone, 1080p level-0 {kind} pass: {k_ms:.4f} ms (the "
+                  f"unculled face loop from global memory {u_ms:.4f} ms); the chain "
+                  f"{chain_ms:.4f} ms (its launches and torch ops); plain {p_ms:.1f} ms; "
+                  f"{n_ops['skip']} f32 FLOPs with the skip, {nbytes} bytes: bound {b_ms:.4f} ms "
+                  f"by {b_by} ({100 * b_ms / k_ms:.1f}% of bound); unculled {n_ops['unculled']} "
+                  f"FLOPs (the skip removed {100 * (1 - n_ops['skip'] / n_ops['unculled']):.1f}%; "
+                  f"bound {u_b_ms:.4f} ms); SIMT march {100 * sim['march'][0]:.2f}%, faces "
+                  f"{100 * sim['faces'][0]:.2f}% of lanes ({100 * sim['faces needed'][0]:.2f}% "
+                  f"needed the chunk; {sim['faces'][2]:.1f} warp face tests); {card}", flush=True)
+
+        # Larger meshes on the same route: the staging area holds the largest
+        # mesh, so it lowers the blocks resident per SM. The pass entry as it
+        # ships against its unculled loop (no staging area) on the 1080p
+        # level-0 closest pass of the scene with a 24x24 (1,152 faces) and a
+        # 40x40 (3,200 faces) heightfield.
+        for nx in (24, 40):
+            scene_l = meshes.heightfield_sdf_builder(nx=nx, nz=nx).build(
+                W_MAIN / H_MAIN, 0.0333 * 8, device=dev)
+            pack_l = frame_kernel.pack_frame(scene_l)
+            _, obl, dbl, actl, t0l = traverse.pass_inputs(o9, d9, scene_l)
+            libs_l = (None, unculled_lib())
+            outs_l = [megakernel.route_pass(scene_l, obl, dbl, actl, t0l, pack=pack_l, lib=lib)
+                      for lib in libs_l]
+            same_l = all(torch.equal(x, y) for x, y in zip(*outs_l))
+            ms_l = [cuda_ms(lambda lib=lib: megakernel.route_pass(
+                scene_l, obl, dbl, actl, t0l, pack=pack_l, lib=lib), 10)[0] for lib in libs_l]
+            res_l = [megakernel.route_residency(pack_l, lib=lib) for lib in libs_l]
+            print(f"[mesh] {pack_l.tri.shape[0]}-face heightfield, 1080p level-0 closest pass: "
+                  f"pass entry {ms_l[0]:.4f} ms at {res_l[0][0]} blocks/SM, its unculled face "
+                  f"loop {ms_l[1]:.4f} ms at {res_l[1][0]} blocks/SM; bit-equal {same_l}; {card}",
+                  flush=True)
+            if not same_l:
+                raise AssertionError(f"{nx}x{nx} heightfield: the face loops disagree")
+
+        # The chain's one-geometry calls alone (no render path launches them);
+        # the mesh entry as it ships, beside the parent's unculled loop.
         alone = {}
         for kind, plain_fn in (("march", megakernel.sphere_trace_plain),
                                ("mesh", megakernel.trimesh_closest_plain)):
             k_ms = p_ms = nbytes = err = 0.0
             k_ops = 0
+            shipped = megakernel.trimesh_closest if kind == "mesh" else real[kind]
             for args, kw in calls[kind]:
-                t, _ = cuda_ms(lambda: real[kind](*args, **kw), 10)
+                t, _ = cuda_ms(lambda: shipped(*args, **kw), 10)
                 k_ms += t
-                ops.zero_()
-                real[kind](*args, ops=ops, lib=build.load("megakernel", count_ops=True), **kw)
-                k_ops += int(ops.item())
                 t, p_out = cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False)
                 p_ms += t
-                k_out = real[kind](*args, **kw)
+                k_out = shipped(*args, **kw)
                 # march: (o, d, gate, ...); mesh entry: (rows, o, d, gate, ...)
                 rays, gate = (args[0], args[2]) if kind == "march" else (args[1], args[3])
                 rays, gated = rays.shape[0], int(gate.sum())
                 agree, close, dt_max, n_close, dn_max, outside = ray_agreement(k_out, p_out, gate)
                 err = max(err, dt_max)
+                ops.zero_()
+                shipped(*args, ops=ops, lib=build.load("megakernel", count_ops=True), **kw)
+                k_ops += int(ops.item())
+                mesh_fl = ""
+                if kind == "mesh":
+                    same = all(torch.equal(x, y) for x, y in zip(k_out, unculled_mesh(*args, **kw)))
+                    u_ms = cuda_ms(lambda: unculled_mesh(*args, **kw), 10)[0]
+                    ops.zero_()
+                    unculled_mesh(*args, ops=ops, lib=unculled_lib(count_ops=True), **kw)
+                    u_ops = int(ops.item())
+                    cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+                    megakernel.trimesh_closest(*args, ops=cnt, lib=simt_lib, **kw)
+                    sim = megakernel.route_simt(cnt)
+                    mesh_fl = (f"; bit-equal to the unculled face loop: {same} (its {u_ms:.4f} ms, "
+                               f"{u_ops} f32 FLOPs, of which the skip removed "
+                               f"{100 * (1 - (k_ops / u_ops if u_ops else 1)):.1f}%); SIMT faces "
+                               f"{100 * sim['faces'][0]:.2f}% ({100 * sim['faces needed'][0]:.2f}% "
+                               f"needed)")
+                    if not same:
+                        raise AssertionError("mesh entry: disagrees with the unculled face loop")
                 print(f"[mesh] 1080p {kind} call: {gated} of {rays} rays gated; hit agrees on "
                       f"{agree:.6f} of them, |dt| <= 1e-3 on {close:.6f} of both-hit rays "
                       f"(max {dt_max:.6g}), normals within 1e-2 on {n_close:.6f} (max "
-                      f"{dn_max:.6g}), gated-out rays miss: {outside}", flush=True)
+                      f"{dn_max:.6g}), gated-out rays miss: {outside}{mesh_fl}", flush=True)
                 if not (agree >= 0.98 and close >= 0.98 and n_close >= 0.98 and outside):
                     raise AssertionError(f"1080p {kind} call disagrees with its plain version")
                 # Every ray reads its gate and writes t_hit and its normal; only
@@ -902,9 +1071,10 @@ def main() -> int:
             b_ms, b_by = bound(nbytes, k_ops)
             alone[kind] = dict(ms=k_ms, plain_ms=p_ms, ops=k_ops, nbytes=nbytes, bound_ms=b_ms,
                                bound_by=b_by, err=err)
-            print(f"[mesh] {kind} calls of the 1080p level-0 closest pass ({len(calls[kind])} "
-                  f"calls): kernel {k_ms:.3f} ms ({k_ops} f32 FLOPs, {int(nbytes)} bytes: bound "
-                  f"{b_ms:.4f} ms by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+            print(f"[mesh] {kind} calls of the chain's 1080p level-0 closest pass "
+                  f"({len(calls[kind])} calls): kernel {k_ms:.4f} ms ({k_ops} f32 FLOPs, "
+                  f"{int(nbytes)} bytes: bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f}% "
+                  f"of bound); plain {p_ms:.1f} ms; {card}", flush=True)
 
         # The mesh body inside the frame kernel at 1080p: one mesh_octahedra
         # frame against its plain version, as phase 6 holds the builtin one.
@@ -1122,8 +1292,14 @@ def main() -> int:
         bin_ms, _ = cuda_ms(lambda: frame_kernel.bin_queue(queue_a), SHORT_REPS)
         bin_bytes = n_q * (64 + 64) + 4 + 32 * 4
         b_ms, b_by = bound(bin_bytes, 0)
+        # The one PyTorch call that computes the same order: a stable sort of
+        # the live slots' keys (timed here only; the port never calls it).
+        live_keys = frame_kernel.bin_keys(queue_a)[:n_q].contiguous()
+        lib_ms, _ = cuda_ms(lambda: torch.sort(live_keys, stable=True), SHORT_REPS)
         alone_m["queue_bin"] = dict(ms=bin_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                    err=0.0)
+                                    err=0.0, library_ms=lib_ms)
+        print(f"[modes] queue_bin's library call, torch.sort(keys, stable=True) of the {n_q} "
+              f"live slots' keys: {lib_ms:.4f} ms; {card}", flush=True)
         print(f"[modes] queue_bin alone, compact queue 1920x1080: {n_q} entries in "
               f"{len(set(b_keys.tolist()))} keys, the plain version's key order: {b_ok}; kernels "
               f"{bin_ms:.4f} ms (histogram, scan, scatter; {bin_bytes} bytes: bound {b_ms:.4f} "
@@ -1755,6 +1931,18 @@ def main() -> int:
         "bound_by": scene_bound_by,
         "library_ms": None,
     }, {
+        "name": "megakernel_route_pass",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/megakernel.cu",
+        "replaces": "gpuraytracer_tpu/kernels/megakernel.py:103",
+        "launches": pass_launches,
+        "max_abs_err": route["closest"]["err"],
+        "ms": route["closest"]["ms"],
+        "plain_ms": route["closest"]["plain_ms"],
+        "bound_ms": route["closest"]["bound_ms"],
+        "bound_by": route["closest"]["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "megakernel_sphere_trace",
         "route": "cuda",
         "source": "gpuraytracer_tpu_torch/kernels/csrc/megakernel.cu",
@@ -1789,7 +1977,7 @@ def main() -> int:
         "plain_ms": alone_m[name]["plain_ms"],
         "bound_ms": alone_m[name]["bound_ms"],
         "bound_by": alone_m[name]["bound_by"],
-        "library_ms": None,
+        "library_ms": alone_m[name].get("library_ms"),
     } for name, src, replaces, launches in (
         ("frame_compact", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
          windows["compact"]["compact"]),
@@ -1843,6 +2031,7 @@ def main() -> int:
     ptxas_name = {
         "frame_kernel": "frame_kernel<false, true>", "scene_kernel": "scene_kernel<false, true>",
         "megakernel_sphere_trace": "sphere_trace", "megakernel_trimesh": "trimesh",
+        "megakernel_route_pass": "route_pass<true>",
         "frame_compact": "frame_compact_kernel<true>",
         "frame_dense": "frame_dense_kernel<false, true>", "frame_defer": "frame_defer_kernel<true>",
         "shadow_queue": "shadow_queue_kernel<false, true>",

@@ -11,10 +11,11 @@ Rays are (N, 3). The plane is tested here; the procedural pass takes one
 of two routes, as the reference's does (``_scene_kernel_eligible``). A
 scene of at most TRI_FACE_TOTAL_CAP mesh faces takes one call of
 kernels/scene_kernel.scene_closest_tiles: the CUDA scene kernel on a GPU.
-A GPU scene past the cap takes ``per_geometry_route``, one geometry at a
-time, with every SDF march and every mesh in csrc/megakernel.cu. On the
-CPU every pass is scene_closest_plain, the per-geometry loop with the XLA
-path's per-level budgets, which rendered every golden.
+A GPU scene past the cap takes ``per_geometry_route``: one launch of
+csrc/megakernel.cu's pass entry per pass, the reference's per-geometry loop
+on each ray at the level-0 budgets. On the CPU every pass is
+scene_closest_plain, the per-geometry loop with the XLA path's per-level
+budgets, which rendered every golden.
 """
 
 from __future__ import annotations
@@ -85,25 +86,22 @@ def pack_tri_rows(arrays: SceneArrays):
     return torch.cat(rows, dim=0).contiguous(), tuple(offsets)
 
 
-def per_geometry_route(plain: bool = False):
+def per_geometry_route(plain: bool = False, pack=None):
     """The pass function of a GPU scene past TRI_FACE_TOTAL_CAP faces: the
-    reference's closest_hit / any_hit loop (traverse.py:337-395, 444-479)
-    as its TPU runs it, which is kernels/scene_kernel.scene_closest_plain
-    with every SDF march in csrc/megakernel.cu's march kernel and every
-    mesh in its mesh entry (one launch per geometry and pass over all the
-    pass's rays; analytic shapes and metaballs in their plain forms, as
-    the reference runs them in XLA), and every level marched at the level-0
-    budget (the reference's _dispatch_procedural, traverse.py:128-175, has
-    no bounce cap on this route). ``plain``: the two kernels' plain
-    versions."""
-    from gpuraytracer_tpu_torch.kernels import megakernel, scene_kernel
+    reference's closest_hit / any_hit loop (traverse.py:337-395, 444-479) as
+    its TPU runs it, every level marched at the level-0 budget (its
+    _dispatch_procedural, traverse.py:128-175, has no bounce cap on this
+    route). On a GPU that is kernels/megakernel.route_pass, one launch per
+    pass (``pack``: the frame's packed buffers, if already built).
+    ``plain``: its plain version, megakernel.route_pass_plain (one march
+    call per SDF geometry and one mesh call per mesh over all the pass's
+    rays; analytic shapes and metaballs in their plain forms, as the
+    reference runs them in XLA)."""
+    from gpuraytracer_tpu_torch.kernels import megakernel
 
     if plain:
-        march, mesh_closest = megakernel.sphere_trace_plain, megakernel.trimesh_closest_plain
-    else:
-        march, mesh_closest = megakernel.sphere_trace_tiles, megakernel.trimesh_closest
-    return functools.partial(scene_kernel.scene_closest_plain, budget_level=0, march=march,
-                             mesh_closest=mesh_closest)
+        return megakernel.route_pass_plain
+    return functools.partial(megakernel.route_pass, pack=pack)
 
 
 def _procedural_pass(scene: Scene, plain, pack):
@@ -114,7 +112,7 @@ def _procedural_pass(scene: Scene, plain, pack):
     if scene.arrays.aabb_min.device.type != "cuda":
         return scene_kernel.scene_closest_plain
     if not _scene_kernel_eligible(scene):
-        return per_geometry_route(plain)
+        return per_geometry_route(plain, pack)
     if plain:
         return scene_kernel.scene_closest_plain
     return functools.partial(scene_kernel.scene_closest_tiles, pack=pack)

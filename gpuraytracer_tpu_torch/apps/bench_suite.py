@@ -45,18 +45,22 @@ beside the calls both forms have (``compact_capped_ms``,
 recomposition of torch ops); and 64-frame animated windows through
 Renderer.render (ms/frame) in each GPURT_FRAME_MODE, with the modes' host
 syncs and queued lanes per frame (on a device queue read once after the
-window). Where the checkout has the SIMT
+window); and the per-geometry route of mesh_heightfield_sdf (544 faces):
+each checkout's pass function on the 1080p level-0 closest and shadow
+passes, whole (``mesh_route_*_pass_ms``: the parent's launches per
+geometry and its torch ops between them, or one pass-entry launch), and a
+64-frame 1080p window with the route's launches. Where the checkout has the SIMT
 counting build (build.load(count_simt=True)), it reports the SIMT
 efficiency of the builtin and fractal 1080p frame kernels per level and
 ray kind and of the level-0 closest and shadow passes. Each process also
 saves its outputs, made with the ``--fmad`` build (default: the shipped
 one): the builtin 1080p frame (plain, compact and defer), the five bench
 scenes and mesh_octahedra at 320x180, and the 1080p level-0 closest and
-shadow passes (shadow rays from
-the plain closest pass, so that every root gets the same rays). One JSON
-line per root, then one per root after the first with the share of
-bit-equal pixels and rays against the first root and the largest
-difference.
+shadow passes of the builtin scene and of mesh_heightfield_sdf (shadow rays
+from the plain closest pass, so that every root gets the same rays). One
+JSON line per root, then one per root after the first with the share of
+bit-equal pixels and rays against the first root, the rays (and geometry
+ids) that differ, and the largest difference.
 
 Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
 the host clock, for tiny smoke runs only):
@@ -216,15 +220,20 @@ from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.accel.instances import Scene
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
-from gpuraytracer_tpu_torch.kernels import build, frame_kernel, scene_kernel
+from gpuraytracer_tpu_torch.kernels import build, frame_kernel, megakernel, scene_kernel
 from gpuraytracer_tpu_torch.models import builtin, meshes, scenes
 from gpuraytracer_tpu_torch.render.renderer import Renderer
 
 assert frame_kernel.__file__.startswith(ROOT), frame_kernel.__file__
 dev = torch.device("cuda:0")
 simt = "count_simt" in inspect.signature(build.load).parameters
-builds = [(k, f, False) for k in ("frame_kernel", "scene_kernel") for f in {True, FMAD}]
+# The megakernel's unculled face loop (-DGPRT_FACE_LOOP_GLOBAL), where the
+# checkout has it.
+unculled = "faces_global" in inspect.signature(build.load).parameters
+builds = [(k, f, False) for k in ("frame_kernel", "scene_kernel", "megakernel")
+          for f in {True, FMAD}]
 builds += [(k, True, False, True) for k in ("frame_kernel", "scene_kernel")] if simt else []
+builds += [("megakernel", True, False, False, True)] if unculled else []
 build.compile_all(builds)
 w, h = 1920, 1080
 t_frame = 0.0333 * 8
@@ -388,6 +397,71 @@ for mode in ("plain", "compact", "defer"):
         res[f"{mode}_queued_lanes_per_frame"] = (queued_lanes() - lanes) / 64
 del os.environ["GPURT_FRAME_MODE"]
 
+# The per-geometry route (mesh_heightfield_sdf, 544 faces): each root's
+# pass function on the 1080p level-0 closest pass and the shadow pass off
+# the plain closest hits (the same rays in every root), whole, torch ops
+# included; then a 64-frame 1080p window with the route's launches per
+# frame.
+m_cfg = meshes.get_config("mesh_heightfield_sdf")
+m_scene = m_cfg.build(w / h, t_frame, device=dev)
+m_pack = frame_kernel.pack_frame(m_scene)
+m_route = traverse._procedural_pass(m_scene, False, m_pack)
+mc = m_scene.arrays.constants
+m_o, m_d = cam.generate_camera_rays(px, py, w, h, mc.camera_position, mc.projection_to_world)
+m_o, m_d = m_o.reshape(-1, 3), m_d.reshape(-1, 3)
+m_hit_p, m_ob, m_db, m_act, m_t0 = traverse.pass_inputs(m_o, m_d, m_scene)
+m_st, _, m_sg = scene_kernel.scene_closest_plain(m_scene, m_ob, m_db, m_act, m_t0)
+m_hp = m_o + torch.where(m_sg >= 0, m_st, m_t0)[:, None] * m_d
+_, m_obs, m_dbs, m_acts, m_t0s = traverse.pass_inputs(
+    m_hp, hlsl.normalize(mc.light_position[:3] - m_hp), m_scene, active=(m_sg >= 0) | m_hit_p,
+    occlusion=True)
+m_passes = (("closest", (m_ob, m_db, m_act, m_t0), False),
+            ("shadow", (m_obs, m_dbs, m_acts, m_t0s), True))
+# Where the checkout has the unculled face loop's build, the pass and mesh
+# entries in it too.
+for label, args, af in m_passes:
+    res[f"mesh_route_{label}_pass_ms"] = timed(lambda: m_route(m_scene, *args, level=0,
+                                                               accept_first=af))
+    if unculled:
+        res[f"route_pass_{label}_unculled_ms"] = timed(lambda: megakernel.route_pass(
+            m_scene, *args, accept_first=af, pack=m_pack,
+            lib=build.load("megakernel", faces_global=True)))
+# The mesh entry alone on the closest pass's gated rays (the call the
+# parent's route makes): each root's, and its unculled face loop.
+from gpuraytracer_tpu_torch.accel.instances import ray_to_local
+from gpuraytracer_tpu_torch.geometry import analytic
+m_g = [int(k) for k in m_scene.layout.kinds].index(3)
+m_gate = analytic.aabb_hit_mask(m_ob, m_db, m_scene.arrays.aabb_min[m_g],
+                                m_scene.arrays.aabb_max[m_g], t_min=0.0, t_max=m_t0) & m_act
+m_ol, m_dl = ray_to_local(m_ob, m_db, m_scene.arrays.transforms.blas_to_local[m_g])
+m_rows = m_scene.arrays.meshes[0].rows()
+res["mesh_entry_ms"] = timed(lambda: megakernel.trimesh_closest(m_rows, m_ol, m_dl, m_gate, m_t0))
+if unculled:
+    res["mesh_entry_unculled_ms"] = timed(lambda: megakernel.trimesh_closest(
+        m_rows, m_ol, m_dl, m_gate, m_t0, lib=build.load("megakernel", faces_global=True)))
+
+
+def route_launches():
+    return (megakernel.LAUNCHES, megakernel.MESH_LAUNCHES, getattr(megakernel, "PASS_LAUNCHES", 0))
+
+
+renderer = Renderer(m_cfg.width, m_cfg.height, device=dev, scene_factory=m_cfg.build,
+                    animate=m_cfg.builder().animator(), max_depth=m_cfg.max_depth)
+renderer.render(0.0)
+torch.cuda.synchronize()
+before = route_launches()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+acc = torch.zeros((), device=dev)
+for k in range(64):
+    acc = acc + renderer.render(0.0333 * k).sum()
+end.record()
+torch.cuda.synchronize()
+assert torch.isfinite(acc), "non-finite window"
+res["mesh_window_64_ms_per_frame"] = start.elapsed_time(end) / 64
+res["mesh_window_launches_per_64_frames"] = dict(zip(
+    ("march", "mesh", "pass"), (b - a for a, b in zip(before, route_launches()))))
+
 
 def efficiency(ops):
     eff = frame_kernel.simt_efficiency(ops)
@@ -424,6 +498,13 @@ for name in [cfg.name for cfg in scenes.BENCH_CONFIGS] + ["mesh_octahedra"]:
 for label, args, af in (("closest", (ob, db, act, t0), False), ("shadow", (obs, dbs, acts, t0s), True)):
     bt, nrm, g = scene_kernel.scene_closest_tiles(scene, *args, accept_first=af, pack=pack, lib=slib)
     outs[f"1080p level-0 {label} pass"] = torch.cat([bt[:, None], nrm, g[:, None].float()], dim=1)
+# The route's passes through the --fmad build.
+build.load = lambda name, count_ops=False: real_load(name, fmad=FMAD, count_ops=count_ops)
+for label, args, af in m_passes:
+    bt, nrm, g = m_route(m_scene, *args, level=0, accept_first=af)
+    outs[f"mesh_heightfield_sdf 1080p level-0 {label} pass"] = torch.cat(
+        [bt[:, None], nrm, g[:, None].float()], dim=1)
+build.load = real_load
 torch.save({k: v.cpu() for k, v in outs.items()}, OUT)
 print(json.dumps(res), flush=True)
 """
@@ -431,7 +512,8 @@ print(json.dumps(res), flush=True)
 
 def _compare(a: dict, b: dict) -> dict:
     """Per output: the share of pixels (frames) or rays (passes) whose
-    every value is bit-equal, and the largest absolute difference."""
+    every value is bit-equal, and the largest absolute difference; for a
+    pass (its last column the geometry id), the rays whose id differs."""
     out = {}
     for name, x in a.items():
         y = b[name]
@@ -439,7 +521,10 @@ def _compare(a: dict, b: dict) -> dict:
         rows = equal.reshape(-1, x.shape[-1]).all(dim=1)
         diff = (x - y).abs()
         out[name] = {"bit_equal": float(rows.float().mean()),
+                     "rays_differ": int((~rows).sum()),
                      "max_abs_diff": float(diff[~torch.isnan(diff)].max()) if diff.numel() else 0.0}
+        if name.endswith(" pass"):
+            out[name]["gid_differ"] = int((x[:, -1] != y[:, -1]).sum())
     return out
 
 

@@ -12,7 +12,10 @@ an exact 0, and march crossings are ulp-sensitive). ``count_ops`` adds
 a measurement's operation bound; never the shipped build); ``count_simt``
 adds -DGPRT_COUNT_SIMT: a build that counts, at every march sample, how
 many lanes of the warp marched (SIMT efficiency; csrc/frame_math.cuh;
-never the shipped build). The library
+never the shipped build); ``faces_global`` adds -DGPRT_FACE_LOOP_GLOBAL:
+a megakernel build whose pass and mesh entries test every face from
+global memory (the unculled face loop that checks hold the shipped one
+to; never the shipped build). The library
 lands in build/gpuraytracer_tpu_torch/ at the repository root, named after
 a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing build. A failed build raises with nvcc's
@@ -55,17 +58,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(fmad: bool, count_ops: bool = False, count_simt: bool = False):
+def _flags(fmad: bool, count_ops: bool = False, count_simt: bool = False,
+           faces_global: bool = False):
     return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
              "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else [])
-            + (["-DGPRT_COUNT_SIMT"] if count_simt else []))
+            + (["-DGPRT_COUNT_SIMT"] if count_simt else [])
+            + (["-DGPRT_FACE_LOOP_GLOBAL"] if faces_global else []))
 
 
 def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
-                 count_simt: bool = False) -> Path:
+                 count_simt: bool = False, faces_global: bool = False) -> Path:
     """Where the build of csrc/<name>.cu with these flags lives."""
-    h = hashlib.sha256(" ".join(_flags(fmad, count_ops, count_simt)).encode())
+    h = hashlib.sha256(" ".join(_flags(fmad, count_ops, count_simt, faces_global)).encode())
     for src in (f"{name}.cu",) + _HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
@@ -73,17 +78,17 @@ def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
 
 
 def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
-                   count_simt: bool = False) -> tuple[Path, str]:
+                   count_simt: bool = False, faces_global: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills; empty when reused)."""
-    out = library_path(name, fmad, count_ops, count_simt)
+    out = library_path(name, fmad, count_ops, count_simt, faces_global)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path()] + _flags(fmad, count_ops, count_simt) + ["-o", tmp,
-                                                                  str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path()] + _flags(fmad, count_ops, count_simt, faces_global) + [
+        "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -94,8 +99,8 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
 
 
 def compile_all(builds) -> dict:
-    """Run compile_kernel for every (name, fmad, count_ops[, count_simt])
-    in ``builds`` at once (one nvcc process each); returns {build: ptxas
+    """Run compile_kernel for every (name, fmad, count_ops[, count_simt[,
+    faces_global]]) in ``builds`` at once (one nvcc process each); returns {build: ptxas
     report}."""
     builds = list(builds)
     with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
@@ -105,10 +110,10 @@ def compile_all(builds) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
-         count_simt: bool = False) -> ctypes.CDLL:
+         count_simt: bool = False, faces_global: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; declares the C interface
     (every pointer and the stream as c_void_p)."""
-    path, _ = compile_kernel(name, fmad, count_ops, count_simt)
+    path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global)
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
@@ -140,6 +145,10 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_sphere_trace.restype = ci
         lib.gprt_trimesh.argtypes = [vp, ci] + [vp] * 6 + [ci, ci, vp, ci, vp]
         lib.gprt_trimesh.restype = ci
+        lib.gprt_route_pass.argtypes = [vp] * 10 + [ci] * 7 + [vp, ci, vp]
+        lib.gprt_route_pass.restype = ci
+        lib.gprt_route_residency.argtypes = [ci] * 5 + [vp, vp]
+        lib.gprt_route_residency.restype = ci
     elif name == "op_probe":
         lib.gprt_op_probe.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp]
         lib.gprt_op_probe.restype = ci

@@ -1,13 +1,14 @@
 // Host stand-ins for the CUDA keywords, built-ins, intrinsics and runtime
 // calls that the kernel sources use, so that g++ compiles a kernel source's
 // device code (the part before its host launchers) for a rehearsal on the
-// CPU: tests/test_torch_csrc_rehearsal.py builds frame_kernel.cu and
-// scene_kernel.cu against it with -ffp-contract=off, which repeats the
-// plain versions' arithmetic, and runs every block with one thread.
+// CPU: tests/test_torch_csrc_rehearsal.py builds frame_kernel.cu,
+// scene_kernel.cu and megakernel.cu against it with -ffp-contract=off, which
+// repeats the plain versions' arithmetic, and runs every block with one
+// thread.
 //
 // A block of one thread is a warp of one lane: __activemask() and
-// __match_any_sync() are that lane, a ballot is its predicate, a shuffle its
-// own value; atomics are plain
+// __match_any_sync() are that lane, a ballot, a vote (__any_sync,
+// __syncthreads_or) is its predicate, a shuffle its own value; atomics are plain
 // read-modify-writes; __syncthreads() has nothing to wait for. The rounded
 // intrinsics (__fmul_rn, ...) are the plain operators, which this build
 // never contracts. Dynamic shared memory (`extern __shared__ float smem[]`)
@@ -50,7 +51,9 @@ template <typename T>
 inline T __ldg(const T* p) { return *p; }
 
 inline void __syncthreads() {}
+inline int __syncthreads_or(int pred) { return pred != 0; }
 inline unsigned __activemask() { return 1u; }
+inline int __any_sync(unsigned, int pred) { return pred != 0; }
 inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }
 inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 template <typename T>

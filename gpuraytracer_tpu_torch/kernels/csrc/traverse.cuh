@@ -45,7 +45,8 @@
 // and takes no dynamic shared memory. The F x 12 face table stays in global
 // memory and is read through the read-only cache: faces are many and read
 // once per ray, and shared memory keeps only what every ray of the block
-// reads.
+// reads. (The megakernel's pass and mesh entries, csrc/megakernel.cu, stage
+// a gated mesh's rows in shared memory and pass their own mesh body.)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -328,6 +329,19 @@ __device__ __noinline__ bool intersect_trimesh(const float* __restrict__ tri, in
   return true;
 }
 
+// The mesh body of the traversals below (their Mesh parameter): geometry
+// g's rows of the global face table, by intersect_trimesh. The megakernel's
+// pass entry passes its own (faces staged in shared memory, chunks of faces
+// skipped); the frame and scene kernels take this default.
+struct GlobalMesh {
+  __device__ __forceinline__ bool operator()(const Scene& s, int g, V3 ol, V3 dl, float t_max,
+                                             bool cull, float* t, V3* nl) const {
+    const int* q = s.geo + kGeoStride * g;
+    return intersect_trimesh(s.tri + kFaceStride * q[kGeoFaceStart], q[kGeoFaceCount], ol, dl,
+                             t_max, cull, t, nl);
+  }
+};
+
 // An AABB-windowed code's march window: [max(entry, 0), min(exit, t_max)]
 // of the local unit box; false where it is empty (the lane is not marched).
 __device__ __forceinline__ bool unit_box_window(V3 ol, V3 dl, float t_max, float* t_lo,
@@ -341,10 +355,12 @@ __device__ __forceinline__ bool unit_box_window(V3 ol, V3 dl, float t_max, float
 
 // Geometry g's intersector on the local ray over [0, t_max]; *nl is the
 // local normal of a closed-form or mesh hit (a march's is computed by the
-// caller). Returns IntersectBits; kDirtyBit only under kCaps.
-template <bool kCaps>
+// caller). Returns IntersectBits; kDirtyBit only under kCaps. mesh: the
+// mesh body (GlobalMesh, or the megakernel's staged faces).
+template <bool kCaps, typename Mesh = GlobalMesh>
 __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool occlusion,
-                         int level, bool cull, CapSpec caps, float* t, V3* nl) {
+                         int level, bool cull, CapSpec caps, float* t, V3* nl,
+                         const Mesh& mesh = Mesh{}) {
   const int* q = s.geo + kGeoStride * g;
   const int kind = q[0], code = q[1];
   if (kind == kAnalytic) {
@@ -357,10 +373,7 @@ __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool 
     if (r == kMarchHit) return kHitBit;
     return kCaps && r == kMarchCapped && mb_steps < kMetaballSteps ? kDirtyBit : 0;
   }
-  if (kind == kTriangle) {
-    return intersect_trimesh(s.tri + kFaceStride * q[kGeoFaceStart], q[kGeoFaceCount], ol, dl,
-                             t_max, cull, t, nl) ? kHitBit : 0;
-  }
+  if (kind == kTriangle) return mesh(s, g, ol, dl, t_max, cull, t, nl) ? kHitBit : 0;
   float t_lo = 0.0f, t_hi = t_max;
   const bool windowed = q[kGeoWindowed] != 0;
   if (windowed && !unit_box_window(ol, dl, t_max, &t_lo, &t_hi)) return 0;
@@ -397,10 +410,12 @@ __device__ __forceinline__ V3 march_normal(const Scene& s, int g, V3 ob, V3 d, f
 // kKill (the compacted frame modes' kill-on-cap) then ends the traversal,
 // and a dirty lane's normal is not computed (its hit is not used); without
 // it (the two-phase main pass, whose traversal goes on, scene_kernel.py:
-// 1362-1369) the later geometries run against the unchanged best t.
-template <bool kCaps = false, bool kKill = true>
+// 1362-1369) the later geometries run against the unchanged best t. mesh:
+// the mesh body (intersect's).
+template <bool kCaps = false, bool kKill = true, typename Mesh = GlobalMesh>
 __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool cull, Hit* h,
-                                   CapSpec caps = CapSpec{}, unsigned* dirty = nullptr) {
+                                   CapSpec caps = CapSpec{}, unsigned* dirty = nullptr,
+                                   const Mesh& mesh = Mesh{}) {
   bool deferred_normal = false;
   for (int g = 0; g < s.G; ++g) {
     float running = fminf(h->t, kRayTMax);
@@ -411,7 +426,8 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
     V3 nl = v3(0.0f, 0.0f, 0.0f);
     const int kind = s.geo[kGeoStride * g];
     const bool marched = kind == kVolumetric || kind == kSignedDistance;
-    const int r = intersect<kCaps>(s, g, ol, dl, running, false, level, cull, caps, &t, &nl);
+    const int r = intersect<kCaps>(s, g, ol, dl, running, false, level, cull, caps, &t, &nl,
+                                   mesh);
     if (kCaps && (r & kDirtyBit)) {
       *dirty |= dirty_bit(g);
       if (kKill) return;
@@ -430,17 +446,19 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
 // Accept-first occlusion over [0, t_max] with back-face culling: the first
 // geometry with a valid (or capped) hit, or -1. kCaps, kKill: as in
 // closest_procedural; with kKill a march that marks the lane dirty ends the
-// search (with its hit, where the occluded-on-cap rule gives one).
-template <bool kCaps = false, bool kKill = true>
+// search (with its hit, where the occluded-on-cap rule gives one). mesh: as
+// in closest_procedural.
+template <bool kCaps = false, bool kKill = true, typename Mesh = GlobalMesh>
 __device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int level,
-                                   CapSpec caps = CapSpec{}, unsigned* dirty = nullptr) {
+                                   CapSpec caps = CapSpec{}, unsigned* dirty = nullptr,
+                                   const Mesh& mesh = Mesh{}) {
   for (int g = 0; g < s.G; ++g) {
     if (!gate(s, g, ob, d, t_max)) continue;
     V3 ol, dl;
     local_ray(s, g, ob, d, &ol, &dl);
     float t;
     V3 nl;
-    const int r = intersect<kCaps>(s, g, ol, dl, t_max, true, level, true, caps, &t, &nl);
+    const int r = intersect<kCaps>(s, g, ol, dl, t_max, true, level, true, caps, &t, &nl, mesh);
     if (kCaps && (r & kDirtyBit)) {
       *dirty |= dirty_bit(g);
       if (kKill) return (r & kHitBit) ? g : -1;

@@ -1,5 +1,14 @@
-"""One geometry at a time: the SDF march kernel and the mesh entry
-(csrc/megakernel.cu).
+"""The per-geometry route's kernels (csrc/megakernel.cu).
+
+``route_pass`` is the route's pass entry (``accel/traverse.
+per_geometry_route`` on a GPU, for a scene past
+``accel/traverse.TRI_FACE_TOTAL_CAP`` mesh faces): one launch per closest
+or occlusion pass, one thread per ray running the whole route, every
+geometry in definition order at the level-0 budgets, with the mesh faces
+staged in shared memory and whole chunks of faces skipped. Its plain
+version, ``route_pass_plain``, is the route's loop as the reference's TPU
+runs it: one march call per SDF geometry and one mesh call per mesh over
+every ray of the pass.
 
 ``sphere_trace_tiles`` replaces the reference's per-geometry Pallas march
 (gpuraytracer_tpu/kernels/megakernel.py: sphere_trace_tiles /
@@ -7,14 +16,14 @@ _tile_march_kernel): one SDF geometry's sphere trace over (N,) local rays
 behind a gate, with the call's static march spec, and the tetrahedral
 normal at the hit. ``trimesh_closest`` is the same library's mesh entry:
 one mesh's closest face for each gated ray (the reference runs it in XLA,
-geometry/trimesh.intersect_trimesh). Both serve the per-geometry route of
-a scene past ``accel/traverse.TRI_FACE_TOTAL_CAP`` faces
-(``traverse.per_geometry_route``), one launch per geometry and pass.
+geometry/trimesh.intersect_trimesh), with the pass entry's face loop.
+These two keep the reference's one-geometry API; no render path launches
+them.
 
 Each wrapper launches its kernel on a CUDA tensor and counts the launch
-(LAUNCHES, MESH_LAUNCHES); on a CPU tensor it runs its plain version
-(``sphere_trace_plain``, ``trimesh_closest_plain``); any other device
-raises.
+(PASS_LAUNCHES, LAUNCHES, MESH_LAUNCHES); on a CPU tensor it runs its plain
+version (``route_pass_plain``, ``sphere_trace_plain``,
+``trimesh_closest_plain``); any other device raises.
 """
 
 from __future__ import annotations
@@ -25,11 +34,16 @@ import torch
 
 from gpuraytracer_tpu_torch.core.types import SDF_MAX_STEPS
 from gpuraytracer_tpu_torch.geometry import sdf, trimesh
+from gpuraytracer_tpu_torch.kernels import frame_kernel
 
-# Kernel launches since import (or since a caller reset it): the march
-# kernel and the mesh entry, apart.
+# Kernel launches since import (or since a caller reset it): the pass
+# entry, the march kernel and the mesh entry, apart.
+PASS_LAUNCHES = 0
 LAUNCHES = 0
 MESH_LAUNCHES = 0
+
+# Faces per chunk of the face loop's skip (csrc/megakernel.cu kChunk).
+FACE_CHUNK = 16
 
 
 def _check(n, **tensors):
@@ -99,7 +113,7 @@ def sphere_trace_tiles(o, d, gate, t_max, step_scale, *, prim_code: int,
     normal = torch.empty(n, 3, dtype=torch.float32, device=dev)
     if n == 0:
         return torch.isfinite(t_hit), t_hit, normal
-    from gpuraytracer_tpu_torch.kernels import build, frame_kernel
+    from gpuraytracer_tpu_torch.kernels import build
 
     lib = lib if lib is not None else build.load("megakernel")
     o, d, gate, t_max = o.contiguous(), d.contiguous(), gate.contiguous(), t_max.contiguous()
@@ -131,7 +145,9 @@ def trimesh_closest(rows, o, d, gate, t_max, *, cull_backface: bool = True, lib=
     """(hit, t, local normal) of one mesh's closest face for each gated ray;
     see ``trimesh_closest_plain``. ``rows``: the mesh's (F, 12) f32 rows of
     the face table. CUDA: launches csrc/megakernel.cu's mesh entry and
-    counts it in MESH_LAUNCHES; CPU: runs ``trimesh_closest_plain``."""
+    counts it in MESH_LAUNCHES (``lib``: a loaded build, default the shipped
+    one; build.load(faces_global=True) is the unculled face loop); CPU: runs
+    ``trimesh_closest_plain``."""
     global MESH_LAUNCHES
     n = o.shape[0]
     dev = _check(n, o=o, d=d, gate=gate, t_max=t_max)
@@ -145,10 +161,10 @@ def trimesh_closest(rows, o, d, gate, t_max, *, cull_backface: bool = True, lib=
     normal = torch.empty(n, 3, dtype=torch.float32, device=dev)
     if n == 0:
         return torch.isfinite(t_hit), t_hit, normal
-    from gpuraytracer_tpu_torch.kernels import build, frame_kernel
+    from gpuraytracer_tpu_torch.kernels import build
 
     lib = lib if lib is not None else build.load("megakernel")
-    rows = rows.contiguous()
+    rows = _aligned(rows.contiguous())
     o, d, gate, t_max = o.contiguous(), d.contiguous(), gate.contiguous(), t_max.contiguous()
     rc = lib.gprt_trimesh(
         _ptr(rows), rows.shape[0], _ptr(o), _ptr(d), _ptr(gate), _ptr(t_max), _ptr(t_hit),
@@ -157,3 +173,121 @@ def trimesh_closest(rows, o, d, gate, t_max, *, cull_backface: bool = True, lib=
     _raise_on(rc, lib, "megakernel mesh entry")
     MESH_LAUNCHES += 1
     return torch.isfinite(t_hit), t_hit, normal
+
+
+def _aligned(rows):
+    """rows, or a copy of them where their address is not 16-byte aligned
+    (the bulk copy's rule; a slice of the face table may start anywhere)."""
+    return rows if rows.data_ptr() % 16 == 0 else rows.clone()
+
+
+def route_pass_plain(scene, o_blas, d_blas, active, t0, *, level: int = 0,
+                     accept_first: bool = False, cull_backface: bool = True):
+    """The pass entry's plain version: the per-geometry route as the
+    reference's TPU runs it (accel/traverse.py:337-395, 444-479, with
+    _dispatch_procedural, :128-175), which is kernels/scene_kernel.
+    scene_closest_plain at the level-0 budget for every ``level`` (the route
+    has no bounce cap), with ``sphere_trace_plain`` for every SDF march and
+    ``trimesh_closest_plain`` for every mesh, each called once per geometry
+    over all the pass's rays behind its gate. Returns (best_t, normal, gid)
+    as scene_closest_plain does."""
+    from gpuraytracer_tpu_torch.kernels import scene_kernel
+
+    return scene_kernel.scene_closest_plain(
+        scene, o_blas, d_blas, active, t0, level=level, accept_first=accept_first,
+        cull_backface=cull_backface, budget_level=0, march=sphere_trace_plain,
+        mesh_closest=trimesh_closest_plain)
+
+
+def _route_setup(pack, lib):
+    """(tables in shared memory, the face table or None, its largest mesh's
+    face count, the library) of a pass-entry launch."""
+    from gpuraytracer_tpu_torch.kernels import build
+
+    frame_kernel.check_pack(pack)
+    shared = frame_kernel.tables_in_shared(pack.num_geometries, pack.num_materials,
+                                           shading=False)
+    tri = _aligned(pack.tri) if pack.tri.numel() else None
+    largest = max((c for _, c in pack.tri_offsets), default=0)
+    return int(shared), tri, largest, lib if lib is not None else build.load("megakernel")
+
+
+def route_pass(scene, o_blas, d_blas, active, t0, *, level: int = 0,
+               accept_first: bool = False, cull_backface: bool = True, pack=None, lib=None,
+               ops=None):
+    """(best_t, normal, gid) of one pass of the per-geometry route over
+    (N, 3) BLAS-space rays, as ``route_pass_plain`` gives them (``level``
+    changes nothing: the route marches every level at the level-0 budget).
+
+    CUDA: one launch of csrc/megakernel.cu's pass entry on the current
+    stream, over the buffers of ``pack`` (default frame_kernel.
+    pack_frame(scene); the wavefront passes the frame's), counted in
+    PASS_LAUNCHES; ``lib``: a loaded build (default the shipped one;
+    build.load(faces_global=True) is the unculled face loop, which stages
+    nothing); ``ops``: the counters of a counting build
+    (-DGPRT_COUNT_OPS: FLOPs; -DGPRT_COUNT_SIMT: ``route_simt``). No host
+    sync. CPU: runs ``route_pass_plain``."""
+    global PASS_LAUNCHES
+    from gpuraytracer_tpu_torch.kernels import scene_kernel
+
+    scene_kernel._check_rays(o_blas, d_blas, active, t0)
+    dev, n = o_blas.device, o_blas.shape[0]
+    if dev.type == "cpu":
+        return route_pass_plain(scene, o_blas, d_blas, active, t0, level=level,
+                                accept_first=accept_first, cull_backface=cull_backface)
+    if dev.type != "cuda":
+        raise ValueError(f"no megakernel for device {dev}")
+    pack = pack if pack is not None else frame_kernel.pack_frame(scene)
+    if pack.params.device != dev:
+        raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
+    best_t = torch.empty(n, dtype=torch.float32, device=dev)
+    normal = torch.empty(n, 3, dtype=torch.float32, device=dev)
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return best_t, normal, gid
+    shared, tri, largest, lib = _route_setup(pack, lib)
+    o_blas, d_blas = o_blas.contiguous(), d_blas.contiguous()
+    active, t0 = active.contiguous(), t0.contiguous()
+    rc = lib.gprt_route_pass(
+        _ptr(pack.params), _ptr(pack.layout), _ptr(tri), _ptr(o_blas), _ptr(d_blas),
+        _ptr(active), _ptr(t0), _ptr(best_t), _ptr(normal), _ptr(gid), n, pack.num_geometries,
+        pack.num_materials, largest, shared, int(accept_first), int(cull_backface),
+        frame_kernel.ops_pointer(ops), dev.index,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(rc, lib, "megakernel pass entry")
+    PASS_LAUNCHES += 1
+    return best_t, normal, gid
+
+
+def route_residency(pack, *, lib=None) -> tuple:
+    """(blocks per SM, blocks in all) of the pass entry that the card keeps
+    resident for the packed scene, as ``route_pass`` launches it (its
+    dynamic shared memory: the tables and the staging area); launches
+    nothing."""
+    dev = pack.params.device
+    if dev.type != "cuda":
+        raise ValueError(f"no megakernel for device {dev}")
+    shared, _, largest, lib = _route_setup(pack, lib)
+    per_sm, total = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib.gprt_route_residency(pack.num_geometries, pack.num_materials, largest, shared,
+                                       dev.index, ctypes.byref(per_sm), ctypes.byref(total)),
+              lib, "megakernel pass entry residency")
+    return per_sm.value, total.value
+
+
+def route_simt(counts) -> dict:
+    """SIMT efficiency from the counters of a -DGPRT_COUNT_SIMT build of the
+    pass or mesh entry: "march" (the lanes marching at each march sample
+    over 32), "faces" (the lanes testing each face over 32) and "faces
+    needed" (of those, the lanes whose ray needs the face's chunk), each
+    with its lane-samples and warp-samples."""
+    c = [int(x) for x in counts.tolist()]
+    lanes = [c[2 * b] for b in range(6)]
+    warps = [c[2 * b + 1] / 2 ** frame_kernel.SIMT_SHIFT for b in range(6)]
+
+    def eff(ls, ws):
+        return (sum(ls) / (32 * sum(ws)) if sum(ws) else 0.0, sum(ls), sum(ws))
+
+    face_w = warps[2:6]
+    return {"march": eff(lanes[0:2], warps[0:2]), "faces": eff(lanes[2:6], face_w),
+            "faces needed": eff(lanes[2:4], face_w)}

@@ -82,10 +82,12 @@ def heightfield_512_builder(builder=port_builder):
     return b
 
 
-def heightfield_sdf_builder(builder=port_builder):
+def heightfield_sdf_builder(builder=port_builder, nx=17, nz=16):
+    """mesh_heightfield_sdf's scene; ``nx``, ``nz``: its heightfield's grid
+    (a larger one measures the route with a larger mesh)."""
     b = builder.SceneBuilder()
     kind = builder.IntersectorKind
-    positions, indices = heightfield(17, 16)
+    positions, indices = heightfield(nx, nz)
     mn, mx = builder.grid_cell_aabb(0, 1, (3.0, 3.0, 3.0))
     b.add_mesh_instance(positions, indices, builder.Material(BLUE, reflectance=0.3),
                         aabb_min=mn, aabb_max=mx, scale=(1.5, 1.5, 1.5))

@@ -31,6 +31,23 @@ products and sums (__fmul_rn, __fadd_rn), which no compiler fuses. Contracted, t
 with the plain version (geometry/sdf.calculate_normal) bit for bit on
 about 77% of them and differ by up to 1.3e-3; rounded op by op, on >= 99%
 and by at most 1e-4 (the rest is the libraries' log and sqrt).
+
+csrc/megakernel.cu's pass entry (the per-geometry route's one launch per
+pass) is held to the route's plain version (megakernel.route_pass_plain)
+on the 544-face scene: 48x27 camera rays, their level-1 reflections and
+the shadow rays off the camera rays' hits, in both table layouts and in
+both builds of the face loop (the shipped one, rows staged with the chunk
+skip, and the -DGPRT_FACE_LOOP_GLOBAL build, every face from global
+memory; the two bit-equal): equal geometry ids, t and normals within 1e-6
+(the scene's marches end at the same samples on both sides, and the
+libraries' last-ulp differences did not reach them). So is a scene of
+several meshes (mesh_octahedra's), whose staging area holds only the
+largest mesh, so that a block gating two meshes stages nothing and reads
+their rows from global memory. Its face loop alone (the mesh entry) with
+staging and the chunk skip equals the unculled loop bit for bit on the
+heightfield's faces and seeded rays, a third of them grazing a face (det
+between 1e-12 and 1e-6), and the skip passes over most chunks of the rays
+that do not graze.
 """
 
 import ctypes
@@ -44,13 +61,14 @@ import tempfile
 import numpy as np
 import pytest
 import torch
+from test_torch_megakernel import seeded_face_rays
 
 from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.geometry import sdf
-from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
-from gpuraytracer_tpu_torch.models import builtin, scenes
+from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
+from gpuraytracer_tpu_torch.models import builtin, meshes, scenes
 from gpuraytracer_tpu_torch.render import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -231,18 +249,81 @@ extern "C" void rh_queue_planes(const float* params, const int* layout, const fl
   }
 }
 """,
+    "megakernel": r"""
+namespace gprt { float smem[1 << 16]; }
+
+// The pass entry, one ray per one-thread block, with a staging area for
+// `faces` rows (the launcher's: the largest mesh); returns the rays.
+extern "C" int rh_route(const float* params, const int* layout, const float* tri, const float* o,
+                        const float* d, const bool* active, const float* t0, float* best_t,
+                        float* normal, int* gid, int n, int G, int M, int faces, int shared,
+                        int accept_first) {
+  blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)n, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const auto kernel = shared ? gprt::route_pass<true> : gprt::route_pass<false>;
+  const int area = faces <= 0 ? 0 : gprt::stage_floats(faces);
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    kernel(params, layout, tri, o, d, active, t0, best_t, normal, gid, n, G, M, accept_first, 1,
+           area - 4, nullptr);
+  }
+  return n;
+}
+
+// The mesh entry over n rays; returns how many (ray, chunk) pairs the skip
+// passed over.
+extern "C" int rh_trimesh(const float* tri, int count, const float* o, const float* d,
+                          const bool* gate, const float* t_max, float* t_hit, float* normal,
+                          int n) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const int area = gprt::stage_floats(count);
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    gprt::trimesh(tri, count, o, d, gate, t_max, t_hit, normal, n, 1, area - 4, nullptr);
+  }
+  // The skip's decisions, with the rows' chunk records.
+  const int nchunks = (count + gprt::kChunk - 1) / gprt::kChunk;
+  float* nrm = gprt::smem;
+  float* rec = nrm + 3 * count;
+  for (int j = 0; j < nchunks; ++j) {
+    gprt::chunk_record(tri + gprt::kFaceStride * gprt::kChunk * j,
+                       std::min(gprt::kChunk, count - gprt::kChunk * j), nrm + 3 * gprt::kChunk * j,
+                       rec + gprt::kChunkFloats * j);
+  }
+  int skipped = 0;
+  for (int i = 0; i < n; ++i) {
+    const gprt::V3 oi = gprt::v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
+    const gprt::V3 di = gprt::v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+    for (int j = 0; j < nchunks; ++j) {
+      skipped += !gprt::chunk_needed(rec + gprt::kChunkFloats * j, nrm + 3 * gprt::kChunk * j,
+                                     std::min(gprt::kChunk, count - gprt::kChunk * j), oi, di,
+                                     gprt::len3(di), t_max[i]);
+    }
+  }
+  return skipped;
+}
+""",
 }
 
 
+# Builds of a source with a macro defined: (source, macro).
+DEFINES = {"megakernel_global": ("megakernel", "GPRT_FACE_LOOP_GLOBAL")}
+ENTRIES["megakernel_global"] = ENTRIES["megakernel"]
+
+
 def _device_part(name):
-    """csrc/<name>.cu up to the end of its device code (namespace gprt);
-    nothing for the header-only frame_math build."""
+    """csrc/<name>.cu up to the end of its device code (namespace gprt),
+    after its macro (DEFINES); nothing for the header-only frame_math
+    build."""
     if name == "frame_math":
         return ""
-    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+    source, macro = DEFINES.get(name, (name, None))
+    with open(os.path.join(CSRC, f"{source}.cu")) as f:
         src = f.read()
     end = src.rindex("}  // namespace gprt")
-    return src[:end] + "}  // namespace gprt\n"
+    return (f"#define {macro}\n" if macro else "") + src[:end] + "}  // namespace gprt\n"
 
 
 @pytest.fixture(scope="module")
@@ -580,3 +661,105 @@ def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
                                             torch.from_numpy(active.reshape(-1)), npix)
     assert np.array_equal(occ.reshape(-1), p_occ.numpy())
     assert occ.reshape(nsl, -1)[active].any() and not occ.reshape(nsl, -1)[~active].any()
+
+
+# ---------------------------------------------------------------------------
+# The per-geometry route's pass entry and its face loop (csrc/megakernel.cu)
+# ---------------------------------------------------------------------------
+
+ROUTE_W, ROUTE_H = 48, 27
+
+
+def _route_passes(name="mesh_heightfield_sdf", w=ROUTE_W, h=ROUTE_H):
+    """A scene's (default the 544-face one's) w x h passes as the wavefront
+    builds them: (scene, [(label, o, d, active, t0, accept_first)]) of the
+    camera rays' closest pass, their level-1 reflections' closest pass and
+    the shadow rays off the camera rays' hits."""
+    scene = meshes.get_config(name).build(w / h, T_ANIM, device="cpu")
+    px, py = cam.pixel_grid(w, h, "cpu")
+    c = scene.arrays.constants
+    o, d = cam.generate_camera_rays(px, py, w, h, c.camera_position, c.projection_to_world)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    hit = traverse.closest_hit(o, d, scene, level=0, plain=True)
+    hp = o + hit.t[:, None] * d
+    refl = hlsl.normalize(hlsl.reflect(d, hit.normal))
+    shadow = hlsl.normalize(c.light_position[:3] - hp)
+    out = []
+    for label, ro, rd, act, occ in (("camera", o, d, None, False), ("reflection", hp, refl, hit.hit,
+                                                                      False),
+                                    ("shadow", hp, shadow, hit.hit, True)):
+        _, ob, db, a, t0 = traverse.pass_inputs(ro, rd, scene, active=act, occlusion=occ)
+        out.append((label, ob, db, a, t0, occ))
+    return scene, out
+
+
+def _rehearse_route(libs, scene, passes):
+    """Each pass through the pass entry's two builds (shipped first, the
+    unculled loop second; both table layouts in turn), held bit-equal to
+    each other and to the route's plain version: equal ids, t and normals
+    within 1e-6."""
+    pack = frame_kernel.pack_frame(scene)
+    g, m = pack.num_geometries, pack.num_materials
+    largest = max(c for _, c in pack.tri_offsets)
+    for k, (label, o, d, act, t0, occ) in enumerate(passes):
+        n, shared = o.shape[0], int(k % 2 == 0)
+        pt, pn, pg = (_np(x) for x in megakernel.route_pass_plain(scene, o, d, act, t0,
+                                                                   level=1, accept_first=occ))
+        assert (pg >= 0).any() and (pg < 0).any()
+        outs = []
+        for name in ("megakernel", "megakernel_global"):
+            best_t = np.full(n, np.nan, np.float32)
+            normal = np.full((n, 3), np.nan, np.float32)
+            gid = np.full(n, -7, np.int32)
+            arrays = [_np(x) for x in (pack.params, pack.layout, pack.tri, o, d, act, t0)]
+            libs[name].rh_route(*(_p(a) for a in arrays), _p(best_t), _p(normal), _p(gid), n, g,
+                                m, largest, shared, int(occ))
+            outs.append((best_t, normal, gid))
+        assert all(np.array_equal(x, y) for x, y in zip(*outs)), label
+        best_t, normal, gid = outs[0]
+        assert (gid == pg).all(), f"{label}: {int((gid != pg).sum())} of {n} rays differ in gid"
+        assert np.abs(best_t - pt).max() <= 1e-6, label
+        assert np.abs(normal - pn).max() <= 1e-6, label
+
+
+def test_route_pass_matches_plain(libs):
+    scene, passes = _route_passes()
+    assert traverse._total_mesh_faces(scene) > traverse.TRI_FACE_TOTAL_CAP
+    _rehearse_route(libs, scene, passes)
+
+
+def test_route_pass_with_a_staging_area_for_one_mesh_of_several(libs):
+    # Eight meshes; the staging area holds one, so a ray that gates two
+    # stages nothing and reads both from global memory.
+    scene, passes = _route_passes("mesh_octahedra", 24, 14)
+    offsets = frame_kernel.pack_frame(scene).tri_offsets
+    assert len(offsets) > 2
+    _rehearse_route(libs, scene, passes)
+
+
+def test_staged_face_loop_with_skip_equals_unculled(libs):
+    scene = meshes.get_config("mesh_heightfield_sdf").build(1.0, T_ANIM, device="cpu")
+    rows = _np(scene.arrays.meshes[0].rows())
+    o, d, t_max = seeded_face_rays(rows, 3000, seed=11)
+    graze = np.arange(o.shape[0]) % 3 == 0
+    # The grazing rays' det on their own face, as the face loop computes it.
+    f_det = []
+    for i in np.nonzero(graze)[0]:
+        e1, e2 = rows[:, 3:6], rows[:, 6:9]
+        f_det.append(np.abs((e1 * np.cross(d[i], e2)).sum(-1)).min())
+    assert (np.array(f_det) < 1e-6).mean() > 0.9
+    gate = np.ones(o.shape[0], bool)
+    outs, skipped = [], []
+    for name in ("megakernel", "megakernel_global"):
+        t_hit = np.full(o.shape[0], np.nan, np.float32)
+        normal = np.full((o.shape[0], 3), np.nan, np.float32)
+        skipped.append(libs[name].rh_trimesh(_p(rows), rows.shape[0], _p(o), _p(d), _p(gate),
+                                             _p(t_max), _p(t_hit), _p(normal), o.shape[0]))
+        outs.append((t_hit, normal))
+    assert all(np.array_equal(x, y, equal_nan=True) for x, y in zip(*outs))
+    skipped = skipped[0]
+    hits = np.isfinite(outs[0][0])
+    assert hits[~graze].mean() > 0.3 and hits[graze].any()  # half the rays meet back faces
+    nchunks = -(-rows.shape[0] // megakernel.FACE_CHUNK)
+    print("skipped", skipped, "of", nchunks * o.shape[0], "hits graze", hits[graze].sum())
+    assert skipped > 0.5 * nchunks * int((~graze).sum())

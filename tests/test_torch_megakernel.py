@@ -1,5 +1,5 @@
-"""The per-geometry march kernel (kernels/megakernel.py; row 7 of the
-kernel table in PERF.md) and the per-geometry route.
+"""The per-geometry route's kernels (kernels/megakernel.py: the pass entry,
+row 7 of the kernel table in PERF.md, and the mesh entry) and the route.
 
 - ``sphere_trace_plain`` against the reference's
   megakernel.sphere_trace_tiles in interpret mode (as tests/test_kernels.py
@@ -23,10 +23,27 @@ kernel table in PERF.md) and the per-geometry route.
   level the level-0 result (the route marches every level at the level-0
   budget), and a 96x54 frame rendered through it stays within the image
   bar of the golden that the XLA path (per-level budgets) rendered.
+- ``route_pass`` (the pass entry's wrapper) runs its plain version on a
+  CPU tensor, launches nothing and refuses malformed inputs; the route at
+  level 0 against the JAX package's XLA closest_hit / any_hit at level 0
+  (accel/traverse.py:317, :398; the same budgets) on the 512 rays above,
+  read from tests/golden_torch_route_level0.npz (written by running this
+  file: JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_megakernel.py,
+  so that no JAX traversal compiles here): equal geometry ids and
+  occlusion, t within 1e-6 + 1e-5 * t (test_torch_trimesh.py's bound:
+  the reference's dot products are jnp.sums whose order XLA picks), mesh
+  and plane normals within 1e-6 (a tie of faces within that t bound would
+  be named; these rays have none), march normals within 1e-3 on >= 99% of
+  their hits and 5e-2 on all (the march kernel's bar above).
 
 On a GPU (the ``cuda`` marker) the march kernel is held to its plain
-version on ray batches for every SDF code, and the route's frame to the
-route's plain version, with its exact launch counts.
+version on ray batches for every SDF code; the pass entry to the
+unculled face loop's build (-DGPRT_FACE_LOOP_GLOBAL) bit for bit and to
+its plain version on these rays (equal ids; t within 1e-3 but where
+contraction moves a march crossing); the route on the card to the JAX
+golden above; the mesh entry to the unculled loop on the heightfield's
+faces with grazing rays; and the route's frame to the route's plain
+version, with its exact launch counts.
 """
 
 import os
@@ -39,7 +56,7 @@ from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.geometry import analytic, sdf
-from gpuraytracer_tpu_torch.kernels import megakernel, scene_kernel
+from gpuraytracer_tpu_torch.kernels import build, frame_kernel, megakernel, scene_kernel
 from gpuraytracer_tpu_torch.models import meshes
 from gpuraytracer_tpu_torch.render import trace
 
@@ -47,6 +64,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 W, H = 96, 54
 T_ANIM = 0.7
 SCENE = "mesh_heightfield_sdf"
+ROUTE_GOLDEN = os.path.join(HERE, "golden_torch_route_level0.npz")
 
 
 def batch(code):
@@ -132,14 +150,14 @@ def test_wrappers_run_plain_versions_on_cpu():
     assert (megakernel.LAUNCHES, megakernel.MESH_LAUNCHES) == launches
 
 
-@pytest.fixture(scope="module")
-def route_rays():
+def _route_rays(device="cpu"):
     """512 camera rays through seeded pixels of the 544-face scene, their
-    level-0 closest hits, and shadow rays off them."""
-    scene = meshes.get_config(SCENE).build(W / H, T_ANIM, device="cpu")
+    level-0 closest hits, and shadow rays off them: (scene, o, d, hit
+    points, shadow directions, hit mask)."""
+    scene = meshes.get_config(SCENE).build(W / H, T_ANIM, device=device)
     assert not traverse._scene_kernel_eligible(scene)
     rng = np.random.default_rng(21)
-    pix = torch.from_numpy(rng.choice(W * H, size=512, replace=False))
+    pix = torch.from_numpy(rng.choice(W * H, size=512, replace=False)).to(device)
     c = scene.arrays.constants
     o, d = cam.generate_camera_rays(pix % W, pix // W, W, H, c.camera_position,
                                     c.projection_to_world)
@@ -147,6 +165,11 @@ def route_rays():
     hp = o + hit.t[:, None] * d
     shadow = hlsl.normalize(c.light_position[:3] - hp)
     return scene, o, d, hp, shadow, hit.hit
+
+
+@pytest.fixture(scope="module")
+def route_rays():
+    return _route_rays()
 
 
 @pytest.mark.parametrize("occlusion", [False, True], ids=["closest", "occlusion"])
@@ -194,6 +217,60 @@ def test_per_geometry_route_calls_each_geometry_once_over_all_rays(route_rays, m
     n_sdf = sum(int(k) == 2 for k in scene.layout.kinds)
     assert sorted(calls) == [("march", o.shape[0])] * n_sdf + [("mesh", o.shape[0])] * len(
         scene.arrays.meshes)
+
+
+def test_route_pass_runs_plain_version_on_cpu(route_rays):
+    scene, o, d, hp, shadow, hit = route_rays
+    launches = (megakernel.PASS_LAUNCHES, megakernel.LAUNCHES, megakernel.MESH_LAUNCHES)
+    for (oo, dd, act, occ) in ((o, d, None, False), (hp, shadow, hit, True)):
+        _, ob, db, a, t0 = traverse.pass_inputs(oo, dd, scene, active=act, occlusion=occ)
+        got = megakernel.route_pass(scene, ob, db, a, t0, level=2, accept_first=occ)
+        want = megakernel.route_pass_plain(scene, ob, db, a, t0, accept_first=occ)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert bool((got[2] >= 0).any())
+    assert (megakernel.PASS_LAUNCHES, megakernel.LAUNCHES, megakernel.MESH_LAUNCHES) == launches
+    assert traverse.per_geometry_route(plain=True) is megakernel.route_pass_plain
+    _, ob, db, a, t0 = traverse.pass_inputs(o, d, scene)
+    with pytest.raises(ValueError, match="t0"):
+        megakernel.route_pass(scene, ob, db, a, t0.double())
+    with pytest.raises(ValueError, match="active"):
+        megakernel.route_pass(scene, ob, db, a[:-1], t0)
+    with pytest.raises(ValueError, match="d_blas"):
+        megakernel.route_pass(scene, ob, db[:, :2], a, t0)
+    with pytest.raises(ValueError, match="no megakernel"):
+        megakernel.route_residency(frame_kernel.pack_frame(scene))
+    assert (megakernel.PASS_LAUNCHES, megakernel.LAUNCHES, megakernel.MESH_LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("occlusion", [False, True], ids=["closest", "occlusion"])
+def test_route_matches_reference_xla_at_level_0(route_rays, occlusion, monkeypatch):
+    # The wavefront's traversal with the pass function of the route's
+    # wrapper (its plain version here, on CPU tensors) against the JAX
+    # package's XLA traversal at level 0.
+    scene, o, d, hp, shadow, hit = route_rays
+    ref = np.load(ROUTE_GOLDEN)
+    for name, x in (("o", o), ("d", d), ("hp", hp), ("shadow", shadow), ("active", hit)):
+        np.testing.assert_array_equal(x.numpy(), ref[name], name)
+    monkeypatch.setattr(traverse, "_procedural_pass",
+                        lambda scene, plain, pack: traverse.per_geometry_route(False, pack))
+    if occlusion:
+        occ = traverse.any_hit(hp, shadow, scene, active=hit, level=0).numpy()
+        np.testing.assert_array_equal(occ, ref["occluded"])
+        assert occ.any() and not occ[hit.numpy()].all()
+        return
+    rec = traverse.closest_hit(o, d, scene, level=0)
+    gid, t, n = rec.geometry_id.numpy(), rec.t.numpy(), rec.normal.numpy()
+    np.testing.assert_array_equal(gid, ref["gid"])
+    hits = gid >= 0
+    assert np.abs(t - ref["t"])[hits].max() <= (1e-6 + 1e-5 * np.abs(ref["t"]))[hits].max()
+    assert (np.abs(t - ref["t"]) <= 1e-6 + 1e-5 * np.abs(ref["t"]))[hits].all()
+    kinds = np.array([int(k) for k in scene.layout.kinds] + [-1])  # the plane last
+    marched = hits & np.isin(kinds[np.where(hits, gid, -1)], (1, 2))
+    exact = hits & ~marched
+    assert marched.any() and (kinds[gid[exact]] == 3).any()
+    np.testing.assert_allclose(n[exact], ref["normal"][exact], rtol=0, atol=1e-6)
+    dn = np.abs(n[marched] - ref["normal"][marched]).max(axis=-1)
+    assert (dn <= 1e-3).mean() >= 0.99 and dn.max() <= 5e-2, dn.max()
 
 
 def test_per_geometry_route_frame_within_golden_bar(monkeypatch):
@@ -258,16 +335,158 @@ def test_march_kernel_matches_plain_on_cuda(cuda_device, code, occlusion):
 @pytest.mark.cuda
 def test_per_geometry_route_matches_plain_on_cuda(cuda_device):
     scene = meshes.get_config(SCENE).build(W / H, T_ANIM, device=cuda_device)
-    before = (megakernel.LAUNCHES, megakernel.MESH_LAUNCHES, scene_kernel.LAUNCHES)
+    before = (megakernel.LAUNCHES, megakernel.MESH_LAUNCHES, megakernel.PASS_LAUNCHES,
+              scene_kernel.LAUNCHES)
     img = trace.render_frame(scene, W, H)
     torch.cuda.synchronize()
-    # 3 closest + 2 occlusion passes, each one march launch per SDF
-    # geometry (2) and one mesh launch (1); the scene kernel never runs.
+    # 3 closest + 2 occlusion passes, one pass-entry launch each; the
+    # one-geometry entries and the scene kernel never run.
     assert (megakernel.LAUNCHES - before[0], megakernel.MESH_LAUNCHES - before[1],
-            scene_kernel.LAUNCHES - before[2]) == (10, 5, 0)
+            megakernel.PASS_LAUNCHES - before[2], scene_kernel.LAUNCHES - before[3]) == (0, 0, 5, 0)
     plain = trace.render_wavefront(scene, W, H, plain=True)
     diff = (img - plain).abs().amax(dim=-1).cpu().numpy()
     flipped = diff > 1e-3
     assert flipped.mean() < 0.02
     agree = diff[~flipped]
     assert agree.max() <= 1e-3 and (agree < 1e-5).mean() > 0.75
+
+
+def _marched(scene, gid):
+    """Which rays' winner is a marched geometry (SDF or volumetric)."""
+    kinds = torch.tensor([int(k) for k in scene.layout.kinds] + [-1], device=gid.device)
+    return (gid >= 0) & torch.isin(kinds[torch.where(gid >= 0, gid, -1)],
+                                   torch.tensor([1, 2], device=gid.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occlusion", [False, True], ids=["closest", "occlusion"])
+def test_route_pass_matches_plain_on_cuda(cuda_device, occlusion):
+    # The shipped face loop gives the unculled loop's rays bit for bit;
+    # against the plain version, every ray's geometry id, every exact hit's
+    # t within 1e-3, and a march's t within 1e-3 but where contraction moved
+    # its crossing by a step (at most 1% of the marched hits).
+    scene, o, d, hp, shadow, hit = _route_rays(cuda_device)
+    oo, dd, act = (hp, shadow, hit) if occlusion else (o, d, None)
+    _, ob, db, a, t0 = traverse.pass_inputs(oo, dd, scene, active=act, occlusion=occlusion)
+    launches = megakernel.PASS_LAUNCHES
+    out = megakernel.route_pass(scene, ob, db, a, t0, accept_first=occlusion)
+    unculled = megakernel.route_pass(scene, ob, db, a, t0, accept_first=occlusion,
+                                     lib=build.load("megakernel", faces_global=True))
+    torch.cuda.synchronize()
+    assert megakernel.PASS_LAUNCHES == launches + 2
+    assert all(torch.equal(x, y) for x, y in zip(out, unculled))
+    pt, _, pg = megakernel.route_pass_plain(scene, ob, db, a, t0, accept_first=occlusion)
+    kt, _, kg = out
+    assert torch.equal(kg, pg) and bool((pg >= 0).any())
+    far = (kt - pt).abs() > 1e-3
+    marched = _marched(scene, pg)
+    assert not bool((far & (pg >= 0) & ~marched).any())
+    assert int((far & marched).sum()) <= 0.01 * int(marched.sum()), int((far & marched).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occlusion", [False, True], ids=["closest", "occlusion"])
+def test_route_pass_matches_reference_xla_on_cuda(cuda_device, occlusion):
+    # The route on the card (one pass-entry launch a pass) against the JAX
+    # package's XLA traversal at level 0 on the golden's 512 rays: equal ids
+    # and occlusion, exact hits' t within the CPU test's 1e-6 + 1e-5 t, mesh
+    # and plane normals within 1e-6; the marches within 1e-3 in t on >= 99%
+    # of their hits (contraction can move a crossing by a step) and their
+    # normals within the CPU test's bar.
+    scene = meshes.get_config(SCENE).build(W / H, T_ANIM, device=cuda_device)
+    ref = np.load(ROUTE_GOLDEN)
+    on = {k: torch.from_numpy(ref[k]).to(cuda_device) for k in ("o", "d", "hp", "shadow",
+                                                                "active")}
+    launches = megakernel.PASS_LAUNCHES
+    if occlusion:
+        occ = traverse.any_hit(on["hp"], on["shadow"], scene, active=on["active"], level=0)
+        torch.cuda.synchronize()
+        assert megakernel.PASS_LAUNCHES == launches + 1
+        np.testing.assert_array_equal(occ.cpu().numpy(), ref["occluded"])
+        return
+    rec = traverse.closest_hit(on["o"], on["d"], scene, level=0)
+    torch.cuda.synchronize()
+    assert megakernel.PASS_LAUNCHES == launches + 1
+    gid, t, n = (x.cpu().numpy() for x in (rec.geometry_id, rec.t, rec.normal))
+    np.testing.assert_array_equal(gid, ref["gid"])
+    hits = gid >= 0
+    marched = _marched(scene, rec.geometry_id).cpu().numpy()
+    exact = hits & ~marched
+    dt = np.abs(t - ref["t"])
+    assert (dt <= 1e-6 + 1e-5 * np.abs(ref["t"]))[exact].all()
+    np.testing.assert_allclose(n[exact], ref["normal"][exact], rtol=0, atol=1e-6)
+    assert marched.any() and (dt[marched] <= 1e-3).mean() >= 0.99
+    dn = np.abs(n[marched] - ref["normal"][marched]).max(axis=-1)
+    assert (dn <= 1e-3).mean() >= 0.99 and dn.max() <= 5e-2, dn.max()
+
+
+@pytest.mark.cuda
+def test_mesh_entry_face_loops_agree_on_cuda(cuda_device):
+    # The 544-face heightfield's rows and seeded rays, a third of them
+    # grazing a face: staging and the chunk skip change no ray against the
+    # unculled loop (the -DGPRT_FACE_LOOP_GLOBAL build).
+    scene = meshes.get_config(SCENE).build(W / H, T_ANIM, device=cuda_device)
+    rows = scene.arrays.meshes[0].rows().contiguous()
+    o, d, t_max = (torch.from_numpy(x).to(cuda_device)
+                   for x in seeded_face_rays(rows.cpu().numpy(), 6144, seed=3))
+    gate = torch.ones(o.shape[0], dtype=torch.bool, device=cuda_device)
+    outs = [megakernel.trimesh_closest(rows, o, d, gate, t_max, lib=lib)
+            for lib in (None, build.load("megakernel", faces_global=True))]
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+    # Against the plain version on the rays that graze no face: on a
+    # grazing ray det is rounding noise, which the shipped build's
+    # contraction turns into another answer on some of them.
+    p_hit, p_t, _ = megakernel.trimesh_closest_plain(rows, o, d, gate, t_max)
+    aimed = torch.arange(o.shape[0], device=cuda_device) % 3 != 0
+    assert float((outs[0][0] == p_hit)[aimed].float().mean()) >= 0.99 and bool(p_hit.any())
+
+
+def seeded_face_rays(rows, n, seed):
+    """(o, d, t_max) of n seeded local rays at a mesh's (F, 12) f32 rows:
+    two thirds aimed at a random point of a random face from up to 3 units
+    away, one third grazing a random face (a direction in its plane, tilted
+    off it so that det = dot(e1, d x e2) lies between 1e-12 and 1e-6, either
+    sign), from a point of the face's plane up to 1 unit before it."""
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, rows.shape[0], size=n)
+    v0, e1, e2 = rows[f, 0:3], rows[f, 3:6], rows[f, 6:9]
+    a, b = rng.random((2, n, 1))
+    a, b = np.where(a + b > 1.0, 1.0 - a, a), np.where(a + b > 1.0, 1.0 - b, b)
+    p = v0 + a * e1 + b * e2
+    o = p + rng.uniform(-3.0, 3.0, size=(n, 3))
+    d = p - o
+    graze = np.arange(n) % 3 == 0
+    nrm = np.cross(e1, e2)
+    nh = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+    inplane = rng.normal(size=(n, 3))
+    inplane -= (inplane * nh).sum(-1, keepdims=True) * nh
+    inplane /= np.linalg.norm(inplane, axis=-1, keepdims=True)
+    det = 10.0 ** rng.uniform(-12.0, -6.0, size=(n, 1)) * rng.choice([-1.0, 1.0], size=(n, 1))
+    tilt = -det / np.linalg.norm(nrm, axis=-1, keepdims=True)  # det = -dot(d, e1 x e2)
+    d_g = inplane + tilt * nh
+    o_g = p - rng.uniform(0.0, 1.0, size=(n, 1)) * d_g
+    o, d = np.where(graze[:, None], o_g, o), np.where(graze[:, None], d_g, d)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = rng.uniform(1.0, 8.0, size=n)
+    return o.astype(np.float32), d.astype(np.float32), t_max.astype(np.float32)
+
+
+if __name__ == "__main__":
+    # Write the JAX package's XLA traversal at level 0 on the route's rays.
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from gpuraytracer_tpu.accel import traverse as j_traverse
+    from gpuraytracer_tpu.models import builder as j_builder
+
+    scene, o, d, hp, shadow, hit = _route_rays()
+    j_scene = meshes.heightfield_sdf_builder(j_builder).build(W / H, T_ANIM)
+    rec = j_traverse.closest_hit(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), j_scene, level=0)
+    occ = j_traverse.any_hit(jnp.asarray(hp.numpy()), jnp.asarray(shadow.numpy()), j_scene,
+                             active=jnp.asarray(hit.numpy()), level=0)
+    np.savez_compressed(ROUTE_GOLDEN, o=o.numpy(), d=d.numpy(), hp=hp.numpy(),
+                        shadow=shadow.numpy(), active=hit.numpy(),
+                        t=np.asarray(rec.t, np.float32), normal=np.asarray(rec.normal, np.float32),
+                        gid=np.asarray(rec.geometry_id, np.int64), occluded=np.asarray(occ))
+    print(ROUTE_GOLDEN)
