@@ -92,13 +92,16 @@ exits non-zero):
               merged instantiations of the frame kernel's plain and dense
               entries and of the occlusion queue) against the sequential
               frame of the same build, bit for bit, in both fmad builds:
-              builtin, sdf_primitives_720p and the fractal scene at 320x180
-              and builtin at 1080p, each plain, compact at cap 8 and defer at
-              cap 8; the merged builtin frame against the plain version at
-              320x180;
+              builtin, sdf_primitives_720p, the fractal scene and
+              padded_sdf_showcase(28) (its marches at geometries 28-34, so
+              a warp's lanes hold different sets of SDF geometries) at
+              320x180 and builtin at 1080p, each plain, compact at cap 8 and
+              defer at cap 8; the merged builtin frame against the plain
+              version at 320x180;
               a 17-material scene under the knob through the scene kernel;
               64-frame 1080p windows with and without the knob (plain,
-              compact, defer) and each merged kernel alone; the two-phase
+              compact, defer) and each merged kernel alone beside its
+              sequential twin in the same call; the two-phase
               scene pass (scene_closest_tiles(two_phase=True): main and
               finish entries of csrc/scene_kernel.cu) on the builtin 1080p
               level-0 closest and shadow passes against the single pass
@@ -113,11 +116,15 @@ exits non-zero):
  12. simt     the SIMT-counting builds (-DGPRT_COUNT_SIMT): the share of a
               warp's 32 lanes that march at each march sample, for the frame
               kernel on the builtin and the fractal 1080p frames per level
-              and ray kind, and for the builtin 1080p level-0 closest and
-              shadow passes of the scene kernel; one [simt] line each
-Then the kernel JSON line (with each entry's registers from ptxas, and
-the resident blocks per SM of rows 1, 1m and 5 and the two-phase main
-pass), the card line, and the final JSON status line.
+              and ray kind, for the builtin 1080p level-0 closest and
+              shadow passes of the scene kernel, and for rows 1m, 2m and 4m
+              beside their sequential twins (the merged builtin 1080p frame;
+              the dense pass and the repair at phase 10's queues, with and
+              without the knob); one [simt] line each
+Then the kernel JSON line (with each entry's registers and bytes of
+spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
+2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass), the card
+line, and the final JSON status line.
 
 Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
 kernel to its XLA path): fewer than 2% of pixels with max-channel |diff| >
@@ -338,6 +345,19 @@ def ptxas_registers(report):
     return out
 
 
+def ptxas_spill_stores(report):
+    """{entry: bytes of spill stores} of a ptxas -v report, entries named as
+    ptxas_summary names them."""
+    import re
+
+    out = {}
+    for item in ptxas_summary(report).split(" | "):
+        m = re.search(r"(\d+) bytes spill stores", item)
+        if ": Used " in item:
+            out[item.split(": Used ", 1)[0]] = int(m.group(1)) if m else 0
+    return out
+
+
 @contextlib.contextmanager
 def fmad_build(fmad):
     """Every kernel wrapper's default library is the build with
@@ -444,7 +464,7 @@ def main() -> int:
                                        (not build.DEFAULT_FMAD, False),
                                        (build.DEFAULT_FMAD, True))]
         reports = build.compile_all(builds)
-        registers = {}
+        registers, spills = {}, {}
         for (name, fmad, count, *rest), report in reports.items():
             simt, unculled = (rest + [False, False])[:2]
             print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}"
@@ -452,6 +472,7 @@ def main() -> int:
                   f"{ptxas_summary(report)}", flush=True)
             if fmad == build.DEFAULT_FMAD and not (count or simt or unculled):
                 registers.update(ptxas_registers(report))
+                spills.update(ptxas_spill_stores(report))
 
     # 3. the fractals' device distance functions, before any render ----------
     with Phase("probe"):
@@ -1479,13 +1500,19 @@ def main() -> int:
         from gpuraytracer_tpu_torch.kernels import op_probe
 
         def build_scene(name, w, h, t=0.7):
-            return (builtin.build_scene(aspect=w / h, elapsed_time=t, device=dev)
-                    if name == "builtin" else scenes.get_config(name).build(w / h, t, device=dev))
+            if name == "builtin":
+                return builtin.build_scene(aspect=w / h, elapsed_time=t, device=dev)
+            if name == "padded_sdf_showcase(28)":
+                return scenes.padded_sdf_showcase(28).build(w / h, t, device=dev)
+            return scenes.get_config(name).build(w / h, t, device=dev)
 
         t11 = time.perf_counter()
         three = ("builtin", "sdf_primitives_720p", "fractal_mandelbulb_julia_1080p")
         depth = {name: 3 if name == "builtin" else scenes.get_config(name).max_depth
                  for name in three}
+        # closed forms first, its marches at geometries 28-34: the lanes of a
+        # warp hold different sets of SDF geometries
+        depth["padded_sdf_showcase(28)"] = depth["sdf_primitives_720p"]
         merged_env = dict(GPURT_MERGED_SHADOW="1")
 
         # (a) merged against sequential, the same build, bit for bit: plain,
@@ -1493,7 +1520,8 @@ def main() -> int:
         # (the queue entry runs merged), both with a queue that holds every
         # pixel.
         cases = [(name, frame_kernel.pack_frame(build_scene(name, 320, 180)), 320, 180, depth[name])
-                 for name in three] + [("builtin", pack_m, W_MAIN, H_MAIN, 3)]
+                 for name in three + ("padded_sdf_showcase(28)",)]
+        cases.append(("builtin", pack_m, W_MAIN, H_MAIN, 3))
         forms = {"plain": lambda p, w, h, dd: frame_kernel.render_frame_tiles(
                      p, width=w, height=h, max_depth=dd),
                  "compact": lambda p, w, h, dd: frame_kernel.render_frame_compact(
@@ -1572,7 +1600,7 @@ def main() -> int:
                     knob and c["plain"] + c["dense"] + c["queue"] != 0):
                 raise AssertionError(f"{label} window: launches {c}")
 
-        def merged_alone(name, fn, count_fn, nbytes, p_ms, err, detail):
+        def merged_alone(name, fn, count_fn, nbytes, p_ms, err, twin_ms, detail):
             with env(**merged_env):
                 k_ms, _ = cuda_ms(fn, 10)
                 ops.zero_()
@@ -1580,7 +1608,8 @@ def main() -> int:
             torch.cuda.synchronize()
             k_ops = int(ops.item())
             b_ms, b_by = bound(nbytes, k_ops)
-            alone_m[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, err=err)
+            alone_m[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, err=err,
+                                 twin_ms=twin_ms)
             print(f"[last] {name} alone 1920x1080: {detail}; kernel {k_ms:.3f} ms ({k_ops} f32 "
                   f"FLOPs, {int(nbytes)} bytes: bound {b_ms:.4f} ms by {b_by}); plain "
                   f"{p_ms:.1f} ms (measured above on the same inputs); {card}", flush=True)
@@ -1589,7 +1618,7 @@ def main() -> int:
         merged_alone("frame_kernel_merged",
                      lambda: frame_kernel.render_frame_tiles(pack_m, **kw_m),
                      lambda: frame_kernel.render_frame_tiles(pack_m, ops=ops, lib=count_lib, **kw_m),
-                     frame_bytes, frame_plain_ms, merged_err,
+                     frame_bytes, frame_plain_ms, merged_err, seq_ms,
                      f"the sequential instantiation {seq_ms:.3f} ms in the same call; vs plain "
                      f"max |diff| {merged_err:.6g}")
         with env(**merged_env):
@@ -1597,13 +1626,17 @@ def main() -> int:
         rm_out = rm_img.reshape(-1, 4)[q_pix]
         if not torch.equal(rm_img, r_img):
             raise AssertionError("merged dense pass is not the sequential one")
+        # The sequential twins timed here, beside the merged entries.
+        seq_dense_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_resume(
+            pack_m, queue_m, rm_img, **kw_m), 10)
         merged_alone("frame_dense_merged",
                      lambda: frame_kernel.render_frame_resume(pack_m, queue_m, rm_img, **kw_m),
                      lambda: frame_kernel.render_frame_resume(pack_m, queue_m, rm_img, ops=ops,
                                                               lib=count_lib, **kw_m),
                      frame_in + n_q * (64 + 16) + 4, alone_m["frame_dense"]["plain_ms"],
-                     float((rm_out - pr_out).abs().max()),
-                     f"{n_q} queued pixels resumed, equal to the sequential dense pass")
+                     float((rm_out - pr_out).abs().max()), seq_dense_ms,
+                     f"{n_q} queued pixels resumed, equal to the sequential dense pass; the "
+                     f"sequential instantiation {seq_dense_ms:.3f} ms in the same call")
         with env(**merged_env):
             m_occ = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx, d_queue.count)
         mq_ms, p_m_occ = plain_run(lambda: scene_kernel.shadow_queue_planes_plain(
@@ -1611,6 +1644,8 @@ def main() -> int:
         m_agree = float((m_occ[unknown] == p_m_occ[unknown]).float().mean())
         if not torch.equal(m_occ[unknown], k_occ_p[unknown]) or m_agree < 0.999:
             raise AssertionError("merged queue disagrees with the sequential one or its plain version")
+        seq_queue_ms, _ = cuda_ms(lambda: scene_kernel.shadow_queue_planes(
+            pack_m, d_pl.rays, d_queue.idx, d_queue.count), 10)
         merged_alone("shadow_queue_merged",
                      lambda: scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx,
                                                               d_queue.count),
@@ -1618,9 +1653,10 @@ def main() -> int:
                          pack_m, d_pl.rays, d_queue.idx, d_queue.count, ops=ops,
                          lib=build.load("scene_kernel", count_ops=True)),
                      trav + n_unknown * (4 + 24 + 4) + 4 * nsl,
-                     mq_ms, float((m_occ[unknown] - p_m_occ[unknown]).abs().max()),
+                     mq_ms, float((m_occ[unknown] - p_m_occ[unknown]).abs().max()), seq_queue_ms,
                      f"{n_unknown} queued rays; equal to the sequential queue; vs its plain version "
-                     f"(occluded_merged_plain) agrees on {m_agree:.6f}")
+                     f"(occluded_merged_plain) agrees on {m_agree:.6f}; the sequential "
+                     f"instantiation {seq_queue_ms:.3f} ms in the same call")
 
         print(f"[last] merged checks done {time.perf_counter() - t11:.1f} s into the phase",
               flush=True)
@@ -1904,6 +1940,33 @@ def main() -> int:
             scene_kernel.scene_closest_tiles(scene_m, o_, d_, a_, t_, accept_first=af,
                                              pack=pack_m, lib=simt_libs["scene_kernel"], ops=cnt)
             simt_report(f"scene kernel builtin 1080p level-0 {kind} pass", cnt)
+        # Rows 1m, 2m and 4m beside their sequential twins (rows 1, 2's
+        # dense pass and 4) on the same inputs: the builtin 1080p frame, the
+        # dense pass at phase 10's binned compact queue, the repair at its
+        # binned defer queues.
+        for knob in (False, True):
+            tag = " GPURT_MERGED_SHADOW=1" if knob else ""
+            with env(**(merged_env if knob else {})):
+                if knob:
+                    cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+                    img = frame_kernel.render_frame_tiles(pack_m, width=W_MAIN, height=H_MAIN,
+                                                          lib=simt_libs["frame_kernel"], ops=cnt)
+                    if not torch.equal(img, main_img):
+                        raise AssertionError("the SIMT-counting merged frame kernel changed the frame")
+                    simt_report(f"frame kernel builtin 1080p{tag}", cnt)
+                cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+                img = frame_kernel.render_frame_resume(pack_m, queue_m, q_img.clone(), **kw_m,
+                                                       lib=simt_libs["frame_kernel"], ops=cnt)
+                if not torch.equal(img, r_img):
+                    raise AssertionError("the SIMT-counting dense pass changed the frame")
+                simt_report(f"dense pass builtin 1080p, {n_q} queued pixels{tag}", cnt)
+                cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+                occ_s = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx,
+                                                         d_queue.count, lib=simt_libs["scene_kernel"],
+                                                         ops=cnt)
+                if not torch.equal(occ_s[unknown], k_occ_p[unknown]):
+                    raise AssertionError("the SIMT-counting repair changed its answers")
+                simt_report(f"repair builtin 1080p, {n_unknown} queued rays{tag}", cnt)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
@@ -1978,6 +2041,8 @@ def main() -> int:
         "bound_ms": alone_m[name]["bound_ms"],
         "bound_by": alone_m[name]["bound_by"],
         "library_ms": alone_m[name].get("library_ms"),
+        # The merged rows: their sequential instantiation, timed in the same call.
+        **({"twin_ms": alone_m[name]["twin_ms"]} if "twin_ms" in alone_m[name] else {}),
     } for name, src, replaces, launches in (
         ("frame_compact", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
          windows["compact"]["compact"]),
@@ -2042,9 +2107,15 @@ def main() -> int:
         "shadow_queue_merged": "shadow_queue_kernel<true, true>",
         "scene_two_phase_main": "scene_kernel<true, true>",
         "scene_two_phase_finish": "scene_finish_kernel<true>", "op_probe": "op_probe_kernel"}
-    resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, main=True)
+    resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
+    resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)
+    resident["shadow_queue"] = scene_kernel.residency(pack_m, entry="repair")
+    with env(GPURT_MERGED_SHADOW="1"):
+        resident["frame_dense_merged"] = frame_kernel.residency(pack_m, dense=True)
+        resident["shadow_queue_merged"] = scene_kernel.residency(pack_m, entry="repair")
     for k in kernels:
         k["registers"] = registers.get(ptxas_name.get(k["name"], ""))
+        k["spill_stores"] = spills.get(ptxas_name.get(k["name"], ""))
         k["resident_blocks"] = resident[k["name"]][0] if k["name"] in resident else None
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -39,7 +39,11 @@ alone, each checkout's own form (``compact_main_ms``, ``dense_ms`` at its
 queue, ``defer_main_queue_ms``, ``queue_ms``; with device queues also the
 binning, ``bin_compact_ms`` and ``bin_defer_ms``, the dense pass and the
 repair at the queues in append order, ``compose_ms``, ``gated_ms`` and the
-level histogram of the compact queue)
+level histogram of the compact queue; the dense pass and the repair under
+GPURT_MERGED_SHADOW=1 at the same queues, ``dense_merged_ms`` and
+``queue_merged_ms``; and the four again at the binned queues with the
+pixels of a key in raster order, the same in every process, where the
+device's order within a key varies between processes, ``*_canonical_ms``)
 beside the calls both forms have (``compact_capped_ms``,
 ``dense_camera_ms``, ``queue_compacted_ms``, ``compose_torch_ms``: the host
 recomposition of torch ops); and 64-frame animated windows through
@@ -52,15 +56,22 @@ geometry and its torch ops between them, or one pass-entry launch), and a
 64-frame 1080p window with the route's launches. Where the checkout has the SIMT
 counting build (build.load(count_simt=True)), it reports the SIMT
 efficiency of the builtin and fractal 1080p frame kernels per level and
-ray kind and of the level-0 closest and shadow passes. Each process also
-saves its outputs, made with the ``--fmad`` build (default: the shipped
-one): the builtin 1080p frame (plain, compact and defer), the five bench
-scenes and mesh_octahedra at 320x180, and the 1080p level-0 closest and
-shadow passes of the builtin scene and of mesh_heightfield_sdf (shadow rays
-from the plain closest pass, so that every root gets the same rays). One
-JSON line per root, then one per root after the first with the share of
-bit-equal pixels and rays against the first root, the rays (and geometry
-ids) that differ, and the largest difference.
+ray kind and of the level-0 closest and shadow passes, and with device
+queues of the merged builtin frame and of the dense pass and the repair
+with and without the knob. Each process also saves its outputs, made with
+the ``--fmad`` build (default: the shipped one): the builtin 1080p frame
+(plain, compact and defer), the five bench scenes and mesh_octahedra at
+320x180, the 1080p level-0 closest and shadow passes of the builtin scene
+and of mesh_heightfield_sdf (shadow rays from the plain closest pass, so
+that every root gets the same rays), and the merged entries' outputs
+beside their sequential twins: the builtin 1080p frame in each mode, the
+dense pass and the repair at the binned queues, and builtin,
+sdf_primitives_720p, the fractal scene and padded_sdf_showcase(28) at
+320x180 plain, compact at cap 8 and defer at cap 8 (``merged_bit_equal``:
+whether each merged output is its twin bit for bit). One JSON line per
+root, then one per root after the first with the share of bit-equal pixels
+and rays against the first root, the rays (and geometry ids) that differ,
+and the largest difference.
 
 Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
 the host clock, for tiny smoke runs only):
@@ -326,21 +337,51 @@ if device_queue:
     res["compact_main_ms"] = timed(lambda: frame_kernel.render_frame_compact_main(
         pack, budget_cap=64, cap=cap, **kw))
     m_img, appended = frame_kernel.render_frame_compact_main(pack, budget_cap=64, cap=cap, **kw)
+
+    def canonical(q, sinfo=None):
+        # The binned order with the pixels of a key in raster order, the same
+        # in every process: the device's order within a key is its atomics',
+        # which moved the dense pass and the repair by up to 12% between
+        # processes of one code.
+        if sinfo is None:
+            n, e = int(q.count[0]), q.entries.clone()
+            e[:n] = e[:n][torch.argsort(e[:n, 0])]
+            return frame_kernel.bin_queue_plain(type(q)(e, q.count))
+        idx = q.idx.clone()
+        for k, n in enumerate(q.count.tolist()):
+            idx[k, :n] = torch.sort(idx[k, :n]).values
+        return frame_kernel.bin_queue_plain(type(q)(idx, q.count), sinfo)
+
     queue = frame_kernel.bin_queue(appended)
+    queue_c = canonical(queue)
     res["bin_compact_ms"] = timed(lambda: frame_kernel.bin_queue(appended))
     res["dense_ms"] = timed(lambda: frame_kernel.render_frame_resume(pack, queue, m_img, **kw))
+    res["dense_canonical_ms"] = timed(lambda: frame_kernel.render_frame_resume(pack, queue_c, m_img,
+                                                                               **kw))
     res["dense_append_order_ms"] = timed(lambda: frame_kernel.render_frame_resume(
         pack, appended, m_img, **kw))
     d_planes, d_appended = frame_kernel.render_frame_deferred_queue(pack, shadow_cap=32, cap=cap,
                                                                     **kw)
     d_queue = frame_kernel.bin_queue(d_appended, d_planes.sinfo)
+    d_queue_c = canonical(d_queue, d_planes.sinfo)
     res["defer_main_queue_ms"] = timed(lambda: frame_kernel.render_frame_deferred_queue(
         pack, shadow_cap=32, cap=cap, **kw))
     res["bin_defer_ms"] = timed(lambda: frame_kernel.bin_queue(d_appended, d_planes.sinfo))
     res["queue_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
         pack, d_planes.rays, d_queue.idx, d_queue.count))
+    res["queue_canonical_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
+        pack, d_planes.rays, d_queue_c.idx, d_queue_c.count))
     res["queue_append_order_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
         pack, d_planes.rays, d_appended.idx, d_appended.count))
+    # Rows 2m and 4m: the merged dense pass and repair (GPURT_MERGED_SHADOW=1)
+    # at the same queues, beside the sequential ones above.
+    os.environ["GPURT_MERGED_SHADOW"] = "1"
+    for suffix, q, dq in (("", queue, d_queue), ("_canonical", queue_c, d_queue_c)):
+        res[f"dense_merged{suffix}_ms"] = timed(lambda: frame_kernel.render_frame_resume(
+            pack, q, m_img, **kw))
+        res[f"queue_merged{suffix}_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
+            pack, d_planes.rays, dq.idx, dq.count))
+    del os.environ["GPURT_MERGED_SHADOW"]
     occ = scene_kernel.shadow_queue_planes(pack, d_planes.rays, d_queue.idx, d_queue.count)
     res["compose_ms"] = timed(lambda: frame_kernel.frame_compose(d_planes, occ))
     res["gated_ms"] = timed(lambda: frame_kernel.render_frame_gated(pack, m_img, queue.count, cap,
@@ -482,6 +523,25 @@ if simt:
         scene_kernel.scene_closest_tiles(scene, *args, accept_first=af, pack=pack, ops=ops,
                                          lib=build.load("scene_kernel", count_simt=True))
         res[f"simt_pass_{label}"] = efficiency(ops)
+    # Rows 1m, 2m and 4m (GPURT_MERGED_SHADOW=1) and, for the dense pass and
+    # the repair, their sequential twins at the same queues.
+    if device_queue:
+        for suffix, knob in (("", False), ("_merged", True)):
+            if knob:
+                os.environ["GPURT_MERGED_SHADOW"] = "1"
+                ops = torch.zeros(33, dtype=torch.int64, device=dev)
+                frame_kernel.render_frame_tiles(pack, width=w, height=h, ops=ops,
+                                                lib=build.load("frame_kernel", count_simt=True))
+                res["simt_frame_builtin_merged"] = efficiency(ops)
+            ops = torch.zeros(33, dtype=torch.int64, device=dev)
+            frame_kernel.render_frame_resume(pack, queue, m_img.clone(), ops=ops,
+                                             lib=build.load("frame_kernel", count_simt=True), **kw)
+            res[f"simt_dense{suffix}"] = efficiency(ops)
+            ops = torch.zeros(33, dtype=torch.int64, device=dev)
+            scene_kernel.shadow_queue_planes(pack, d_planes.rays, d_queue.idx, d_queue.count,
+                                             ops=ops, lib=build.load("scene_kernel", count_simt=True))
+            res[f"simt_queue{suffix}"] = efficiency(ops)
+        del os.environ["GPURT_MERGED_SHADOW"]
 
 flib, slib = build.load("frame_kernel", fmad=FMAD), build.load("scene_kernel", fmad=FMAD)
 outs = {"builtin 1080p": frame_kernel.render_frame_tiles(pack, width=w, height=h, lib=flib)}
@@ -504,6 +564,55 @@ for label, args, af in m_passes:
     bt, nrm, g = m_route(m_scene, *args, level=0, accept_first=af)
     outs[f"mesh_heightfield_sdf 1080p level-0 {label} pass"] = torch.cat(
         [bt[:, None], nrm, g[:, None].float()], dim=1)
+build.load = real_load
+
+
+# The merged entries (rows 1m, 2m and 4m) against their sequential twins in
+# both contraction builds (``merged_bit_equal``, "<output> fmad=<build>"),
+# the --fmad build's outputs saved: the builtin 1080p frame in each mode, the
+# dense pass and the repair at the binned queues (the repair's planes at the
+# queued pixels), and at 320x180 builtin, sdf_primitives_720p, the fractal
+# scene and padded_sdf_showcase(28) (closed forms first, its marches at
+# geometries 28-34, so the lanes of a warp hold different sets of SDF
+# geometries), each plain, compact at cap 8 and defer at cap 8 with a queue
+# that holds every pixel.
+twins = [("builtin 1080p", lambda: frame_kernel.render_frame_tiles(pack, width=w, height=h)),
+         ("builtin 1080p compact", lambda: frame_kernel.render_frame_compact(pack, width=w,
+                                                                             height=h)),
+         ("builtin 1080p defer", lambda: frame_kernel.render_frame_deferred(pack, width=w,
+                                                                            height=h))]
+if device_queue:
+    unknown_q = (d_planes.sinfo & 3) == 2
+    twins += [("builtin 1080p dense", lambda: frame_kernel.render_frame_resume(
+                   pack, queue, m_img.clone(), **kw)),
+              ("builtin 1080p repair", lambda: torch.where(unknown_q, scene_kernel.shadow_queue_planes(
+                   pack, d_planes.rays, d_queue.idx, d_queue.count), -1)[..., None])]
+for name in ("builtin", "sdf_primitives_720p", "fractal_mandelbulb_julia_1080p",
+             "padded_sdf_showcase(28)"):
+    if name.startswith("padded"):
+        sc = scenes.padded_sdf_showcase(28).build(320 / 180, 0.7, device=dev)
+        depth = scenes.get_config("sdf_primitives_720p").max_depth
+    else:
+        sc, depth = frame_pack(name, 320, 180, 0.7)
+    pk, kw3 = frame_kernel.pack_frame(sc), dict(width=320, height=180, max_depth=depth)
+    twins += [(f"{name} 320x180 plain", lambda pk=pk, kw3=kw3: frame_kernel.render_frame_tiles(
+                   pk, **kw3)),
+              (f"{name} 320x180 compact", lambda pk=pk, kw3=kw3: frame_kernel.render_frame_compact(
+                   pk, budget_cap=8, cap_lanes=320 * 180, **kw3)),
+              (f"{name} 320x180 defer", lambda pk=pk, kw3=kw3: frame_kernel.render_frame_deferred(
+                   pk, shadow_cap=8, cap_lanes=320 * 180, **kw3))]
+res["merged_bit_equal"] = {}
+for fmad in (FMAD, not FMAD):
+    build.load = lambda name, count_ops=False, fmad=fmad: real_load(name, fmad=fmad,
+                                                                     count_ops=count_ops)
+    for label, fn in twins:
+        seq = fn()
+        os.environ["GPURT_MERGED_SHADOW"] = "1"
+        merged = fn()
+        del os.environ["GPURT_MERGED_SHADOW"]
+        res["merged_bit_equal"][f"{label} fmad={fmad}"] = bool(torch.equal(seq, merged))
+        if fmad == FMAD:
+            outs[label], outs[f"{label} merged"] = seq, merged
 build.load = real_load
 torch.save({k: v.cpu() for k, v in outs.items()}, OUT)
 print(json.dumps(res), flush=True)

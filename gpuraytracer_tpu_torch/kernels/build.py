@@ -80,10 +80,12 @@ def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
 def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
                    count_simt: bool = False, faces_global: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
-    path and ptxas' report (registers, spills; empty when reused)."""
+    path and ptxas' report (registers, spills), kept beside the library so
+    that a reused build reports it too."""
     out = library_path(name, fmad, count_ops, count_simt, faces_global)
+    report = out.with_suffix(".ptxas")
     if out.exists():
-        return out, ""
+        return out, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -94,6 +96,7 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
                            f"{' '.join(cmd)}\n{proc.stderr}")
+    report.write_text(proc.stderr)
     os.replace(tmp, out)
     return out, proc.stderr
 
@@ -128,7 +131,7 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
         getattr(lib, fn).restype = ci
     if name == "frame_kernel":
-        lib.gprt_frame_residency.argtypes = [ci] * 5 + [vp, vp]
+        lib.gprt_frame_residency.argtypes = [ci] * 6 + [vp, vp]
         lib.gprt_frame_residency.restype = ci
         lib.gprt_frame_compose.argtypes = [vp] * 5 + [ci, ci, ci, vp]
         lib.gprt_frame_compose.restype = ci

@@ -690,15 +690,27 @@ extern "C" int gprt_frame_render(const float* params, const int* layout, const f
   return (int)cudaGetLastError();
 }
 
-// The frame kernel's resident blocks per SM and in all (a report; nothing is
-// launched).
-extern "C" int gprt_frame_residency(int num_geometries, int num_materials, int shared, int merged,
-                                    int device, int* per_sm, int* total) {
-  const auto kernel = frame_entry(merged, shared);
+// `kernel`'s resident blocks per SM and in all as the launchers launch it
+// (a report; nothing is launched).
+template <typename Kernel>
+static int residency(Kernel kernel, int G, int M, int shared, int device, int* per_sm,
+                     int* total) {
   size_t shmem;
-  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
+  cudaError_t err = setup(kernel, G, M, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   return (int)gprt::resident_blocks(kernel, shmem, device, per_sm, total);
+}
+
+// The frame kernel's (dense: the dense entry's) resident blocks per SM and
+// in all; merged: the instantiation with merged occlusion marches.
+extern "C" int gprt_frame_residency(int num_geometries, int num_materials, int shared, int merged,
+                                    int dense, int device, int* per_sm, int* total) {
+  if (dense) {
+    return residency(GPRT_PICK2(gprt::frame_dense_kernel, merged, shared), num_geometries,
+                     num_materials, shared, device, per_sm, total);
+  }
+  return residency(frame_entry(merged, shared), num_geometries, num_materials, shared, device,
+                   per_sm, total);
 }
 
 // The compact form's main pass: out (H, W, 4); dirty (H, W) int32 or null;

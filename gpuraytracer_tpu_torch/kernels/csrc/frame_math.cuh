@@ -619,25 +619,25 @@ __device__ __forceinline__ float escape_bound(V3 o, V3 d, float t_max, const Mar
   return m.escape ? fminf(t_max, (o_norm + 12.0f) / denom) : t_max;
 }
 
-// march_loop<true>'s answer while the march goes on.
-constexpr int kMarchOn = -1;
-
-// The march's loop, the one copy that march_sdf and march_step share: the
-// carries (the running t, the samples taken, the over-relaxation's rprev and
-// oon, the cycle retirement's t_prev) are references, registers in
-// march_sdf and a MarchState's fields in march_step. kOneSample: return
-// kMarchOn after one sample that neither hits nor ends the march (the
-// merged march's turn). Returns how the march ended (kMarchCapped: the
-// budget spent, the reference's capped lane, scene_kernel.py:459-463);
-// *t_out is the crossing's t, or the final t of a capped march. The loop is
-// written out here rather than calling a one-sample function from a loop:
-// that form took 122 registers where this one takes 118, and cost the
-// frame kernel 5% in a same-call A/B on an H100 (PERF.md).
-template <bool kOneSample>
-__device__ __forceinline__ int march_loop(int code, V3 o, V3 d, float t_start, float t_max,
-                                          float t_esc, float step_scale, const MarchSpec& m,
-                                          float& t, float& rprev, float& t_prev, int& steps,
-                                          bool& oon, float* t_out) {
+// March from t_start to t_max (the AABB window of an extension fractal, or
+// 0 and the running best t) with the carries of the reference's loop (the
+// running t, the samples taken, the over-relaxation's rprev and oon, the
+// cycle retirement's t_prev) in registers. Returns how the march ended
+// (kMarchCapped: the budget spent, the reference's capped lane,
+// scene_kernel.py:459-463); *t_out is the crossing's t, or the final t of a
+// capped march. Not inlined: one out-of-line copy serves the closest and
+// the occlusion traversals, which keeps the frame kernel within 128
+// registers without spills (inlined into both, it spilled once the
+// extension fractals joined the distance switch; ptxas -v). The loop is
+// written out here: a one-sample function called from a loop took 122
+// registers where this takes 118, and cost the frame kernel 5% in a
+// same-call A/B on an H100 (PERF.md).
+__device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float t_max,
+                                      float step_scale, const MarchSpec& m, float* t_out) {
+  const float t_esc = escape_bound(o, d, t_max, m);
+  float t = t_start, rprev = 0.0f, t_prev = -1.0f;
+  bool oon = true;
+  int steps = 0;
   const bool relaxed = m.relax > 1.0f;
   while (steps < m.max_steps) {
     GPRT_OPS(relaxed ? 13 : 9);
@@ -679,63 +679,12 @@ __device__ __forceinline__ int march_loop(int code, V3 o, V3 d, float t_start, f
       t = t_new;
       if (t > t_esc) break;
     }
-    if (kOneSample) return kMarchOn;
   }
   if (steps >= m.max_steps) {
     *t_out = t;
     return kMarchCapped;
   }
   return kMarchMiss;
-}
-
-// A march's state between two samples: the local ray, its window [t_start,
-// t_max], the escape bound and march_loop's carries. The merged occlusion
-// march (traverse.cuh) keeps one per geometry in flight and advances them
-// in turns with march_step.
-struct MarchState {
-  V3 o, d;
-  float t_start, t_max, t_esc;
-  float t, rprev, t_prev;
-  int steps;
-  bool oon;
-};
-
-__device__ __forceinline__ void march_begin(MarchState* st, V3 o, V3 d, float t_start,
-                                            float t_max, const MarchSpec& m) {
-  st->t_esc = escape_bound(o, d, t_max, m);
-  st->o = o;
-  st->d = d;
-  st->t_start = t_start;
-  st->t_max = t_max;
-  st->t = t_start;
-  st->rprev = 0.0f;
-  st->t_prev = -1.0f;
-  st->steps = 0;
-  st->oon = true;
-}
-
-// One sample of the march on a MarchState: kMarchOn while it goes on, else
-// how it ended, as march_sdf returns it (with *t_out).
-__device__ __forceinline__ int march_step(int code, MarchState* st, float step_scale,
-                                          const MarchSpec& m, float* t_out) {
-  return march_loop<true>(code, st->o, st->d, st->t_start, st->t_max, st->t_esc, step_scale, m,
-                          st->t, st->rprev, st->t_prev, st->steps, st->oon, t_out);
-}
-
-// March from t_start to t_max (the AABB window of an extension fractal, or
-// 0 and the running best t); returns as march_loop. Not inlined: one
-// out-of-line copy serves the closest and the occlusion traversals, which
-// keeps the frame kernel within 128 registers without spills (inlined into
-// both, it spilled once the extension fractals joined the distance switch;
-// ptxas -v).
-__device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float t_max, float step_scale,
-                          const MarchSpec& m, float* t_out) {
-  const float t_esc = escape_bound(o, d, t_max, m);
-  float t = t_start, rprev = 0.0f, t_prev = -1.0f;
-  bool oon = true;
-  int steps = 0;
-  return march_loop<false>(code, o, d, t_start, t_max, t_esc, step_scale, m, t, rprev, t_prev,
-                           steps, oon, t_out);
 }
 
 }  // namespace gprt

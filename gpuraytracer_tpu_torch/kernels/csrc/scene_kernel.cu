@@ -176,6 +176,7 @@ __global__ void __launch_bounds__(128)
     const size_t pix =
         (size_t)level * npix + (idx != nullptr ? idx[(size_t)level * cap + slot] : slot);
     const bool on = active == nullptr || active[pix];
+    GPRT_SIMT_BUCKET(2 * level + 1);
     occ[pix] = on && queue_occluded<kMerged>(s, rays + 6 * pix, level) ? 1 : 0;
   }
   counters_end(ops);
@@ -227,16 +228,39 @@ extern "C" int gprt_scene_closest(const float* params, const int* layout, const 
   return (int)cudaGetLastError();
 }
 
-// The pass's resident blocks per SM and in all, as gprt_scene_closest
-// launches it (main: the two-phase main pass); a report, nothing is
-// launched.
-extern "C" int gprt_scene_residency(int num_geometries, int num_materials, int shared, int main,
-                                    int device, int* per_sm, int* total) {
-  const auto kernel = GPRT_PICK2(gprt::scene_kernel, main, shared);
+// `kernel`'s resident blocks per SM and in all as the launchers launch it
+// (a report; nothing is launched).
+template <typename Kernel>
+static int residency(Kernel kernel, int G, int M, int shared, int device, int* per_sm,
+                     int* total) {
   size_t shmem;
-  cudaError_t err = setup(kernel, 1, num_geometries, num_materials, shared, device, &shmem);
+  cudaError_t err = setup(kernel, 1, G, M, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   return (int)gprt::resident_blocks(kernel, shmem, device, per_sm, total);
+}
+
+// The entries whose residency gprt_scene_residency reports: the pass and
+// the two-phase main pass as gprt_scene_closest launches them, the repair
+// and its instantiation with merged occlusion marches as gprt_shadow_queue
+// launches them.
+enum ResidencyEntry { kEntryPass = 0, kEntryMainPass, kEntryRepair, kEntryRepairMerged };
+
+// The resident blocks per SM and in all of one ResidencyEntry.
+extern "C" int gprt_scene_residency(int num_geometries, int num_materials, int shared, int entry,
+                                    int device, int* per_sm, int* total) {
+  const int G = num_geometries, M = num_materials;
+  switch (entry) {
+    case kEntryPass:
+    case kEntryMainPass:
+      return residency(GPRT_PICK2(gprt::scene_kernel, entry == kEntryMainPass, shared), G, M,
+                       shared, device, per_sm, total);
+    case kEntryRepair:
+    case kEntryRepairMerged:
+      return residency(GPRT_PICK2(gprt::shadow_queue_kernel, entry == kEntryRepairMerged, shared),
+                       G, M, shared, device, per_sm, total);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The two-phase finisher over the main pass's outputs (updated in place);

@@ -468,81 +468,104 @@ __device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int
   return -1;
 }
 
-// SDF marches in flight at once in the merged occlusion march: a lane whose
-// gate admits more SDF geometries marches them in windows of this many,
-// which gives the same answer (occlusion is the OR over the geometries).
-constexpr int kMergeWindow = 4;
+// Gated SDF geometries a lane keeps pending in the merged occlusion march
+// (occluded_merged): its banks, each a geometry index, with the geometry's
+// SDF code in a 4-bit field of the lane's code word (0xF: an empty bank;
+// the codes are 0-8, so up to 8 banks).
+constexpr int kMergeWindow = 2;
 
-// One march of the merged occlusion march: its state and spec.
-struct MarchBank {
-  MarchState st;
-  MarchSpec m;
-  float step_scale;
-  int code;
-};
+// The first live bank of a code word, or -1.
+__device__ __forceinline__ int first_live_bank(unsigned codes) {
+  const unsigned x = ~codes;
+  const unsigned live = (x | x >> 1 | x >> 2 | x >> 3) & 0x11111111u;
+  return live == 0 ? -1 : (__ffs((int)live) - 1) >> 2;
+}
 
-// One sample of a bank's march (march_step), out of line: the banks live in
-// the thread's local memory and one copy of the step serves them all.
-__device__ __noinline__ int bank_step(MarchBank* b) {
-  float t;
-  return march_step(b->code, &b->st, b->step_scale, b->m, &t);
+// The first bank of a code word that holds SDF code c, or -1.
+__device__ __forceinline__ int bank_of_code(unsigned codes, int c) {
+  const unsigned y = codes ^ (0x11111111u * (unsigned)c);
+  const unsigned match = ~(y | y >> 1 | y >> 2 | y >> 3) & 0x11111111u;
+  return match == 0 ? -1 : (__ffs((int)match) - 1) >> 2;
 }
 
 // Accept-first occlusion with the SDF marches merged (the reference's
 // _march_sdf_multi, scene_kernel.py:466-705, and its call site :1646-1789,
 // under GPURT_MERGED_SHADOW): the closed forms, meshes and metaballs first,
-// in definition order; then every gated SDF geometry's march, started once
-// (gate, local ray, window, escape bound and the level's budget and rule,
-// as occluded_procedural takes them) and advanced one sample per turn,
-// round robin, until one reports a hit (a valid crossing, or a spent budget
-// where the occluded-on-cap rule holds), which ends the lane's search, or
-// every march has ended. Each march takes the steps it takes in
-// occluded_procedural and a kill only drops steps whose answer the OR
-// already has, so the answer is the sequential one. The TPU ran this as one
-// loop over per-geometry VMEM banks to shorten its tile convoys; here one
-// thread keeps up to kMergeWindow banks in local memory.
-__device__ __noinline__ bool occluded_merged(const Scene& s, V3 ob, V3 d, float t_max,
-                                             int level) {
-  for (int g = 0; g < s.G; ++g) {
+// in definition order; then the gated SDF geometries, each marched as
+// occluded_procedural marches it (intersect: the gate, local ray, window,
+// escape bound and the level's budget and occluded-on-cap rule, and the same
+// march_sdf), until one hits. The answer is the OR over the geometries, so
+// it is the sequential one in any order of marches.
+//
+// The TPU merged its marches to shorten its tile convoys. Here the lanes
+// that enter together (__activemask) take turns: a lane's kMergeWindow
+// banks hold its next gated SDF geometries in definition order; each turn's
+// SDF code is the code of the first bank of the lowest lane that still
+// marches (__ballot_sync, __shfl_sync), and every lane with a bank of that
+// code marches its first such geometry to the march's end, so that
+// sdf_distance runs one case for the warp; the bank then takes the lane's
+// next gated geometry. A lane that is done stays in the loop (the turns'
+// votes name every lane of the mask) until no lane of the mask marches.
+// A march never outlives its turn, so a bank is a geometry index and no
+// march state is kept. On an H100, turns of one to 16 samples with each
+// march's state in a bank (shared memory or registers) read slower than
+// whole marches, 2 banks faster than 4 or 8, and the function inlined
+// faster than out of line (PERF.md).
+__device__ __forceinline__ bool occluded_merged(const Scene& s, V3 ob, V3 d, float t_max,
+                                                int level) {
+  const unsigned warp = __activemask();
+  bool hit = false;
+  for (int g = 0; g < s.G && !hit; ++g) {
     if (s.geo[kGeoStride * g] == kSignedDistance || !gate(s, g, ob, d, t_max)) continue;
     V3 ol, dl;
     local_ray(s, g, ob, d, &ol, &dl);
     float t;
     V3 nl;
-    if (intersect<false>(s, g, ol, dl, t_max, true, level, true, CapSpec{}, &t, &nl) & kHitBit)
-      return true;
+    hit = (intersect<false>(s, g, ol, dl, t_max, true, level, true, CapSpec{}, &t, &nl) &
+           kHitBit) != 0;
   }
-  MarchBank bank[kMergeWindow];
-  int g = 0;
-  for (;;) {
-    int n = 0;
-    for (; g < s.G && n < kMergeWindow; ++g) {
-      const int* q = s.geo + kGeoStride * g;
-      if (q[0] != kSignedDistance || !gate(s, g, ob, d, t_max)) continue;
-      V3 ol, dl;
-      local_ray(s, g, ob, d, &ol, &dl);
-      float t_lo = 0.0f, t_hi = t_max;
-      const bool windowed = q[kGeoWindowed] != 0;
-      if (windowed && !unit_box_window(ol, dl, t_max, &t_lo, &t_hi)) continue;
-      MarchBank& b = bank[n++];
-      b.m = spec(s, g, true, level, true, windowed);
-      b.step_scale = s.sscale[g];
-      b.code = q[1];
-      march_begin(&b.st, ol, dl, t_lo, t_hi, b.m);
-    }
-    if (n == 0) return false;
-    while (n > 0) {
-      for (int k = 0; k < n;) {
-        const int r = bank_step(&bank[k]);
-        if (r == kMarchOn) {
-          ++k;
-          continue;
-        }
-        if (march_hit(r, bank[k].m)) return true;
-        bank[k] = bank[--n];  // ended without a hit: its slot takes the last bank
+  int bank[kMergeWindow];
+  unsigned codes = ~0u;
+  int next = hit ? s.G : 0;  // the next geometry to take into a bank
+  // Bank k takes the lane's next gated SDF geometry, if any is left.
+  auto refill = [&](int k) {
+    for (; next < s.G; ++next) {
+      const int* q = s.geo + kGeoStride * next;
+      if (q[0] != kSignedDistance || !gate(s, next, ob, d, t_max)) continue;
+#pragma unroll
+      for (int j = 0; j < kMergeWindow; ++j) {
+        if (j == k) bank[j] = next;
       }
+      codes = (codes & ~(0xFu << 4 * k)) | ((unsigned)q[1] << 4 * k);
+      ++next;
+      return;
     }
+  };
+#pragma unroll
+  for (int k = 0; k < kMergeWindow; ++k) refill(k);
+  for (;;) {
+    const int mine = hit ? -1 : first_live_bank(codes);
+    const unsigned want = __ballot_sync(warp, mine >= 0);
+    if (want == 0) break;
+    const int code = __shfl_sync(warp, mine < 0 ? 0 : (int)(codes >> 4 * mine) & 0xF,
+                                 __ffs((int)want) - 1);
+    const int k = hit ? -1 : bank_of_code(codes, code);
+    if (k < 0) continue;
+    int g = 0;
+#pragma unroll
+    for (int j = 0; j < kMergeWindow; ++j) {
+      if (j == k) g = bank[j];
+    }
+    V3 ol, dl;
+    local_ray(s, g, ob, d, &ol, &dl);
+    float t;
+    V3 nl;
+    hit = (intersect<false>(s, g, ol, dl, t_max, true, level, true, CapSpec{}, &t, &nl) &
+           kHitBit) != 0;
+    codes |= 0xFu << 4 * k;
+    if (!hit) refill(k);
   }
+  return hit;
 }
 
 // The two-phase pass's finisher (scene_kernel._finish_tile, :1028-1150) on

@@ -483,11 +483,11 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     return out
 
 
-def residency(pack: FramePack, lib=None) -> tuple:
-    """(blocks per SM, blocks in all) of the frame kernel that the card
-    keeps resident for the packed scene, as ``render_frame_tiles`` launches
-    it (its merged instantiation where ``merges`` says so); launches
-    nothing."""
+def residency(pack: FramePack, lib=None, *, dense: bool = False) -> tuple:
+    """(blocks per SM, blocks in all) of the frame kernel (``dense``: the
+    dense entry) that the card keeps resident for the packed scene, as
+    ``render_frame_tiles`` (``render_frame_resume``) launches it (its merged
+    instantiation where ``merges`` says so); launches nothing."""
     check_pack(pack)
     dev = pack.params.device
     if dev.type != "cuda":
@@ -497,7 +497,8 @@ def residency(pack: FramePack, lib=None) -> tuple:
     lib = lib if lib is not None else build.load("frame_kernel")
     per_sm, total = ctypes.c_int(0), ctypes.c_int(0)
     _raise_on(lib.gprt_frame_residency(pack.num_geometries, pack.num_materials,
-                                       int(_shared(pack)), int(merges(pack)), dev.index,
+                                       int(_shared(pack)), int(merges(pack)), int(dense),
+                                       dev.index,
                                        ctypes.byref(per_sm), ctypes.byref(total)), lib,
               "frame kernel residency")
     return per_sm.value, total.value

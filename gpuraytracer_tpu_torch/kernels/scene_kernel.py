@@ -58,9 +58,9 @@ FINISH_LAUNCHES = 0
 # The two-phase main pass's step cap (the reference's PHASE_BUDGET,
 # scene_kernel.py:92), on SDF and metaball marches alike.
 PHASE_BUDGET = 64
-# SDF marches in flight at once in the merged occlusion march
-# (csrc/traverse.cuh kMergeWindow).
-MERGE_WINDOW = 4
+# Gated SDF geometries a lane keeps pending at once in the merged occlusion
+# march (csrc/traverse.cuh kMergeWindow).
+MERGE_WINDOW = 2
 
 
 def dirty_bit(g: int) -> int:
@@ -170,7 +170,9 @@ def occluded_merged_plain(scene: Scene, o_blas, d_blas, active, t0, *, level: in
     turn, round robin; a valid crossing kills the lane's marches on every
     geometry, and after the loop a march that spent its budget occludes
     where the level's occluded-on-cap rule holds (the reference's post-loop
-    rule, :682-705)."""
+    rule, :682-705). The kernel takes the marches in another order (whole
+    marches, in turns that a warp agrees on); occlusion is the OR over the
+    geometries, so the answer is the same."""
     layout, arrays = scene.layout, scene.arrays
     step_scales = arrays.materials.step_scale.tolist()
     occ = torch.zeros(o_blas.shape[0], dtype=torch.bool, device=o_blas.device)
@@ -329,10 +331,13 @@ def _shared(pack: frame_kernel.FramePack) -> int:
                                              shading=False))
 
 
-def residency(pack: frame_kernel.FramePack, *, main: bool = False, lib=None) -> tuple:
-    """(blocks per SM, blocks in all) of the pass (``main``: the two-phase
-    main pass) that the card keeps resident for the packed scene, as
-    ``scene_closest_tiles`` launches it; launches nothing."""
+def residency(pack: frame_kernel.FramePack, *, entry: str = "pass", lib=None) -> tuple:
+    """(blocks per SM, blocks in all) that the card keeps resident for the
+    packed scene of one entry: ``"pass"`` and ``"main"`` (the two-phase main
+    pass) as ``scene_closest_tiles`` launches them, ``"repair"`` as
+    ``shadow_queue_planes`` launches it (its merged instantiation where
+    ``frame_kernel.merges`` says so); launches nothing."""
+    code = {"pass": 0, "main": 1, "repair": 2}[entry]
     frame_kernel.check_pack(pack)
     dev = pack.params.device
     if dev.type != "cuda":
@@ -341,8 +346,10 @@ def residency(pack: frame_kernel.FramePack, *, main: bool = False, lib=None) -> 
 
     lib = lib if lib is not None else build.load("scene_kernel")
     per_sm, total = ctypes.c_int(0), ctypes.c_int(0)
+    if entry == "repair" and frame_kernel.merges(pack):
+        code = 3
     _raise_on(lib.gprt_scene_residency(pack.num_geometries, pack.num_materials, _shared(pack),
-                                       int(main), dev.index, ctypes.byref(per_sm),
+                                       code, dev.index, ctypes.byref(per_sm),
                                        ctypes.byref(total)), lib, "scene kernel residency")
     return per_sm.value, total.value
 

@@ -213,6 +213,8 @@ extern "C" void rh_compose(const float* lit, const float* shadowed, const int* s
 }
 """,
     "scene_kernel": r"""
+#include <random>
+
 namespace gprt { float smem[1 << 16]; }
 
 // The scene pass, one ray per one-thread block; returns the rays.
@@ -230,6 +232,74 @@ extern "C" int rh_scene(const float* params, const int* layout, const float* tri
            accept_first, cull, gprt::CapSpec{0, 0}, nullptr);
   }
   return n;
+}
+
+namespace {
+
+// One warp of the merged occlusion march: lane l marches ray ray_of[l].
+struct MergedWarp {
+  const gprt::Scene* s;
+  const float* rays;
+  const int* ray_of;
+  int* occ;
+  int level;
+};
+
+void merged_lane(int lane, void* arg) {
+  const MergedWarp* w = static_cast<const MergedWarp*>(arg);
+  const int i = w->ray_of[lane];
+  const float* r = w->rays + 6 * i;
+  w->occ[i] = gprt::occluded_merged(*w->s, gprt::v3(r[0], r[1], r[2]), gprt::v3(r[3], r[4], r[5]),
+                                    gprt::kRayTMax, w->level) ? 1 : 0;
+}
+
+}  // namespace
+
+// The accept-first occlusion (1 or 0 in occ) of n BLAS-space shadow rays
+// (n x 6) at `level`: merged, the merged march on warps of emulated lanes
+// under the turn schedule `seed` (each warp takes 1-32 rays on lanes drawn
+// at random, and its lanes enter in one to three groups, so that the lane
+// that leads each turn, and with it the order of turns, follows the seed);
+// else the sequential traversal (occluded_procedural), a ray at a time.
+// Returns the warps whose lanes broke the rules of a vote.
+extern "C" int rh_occluded(const float* params, const int* layout, const float* tri,
+                           const float* rays, int* occ, int n, int G, int M, int shared,
+                           int level, int merged, unsigned seed) {
+  blockDim = dim3{1, 1, 1};
+  blockIdx = dim3{0, 0, 0};
+  threadIdx = dim3{0, 0, 0};
+  const gprt::Scene s = shared ? gprt::load_scene<false, true>(params, layout, tri, G, M, gprt::smem)
+                               : gprt::load_scene<false, false>(params, layout, tri, G, M, gprt::smem);
+  if (!merged) {
+    for (int i = 0; i < n; ++i) {
+      const float* r = rays + 6 * i;
+      occ[i] = gprt::occluded_procedural(s, gprt::v3(r[0], r[1], r[2]),
+                                         gprt::v3(r[3], r[4], r[5]), gprt::kRayTMax, level) >= 0;
+    }
+    return 0;
+  }
+  blockDim = dim3{32, 1, 1};
+  std::mt19937 rng(seed);
+  int faults = 0;
+  for (int i = 0; i < n;) {
+    int lanes[32];
+    for (int l = 0; l < 32; ++l) lanes[l] = l;
+    std::shuffle(lanes, lanes + 32, rng);
+    const int c = std::min(n - i, 1 + (int)(rng() % 32));
+    const int split = 1 + (int)(rng() % 3);
+    int ray_of[32];
+    unsigned groups[3] = {0u, 0u, 0u};
+    for (int j = 0; j < c; ++j) {
+      ray_of[lanes[j]] = i + j;
+      groups[rng() % split] |= 1u << lanes[j];
+    }
+    unsigned* end = std::remove(groups, groups + split, 0u);
+    MergedWarp w{&s, rays, ray_of, occ, level};
+    faults += !rh::run_warp(groups, (int)(end - groups), merged_lane, &w);
+    i += c;
+  }
+  blockDim = dim3{1, 1, 1};
+  return faults;
 }
 
 // The repair over device queues: nsl levels of cap slots (idx and count
@@ -309,8 +379,14 @@ extern "C" int rh_trimesh(const float* tri, int count, const float* o, const flo
 
 
 # Builds of a source with a macro defined: (source, macro).
-DEFINES = {"megakernel_global": ("megakernel", "GPRT_FACE_LOOP_GLOBAL")}
+DEFINES = {"megakernel_global": ("megakernel", "GPRT_FACE_LOOP_GLOBAL"),
+           "scene_kernel_fma": ("scene_kernel", None)}
 ENTRIES["megakernel_global"] = ENTRIES["megakernel"]
+ENTRIES["scene_kernel_fma"] = ENTRIES["scene_kernel"]
+# Builds that contract multiply-adds into FMAs as the shipped CUDA build
+# does (-mfma -ffp-contract=fast; made only on a CPU with FMA instructions);
+# the rest repeat the plain arithmetic.
+CONTRACTED = ("frame_math", "scene_kernel_fma")
 
 
 def _device_part(name):
@@ -341,7 +417,7 @@ def libs():
                        for h in ("frame_math.cuh", "traverse.cuh", "host_rehearsal.h"))
     procs, paths = {}, {}
     for name, entry in ENTRIES.items():
-        if name == "frame_math" and not fma:
+        if name in CONTRACTED and not fma:
             continue
         text = _device_part(name) + entry
         tag = hashlib.sha256(headers + text.encode()).hexdigest()[:16]
@@ -352,9 +428,9 @@ def libs():
         fd, cpp = tempfile.mkstemp(suffix=".cpp", dir=BUILD)
         with os.fdopen(fd, "w") as f:
             f.write(text)
-        # The normal probe contracts as the shipped CUDA build does; the
-        # kernels repeat the plain arithmetic.
-        fp = (["-O2", "-mfma", "-ffp-contract=fast"] if name == "frame_math"
+        # The contracted builds contract as the shipped CUDA build does; the
+        # others repeat the plain arithmetic.
+        fp = (["-O2", "-mfma", "-ffp-contract=fast"] if name in CONTRACTED
               else ["-O1", "-ffp-contract=off"])
         cmd = [gxx, "-std=c++17", *fp, "-fPIC", "-shared", "-w", "-I",
                os.path.join(BUILD, "include"), "-I", CSRC, "-o", cpp[:-4] + ".so", cpp]
@@ -661,6 +737,73 @@ def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
                                             torch.from_numpy(active.reshape(-1)), npix)
     assert np.array_equal(occ.reshape(-1), p_occ.numpy())
     assert occ.reshape(nsl, -1)[active].any() and not occ.reshape(nsl, -1)[~active].any()
+
+
+# ---------------------------------------------------------------------------
+# The merged occlusion march (GPURT_MERGED_SHADOW) on warps of emulated lanes
+# ---------------------------------------------------------------------------
+
+MERGE_SEEDS = tuple(range(1, 9))
+
+
+def _merge_scene(name):
+    if name == "padded_sdf_showcase":
+        return scenes.padded_sdf_showcase(28).build(W / H, T_ANIM, device="cpu")
+    return _scene(name)
+
+
+def _shadow_rays(libs, pack, depth=4):
+    """The W x H frame's BLAS-space shadow rays at levels 0 to depth - 2, as
+    the defer entry records them: [(n, 6) f32 per level], the pixels that
+    reach each level."""
+    nsl, npix = depth - 1, W * H
+    rays = np.zeros((nsl, npix, 6), np.float32)
+    bufs = [_np(pack.params), _np(pack.layout), _tri(pack), np.zeros((depth, npix, 4), np.float32),
+            np.zeros((nsl, npix, 4), np.float32), np.zeros((nsl, npix), np.int32), rays,
+            np.zeros((nsl, npix), np.int32), np.zeros(nsl, np.int32)]
+    libs["frame_kernel"].rh_defer(*(_p(b) for b in bufs), npix, W, H, depth,
+                                  pack.num_geometries, pack.num_materials, 1 << 20)
+    return [np.ascontiguousarray(r[np.abs(r[:, 3:]).sum(-1) > 0]) for r in rays]
+
+
+@pytest.mark.parametrize("name", ["builtin", "fractal_mandelbulb_julia_1080p",
+                                  "padded_sdf_showcase"])
+def test_merged_march_matches_sequential_in_any_turn_order(libs, name):
+    # The merged march on warps of emulated lanes (csrc/host_rehearsal.h
+    # rh::run_warp) under seeded turn schedules equals the sequential
+    # traversal on every shadow ray, at levels 0-2 (the level-0 and bounce
+    # budgets), in both table layouts, built as the plain arithmetic and
+    # contracted as the shipped CUDA build (where the CPU has FMA), and no
+    # warp breaks the rules of its votes. padded_sdf_showcase(28): closed
+    # forms first, its marches at geometries 28-34, so a warp's lanes hold
+    # different sets of SDF geometries.
+    pack = frame_kernel.pack_frame(_merge_scene(name))
+    g, m = pack.num_geometries, pack.num_materials
+    levels = _shadow_rays(libs, pack)
+    params, layout, tri = _np(pack.params), _np(pack.layout), _tri(pack)
+    builds = [b for b in ("scene_kernel", "scene_kernel_fma") if b in libs]
+    occluded = 0
+    for level, rays in enumerate(levels):
+        n = rays.shape[0]
+        if n == 0:
+            continue
+        for b in builds:
+            for shared in (1, 0):
+                seq = np.full(n, -7, np.int32)
+                libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(rays), _p(seq), n, g, m,
+                                    shared, level, 0, 0)
+                assert set(np.unique(seq)) <= {0, 1}
+                occluded += int(seq.sum())
+                for seed in MERGE_SEEDS:
+                    got = np.full(n, -7, np.int32)
+                    faults = libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(rays),
+                                                 _p(got), n, g, m, shared, level, 1, seed)
+                    assert faults == 0, f"{b} level {level} seed {seed}: {faults} warps faulted"
+                    differ = int((got != seq).sum())
+                    assert differ == 0, (f"{b} shared={shared} level {level} seed {seed}: "
+                                         f"{differ} of {n} rays differ")
+    assert levels[0].shape[0] > 0 and levels[1].shape[0] > 0
+    assert 0 < occluded
 
 
 # ---------------------------------------------------------------------------

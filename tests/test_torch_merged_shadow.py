@@ -31,8 +31,10 @@ kernel family takes it where the reference does (frame_kernel.merges).
 
 On a GPU (the ``cuda`` marker) the merged instantiations of the frame
 kernel's plain and dense entries and of the occlusion queue give the
-sequential frame and answers bit for bit, and the merged frame passes the
-image bar against the reference's merged frame.
+sequential frame and answers bit for bit (also on padded_sdf_showcase(28),
+whose warps hold different sets of SDF geometries, in both contraction
+builds), and the merged frame passes the image bar against the reference's
+merged frame.
 """
 
 import dataclasses
@@ -240,6 +242,38 @@ def test_merged_frames_equal_sequential_on_cuda(cuda_device, monkeypatch, name):
     assert tuple(b - a for a, b in zip(before, after)) == (0, 1, 0, 1, 0, 1)
     for mode in seq:
         assert torch.equal(merged[mode], seq[mode]), mode
+
+
+@pytest.mark.cuda
+def test_merged_dense_and_repair_equal_sequential_past_geometry_28_on_cuda(cuda_device,
+                                                                           monkeypatch):
+    # padded_sdf_showcase(28): 28 closed forms first, the seven marches at
+    # geometries 28-34, so that the lanes of a warp hold different sets of
+    # SDF geometries and the merged march's turns pick among them. The
+    # merged dense pass (compact at cap 8) and repair (defer at cap 8) give
+    # the sequential frames bit for bit, in both contraction builds.
+    from gpuraytracer_tpu_torch.kernels import build as kbuild
+
+    w, h = 160, 90
+    pack = frame_kernel.pack_frame(scenes.padded_sdf_showcase(28).build(w / h, T_ANIM,
+                                                                        device=cuda_device))
+    kw = dict(width=w, height=h, max_depth=max_depth("sdf_primitives_720p"))
+    real = kbuild.load
+    for fmad in (True, False):
+        monkeypatch.setattr(kbuild, "load", lambda name, **k: real(name, **{**k, "fmad": fmad}))
+        monkeypatch.delenv("GPURT_MERGED_SHADOW", raising=False)
+        seq = (frame_kernel.render_frame_compact(pack, budget_cap=8, cap_lanes=w * h, **kw),
+               frame_kernel.render_frame_deferred(pack, shadow_cap=8, cap_lanes=w * h, **kw))
+        monkeypatch.setenv("GPURT_MERGED_SHADOW", "1")
+        assert frame_kernel.merges(pack)
+        before = merged_counts()
+        merged = (frame_kernel.render_frame_compact(pack, budget_cap=8, cap_lanes=w * h, **kw),
+                  frame_kernel.render_frame_deferred(pack, shadow_cap=8, cap_lanes=w * h, **kw))
+        torch.cuda.synchronize()
+        after = merged_counts()
+        assert tuple(b - a for a, b in zip(before, after)) == (0, 0, 0, 1, 0, 1)
+        for mode, x, y in zip(("compact", "defer"), merged, seq):
+            assert torch.equal(x, y), f"{mode} fmad={fmad}"
 
 
 @pytest.mark.cuda
