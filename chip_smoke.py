@@ -9,7 +9,9 @@ exits non-zero):
   2. build    build the three kernel libraries from csrc/ with nvcc, all
               builds at once (each with --fmad true and false, and the
               op-counting build of each; the SIMT-counting builds of the
-              frame and scene kernels); print ptxas' registers
+              frame and scene kernels; the megakernel's unculled face loop
+              and the scene kernel's whole-traversal repair
+              (-DGPRT_REPAIR_FULL) for the checks); print ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
@@ -84,10 +86,14 @@ exits non-zero):
               resumed from that queue in its binned order (bit-equal to the
               plain kernel's pixels in the --fmad=false build; in the
               shipped build every differing pixel counted), the bin entry
-              (histogram, scan, scatter: the plain version's key order), the
-              defer entry with its queues, the repair over them, the compose
-              entry and the gated entry; beside the bin entry, its library
-              call (torch.sort of the live slots' keys, stable)
+              (one launch over the histogram the main entry counted: the
+              plain version's key order), the defer entry with its queues
+              and march records, the repair over them (resumed from the
+              records: bit-equal to the whole traversal of the
+              -DGPRT_REPAIR_FULL build in both fmad builds, and timed beside
+              it, with both builds' op counts), the compose entry and the
+              gated entry; beside the bin entry on both modes' queues, its
+              library call (torch.sort of the live slots' keys, stable)
  11. last     the last three kernel-table items: GPURT_MERGED_SHADOW=1 (the
               merged instantiations of the frame kernel's plain and dense
               entries and of the occlusion queue) against the sequential
@@ -120,7 +126,9 @@ exits non-zero):
               shadow passes of the scene kernel, and for rows 1m, 2m and 4m
               beside their sequential twins (the merged builtin 1080p frame;
               the dense pass and the repair at phase 10's queues, with and
-              without the knob); one [simt] line each
+              without the knob), and the resumed repair beside the whole
+              traversal (-DGPRT_REPAIR_FULL) on the same queues; one [simt]
+              line each
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
 2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass), the card
@@ -166,8 +174,8 @@ BF16_OPS_PER_S = 133.8e12
 # Launches timed for a kernel of well under a millisecond: ten launches of
 # the compose kernel (0.054 ms over 50 launches in apps/bench_suite.py) read
 # 0.08-0.14 ms here, after the long, host-bound plain versions. At 100 the
-# queued launches (the bin entry makes four a call) stay well inside what
-# the host can queue ahead of the card.
+# queued launches stay well inside what the host can queue ahead of the
+# card.
 SHORT_REPS = 100
 
 
@@ -463,14 +471,23 @@ def main() -> int:
                    for fmad, count in ((build.DEFAULT_FMAD, False),
                                        (not build.DEFAULT_FMAD, False),
                                        (build.DEFAULT_FMAD, True))]
+        # The repair's whole traversal (-DGPRT_REPAIR_FULL, the parent's
+        # repair): what phase 10 holds the resumed repair to in both
+        # contraction modes and times it beside, its operation count (the
+        # work the resumption removes) and its SIMT efficiency (phase 12).
+        builds += [("scene_kernel", fmad, count, simt, False, True)
+                   for fmad, count, simt in ((build.DEFAULT_FMAD, False, False),
+                                             (not build.DEFAULT_FMAD, False, False),
+                                             (build.DEFAULT_FMAD, True, False),
+                                             (build.DEFAULT_FMAD, False, True))]
         reports = build.compile_all(builds)
         registers, spills = {}, {}
         for (name, fmad, count, *rest), report in reports.items():
-            simt, unculled = (rest + [False, False])[:2]
+            simt, unculled, full = (rest + [False, False, False])[:3]
             print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}"
-                  f"{' count_simt' if simt else ''}{' faces_global' if unculled else ''}: "
-                  f"{ptxas_summary(report)}", flush=True)
-            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled):
+                  f"{' count_simt' if simt else ''}{' faces_global' if unculled else ''}"
+                  f"{' repair_full' if full else ''}: {ptxas_summary(report)}", flush=True)
+            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled or full):
                 registers.update(ptxas_registers(report))
                 spills.update(ptxas_spill_stores(report))
 
@@ -1311,8 +1328,22 @@ def main() -> int:
             raise AssertionError("the compact queue's binned order is not its plain version's")
         torch.cuda.empty_cache()
         bin_ms, _ = cuda_ms(lambda: frame_kernel.bin_queue(queue_a), SHORT_REPS)
-        bin_bytes = n_q * (64 + 64) + 4 + 32 * 4
-        b_ms, b_by = bound(bin_bytes, 0)
+
+        def bin_bytes(counts, nbins, read, written, cap):
+            """Bytes the one-launch bin moves, as (least, shipped). Least: each
+            live entry read (read bytes: the slot, and for a defer key the
+            status word) and written once, each segment's histogram read
+            once, the counts, and the cursors reset. Shipped: the same with
+            the histogram read once by each live block of the launch
+            (csrc/frame_kernel.cu gprt_queue_bin: 1024-thread blocks, at most
+            128 a launch, shared among the segments)."""
+            per_seg = max(1, min((cap + 1023) // 1024, 128 // len(counts)))
+            blocks = sum(min((n + 1023) // 1024, per_seg) for n in counts)
+            rest = sum(counts) * (read + written) + 4 * len(counts) + 4 * len(counts) * nbins
+            return rest + len(counts) * nbins * 4, rest + blocks * nbins * 4
+
+        c_bin_bytes, c_launch_bytes = bin_bytes([n_q], 32, 64, 64, queue_a.entries.shape[0])
+        b_ms, b_by = bound(c_bin_bytes, 0)
         # The one PyTorch call that computes the same order: a stable sort of
         # the live slots' keys (timed here only; the port never calls it).
         live_keys = frame_kernel.bin_keys(queue_a)[:n_q].contiguous()
@@ -1322,9 +1353,11 @@ def main() -> int:
         print(f"[modes] queue_bin's library call, torch.sort(keys, stable=True) of the {n_q} "
               f"live slots' keys: {lib_ms:.4f} ms; {card}", flush=True)
         print(f"[modes] queue_bin alone, compact queue 1920x1080: {n_q} entries in "
-              f"{len(set(b_keys.tolist()))} keys, the plain version's key order: {b_ok}; kernels "
-              f"{bin_ms:.4f} ms (histogram, scan, scatter; {bin_bytes} bytes: bound {b_ms:.4f} "
-              f"ms by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+              f"{len(set(b_keys.tolist()))} keys, the plain version's key order: {b_ok}; one "
+              f"launch {bin_ms:.4f} ms (the compact entry counted the keys; {c_bin_bytes} bytes: "
+              f"bound {b_ms:.4f} ms by {b_by}; the launch's blocks move {c_launch_bytes}; the "
+              f"four launches' count before: "
+              f"{n_q * (64 + 64) + 4 + 32 * 4} bytes); plain {p_ms:.1f} ms; {card}", flush=True)
         # the dense pass resumed from the binned queue, against its plain
         # version and the plain kernel's pixels (bit for bit without
         # contraction; every differing pixel counted in the shipped build)
@@ -1414,41 +1447,83 @@ def main() -> int:
                 raise AssertionError(f"defer queue {k}: binned order is not its plain version's")
         d_bin_ms, _ = cuda_ms(lambda: frame_kernel.bin_queue(d_queue_a, d_pl.sinfo),
                               SHORT_REPS)
+        d_live_keys = torch.cat([d_keys[k, :d_counts[k]] for k in range(nsl)]).contiguous()
+        d_lib_ms, _ = cuda_ms(lambda: torch.sort(d_live_keys, stable=True), SHORT_REPS)
+        d_bin_bytes, d_launch_bytes = bin_bytes(d_counts, frame_kernel.defer_bins(npix), 4 + 4, 4,
+                                                d_queue_a.idx.shape[1])
+        d_bound_ms = bound(d_bin_bytes, 0)[0]
         repair_append_ms, _ = cuda_ms(lambda: scene_kernel.shadow_queue_planes(
-            pack_m, d_pl.rays, d_queue_a.idx, d_queue_a.count), 10)
-        print(f"[modes] queue_bin, defer queues 1920x1080 {d_counts}: {d_bin_ms:.4f} ms; the "
+            pack_m, d_pl.rays, d_queue_a.idx, d_queue_a.count, d_queue_a.rec), 10)
+        print(f"[modes] queue_bin, defer queues 1920x1080 {d_counts}: one launch "
+              f"{d_bin_ms:.4f} ms ({d_bin_bytes} bytes: bound {d_bound_ms:.4f} ms by bytes; the "
+              f"launch's blocks move {d_launch_bytes}, {bound(d_launch_bytes, 0)[0]:.4f} ms); "
+              f"torch.sort(keys, stable=True) of the live slots' keys {d_lib_ms:.4f} ms; the "
               f"repair at the queues in append order (unbinned) {repair_append_ms:.3f} ms; "
               f"{card}", flush=True)
         record("frame_defer", lambda: frame_kernel.render_frame_deferred_queue(
                    pack_m, shadow_cap=32, cap=cap_m, **kw_m), p_ms,
-               err, frame_in + npix * (16 * 3 + (16 + 4 + 24) * nsl) + n_unknown * 4 + 4 * nsl,
+               err, frame_in + npix * (16 * 3 + (16 + 4 + 24) * nsl) + n_unknown * (4 + 16)
+               + 4 * nsl,
                lambda: frame_kernel.render_frame_deferred_queue(
                    pack_m, shadow_cap=32, cap=cap_m, ops=ops, lib=count_lib, **kw_m),
                f"status agrees on {agree:.6f} of lanes; queues {d_counts} (each the unknown "
                f"lanes' set); contribution planes flipped <= {max(r[1] for r in res):.6f}, max "
                f"|diff| {err:.6g}")
-        # the occlusion repair over those queues, against its plain version at
-        # the queued pixels
-        k_occ_p = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx, d_queue.count)
+        # the occlusion repair over those queues, resumed from the defer
+        # entry's march records: against its plain version at the queued
+        # pixels, and bit for bit against the whole traversal of the
+        # -DGPRT_REPAIR_FULL build (the parent's repair) in both contraction
+        # builds, beside which it is timed
+        def repair(queue_x, **kw):
+            return scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, queue_x.idx, queue_x.count,
+                                                    queue_x.rec, **kw)
+
+        k_occ_p = repair(d_queue)
         p_ms, p_occ_p = plain_run(lambda: scene_kernel.shadow_queue_planes_plain(
             pack_m, d_pl.rays, d_queue.idx, d_queue.count))
         unknown = (d_pl.sinfo & 3) == 2
         agree = float((k_occ_p[unknown] == p_occ_p[unknown]).float().mean())
         if agree < 0.999:
             raise AssertionError("queue kernel disagrees with its plain version")
+        full_libs = {f: build.load("scene_kernel", fmad=f, repair_full=True)
+                     for f in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD)}
+        for f, lib_f in full_libs.items():
+            with fmad_build(f):
+                d_pl_f, d_queue_f = frame_kernel.render_frame_deferred_queue(
+                    pack_m, shadow_cap=32, cap=cap_m, **kw_m)
+                d_queue_f = frame_kernel.bin_queue(d_queue_f, d_pl_f.sinfo)
+                unknown_f = (d_pl_f.sinfo & 3) == 2
+                resumed_f = scene_kernel.shadow_queue_planes(
+                    pack_m, d_pl_f.rays, d_queue_f.idx, d_queue_f.count, d_queue_f.rec)
+            whole_f = scene_kernel.shadow_queue_planes(
+                pack_m, d_pl_f.rays, d_queue_f.idx, d_queue_f.count, d_queue_f.rec, lib=lib_f)
+            n_differ = int((resumed_f[unknown_f] != whole_f[unknown_f]).sum())
+            print(f"[modes] resumed repair 1920x1080 fmad={f}: {int(unknown_f.sum())} queued "
+                  f"rays, {n_differ} differ from the whole traversal (-DGPRT_REPAIR_FULL)",
+                  flush=True)
+            if n_differ:
+                raise AssertionError(f"the resumed repair differs from the whole traversal "
+                                     f"(fmad={f})")
         trav = frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
                                          shading=False)
-        record("shadow_queue", lambda: scene_kernel.shadow_queue_planes(
-                   pack_m, d_pl.rays, d_queue.idx, d_queue.count),
-               p_ms, float((k_occ_p[unknown] - p_occ_p[unknown]).abs().max()),
-               trav + n_unknown * (4 + 24 + 4) + 4 * nsl,
-               lambda: scene_kernel.shadow_queue_planes(
-                   pack_m, d_pl.rays, d_queue.idx, d_queue.count, ops=ops,
-                   lib=build.load("scene_kernel", count_ops=True)),
-               f"{n_unknown} queued rays in {nsl} levels {d_counts}; occlusion agrees on "
-               f"{agree:.6f} of them")
+        # Per queued ray: its index, its shadow ray, its march record, its answer.
+        repair_bytes = trav + n_unknown * (4 + 24 + 16 + 4) + 4 * nsl
+        full_ms, _ = cuda_ms(lambda: repair(d_queue, lib=full_libs[build.DEFAULT_FMAD]), 10)
+        ops.zero_()
+        repair(d_queue, ops=ops, lib=build.load("scene_kernel", count_ops=True, repair_full=True))
+        full_ops = int(ops.item())
+        record("shadow_queue", lambda: repair(d_queue),
+               p_ms, float((k_occ_p[unknown] - p_occ_p[unknown]).abs().max()), repair_bytes,
+               lambda: repair(d_queue, ops=ops, lib=build.load("scene_kernel", count_ops=True)),
+               f"{n_unknown} queued rays in {nsl} levels {d_counts}, resumed from their march "
+               f"records; occlusion agrees with the plain version on {agree:.6f} of them; the "
+               f"whole traversal (-DGPRT_REPAIR_FULL) {full_ms:.3f} ms in the same call, "
+               f"{full_ops} f32 FLOPs (bound {bound(repair_bytes, full_ops)[0]:.4f} ms)")
+        alone_m["shadow_queue"]["full_ms"] = full_ms
         # the recomposition, against its plain version on the same planes
         c_img = frame_kernel.frame_compose(d_pl, k_occ_p)
+        alone_m["queue_bin"].update(defer_ms=d_bin_ms, defer_bound_ms=d_bound_ms,
+                                    defer_library_ms=d_lib_ms)
         p_ms, pc_img = plain_run(lambda: frame_kernel.frame_compose_plain(d_pl, k_occ_p))
         c_exact = bool(torch.equal(c_img, pc_img))
         c_ok, _, _, c_err = bar(c_img, main_img)
@@ -1638,21 +1713,17 @@ def main() -> int:
                      f"{n_q} queued pixels resumed, equal to the sequential dense pass; the "
                      f"sequential instantiation {seq_dense_ms:.3f} ms in the same call")
         with env(**merged_env):
-            m_occ = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx, d_queue.count)
+            m_occ = repair(d_queue)
         mq_ms, p_m_occ = plain_run(lambda: scene_kernel.shadow_queue_planes_plain(
             pack_m, d_pl.rays, d_queue.idx, d_queue.count, merged=True))
         m_agree = float((m_occ[unknown] == p_m_occ[unknown]).float().mean())
         if not torch.equal(m_occ[unknown], k_occ_p[unknown]) or m_agree < 0.999:
             raise AssertionError("merged queue disagrees with the sequential one or its plain version")
-        seq_queue_ms, _ = cuda_ms(lambda: scene_kernel.shadow_queue_planes(
-            pack_m, d_pl.rays, d_queue.idx, d_queue.count), 10)
-        merged_alone("shadow_queue_merged",
-                     lambda: scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx,
-                                                              d_queue.count),
-                     lambda: scene_kernel.shadow_queue_planes(
-                         pack_m, d_pl.rays, d_queue.idx, d_queue.count, ops=ops,
-                         lib=build.load("scene_kernel", count_ops=True)),
-                     trav + n_unknown * (4 + 24 + 4) + 4 * nsl,
+        seq_queue_ms, _ = cuda_ms(lambda: repair(d_queue), 10)
+        merged_alone("shadow_queue_merged", lambda: repair(d_queue),
+                     lambda: repair(d_queue, ops=ops,
+                                    lib=build.load("scene_kernel", count_ops=True)),
+                     repair_bytes,
                      mq_ms, float((m_occ[unknown] - p_m_occ[unknown]).abs().max()), seq_queue_ms,
                      f"{n_unknown} queued rays; equal to the sequential queue; vs its plain version "
                      f"(occluded_merged_plain) agrees on {m_agree:.6f}; the sequential "
@@ -1961,12 +2032,19 @@ def main() -> int:
                     raise AssertionError("the SIMT-counting dense pass changed the frame")
                 simt_report(f"dense pass builtin 1080p, {n_q} queued pixels{tag}", cnt)
                 cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
-                occ_s = scene_kernel.shadow_queue_planes(pack_m, d_pl.rays, d_queue.idx,
-                                                         d_queue.count, lib=simt_libs["scene_kernel"],
-                                                         ops=cnt)
+                occ_s = repair(d_queue, lib=simt_libs["scene_kernel"], ops=cnt)
                 if not torch.equal(occ_s[unknown], k_occ_p[unknown]):
                     raise AssertionError("the SIMT-counting repair changed its answers")
                 simt_report(f"repair builtin 1080p, {n_unknown} queued rays{tag}", cnt)
+        # The resumed repair's occlusion samples beside the whole traversal's
+        # (the -DGPRT_REPAIR_FULL build) on the same queues.
+        cnt = torch.zeros(frame_kernel.SIMT_COUNTERS, dtype=torch.int64, device=dev)
+        occ_s = repair(d_queue, lib=build.load("scene_kernel", count_simt=True, repair_full=True),
+                       ops=cnt)
+        if not torch.equal(occ_s[unknown], k_occ_p[unknown]):
+            raise AssertionError("the SIMT-counting whole-traversal repair changed its answers")
+        simt_report(f"repair builtin 1080p, {n_unknown} queued rays, whole traversal "
+                    f"(-DGPRT_REPAIR_FULL)", cnt)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
@@ -2041,8 +2119,12 @@ def main() -> int:
         "bound_ms": alone_m[name]["bound_ms"],
         "bound_by": alone_m[name]["bound_by"],
         "library_ms": alone_m[name].get("library_ms"),
-        # The merged rows: their sequential instantiation, timed in the same call.
-        **({"twin_ms": alone_m[name]["twin_ms"]} if "twin_ms" in alone_m[name] else {}),
+        # The merged rows: their sequential instantiation, timed in the same
+        # call; the repair: its whole traversal (-DGPRT_REPAIR_FULL); the bin:
+        # its time, bound and library call on the defer queues.
+        **{key: alone_m[name][key] for key in ("twin_ms", "full_ms", "defer_ms",
+                                               "defer_bound_ms", "defer_library_ms")
+           if key in alone_m[name]},
     } for name, src, replaces, launches in (
         ("frame_compact", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
          windows["compact"]["compact"]),
@@ -2099,12 +2181,12 @@ def main() -> int:
         "megakernel_route_pass": "route_pass<true>",
         "frame_compact": "frame_compact_kernel<true>",
         "frame_dense": "frame_dense_kernel<false, true>", "frame_defer": "frame_defer_kernel<true>",
-        "shadow_queue": "shadow_queue_kernel<false, true>",
+        "shadow_queue": "shadow_queue_kernel<false, true, true>",
         "frame_compose": "frame_compose_kernel", "frame_gated": "frame_gated_kernel<false, true>",
-        "queue_bin": "queue_bin_kernel<false, true>",
+        "queue_bin": "queue_bin_kernel<false>",
         "frame_kernel_merged": "frame_kernel<true, true>",
         "frame_dense_merged": "frame_dense_kernel<true, true>",
-        "shadow_queue_merged": "shadow_queue_kernel<true, true>",
+        "shadow_queue_merged": "shadow_queue_kernel<true, true, true>",
         "scene_two_phase_main": "scene_kernel<true, true>",
         "scene_two_phase_finish": "scene_finish_kernel<true>", "op_probe": "op_probe_kernel"}
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")

@@ -43,7 +43,12 @@ level histogram of the compact queue; the dense pass and the repair under
 GPURT_MERGED_SHADOW=1 at the same queues, ``dense_merged_ms`` and
 ``queue_merged_ms``; and the four again at the binned queues with the
 pixels of a key in raster order, the same in every process, where the
-device's order within a key varies between processes, ``*_canonical_ms``)
+device's order within a key varies between processes, ``*_canonical_ms``;
+where the checkout's repair resumes from the defer entry's march records,
+the whole traversal of its -DGPRT_REPAIR_FULL build at the same queues,
+``queue_full_ms`` and ``queue_full_canonical_ms``; and each mode's chain of
+kernels alone, ``compact_chain_ms`` (compact entry, bin, dense pass, gated
+frame) and ``defer_chain_ms`` (defer entry, bin, repair, compose, gated))
 beside the calls both forms have (``compact_capped_ms``,
 ``dense_camera_ms``, ``queue_compacted_ms``, ``compose_torch_ms``: the host
 recomposition of torch ops); and 64-frame animated windows through
@@ -241,10 +246,14 @@ simt = "count_simt" in inspect.signature(build.load).parameters
 # The megakernel's unculled face loop (-DGPRT_FACE_LOOP_GLOBAL), where the
 # checkout has it.
 unculled = "faces_global" in inspect.signature(build.load).parameters
+# The repair's whole traversal (-DGPRT_REPAIR_FULL), where the checkout's
+# repair resumes from the defer entry's march records.
+resumes = "repair_full" in inspect.signature(build.load).parameters
 builds = [(k, f, False) for k in ("frame_kernel", "scene_kernel", "megakernel")
           for f in {True, FMAD}]
 builds += [(k, True, False, True) for k in ("frame_kernel", "scene_kernel")] if simt else []
 builds += [("megakernel", True, False, False, True)] if unculled else []
+builds += [("scene_kernel", f, False, False, False, True) for f in {True, FMAD}] if resumes else []
 build.compile_all(builds)
 w, h = 1920, 1080
 t_frame = 0.0333 * 8
@@ -346,11 +355,17 @@ if device_queue:
         if sinfo is None:
             n, e = int(q.count[0]), q.entries.clone()
             e[:n] = e[:n][torch.argsort(e[:n, 0])]
-            return frame_kernel.bin_queue_plain(type(q)(e, q.count))
+            return frame_kernel.bin_queue_plain(q._replace(entries=e))
         idx = q.idx.clone()
         for k, n in enumerate(q.count.tolist()):
             idx[k, :n] = torch.sort(idx[k, :n]).values
-        return frame_kernel.bin_queue_plain(type(q)(idx, q.count), sinfo)
+        return frame_kernel.bin_queue_plain(q._replace(idx=idx), sinfo)
+
+    def repair(q, **k):
+        # The checkout's repair over its defer queues (with their march
+        # records where it resumes from them).
+        return scene_kernel.shadow_queue_planes(pack, d_planes.rays, q.idx, q.count,
+                                                *((q.rec,) if resumes else ()), **k)
 
     queue = frame_kernel.bin_queue(appended)
     queue_c = canonical(queue)
@@ -367,25 +382,34 @@ if device_queue:
     res["defer_main_queue_ms"] = timed(lambda: frame_kernel.render_frame_deferred_queue(
         pack, shadow_cap=32, cap=cap, **kw))
     res["bin_defer_ms"] = timed(lambda: frame_kernel.bin_queue(d_appended, d_planes.sinfo))
-    res["queue_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
-        pack, d_planes.rays, d_queue.idx, d_queue.count))
-    res["queue_canonical_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
-        pack, d_planes.rays, d_queue_c.idx, d_queue_c.count))
-    res["queue_append_order_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
-        pack, d_planes.rays, d_appended.idx, d_appended.count))
+    res["queue_ms"] = timed(lambda: repair(d_queue))
+    res["queue_canonical_ms"] = timed(lambda: repair(d_queue_c))
+    res["queue_append_order_ms"] = timed(lambda: repair(d_appended))
+    if resumes:
+        # The whole traversal on the same queues and records (the parent's
+        # repair, built from this checkout).
+        full = build.load("scene_kernel", repair_full=True)
+        res["queue_full_ms"] = timed(lambda: repair(d_queue, lib=full))
+        res["queue_full_canonical_ms"] = timed(lambda: repair(d_queue_c, lib=full))
     # Rows 2m and 4m: the merged dense pass and repair (GPURT_MERGED_SHADOW=1)
     # at the same queues, beside the sequential ones above.
     os.environ["GPURT_MERGED_SHADOW"] = "1"
     for suffix, q, dq in (("", queue, d_queue), ("_canonical", queue_c, d_queue_c)):
         res[f"dense_merged{suffix}_ms"] = timed(lambda: frame_kernel.render_frame_resume(
             pack, q, m_img, **kw))
-        res[f"queue_merged{suffix}_ms"] = timed(lambda: scene_kernel.shadow_queue_planes(
-            pack, d_planes.rays, dq.idx, dq.count))
+        res[f"queue_merged{suffix}_ms"] = timed(lambda: repair(dq))
     del os.environ["GPURT_MERGED_SHADOW"]
-    occ = scene_kernel.shadow_queue_planes(pack, d_planes.rays, d_queue.idx, d_queue.count)
+    occ = repair(d_queue)
     res["compose_ms"] = timed(lambda: frame_kernel.frame_compose(d_planes, occ))
     res["gated_ms"] = timed(lambda: frame_kernel.render_frame_gated(pack, m_img, queue.count, cap,
                                                                     **kw))
+    # Each mode's chain of device time per frame, its kernels timed alone:
+    # compact main + bin + resumed dense + gated; defer main + bin + repair +
+    # compose + gated.
+    res["compact_chain_ms"] = (res["compact_main_ms"] + res["bin_compact_ms"] + res["dense_ms"]
+                               + res["gated_ms"])
+    res["defer_chain_ms"] = (res["defer_main_queue_ms"] + res["bin_defer_ms"] + res["queue_ms"]
+                             + res["compose_ms"] + res["gated_ms"])
     levels = queue.entries[:int(queue.count[0]), 1].long() & 255
     res["compact_queue_levels"] = torch.bincount(levels, minlength=3).tolist()
 else:
@@ -538,8 +562,7 @@ if simt:
                                              lib=build.load("frame_kernel", count_simt=True), **kw)
             res[f"simt_dense{suffix}"] = efficiency(ops)
             ops = torch.zeros(33, dtype=torch.int64, device=dev)
-            scene_kernel.shadow_queue_planes(pack, d_planes.rays, d_queue.idx, d_queue.count,
-                                             ops=ops, lib=build.load("scene_kernel", count_simt=True))
+            repair(d_queue, ops=ops, lib=build.load("scene_kernel", count_simt=True))
             res[f"simt_queue{suffix}"] = efficiency(ops)
         del os.environ["GPURT_MERGED_SHADOW"]
 
@@ -585,8 +608,8 @@ if device_queue:
     unknown_q = (d_planes.sinfo & 3) == 2
     twins += [("builtin 1080p dense", lambda: frame_kernel.render_frame_resume(
                    pack, queue, m_img.clone(), **kw)),
-              ("builtin 1080p repair", lambda: torch.where(unknown_q, scene_kernel.shadow_queue_planes(
-                   pack, d_planes.rays, d_queue.idx, d_queue.count), -1)[..., None])]
+              ("builtin 1080p repair", lambda: torch.where(unknown_q, repair(d_queue),
+                                                           -1)[..., None])]
 for name in ("builtin", "sdf_primitives_720p", "fractal_mandelbulb_julia_1080p",
              "padded_sdf_showcase(28)"):
     if name.startswith("padded"):

@@ -15,7 +15,11 @@ many lanes of the warp marched (SIMT efficiency; csrc/frame_math.cuh;
 never the shipped build); ``faces_global`` adds -DGPRT_FACE_LOOP_GLOBAL:
 a megakernel build whose pass and mesh entries test every face from
 global memory (the unculled face loop that checks hold the shipped one
-to; never the shipped build). The library
+to; never the shipped build); ``repair_full`` adds -DGPRT_REPAIR_FULL: a
+scene-kernel build whose occlusion repair runs the whole traversal from
+geometry 0 instead of resuming from the defer entry's march records (the
+parent's repair, which checks hold the resumed one to; never the shipped
+build). The library
 lands in build/gpuraytracer_tpu_torch/ at the repository root, named after
 a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing build. A failed build raises with nvcc's
@@ -59,18 +63,21 @@ def nvcc_path() -> str:
 
 
 def _flags(fmad: bool, count_ops: bool = False, count_simt: bool = False,
-           faces_global: bool = False):
+           faces_global: bool = False, repair_full: bool = False):
     return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
              "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else [])
             + (["-DGPRT_COUNT_SIMT"] if count_simt else [])
-            + (["-DGPRT_FACE_LOOP_GLOBAL"] if faces_global else []))
+            + (["-DGPRT_FACE_LOOP_GLOBAL"] if faces_global else [])
+            + (["-DGPRT_REPAIR_FULL"] if repair_full else []))
 
 
 def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
-                 count_simt: bool = False, faces_global: bool = False) -> Path:
+                 count_simt: bool = False, faces_global: bool = False,
+                 repair_full: bool = False) -> Path:
     """Where the build of csrc/<name>.cu with these flags lives."""
-    h = hashlib.sha256(" ".join(_flags(fmad, count_ops, count_simt, faces_global)).encode())
+    h = hashlib.sha256(" ".join(_flags(fmad, count_ops, count_simt, faces_global,
+                                       repair_full)).encode())
     for src in (f"{name}.cu",) + _HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
@@ -78,18 +85,19 @@ def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
 
 
 def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
-                   count_simt: bool = False, faces_global: bool = False) -> tuple[Path, str]:
+                   count_simt: bool = False, faces_global: bool = False,
+                   repair_full: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills), kept beside the library so
     that a reused build reports it too."""
-    out = library_path(name, fmad, count_ops, count_simt, faces_global)
+    out = library_path(name, fmad, count_ops, count_simt, faces_global, repair_full)
     report = out.with_suffix(".ptxas")
     if out.exists():
         return out, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path()] + _flags(fmad, count_ops, count_simt, faces_global) + [
+    cmd = [nvcc_path()] + _flags(fmad, count_ops, count_simt, faces_global, repair_full) + [
         "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -103,8 +111,8 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
 
 def compile_all(builds) -> dict:
     """Run compile_kernel for every (name, fmad, count_ops[, count_simt[,
-    faces_global]]) in ``builds`` at once (one nvcc process each); returns {build: ptxas
-    report}."""
+    faces_global[, repair_full]]]) in ``builds`` at once (one nvcc process
+    each); returns {build: ptxas report}."""
     builds = list(builds)
     with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
         reports = list(pool.map(lambda b: compile_kernel(*b)[1], builds))
@@ -113,19 +121,23 @@ def compile_all(builds) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
-         count_simt: bool = False, faces_global: bool = False) -> ctypes.CDLL:
+         count_simt: bool = False, faces_global: bool = False,
+         repair_full: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; declares the C interface
-    (every pointer and the stream as c_void_p)."""
-    path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global)
+    (every pointer and the stream as c_void_p). repair_full
+    (-DGPRT_REPAIR_FULL, scene_kernel.cu): the occlusion repair runs the
+    whole traversal instead of resuming from the defer entry's march
+    records, for checks."""
+    path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global, repair_full)
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
     entries = {
         "frame_kernel": (("gprt_frame_render", 4, 7), ("gprt_frame_compact", 7, 11),
                          ("gprt_frame_dense", 6, 8), ("gprt_frame_gated", 5, 9),
-                         ("gprt_frame_defer", 9, 9)),
+                         ("gprt_frame_defer", 10, 9)),
         "scene_kernel": (("gprt_scene_closest", 11, 9), ("gprt_scene_finish", 9, 6),
-                         ("gprt_shadow_queue", 8, 7)),
+                         ("gprt_shadow_queue", 9, 7)),
     }
     for fn, n_ptr, n_int in entries.get(name, ()):
         getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]

@@ -62,8 +62,11 @@
 //             shadowed, 2 unknown) | mask << 2, and the shadow ray in BLAS
 //             space; a level the pixel never reaches reads zeros. With a
 //             queue, it appends each unknown pixel's index to its level's
-//             device queue; the queue entry of scene_kernel.cu repairs them
-//             into occlusion planes, and the compose entry sums the levels.
+//             device queue and keeps the record of the march that the cap
+//             stopped (MarchRecord: the geometry and the march's carries);
+//             the queue entry of scene_kernel.cu continues each such march
+//             from its record into occlusion planes, and the compose entry
+//             sums the levels.
 //   gated     the plain frame behind a device-side flag: its blocks return
 //             before loading the scene unless a queue overflowed (the
 //             reference's lax.cond, decided on the device).
@@ -74,10 +77,12 @@
 // semantics and measured, not for speed.
 //
 // Queue order is a schedule, not behaviour. Between the main entry and the
-// dense pass or the repair, the bin entries reorder each queue by a key on
+// dense pass or the repair, the bin entry reorders each queue by a key on
 // the device (the reference's ray sorting): compact by the capped geometry,
 // defer by raster block, then capped geometry, so that a warp of the dense
-// pass or the repair marches one geometry. In append order (each group of
+// pass or the repair marches one geometry. The main entries count the keys
+// as they append (one atomicAdd per key among the lanes that append
+// together), so that the bin is one launch. In append order (each group of
 // lanes that a cap stops together) the dense pass read 1.7x and the repair
 // 1.1-1.3x slower on an H100 (PERF.md).
 //
@@ -98,6 +103,8 @@
 // image. Each C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "traverse.cuh"
 
@@ -139,7 +146,9 @@ __device__ __forceinline__ V3 to_blas(const Scene& s, V3 o) {
 
 // Closest hit over the plane and every procedural geometry; gid -1 on a miss.
 // kCaps: the capped traversal (traverse.cuh) with the pixel's dirty mask.
-template <bool kCaps>
+// kSave: its marches run as the occlusion traversal's saving form (the
+// defer form: one copy of the march for both).
+template <bool kCaps, bool kSave = false>
 __device__ Hit closest_hit(const Scene& s, V3 o, V3 d, int level, CapSpec caps,
                            unsigned* dirty) {
   Hit h{kInf, -1, v3(0.0f, 0.0f, 0.0f)};
@@ -149,19 +158,24 @@ __device__ Hit closest_hit(const Scene& s, V3 o, V3 d, int level, CapSpec caps,
     h.gid = s.plane_gid;
     h.n = v3(0.0f, 1.0f, 0.0f);
   }
-  closest_procedural<kCaps>(s, to_blas(s, o), d, level, true, &h, caps, dirty);
+  closest_procedural<kCaps, true, GlobalMesh, kSave>(s, to_blas(s, o), d, level, true, &h, caps,
+                                                     dirty);
   return h;
 }
 
 // Accept-first occlusion over [0, RAY_TMAX] with back-face culling; kMerged:
 // the SDF marches merged (traverse.cuh occluded_merged), never capped.
-template <bool kCaps, bool kMerged>
-__device__ bool occluded(const Scene& s, V3 o, V3 d, int level, CapSpec caps, unsigned* dirty) {
+// kSave (the defer form): the capped march that ends the search writes its
+// record to *rec.
+template <bool kCaps, bool kMerged, bool kSave = false>
+__device__ bool occluded(const Scene& s, V3 o, V3 d, int level, CapSpec caps, unsigned* dirty,
+                         MarchRecord* rec = nullptr) {
   static_assert(!(kCaps && kMerged), "a capped pass never merges (scene_kernel.py:1653-1655)");
   float tp;
   if (plane_test(s, o, d, &tp)) return true;
   if (kMerged) return occluded_merged(s, to_blas(s, o), d, kRayTMax, level);
-  return occluded_procedural<kCaps>(s, to_blas(s, o), d, kRayTMax, level, caps, dirty) >= 0;
+  return occluded_procedural<kCaps, true, GlobalMesh, kSave>(s, to_blas(s, o), d, kRayTMax, level,
+                                                             caps, dirty, GlobalMesh{}, rec) >= 0;
 }
 
 // AnalyticalCheckersTexture with ray differentials from the neighbour
@@ -202,13 +216,16 @@ struct alignas(16) QueueEntry {
   float o[3], d[3], color[4], tw[4];
 };
 
+__device__ __forceinline__ int lane_id() {
+  return (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
+}
+
 // Appends the lanes of `group` (lanes of one warp that execute this call
 // together, the caller among them) to a queue with one atomicAdd on *count.
 // Returns the caller's slot, which may lie past the queue's capacity (the
 // caller stores only below it; the count still counts it).
 __device__ __forceinline__ int group_append(unsigned group, int* count) {
-  const int lane =
-      (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
+  const int lane = lane_id();
   const int leader = __ffs((int)group) - 1;
   int base = 0;
   if (lane == leader) base = atomicAdd(count, __popc(group));
@@ -216,22 +233,42 @@ __device__ __forceinline__ int group_append(unsigned group, int* count) {
   return base + __popc(group & ((1u << lane) - 1u));
 }
 
+// Counts the lanes of `group` (as group_append's) into the histogram bins
+// of their keys: one atomicAdd per key among them (__match_any_sync).
+__device__ __forceinline__ void group_count(unsigned group, int* bins, int key) {
+  const unsigned same = __match_any_sync(group, key);
+  if (lane_id() == __ffs((int)same) - 1) atomicAdd(bins + key, __popc(same));
+}
+
 // A device queue: `cap` slots, count[k] the lanes appended to segment k
-// (stored or not).
+// (stored or not); hist[k * nbins + key] the lanes of segment k with each
+// key of the binned order (bin_key), which the bin entry scans.
 struct DeviceQueue {
   void* slots;  // QueueEntry (compact) or int pixel indices (defer, per level)
   int* count;
   int cap;
+  int* hist;
+  int nbins;
 };
 
 // Where the defer form writes: planes of n = W * H pixels, level-major.
 struct DeferOut {
-  float4* lit;       // D x n
-  float4* shadowed;  // (D - 1) x n
-  int* sinfo;        // (D - 1) x n
-  float* rays;       // (D - 1) x n x 6: BLAS-space origin, direction
+  float4* lit;         // D x n
+  float4* shadowed;    // (D - 1) x n
+  int* sinfo;          // (D - 1) x n
+  float* rays;         // (D - 1) x n x 6: BLAS-space origin, direction
+  MarchRecord* march;  // (D - 1) x n, where the status is unknown (may be null)
   int n;
 };
+
+// The defer form's key of the binned order: the pixel's block of 2^15
+// raster pixels * 32 + the lowest set bit of the level's capped-geometry
+// mask, whose bits 0-29 the status word `info` keeps (info >> 2): a lane
+// whose capped geometries are all past 29 has none there, and takes key 30.
+__device__ __forceinline__ int defer_key(int pix, int info) {
+  const int code = (int)((unsigned)info >> 2);
+  return (pix >> 15) * 32 + (code != 0 ? __ffs(code) - 1 : 30);
+}
 
 // One pixel: raygen, then per level the closest hit, the material pick,
 // the shadow ray, the shading and the bounce; returns the colour (the
@@ -239,8 +276,10 @@ struct DeferOut {
 // kCompactForm: caps as closest_caps / shadow_caps, *dirty the mask; a pixel
 // that a cap touches stops, and goes with its state at the start of that
 // level to *queue (where not null): the lanes that stop together take their
-// slots with one atomicAdd. kDeferForm: occlusion capped as shadow_caps;
-// bit k of *dirty set where level k's status is unknown. kMerged (plain form
+// slots with one atomicAdd, and counts its key (the capped geometry) into
+// the queue's histogram. kDeferForm: occlusion capped as shadow_caps; bit k
+// of *dirty set where level k's status is unknown, and the march that the
+// cap stopped recorded in rec.march (where not null). kMerged (plain form
 // only): the occlusion traversal merges the SDF marches
 // (GPURT_MERGED_SHADOW). kResume (plain form only): start from the state in
 // *from instead of the camera ray, unless its level is -1.
@@ -272,11 +311,14 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
   // compact: queue a capped pixel with its state, for the dense pass.
   auto stop = [&](int level) {
     if (queue == nullptr) return;
-    const int slot = group_append(__activemask(), queue->count);
+    const unsigned group = __activemask();
+    const int slot = group_append(group, queue->count);
+    const int key = __ffs((int)*dirty) - 1;
+    group_count(group, queue->hist, key);
     if (slot >= queue->cap) return;
     QueueEntry& e = static_cast<QueueEntry*>(queue->slots)[slot];
     e.pix = py * width + px;
-    e.level = level | ((__ffs((int)*dirty) - 1) << 8);
+    e.level = level | (key << 8);
     e.o[0] = o.x, e.o[1] = o.y, e.o[2] = o.z;
     e.d[0] = d.x, e.d[1] = d.y, e.d[2] = d.z;
 #pragma unroll
@@ -287,7 +329,8 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
     GPRT_OPS(6 + 13 + 7 + 22 + 18 + 1 + 3 + 8 + 4 * 9 + 7 + 2 + 5 + 3 * 14 + 11);
     reached = level + 1;
     GPRT_SIMT_BUCKET(2 * level);
-    Hit h = closest_hit<kForm == kCompactForm>(s, o, d, level, closest_caps, dirty);
+    Hit h = closest_hit<kForm == kCompactForm, kForm == kDeferForm>(s, o, d, level, closest_caps,
+                                                                    dirty);
     if (kForm == kCompactForm && *dirty) {
       stop(level);
       break;
@@ -309,6 +352,7 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
     const bool shadow_level = level + 1 < max_depth;
     bool in_shadow = false;
     unsigned sdirty = 0;
+    MarchRecord march;
     V3 sd = v3(0.0f, 0.0f, 0.0f);
     if (kForm == kDeferForm && shadow_level) {
       GPRT_OPS(13 + 3);
@@ -323,8 +367,8 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
         sd = normalize(sub(light, hp));
       }
       GPRT_SIMT_BUCKET(2 * level + 1);
-      in_shadow = occluded<kForm != kPlainForm, kMerged>(s, hp, sd, level, shadow_caps,
-                                                         kForm == kDeferForm ? &sdirty : dirty);
+      in_shadow = occluded<kForm != kPlainForm, kMerged, kForm == kDeferForm>(
+          s, hp, sd, level, shadow_caps, kForm == kDeferForm ? &sdirty : dirty, &march);
     }
     if (kForm == kCompactForm && *dirty) {
       stop(level);
@@ -373,7 +417,10 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
         rec.shadowed[at] = make_float4(shadowed[0], shadowed[1], shadowed[2], shadowed[3]);
         const int status = in_shadow ? 1 : (sdirty != 0 ? 2 : 0);
         rec.sinfo[at] = status | (int)(sdirty << 2);
-        if (status == 2) *dirty |= 1u << level;
+        if (status == 2) {
+          *dirty |= 1u << level;
+          if (rec.march != nullptr) rec.march[at] = march;
+        }
       }
     }
     // Exact kills: a non-reflective hit or a throughput that is exactly
@@ -505,7 +552,8 @@ __global__ void __launch_bounds__(128)
 }
 
 // q.count (may be null): append each pixel whose status is unknown at
-// shadowed level k to segment k of q (int raster indices, q.cap per level).
+// shadowed level k to segment k of q (int raster indices, q.cap per level)
+// and count its key (defer_key) into q.hist.
 template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_defer_kernel(const float* __restrict__ params, const int* __restrict__ layout,
@@ -527,8 +575,11 @@ __global__ void __launch_bounds__(128)
       const bool queued = (unknown >> k) & 1u;
       const unsigned group = __ballot_sync(0xffffffffu, queued);
       if (!queued) continue;
+      const int pix = py * width + px;
       const int slot = group_append(group, q.count + k);
-      if (slot < q.cap) static_cast<int*>(q.slots)[(size_t)k * q.cap + slot] = py * width + px;
+      group_count(group, q.hist + (size_t)k * q.nbins,
+                  defer_key(pix, rec.sinfo[(size_t)k * rec.n + pix]));
+      if (slot < q.cap) static_cast<int*>(q.slots)[(size_t)k * q.cap + slot] = pix;
     }
   }
   counters_end(ops);
@@ -564,88 +615,108 @@ __global__ void __launch_bounds__(128)
 
 // The binned order of device queues: nseg segments of cap slots, segment k
 // holding count[k] live entries (none where a count passed cap), each with
-// a key in [0, nbins). A histogram counts the keys (lanes of a warp with
-// one key add with one atomicAdd, __match_any_sync), an exclusive scan makes
-// the counts offsets, and a scatter copies each entry to its key's next
-// slot (the same grouping); within a key the order is the atomics'. Bytes-
-// bound: the live entries are read twice and written once.
+// a key in [0, nbins). The main entry that filled the queue counted its
+// keys (DeviceQueue.hist), so the order takes one launch of a few blocks
+// per segment: each block scans its segment's histogram into offsets in
+// shared memory once, then takes the segment's live entries a block's
+// width at a time, and each entry goes to its key's offset plus a rank that
+// a cursor per key hands out (one atomicAdd per key among a warp's lanes,
+// __match_any_sync); within a key the order is the atomics'. The last block
+// to finish sets the cursors back to zero, so the same queue can be binned
+// again. Bytes-bound: the live entries are read once and written once, and
+// each block reads its segment's histogram.
 struct BinQueue {
   const void* in;    // QueueEntry slots (compact) or int pixel indices (defer)
   void* out;         // the same, binned
   const int* count;  // nseg
   const int* sinfo;  // defer: the status planes, nseg x npix
-  int* bins;         // nseg x nbins: counts, then offsets, then cursors
+  // nseg x nbins histogram (the main entry's), nseg x nbins cursors, then
+  // the count of finished blocks; the cursors and the count are zero
+  // between launches
+  int* bins;
   int nseg, cap, npix, nbins;
 };
 
-// Compact: the lowest set bit of the dirty mask (32 keys). Defer: the
-// pixel's block of 2^15 raster pixels * 32 + the lowest set bit of the
-// level's capped-geometry mask, whose bits 0-29 the status word keeps
-// (sinfo >> 2): a lane whose capped geometries are all past 29 has none
-// there, and takes key 30.
+// Compact: the lowest set bit of the dirty mask (32 keys). Defer: defer_key.
 template <bool kDefer>
 __device__ __forceinline__ int bin_key(const BinQueue& b, int seg, int i) {
   if (kDefer) {
     const int pix = static_cast<const int*>(b.in)[(size_t)seg * b.cap + i];
-    const int code = (int)((unsigned)b.sinfo[(size_t)seg * b.npix + pix] >> 2);
-    return (pix >> 15) * 32 + (code != 0 ? __ffs(code) - 1 : 30);
+    return defer_key(pix, b.sinfo[(size_t)seg * b.npix + pix]);
   }
   return static_cast<const QueueEntry*>(b.in)[i].level >> 8;
 }
 
-// One thread per slot of segment blockIdx.y: the histogram (kScatter
-// false) or the scatter into b.out (kScatter true).
-template <bool kDefer, bool kScatter>
-__global__ void __launch_bounds__(128) queue_bin_kernel(BinQueue b) {
-  const int seg = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (overflowed(b.count, b.nseg, b.cap) ? 0 : b.count[seg])) return;
-  const int key = bin_key<kDefer>(b, seg, i);
-  int* bin = b.bins + (size_t)seg * b.nbins + key;
-  const unsigned group = __match_any_sync(__activemask(), key);
-  if (!kScatter) {
-    const int lane =
-        (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
-    if (lane == __ffs((int)group) - 1) atomicAdd(bin, __popc(group));
-    return;
-  }
-  const int slot = group_append(group, bin);
-  if (kDefer) {
-    static_cast<int*>(b.out)[(size_t)seg * b.cap + slot] =
-        static_cast<const int*>(b.in)[(size_t)seg * b.cap + i];
-  } else {
-    static_cast<QueueEntry*>(b.out)[slot] = static_cast<const QueueEntry*>(b.in)[i];
-  }
-}
+// Threads of a bin block, and the blocks of a launch over all segments.
+constexpr int kBinThreads = 1024;
+constexpr int kBinBlocks = 128;
 
-// The exclusive scan of segment blockIdx.x's nbins counts, in place: each
-// thread sums a run of bins, the block scans the sums (Hillis-Steele in
-// shared memory), each thread writes its run's offsets. Thread 0 adds the
-// segment's count to *total (where given: a running count of the lanes
-// the binned queues counted, across launches).
-__global__ void __launch_bounds__(1024)
-    queue_scan_kernel(int* bins, int nbins, const int* count, unsigned long long* total) {
-  __shared__ int part[1024];
-  int* h = bins + (size_t)blockIdx.x * nbins;
-  const int t = threadIdx.x, n = blockDim.x;
-  if (t == 0 && total != nullptr) atomicAdd(total, (unsigned long long)count[blockIdx.x]);
-  const int per = (nbins + n - 1) / n;
-  const int lo = min(t * per, nbins), hi = min(lo + per, nbins);
-  int sum = 0;
-  for (int k = lo; k < hi; ++k) sum += h[k];
-  part[t] = sum;
-  __syncthreads();
-  for (int off = 1; off < n; off <<= 1) {
-    const int v = t >= off ? part[t - off] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
+// gridDim.x blocks per segment blockIdx.y; nbins ints of dynamic shared
+// memory. Block 0 of each segment adds the segment's count to *total
+// (where given: a running count of the lanes the binned queues counted,
+// across launches).
+template <bool kDefer>
+__global__ void __launch_bounds__(kBinThreads) queue_bin_kernel(BinQueue b,
+                                                                unsigned long long* total) {
+  const int seg = blockIdx.y, t = threadIdx.x, n = blockDim.x;
+  if (blockIdx.x == 0 && t == 0 && total != nullptr) {
+    atomicAdd(total, (unsigned long long)b.count[seg]);
   }
-  int run = part[t] - sum;
-  for (int k = lo; k < hi; ++k) {
-    const int c = h[k];
-    h[k] = run;
-    run += c;
+  const int live = overflowed(b.count, b.nseg, b.cap) ? 0 : b.count[seg];
+  extern __shared__ float smem[];
+  __shared__ int part[kBinThreads];
+  __shared__ bool last;
+  int* offs = reinterpret_cast<int*>(smem);
+  int* cursor = b.bins + (size_t)b.nseg * b.nbins;
+  int* done = cursor + (size_t)b.nseg * b.nbins;
+  if ((int)(blockIdx.x * n) < live) {
+    // The exclusive scan of the segment's histogram: each thread sums a run
+    // of bins, the block scans the sums (Hillis-Steele), each thread writes
+    // its run's offsets.
+    const int* hist = b.bins + (size_t)seg * b.nbins;
+    for (int k = t; k < b.nbins; k += n) offs[k] = hist[k];
+    __syncthreads();
+    const int per = (b.nbins + n - 1) / n;
+    const int lo = min(t * per, b.nbins), hi = min(lo + per, b.nbins);
+    int sum = 0;
+    for (int k = lo; k < hi; ++k) sum += offs[k];
+    part[t] = sum;
+    __syncthreads();
+    for (int off = 1; off < n; off <<= 1) {
+      const int v = t >= off ? part[t - off] : 0;
+      __syncthreads();
+      part[t] += v;
+      __syncthreads();
+    }
+    int run = part[t] - sum;
+    for (int k = lo; k < hi; ++k) {
+      const int c = offs[k];
+      offs[k] = run;
+      run += c;
+    }
+    __syncthreads();
+    for (int i = blockIdx.x * n + t; i < live; i += gridDim.x * n) {
+      const int key = bin_key<kDefer>(b, seg, i);
+      const unsigned group = __match_any_sync(__activemask(), key);
+      const int slot = offs[key] + group_append(group, cursor + (size_t)seg * b.nbins + key);
+      if (kDefer) {
+        static_cast<int*>(b.out)[(size_t)seg * b.cap + slot] =
+            static_cast<const int*>(b.in)[(size_t)seg * b.cap + i];
+      } else {
+        static_cast<QueueEntry*>(b.out)[slot] = static_cast<const QueueEntry*>(b.in)[i];
+      }
+    }
+  }
+  // The last block of the launch resets the cursors and the count.
+  __syncthreads();
+  if (t == 0) {
+    __threadfence();
+    last = atomicAdd(done, 1) == (int)(gridDim.x * gridDim.y) - 1;
+  }
+  __syncthreads();
+  if (last) {
+    for (int k = t; k < b.nseg * b.nbins; k += n) cursor[k] = 0;
+    if (t == 0) *done = 0;
   }
 }
 
@@ -713,10 +784,19 @@ extern "C" int gprt_frame_residency(int num_geometries, int num_materials, int s
                    per_sm, total);
 }
 
+// The int32 words that follow a queue's nseg counts: the histogram of its
+// keys (nseg x nbins), the bin entry's cursors (as many) and its count of
+// finished blocks (gprt_queue_bin). The main entries zero the counts and
+// these words with one memset.
+static size_t queue_words(int nseg, int nbins) {
+  return (size_t)nseg + 2 * (size_t)nseg * nbins + 1;
+}
+
 // The compact form's main pass: out (H, W, 4); dirty (H, W) int32 or null;
 // the closest and occlusion passes' SDF and metaball step caps. queue (may
 // be null): `cap` QueueEntry slots (64 bytes each) that the dirty pixels are
-// appended to, count one int32 that is zeroed on the stream first.
+// appended to; count one int32 and the queue_words(1, 32) after it, zeroed
+// on the stream first, then the count and the histogram of the 32 keys.
 extern "C" int gprt_frame_compact(const float* params, const int* layout, const float* tri,
                                   float* out, int* dirty, void* queue, int* count, int cap,
                                   int width, int height,
@@ -730,12 +810,13 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
   if (err != cudaSuccess) return (int)err;
   if (count != nullptr) {
     if (queue == nullptr || cap <= 0) return (int)cudaErrorInvalidValue;
-    err = cudaMemsetAsync(count, 0, sizeof(int), (cudaStream_t)stream);
+    err = cudaMemsetAsync(count, 0, sizeof(int) * queue_words(1, 32), (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
   kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), dirty,
-      gprt::DeviceQueue{queue, count, cap}, width, height, max_depth, num_geometries,
+      gprt::DeviceQueue{queue, count, cap, count != nullptr ? count + 1 : nullptr, 32}, width,
+      height, max_depth, num_geometries,
       num_materials, gprt::CapSpec{closest_sdf_cap, closest_mb_cap},
       gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
   return (int)cudaGetLastError();
@@ -755,8 +836,8 @@ extern "C" int gprt_frame_dense(const float* params, const int* layout, const fl
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(cap + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, gprt::DeviceQueue{const_cast<void*>(queue), const_cast<int*>(count),
-                                             cap},
+      params, layout, tri,
+      gprt::DeviceQueue{const_cast<void*>(queue), const_cast<int*>(count), cap, nullptr, 0},
       reinterpret_cast<float4*>(out), width, height, max_depth, num_geometries, num_materials,
       ops);
   return (int)cudaGetLastError();
@@ -784,10 +865,14 @@ extern "C" int gprt_frame_gated(const float* params, const int* layout, const fl
 // sinfo (D-1, H, W) int32, rays (D-1, H, W, 6); the occlusion passes' SDF
 // and metaball step caps. queue (may be null): (D-1, cap) int32 pixel
 // indices of the unknown lanes per shadowed level, counted in count (D-1
-// int32, zeroed on the stream first).
+// int32, then the queue_words(D-1, nbins) after them, nbins = 32 per 2^15
+// pixels; zeroed on the stream first, then the counts and the histograms of
+// the keys), with their march records in march ((D-1, H, W) MarchRecord,
+// 16 bytes each, written only where the status is unknown).
 extern "C" int gprt_frame_defer(const float* params, const int* layout, const float* tri,
-                                float* lit, float* shadowed, int* sinfo, float* rays, int* queue,
-                                int* count, int cap, int width, int height, int max_depth,
+                                float* lit, float* shadowed, int* sinfo, float* rays,
+                                void* march, int* queue, int* count, int cap, int width,
+                                int height, int max_depth,
                                 int num_geometries, int num_materials,
                                 int shared, int shadow_sdf_cap, int shadow_mb_cap,
                                 unsigned long long* ops, int device, void* stream) {
@@ -796,15 +881,19 @@ extern "C" int gprt_frame_defer(const float* params, const int* layout, const fl
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
+  const int nsl = max_depth - 1, npix = width * height;
+  const int nbins = 32 * ((npix + 32767) >> 15);
   if (count != nullptr) {
-    if (queue == nullptr || cap <= 0) return (int)cudaErrorInvalidValue;
-    err = cudaMemsetAsync(count, 0, sizeof(int) * (max_depth - 1), (cudaStream_t)stream);
+    if (queue == nullptr || march == nullptr || cap <= 0) return (int)cudaErrorInvalidValue;
+    err = cudaMemsetAsync(count, 0, sizeof(int) * queue_words(nsl, nbins), (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
-                           sinfo, rays, width * height};
+                           sinfo, rays, static_cast<gprt::MarchRecord*>(march), npix};
   kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, rec, gprt::DeviceQueue{queue, count, cap}, width, height,
+      params, layout, tri, rec,
+      gprt::DeviceQueue{queue, count, cap, count != nullptr ? count + nsl : nullptr, nbins},
+      width, height,
       max_depth, num_geometries, num_materials, gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap},
       ops);
   return (int)cudaGetLastError();
@@ -827,24 +916,25 @@ extern "C" int gprt_frame_compose(const float* lit, const float* shadowed, const
 // The binned order of a compact queue (defer 0: queue, out cap QueueEntry
 // slots, count 1 int32) or of the defer queues (defer 1: queue, out nseg x
 // cap int32, count nseg int32, sinfo the (nseg, npix) status planes) into
-// out; bins: nseg x nbins int32 scratch (nbins: 32, or 32 per 2^15 pixels);
-// total (may be null): a uint64 that the counts are added to.
+// out; bins: the queue's 2 x nseg x nbins + 1 int32 that follow its counts
+// (the histogram its main entry counted, the cursors, the finished blocks;
+// nbins: 32, or 32 per 2^15 pixels); total (may be null): a uint64 that the
+// counts are added to. One launch of kBinBlocks blocks in all (fewer where
+// the capacity needs fewer).
 extern "C" int gprt_queue_bin(const void* queue, void* out, const int* count, const int* sinfo,
                               int* bins, unsigned long long* total, int nseg, int cap, int npix,
                               int nbins, int defer, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (nseg <= 0 || cap <= 0 || nbins <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  err = cudaMemsetAsync(bins, 0, sizeof(int) * (size_t)nseg * nbins, st);
+  const auto kernel = defer ? gprt::queue_bin_kernel<true> : gprt::queue_bin_kernel<false>;
+  const size_t shmem = sizeof(int) * (size_t)nbins;
+  err = gprt::reserve_shared(kernel, shmem, device);
   if (err != cudaSuccess) return (int)err;
   const gprt::BinQueue b{queue, out, count, sinfo, bins, nseg, cap, npix, nbins};
-  const dim3 grid((cap + 127) / 128, nseg);
-  (defer ? gprt::queue_bin_kernel<true, false> : gprt::queue_bin_kernel<false, false>)
-      <<<grid, 128, 0, st>>>(b);
-  gprt::queue_scan_kernel<<<nseg, 1024, 0, st>>>(bins, nbins, count, total);
-  (defer ? gprt::queue_bin_kernel<true, true> : gprt::queue_bin_kernel<false, true>)
-      <<<grid, 128, 0, st>>>(b);
+  const int per_seg = std::max(1, std::min((cap + gprt::kBinThreads - 1) / gprt::kBinThreads,
+                                           gprt::kBinBlocks / nseg));
+  kernel<<<dim3(per_seg, nseg), gprt::kBinThreads, shmem, (cudaStream_t)stream>>>(b, total);
   return (int)cudaGetLastError();
 }
 

@@ -547,15 +547,45 @@ __device__ __noinline__ V3 metaballs_normal(V3 p, const float* mb) {
 // (the budget ran out with no valid crossing).
 enum MarchResult { kMarchMiss = 0, kMarchHit = 1, kMarchCapped = 2 };
 
+// A capped occlusion march's record: what the deferred-shadow mode's main
+// pass (the defer entry) keeps of the march that its cap stopped, so that
+// the occlusion repair continues that march where it stopped instead of
+// running it, and the geometries before it, again. g is the geometry; steps
+// the samples taken, with kRecordOon (an SDF march still in its
+// over-relaxed phase) and kRecordEscaped (its last sample passed the escape
+// bound, so the full march misses), or kRecordRetired (the march retired a
+// repeating step, so the full march spends its budget too); t the march's t
+// at the cap; carry the last distance of an over-relaxed SDF march (rprev),
+// or the previous t of a plain one (t_prev). A metaball march keeps its
+// steps and t.
+struct alignas(16) MarchRecord {
+  int g;
+  int steps;
+  float t;
+  float carry;
+};
+constexpr int kRecordSteps = 0x00FFFFFF;    // the sample count's bits
+constexpr int kRecordRetired = 0x00FFFFFF;  // past every budget
+constexpr int kRecordOon = 1 << 24;
+constexpr int kRecordEscaped = 1 << 25;
+
+// A march's form: the plain one; the one that writes its record where its
+// budget runs out (kCarrySave); the one that continues from a record at a
+// larger budget (kCarryResume). The step stays the same, so a capped march
+// is a strict prefix of the full one, and the resumed march takes the full
+// march's samples after the cap.
+enum MarchCarry { kCarryNone = 0, kCarrySave = 1, kCarryResume = 2 };
+
 // Fixed-step march over the union of the balls' bounding-sphere intervals
 // clipped to [0, t_max], in 128 steps of the interval over 128; a crossing
 // that fails the validity check steps on like any other sample.
 // max_steps < 128 caps it (a compacted frame mode's main pass): the step
 // stays the same, so a capped march is a strict prefix of the full one
 // (scene_kernel._march_metaballs_part's step_div). kMarchCapped: every
-// sample taken, none a valid crossing.
+// sample taken, none a valid crossing. kCarry, rec: as march_sdf_loop's.
+template <int kCarry = kCarryNone>
 __device__ int march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cull, int max_steps,
-                               float* t_out) {
+                               float* t_out, MarchRecord* rec = nullptr) {
   GPRT_OPS(3 * 37 + 4);
   float tmin = kInf, tmax = -kInf;
   for (int j = 0; j < 3; ++j) {
@@ -570,8 +600,8 @@ __device__ int march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cu
   tmax = fminf(tmax, t_max);
   if (!(tmax >= tmin)) return kMarchMiss;
   float step = (tmax - tmin) / 128.0f;
-  float t = tmin;
-  for (int s = 0; s < max_steps; ++s) {
+  float t = kCarry == kCarryResume ? rec->t : tmin;
+  for (int s = kCarry == kCarryResume ? rec->steps : 0; s < max_steps; ++s) {
     GPRT_OPS(7);
     GPRT_SIMT_SAMPLE();
     V3 pos = along(o, t, d);
@@ -587,6 +617,10 @@ __device__ int march_metaballs(V3 o, V3 d, float t_max, const float* mb, bool cu
       }
     }
     t = t + step;
+  }
+  if (kCarry == kCarrySave && rec != nullptr) {
+    rec->steps = max_steps;
+    rec->t = t;
   }
   return kMarchCapped;
 }
@@ -625,20 +659,28 @@ __device__ __forceinline__ float escape_bound(V3 o, V3 d, float t_max, const Mar
 // cycle retirement's t_prev) in registers. Returns how the march ended
 // (kMarchCapped: the budget spent, the reference's capped lane,
 // scene_kernel.py:459-463); *t_out is the crossing's t, or the final t of a
-// capped march. Not inlined: one out-of-line copy serves the closest and
-// the occlusion traversals, which keeps the frame kernel within 128
-// registers without spills (inlined into both, it spilled once the
-// extension fractals joined the distance switch; ptxas -v). The loop is
-// written out here: a one-sample function called from a loop took 122
-// registers where this takes 118, and cost the frame kernel 5% in a
-// same-call A/B on an H100 (PERF.md).
-__device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float t_max,
-                                      float step_scale, const MarchSpec& m, float* t_out) {
+// capped march. kCarrySave: a march that ends capped writes its carries to
+// *rec (a MarchRecord; rec->g is the caller's; none where rec is null);
+// kCarryResume: the march
+// starts from the carries in *rec instead of t_start, and misses at once
+// where the record says that the full march missed.
+template <int kCarry>
+__device__ __forceinline__ int march_sdf_loop(int code, V3 o, V3 d, float t_start, float t_max,
+                                              float step_scale, const MarchSpec& m, float* t_out,
+                                              MarchRecord* rec) {
   const float t_esc = escape_bound(o, d, t_max, m);
   float t = t_start, rprev = 0.0f, t_prev = -1.0f;
-  bool oon = true;
+  bool oon = true, escaped_last = false;
   int steps = 0;
   const bool relaxed = m.relax > 1.0f;
+  if (kCarry == kCarryResume) {
+    if (rec->steps & kRecordEscaped) return kMarchMiss;
+    t = rec->t;
+    steps = rec->steps & kRecordSteps;
+    oon = (rec->steps & kRecordOon) != 0;
+    rprev = rec->carry;
+    t_prev = rec->carry;
+  }
   while (steps < m.max_steps) {
     GPRT_OPS(relaxed ? 13 : 9);
     GPRT_SIMT_SAMPLE();
@@ -666,25 +708,65 @@ __device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float
       oon = oon && !fail && !crossed;
       rprev = dist;
       t = t + stepv;
-      if (escaped) break;
+      if (escaped) {
+        escaped_last = kCarry == kCarrySave;
+        break;
+      }
     } else {
       float t_new = t + plain;
       // A step that leaves t unchanged or returns to the previous t repeats
       // forever: the lane would spend its whole budget, so spend it now.
       if (t_new == t || t_new == t_prev) {
-        steps = m.max_steps;
+        steps = kCarry == kCarrySave ? kRecordRetired : m.max_steps;
         break;
       }
       t_prev = t;
       t = t_new;
-      if (t > t_esc) break;
+      if (t > t_esc) {
+        escaped_last = kCarry == kCarrySave;
+        break;
+      }
     }
   }
   if (steps >= m.max_steps) {
     *t_out = t;
+    if (kCarry == kCarrySave && rec != nullptr) {
+      rec->steps = steps | (oon ? kRecordOon : 0) | (escaped_last ? kRecordEscaped : 0);
+      rec->t = t;
+      rec->carry = relaxed ? rprev : t_prev;
+    }
     return kMarchCapped;
   }
   return kMarchMiss;
+}
+
+// The march, march_sdf_loop's plain form. Not inlined: one out-of-line copy
+// serves the closest and the occlusion traversals, which keeps the frame
+// kernel within 128 registers without spills (inlined into both, it spilled
+// once the extension fractals joined the distance switch; ptxas -v). The
+// loop is written out: a one-sample function called from a loop took 122
+// registers where this takes 118, and cost the frame kernel 5% in a
+// same-call A/B on an H100 (PERF.md).
+__device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float t_max,
+                                      float step_scale, const MarchSpec& m, float* t_out) {
+  return march_sdf_loop<kCarryNone>(code, o, d, t_start, t_max, step_scale, m, t_out, nullptr);
+}
+
+// The march that writes its record where its budget runs out, and the
+// march that continues from a record (the occlusion repair):
+// march_sdf_loop's other forms, each its own copy, so that the plain march
+// keeps its code. The defer entry runs every march as march_sdf_saved (its
+// closest marches with no record), so that it holds one copy of the loop:
+// with march_sdf beside it, the entry read 12% slower on an H100 (PERF.md).
+__device__ __noinline__ int march_sdf_saved(int code, V3 o, V3 d, float t_start, float t_max,
+                                            float step_scale, const MarchSpec& m, float* t_out,
+                                            MarchRecord* rec) {
+  return march_sdf_loop<kCarrySave>(code, o, d, t_start, t_max, step_scale, m, t_out, rec);
+}
+__device__ __noinline__ int march_sdf_resumed(int code, V3 o, V3 d, float t_start, float t_max,
+                                              float step_scale, const MarchSpec& m, float* t_out,
+                                              MarchRecord rec) {
+  return march_sdf_loop<kCarryResume>(code, o, d, t_start, t_max, step_scale, m, t_out, &rec);
 }
 
 }  // namespace gprt

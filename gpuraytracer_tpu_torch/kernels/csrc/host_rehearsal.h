@@ -9,9 +9,9 @@
 // A block of one thread is a warp of one lane: __activemask() and
 // __match_any_sync() are that lane, a ballot, a vote (__any_sync,
 // __syncthreads_or) is its predicate, a shuffle its own value; atomics are plain
-// read-modify-writes; __syncthreads() has nothing to wait for. The rounded
-// intrinsics (__fmul_rn, ...) are the plain operators, which this build
-// never contracts. Dynamic shared memory (`extern __shared__ float smem[]`)
+// read-modify-writes; __syncthreads() and __threadfence() have nothing to
+// order. The rounded intrinsics (__fmul_rn, ...) are the plain operators,
+// which this build never contracts. Dynamic shared memory (`extern __shared__ float smem[]`)
 // is gprt::smem, which the rehearsal defines.
 //
 // rh::run_warp runs a device function on a warp of emulated lanes instead:
@@ -184,6 +184,7 @@ inline bool run_warp(const unsigned* groups, int ngroups, void (*fn)(int, void*)
 }  // namespace rh
 
 inline void __syncthreads() {}
+inline void __threadfence() {}
 inline int __syncthreads_or(int pred) { return pred != 0; }
 inline unsigned __activemask() { return rh::warp ? rh::warp->lane[rh::warp->current].group : 1u; }
 inline unsigned __ballot_sync(unsigned mask, int pred) {

@@ -123,11 +123,15 @@ __global__ void __launch_bounds__(128)
   counters_end(ops);
 }
 
-// The repair's query: the plain accept-first traversal of the shadow ray r
-// (BLAS-space origin, direction) at `level`; kMerged: merged SDF marches.
-template <bool kMerged>
-__device__ __forceinline__ bool queue_occluded(const Scene& s, const float* r, int level) {
+// The repair's query on the shadow ray r (BLAS-space origin, direction) at
+// `level`: kResume, the traversal resumed from the defer entry's march
+// record (traverse.cuh occluded_resumed); else the plain accept-first
+// traversal from geometry 0. kMerged: merged SDF marches.
+template <bool kMerged, bool kResume>
+__device__ __forceinline__ bool queue_occluded(const Scene& s, const float* r, int level,
+                                               const MarchRecord* rec) {
   const V3 ob = v3(r[0], r[1], r[2]), dir = v3(r[3], r[4], r[5]);
+  if (kResume) return occluded_resumed<kMerged>(s, ob, dir, kRayTMax, level, *rec);
   return kMerged ? occluded_merged(s, ob, dir, kRayTMax, level)
                  : occluded_procedural(s, ob, dir, kRayTMax, level) >= 0;
 }
@@ -139,27 +143,35 @@ __device__ __forceinline__ bool queue_occluded(const Scene& s, const float* r, i
 // indices (stored up to cap). Launched over the capacity: the live count is
 // read from the device, and a block past it (every block, where any level's
 // count passed cap: the gated plain frame then replaces the image) returns
-// before loading the scene. A live slot runs the plain accept-first
-// traversal of its pixel's shadow ray in level k's ray plane (rays: (nsl,
-// npix, 6) f32, BLAS-space origin and direction) from 0 to RAY_TMAX at that
-// level's budgets (the occluded-on-cap rule of the plain kernel included),
-// and writes the answer to its pixel in level k's occlusion plane (occ:
-// (nsl, npix) int32; the other pixels are not written, and the composition
-// reads only the queued ones). Without idx and count every pixel of every
+// before loading the scene. A live slot answers whether its pixel's shadow
+// ray in level k's ray plane (rays: (nsl, npix, 6) f32, BLAS-space origin
+// and direction) is occluded from 0 to RAY_TMAX at that level's budgets
+// (the occluded-on-cap rule of the plain kernel included), and writes the
+// answer to its pixel in level k's occlusion plane (occ: (nsl, npix)
+// int32; the other pixels are not written, and the composition reads only
+// the queued ones). kResume: the traversal continues from the pixel's march
+// record in level k's record plane (march: (nsl, npix) MarchRecord, which
+// the defer entry wrote where the status is unknown): the march that the
+// cap stopped goes on from its carries, and the geometries before it are
+// not tested again (their answer, no hit, is known); else it runs whole
+// from geometry 0 (the -DGPRT_REPAIR_FULL build's queue form, the parent's
+// repair, kept for checks). Without idx and count every pixel of every
 // level is a live slot (cap = npix), and active ((nsl, npix) bool, may be
 // null) clears the answer of an inactive one (scene_kernel.shadow_queue's
-// flat queue of segments). Bound like the scene kernel: divergent marches
-// (the lanes whose capped occlusion march found nothing, the long tail);
-// 28 bytes in and 4 out per entry. kMerged: the occlusion traversal merges
-// the SDF marches (GPURT_MERGED_SHADOW; the reference allocates the merged
+// flat queue of segments; no record, the whole traversal). Bound like the
+// scene kernel: divergent marches (the lanes whose capped occlusion march
+// found nothing, the long tail); 44 bytes in (the ray, the record, the
+// index) and 4 out per entry. kMerged: the occlusion traversal merges the
+// SDF marches (GPURT_MERGED_SHADOW; the reference allocates the merged
 // banks for this kernel, frame_kernel.py:1259).
-template <bool kMerged, bool kShared>
+template <bool kMerged, bool kShared, bool kResume>
 __global__ void __launch_bounds__(128)
     shadow_queue_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                         const float* __restrict__ tri, const float* __restrict__ rays,
                         const int* __restrict__ idx, const int* __restrict__ count,
-                        const bool* __restrict__ active, int* __restrict__ occ, int npix,
-                        int nsl, int cap, int G, int M, unsigned long long* ops) {
+                        const bool* __restrict__ active, const MarchRecord* __restrict__ march,
+                        int* __restrict__ occ, int npix, int nsl, int cap, int G, int M,
+                        unsigned long long* ops) {
   const int level = blockIdx.y;
   int live = cap;
   if (count != nullptr) {
@@ -177,7 +189,10 @@ __global__ void __launch_bounds__(128)
         (size_t)level * npix + (idx != nullptr ? idx[(size_t)level * cap + slot] : slot);
     const bool on = active == nullptr || active[pix];
     GPRT_SIMT_BUCKET(2 * level + 1);
-    occ[pix] = on && queue_occluded<kMerged>(s, rays + 6 * pix, level) ? 1 : 0;
+    occ[pix] = on && queue_occluded<kMerged, kResume>(s, rays + 6 * pix, level,
+                                                       kResume ? march + pix : nullptr)
+                   ? 1
+                   : 0;
   }
   counters_end(ops);
 }
@@ -239,10 +254,34 @@ static int residency(Kernel kernel, int G, int M, int shared, int device, int* p
   return (int)gprt::resident_blocks(kernel, shmem, device, per_sm, total);
 }
 
+// The repair's instantiation: merged occlusion marches or not, the tables'
+// layout, and the traversal resumed from the defer entry's march records
+// (the queue form) or whole (the flat form; every form in the
+// -DGPRT_REPAIR_FULL build).
+template <bool kMerged, bool kResume>
+static auto repair_layout(bool shared) {
+#if GPRT_COUNTING
+  (void)shared;
+  return gprt::shadow_queue_kernel<kMerged, true, kResume>;
+#else
+  return shared ? gprt::shadow_queue_kernel<kMerged, true, kResume>
+                : gprt::shadow_queue_kernel<kMerged, false, kResume>;
+#endif
+}
+static auto repair_entry(bool merged, bool shared, bool resume) {
+#ifdef GPRT_REPAIR_FULL
+  resume = false;
+#endif
+  if (merged) {
+    return resume ? repair_layout<true, true>(shared) : repair_layout<true, false>(shared);
+  }
+  return resume ? repair_layout<false, true>(shared) : repair_layout<false, false>(shared);
+}
+
 // The entries whose residency gprt_scene_residency reports: the pass and
 // the two-phase main pass as gprt_scene_closest launches them, the repair
-// and its instantiation with merged occlusion marches as gprt_shadow_queue
-// launches them.
+// (its queue form) and its instantiation with merged occlusion marches as
+// gprt_shadow_queue launches them.
 enum ResidencyEntry { kEntryPass = 0, kEntryMainPass, kEntryRepair, kEntryRepairMerged };
 
 // The resident blocks per SM and in all of one ResidencyEntry.
@@ -256,8 +295,8 @@ extern "C" int gprt_scene_residency(int num_geometries, int num_materials, int s
                        shared, device, per_sm, total);
     case kEntryRepair:
     case kEntryRepairMerged:
-      return residency(GPRT_PICK2(gprt::shadow_queue_kernel, entry == kEntryRepairMerged, shared),
-                       G, M, shared, device, per_sm, total);
+      return residency(repair_entry(entry == kEntryRepairMerged, shared, true), G, M, shared,
+                       device, per_sm, total);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -282,24 +321,28 @@ extern "C" int gprt_scene_finish(const float* params, const int* layout, const f
 
 // The repair: rays (nsl, npix, 6), idx (nsl, cap) int32 and count (nsl,)
 // int32 (both null: every pixel, cap = npix), active (nsl, npix) bool (may
-// be null), occ (nsl, npix) int32; a grid of cap / 128 blocks per level.
-// ops and shared as for gprt_scene_closest; merged: launch the
-// instantiation with merged occlusion marches.
+// be null), march (nsl, npix) MarchRecord (16 bytes each; the queue form
+// only: with it the traversal resumes from the records, except in the
+// -DGPRT_REPAIR_FULL build), occ (nsl, npix) int32; a grid of cap / 128
+// blocks per level. ops and shared as for gprt_scene_closest; merged:
+// launch the instantiation with merged occlusion marches.
 extern "C" int gprt_shadow_queue(const float* params, const int* layout, const float* tri,
                                  const float* rays, const int* idx, const int* count,
-                                 const bool* active, int* occ, int npix, int nsl, int cap,
-                                 int num_geometries, int num_materials, int shared, int merged,
-                                 unsigned long long* ops, int device, void* stream) {
+                                 const bool* active, const void* march, int* occ, int npix,
+                                 int nsl, int cap, int num_geometries, int num_materials,
+                                 int shared, int merged, unsigned long long* ops, int device,
+                                 void* stream) {
   if (npix <= 0 || nsl <= 0 || (idx == nullptr) != (count == nullptr)
-      || (idx == nullptr && cap != npix)) {
+      || (idx == nullptr && (cap != npix || march != nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const auto kernel = GPRT_PICK2(gprt::shadow_queue_kernel, merged, shared);
+  const auto kernel = repair_entry(merged, shared, march != nullptr);
   size_t shmem;
   cudaError_t err = setup(kernel, cap, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((cap + 127) / 128, nsl), 128, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, rays, idx, count, active, occ, npix, nsl, cap, num_geometries,
+      params, layout, tri, rays, idx, count, active,
+      static_cast<const gprt::MarchRecord*>(march), occ, npix, nsl, cap, num_geometries,
       num_materials, ops);
   return (int)cudaGetLastError();
 }

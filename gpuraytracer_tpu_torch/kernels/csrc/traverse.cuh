@@ -32,7 +32,10 @@
 // carries no cap and no mask. The two-phase scene pass's main pass runs
 // the capped traversal without the kill (kKill), and finish_procedural is
 // its finisher. occluded_merged is the accept-first traversal with the SDF
-// marches merged (GPURT_MERGED_SHADOW).
+// marches merged (GPURT_MERGED_SHADOW). The defer entry's capped occlusion
+// traversal also keeps the record of the march that its cap stopped
+// (kSave), and the occlusion repair continues from it (occluded_resumed)
+// instead of running the traversal again from geometry 0.
 //
 // Parameters: the f32 and int32 buffers of kernels/frame_kernel.py
 // pack_frame, copied to shared memory once per block (load_scene): the
@@ -356,11 +359,13 @@ __device__ __forceinline__ bool unit_box_window(V3 ol, V3 dl, float t_max, float
 // Geometry g's intersector on the local ray over [0, t_max]; *nl is the
 // local normal of a closed-form or mesh hit (a march's is computed by the
 // caller). Returns IntersectBits; kDirtyBit only under kCaps. mesh: the
-// mesh body (GlobalMesh, or the megakernel's staged faces).
-template <bool kCaps, typename Mesh = GlobalMesh>
+// mesh body (GlobalMesh, or the megakernel's staged faces). kSave: the
+// march runs as march_sdf_saved (march_metaballs<kCarrySave>), which writes
+// its carries to *rec where its budget runs out (rec may be null).
+template <bool kCaps, typename Mesh = GlobalMesh, bool kSave = false>
 __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool occlusion,
                          int level, bool cull, CapSpec caps, float* t, V3* nl,
-                         const Mesh& mesh = Mesh{}) {
+                         const Mesh& mesh = Mesh{}, MarchRecord* rec = nullptr) {
   const int* q = s.geo + kGeoStride * g;
   const int kind = q[0], code = q[1];
   if (kind == kAnalytic) {
@@ -369,7 +374,8 @@ __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool 
   }
   if (kind == kVolumetric) {
     const int mb_steps = kCaps && caps.mb < kMetaballSteps ? caps.mb : kMetaballSteps;
-    const int r = march_metaballs(ol, dl, t_max, s.mb, cull, mb_steps, t);
+    const int r = march_metaballs<kSave ? kCarrySave : kCarryNone>(ol, dl, t_max, s.mb, cull,
+                                                                   mb_steps, t, rec);
     if (r == kMarchHit) return kHitBit;
     return kCaps && r == kMarchCapped && mb_steps < kMetaballSteps ? kDirtyBit : 0;
   }
@@ -388,7 +394,8 @@ __device__ int intersect(const Scene& s, int g, V3 ol, V3 dl, float t_max, bool 
     m.capped_hit = m.capped_hit && m.max_steps == plain;
     marks_dirty = min(caps.sdf, q[occlusion ? 5 : 3]) < q[8];
   }
-  const int r = march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t);
+  const int r = kSave ? march_sdf_saved(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t, rec)
+                      : march_sdf(code, ol, dl, t_lo, t_hi, s.sscale[g], m, t);
   if (!kCaps) return march_hit(r, m) ? kHitBit : 0;
   return (march_hit(r, m) ? kHitBit : 0) | (r == kMarchCapped && marks_dirty ? kDirtyBit : 0);
 }
@@ -411,8 +418,10 @@ __device__ __forceinline__ V3 march_normal(const Scene& s, int g, V3 ob, V3 d, f
 // and a dirty lane's normal is not computed (its hit is not used); without
 // it (the two-phase main pass, whose traversal goes on, scene_kernel.py:
 // 1362-1369) the later geometries run against the unchanged best t. mesh:
-// the mesh body (intersect's).
-template <bool kCaps = false, bool kKill = true, typename Mesh = GlobalMesh>
+// the mesh body (intersect's). kSave: the marches run as intersect's kSave
+// form without a record (the defer entry's, whose occlusion marches keep
+// one: one copy of the march serves both traversals).
+template <bool kCaps = false, bool kKill = true, typename Mesh = GlobalMesh, bool kSave = false>
 __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool cull, Hit* h,
                                    CapSpec caps = CapSpec{}, unsigned* dirty = nullptr,
                                    const Mesh& mesh = Mesh{}) {
@@ -426,8 +435,8 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
     V3 nl = v3(0.0f, 0.0f, 0.0f);
     const int kind = s.geo[kGeoStride * g];
     const bool marched = kind == kVolumetric || kind == kSignedDistance;
-    const int r = intersect<kCaps>(s, g, ol, dl, running, false, level, cull, caps, &t, &nl,
-                                   mesh);
+    const int r = intersect<kCaps, Mesh, kSave>(s, g, ol, dl, running, false, level, cull, caps,
+                                                &t, &nl, mesh);
     if (kCaps && (r & kDirtyBit)) {
       *dirty |= dirty_bit(g);
       if (kKill) return;
@@ -447,20 +456,27 @@ __device__ void closest_procedural(const Scene& s, V3 ob, V3 d, int level, bool 
 // geometry with a valid (or capped) hit, or -1. kCaps, kKill: as in
 // closest_procedural; with kKill a march that marks the lane dirty ends the
 // search (with its hit, where the occluded-on-cap rule gives one). mesh: as
-// in closest_procedural.
-template <bool kCaps = false, bool kKill = true, typename Mesh = GlobalMesh>
+// in closest_procedural. kSave (with kCaps and kKill, the defer entry): the
+// march that ends the search writes its record to *rec, with its geometry.
+// first: the search starts at that geometry (the repair's, past the one
+// whose march it resumed).
+template <bool kCaps = false, bool kKill = true, typename Mesh = GlobalMesh, bool kSave = false>
 __device__ int occluded_procedural(const Scene& s, V3 ob, V3 d, float t_max, int level,
                                    CapSpec caps = CapSpec{}, unsigned* dirty = nullptr,
-                                   const Mesh& mesh = Mesh{}) {
-  for (int g = 0; g < s.G; ++g) {
+                                   const Mesh& mesh = Mesh{}, MarchRecord* rec = nullptr,
+                                   int first = 0) {
+  static_assert(!kSave || (kCaps && kKill), "a record is kept of the march that ends the search");
+  for (int g = first; g < s.G; ++g) {
     if (!gate(s, g, ob, d, t_max)) continue;
     V3 ol, dl;
     local_ray(s, g, ob, d, &ol, &dl);
     float t;
     V3 nl;
-    const int r = intersect<kCaps>(s, g, ol, dl, t_max, true, level, true, caps, &t, &nl, mesh);
+    const int r = intersect<kCaps, Mesh, kSave>(s, g, ol, dl, t_max, true, level, true, caps, &t,
+                                                &nl, mesh, rec);
     if (kCaps && (r & kDirtyBit)) {
       *dirty |= dirty_bit(g);
+      if (kSave) rec->g = g;
       if (kKill) return (r & kHitBit) ? g : -1;
     }
     if (r & kHitBit) return g;
@@ -510,12 +526,13 @@ __device__ __forceinline__ int bank_of_code(unsigned codes, int c) {
 // march state is kept. On an H100, turns of one to 16 samples with each
 // march's state in a bank (shared memory or registers) read slower than
 // whole marches, 2 banks faster than 4 or 8, and the function inlined
-// faster than out of line (PERF.md).
+// faster than out of line (PERF.md). first: the geometries before it are
+// not tested (occluded_resumed's).
 __device__ __forceinline__ bool occluded_merged(const Scene& s, V3 ob, V3 d, float t_max,
-                                                int level) {
+                                                int level, int first = 0) {
   const unsigned warp = __activemask();
   bool hit = false;
-  for (int g = 0; g < s.G && !hit; ++g) {
+  for (int g = first; g < s.G && !hit; ++g) {
     if (s.geo[kGeoStride * g] == kSignedDistance || !gate(s, g, ob, d, t_max)) continue;
     V3 ol, dl;
     local_ray(s, g, ob, d, &ol, &dl);
@@ -526,7 +543,7 @@ __device__ __forceinline__ bool occluded_merged(const Scene& s, V3 ob, V3 d, flo
   }
   int bank[kMergeWindow];
   unsigned codes = ~0u;
-  int next = hit ? s.G : 0;  // the next geometry to take into a bank
+  int next = hit ? s.G : first;  // the next geometry to take into a bank
   // Bank k takes the lane's next gated SDF geometry, if any is left.
   auto refill = [&](int k) {
     for (; next < s.G; ++next) {
@@ -566,6 +583,57 @@ __device__ __forceinline__ bool occluded_merged(const Scene& s, V3 ob, V3 d, flo
     if (!hit) refill(k);
   }
   return hit;
+}
+
+// The occlusion march of the geometry of march record rec (an SDF or the
+// metaballs) on BLAS-space ray (ob, d) over [0, t_max] at the level's full
+// budget, as intersect runs it behind the gate, continued from the record:
+// kMarchHit where it occludes (a valid crossing, or a spent budget under
+// the occluded-on-cap rule), else how it ended (kMarchCapped, kMarchMiss);
+// *t the march's t at a crossing or a spent budget.
+__device__ __forceinline__ int resumed_march(const Scene& s, V3 ob, V3 d, float t_max, int level,
+                                             MarchRecord rec, float* t) {
+  const int g = rec.g;
+  const int* q = s.geo + kGeoStride * g;
+  V3 ol, dl;
+  local_ray(s, g, ob, d, &ol, &dl);
+  if (q[0] == kVolumetric) {
+    return march_metaballs<kCarryResume>(ol, dl, t_max, s.mb, true, kMetaballSteps, t, &rec);
+  }
+  float t_lo = 0.0f, t_hi = t_max;
+  const bool windowed = q[kGeoWindowed] != 0;
+  if (windowed && !unit_box_window(ol, dl, t_max, &t_lo, &t_hi)) return kMarchMiss;
+  const MarchSpec m = spec(s, g, true, level, true, windowed);
+  const int r = march_sdf_resumed(q[1], ol, dl, t_lo, t_hi, s.sscale[g], m, t, rec);
+  return march_hit(r, m) ? kMarchHit : r;
+}
+
+// The deferred-shadow mode's occlusion repair on a lane whose status the
+// defer entry's cap left unknown: the accept-first traversal of
+// occluded_procedural (kMerged: occluded_merged) at the level's full
+// budgets, from where the capped search stopped. rec is that search's
+// record (MarchRecord): the geometry whose march the cap stopped, and the
+// march's carries. Every geometry before it was gated and tested without a
+// hit (a capped march that ends within its cap is the full march's prefix,
+// and one that does not marks the lane and ends the search), so the repair
+// continues that march from its carries up to the level's budget, with the
+// occluded-on-cap rule, then takes the geometries after it. The answer is
+// the full traversal's (occluded_procedural from geometry 0): an OR over
+// geometries whose marches are deterministic. The merged form calls
+// occluded_merged on every lane, so that the lanes of a warp enter it
+// together.
+template <bool kMerged>
+__device__ __forceinline__ bool occluded_resumed(const Scene& s, V3 ob, V3 d, float t_max,
+                                                 int level, MarchRecord rec) {
+  const int g = rec.g;
+  float t;
+  const bool hit = resumed_march(s, ob, d, t_max, level, rec, &t) == kMarchHit;
+  if (kMerged) {
+    const bool later = occluded_merged(s, ob, d, t_max, level, hit ? s.G : g + 1);
+    return hit || later;
+  }
+  return hit || occluded_procedural(s, ob, d, t_max, level, CapSpec{}, nullptr, GlobalMesh{},
+                                    nullptr, g + 1) >= 0;
 }
 
 // The two-phase pass's finisher (scene_kernel._finish_tile, :1028-1150) on

@@ -68,7 +68,7 @@ from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 # mode's ``render_frame_resume`` and ``render_frame_dense``).
 # GATED_FALLBACK_LAUNCHES counts the gated plain frame (either
 # instantiation), COMPOSE_LAUNCHES the defer recomposition and BIN_LAUNCHES
-# the queue binning (three kernels per call: histogram, scan, scatter). HOST_SYNCS
+# the queue binning (one kernel per call). HOST_SYNCS
 # counts the compacted modes' reads of a queue's count on the host (the CPU
 # path, and ``debug_count``); QUEUED_LANES the lanes those reads counted
 # (compact: dirty; defer: unknown, summed over levels). On a GPU the bin
@@ -621,8 +621,9 @@ def _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap, c
         dirty = torch.empty((height, width), dtype=torch.int32, device=dev)
         q_args = (_ptr(dirty), null, null, 0)
     else:
+        words = _queue_words(1, 32, dev)
         queue = CompactQueue(torch.empty((cap, QUEUE_ENTRY_WORDS), dtype=torch.int32, device=dev),
-                             torch.empty(1, dtype=torch.int32, device=dev))
+                             words[:1], words[1:])
         q_args = (null, _ptr(queue.entries), _ptr(queue.count), cap)
     _raise_on(lib.gprt_frame_compact(
         *_buffers(pack), _ptr(out), *q_args, width, height, max_depth,
@@ -759,11 +760,13 @@ def _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap
     null = ctypes.c_void_p(None)
     queue = None
     if cap is None:
-        q_args = (null, null, 0)
+        q_args = (null, null, null, 0)
     else:
-        queue = DeferQueue(torch.empty((nsl, cap), dtype=torch.int32, device=dev),
-                           torch.empty(nsl, dtype=torch.int32, device=dev))
-        q_args = (_ptr(queue.idx), _ptr(queue.count), cap)
+        words = _queue_words(nsl, defer_bins(width * height), dev)
+        queue = DeferQueue(torch.empty((nsl, cap), dtype=torch.int32, device=dev), words[:nsl],
+                           torch.empty((nsl, height, width, MARCH_RECORD_WORDS), dtype=torch.int32,
+                                       device=dev), words[nsl:])
+        q_args = (_ptr(queue.rec), _ptr(queue.idx), _ptr(queue.count), cap)
     _raise_on(lib.gprt_frame_defer(
         *_buffers(pack), *(_ptr(p) for p in planes), *q_args, width, height, max_depth,
         pack.num_geometries, pack.num_materials, int(_shared(pack)),
@@ -796,25 +799,56 @@ def _cappable(pack: FramePack, sdf_caps, mb_caps) -> bool:
 # the ray origin and direction, the colour and the throughput at the start
 # of that level.
 QUEUE_ENTRY_WORDS = 16
+# Words (int32) of one march record (csrc/frame_math.cuh MarchRecord, 16
+# bytes): the geometry whose capped occlusion march left a lane's status
+# unknown, the samples it took with its flags, and as float32 bits its t
+# and carry.
+MARCH_RECORD_WORDS = 4
+
+
+def defer_bins(npix: int) -> int:
+    """Keys of the defer queues' binned order over npix pixels: 32 per
+    raster block of 2**15 pixels (``bin_keys``)."""
+    return 32 * ((npix + 32767) >> 15)
+
+
+def _queue_words(nseg: int, nbins: int, dev):
+    """A queue's counts (nseg int32) and the words the main entry zeroes with
+    them (csrc/frame_kernel.cu queue_words): its keys' histogram, the bin
+    entry's cursors and its count of finished blocks."""
+    return torch.empty(nseg + 2 * nseg * nbins + 1, dtype=torch.int32, device=dev)
 
 
 class CompactQueue(NamedTuple):
     """The compact main pass's queue of dirty pixels: ``entries`` (cap, 16)
     int32, one QueueEntry per slot (``queue_entries``), the first
     min(count, cap) of them live; ``count`` (1,) int32, every dirty pixel
-    counted, stored or not."""
+    counted, stored or not. ``bins`` (on a GPU): the 2 * 32 + 1 int32 words
+    after the count, the histogram of the 32 keys of the binned order that
+    the compact entry counted, then the bin entry's cursors and its count of
+    finished blocks (None for the plain version's queue)."""
 
     entries: torch.Tensor
     count: torch.Tensor
+    bins: torch.Tensor | None = None
 
 
 class DeferQueue(NamedTuple):
     """The defer main pass's queues of unknown lanes, one per shadowed
     level: ``idx`` (D-1, cap) int32 raster indices, the first
-    min(count[k], cap) of row k live; ``count`` (D-1,) int32."""
+    min(count[k], cap) of row k live; ``count`` (D-1,) int32. On a GPU also
+    ``rec`` (D-1, H, W, 4) int32, the march record (MARCH_RECORD_WORDS) of
+    each queued pixel, from which the repair resumes (defined only at the
+    unknown lanes), and ``bins``, the 2 * (D-1) * defer_bins(H * W) + 1
+    int32 words after the counts (the keys' histograms that the defer entry
+    counted, the bin entry's cursors and its count of finished blocks). The
+    plain version's queue has neither: its repair runs the whole
+    traversal."""
 
     idx: torch.Tensor
     count: torch.Tensor
+    rec: torch.Tensor | None = None
+    bins: torch.Tensor | None = None
 
 
 class QueueCount(int):
@@ -961,7 +995,8 @@ def bin_queue_plain(queue, sinfo=None):
     if max(counts) <= segs.shape[1]:
         for k, n in enumerate(counts):
             out[k, :n] = segs[k, :n][torch.argsort(keys[k, :n], stable=True)]
-    return type(queue)(out[0] if sinfo is None else out, queue.count)
+    field = "entries" if sinfo is None else "idx"
+    return queue._replace(**{field: out[0] if sinfo is None else out})
 
 
 def bin_queue(queue, sinfo=None, lib=None):
@@ -972,9 +1007,10 @@ def bin_queue(queue, sinfo=None, lib=None):
     ``sinfo`` planes) grouped per level by raster block of 2**15 pixels,
     then the capped geometry, so that a warp of the dense pass or the repair
     marches one geometry. The order is a schedule: the frame does not depend
-    on it. CUDA: the bin entry of csrc/frame_kernel.cu (a histogram of keys,
-    an exclusive scan, a scatter; nothing read back; counted in
-    BIN_LAUNCHES); CPU: the plain version."""
+    on it. CUDA: the bin entry of csrc/frame_kernel.cu, one launch (the
+    queue's main entry counted its keys into ``queue.bins``; each block
+    scans that histogram and scatters its entries; nothing read back;
+    counted in BIN_LAUNCHES); CPU: the plain version."""
     global BIN_LAUNCHES
     slots = queue.entries if sinfo is None else queue.idx
     dev = slots.device
@@ -986,19 +1022,23 @@ def bin_queue(queue, sinfo=None, lib=None):
     nseg = 1 if sinfo is None else slots.shape[0]
     cap = slots.shape[0] if sinfo is None else slots.shape[1]
     npix = 0 if sinfo is None else sinfo.shape[1] * sinfo.shape[2]
-    nbins = 32 if sinfo is None else 32 * ((npix + 32767) >> 15)
+    nbins = 32 if sinfo is None else defer_bins(npix)
     if sinfo is not None and (sinfo.dtype != torch.int32 or sinfo.shape[0] != nseg
                               or sinfo.device != dev or not sinfo.is_contiguous()):
         raise ValueError(f"sinfo: expected contiguous ({nseg}, H, W) int32 planes on {dev}")
+    bins = queue.bins
+    if bins is None or bins.dtype != torch.int32 or tuple(bins.shape) != (2 * nseg * nbins + 1,) \
+            or bins.device != dev or not bins.is_contiguous():
+        raise ValueError(f"queue.bins: expected the ({2 * nseg * nbins + 1},) int32 words that "
+                         f"the queue's main entry counted its keys into, on {dev}")
     out = torch.empty_like(slots)
-    bins = torch.empty(nseg * nbins, dtype=torch.int32, device=dev)
     _raise_on(lib.gprt_queue_bin(
         _ptr(slots), _ptr(out), _ptr(queue.count),
         ctypes.c_void_p(None) if sinfo is None else _ptr(sinfo), _ptr(bins),
         _ptr(_queued_on_device(dev)), nseg, cap, npix, nbins, int(sinfo is not None),
-        *_where(dev)), lib, "queue bin kernels")
+        *_where(dev)), lib, "queue bin kernel")
     BIN_LAUNCHES += 1
-    return type(queue)(out, queue.count)
+    return queue._replace(**{"entries" if sinfo is None else "idx": out})
 
 
 def render_frame_resume_plain(pack: FramePack, queue: CompactQueue, image, *, width: int,
@@ -1104,8 +1144,10 @@ def render_frame_deferred_queue(pack: FramePack, *, width: int, height: int,
     DeferQueue), the planes those of ``render_frame_deferred_main`` and per
     shadowed level the pixels whose status is unknown. CUDA: the defer entry
     appending warp by warp to per-level queues of ``cap`` slots in device
-    memory (append order; counted in DEFER_LAUNCHES; no host sync); CPU:
-    the plain version. Needs max_depth >= 2."""
+    memory (append order; counted in DEFER_LAUNCHES; no host sync), with the
+    record of the march that the cap stopped at each queued pixel and the
+    histogram of the queues' keys; CPU: the plain version. Needs
+    max_depth >= 2."""
     check_pack(pack)
     if max_depth < 2:
         raise ValueError("the deferred-shadow pass needs a shadowed level (max_depth >= 2)")
@@ -1249,8 +1291,9 @@ def render_frame_deferred(pack: FramePack, *, width: int, height: int,
     variants and a status, and queues per shadowed level the lanes whose
     status is unknown (``render_frame_deferred_queue``), grouped by raster
     block and capped geometry (``bin_queue``); the occlusion repair
-    (scene_kernel.shadow_queue_planes) traces them at full budgets into
-    per-level occlusion planes, and ``frame_compose`` sums the levels
+    (scene_kernel.shadow_queue_planes) finishes their occlusion queries at
+    full budgets, each from where the cap stopped it, into per-level
+    occlusion planes, and ``frame_compose`` sums the levels
     in the kernel's association order, acc = term_0; acc = acc + term_1;
     ... The occlusion results are the plain kernel's, so the image agrees
     with it to the last bits of the shading.
@@ -1293,7 +1336,7 @@ def render_frame_deferred(pack: FramePack, *, width: int, height: int,
             img = render_frame_tiles(pack, **kw)
             return (img, QueueCount(sum(counts), True)) if debug_count else img
     queue = bin_queue(queue, planes.sinfo)
-    occ = scene_kernel.shadow_queue_planes(pack, planes.rays, queue.idx, queue.count)
+    occ = scene_kernel.shadow_queue_planes(pack, planes.rays, queue.idx, queue.count, queue.rec)
     img = frame_compose(planes, occ)
     if cpu:
         return (img, QueueCount(sum(counts), False)) if debug_count else img

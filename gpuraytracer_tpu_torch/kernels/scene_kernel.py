@@ -572,7 +572,7 @@ def shadow_queue(pack: frame_kernel.FramePack, rays, active, seg: int, lib=None,
     null = ctypes.c_void_p(None)
     _raise_on(lib.gprt_shadow_queue(
         _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), null, null,
-        _ptr(active), _ptr(occ), seg, n // seg, seg, pack.num_geometries, pack.num_materials,
+        _ptr(active), null, _ptr(occ), seg, n // seg, seg, pack.num_geometries, pack.num_materials,
         _shared(pack), int(merged), frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib,
         "shadow queue kernel")
     if merged:
@@ -588,7 +588,9 @@ def shadow_queue_planes_plain(pack: frame_kernel.FramePack, rays, idx, count, *,
     accept-first ``scene_closest_plain`` pass (``occluded_merged_plain``
     where ``merged``) at level k's plain budgets over the shadow rays of the
     first count[k] pixels of idx[k], written into level k's plane; zeros
-    elsewhere, and everywhere where a count passed the capacity."""
+    elsewhere, and everywhere where a count passed the capacity. It runs the
+    whole traversal from geometry 0 and reads no march record: the
+    yardstick that the resumed repair is held to."""
     nsl, cap = idx.shape
     occ = torch.zeros(rays.shape[:-1], dtype=torch.int32, device=rays.device)
     counts = count.tolist()
@@ -609,20 +611,27 @@ def shadow_queue_planes_plain(pack: frame_kernel.FramePack, rays, idx, count, *,
     return occ
 
 
-def shadow_queue_planes(pack: frame_kernel.FramePack, rays, idx, count, lib=None, ops=None):
+def shadow_queue_planes(pack: frame_kernel.FramePack, rays, idx, count, rec=None, lib=None,
+                        ops=None):
     """The deferred mode's occlusion repair over its device queues
     (frame_kernel.render_frame_deferred_queue): ``rays`` (D-1, H, W, 6) f32,
     the main pass's shadow-ray planes; ``idx`` (D-1, cap) int32, each
     shadowed level's queued pixel indices, and ``count`` (D-1,) int32 their
-    counts. Returns (D-1, H, W) int32 occlusion planes: 1 where a queued
-    pixel's shadow ray is occluded at full budgets, 0 where it is not. Only
-    the queued pixels are defined (what frame_kernel.frame_compose reads);
-    where a count passed cap, none (the gated plain frame replaces the
-    image). CUDA: the queue entry of csrc/scene_kernel.cu, launched over
-    the capacity of every level, reading the counts on the device (no host
-    sync), its merged instantiation where frame_kernel.merges says so
-    (counted in QUEUE_LAUNCHES or MERGED_QUEUE_LAUNCHES); CPU: the plain
-    version."""
+    counts; ``rec`` (D-1, H, W, 4) int32, the defer entry's march record at
+    each queued pixel (DeferQueue.rec; required on a GPU). Returns
+    (D-1, H, W) int32 occlusion planes: 1 where a queued pixel's shadow ray
+    is occluded at full budgets, 0 where it is not. Only the queued pixels
+    are defined (what frame_kernel.frame_compose reads); where a count
+    passed cap, none (the gated plain frame replaces the image). CUDA: the
+    queue entry of csrc/scene_kernel.cu, launched over the capacity of every
+    level, reading the counts on the device (no host sync); each query
+    continues the march that the defer entry's cap stopped from its record
+    and then takes the geometries after it (the answer is the whole
+    traversal's: ``build.load("scene_kernel", repair_full=True)`` runs the
+    whole traversal, for checks); its merged instantiation where
+    frame_kernel.merges says so (counted in QUEUE_LAUNCHES or
+    MERGED_QUEUE_LAUNCHES). CPU: the plain version, which needs no
+    record."""
     global QUEUE_LAUNCHES, MERGED_QUEUE_LAUNCHES
     dev = rays.device
     if rays.dtype != torch.float32 or rays.dim() != 4 or rays.shape[-1] != 6 \
@@ -636,6 +645,12 @@ def shadow_queue_planes(pack: frame_kernel.FramePack, rays, idx, count, lib=None
     if count.dtype != torch.int32 or tuple(count.shape) != (nsl,) or count.device != dev \
             or not count.is_contiguous():
         raise ValueError(f"count: expected a contiguous ({nsl},) int32 tensor on {dev}")
+    want = tuple(rays.shape[:-1]) + (frame_kernel.MARCH_RECORD_WORDS,)
+    if (rec is not None or dev.type != "cpu") and (
+            rec is None or tuple(rec.shape) != want or rec.dtype != torch.int32
+            or rec.device != dev or not rec.is_contiguous()):
+        raise ValueError(f"rec: expected the defer entry's contiguous {want} int32 march "
+                         f"records on {dev}")
     frame_kernel.check_pack(pack)
     if pack.params.device != dev:
         raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
@@ -650,7 +665,8 @@ def shadow_queue_planes(pack: frame_kernel.FramePack, rays, idx, count, lib=None
     merged = frame_kernel.merges(pack)
     _raise_on(lib.gprt_shadow_queue(
         _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(rays), _ptr(idx), _ptr(count),
-        ctypes.c_void_p(None), _ptr(occ), rays.shape[1] * rays.shape[2], nsl, idx.shape[1],
+        ctypes.c_void_p(None), _ptr(rec), _ptr(occ), rays.shape[1] * rays.shape[2], nsl,
+        idx.shape[1],
         pack.num_geometries, pack.num_materials, _shared(pack), int(merged),
         frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "shadow queue kernel")
     if merged:

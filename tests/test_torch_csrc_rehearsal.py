@@ -115,19 +115,23 @@ extern "C" int rh_frame(const float* params, const int* layout, const float* tri
 }
 
 // The compact entry with a queue of `cap` slots (every SDF march capped at
-// `steps`, metaballs uncapped); returns the queue's count.
+// `steps`, metaballs uncapped), counting its 32 keys into bins (2 x 32 + 1
+// int32, zeroed here as the launcher's memset does: the histogram, the bin
+// entry's cursors and its count of finished blocks); returns the queue's
+// count.
 extern "C" int rh_compact(const float* params, const int* layout, const float* tri, float* out,
-                          void* queue, int cap, int width, int height, int max_depth, int G, int M,
-                          int steps) {
+                          void* queue, int* bins, int cap, int width, int height, int max_depth,
+                          int G, int M, int steps) {
   int count = 0;
   blockDim = dim3{1, 1, 1};
   threadIdx = dim3{0, 0, 0};
   const gprt::CapSpec caps{steps, gprt::kMetaballSteps};
+  for (int k = 0; k < 2 * 32 + 1; ++k) bins[k] = 0;
   for (int y = 0; y < height; ++y) {
     for (int x = 0; x < width; ++x) {
       blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
       gprt::frame_compact_kernel<true>(params, layout, tri, reinterpret_cast<float4*>(out), nullptr,
-                                       gprt::DeviceQueue{queue, &count, cap}, width,
+                                       gprt::DeviceQueue{queue, &count, cap, bins, 32}, width,
                                        height, max_depth, G, M, caps, caps, nullptr);
     }
   }
@@ -143,58 +147,56 @@ extern "C" void rh_dense(const float* params, const int* layout, const float* tr
   for (int i = 0; i < cap; ++i) {
     blockIdx = dim3{(unsigned)i, 0, 0};
     gprt::frame_dense_kernel<false, true>(params, layout, tri,
-                                           gprt::DeviceQueue{queue, &count, cap},
+                                           gprt::DeviceQueue{queue, &count, cap, nullptr, 0},
                                            reinterpret_cast<float4*>(out), width, height,
                                            max_depth, G, M, nullptr);
   }
 }
 
 // The defer entry with per-level queues of `cap` slots (occlusion capped at
-// `steps`); counts (max_depth - 1) out.
+// `steps`), the march records of the unknown lanes in march ((max_depth -
+// 1) x width x height MarchRecords; may be null) and the keys counted into
+// bins (2 x (max_depth - 1) x nbins + 1 int32, zeroed here as the
+// launcher's memset does: the histograms, the bin entry's cursors and its
+// count of finished blocks); counts (max_depth - 1) out.
 extern "C" void rh_defer(const float* params, const int* layout, const float* tri, float* lit,
-                         float* shadowed, int* sinfo, float* rays, int* queue, int* counts, int cap,
-                         int width, int height, int max_depth, int G, int M, int steps) {
+                         float* shadowed, int* sinfo, float* rays, void* march, int* queue,
+                         int* counts, int* bins, int cap, int width, int height, int max_depth,
+                         int G, int M, int steps) {
   blockDim = dim3{1, 1, 1};
   threadIdx = dim3{0, 0, 0};
+  const int nsl = max_depth - 1, npix = width * height, nbins = 32 * ((npix + 32767) >> 15);
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
-                           sinfo, rays, width * height};
-  for (int k = 0; k + 1 < max_depth; ++k) counts[k] = 0;
+                           sinfo, rays, static_cast<gprt::MarchRecord*>(march), npix};
+  for (int k = 0; k < nsl; ++k) counts[k] = 0;
+  for (int k = 0; k < 2 * nsl * nbins + 1; ++k) bins[k] = 0;
   for (int y = 0; y < height; ++y) {
     for (int x = 0; x < width; ++x) {
       blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
       gprt::frame_defer_kernel<true>(params, layout, tri, rec,
-                                     gprt::DeviceQueue{queue, counts, cap}, width, height,
-                                     max_depth, G, M, gprt::CapSpec{steps, gprt::kMetaballSteps},
-                                     nullptr);
+                                     gprt::DeviceQueue{queue, counts, cap, bins, nbins}, width,
+                                     height, max_depth, G, M,
+                                     gprt::CapSpec{steps, gprt::kMetaballSteps}, nullptr);
     }
   }
 }
 
-// The bin entry's three kernels over nseg segments of cap slots (defer: int
-// pixel indices with the status planes; else compact QueueEntry slots); the
-// counts are added to *total.
+// The bin entry over nseg segments of cap slots (defer: int pixel indices
+// with the status planes; else compact QueueEntry slots) with bins as the
+// main entry left it (its histograms, zero cursors and count); the counts
+// are added to *total.
 extern "C" void rh_bin(const void* queue, void* out, const int* count, const int* sinfo, int* bins,
                        int nseg, int cap, int npix, int nbins, int defer,
                        unsigned long long* total) {
   blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)cap, (unsigned)nseg, 1};
   threadIdx = dim3{0, 0, 0};
   const gprt::BinQueue b{queue, out, count, sinfo, bins, nseg, cap, npix, nbins};
-  for (int k = 0; k < nseg * nbins; ++k) bins[k] = 0;
-  for (int pass = 0; pass < 3; ++pass) {
-    for (int k = 0; k < nseg; ++k) {
-      if (pass == 1) {
-        blockIdx = dim3{(unsigned)k, 0, 0};
-        gprt::queue_scan_kernel(bins, nbins, count, total);
-        continue;
-      }
-      for (int i = 0; i < cap; ++i) {
-        blockIdx = dim3{(unsigned)i, (unsigned)k, 0};
-        const auto kernel = pass == 0 ? (defer ? gprt::queue_bin_kernel<true, false>
-                                               : gprt::queue_bin_kernel<false, false>)
-                                      : (defer ? gprt::queue_bin_kernel<true, true>
-                                               : gprt::queue_bin_kernel<false, true>);
-        kernel(b);
-      }
+  const auto kernel = defer ? gprt::queue_bin_kernel<true> : gprt::queue_bin_kernel<false>;
+  for (int k = 0; k < nseg; ++k) {
+    for (int i = 0; i < cap; ++i) {
+      blockIdx = dim3{(unsigned)i, (unsigned)k, 0};
+      kernel(b, total);
     }
   }
 }
@@ -236,10 +238,12 @@ extern "C" int rh_scene(const float* params, const int* layout, const float* tri
 
 namespace {
 
-// One warp of the merged occlusion march: lane l marches ray ray_of[l].
+// One warp of the merged occlusion march: lane l marches ray ray_of[l],
+// resumed from its march record where recs is given.
 struct MergedWarp {
   const gprt::Scene* s;
   const float* rays;
+  const gprt::MarchRecord* recs;
   const int* ray_of;
   int* occ;
   int level;
@@ -249,8 +253,12 @@ void merged_lane(int lane, void* arg) {
   const MergedWarp* w = static_cast<const MergedWarp*>(arg);
   const int i = w->ray_of[lane];
   const float* r = w->rays + 6 * i;
-  w->occ[i] = gprt::occluded_merged(*w->s, gprt::v3(r[0], r[1], r[2]), gprt::v3(r[3], r[4], r[5]),
-                                    gprt::kRayTMax, w->level) ? 1 : 0;
+  const gprt::V3 ob = gprt::v3(r[0], r[1], r[2]), d = gprt::v3(r[3], r[4], r[5]);
+  w->occ[i] = (w->recs != nullptr
+                   ? gprt::occluded_resumed<true>(*w->s, ob, d, gprt::kRayTMax, w->level, w->recs[i])
+                   : gprt::occluded_merged(*w->s, ob, d, gprt::kRayTMax, w->level))
+                  ? 1
+                  : 0;
 }
 
 }  // namespace
@@ -259,12 +267,13 @@ void merged_lane(int lane, void* arg) {
 // (n x 6) at `level`: merged, the merged march on warps of emulated lanes
 // under the turn schedule `seed` (each warp takes 1-32 rays on lanes drawn
 // at random, and its lanes enter in one to three groups, so that the lane
-// that leads each turn, and with it the order of turns, follows the seed);
-// else the sequential traversal (occluded_procedural), a ray at a time.
-// Returns the warps whose lanes broke the rules of a vote.
+// that leads each turn, and with it the order of turns, follows the seed),
+// resumed from the rays' march records where rec is given (the merged
+// repair); else the sequential traversal (occluded_procedural), a ray at a
+// time. Returns the warps whose lanes broke the rules of a vote.
 extern "C" int rh_occluded(const float* params, const int* layout, const float* tri,
-                           const float* rays, int* occ, int n, int G, int M, int shared,
-                           int level, int merged, unsigned seed) {
+                           const float* rays, const void* rec, int* occ, int n, int G, int M,
+                           int shared, int level, int merged, unsigned seed) {
   blockDim = dim3{1, 1, 1};
   blockIdx = dim3{0, 0, 0};
   threadIdx = dim3{0, 0, 0};
@@ -294,7 +303,7 @@ extern "C" int rh_occluded(const float* params, const int* layout, const float* 
       groups[rng() % split] |= 1u << lanes[j];
     }
     unsigned* end = std::remove(groups, groups + split, 0u);
-    MergedWarp w{&s, rays, ray_of, occ, level};
+    MergedWarp w{&s, rays, static_cast<const gprt::MarchRecord*>(rec), ray_of, occ, level};
     faults += !rh::run_warp(groups, (int)(end - groups), merged_lane, &w);
     i += c;
   }
@@ -303,19 +312,80 @@ extern "C" int rh_occluded(const float* params, const int* layout, const float* 
 }
 
 // The repair over device queues: nsl levels of cap slots (idx and count
-// null: every pixel, cap = npix, with the active mask).
+// null: every pixel, cap = npix, with the active mask); with march (the
+// defer entry's records) the queue form that resumes from them, else the
+// whole traversal (the flat form, and the queue form of the
+// -DGPRT_REPAIR_FULL build).
 extern "C" void rh_queue_planes(const float* params, const int* layout, const float* tri,
                                 const float* rays, const int* idx, const int* count,
-                                const bool* active, int* occ, int npix, int nsl, int cap, int G,
-                                int M) {
+                                const bool* active, const void* march, int* occ, int npix, int nsl,
+                                int cap, int G, int M) {
   blockDim = dim3{1, 1, 1};
   threadIdx = dim3{0, 0, 0};
+  const auto* rec = static_cast<const gprt::MarchRecord*>(march);
+  const auto kernel = rec != nullptr ? gprt::shadow_queue_kernel<false, true, true>
+                                     : gprt::shadow_queue_kernel<false, true, false>;
   for (int k = 0; k < nsl; ++k) {
     for (int i = 0; i < cap; ++i) {
       blockIdx = dim3{(unsigned)i, (unsigned)k, 0};
-      gprt::shadow_queue_kernel<false, true>(params, layout, tri, rays, idx, count, active, occ,
-                                             npix, nsl, cap, G, M, nullptr);
+      kernel(params, layout, tri, rays, idx, count, active, rec, occ, npix, nsl, cap, G, M,
+             nullptr);
     }
+  }
+}
+
+// The defer entry's capped occlusion search on n BLAS-space shadow rays (n
+// x 6) at `level`, occlusion marches capped at `steps` (metaballs at
+// mb_steps), as the defer form runs it after the plane test: status[i] 1
+// occluded, 2 unknown (the cap stopped a march), 0 lit, and at an unknown
+// ray its march record in rec[i]. Then the repair's query on every unknown
+// ray, resumed from its record (resumed[i]) and whole from geometry 0
+// (whole[i]); -1 on the others. At an unknown ray also the capped
+// geometry's march at the level's full budget, resumed and whole: how each
+// ended (march[2 * i], march[2 * i + 1]: MarchResult, kMarchHit where it
+// occludes) and its t (t[2 * i], t[2 * i + 1]; NaN where it missed).
+// shared: the tables' layout.
+extern "C" void rh_resume(const float* params, const int* layout, const float* tri,
+                          const float* rays, int* status, void* rec, int* resumed, int* whole,
+                          int* march, float* t, int n, int G, int M, int shared, int level,
+                          int steps, int mb_steps) {
+  blockDim = dim3{1, 1, 1};
+  blockIdx = dim3{0, 0, 0};
+  threadIdx = dim3{0, 0, 0};
+  const gprt::Scene s = shared ? gprt::load_scene<false, true>(params, layout, tri, G, M, gprt::smem)
+                               : gprt::load_scene<false, false>(params, layout, tri, G, M, gprt::smem);
+  auto* recs = static_cast<gprt::MarchRecord*>(rec);
+  for (int i = 0; i < n; ++i) {
+    const float* r = rays + 6 * i;
+    const gprt::V3 ob = gprt::v3(r[0], r[1], r[2]), d = gprt::v3(r[3], r[4], r[5]);
+    unsigned dirty = 0;
+    const bool hit = gprt::occluded_procedural<true, true, gprt::GlobalMesh, true>(
+                         s, ob, d, gprt::kRayTMax, level, gprt::CapSpec{steps, mb_steps}, &dirty,
+                         gprt::GlobalMesh{}, recs + i) >= 0;
+    status[i] = hit ? 1 : (dirty != 0 ? 2 : 0);
+    resumed[i] = whole[i] = -1;
+    if (status[i] != 2) continue;
+    resumed[i] = gprt::occluded_resumed<false>(s, ob, d, gprt::kRayTMax, level, recs[i]);
+    whole[i] = gprt::occluded_procedural(s, ob, d, gprt::kRayTMax, level) >= 0;
+    // The capped geometry's march, resumed, and whole from its start as
+    // intersect runs it.
+    float tk[2] = {NAN, NAN};
+    march[2 * i] = gprt::resumed_march(s, ob, d, gprt::kRayTMax, level, recs[i], tk);
+    const int g = recs[i].g, *q = s.geo + gprt::kGeoStride * g;
+    gprt::V3 ol, dl;
+    gprt::local_ray(s, g, ob, d, &ol, &dl);
+    if (q[0] == gprt::kVolumetric) {
+      march[2 * i + 1] = gprt::march_metaballs(ol, dl, gprt::kRayTMax, s.mb, true,
+                                               gprt::kMetaballSteps, tk + 1);
+    } else {
+      float t_lo = 0.0f, t_hi = gprt::kRayTMax;
+      const bool windowed = q[gprt::kGeoWindowed] != 0;
+      if (windowed) gprt::unit_box_window(ol, dl, gprt::kRayTMax, &t_lo, &t_hi);
+      const gprt::MarchSpec m = gprt::spec(s, g, true, level, true, windowed);
+      const int r = gprt::march_sdf(q[1], ol, dl, t_lo, t_hi, s.sscale[g], m, tk + 1);
+      march[2 * i + 1] = gprt::march_hit(r, m) ? gprt::kMarchHit : r;
+    }
+    for (int k = 0; k < 2; ++k) t[2 * i + k] = march[2 * i + k] == gprt::kMarchMiss ? NAN : tk[k];
   }
 }
 """,
@@ -420,7 +490,16 @@ def libs():
         if name in CONTRACTED and not fma:
             continue
         text = _device_part(name) + entry
-        tag = hashlib.sha256(headers + text.encode()).hexdigest()[:16]
+        # The contracted builds contract as the shipped CUDA build does; the
+        # others repeat the plain arithmetic. -fno-thread-jumps: g++ would
+        # otherwise thread the first pass of a loop whose carries start as
+        # constants into a copy of its own and contract that copy apart (a
+        # march started from a record would then take other roundings than
+        # the march from its start); NVVM's jump threading does not cross a
+        # loop header.
+        fp = (["-O2", "-mfma", "-ffp-contract=fast", "-fno-thread-jumps"] if name in CONTRACTED
+              else ["-O1", "-ffp-contract=off"])
+        tag = hashlib.sha256(headers + text.encode() + " ".join(fp).encode()).hexdigest()[:16]
         paths[name] = os.path.join(BUILD, f"{name}_{tag}.so")
         if os.path.exists(paths[name]):
             continue
@@ -428,10 +507,6 @@ def libs():
         fd, cpp = tempfile.mkstemp(suffix=".cpp", dir=BUILD)
         with os.fdopen(fd, "w") as f:
             f.write(text)
-        # The contracted builds contract as the shipped CUDA build does; the
-        # others repeat the plain arithmetic.
-        fp = (["-O2", "-mfma", "-ffp-contract=fast"] if name in CONTRACTED
-              else ["-O1", "-ffp-contract=off"])
         cmd = [gxx, "-std=c++17", *fp, "-fPIC", "-shared", "-w", "-I",
                os.path.join(BUILD, "include"), "-I", CSRC, "-o", cpp[:-4] + ".so", cpp]
         procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), cpp)
@@ -589,8 +664,9 @@ def test_compact_queue_and_resume_match_plain(libs):
     lib.rh_compact.restype = ctypes.c_int
     img = np.full((MODE_H, MODE_W, 4), np.nan, np.float32)
     entries = np.full((cap, frame_kernel.QUEUE_ENTRY_WORDS), -7, np.int32)
-    count = lib.rh_compact(_p(params), _p(layout), _p(tri), _p(img), _p(entries), cap, MODE_W,
-                           MODE_H, 3, g, m, MODE_CAP_STEPS)
+    bins = np.full(2 * 32 + 1, -7, np.int32)
+    count = lib.rh_compact(_p(params), _p(layout), _p(tri), _p(img), _p(entries), _p(bins), cap,
+                           MODE_W, MODE_H, 3, g, m, MODE_CAP_STEPS)
     p_img, p_queue = frame_kernel.render_frame_compact_main_plain(
         pack, width=MODE_W, height=MODE_H, budget_cap=MODE_CAP_STEPS, cap=cap)
     assert 0 < count == int(p_queue.count[0]) <= cap
@@ -601,13 +677,24 @@ def test_compact_queue_and_resume_match_plain(libs):
     g_state = got[:, 2:].contiguous().view(torch.float32)
     w_state = want[:, 2:].contiguous().view(torch.float32)
     assert float((g_state - w_state).abs().max()) <= TOL
-    # The bin entry keeps the entries, orders them by key, and adds the
-    # count to the running total.
-    binned = np.full_like(entries, -7)
-    counts, bins = np.array([count], np.int32), np.zeros(32, np.int32)
+    # The compact entry counted the entries' keys (the histogram the bin
+    # entry scans); the rest of the words are zero.
+    assert np.array_equal(bins[:32], np.bincount(entries[:count, 1] >> 8, minlength=32))
+    assert not bins[32:].any()
+    # The bin entry keeps the entries, orders them by key, adds the count to
+    # the running total and leaves its cursors at zero, so that binning the
+    # queue again gives the same order.
+    counts = np.array([count], np.int32)
     total = np.array([5], np.uint64)
-    lib.rh_bin(_p(entries), _p(binned), _p(counts), None, _p(bins), 1, cap, 0, 32, 0, _p(total))
-    assert int(total[0]) == 5 + count
+    binned = np.full_like(entries, -7)
+    for rep in range(2):
+        again = np.full_like(entries, -7)
+        lib.rh_bin(_p(entries), _p(again), _p(counts), None, _p(bins), 1, cap, 0, 32, 0,
+                   _p(total))
+        assert not bins[32:].any()
+        assert rep == 0 or np.array_equal(again, binned)
+        binned = again
+    assert int(total[0]) == 5 + 2 * count
     keys = binned[:count, 1] >> 8
     assert (np.diff(keys) >= 0).all()
     assert np.array_equal(binned[:count][np.argsort(binned[:count, 0])], got.numpy())
@@ -627,34 +714,55 @@ def test_compact_queue_and_resume_match_plain(libs):
     assert np.array_equal(img.reshape(-1, 4)[pix], ref.reshape(-1, 4)[pix])
 
 
+def _defer_planes(nsl, h, w, nbins, guard=0):
+    """Zeroed lit, shadowed, sinfo, rays planes of the defer entry, its march
+    records (-7), and its queue words (-3, with ``guard`` words of -3 on each
+    side)."""
+    return (np.zeros((nsl + 1, h, w, 4), np.float32), np.zeros((nsl, h, w, 4), np.float32),
+            np.zeros((nsl, h, w), np.int32), np.zeros((nsl, h, w, 6), np.float32),
+            np.full((nsl, h, w, frame_kernel.MARCH_RECORD_WORDS), -7, np.int32),
+            np.full(2 * nsl * nbins + 1 + 2 * guard, -3, np.int32))
+
+
 def test_defer_queues_repair_and_compose_match_plain(libs):
-    # The defer entry's per-level queues hold the plain builder's pixels, the
-    # repair over them gives the plain repair's answers, the compose entry
-    # is its plain version bit for bit on the same planes, and the frame
-    # passes the image bar against the plain frame.
+    # The defer entry's per-level queues hold the plain builder's pixels and
+    # it counts their keys; the repair over them, resumed from the entry's
+    # march records, gives the plain repair's answers (the whole traversal)
+    # on every unknown pixel; the compose entry is its plain version bit for
+    # bit on the same planes, and the frame passes the image bar against the
+    # plain frame.
     pack, params, layout, tri = _mode_inputs()
     g, m = pack.num_geometries, pack.num_materials
     depth, nsl, npix = 3, 2, MODE_W * MODE_H
     cap = frame_kernel.queue_capacity(MODE_W, MODE_H)
-    lit = np.zeros((depth, MODE_H, MODE_W, 4), np.float32)
-    shadowed = np.zeros((nsl, MODE_H, MODE_W, 4), np.float32)
-    sinfo = np.zeros((nsl, MODE_H, MODE_W), np.int32)
-    rays = np.zeros((nsl, MODE_H, MODE_W, 6), np.float32)
+    nbins = frame_kernel.defer_bins(npix)
+    lit, shadowed, sinfo, rays, march, bins = _defer_planes(nsl, MODE_H, MODE_W, nbins)
     queue = np.full((nsl, cap), -7, np.int32)
     counts = np.zeros(nsl, np.int32)
     libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
-                                  _p(sinfo), _p(rays), _p(queue), _p(counts), cap, MODE_W, MODE_H,
-                                  depth, g, m, MODE_CAP_STEPS)
+                                  _p(sinfo), _p(rays), _p(march), _p(queue), _p(counts), _p(bins),
+                                  cap, MODE_W, MODE_H, depth, g, m, MODE_CAP_STEPS)
     p_planes, p_queue = frame_kernel.render_frame_deferred_queue_plain(
         pack, width=MODE_W, height=MODE_H, shadow_cap=MODE_CAP_STEPS, cap=cap)
     assert np.array_equal(counts, p_queue.count.numpy()) and counts.min() > 0
+    unknown = (sinfo & 3) == 2
     for k in range(nsl):
         assert np.array_equal(np.sort(queue[k, :counts[k]]), p_queue.idx[k, :counts[k]].numpy())
+    # A record at every unknown lane, naming the capped geometry whose bit
+    # the status word holds, and nowhere else.
+    rec_g = march[..., 0]
+    assert (rec_g[~unknown] == -7).all()
+    assert np.array_equal(1 << rec_g[unknown], (sinfo[unknown] >> 2) & 0x3FFFFFFF)
+    # The entry counted each level's keys.
+    keys_in = frame_kernel.bin_keys(frame_kernel.DeferQueue(torch.from_numpy(queue),
+                                                            torch.from_numpy(counts)),
+                                    torch.from_numpy(sinfo)).numpy()
+    for k in range(nsl):
+        assert np.array_equal(bins[k * nbins:(k + 1) * nbins],
+                              np.bincount(keys_in[k, :counts[k]], minlength=nbins))
     # The bin entry keeps each level's pixels and orders them by block, then
     # capped geometry.
     binned = np.full_like(queue, -7)
-    nbins = 32 * ((npix + 32767) >> 15)
-    bins = np.zeros(nsl * nbins, np.int32)
     total = np.zeros(1, np.uint64)
     libs["frame_kernel"].rh_bin(_p(queue), _p(binned), _p(counts), _p(sinfo), _p(bins), nsl, cap,
                                 npix, nbins, 1, _p(total))
@@ -668,11 +776,11 @@ def test_defer_queues_repair_and_compose_match_plain(libs):
     queue = binned
     occ = np.full((nsl, MODE_H, MODE_W), -7, np.int32)
     libs["scene_kernel"].rh_queue_planes(_p(params), _p(layout), _p(tri), _p(rays), _p(queue),
-                                         _p(counts), None, _p(occ), npix, nsl, cap, g, m)
+                                         _p(counts), None, _p(march), _p(occ), npix, nsl, cap, g,
+                                         m)
     planes = trace.DeferPlanes(*(torch.from_numpy(x) for x in (lit, shadowed, sinfo, rays)))
     p_occ = scene_kernel.shadow_queue_planes_plain(pack, planes.rays, torch.from_numpy(queue),
                                                    torch.from_numpy(counts))
-    unknown = (sinfo & 3) == 2
     assert np.array_equal(occ[unknown], p_occ.numpy()[unknown])
     assert (occ[~unknown] == -7).all()
     out = np.full((MODE_H, MODE_W, 4), np.nan, np.float32)
@@ -696,27 +804,29 @@ def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
     g, m = pack.num_geometries, pack.num_materials
     depth, nsl, npix = 3, 2, MODE_W * MODE_H
     cap = frame_kernel.queue_capacity(MODE_W, MODE_H)
-    lit = np.zeros((depth, MODE_H, MODE_W, 4), np.float32)
-    shadowed = np.zeros((nsl, MODE_H, MODE_W, 4), np.float32)
-    sinfo = np.zeros((nsl, MODE_H, MODE_W), np.int32)
-    rays = np.zeros((nsl, MODE_H, MODE_W, 6), np.float32)
+    nbins = frame_kernel.defer_bins(npix)
+    guard = 64
+    lit, shadowed, sinfo, rays, march, bins = _defer_planes(nsl, MODE_H, MODE_W, nbins, guard)
+    words = 2 * nsl * nbins + 1
     queue = np.full((nsl, cap), -7, np.int32)
     counts = np.zeros(nsl, np.int32)
     libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
-                                  _p(sinfo), _p(rays), _p(queue), _p(counts), cap, MODE_W, MODE_H,
-                                  depth, g, m, MODE_CAP_STEPS)
+                                  _p(sinfo), _p(rays), _p(march), _p(queue), _p(counts),
+                                  _p(bins[guard:]), cap, MODE_W, MODE_H, depth, g, m,
+                                  MODE_CAP_STEPS)
     unknown = (sinfo & 3) == 2
     assert counts.min() > 0 and (unknown & (((sinfo >> 2) & 0x3FFFFFFF) == 0)).any()
-    nbins = 32 * ((npix + 32767) >> 15)
-    guard = 64
-    bins = np.full(nsl * nbins + 2 * guard, -3, np.int32)
+    # The records name the capped geometries past 29 that the status word
+    # cannot hold.
+    assert (march[..., 0][unknown] >= 30).any()
     flat = np.full(nsl * cap + 2 * guard, -9, np.int32)
     out = flat[guard:guard + nsl * cap]
     total = np.zeros(1, np.uint64)
     libs["frame_kernel"].rh_bin(_p(queue), _p(out), _p(counts), _p(sinfo), _p(bins[guard:]), nsl,
                                 cap, npix, nbins, 1, _p(total))
     assert int(total[0]) == counts.sum()
-    assert (bins[:guard] == -3).all() and (bins[guard + nsl * nbins:] == -3).all()
+    assert (bins[:guard] == -3).all() and (bins[guard + words:] == -3).all()
+    assert not bins[guard + nsl * nbins:guard + words].any()
     assert (flat[:guard] == -9).all() and (flat[guard + nsl * cap:] == -9).all()
     out = out.reshape(nsl, cap)
     keys = frame_kernel.bin_keys(frame_kernel.DeferQueue(torch.from_numpy(out.copy()),
@@ -732,7 +842,7 @@ def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
     active[:, ::2] = True
     occ = np.full((nsl, MODE_H, MODE_W), -7, np.int32)
     libs["scene_kernel"].rh_queue_planes(_p(params), _p(layout), _p(tri), _p(rays), None, None,
-                                         _p(active), _p(occ), npix, nsl, npix, g, m)
+                                         _p(active), None, _p(occ), npix, nsl, npix, g, m)
     p_occ = scene_kernel.shadow_queue_plain(pack, torch.from_numpy(rays.reshape(-1, 6)),
                                             torch.from_numpy(active.reshape(-1)), npix)
     assert np.array_equal(occ.reshape(-1), p_occ.numpy())
@@ -760,7 +870,9 @@ def _shadow_rays(libs, pack, depth=4):
     rays = np.zeros((nsl, npix, 6), np.float32)
     bufs = [_np(pack.params), _np(pack.layout), _tri(pack), np.zeros((depth, npix, 4), np.float32),
             np.zeros((nsl, npix, 4), np.float32), np.zeros((nsl, npix), np.int32), rays,
-            np.zeros((nsl, npix), np.int32), np.zeros(nsl, np.int32)]
+            np.zeros((nsl, npix, frame_kernel.MARCH_RECORD_WORDS), np.int32),
+            np.zeros((nsl, npix), np.int32), np.zeros(nsl, np.int32),
+            np.zeros(2 * nsl * frame_kernel.defer_bins(npix) + 1, np.int32)]
     libs["frame_kernel"].rh_defer(*(_p(b) for b in bufs), npix, W, H, depth,
                                   pack.num_geometries, pack.num_materials, 1 << 20)
     return [np.ascontiguousarray(r[np.abs(r[:, 3:]).sum(-1) > 0]) for r in rays]
@@ -790,13 +902,13 @@ def test_merged_march_matches_sequential_in_any_turn_order(libs, name):
         for b in builds:
             for shared in (1, 0):
                 seq = np.full(n, -7, np.int32)
-                libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(rays), _p(seq), n, g, m,
-                                    shared, level, 0, 0)
+                libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(rays), None, _p(seq), n, g,
+                                    m, shared, level, 0, 0)
                 assert set(np.unique(seq)) <= {0, 1}
                 occluded += int(seq.sum())
                 for seed in MERGE_SEEDS:
                     got = np.full(n, -7, np.int32)
-                    faults = libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(rays),
+                    faults = libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(rays), None,
                                                  _p(got), n, g, m, shared, level, 1, seed)
                     assert faults == 0, f"{b} level {level} seed {seed}: {faults} warps faulted"
                     differ = int((got != seq).sum())
@@ -804,6 +916,72 @@ def test_merged_march_matches_sequential_in_any_turn_order(libs, name):
                                          f"{differ} of {n} rays differ")
     assert levels[0].shape[0] > 0 and levels[1].shape[0] > 0
     assert 0 < occluded
+
+
+# The caps of the resumed repair's cases: (SDF, metaball) samples.
+RESUME_CAPS = ((MODE_CAP_STEPS, 128), (MODE_CAP_STEPS, MODE_CAP_STEPS))
+
+
+@pytest.mark.parametrize("name", ["builtin", "fractal_mandelbulb_julia_1080p",
+                                  "padded_sdf_showcase"])
+def test_resumed_repair_equals_the_whole_traversal(libs, name):
+    # The defer entry's capped occlusion search (rh_resume: the search of
+    # the defer form after the plane test, SDF marches capped at 8 samples,
+    # metaballs uncapped or capped at 8) leaves an unknown status and a
+    # march record on the rays whose march it stopped; the repair resumed
+    # from the record gives the whole traversal's answer on every such ray,
+    # at levels 0 and 1 (the level-0 and bounce budgets), in both table
+    # layouts, built as the plain arithmetic and contracted as the shipped
+    # CUDA build (where the CPU has FMA); so does the merged repair on warps
+    # of emulated lanes under seeded turn schedules, with no fault in a
+    # vote. padded_sdf_showcase(28): the capped geometries lie at 28-34, past
+    # the status word's mask, and the record names them exactly.
+    pack = frame_kernel.pack_frame(_merge_scene(name))
+    g, m = pack.num_geometries, pack.num_materials
+    levels = _shadow_rays(libs, pack)[:2]
+    params, layout, tri = _np(pack.params), _np(pack.layout), _tri(pack)
+    builds = [b for b in ("scene_kernel", "scene_kernel_fma") if b in libs]
+    unknown = occluded = capped = 0
+    for level, rays in enumerate(levels):
+        n = rays.shape[0]
+        for b in builds:
+            for shared in (1, 0):
+                for sdf_cap, mb_cap in RESUME_CAPS:
+                    status, resumed, whole = (np.full(n, -7, np.int32) for _ in range(3))
+                    rec = np.full((n, frame_kernel.MARCH_RECORD_WORDS), -7, np.int32)
+                    march = np.full((n, 2), -7, np.int32)
+                    t = np.full((n, 2), -7.0, np.float32)
+                    libs[b].rh_resume(_p(params), _p(layout), _p(tri), _p(rays), _p(status),
+                                      _p(rec), _p(resumed), _p(whole), _p(march), _p(t), n, g, m,
+                                      shared, level, sdf_cap, mb_cap)
+                    u = status == 2
+                    where = f"{b} shared={shared} level {level} caps {sdf_cap}/{mb_cap}"
+                    differ = int((resumed[u] != whole[u]).sum())
+                    assert differ == 0, f"{where}: {differ} of {int(u.sum())} rays differ"
+                    # The capped geometry's march, resumed, ends as the whole
+                    # march does, at the same t bit for bit.
+                    ends = march[u]
+                    assert np.array_equal(ends[:, 0], ends[:, 1]), f"{where}: march ends differ"
+                    tu = t[u]
+                    assert np.array_equal(tu[:, 0], tu[:, 1], equal_nan=True), f"{where}: t differs"
+                    capped += int((ends[:, 1] == 2).sum())
+                    assert set(np.unique(whole[u])) <= {0, 1}
+                    unknown += int(u.sum())
+                    occluded += int(whole[u].sum())
+                    if name == "padded_sdf_showcase":
+                        assert (rec[u, 0] >= 30).any(), where
+                    ru = np.ascontiguousarray(rays[u])
+                    rec_u = np.ascontiguousarray(rec[u])
+                    for seed in MERGE_SEEDS[:2]:
+                        got = np.full(ru.shape[0], -7, np.int32)
+                        faults = libs[b].rh_occluded(_p(params), _p(layout), _p(tri), _p(ru),
+                                                     _p(rec_u), _p(got), ru.shape[0], g, m,
+                                                     shared, level, 1, seed)
+                        assert faults == 0, f"{where} seed {seed}: {faults} warps faulted"
+                        assert np.array_equal(got, whole[u]), f"{where} seed {seed}: merged"
+    # Marches that spend the full budget (where a sample more or less in a
+    # record would show) occur in the builtin and fractal scenes' cases.
+    assert 0 < occluded < unknown and (capped > 0 or name == "padded_sdf_showcase")
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,13 @@ sets and counts, and the bin kernels its key order; a frame in each mode complet
 for bit in the --fmad=false build; an overflowing frame is the plain
 kernel's; the deferred frame of a scene whose marches lie past geometry 29
 is the plain kernel's within 4e-6 (--fmad=false), and the repair without a
-queue (``scene_kernel.shadow_queue``) clears its inactive entries.
+queue (``scene_kernel.shadow_queue``) clears its inactive entries. The
+repair resumed from the defer entry's march records gives the occlusion
+planes of the full-traversal build (-DGPRT_REPAIR_FULL) bit for bit, and
+the deferred frame that build's frame, in both contraction builds, merged
+or not (builtin 1080p, the fractal scene, padded_sdf_showcase(28)); the
+one-launch bin gives the plain version's key order and each segment's set
+on both modes' 1080p queues, also when the same queue is binned again.
 """
 
 import numpy as np
@@ -315,3 +321,87 @@ def test_deferred_frame_past_geometry_29_is_the_plain_kernels_on_cuda(cuda_devic
     p_occ = scene_kernel.shadow_queue_plain(pack, rays, active, seg)
     assert bool(occ[active].any()) and not bool(occ[~active].any())
     assert float((occ == p_occ).float().mean()) >= 0.99
+
+
+def _defer_scene(name, w, h, dev):
+    """(pack, max_depth) of a scene of the resumed repair's checks."""
+    if name == "padded":
+        scene = scenes.padded_sdf_showcase(PAD).build(w / h, T_ANIM, device=dev)
+        return frame_kernel.pack_frame(scene), scenes.get_config("sdf_primitives_720p").max_depth
+    if name == "builtin":
+        return cuda_pack(dev, w, h), 3
+    cfg = scenes.get_config(name)
+    return frame_kernel.pack_frame(cfg.build(w / h, T_ANIM, device=dev)), cfg.max_depth
+
+
+RESUME_CASES = [("builtin", 1920, 1080), ("fractal_mandelbulb_julia_1080p", 320, 180),
+                ("padded", 160, 90)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmad", [True, False], ids=["fmad", "no_fmad"])
+@pytest.mark.parametrize("name, w, h", RESUME_CASES, ids=[c[0] for c in RESUME_CASES])
+def test_resumed_repair_equals_the_full_traversal_build_on_cuda(cuda_device, monkeypatch, fmad,
+                                                                 name, w, h):
+    # The repair resumed from the defer entry's march records gives the
+    # occlusion planes of the -DGPRT_REPAIR_FULL build (the whole traversal
+    # from geometry 0, the parent's repair) on every queued pixel, bit for
+    # bit, in both contraction builds, sequential and merged
+    # (GPURT_MERGED_SHADOW=1, which equals its twin); and the deferred frame
+    # is the full-traversal build's frame bit for bit.
+    pack, depth = _defer_scene(name, w, h, cuda_device)
+    kw = dict(width=w, height=h, max_depth=depth)
+    real = build.load
+    lib = real("scene_kernel", fmad=fmad)
+    full = real("scene_kernel", fmad=fmad, repair_full=True)
+    monkeypatch.setattr(build, "load", lambda n, **k: real(n, **{**k, "fmad": fmad}))
+    monkeypatch.delenv("GPURT_MERGED_SHADOW", raising=False)
+    cap = frame_kernel.queue_capacity(w, h)
+    planes, dq = frame_kernel.render_frame_deferred_queue(pack, shadow_cap=32, cap=cap, **kw)
+    dq = frame_kernel.bin_queue(dq, planes.sinfo)
+    unknown = (planes.sinfo & 3) == 2
+    assert bool(unknown.any()) and not bool((dq.count > cap).any())
+    occ = {}
+    for merged in (False, True):
+        if merged:
+            monkeypatch.setenv("GPURT_MERGED_SHADOW", "1")
+        for label, library in (("resumed", lib), ("full", full)):
+            occ[label, merged] = scene_kernel.shadow_queue_planes(
+                pack, planes.rays, dq.idx, dq.count, dq.rec, lib=library)
+        monkeypatch.delenv("GPURT_MERGED_SHADOW", raising=False)
+    want = occ["full", False][unknown]
+    for key, got in occ.items():
+        assert torch.equal(got[unknown], want), key
+    assert 0 < int(want.sum()) < want.numel()
+    img = frame_kernel.render_frame_deferred(pack, shadow_cap=32, **kw)
+    monkeypatch.setattr(build, "load", lambda n, **k: real(
+        n, **{**k, "fmad": fmad, "repair_full": n == "scene_kernel"}))
+    assert torch.equal(img, frame_kernel.render_frame_deferred(pack, shadow_cap=32, **kw))
+
+
+@pytest.mark.cuda
+def test_bin_keeps_key_order_and_set_on_1080p_queues_on_cuda(cuda_device):
+    # On both modes' 1080p queues the bin entry (one launch) gives the plain
+    # version's key order and each segment's set, and binning the same queue
+    # again gives the same keys (its cursors are back at zero).
+    w, h = 1920, 1080
+    pack = cuda_pack(cuda_device, w, h)
+    cap = frame_kernel.queue_capacity(w, h)
+    _, queue = frame_kernel.render_frame_compact_main(pack, width=w, height=h, budget_cap=64,
+                                                      cap=cap)
+    planes, dq = frame_kernel.render_frame_deferred_queue(pack, width=w, height=h,
+                                                          shadow_cap=32, cap=cap)
+    for q, sinfo in ((queue, None), (dq, planes.sinfo)):
+        slots = q.entries[:, 0][None] if sinfo is None else q.idx
+        keys_p = frame_kernel.bin_keys(frame_kernel.bin_queue_plain(q, sinfo), sinfo)
+        launches = frame_kernel.BIN_LAUNCHES
+        for _ in range(2):
+            binned = frame_kernel.bin_queue(q, sinfo)
+            got = binned.entries[:, 0][None] if sinfo is None else binned.idx
+            keys = frame_kernel.bin_keys(binned, sinfo)
+            keys, keys_want = (k[None] if sinfo is None else k for k in (keys, keys_p))
+            for k, n in enumerate(q.count.tolist()):
+                assert 0 < n <= cap
+                assert torch.equal(keys[k, :n], keys_want[k, :n])
+                assert torch.equal(torch.sort(got[k, :n]).values, torch.sort(slots[k, :n]).values)
+        assert frame_kernel.BIN_LAUNCHES == launches + 2
