@@ -129,6 +129,32 @@ exits non-zero):
               without the knob), and the resumed repair beside the whole
               traversal (-DGPRT_REPAIR_FULL) on the same queues; one [simt]
               line each
+ 13. host     the host runtime and the two interactive entry points on the
+              card: pick_device("cuda") and the native host runtime built
+              (hostrt.available()); the CLI (apps/render_cli.py) at
+              1920x1080, --dt 1/60, 8 frames, 3 in flight: 8 PNGs from the
+              native async writer with no write error, frame 0 byte for
+              byte the native encoding of trace.render_frame of the state
+              ticked once; 4 frames with --checkpoint then 4 with --resume,
+              whose last PNG is the unbroken run's byte for byte; the CLI's
+              frame loop (tick, scene, FramePipeline.submit; no PNGs) over a
+              64-frame builtin 1080p window at 1 and 3 frames in flight:
+              ms/frame by the wall clock, the host's own ms/frame outside
+              the pipeline's event waits, the frame kernel's ms by CUDA
+              events and the device's busy share (64 x kernel ms over the
+              window's wall ms), the host's ms a frame by step (tick,
+              scene, pack_frame, the launch, render_frame), frames 2-63 under
+              torch.cuda.set_sync_debug_mode("error") (any host sync
+              raises), every frame bit-equal to a direct render of the same
+              state; a torch.profiler trace of 4 frames (the trace file, its
+              top five device operations and busy share); RecoveringExecutor
+              over Renderer.render (a CUDA-shaped launch error recovers to a
+              direct render's frame, a step past a 1 s watchdog recovers as
+              DeviceTimeoutError, a ValueError propagates); the preview
+              server (apps/serve.py) on an ephemeral port at 320x180:
+              /frame.png a 320x180 PNG, /stats a status line,
+              /resize?w=640&h=360 shown on a later frame, /resize?w=4&h=4
+              answered 400
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
 2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass), the card
@@ -157,9 +183,13 @@ import contextlib
 import functools
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import torch
 
@@ -419,6 +449,271 @@ def animated_window(renderer, dev, label, w, h):
     if max(bg_frac) >= 0.70:
         raise AssertionError(f"{label}: a frame is mostly background ({max(bg_frac):.3f})")
     return start.elapsed_time(end) / FRAMES, launched, max(bg_frac)
+
+
+def png_size(data: bytes):
+    """(width, height) from a PNG's IHDR."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError("not a PNG")
+    return struct.unpack(">II", data[16:24])
+
+
+def http_get(port, path, timeout=30):
+    """(status, body) of a GET on the local preview server."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def host_phase(dev, card, pack_m):
+    """Phase 13: the host runtime, the CLI, its frame loop, checkpoint and
+    resume, a profiler trace, recovery and the preview server on the card
+    (see the module docstring). Raises on any failure."""
+    from gpuraytracer_tpu_torch.apps import render_cli, serve
+    from gpuraytracer_tpu_torch.core.config import RenderConfig
+    from gpuraytracer_tpu_torch.kernels import frame_kernel
+    from gpuraytracer_tpu_torch.models.animate import AnimationState
+    from gpuraytracer_tpu_torch.parallel.device import pick_device
+    from gpuraytracer_tpu_torch.parallel.pipeline import FramePipeline
+    from gpuraytracer_tpu_torch.parallel.recovery import DeviceTimeoutError, RecoveringExecutor
+    from gpuraytracer_tpu_torch.render import trace
+    from gpuraytracer_tpu_torch.render.renderer import Renderer
+    from gpuraytracer_tpu_torch.runtime import hostrt
+    from gpuraytracer_tpu_torch.utils import png as png_mod
+    from gpuraytracer_tpu_torch.utils import profile
+
+    info = pick_device("cuda")
+    if not hostrt.available():
+        raise AssertionError("the native host runtime did not build")
+    print(f"[host] {info.description}; native host runtime {hostrt.library_path()}",
+          flush=True)
+    host_dir = os.path.join(ROOT, "build", "chip_smoke_host")
+    shutil.rmtree(host_dir, ignore_errors=True)
+    dt = 1.0 / 60.0
+    cli = ["--device", "cuda", "--width", str(W_MAIN), "--height", str(H_MAIN),
+           "--dt", repr(dt), "--frames-in-flight", "3"]
+
+    def pngs(d):
+        return sorted(f for f in os.listdir(d) if f.endswith(".png"))
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    # (a) the CLI: 8 frames through the native async writer.
+    full = os.path.join(host_dir, "full")
+    t_cli = time.perf_counter()
+    if render_cli.main(cli + ["--frames", "8", "--out", full]) != 0:
+        raise AssertionError("the CLI failed (a write error returns 1)")
+    t_cli = time.perf_counter() - t_cli
+    names = pngs(full)
+    if names != [f"frame_{i:05d}.png" for i in range(8)]:
+        raise AssertionError(f"the CLI wrote {names}")
+    for n in names:
+        if png_size(read(os.path.join(full, n))) != (W_MAIN, H_MAIN):
+            raise AssertionError(f"{n} is not a {W_MAIN}x{H_MAIN} PNG")
+    cfg = RenderConfig(width=W_MAIN, height=H_MAIN)
+    state1 = AnimationState.initial().tick(dt, cfg)
+    img = trace.render_frame(state1.scene(cfg.aspect_ratio, device=dev), W_MAIN, H_MAIN)
+    ref_png = os.path.join(host_dir, "frame0_direct.png")
+    hostrt.write_png(ref_png, png_mod.image_f32_to_rgba8(img.cpu().numpy()))
+    if read(ref_png) != read(os.path.join(full, names[0])):
+        raise AssertionError("the CLI's frame 0 differs from the render of the state "
+                             "ticked once")
+    print(f"[host] CLI 1920x1080 --dt 1/60, 8 frames, 3 in flight: 8 PNGs "
+          f"({os.path.getsize(os.path.join(full, names[0]))} bytes each) from the native "
+          f"writer, no write error, {t_cli:.2f} s with start-up; frame 0 byte for byte the "
+          f"native encoding of render_frame at t = {state1.geometry_time:.6f}", flush=True)
+
+    # (b) 4 frames with --checkpoint, then 4 with --resume.
+    split = os.path.join(host_dir, "split")
+    ckpt = os.path.join(host_dir, "state.json")
+    if render_cli.main(cli + ["--frames", "4", "--out", split, "--checkpoint", ckpt]) != 0 \
+            or render_cli.main(cli + ["--frames", "4", "--out", split, "--resume", ckpt]) != 0:
+        raise AssertionError("the CLI failed")
+    if pngs(split) != names or read(os.path.join(split, names[-1])) != \
+            read(os.path.join(full, names[-1])):
+        raise AssertionError("the resumed run does not end on the unbroken run's bytes")
+    print("[host] checkpoint after 4 frames, resumed for 4: frame 7 byte for byte the "
+          "unbroken 8-frame run's", flush=True)
+
+    # (c) the CLI's frame loop over a 64-frame 1080p window, no PNGs.
+    def loop_window(fif, frames=FRAMES, sync_check_from=2):
+        sums = []
+
+        def render(scene):
+            out = trace.render_frame(scene, W_MAIN, H_MAIN)
+            sums.append(out.view(torch.int32).sum(dtype=torch.int64))
+            return out
+
+        pipe = FramePipeline(render, fif, device=dev)
+        state = AnimationState.initial()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = render_cli.frame_loop(pipe, state, cfg, range(sync_check_from), dt=dt)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            render_cli.frame_loop(pipe, state, cfg, range(sync_check_from, frames), dt=dt)
+            pipe.drain()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return wall * 1e3 / frames, pipe.wait_seconds * 1e3 / frames, torch.stack(sums)
+
+    loop_window(3, frames=8)  # warm-up: first-use allocations, pinned blocks
+    kernel_ms, _ = cuda_ms(
+        lambda: frame_kernel.render_frame_tiles(pack_m, width=W_MAIN, height=H_MAIN), 10)
+    loop_ms = {}
+    for fif in (1, 3, 1, 3):
+        ms, wait_ms, sums = loop_window(fif)
+        loop_ms.setdefault(fif, []).append((ms, wait_ms))
+        print(f"[host] frame loop, builtin 1080p, {FRAMES} frames, {fif} in flight: "
+              f"{ms:.3f} ms/frame (wall clock), host {ms - wait_ms:.3f} ms/frame outside the "
+              f"event waits ({wait_ms:.3f} waiting); frame kernel {kernel_ms:.3f} ms (CUDA "
+              f"events): device busy {FRAMES * kernel_ms / (FRAMES * ms):.4f}; host syncs "
+              f"in frames 2-{FRAMES - 1} under set_sync_debug_mode('error'): 0", flush=True)
+    state, direct = AnimationState.initial(), []
+    for _ in range(FRAMES):
+        state = state.tick(dt, cfg)
+        out = trace.render_frame(state.scene(cfg.aspect_ratio, device=dev), W_MAIN, H_MAIN)
+        direct.append(out.view(torch.int32).sum(dtype=torch.int64))
+    if not torch.equal(torch.stack(direct), sums):
+        raise AssertionError("a frame of the pipelined loop differs from a direct render")
+    host_loop = {fif: (min(m for m, _ in v), max(m for m, _ in v)) for fif, v in
+                 loop_ms.items()}
+    print(f"[host] every frame of the loop bit-equal to a direct render of its state "
+          f"(bit sums of {FRAMES} frames); ms/frame at 1 in flight {host_loop[1]}, at 3 "
+          f"{host_loop[3]}; {card}", flush=True)
+
+    # Where the host's time in a frame goes: each step alone over 16 frames
+    # by the host clock, the card idle at the start of each step (nothing
+    # here waits for it).
+    steps = {}
+
+    def host_ms(label, fn, n=16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(k) for k in range(n)]
+        steps[label] = (time.perf_counter() - t0) * 1e3 / n
+        return outs
+
+    states = host_ms("tick", lambda k: AnimationState.initial().tick(dt * (k + 1), cfg))
+    scenes = host_ms("scene", lambda k: states[k].scene(cfg.aspect_ratio, device=dev))
+    packs = host_ms("pack_frame", lambda k: frame_kernel.pack_frame(scenes[k]))
+    host_ms("frame kernel launch", lambda k: frame_kernel.render_frame_tiles(
+        packs[k], width=W_MAIN, height=H_MAIN))
+    host_ms("render_frame", lambda k: trace.render_frame(scenes[k], W_MAIN, H_MAIN))
+    torch.cuda.synchronize()
+    print("[host] host ms a frame by step (16 frames each, host clock): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()), flush=True)
+
+    # (d) a torch.profiler trace of 4 frames at 3 in flight.
+    prof_dir = os.path.join(host_dir, "profile")
+    pipe = FramePipeline(lambda scene: trace.render_frame(scene, W_MAIN, H_MAIN), 3,
+                         device=dev)
+    torch.cuda.synchronize()
+    with profile.trace(prof_dir):
+        with profile.annotate("four frames"):
+            render_cli.frame_loop(pipe, AnimationState.initial(), cfg, range(4), dt=dt)
+            pipe.drain()
+    trace_file = os.path.join(prof_dir, profile.TRACE_FILE)
+    if not os.path.getsize(trace_file):
+        raise AssertionError("the profiler wrote no trace")
+    summary = profile.device_summary(trace_file)
+    print(f"[host] torch.profiler, 4 frames at 3 in flight: {trace_file} "
+          f"({os.path.getsize(trace_file)} bytes); device busy {summary['busy_ms']:.3f} of "
+          f"{summary['span_ms']:.3f} ms ({summary['busy_share']:.4f}); top device "
+          f"operations: " + "; ".join(f"{n[:60]} {ms:.3f} ms x{c}"
+                                       for n, ms, c in summary["top"]), flush=True)
+
+    # (e) RecoveringExecutor over Renderer.render.
+    w_r, h_r, t_r = 320, 180, 0.5
+    direct_r = Renderer(w_r, h_r, device=dev).render(t_r)
+    builds = []
+
+    def make_step(fault):
+        def make():
+            builds.append(1)
+            first = len(builds) == 1
+            renderer = Renderer(w_r, h_r, device=dev)
+
+            def step(t):
+                if first:
+                    fault()
+                return renderer.render(t)
+
+            return step
+
+        return make
+
+    def cuda_fault():
+        raise RuntimeError("frame kernel launch failed: CUDA error 9 "
+                           "(invalid configuration argument; injected)")
+
+    ex = RecoveringExecutor(make_step(cuda_fault), retry_delay_seconds=0.0, device=dev)
+    out = ex(t_r)
+    if ex.recoveries != 1 or not torch.equal(out, direct_r):
+        raise AssertionError("no recovery from a CUDA launch error, or a different frame")
+    builds.clear()
+    ex = RecoveringExecutor(make_step(lambda: time.sleep(2.5)), retry_delay_seconds=0.0,
+                            watchdog_seconds=1.0, device=dev)
+    try:
+        t_wd = time.perf_counter()
+        out = ex(t_r)
+        t_wd = time.perf_counter() - t_wd
+    finally:
+        ex.close()
+    if ex.recoveries != 1 or not torch.equal(out, direct_r):
+        raise AssertionError("no recovery from a step past the watchdog")
+    builds.clear()
+
+    def bad_input():
+        raise ValueError("bad frame size (injected)")
+
+    ex = RecoveringExecutor(make_step(bad_input), retry_delay_seconds=0.0, device=dev)
+    try:
+        ex(t_r)
+        raise AssertionError("a ValueError did not propagate")
+    except ValueError:
+        pass
+    if ex.recoveries:
+        raise AssertionError("a ValueError was retried")
+    print(f"[host] RecoveringExecutor over Renderer.render 320x180: a CUDA launch error "
+          f"recovered (1 rebuild, frame bit-equal to a direct render); a step past the 1 s "
+          f"watchdog recovered as {DeviceTimeoutError.__name__} in {t_wd:.2f} s; a "
+          f"ValueError propagated with no retry", flush=True)
+
+    # (f) the preview server on an ephemeral port.
+    srv = serve.PreviewServer(320, 180, device="cuda", host="127.0.0.1", port=0).start()
+    try:
+        def frame_of(size, timeout=120.0):
+            t_end = time.perf_counter() + timeout
+            while time.perf_counter() < t_end:
+                code, body = http_get(srv.port, "/frame.png")
+                if code == 200 and png_size(body) == size:
+                    return body
+                time.sleep(0.05)
+            raise AssertionError(f"the server showed no {size} frame ({srv.state.status})")
+
+        frame_of((320, 180))
+        code, stats_body = http_get(srv.port, "/stats")
+        if code != 200 or not stats_body.startswith(b"fps:"):
+            raise AssertionError(f"/stats gave {code} {stats_body[:80]!r}")
+        if http_get(srv.port, "/resize?w=640&h=360")[0] != 200:
+            raise AssertionError("/resize?w=640&h=360 was refused")
+        frame_of((640, 360))
+        bad = http_get(srv.port, "/resize?w=4&h=4")[0]
+        if bad != 400:
+            raise AssertionError(f"/resize?w=4&h=4 gave {bad}, not 400")
+        frames_served = srv.state.frames
+    finally:
+        srv.close()
+    print(f"[host] preview server 127.0.0.1:{srv.port}: /frame.png 320x180, /stats "
+          f"{stats_body.decode()!r}, /resize?w=640&h=360 shown as a 640x360 frame, "
+          f"/resize?w=4&h=4 answered 400; {frames_served} frames rendered", flush=True)
 
 
 def main() -> int:
@@ -2045,6 +2340,10 @@ def main() -> int:
             raise AssertionError("the SIMT-counting whole-traversal repair changed its answers")
         simt_report(f"repair builtin 1080p, {n_unknown} queued rays, whole traversal "
                     f"(-DGPRT_REPAIR_FULL)", cnt)
+
+    # 13. host: the CLI and the preview server on the card --------------------
+    with Phase("host"):
+        host_phase(dev, card, pack_m)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{

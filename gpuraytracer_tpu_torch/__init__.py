@@ -6,7 +6,8 @@ find, and never imports JAX.
 
 Layout
 ------
-core/       ABI dataclasses of tensors, HLSL-semantics math, camera
+core/       ABI dataclasses of tensors, HLSL-semantics math, camera, config,
+            host-to-device uploads that never wait for the stream
 geometry/   analytic primitives, the SDF library + sphere tracer, metaballs
 accel/      scene arrays, ray space transforms, closest/any-hit traversal
 render/     wavefront integrator (the frame kernel's plain version),
@@ -14,7 +15,10 @@ render/     wavefront integrator (the frame kernel's plain version),
 kernels/    hand-written CUDA kernels for Hopper (sm_90a), built with nvcc
             on first use and loaded through ctypes
 models/     the builtin scene and its animation
-apps/       the CLI renderer
+parallel/   device selection, frames in flight (CUDA events), recovery
+runtime/    the native host runtime (clock, PNG encoder, async writer; g++)
+utils/      timers, stats, PNG, checkpoints, introspection, debug, profiling
+apps/       the CLI renderer, the preview server, the bench suite, the op probe
 
 Every function takes tensors on an explicit device; nothing here keeps a
 hidden global device. CPU tensors run the plain PyTorch path, CUDA tensors

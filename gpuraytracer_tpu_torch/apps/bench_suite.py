@@ -58,7 +58,14 @@ window); and the per-geometry route of mesh_heightfield_sdf (544 faces):
 each checkout's pass function on the 1080p level-0 closest and shadow
 passes, whole (``mesh_route_*_pass_ms``: the parent's launches per
 geometry and its torch ops between them, or one pass-entry launch), and a
-64-frame 1080p window with the route's launches. Where the checkout has the SIMT
+64-frame 1080p window with the route's launches; and the CLI's per-frame
+path over a 64-frame builtin 1080p window (tick the animation state by
+1/60 s, build its scene, render; ``cli_window_ms_per_frame`` by the host
+clock, ``cli_window_host_syncs_per_frame`` counted in a second window under
+torch.cuda.set_sync_debug_mode("warn") from frame 2 on; where the checkout
+has parallel/pipeline.py, the same through FramePipeline at 1 and 3 frames
+in flight, ``cli_window_fif1_*`` and ``cli_window_fif3_*``, with
+``*_bit_equal`` against the loop without it). Where the checkout has the SIMT
 counting build (build.load(count_simt=True)), it reports the SIMT
 efficiency of the builtin and fractal 1080p frame kernels per level and
 ray kind and of the level-0 closest and shadow passes, and with device
@@ -68,7 +75,8 @@ the ``--fmad`` build (default: the shipped one): the builtin 1080p frame
 (plain, compact and defer), the five bench scenes and mesh_octahedra at
 320x180, the 1080p level-0 closest and shadow passes of the builtin scene
 and of mesh_heightfield_sdf (shadow rays from the plain closest pass, so
-that every root gets the same rays), and the merged entries' outputs
+that every root gets the same rays), the CLI window's 64 frames (the sum of
+each frame's bits), and the merged entries' outputs
 beside their sequential twins: the builtin 1080p frame in each mode, the
 dense pass and the repair at the binned queues, and builtin,
 sdf_primitives_720p, the fractal scene and padded_sdf_showcase(28) at
@@ -566,8 +574,73 @@ if simt:
             res[f"simt_queue{suffix}"] = efficiency(ops)
         del os.environ["GPURT_MERGED_SHADOW"]
 
+# The CLI's per-frame path over a 64-frame builtin 1080p window: tick the
+# animation state by 1/60 s, build its scene, render it (each root's
+# AnimationState.scene and trace.render_frame; every frame consumed by a
+# checksum of its bits). Timed by the host clock from the first frame to
+# the last frame's completion, with the sync debug mode off; then the same
+# window again with torch.cuda.set_sync_debug_mode("warn") from frame 2 on,
+# to count the host syncs (each blocking copy, item() or stream sync warns).
+# Where the root has parallel/pipeline.py, the same through FramePipeline
+# at 1 and 3 frames in flight.
+import time
+import warnings
+from gpuraytracer_tpu_torch.core.config import RenderConfig
+from gpuraytracer_tpu_torch.models.animate import AnimationState
+from gpuraytracer_tpu_torch.render import trace
+try:
+    from gpuraytracer_tpu_torch.parallel.pipeline import FramePipeline
+except ImportError:
+    FramePipeline = None
+
+
+def cli_window(fif=None, frames=64, count_syncs=False):
+    cfg, sums = RenderConfig(width=w, height=h), []
+
+    def render(scene):
+        out = trace.render_frame(scene, w, h)
+        sums.append(out.view(torch.int32).sum(dtype=torch.int64))
+        return out
+
+    pipe = FramePipeline(render, fif, device=dev) if fif else None
+    state = AnimationState.initial()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        for k in range(frames):
+            if k == 2 and count_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
+            state = state.tick(1.0 / 60.0, cfg)
+            scene = state.scene(cfg.aspect_ratio, device=dev)
+            if pipe is None:
+                render(scene)
+            else:
+                pipe.submit(scene)
+        torch.cuda.set_sync_debug_mode("default")
+        if pipe is not None:
+            pipe.drain()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / frames
+    syncs = sum("synchroniz" in str(c.message) for c in caught)
+    return ms, syncs / (frames - 2), torch.stack(sums)
+
+
+cli_window(frames=8)  # warm-up
+loops = [("cli_window", None)] + ([("cli_window_fif1", 1), ("cli_window_fif3", 3)]
+                                  if FramePipeline else [])
+for key, fif in loops:
+    res[f"{key}_ms_per_frame"], _, sums = cli_window(fif)
+    _, res[f"{key}_host_syncs_per_frame"], _ = cli_window(fif, count_syncs=True)
+    if fif is None:
+        cli_sums = sums
+    else:
+        res[f"{key}_bit_equal"] = bool(torch.equal(sums, cli_sums))
+
 flib, slib = build.load("frame_kernel", fmad=FMAD), build.load("scene_kernel", fmad=FMAD)
 outs = {"builtin 1080p": frame_kernel.render_frame_tiles(pack, width=w, height=h, lib=flib)}
+# The CLI window's frames, as the bits' sum of each (64, 1).
+outs["cli window 1080p frame bit sums"] = cli_sums[:, None]
 # The modes' frames through the --fmad build (their host code takes no library).
 real_load = build.load
 build.load = lambda name, count_ops=False: real_load(name, fmad=FMAD, count_ops=count_ops)

@@ -1,15 +1,31 @@
-"""CLI renderer: animate, render and write PNG frames of the builtin scene.
+"""CLI renderer: the main.cpp + Window frame-loop analog.
 
-Port of gpuraytracer_tpu/apps/render_cli.py: each frame ticks the
-animation state (Renderer::on_update), builds the scene and renders it.
+Port of gpuraytracer_tpu/apps/render_cli.py. Each frame steps the
+reference's per-frame sequence: tick the timer, animate the state
+(Renderer::on_update), upload the constants, trace, present. The state is
+ticked before the frame renders, so frame i of a run from ``--time t``
+with ``--dt dt`` is at t + (i+1)*dt. Without ``--dt`` the step is the wall
+clock's (utils/timers.StepTimer, clamped to 0.1 s).
+
+Frames in flight: the frame loop never waits for the card inside a frame.
+The per-frame constants go up through pinned memory (core/upload.py), each
+frame's image is converted to RGBA8 on the device and copied to pinned host
+memory on the same stream, and the pipeline (parallel/pipeline.py) waits
+only on the CUDA event of the frame ``--frames-in-flight`` frames back. The
+host reads a frame's bytes only after the pipeline has returned it as
+completed, and hands them to the native async PNG writer
+(runtime/hostrt.py), which encodes and writes while the card renders. A
+status line in the reference's window-title format is logged once a
+second.
 
 Usage:
   python -m gpuraytracer_tpu_torch.apps.render_cli --device cuda \
       --width 1920 --height 1080 --frames 16 --out out/frames
 
-``--device cuda`` renders through the CUDA frame kernel and fails when no
-GPU is present; ``--device cpu`` renders through the PyTorch wavefront.
-Frames advance by a fixed time step, so a run is reproducible.
+``--device cuda`` (the default) renders through the CUDA kernels and fails
+when no GPU is present; ``--device cpu`` renders through the PyTorch
+wavefront. ``--checkpoint PATH`` saves the animation state after the run,
+``--resume PATH`` continues from one (the frame numbers continue too).
 """
 
 from __future__ import annotations
@@ -17,11 +33,10 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
+import numpy as np
 import torch
 
-from gpuraytracer_tpu_torch.utils import png
 from gpuraytracer_tpu_torch.utils.log import get_logger
 
 log = get_logger("render_cli")
@@ -36,47 +51,129 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--out", type=str, default="out/frames")
     p.add_argument("--time", type=float, default=0.0, help="animation start time (s)")
-    p.add_argument("--dt", type=float, default=1.0 / 60.0, help="time step per frame (s)")
+    p.add_argument("--dt", type=float, default=None,
+                   help="fixed time step (s); default: the wall clock")
     p.add_argument("--depth", type=int, default=3, help="max recursion depth")
     p.add_argument("--animate-camera", action="store_true")
     p.add_argument("--animate-light", action="store_true")
     p.add_argument("--no-animate-geometry", action="store_true")
+    p.add_argument("--frames-in-flight", type=int, default=3)
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="write the animation state here after the run")
+    p.add_argument("--resume", type=str, default="",
+                   help="resume the animation state from a checkpoint file")
     return p.parse_args(argv)
+
+
+def tick(state, config, dt=None, timer=None):
+    """The next frame's state: ticked by ``dt``, or by the timer's wall-clock
+    step when ``dt`` is None."""
+    if dt is not None:
+        return state.tick(dt, config)
+    timer.tick()
+    return state.tick(timer.elapsed_seconds, config)
+
+
+def frame_loop(pipe, state, config, frames, *, dt=None, timer=None, on_frame=None):
+    """The frame loop over the frame indices ``frames``: tick the state,
+    build its scene on the pipeline's device, submit it. ``on_frame(i,
+    out)`` gets each frame's output as the pipeline returns it completed,
+    oldest first; the frames still in flight stay in the pipeline (drain
+    it: they are the last ``pipe.in_flight`` indices). Returns the last
+    state."""
+    for i in frames:
+        state = tick(state, config, dt, timer)
+        _, done = pipe.submit(state.scene(config.aspect_ratio, device=pipe.device))
+        if done is not None and on_frame is not None:
+            on_frame(i - pipe.depth, done)
+    return state
+
+
+def frame_to_host(config, device):
+    """The pipeline's frame function: render the scene, then, on a GPU,
+    convert the image to RGBA8 on the card and enqueue its copy into pinned
+    host memory (valid once the frame's event has completed); on the CPU,
+    the reference's host conversion."""
+    from gpuraytracer_tpu_torch.render import trace
+    from gpuraytracer_tpu_torch.utils import png
+
+    def render(scene):
+        img = trace.render_frame(scene, config.width, config.height,
+                                 max_depth=config.max_recursion_depth)
+        if device.type != "cuda":
+            return png.image_f32_to_rgba8(img.numpy())
+        rgba = png.image_to_rgba8(img)
+        host = torch.empty(rgba.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(rgba, non_blocking=True)
+        return host
+
+    return render
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     from gpuraytracer_tpu_torch.core.config import RenderConfig
     from gpuraytracer_tpu_torch.models.animate import AnimationState
-    from gpuraytracer_tpu_torch.render import trace
+    from gpuraytracer_tpu_torch.parallel import device as device_mod
+    from gpuraytracer_tpu_torch.parallel.pipeline import FramePipeline
+    from gpuraytracer_tpu_torch.runtime import hostrt
+    from gpuraytracer_tpu_torch.utils import checkpoint, introspect
+    from gpuraytracer_tpu_torch.utils.stats import FrameStats
+    from gpuraytracer_tpu_torch.utils.timers import StepTimer
 
     config = RenderConfig(
         width=args.width, height=args.height, max_recursion_depth=args.depth,
         animate_geometry=not args.no_animate_geometry,
         animate_camera=args.animate_camera, animate_light=args.animate_light,
-        device=args.device,
+        device=args.device, frames_in_flight=args.frames_in_flight,
     )
-    dev = torch.device(config.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    log.info("device: %s (%s)", dev, name)
+    info = device_mod.pick_device(config.device)
+    log.info("device: %s", info.description)
     os.makedirs(args.out, exist_ok=True)
-    state = AnimationState.initial()
-    state.geometry_time = args.time
-    for i in range(args.frames):
-        start = time.perf_counter()
-        scene = state.scene(config.aspect_ratio, device=dev)
-        img = trace.render_frame(scene, config.width, config.height,
-                                 max_depth=config.max_recursion_depth).cpu()  # waits
-        ms = (time.perf_counter() - start) * 1e3
-        path = os.path.join(args.out, f"frame_{i:05d}.png")
-        png.write_png(path, img.numpy())
-        log.info("frame %d t=%.4f s: %.2f ms (host clock, incl. copy) -> %s",
-                 i, state.geometry_time, ms, path)
-        state = state.tick(args.dt, config)
-    log.info("rendered %d frame(s) at %dx%d on %s -> %s",
-             args.frames, args.width, args.height, name, args.out)
+
+    start_frame = 0
+    if args.resume:
+        state, _, start_frame = checkpoint.load(args.resume)
+        log.info("resumed at frame %d, t=%.3f s", start_frame, state.geometry_time)
+    else:
+        state = AnimationState.initial()
+        state.geometry_time = args.time
+    scene0 = state.scene(config.aspect_ratio, device=info.device)
+    log.info("%s", introspect.describe_backend(scene0))
+    for line in introspect.describe_scene(scene0).splitlines():
+        log.info("%s", line)
+
+    pipe = FramePipeline(frame_to_host(config, info.device), config.frames_in_flight,
+                         device=info.device)
+    stats = FrameStats(config.width, config.height,
+                       on_update=lambda s: log.info("%s", stats.status_line(info.description)))
+    timer = StepTimer(fixed_time_step=args.dt is not None,
+                      target_delta_seconds=args.dt or (1.0 / 60.0))
+    writer = hostrt.AsyncFrameWriter(config.frames_in_flight)
+
+    def flush(i, rgba):
+        writer.submit(os.path.join(args.out, f"frame_{i:05d}.png"), np.asarray(rgba))
+        stats.frame_rendered()
+
+    end = start_frame + args.frames
+    try:
+        state = frame_loop(pipe, state, config, range(start_frame, end), dt=args.dt,
+                           timer=timer, on_frame=flush)
+        rest = pipe.drain()
+        for i, rgba in zip(range(end - len(rest), end), rest):
+            flush(i, rgba)
+    finally:
+        writer.close()
+    if writer.errors:
+        log.error("%d of %d frame(s) failed to write", writer.errors, args.frames)
+        return 1
+
+    if args.checkpoint:
+        checkpoint.save(args.checkpoint, state, config, end)
+        log.info("checkpoint -> %s", args.checkpoint)
+    log.info("rendered %d frame(s) at %dx%d on %s -> %s (%s writer)", args.frames,
+             config.width, config.height, info.description, args.out,
+             "native" if hostrt.available() else "Python")
     return 0
 
 

@@ -10,7 +10,10 @@ from __future__ import annotations
 import dataclasses
 import enum
 
+import numpy as np
 import torch
+
+from gpuraytracer_tpu_torch.core.upload import to_device
 
 # ---------------------------------------------------------------------------
 # Global compile-time constants (ConstantBuffers.h:12-31, 135-138)
@@ -164,15 +167,17 @@ def make_scene_constants(
     *,
     device,
 ) -> SceneConstants:
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-    return SceneConstants(
-        projection_to_world=f32(projection_to_world),
-        camera_position=f32(camera_position),
-        light_position=f32(light_position),
-        light_ambient_color=f32(light_ambient_color),
-        light_diffuse_color=f32(light_diffuse_color),
-        reflectance=f32(reflectance),
-        elapsed_time=f32(elapsed_time),
-    )
+    """The constants from host values, in one upload that never waits for
+    the stream (core/upload.to_device); each field is a view of it. An
+    ``elapsed_time`` that is already a tensor stays on the device."""
+    fields = [projection_to_world, camera_position, light_position, light_ambient_color,
+              light_diffuse_color, reflectance]
+    on_device = isinstance(elapsed_time, torch.Tensor)
+    if not on_device:
+        fields.append(elapsed_time)
+    host = [np.asarray(x, dtype=np.float32) for x in fields]
+    flat = to_device(np.concatenate([x.reshape(-1) for x in host]), device)
+    parts = [p.reshape(x.shape) for p, x in zip(flat.split([x.size for x in host]), host)]
+    if on_device:
+        parts.append(elapsed_time.to(device=device, dtype=torch.float32))
+    return SceneConstants(*parts)

@@ -22,6 +22,7 @@ from gpuraytracer_tpu_torch.core.types import (
     METABALL_MAX_STEPS,
     METABALLS_COUNT,
 )
+from gpuraytracer_tpu_torch.core.upload import constant
 from gpuraytracer_tpu_torch.geometry import analytic
 
 # Keyframe centers at t0/t1 and field radii (VolumetricPrimitives.hlsli:103-110).
@@ -40,9 +41,10 @@ def animated_metaballs(elapsed_time, cycle_duration=METABALL_CYCLE_DURATION):
     elapsed_time = torch.as_tensor(elapsed_time, dtype=torch.float32)
     dev = elapsed_time.device
     t = hlsl.calculate_animation_interpolant(elapsed_time, cycle_duration)
-    c0 = torch.tensor([k[0] for k in KEYFRAME_CENTERS], dtype=torch.float32, device=dev)
-    c1 = torch.tensor([k[1] for k in KEYFRAME_CENTERS], dtype=torch.float32, device=dev)
-    return hlsl.lerp(c0, c1, t), torch.tensor(RADII, dtype=torch.float32, device=dev)
+    # The keyframes and radii: uploaded once per device, no host sync.
+    c0 = constant(tuple(tuple(k[0]) for k in KEYFRAME_CENTERS), dev)
+    c1 = constant(tuple(tuple(k[1]) for k in KEYFRAME_CENTERS), dev)
+    return hlsl.lerp(c0, c1, t), constant(tuple(RADII), dev)
 
 
 def _pow_3_4_5(x):

@@ -58,6 +58,7 @@ from gpuraytracer_tpu_torch.core.types import (
     SDF_MAX_STEPS,
     SceneConstants,
 )
+from gpuraytracer_tpu_torch.core.upload import to_device
 from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 
 # Kernel launches since import (or since a caller reset it), per entry of
@@ -270,8 +271,10 @@ def pack_frame(scene: Scene) -> FramePack:
         relax_r = sdf.march_relax(windowed, occlusion=False)
         relax_s = sdf.march_relax(windowed, occlusion=True)
         relax += [relax_r, relax_s, (1.0 - relax_r) * relax_r, (1.0 - relax_s) * relax_s]
-    header = torch.tensor([0.0] + relax + [0.0, 0.0, 0.0], dtype=torch.float32, device=dev)
-    header[0] = scene.arrays.constants.elapsed_time
+    # The header and the layout buffer go up without a host sync
+    # (core/upload.to_device); the animation time is already on the device.
+    header = torch.cat([scene.arrays.constants.elapsed_time.reshape(1).to(torch.float32),
+                        to_device(relax + [0.0, 0.0, 0.0], dev)])
     params = torch.cat([header] + [b.reshape(-1).to(torch.float32) for b in blocks])
 
     ints = [g, m, static["plane_gid"], int(layout.has_plane), int(layout.material_ids is not None),
@@ -290,7 +293,7 @@ def pack_frame(scene: Scene) -> FramePack:
                  *faces]
     slots = list(layout.material_ids) if layout.material_ids is not None else list(range(g + 1))
     ints += slots + [0] * (g + 1 - len(slots))
-    layout_buf = torch.tensor(ints, dtype=torch.int32, device=dev)
+    layout_buf = to_device(ints, dev, torch.int32)
     return FramePack(params=params.contiguous(), layout=layout_buf, num_geometries=g,
                      num_materials=m, tri=tri, tri_offsets=tri_offsets, budgets=tuple(budgets))
 

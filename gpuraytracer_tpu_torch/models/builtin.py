@@ -29,6 +29,7 @@ from gpuraytracer_tpu_torch.core.types import (
     VolumetricPrimitive,
     make_scene_constants,
 )
+from gpuraytracer_tpu_torch.core.upload import constant, to_device
 
 # Grid constants (Renderer.h:95-96, Renderer.cpp:490-497)
 AABB_WIDTH = 2.0
@@ -147,9 +148,15 @@ def default_camera() -> Camera:
     return Camera(eye=(0.0, 5.3, -17.0), at=(0.0, 0.0, 0.0), initial_y_rotation_deg=45.0)
 
 
+def _rows(a) -> tuple:
+    """A float32 array as the nested tuple that upload.constant keys on."""
+    return tuple(map(tuple, np.asarray(a, dtype=np.float32).tolist()))
+
+
 def material_table(device) -> MaterialTable:
+    """The material table, uploaded once per device (upload.constant)."""
     def col(i):
-        return torch.tensor([m[i] for m in _MATERIALS], dtype=torch.float32, device=device)
+        return constant(tuple(m[i] for m in _MATERIALS), device)
 
     return MaterialTable(
         albedo=col(0),
@@ -161,13 +168,22 @@ def material_table(device) -> MaterialTable:
     )
 
 
+def _time_on(elapsed_time, device) -> torch.Tensor:
+    """The animation time as an f32 scalar on ``device``: a tensor stays on
+    the device, a host number goes up without a host sync
+    (upload.to_device)."""
+    if isinstance(elapsed_time, torch.Tensor):
+        return elapsed_time.to(device=device, dtype=torch.float32)
+    return to_device(elapsed_time, device)
+
+
 def build_instance_transforms(elapsed_time, device) -> InstanceTransforms:
     """update_aabb_primitive_attributes (Renderer.cpp:302-356) as a pure
     function of the animation time, for all instances at once. Column
     convention; the inverse is analytic (S^-1 R^-1 T^-1), with the
     translation column as explicit multiply-adds."""
     f32 = torch.float32
-    t = torch.as_tensor(elapsed_time, dtype=f32, device=device)
+    t = _time_on(elapsed_time, device)
     theta = ROTATION_RATE * t
     c, s = torch.cos(theta), torch.sin(theta)
     zero, one = torch.zeros_like(c), torch.ones_like(c)
@@ -178,17 +194,19 @@ def build_instance_transforms(elapsed_time, device) -> InstanceTransforms:
         torch.stack([-s, zero, c]),
     ])
     eye3 = torch.eye(3, dtype=f32, device=device)
-    rotates = torch.tensor([r for _, r in TRANSFORM_SPECS], device=device)
+    # The rotate and scale columns, the centres and the bottom row do not
+    # change between frames: uploaded once per device.
+    rotates = constant(tuple(r for _, r in TRANSFORM_SPECS), device, torch.bool)
     rot = torch.where(rotates[:, None, None], rot_y, eye3)  # (P, 3, 3)
     rot_inv = rot.transpose(1, 2)
-    scale = torch.tensor([sc for sc, _ in TRANSFORM_SPECS], dtype=f32, device=device)
+    scale = constant(tuple(sc for sc, _ in TRANSFORM_SPECS), device)
     a = rot * scale[:, None, :]  # R @ diag(scale)
     a_inv = rot_inv / scale[:, :, None]  # diag(1/scale) @ R^T
-    center = torch.as_tensor((AABB_MIN + AABB_MAX) * 0.5, device=device)
+    center = constant(_rows((AABB_MIN + AABB_MAX) * 0.5), device)
     tcol = -(a_inv[:, :, 0] * center[:, 0:1] + a_inv[:, :, 1] * center[:, 1:2]
              + a_inv[:, :, 2] * center[:, 2:3])
     p = len(TRANSFORM_SPECS)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=f32, device=device).expand(p, 1, 4)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), device).expand(p, 1, 4)
     l2b = torch.cat([torch.cat([a, center[:, :, None]], dim=2), bottom], dim=1)
     b2l = torch.cat([torch.cat([a_inv, tcol[:, :, None]], dim=2), bottom], dim=1)
     return InstanceTransforms(local_to_blas=l2b.contiguous(), blas_to_local=b2l.contiguous())
@@ -213,7 +231,7 @@ def animate_arrays(arrays: SceneArrays, elapsed_time) -> SceneArrays:
     device (the on_update work, Renderer.cpp:112-119): the animation time
     feeds the instance transforms and the metaball keyframes."""
     device = arrays.aabb_min.device
-    t = torch.as_tensor(elapsed_time, dtype=torch.float32, device=device)
+    t = _time_on(elapsed_time, device)
     constants = dataclasses.replace(arrays.constants, elapsed_time=t)
     return dataclasses.replace(
         arrays, constants=constants, transforms=build_instance_transforms(t, device)
@@ -226,13 +244,14 @@ def build_scene(aspect: float, elapsed_time=0.0, camera: Camera | None = None,
     camera = camera or default_camera()
 
     def f32(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+        return constant(_rows(x) if np.ndim(x) == 2 else tuple(x), device)
 
+    constants = build_scene_constants(camera, aspect, elapsed_time, light_position,
+                                      device=device)
     arrays = SceneArrays(
-        constants=build_scene_constants(camera, aspect, elapsed_time, light_position,
-                                        device=device),
+        constants=constants,
         materials=material_table(device),
-        transforms=build_instance_transforms(elapsed_time, device),
+        transforms=build_instance_transforms(constants.elapsed_time, device),
         aabb_min=f32(AABB_MIN),
         aabb_max=f32(AABB_MAX),
         blas_offset=f32(BLAS_OFFSET),

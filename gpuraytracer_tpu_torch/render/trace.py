@@ -41,6 +41,7 @@ from gpuraytracer_tpu_torch.core.types import (
 )
 from gpuraytracer_tpu_torch.render import checkers as checkers_mod
 from gpuraytracer_tpu_torch.render import shade
+from gpuraytracer_tpu_torch.utils import debug
 
 
 def _material_rows(scene: Scene, geometry_id):
@@ -205,6 +206,8 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
             lanes, oa, da = lanes[keep], oa[keep], da[keep]
             hit = HitRecord(t=hit.t[keep], normal=hit.normal[keep],
                             geometry_id=hit.geometry_id[keep], hit=hit.hit[keep])
+        if debug.nan_checks_enabled():  # the NaN trap (utils/debug.debug_layer)
+            debug.trap(f"level {level} closest pass", hit.t[hit.hit], hit.normal[hit.hit])
         nrm = hit.normal
         hit_pos = oa + hit.t[:, None] * da
         gid = _material_rows(scene, hit.geometry_id)
@@ -234,6 +237,8 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
                                 t_max=RAY_TMAX, active=needed, level=level, pack=pack,
                                 plain=plain,
                                 caps=None if main is None else capped(main.shadow, mask))
+            if debug.nan_checks_enabled():
+                debug.trap(f"level {level} shadow pass", hit_pos[needed], shadow_dir[needed])
             if dirty is not None:
                 dirty[lanes] = mask
                 save(torch.nonzero(mask != 0).squeeze(1), level, oa, da)
@@ -293,6 +298,8 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
         active[lanes] = live if dirty is None else live & (dirty[lanes] == 0)
         o[lanes] = hit_pos
         d[lanes] = hlsl.reflect(da, nrm)
+        if debug.nan_checks_enabled():
+            debug.trap(f"level {level} shading", color[lanes], throughput[lanes])
     if defer:
         return DeferPlanes(*(p.reshape(p.shape[:1] + batch + p.shape[2:]) for p in planes))
     color = color.reshape(batch + (4,))

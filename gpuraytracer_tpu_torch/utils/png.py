@@ -7,6 +7,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
@@ -37,6 +38,13 @@ def image_f32_to_rgba8(image) -> np.ndarray:
     return out
 
 
-def write_png(path: str, image_f32) -> None:
-    with open(path, "wb") as f:
-        f.write(encode_png(image_f32_to_rgba8(image_f32)))
+def image_to_rgba8(image: torch.Tensor) -> torch.Tensor:
+    """``image_f32_to_rgba8`` on the image's own device, so that a frame
+    leaves the card as 1 byte a channel: the same f32 clamp, multiply by
+    255 and round half to even, alpha 255, hence the same bytes."""
+    from gpuraytracer_tpu_torch.render.trace import to_rgba8
+
+    out = to_rgba8(image)
+    if out.shape[-1] == 4:
+        out[..., 3] = 255
+    return out

@@ -1,6 +1,8 @@
 """The PyTorch port never imports JAX: a fresh interpreter imports every
-module of the package (among them every module of the bench-scene slice),
-renders a small frame on the CPU through the CLI, runs the bench suite on
+module of the package (among them every module of the bench-scene slice
+and of the host slice: the runtime, timers, devices, frames in flight,
+recovery, checkpoints, the preview server), renders a small frame on the
+CPU through the CLI, runs the bench suite on
 one scene at a tiny size, and checks that neither ``jax`` nor the JAX
 package entered sys.modules."""
 
@@ -20,7 +22,9 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     names.add(mod.name[len(pkg.__name__) + 1:])
 slice_modules = {"geometry.fractal", "geometry.registry", "accel.bvh", "models.builder",
                  "models.scenes", "kernels.scene_kernel", "utils.stats", "apps.bench_suite",
-                 "kernels.op_probe", "apps.op_probe"}
+                 "kernels.op_probe", "apps.op_probe", "runtime.hostrt", "utils.timers",
+                 "parallel.device", "parallel.pipeline", "parallel.recovery", "utils.checkpoint",
+                 "utils.introspect", "utils.debug", "utils.profile", "apps.serve", "core.upload"}
 assert slice_modules <= names, sorted(slice_modules - names)
 from gpuraytracer_tpu_torch.apps import bench_suite, render_cli
 assert bench_suite.main(["--device", "cpu", "--configs", "single_sphere_plane_256",
