@@ -155,6 +155,27 @@ exits non-zero):
               /frame.png a 320x180 PNG, /stats a status line,
               /resize?w=640&h=360 shown on a later frame, /resize?w=4&h=4
               answered 400
+ 14. bands    row-band sharding (parallel/sharding.py): the builtin 1920x1080
+              frame at t=0.2664 on make_mesh(["cuda:0"] * n) for n = 4 (270
+              rows a band, not a multiple of the 8-row block) and n = 8 (135
+              rows), in plain mode, under GPURT_FRAME_MODE=compact, under
+              defer (which the band renderer sends to compact, as the
+              reference's compact_enabled() does) and under
+              GPURT_MERGED_SHADOW=1: each gathered image bit for bit the
+              whole frame of the same route and knobs in this process, the
+              mean radiance the image's to rel 1e-5, the launch counters
+              (set to 0 just before each banded render, read just after:
+              one frame-kernel launch per band in plain mode), and in plain
+              mode a second banded frame under
+              torch.cuda.set_sync_debug_mode("error") (no host sync);
+              render_frame_deferred over the same bands against its whole
+              frame; the wavefront routes at 320x180 in 4 bands against
+              their whole frames (GPURT_DISABLE_FUSED=1: the scene kernel;
+              mesh_heightfield_sdf: the per-geometry route); a 2-rank gloo
+              world on cuda:0 (entry.dryrun_multichip(2, "cuda") with a
+              1920x1080 frame: the gathered bands bit for bit the
+              one-process frame); the frame kernel's ms at row_offset 0 and
+              of the frame as 4 band launches, after a device-side wait
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
 2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass), the card
@@ -714,6 +735,135 @@ def host_phase(dev, card, pack_m):
     print(f"[host] preview server 127.0.0.1:{srv.port}: /frame.png 320x180, /stats "
           f"{stats_body.decode()!r}, /resize?w=640&h=360 shown as a 640x360 frame, "
           f"/resize?w=4&h=4 answered 400; {frames_served} frames rendered", flush=True)
+
+
+def bands_phase(dev, card):
+    """Phase 14: row-band sharding on the card (see the module docstring).
+    Raises on any failure."""
+    import numpy as np
+
+    from gpuraytracer_tpu_torch import entry
+    from gpuraytracer_tpu_torch.accel.instances import Scene
+    from gpuraytracer_tpu_torch.kernels import frame_kernel
+    from gpuraytracer_tpu_torch.models import builtin, meshes
+    from gpuraytracer_tpu_torch.parallel import sharding
+    from gpuraytracer_tpu_torch.render import trace
+
+    t_band = 0.0333 * 8
+    arrays = builtin.animate_arrays(
+        builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev).arrays, t_band)
+    scene = Scene(builtin.LAYOUT, arrays)
+    pack = frame_kernel.pack_frame(scene)
+    kw = dict(width=W_MAIN, height=H_MAIN)
+    zero = {k: 0 for k in mode_counts()}
+
+    def differing(img, whole):
+        return int((img != whole.cpu()).any(dim=-1).sum())
+
+    for n in (4, 8):
+        mesh = sharding.make_mesh(["cuda:0"] * n)
+        # (label, knobs, the whole frame of the band renderer's route, the
+        # launches a banded frame makes)
+        cases = (
+            ("plain", {}, lambda: frame_kernel.render_frame_tiles(pack, **kw), {"plain": n}),
+            ("compact", {"GPURT_FRAME_MODE": "compact"},
+             lambda: frame_kernel.render_frame_compact(pack, **kw),
+             {"compact": n, "bin": n, "dense": n, "gated": n}),
+            ("defer (compact route)", {"GPURT_FRAME_MODE": "defer"},
+             lambda: frame_kernel.render_frame_compact(pack, **kw),
+             {"compact": n, "bin": n, "dense": n, "gated": n}),
+            ("merged", {"GPURT_MERGED_SHADOW": "1"},
+             lambda: frame_kernel.render_frame_tiles(pack, **kw), {"merged": n}))
+        for label, knobs, whole_fn, want in cases:
+            with env(**knobs):
+                whole = whole_fn()
+                render = sharding.make_sharded_renderer(scene.layout, W_MAIN, H_MAIN, mesh,
+                                                        compute_stats=True)
+                torch.cuda.synchronize()
+                reset_counts()
+                bands, mean = render(arrays)
+                torch.cuda.synchronize()
+                launched = mode_counts()
+            img = torch.from_numpy(sharding.gather_image(bands))
+            launched.pop("queued")
+            want = {**{k: 0 for k in zero if k != "queued"}, **want}
+            differ = differing(img, whole)
+            ref_mean = float(img[..., :3].double().mean())
+            rel = abs(float(mean) - ref_mean) / ref_mean
+            print(f"[bands] {n} bands of {H_MAIN // n} rows, {label}: {differ} of "
+                  f"{W_MAIN * H_MAIN} pixels differ from the whole frame; mean radiance "
+                  f"{float(mean):.7f} vs the image's {ref_mean:.7f} (rel {rel:.3g}); launches "
+                  f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+            if differ or rel > 1e-5 or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{n} bands, {label}: not the whole frame")
+            if launched != want:
+                raise AssertionError(f"{n} bands, {label}: launches {launched}, not {want}")
+            if label == "plain":
+                # No host sync in a banded frame (the upload, the pack and
+                # every band's launch queue without waiting).
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    again = render(arrays)[0]
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if not np.array_equal(sharding.gather_image(again), img.numpy()):
+                    raise AssertionError(f"{n} bands: a second banded frame differs")
+        lh = H_MAIN // n
+        whole = frame_kernel.render_frame_deferred(pack, **kw)
+        parts = [frame_kernel.render_frame_deferred(pack, row_offset=k * lh, local_height=lh, **kw)
+                 for k in range(n)]
+        differ = differing(torch.cat(parts).cpu(), whole)
+        print(f"[bands] {n} bands, render_frame_deferred(row_offset, local_height): {differ} "
+              f"pixels differ from its whole frame", flush=True)
+        if differ:
+            raise AssertionError(f"{n} deferred bands: not the whole deferred frame")
+
+    # The wavefront routes at 320x180 in 4 bands of 45 rows.
+    w, h = 320, 180
+    mesh = sharding.make_mesh(["cuda:0"] * 4)
+    for label, knobs, build_scene, want in (
+            ("scene kernel (GPURT_DISABLE_FUSED=1)", {"GPURT_DISABLE_FUSED": "1"},
+             lambda: builtin.build_scene(aspect=w / h, elapsed_time=t_band, device=dev),
+             (0, 1, 0, 0, 0)),
+            ("per-geometry route (mesh_heightfield_sdf)", {},
+             lambda: meshes.get_config("mesh_heightfield_sdf").build(w / h, t_band, device=dev),
+             (0, 0, 0, 0, 1))):
+        with env(**knobs):
+            sc = build_scene()
+            whole = trace.render_frame(sc, w, h)
+            torch.cuda.synchronize()
+            reset_counts()
+            img = torch.from_numpy(sharding.gather_image(
+                sharding.make_sharded_renderer(sc.layout, w, h, mesh)(sc.arrays)))
+            launched = counts()
+        differ = differing(img, whole)
+        ran = [bool(c) for c in launched] == [bool(c) for c in want]
+        print(f"[bands] 4 bands of {h // 4} rows at {w}x{h}, {label}: {differ} pixels differ "
+              f"from the whole frame; launches (frame, scene, march, mesh, pass) {launched}",
+              flush=True)
+        if differ or not ran:
+            raise AssertionError(f"{label}: bands not the whole frame, or launches {launched}")
+
+    # One band per rank of a 2-rank gloo world, both ranks on card 0.
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(2, device="cuda", size=(W_MAIN, H_MAIN), timeout=300)
+    print(f"[bands] dryrun_multichip(2, device=\"cuda\") over gloo with a {W_MAIN}x{H_MAIN} "
+          f"frame: bit for bit the one-process frame ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # Row 1 with the band arguments: the whole frame at row_offset 0, and the
+    # same frame as 4 band launches.
+    whole_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_tiles(
+        pack, row_offset=0, local_height=H_MAIN, **kw), 10)
+    lh = H_MAIN // 4
+    bands_ms, _ = cuda_ms(lambda: [frame_kernel.render_frame_tiles(
+        pack, row_offset=k * lh, local_height=lh, **kw) for k in range(4)], 10)
+    each_ms = [cuda_ms(lambda k=k: frame_kernel.render_frame_tiles(
+        pack, row_offset=k * lh, local_height=lh, **kw), 10)[0] for k in range(4)]
+    print(f"[bands] frame kernel 1920x1080 at row_offset 0: {whole_ms:.3f} ms; as 4 band "
+          f"launches: {bands_ms:.3f} ms a frame; each band alone "
+          f"{', '.join(f'{t:.3f}' for t in each_ms)} ms (sum {sum(each_ms):.3f}); {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -2344,6 +2494,10 @@ def main() -> int:
     # 13. host: the CLI and the preview server on the card --------------------
     with Phase("host"):
         host_phase(dev, card, pack_m)
+
+    # 14. bands: row-band sharding over a mesh and a gloo world ---------------
+    with Phase("bands"):
+        bands_phase(dev, card)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{

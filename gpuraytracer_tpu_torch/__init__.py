@@ -25,6 +25,6 @@ hidden global device. CPU tensors run the plain PyTorch path, CUDA tensors
 the CUDA kernels.
 """
 
-__version__ = "0.1.0"
+from gpuraytracer_tpu_torch.version import __version__
 
 __all__ = ["__version__"]

@@ -86,18 +86,20 @@ TOTAL_PRIMITIVE_COUNT = (
 )
 
 
-def tensors_to(obj, device):
+def tensors_to(obj, device, move=None):
     """Return a copy of a frozen dataclass with every tensor field (and
-    nested dataclass field, alone or in a tuple) moved to ``device``."""
+    nested dataclass field, alone or in a tuple) moved to ``device``, by
+    ``move(tensor, device)`` (default ``tensor.to(device)``)."""
+    move = move or (lambda t, d: t.to(d))
     changes = {}
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
-            changes[f.name] = v.to(device)
+            changes[f.name] = move(v, device)
         elif dataclasses.is_dataclass(v):
-            changes[f.name] = tensors_to(v, device)
+            changes[f.name] = tensors_to(v, device, move)
         elif isinstance(v, tuple) and all(dataclasses.is_dataclass(x) for x in v):
-            changes[f.name] = tuple(tensors_to(x, device) for x in v)
+            changes[f.name] = tuple(tensors_to(x, device, move) for x in v)
     return dataclasses.replace(obj, **changes)
 
 

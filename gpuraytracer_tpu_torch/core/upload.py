@@ -10,7 +10,9 @@ the copy's event on the staging block and hands the block out again only
 after that event has completed, so each frame in flight keeps its own
 staging block until its copy has run, and a later frame never overwrites
 the values of an earlier one. The values that never change between frames
-are uploaded once per device (``constant``) and shared, read-only.
+are uploaded once per device (``constant``) and shared, read-only. A
+frame's scene arrays go to another device (a band of a sharded frame,
+parallel/sharding.py) through ``arrays_to``, without a host sync either.
 """
 
 from __future__ import annotations
@@ -44,3 +46,29 @@ def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
     dtype) and shared by every caller: read it, never write it. ``values``
     is a (nested) tuple."""
     return _constant(values, torch.device(device), dtype)
+
+
+def tensor_to(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``: itself where it is there already; from the host
+    to a CUDA device staged in pinned memory and copied with
+    ``non_blocking=True``; between CUDA devices a non-blocking copy, which
+    PyTorch orders after the source's stream. Only a copy to the CPU waits
+    for the source's stream (the caller asked for the host)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if t.device == device:
+        return t
+    if device.type != "cuda":
+        return t.to(device)
+    if t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, non_blocking=True)
+
+
+def arrays_to(arrays, device):
+    """A frozen dataclass of tensors (SceneArrays) with every tensor on
+    ``device`` by ``tensor_to``: no host sync on the way to a CUDA device."""
+    from gpuraytracer_tpu_torch.core.types import tensors_to  # types imports this module
+
+    return tensors_to(arrays, device, move=tensor_to)

@@ -133,9 +133,9 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
     entries = {
-        "frame_kernel": (("gprt_frame_render", 4, 7), ("gprt_frame_compact", 7, 11),
-                         ("gprt_frame_dense", 6, 8), ("gprt_frame_gated", 5, 9),
-                         ("gprt_frame_defer", 10, 9)),
+        "frame_kernel": (("gprt_frame_render", 4, 9), ("gprt_frame_compact", 7, 13),
+                         ("gprt_frame_dense", 6, 10), ("gprt_frame_gated", 5, 11),
+                         ("gprt_frame_defer", 10, 11)),
         "scene_kernel": (("gprt_scene_closest", 11, 9), ("gprt_scene_finish", 9, 6),
                          ("gprt_shadow_queue", 9, 7)),
     }

@@ -97,10 +97,23 @@
 // (kShared: copied to shared memory; else read in place, for a scene past a
 // block's shared memory), picked on the host (traverse.cuh GPRT_PICK1/2).
 //
+// Bands (row-band sharding, parallel/sharding.py): every frame entry renders
+// the rows [row_offset, row_offset + local_height) of a width x height
+// frame, both given as launch arguments (the reference's cvec[7,0] row
+// offset and local_height, frame_kernel.py:225-229, :696). width and height
+// stay the whole frame's:
+// raygen and the checker filter's neighbour rays take global pixel
+// coordinates. The grid covers the band's rows; the image, the planes, the
+// compact queue's pixel indices, the defer records and queue slots are in
+// the band's own raster order (row py - row_offset), and the dense entry
+// adds row_offset back when it decodes a queued pixel. A whole frame is the
+// band row_offset 0, local_height height. Launch arguments and not a field
+// of params: one pack of a frame serves every band on its device.
+//
 // Inputs: params (f32) and layout (int32) as kernels/frame_kernel.py packs
 // them (header, then the reference's pack_frame_params blocks); tri, the
-// F x 12 mesh face table (null without meshes); out is an (H, W, 4) f32
-// image. Each C entry returns cudaGetLastError() after the launch.
+// F x 12 mesh face table (null without meshes); out is an (local_height, W,
+// 4) f32 image. Each C entry returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -270,7 +283,8 @@ __device__ __forceinline__ int defer_key(int pix, int info) {
   return (pix >> 15) * 32 + (code != 0 ? __ffs(code) - 1 : 30);
 }
 
-// One pixel: raygen, then per level the closest hit, the material pick,
+// One pixel at global coordinates (px, py), `pix` its index in the band's
+// raster order: raygen, then per level the closest hit, the material pick,
 // the shadow ray, the shading and the bounce; returns the colour (the
 // defer form records its planes at `pix` instead and returns zeros).
 // kCompactForm: caps as closest_caps / shadow_caps, *dirty the mask; a pixel
@@ -317,7 +331,7 @@ __device__ float4 render_pixel(const Scene& s, int px, int py, int width, int he
     group_count(group, queue->hist, key);
     if (slot >= queue->cap) return;
     QueueEntry& e = static_cast<QueueEntry*>(queue->slots)[slot];
-    e.pix = py * width + px;
+    e.pix = pix;
     e.level = level | (key << 8);
     e.o[0] = o.x, e.o[1] = o.y, e.o[2] = o.z;
     e.d[0] = d.x, e.d[1] = d.y, e.d[2] = d.z;
@@ -464,15 +478,16 @@ __device__ __forceinline__ Scene block_scene(const float* __restrict__ params,
 template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     frame_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                 const float* __restrict__ tri, float4* __restrict__ out, int width, int height, int max_depth, int G, int M,
+                 const float* __restrict__ tri, float4* __restrict__ out, int width, int height,
+                 int row_offset, int local_height, int max_depth, int G, int M,
                  unsigned long long* ops) {
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && py < height) {
-    out[py * width + px] = render_pixel<kPlainForm, kMerged>(
-        s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0,
-        nullptr, nullptr);
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px < width && row < local_height) {
+    out[row * width + px] = render_pixel<kPlainForm, kMerged>(
+        s, px, row + row_offset, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr,
+        DeferOut{}, 0, nullptr, nullptr);
   }
   counters_end(ops);
 }
@@ -491,37 +506,40 @@ __global__ void __launch_bounds__(128)
     frame_gated_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                        const float* __restrict__ tri, float4* __restrict__ out,
                        const int* __restrict__ count, int n, int cap, int width, int height,
-                       int max_depth, int G, int M, unsigned long long* ops) {
+                       int row_offset, int local_height, int max_depth, int G, int M,
+                       unsigned long long* ops) {
   if (!overflowed(count, n, cap)) return;
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && py < height) {
-    out[py * width + px] = render_pixel<kPlainForm, kMerged>(
-        s, px, py, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr, DeferOut{}, 0,
-        nullptr, nullptr);
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px < width && row < local_height) {
+    out[row * width + px] = render_pixel<kPlainForm, kMerged>(
+        s, px, row + row_offset, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr,
+        DeferOut{}, 0, nullptr, nullptr);
   }
   counters_end(ops);
 }
 
-// dirty_out (may be null): the (H, W) int32 dirty masks. q.count (may be
-// null): append each dirty pixel's QueueEntry to q where the cap stops it.
+// dirty_out (may be null): the (local_height, W) int32 dirty masks. q.count
+// (may be null): append each dirty pixel's QueueEntry to q where the cap
+// stops it.
 template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_compact_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                          const float* __restrict__ tri, float4* __restrict__ out,
                          int* __restrict__ dirty_out, DeviceQueue q, int width, int height,
-                         int max_depth, int G, int M, CapSpec closest_caps, CapSpec shadow_caps,
-                         unsigned long long* ops) {
+                         int row_offset, int local_height, int max_depth, int G, int M,
+                         CapSpec closest_caps, CapSpec shadow_caps, unsigned long long* ops) {
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && py < height) {
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px < width && row < local_height) {
     unsigned dirty = 0;
-    out[py * width + px] = render_pixel<kCompactForm>(
-        s, px, py, width, height, max_depth, closest_caps, shadow_caps, &dirty, DeferOut{}, 0,
-        nullptr, q.count != nullptr ? &q : nullptr);
-    if (dirty_out != nullptr) dirty_out[py * width + px] = (int)dirty;
+    const int pix = row * width + px;
+    out[pix] = render_pixel<kCompactForm>(
+        s, px, row + row_offset, width, height, max_depth, closest_caps, shadow_caps, &dirty,
+        DeferOut{}, pix, nullptr, q.count != nullptr ? &q : nullptr);
+    if (dirty_out != nullptr) dirty_out[pix] = (int)dirty;
   }
   counters_end(ops);
 }
@@ -529,12 +547,14 @@ __global__ void __launch_bounds__(128)
 // The dense pass over the compact queue q, one thread per slot over its
 // capacity: a block past the live count (every block, where the queue
 // overflowed) returns before loading the scene. An entry resumes from its
-// level, or renders from the camera ray where its level is -1.
+// level, or renders from the camera ray where its level is -1. An entry's
+// pixel index is in the band's raster order: its global row adds
+// row_offset.
 template <bool kMerged, bool kShared>
 __global__ void __launch_bounds__(128)
     frame_dense_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                        const float* __restrict__ tri, DeviceQueue q, float4* __restrict__ out,
-                       int width, int height, int max_depth, int G, int M,
+                       int width, int height, int row_offset, int max_depth, int G, int M,
                        unsigned long long* ops) {
   const int n = *q.count;
   const int live = n > q.cap ? 0 : n;
@@ -545,8 +565,8 @@ __global__ void __launch_bounds__(128)
     const QueueEntry* e = static_cast<const QueueEntry*>(q.slots) + i;
     const int pix = e->pix;
     out[pix] = render_pixel<kPlainForm, kMerged, true>(
-        s, pix % width, pix / width, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr,
-        DeferOut{}, 0, e, nullptr);
+        s, pix % width, pix / width + row_offset, width, height, max_depth, CapSpec{}, CapSpec{},
+        nullptr, DeferOut{}, 0, e, nullptr);
   }
   counters_end(ops);
 }
@@ -558,16 +578,17 @@ template <bool kShared>
 __global__ void __launch_bounds__(128)
     frame_defer_kernel(const float* __restrict__ params, const int* __restrict__ layout,
                        const float* __restrict__ tri, DeferOut rec, DeviceQueue q, int width,
-                       int height, int max_depth, int G, int M, CapSpec shadow_caps,
-                       unsigned long long* ops) {
+                       int height, int row_offset, int local_height, int max_depth, int G, int M,
+                       CapSpec shadow_caps, unsigned long long* ops) {
   const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool inside = px < width && py < height;
+  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  const bool inside = px < width && row < local_height;
+  const int pix = row * width + px;
   unsigned unknown = 0;
   if (inside) {
-    render_pixel<kDeferForm>(s, px, py, width, height, max_depth, CapSpec{}, shadow_caps,
-                             &unknown, rec, py * width + px, nullptr, nullptr);
+    render_pixel<kDeferForm>(s, px, row + row_offset, width, height, max_depth, CapSpec{},
+                             shadow_caps, &unknown, rec, pix, nullptr, nullptr);
   }
   if (q.count != nullptr) {
     // Every lane of the warp is here: one ballot per level.
@@ -575,7 +596,6 @@ __global__ void __launch_bounds__(128)
       const bool queued = (unknown >> k) & 1u;
       const unsigned group = __ballot_sync(0xffffffffu, queued);
       if (!queued) continue;
-      const int pix = py * width + px;
       const int slot = group_append(group, q.count + k);
       group_count(group, q.hist + (size_t)k * q.nbins,
                   defer_key(pix, rec.sinfo[(size_t)k * rec.n + pix]));
@@ -734,30 +754,41 @@ static cudaError_t setup(Kernel kernel, int G, int M, int shared, int device, si
   return gprt::reserve_shared(kernel, *shmem, device);
 }
 
-// The grid of the 16x8 blocks that cover a width x height frame.
-static dim3 frame_grid(int width, int height) {
-  return dim3((width + 15) / 16, (height + 7) / 8);
+// The grid of the 16x8 blocks that cover a band of local_height rows of a
+// frame width pixels wide.
+static dim3 frame_grid(int width, int local_height) {
+  return dim3((width + 15) / 16, (local_height + 7) / 8);
+}
+
+// Whether the rows [row_offset, row_offset + local_height) lie in a frame
+// of `height` rows.
+static bool band_ok(int height, int row_offset, int local_height) {
+  return row_offset >= 0 && local_height > 0 && row_offset <= height - local_height;
 }
 
 static auto frame_entry(int merged, int shared) {
   return GPRT_PICK2(gprt::frame_kernel, merged, shared);
 }
 
-// ops: a device counter that the counting builds add to (-DGPRT_COUNT_OPS:
-// the frame's f32 FLOPs; -DGPRT_COUNT_SIMT: 2 x 16 + 1 SIMT counters); the
-// default build ignores it. merged: launch the instantiation with merged
-// occlusion marches. shared: the scene's tables in shared memory.
+// The band of local_height rows from row_offset of a width x height frame
+// into out (local_height, W, 4). ops: a device counter that the counting
+// builds add to (-DGPRT_COUNT_OPS: the frame's f32 FLOPs; -DGPRT_COUNT_SIMT:
+// 2 x 16 + 1 SIMT counters); the default build ignores it. merged: launch
+// the instantiation with merged occlusion marches. shared: the scene's
+// tables in shared memory.
 extern "C" int gprt_frame_render(const float* params, const int* layout, const float* tri,
-                                 float* out, int width, int height, int max_depth,
-                                 int num_geometries, int num_materials, int shared, int merged,
+                                 float* out, int width, int height, int row_offset,
+                                 int local_height, int max_depth, int num_geometries,
+                                 int num_materials, int shared, int merged,
                                  unsigned long long* ops, int device, void* stream) {
+  if (!band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
   const auto kernel = frame_entry(merged, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth,
-      num_geometries, num_materials, ops);
+  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+      params, layout, tri, reinterpret_cast<float4*>(out), width, height, row_offset,
+      local_height, max_depth, num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
 }
 
@@ -792,18 +823,20 @@ static size_t queue_words(int nseg, int nbins) {
   return (size_t)nseg + 2 * (size_t)nseg * nbins + 1;
 }
 
-// The compact form's main pass: out (H, W, 4); dirty (H, W) int32 or null;
-// the closest and occlusion passes' SDF and metaball step caps. queue (may
+// The compact form's main pass over a band (as gprt_frame_render): out
+// (local_height, W, 4); dirty (local_height, W) int32 or null; the closest
+// and occlusion passes' SDF and metaball step caps. queue (may
 // be null): `cap` QueueEntry slots (64 bytes each) that the dirty pixels are
 // appended to; count one int32 and the queue_words(1, 32) after it, zeroed
 // on the stream first, then the count and the histogram of the 32 keys.
 extern "C" int gprt_frame_compact(const float* params, const int* layout, const float* tri,
                                   float* out, int* dirty, void* queue, int* count, int cap,
-                                  int width, int height,
+                                  int width, int height, int row_offset, int local_height,
                                   int max_depth, int num_geometries, int num_materials, int shared,
                                   int closest_sdf_cap, int closest_mb_cap, int shadow_sdf_cap,
                                   int shadow_mb_cap, unsigned long long* ops, int device,
                                   void* stream) {
+  if (!band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
   const auto kernel = GPRT_PICK1(gprt::frame_compact_kernel, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
@@ -813,24 +846,25 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
     err = cudaMemsetAsync(count, 0, sizeof(int) * queue_words(1, 32), (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), dirty,
       gprt::DeviceQueue{queue, count, cap, count != nullptr ? count + 1 : nullptr, 32}, width,
-      height, max_depth, num_geometries,
+      height, row_offset, local_height, max_depth, num_geometries,
       num_materials, gprt::CapSpec{closest_sdf_cap, closest_mb_cap},
       gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap}, ops);
   return (int)cudaGetLastError();
 }
 
 // The dense pass over a compact queue (queue, count, cap as
-// gprt_frame_compact fills them) into the image out (H, W, 4), launched
-// over the capacity; merged as for gprt_frame_render.
+// gprt_frame_compact fills them for the same band) into the band's image
+// out (local_height, W, 4), launched over the capacity; merged as for
+// gprt_frame_render.
 extern "C" int gprt_frame_dense(const float* params, const int* layout, const float* tri,
                                 const void* queue, const int* count, float* out, int cap,
-                                int width, int height, int max_depth, int num_geometries,
-                                int num_materials, int shared, int merged,
-                                unsigned long long* ops, int device, void* stream) {
-  if (cap <= 0) return (int)cudaErrorInvalidValue;
+                                int width, int height, int row_offset, int local_height,
+                                int max_depth, int num_geometries, int num_materials, int shared,
+                                int merged, unsigned long long* ops, int device, void* stream) {
+  if (cap <= 0 || !band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
   const auto kernel = GPRT_PICK2(gprt::frame_dense_kernel, merged, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
@@ -838,50 +872,53 @@ extern "C" int gprt_frame_dense(const float* params, const int* layout, const fl
   kernel<<<(cap + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
       params, layout, tri,
       gprt::DeviceQueue{const_cast<void*>(queue), const_cast<int*>(count), cap, nullptr, 0},
-      reinterpret_cast<float4*>(out), width, height, max_depth, num_geometries, num_materials,
-      ops);
+      reinterpret_cast<float4*>(out), width, height, row_offset, max_depth, num_geometries,
+      num_materials, ops);
   return (int)cudaGetLastError();
 }
 
-// The plain frame into out (H, W, 4) if any of the n counts passed cap;
-// merged as for gprt_frame_render.
+// The plain frame's band into out (local_height, W, 4) if any of the n
+// counts passed cap; the band and merged as for gprt_frame_render.
 extern "C" int gprt_frame_gated(const float* params, const int* layout, const float* tri,
                                 float* out, const int* count, int n, int cap, int width,
-                                int height, int max_depth, int num_geometries, int num_materials,
-                                int shared, int merged, unsigned long long* ops, int device,
-                                void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                                int height, int row_offset, int local_height, int max_depth,
+                                int num_geometries, int num_materials, int shared, int merged,
+                                unsigned long long* ops, int device, void* stream) {
+  if (n <= 0 || !band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
   const auto kernel = GPRT_PICK2(gprt::frame_gated_kernel, merged, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), count, n, cap, width, height,
-      max_depth, num_geometries, num_materials, ops);
+      row_offset, local_height, max_depth, num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
 }
 
-// The defer form's main pass: lit (D, H, W, 4), shadowed (D-1, H, W, 4),
-// sinfo (D-1, H, W) int32, rays (D-1, H, W, 6); the occlusion passes' SDF
-// and metaball step caps. queue (may be null): (D-1, cap) int32 pixel
-// indices of the unknown lanes per shadowed level, counted in count (D-1
-// int32, then the queue_words(D-1, nbins) after them, nbins = 32 per 2^15
-// pixels; zeroed on the stream first, then the counts and the histograms of
-// the keys), with their march records in march ((D-1, H, W) MarchRecord,
-// 16 bytes each, written only where the status is unknown).
+// The defer form's main pass over a band (as gprt_frame_render; h below is
+// local_height): lit (D, h, W, 4), shadowed (D-1, h, W, 4), sinfo (D-1, h,
+// W) int32, rays (D-1, h, W, 6); the occlusion passes' SDF and metaball step
+// caps. queue (may be null): (D-1, cap) int32 band pixel indices of the
+// unknown lanes per shadowed level, counted in count (D-1 int32, then the
+// queue_words(D-1, nbins) after them, nbins = 32 per 2^15 pixels of the
+// band; zeroed on the stream first, then the counts and the histograms of
+// the keys), with their march records in march ((D-1, h, W) MarchRecord, 16
+// bytes each, written only where the status is unknown).
 extern "C" int gprt_frame_defer(const float* params, const int* layout, const float* tri,
                                 float* lit, float* shadowed, int* sinfo, float* rays,
                                 void* march, int* queue, int* count, int cap, int width,
-                                int height, int max_depth,
+                                int height, int row_offset, int local_height, int max_depth,
                                 int num_geometries, int num_materials,
                                 int shared, int shadow_sdf_cap, int shadow_mb_cap,
                                 unsigned long long* ops, int device, void* stream) {
-  if (max_depth < 2) return (int)cudaErrorInvalidValue;
+  if (max_depth < 2 || !band_ok(height, row_offset, local_height)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const auto kernel = GPRT_PICK1(gprt::frame_defer_kernel, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  const int nsl = max_depth - 1, npix = width * height;
+  const int nsl = max_depth - 1, npix = width * local_height;
   const int nbins = 32 * ((npix + 32767) >> 15);
   if (count != nullptr) {
     if (queue == nullptr || march == nullptr || cap <= 0) return (int)cudaErrorInvalidValue;
@@ -890,10 +927,10 @@ extern "C" int gprt_frame_defer(const float* params, const int* layout, const fl
   }
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
                            sinfo, rays, static_cast<gprt::MarchRecord*>(march), npix};
-  kernel<<<frame_grid(width, height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, rec,
       gprt::DeviceQueue{queue, count, cap, count != nullptr ? count + nsl : nullptr, nbins},
-      width, height,
+      width, height, row_offset, local_height,
       max_depth, num_geometries, num_materials, gprt::CapSpec{shadow_sdf_cap, shadow_mb_cap},
       ops);
   return (int)cudaGetLastError();

@@ -36,6 +36,17 @@ the same buffers. On a CPU tensor the wrapper runs the kernel's
 plain version — the wavefront ``render/trace.trace_radiance`` on the
 scene unpacked from the same buffers; on a CUDA tensor it launches the
 kernel or raises.
+
+Every entry renders a band of rows (row-band sharding,
+parallel/sharding.py; the reference's cvec[7,0] row offset and
+local_height, frame_kernel.py:225-229, :696): ``row_offset`` (default 0)
+and ``local_height`` (default None: the rest of the frame from the
+offset, so the whole frame at offset 0). ``width`` and ``height`` stay the whole
+frame's, which raygen and the checker filter read; images, planes, dirty
+masks and the queues' pixel indices are the band's, in its own raster
+order, and the queue capacity is the band's (``queue_capacity`` of its
+rows). A band's pixels are the whole frame's at those rows bit for bit:
+one thread per pixel, nothing summed across pixels.
 """
 
 from __future__ import annotations
@@ -387,14 +398,15 @@ def unpack_frame(pack: FramePack) -> Scene:
 
 
 def render_frame_plain(pack: FramePack, *, width: int, height: int,
-                       max_depth: int = MAX_RAY_RECURSION_DEPTH):
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, row_offset: int = 0,
+                       local_height: int | None = None):
     """The kernel's plain PyTorch version on the same packed inputs: the
     wavefront (render/trace.render_wavefront) with plain traversal passes
-    on the unpacked scene, on the pack's device."""
+    on the unpacked scene, on the pack's device, over the band's rows."""
     from gpuraytracer_tpu_torch.render import trace
 
     return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth,
-                                  plain=True)
+                                  plain=True, row_offset=row_offset, local_height=local_height)
 
 
 def check_pack(pack: FramePack) -> None:
@@ -419,6 +431,18 @@ def check_pack(pack: FramePack) -> None:
                          f"{tuple(tri.shape)} {tri.dtype} on {tri.device}")
     if sum(c for _, c in pack.tri_offsets) != tri.shape[0]:
         raise ValueError(f"tri_offsets {pack.tri_offsets} do not cover {tri.shape[0]} faces")
+
+
+def band_height(height: int, row_offset: int = 0, local_height: int | None = None) -> int:
+    """The rows of the band [row_offset, row_offset + local_height) of a
+    frame of ``height`` rows (``local_height`` None: the rest of the frame
+    from the offset); raises ValueError unless the band lies in the frame
+    and holds a row."""
+    lh = height - row_offset if local_height is None else local_height
+    if row_offset < 0 or lh <= 0 or row_offset + lh > height:
+        raise ValueError(f"band of {lh} rows at row {row_offset} is not inside a frame of "
+                         f"{height} rows")
+    return lh
 
 
 # Counters of a -DGPRT_COUNT_SIMT build (csrc/frame_math.cuh): lane-samples
@@ -459,8 +483,10 @@ def simt_efficiency(counts) -> dict:
 
 
 def render_frame_tiles(pack: FramePack, *, width: int, height: int,
-                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None, ops=None):
-    """(H, W, 4) f32 radiance image of the packed frame.
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None, ops=None,
+                       row_offset: int = 0, local_height: int | None = None):
+    """(local_height, W, 4) f32 radiance image of the packed frame's band
+    (the whole (H, W, 4) frame by default).
 
     CUDA: launches csrc/frame_kernel.cu on the current stream (``lib``: a
     loaded build of it, default the shipped one; ``ops``: the counters a
@@ -469,16 +495,18 @@ def render_frame_tiles(pack: FramePack, *, width: int, height: int,
     ``render_frame_plain``."""
     global LAUNCHES, MERGED_LAUNCHES
     check_pack(pack)
+    lh = band_height(height, row_offset, local_height)
     dev = pack.params.device
     if dev.type == "cpu":
-        return render_frame_plain(pack, width=width, height=height, max_depth=max_depth)
+        return render_frame_plain(pack, width=width, height=height, max_depth=max_depth,
+                                  row_offset=row_offset, local_height=lh)
     lib = _launch_setup(pack, width, height, max_depth, lib)
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((lh, width, 4), dtype=torch.float32, device=dev)
     merged = merges(pack)
-    _raise_on(lib.gprt_frame_render(*_buffers(pack), _ptr(out), width, height, max_depth,
-                                    pack.num_geometries, pack.num_materials, int(_shared(pack)),
-                                    int(merged), ops_pointer(ops), *_where(dev)), lib,
-              "frame kernel")
+    _raise_on(lib.gprt_frame_render(*_buffers(pack), _ptr(out), width, height, row_offset, lh,
+                                    max_depth, pack.num_geometries, pack.num_materials,
+                                    int(_shared(pack)), int(merged), ops_pointer(ops),
+                                    *_where(dev)), lib, "frame kernel")
     if merged:
         MERGED_LAUNCHES += 1
     else:
@@ -564,7 +592,8 @@ def queue_capacity(width: int, height: int, cap_lanes: int | None = None) -> int
     plain kernel: the reference's rule (frame_kernel.py:924-929), computed
     on the lane count of its 32x128 tiles, so that the overflow triggers on
     the frames where the reference's does. The padding is a TPU schedule;
-    the port keeps it only for this decision."""
+    the port keeps it only for this decision. A band takes its own rows as
+    ``height`` (the reference's lh, :853, :1125)."""
     tile = TILE_ROWS * TILE_COLS
     lanes = (height + (-height) % TILE_ROWS) * (width + (-width) % TILE_COLS)
     cap = cap_lanes if cap_lanes is not None else max(tile, lanes // COMPACT_CAP_DIV)
@@ -582,46 +611,53 @@ def _kernel_caps(caps, mb_caps, k):
 
 def render_frame_capped_plain(pack: FramePack, *, width: int, height: int,
                               max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
-                              mb_budget_cap=None):
+                              mb_budget_cap=None, row_offset: int = 0,
+                              local_height: int | None = None):
     """Plain version of compact's main pass (``render_frame_capped``): the
     wavefront with ``trace.MainPass`` on the unpacked scene. Returns the
-    (H, W, 4) image, wrong at the dirty pixels, and the (H, W) int32 dirty
-    mask."""
+    band's (h, W, 4) image, wrong at the dirty pixels, and its (h, W) int32
+    dirty mask."""
     from gpuraytracer_tpu_torch.render import trace
 
     caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
     main = trace.MainPass(closest=(caps[0], mb_caps[0]), shadow=(caps[1], mb_caps[1]))
     return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth,
-                                  plain=True, main=main)
+                                  plain=True, main=main, row_offset=row_offset,
+                                  local_height=local_height)
 
 
 def render_frame_capped(pack: FramePack, *, width: int, height: int,
                         max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
-                        mb_budget_cap=None, lib=None, ops=None):
+                        mb_budget_cap=None, lib=None, ops=None, row_offset: int = 0,
+                        local_height: int | None = None):
     """Compact's main pass, (image, dirty mask) as ``render_frame_capped_plain``
     gives them: on CUDA the compact entry of csrc/frame_kernel.cu (counted
     in COMPACT_LAUNCHES), on the CPU the plain version."""
     check_pack(pack)
+    band = dict(row_offset=row_offset, local_height=band_height(height, row_offset, local_height))
     if pack.params.device.type == "cpu":
         return render_frame_capped_plain(pack, width=width, height=height, max_depth=max_depth,
-                                         budget_cap=budget_cap, mb_budget_cap=mb_budget_cap)
+                                         budget_cap=budget_cap, mb_budget_cap=mb_budget_cap,
+                                         **band)
     out, dirty, _ = _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap,
-                                    None, lib, ops)
+                                    None, lib, ops, **band)
     return out, dirty
 
 
-def _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap, cap, lib, ops):
-    """One launch of the compact entry: (image, dirty mask, None) without a
-    queue capacity ``cap``, else (image, None, CompactQueue)."""
+def _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap, cap, lib, ops, *,
+                    row_offset, local_height):
+    """One launch of the compact entry over a band: (image, dirty mask,
+    None) without a queue capacity ``cap``, else (image, None,
+    CompactQueue)."""
     global COMPACT_LAUNCHES
     dev = pack.params.device
     lib = _launch_setup(pack, width, height, max_depth, lib)
     caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
-    out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    out = torch.empty((local_height, width, 4), dtype=torch.float32, device=dev)
     dirty = queue = None
     null = ctypes.c_void_p(None)
     if cap is None:
-        dirty = torch.empty((height, width), dtype=torch.int32, device=dev)
+        dirty = torch.empty((local_height, width), dtype=torch.int32, device=dev)
         q_args = (_ptr(dirty), null, null, 0)
     else:
         words = _queue_words(1, 32, dev)
@@ -629,7 +665,7 @@ def _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap, c
                              words[:1], words[1:])
         q_args = (null, _ptr(queue.entries), _ptr(queue.count), cap)
     _raise_on(lib.gprt_frame_compact(
-        *_buffers(pack), _ptr(out), *q_args, width, height, max_depth,
+        *_buffers(pack), _ptr(out), *q_args, width, height, row_offset, local_height, max_depth,
         pack.num_geometries, pack.num_materials, int(_shared(pack)),
         *_kernel_caps(caps, mb_caps, 0),
         *_kernel_caps(caps, mb_caps, 1), ops_pointer(ops), *_where(dev)), lib, "compact kernel")
@@ -687,20 +723,21 @@ def render_frame_dense(pack: FramePack, qpx, qpy, *, width: int, height: int,
     entries[:, 1] = -1
     image = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     _dense_launch(pack, CompactQueue(entries, torch.full((1,), n, dtype=torch.int32, device=dev)),
-                  image, width, height, max_depth, lib, ops)
+                  image, width, height, max_depth, lib, ops, row_offset=0, local_height=height)
     return torch.where(pad[:, None], 0.0, image.view(-1, 4)[pix.long()])
 
 
-def _dense_launch(pack, queue, image, width, height, max_depth, lib, ops):
+def _dense_launch(pack, queue, image, width, height, max_depth, lib, ops, *, row_offset,
+                  local_height):
     global DENSE_LAUNCHES, MERGED_DENSE_LAUNCHES
     dev = pack.params.device
     lib = _launch_setup(pack, width, height, max_depth, lib)
     merged = merges(pack)
     _raise_on(lib.gprt_frame_dense(
         *_buffers(pack), _ptr(queue.entries), _ptr(queue.count), _ptr(image),
-        queue.entries.shape[0], width, height, max_depth, pack.num_geometries,
-        pack.num_materials, int(_shared(pack)), int(merged), ops_pointer(ops), *_where(dev)),
-        lib, "dense kernel")
+        queue.entries.shape[0], width, height, row_offset, local_height, max_depth,
+        pack.num_geometries, pack.num_materials, int(_shared(pack)), int(merged),
+        ops_pointer(ops), *_where(dev)), lib, "dense kernel")
     if merged:
         MERGED_DENSE_LAUNCHES += 1
     else:
@@ -709,22 +746,26 @@ def _dense_launch(pack, queue, image, width, height, max_depth, lib, ops):
 
 def render_frame_deferred_plain(pack: FramePack, *, width: int, height: int,
                                 max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
-                                mb_shadow_cap=None):
+                                mb_shadow_cap=None, row_offset: int = 0,
+                                local_height: int | None = None):
     """Plain version of defer's main pass (``render_frame_deferred_main``):
     the wavefront with a deferring ``trace.MainPass`` on the unpacked
-    scene. Returns its ``trace.DeferPlanes`` over the (H, W) frame."""
+    scene. Returns its ``trace.DeferPlanes`` over the band's (h, W)
+    pixels."""
     from gpuraytracer_tpu_torch.render import trace
 
     main = trace.MainPass(shadow=(shadow_cap, mb_shadow_cap), defer=True)
     return trace.render_wavefront(unpack_frame(pack), width, height, max_depth=max_depth,
-                                  plain=True, main=main)
+                                  plain=True, main=main, row_offset=row_offset,
+                                  local_height=local_height)
 
 
 def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
                                max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
-                               mb_shadow_cap=None, lib=None, ops=None, planes=None):
-    """Defer's main pass, the ``trace.DeferPlanes`` of the (H, W) frame:
-    on CUDA the defer entry of csrc/frame_kernel.cu (counted in
+                               mb_shadow_cap=None, lib=None, ops=None, planes=None,
+                               row_offset: int = 0, local_height: int | None = None):
+    """Defer's main pass, the ``trace.DeferPlanes`` of the band's (h, W)
+    pixels: on CUDA the defer entry of csrc/frame_kernel.cu (counted in
     DEFER_LAUNCHES), on the CPU the plain version. Needs max_depth >= 2.
     ``planes``: CUDA only, DeferPlanes of the entry's shapes to write into
     instead of new ones (a timing loop keeps its 34 planes out of the
@@ -732,29 +773,30 @@ def render_frame_deferred_main(pack: FramePack, *, width: int, height: int,
     check_pack(pack)
     if max_depth < 2:
         raise ValueError("the deferred-shadow pass needs a shadowed level (max_depth >= 2)")
+    band = dict(row_offset=row_offset, local_height=band_height(height, row_offset, local_height))
     if pack.params.device.type == "cpu":
         return render_frame_deferred_plain(pack, width=width, height=height,
                                            max_depth=max_depth, shadow_cap=shadow_cap,
-                                           mb_shadow_cap=mb_shadow_cap)
+                                           mb_shadow_cap=mb_shadow_cap, **band)
     return _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, None, lib,
-                         ops, planes)[0]
+                         ops, planes, **band)[0]
 
 
 def _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap, lib, ops,
-                  planes=None):
-    """One launch of the defer entry: (DeferPlanes, None) without a queue
-    capacity ``cap``, else (DeferPlanes, DeferQueue)."""
+                  planes=None, *, row_offset, local_height):
+    """One launch of the defer entry over a band: (DeferPlanes, None)
+    without a queue capacity ``cap``, else (DeferPlanes, DeferQueue)."""
     global DEFER_LAUNCHES
     from gpuraytracer_tpu_torch.render import trace
 
     dev = pack.params.device
     lib = _launch_setup(pack, width, height, max_depth, lib)
-    nsl = max_depth - 1
+    nsl, lh = max_depth - 1, local_height
     want = trace.DeferPlanes(
-        lit=((max_depth, height, width, 4), torch.float32),
-        shadowed=((nsl, height, width, 4), torch.float32),
-        sinfo=((nsl, height, width), torch.int32),
-        rays=((nsl, height, width, 6), torch.float32))
+        lit=((max_depth, lh, width, 4), torch.float32),
+        shadowed=((nsl, lh, width, 4), torch.float32),
+        sinfo=((nsl, lh, width), torch.int32),
+        rays=((nsl, lh, width, 6), torch.float32))
     if planes is None:
         planes = trace.DeferPlanes(*(torch.empty(s, dtype=t, device=dev) for s, t in want))
     elif any(tuple(p.shape) != s or p.dtype != t or p.device != dev or not p.is_contiguous()
@@ -765,13 +807,14 @@ def _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap
     if cap is None:
         q_args = (null, null, null, 0)
     else:
-        words = _queue_words(nsl, defer_bins(width * height), dev)
+        words = _queue_words(nsl, defer_bins(width * lh), dev)
         queue = DeferQueue(torch.empty((nsl, cap), dtype=torch.int32, device=dev), words[:nsl],
-                           torch.empty((nsl, height, width, MARCH_RECORD_WORDS), dtype=torch.int32,
+                           torch.empty((nsl, lh, width, MARCH_RECORD_WORDS), dtype=torch.int32,
                                        device=dev), words[nsl:])
         q_args = (_ptr(queue.rec), _ptr(queue.idx), _ptr(queue.count), cap)
     _raise_on(lib.gprt_frame_defer(
-        *_buffers(pack), *(_ptr(p) for p in planes), *q_args, width, height, max_depth,
+        *_buffers(pack), *(_ptr(p) for p in planes), *q_args, width, height, row_offset, lh,
+        max_depth,
         pack.num_geometries, pack.num_materials, int(_shared(pack)),
         *_kernel_caps((None, shadow_cap), (None, mb_shadow_cap), 1), ops_pointer(ops),
         *_where(dev)), lib, "defer kernel")
@@ -927,21 +970,23 @@ def queue_plain(mask, cap: int):
 
 def render_frame_compact_main_plain(pack: FramePack, *, width: int, height: int,
                                     max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
-                                    mb_budget_cap=None, cap: int):
+                                    mb_budget_cap=None, cap: int, row_offset: int = 0,
+                                    local_height: int | None = None):
     """Plain version of ``render_frame_compact_main``: the capped wavefront
     keeping each dirty pixel's state (``trace.MainPass(resume=True)``), and
-    the queue that ``queue_plain`` builds over its dirty mask, in raster
-    order. Returns (image, CompactQueue)."""
+    the queue that ``queue_plain`` builds over its dirty mask, in the band's
+    raster order. Returns (image, CompactQueue)."""
     from gpuraytracer_tpu_torch.render import trace
 
     caps, mb_caps = norm_caps(budget_cap), norm_caps(mb_budget_cap)
     main = trace.MainPass(closest=(caps[0], mb_caps[0]), shadow=(caps[1], mb_caps[1]),
                           resume=True)
     img, dirty, state = trace.render_wavefront(unpack_frame(pack), width, height,
-                                               max_depth=max_depth, plain=True, main=main)
+                                               max_depth=max_depth, plain=True, main=main,
+                                               row_offset=row_offset, local_height=local_height)
     idx, count, _ = queue_plain(dirty != 0, cap)
     live = idx[:min(count, cap)]
-    flat = trace.PixelState(*(x.reshape((width * height,) + x.shape[2:]) for x in state))
+    flat = trace.PixelState(*(x.reshape((dirty.numel(),) + x.shape[2:]) for x in state))
     entries = torch.zeros((cap, QUEUE_ENTRY_WORDS), dtype=torch.int32, device=img.device)
     entries[:live.shape[0]] = queue_entries(live, trace.PixelState(*(x[live] for x in flat)),
                                             dirty.reshape(-1)[live])
@@ -951,7 +996,8 @@ def render_frame_compact_main_plain(pack: FramePack, *, width: int, height: int,
 
 def render_frame_compact_main(pack: FramePack, *, width: int, height: int,
                               max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap,
-                              mb_budget_cap=None, cap: int, lib=None, ops=None):
+                              mb_budget_cap=None, cap: int, lib=None, ops=None,
+                              row_offset: int = 0, local_height: int | None = None):
     """Compact's main pass with its queue: (image, CompactQueue). The image
     is the plain frame at every clean pixel; each dirty pixel goes to the
     queue with its state at the start of the level where a cap stopped it.
@@ -959,12 +1005,13 @@ def render_frame_compact_main(pack: FramePack, *, width: int, height: int,
     to a queue of ``cap`` slots in device memory (append order; counted in
     COMPACT_LAUNCHES; no host sync); CPU: the plain version."""
     check_pack(pack)
+    band = dict(row_offset=row_offset, local_height=band_height(height, row_offset, local_height))
     if pack.params.device.type == "cpu":
         return render_frame_compact_main_plain(pack, width=width, height=height,
                                                max_depth=max_depth, budget_cap=budget_cap,
-                                               mb_budget_cap=mb_budget_cap, cap=cap)
+                                               mb_budget_cap=mb_budget_cap, cap=cap, **band)
     out, _, queue = _compact_launch(pack, width, height, max_depth, budget_cap, mb_budget_cap,
-                                    cap, lib, ops)
+                                    cap, lib, ops, **band)
     return out, queue
 
 
@@ -1045,27 +1092,29 @@ def bin_queue(queue, sinfo=None, lib=None):
 
 
 def render_frame_resume_plain(pack: FramePack, queue: CompactQueue, image, *, width: int,
-                              height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH):
+                              height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH,
+                              row_offset: int = 0):
     """Plain version of ``render_frame_resume``: the wavefront from each
     live entry's saved state (``trace.trace_radiance(start=...)``) at plain
-    budgets, written into ``image`` at the entry's pixel; nothing where the
-    queue overflowed."""
+    budgets, written into ``image`` at the entry's pixel (an index in the
+    band's raster order, its global row ``row_offset`` further down);
+    nothing where the queue overflowed."""
     from gpuraytracer_tpu_torch.render import trace
 
     count, cap = int(queue.count[0]), queue.entries.shape[0]
     if count > cap or count == 0:
         return image
     pix, state = entry_state(queue.entries[:count])
-    colour = trace.trace_radiance(state.o, state.d, pix % width, pix // width, width, height,
-                                  unpack_frame(pack), max_depth=max_depth, plain=True,
-                                  start=state)
+    colour = trace.trace_radiance(state.o, state.d, pix % width, pix // width + row_offset,
+                                  width, height, unpack_frame(pack), max_depth=max_depth,
+                                  plain=True, start=state)
     image.view(-1, 4)[pix] = colour
     return image
 
 
 def render_frame_resume(pack: FramePack, queue: CompactQueue, image, *, width: int,
                         height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None,
-                        ops=None):
+                        ops=None, row_offset: int = 0, local_height: int | None = None):
     """The compact mode's dense pass: each queued pixel continued from the
     level where the cap stopped it, at full budgets, its colour written into
     ``image`` (H, W, 4) in place, which is returned. The pixel is the plain
@@ -1074,30 +1123,35 @@ def render_frame_resume(pack: FramePack, queue: CompactQueue, image, *, width: i
     written. CUDA: the dense entry of csrc/frame_kernel.cu, launched over
     the queue's capacity, reading the live count on the device (merged where
     ``merges`` says so; counted in DENSE_LAUNCHES or MERGED_DENSE_LAUNCHES);
-    CPU: the plain version."""
+    CPU: the plain version. A band's queue resumes into the band's image."""
     check_pack(pack)
     dev = pack.params.device
+    lh = band_height(height, row_offset, local_height)
     _check_queue(queue.entries, queue.count, dev, (queue.entries.shape[0], QUEUE_ENTRY_WORDS), 1)
-    _check_image(image, width, height, dev)
+    _check_image(image, width, lh, dev)
     if dev.type == "cpu":
         return render_frame_resume_plain(pack, queue, image, width=width, height=height,
-                                         max_depth=max_depth)
-    _dense_launch(pack, queue, image, width, height, max_depth, lib, ops)
+                                         max_depth=max_depth, row_offset=row_offset)
+    _dense_launch(pack, queue, image, width, height, max_depth, lib, ops, row_offset=row_offset,
+                  local_height=lh)
     return image
 
 
 def render_frame_gated_plain(pack: FramePack, image, count, cap: int, *, width: int,
-                             height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH):
+                             height: int, max_depth: int = MAX_RAY_RECURSION_DEPTH,
+                             row_offset: int = 0, local_height: int | None = None):
     """Plain version of ``render_frame_gated``: the counts read on the host,
-    and ``image`` overwritten with ``render_frame_plain`` where one passed
-    ``cap``."""
+    and ``image`` overwritten with ``render_frame_plain`` of the band where
+    one passed ``cap``."""
     if bool((count > cap).any()):
-        image.copy_(render_frame_plain(pack, width=width, height=height, max_depth=max_depth))
+        image.copy_(render_frame_plain(pack, width=width, height=height, max_depth=max_depth,
+                                       row_offset=row_offset, local_height=local_height))
     return image
 
 
 def render_frame_gated(pack: FramePack, image, count, cap: int, *, width: int, height: int,
-                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None):
+                       max_depth: int = MAX_RAY_RECURSION_DEPTH, lib=None, row_offset: int = 0,
+                       local_height: int | None = None):
     """The queues' overflow, decided where the counts are: if any of
     ``count`` ((K,) int32) passed ``cap``, ``image`` (H, W, 4) becomes the
     plain kernel's frame, in place (the reference's lax.cond,
@@ -1109,17 +1163,19 @@ def render_frame_gated(pack: FramePack, image, count, cap: int, *, width: int, h
     global GATED_FALLBACK_LAUNCHES
     check_pack(pack)
     dev = pack.params.device
-    _check_image(image, width, height, dev)
+    lh = band_height(height, row_offset, local_height)
+    _check_image(image, width, lh, dev)
     if count.dtype != torch.int32 or count.dim() != 1 or count.device != dev \
             or not count.is_contiguous() or count.numel() == 0:
         raise ValueError(f"count: expected a contiguous (K,) int32 tensor on {dev}")
     if dev.type == "cpu":
         return render_frame_gated_plain(pack, image, count, cap, width=width, height=height,
-                                        max_depth=max_depth)
+                                        max_depth=max_depth, row_offset=row_offset,
+                                        local_height=lh)
     lib = _launch_setup(pack, width, height, max_depth, lib)
     _raise_on(lib.gprt_frame_gated(
-        *_buffers(pack), _ptr(image), _ptr(count), count.numel(), cap, width, height, max_depth,
-        pack.num_geometries, pack.num_materials, int(_shared(pack)), int(merges(pack)),
+        *_buffers(pack), _ptr(image), _ptr(count), count.numel(), cap, width, height, row_offset,
+        lh, max_depth, pack.num_geometries, pack.num_materials, int(_shared(pack)), int(merges(pack)),
         ctypes.c_void_p(None), *_where(dev)), lib, "gated frame kernel")
     GATED_FALLBACK_LAUNCHES += 1
     return image
@@ -1127,12 +1183,14 @@ def render_frame_gated(pack: FramePack, image, count, cap: int, *, width: int, h
 
 def render_frame_deferred_queue_plain(pack: FramePack, *, width: int, height: int,
                                       max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
-                                      mb_shadow_cap=None, cap: int):
+                                      mb_shadow_cap=None, cap: int, row_offset: int = 0,
+                                      local_height: int | None = None):
     """Plain version of ``render_frame_deferred_queue``: the plain main
     pass's planes and, per shadowed level, ``queue_plain`` over its unknown
-    lanes (raster order)."""
+    lanes (the band's raster order)."""
     planes = render_frame_deferred_plain(pack, width=width, height=height, max_depth=max_depth,
-                                         shadow_cap=shadow_cap, mb_shadow_cap=mb_shadow_cap)
+                                         shadow_cap=shadow_cap, mb_shadow_cap=mb_shadow_cap,
+                                         row_offset=row_offset, local_height=local_height)
     built = [queue_plain((info & 3) == 2, cap) for info in planes.sinfo]
     dev = planes.sinfo.device
     idx = torch.stack([i.to(torch.int32) for i, _, _ in built])
@@ -1142,7 +1200,8 @@ def render_frame_deferred_queue_plain(pack: FramePack, *, width: int, height: in
 
 def render_frame_deferred_queue(pack: FramePack, *, width: int, height: int,
                                 max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap,
-                                mb_shadow_cap=None, cap: int, lib=None, ops=None):
+                                mb_shadow_cap=None, cap: int, lib=None, ops=None,
+                                row_offset: int = 0, local_height: int | None = None):
     """Defer's main pass with its queues: (``trace.DeferPlanes``,
     DeferQueue), the planes those of ``render_frame_deferred_main`` and per
     shadowed level the pixels whose status is unknown. CUDA: the defer entry
@@ -1154,11 +1213,13 @@ def render_frame_deferred_queue(pack: FramePack, *, width: int, height: int,
     check_pack(pack)
     if max_depth < 2:
         raise ValueError("the deferred-shadow pass needs a shadowed level (max_depth >= 2)")
+    band = dict(row_offset=row_offset, local_height=band_height(height, row_offset, local_height))
     if pack.params.device.type == "cpu":
         return render_frame_deferred_queue_plain(pack, width=width, height=height,
                                                  max_depth=max_depth, shadow_cap=shadow_cap,
-                                                 mb_shadow_cap=mb_shadow_cap, cap=cap)
-    return _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap, lib, ops)
+                                                 mb_shadow_cap=mb_shadow_cap, cap=cap, **band)
+    return _defer_launch(pack, width, height, max_depth, shadow_cap, mb_shadow_cap, cap, lib, ops,
+                         **band)
 
 
 def frame_compose_plain(planes, occ):
@@ -1238,7 +1299,8 @@ def _debug_count(count, cap):
 def render_frame_compact(pack: FramePack, *, width: int, height: int,
                          max_depth: int = MAX_RAY_RECURSION_DEPTH, budget_cap=None,
                          mb_budget_cap=None, cap_lanes: int | None = None,
-                         debug_count: bool = False):
+                         debug_count: bool = False, row_offset: int = 0,
+                         local_height: int | None = None):
     """GPURT_FRAME_MODE=compact, the reference's render_frame_compact
     (frame_kernel.py:803): the frame with every SDF march capped at
     ``budget_cap`` steps (default GPURT_COMPACT_BUDGET, 64; an int or
@@ -1260,14 +1322,17 @@ def render_frame_compact(pack: FramePack, *, width: int, height: int,
     count and renders the plain kernel (``render_frame_tiles``).
     ``debug_count``: also return the number of dirty pixels, a QueueCount
     whose ``overflow`` says whether the queue overflowed (a sync on a
-    GPU)."""
+    GPU). A band (``row_offset``, ``local_height``) has a queue of its own,
+    of ``queue_capacity`` of its rows, and overflows on its own."""
     if budget_cap is None:
         budget_cap = int(os.environ.get("GPURT_COMPACT_BUDGET", COMPACT_BUDGET))
-    kw = dict(width=width, height=height, max_depth=max_depth)
+    lh = band_height(height, row_offset, local_height)
+    kw = dict(width=width, height=height, max_depth=max_depth, row_offset=row_offset,
+              local_height=lh)
     if not _cappable(pack, norm_caps(budget_cap), norm_caps(mb_budget_cap)):
         img = render_frame_tiles(pack, **kw)
         return (img, QueueCount(0, False)) if debug_count else img
-    cap = queue_capacity(width, height, cap_lanes)
+    cap = queue_capacity(width, lh, cap_lanes)
     img, queue = render_frame_compact_main(pack, budget_cap=budget_cap,
                                            mb_budget_cap=mb_budget_cap, cap=cap, **kw)
     cpu = pack.params.device.type == "cpu"
@@ -1286,7 +1351,8 @@ def render_frame_compact(pack: FramePack, *, width: int, height: int,
 def render_frame_deferred(pack: FramePack, *, width: int, height: int,
                           max_depth: int = MAX_RAY_RECURSION_DEPTH, shadow_cap=None,
                           mb_shadow_cap=None, cap_lanes: int | None = None,
-                          debug_count: bool = False, qsort: str = "block-code"):
+                          debug_count: bool = False, qsort: str = "block-code",
+                          row_offset: int = 0, local_height: int | None = None):
     """GPURT_FRAME_MODE=defer, the reference's render_frame_deferred
     (frame_kernel.py:1075): the main pass caps only the occlusion marches
     (at ``shadow_cap`` steps, default GPURT_SHADOW_CAP, 32; metaballs at
@@ -1307,7 +1373,9 @@ def render_frame_deferred(pack: FramePack, *, width: int, height: int,
     (frame_kernel.py:1311): on a GPU the gated plain kernel decides it on
     the device (a chain of launches that reads nothing back), on the CPU
     the host. ``debug_count``: also return the number of unknown lanes over
-    the levels, a QueueCount with ``overflow`` (a sync on a GPU).
+    the levels, a QueueCount with ``overflow`` (a sync on a GPU). A band
+    (``row_offset``, ``local_height``) has queues of their own, of
+    ``queue_capacity`` of its rows, and overflows on its own.
 
     ``qsort`` is deprecated and has no effect: it chose the queue's order
     ("block-code", "code" or "raster") while the host sorted the queue. The
@@ -1325,11 +1393,13 @@ def render_frame_deferred(pack: FramePack, *, width: int, height: int,
                       stacklevel=2)
     if shadow_cap is None:
         shadow_cap = int(os.environ.get("GPURT_SHADOW_CAP", SHADOW_CAP))
-    kw = dict(width=width, height=height, max_depth=max_depth)
+    lh = band_height(height, row_offset, local_height)
+    kw = dict(width=width, height=height, max_depth=max_depth, row_offset=row_offset,
+              local_height=lh)
     if max_depth < 2 or not _cappable(pack, (shadow_cap,), (mb_shadow_cap,)):
         img = render_frame_tiles(pack, **kw)
         return (img, QueueCount(0, False)) if debug_count else img
-    cap = queue_capacity(width, height, cap_lanes)
+    cap = queue_capacity(width, lh, cap_lanes)
     planes, queue = render_frame_deferred_queue(pack, shadow_cap=shadow_cap,
                                                 mb_shadow_cap=mb_shadow_cap, cap=cap, **kw)
     cpu = pack.params.device.type == "cpu"

@@ -310,9 +310,13 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
 
 
 def render_frame(scene: Scene, width: int, height: int, *,
-                 max_depth: int = MAX_RAY_RECURSION_DEPTH):
+                 max_depth: int = MAX_RAY_RECURSION_DEPTH, row_offset: int = 0,
+                 local_height: int | None = None):
     """Full frame, the DispatchRays(W, H, 1) analog; returns an (H, W, 4)
-    float32 radiance image on the scene's device.
+    float32 radiance image on the scene's device. With ``row_offset`` and
+    ``local_height`` (kernels/frame_kernel.band_height), the band of those
+    rows of the W x H frame, (local_height, W, 4), on every route and in
+    every mode: its pixels are the whole frame's.
 
     A CUDA scene renders as the reference routes it: through the
     hand-written frame kernel when it is fused-eligible
@@ -333,19 +337,20 @@ def render_frame(scene: Scene, width: int, height: int, *,
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     route, mode = frame_route(scene)
+    band = dict(row_offset=row_offset, local_height=local_height)
     if scene.arrays.aabb_min.device.type == "cuda":
         frame_kernel.check_kernel_covers(scene.layout, route)
     elif mode == "plain":
-        return render_wavefront(scene, width, height, max_depth=max_depth)
+        return render_wavefront(scene, width, height, max_depth=max_depth, **band)
     pack = frame_kernel.pack_frame(scene)
-    kw = dict(width=width, height=height, max_depth=max_depth)
+    kw = dict(width=width, height=height, max_depth=max_depth, **band)
     if mode == "compact":
         return frame_kernel.render_frame_compact(pack, **kw)
     if mode == "defer":
         return frame_kernel.render_frame_deferred(pack, **kw)
     if route == "frame":
         return frame_kernel.render_frame_tiles(pack, **kw)
-    return render_wavefront(scene, width, height, max_depth=max_depth, pack=pack)
+    return render_wavefront(scene, width, height, max_depth=max_depth, pack=pack, **band)
 
 
 def frame_route(scene: Scene):
@@ -365,8 +370,12 @@ def frame_route(scene: Scene):
 
 def render_wavefront(scene: Scene, width: int, height: int, *,
                      max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
-                     plain: bool = False, main: MainPass | None = None):
-    """Raygen + trace_radiance over the whole frame on the scene's device.
+                     plain: bool = False, main: MainPass | None = None,
+                     row_offset: int = 0, local_height: int | None = None):
+    """Raygen + trace_radiance over the whole frame on the scene's device,
+    or over the band of ``local_height`` rows from ``row_offset``
+    (kernels/frame_kernel.band_height): the W x H frame's pixels at those
+    rows, (local_height, W, ...).
     On a GPU the traversal passes take the scene's route: the scene kernel,
     or the per-geometry route past the mesh face cap (``pack``: the frame's
     packed buffers, built here if None); with ``plain`` each route's plain
@@ -374,10 +383,12 @@ def render_wavefront(scene: Scene, width: int, height: int, *,
     frame kernel's plain version. ``main``: see ``trace_radiance``."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
+    lh = frame_kernel.band_height(height, row_offset, local_height)
     dev = scene.arrays.aabb_min.device
     if dev.type == "cuda" and pack is None and not plain:
         pack = frame_kernel.pack_frame(scene)
-    px, py = cam.pixel_grid(width, height, dev)
+    px, py = cam.pixel_grid(width, lh, dev)
+    py = py + row_offset
     c = scene.arrays.constants
     origins, directions = cam.generate_camera_rays(
         px, py, width, height, c.camera_position, c.projection_to_world)

@@ -97,51 +97,54 @@ extern "C" void rh_normal(int code, const float* p, float* out, int n) {
     "frame_kernel": r"""
 namespace gprt { float smem[1 << 16]; }
 
-// The frame kernel, one pixel per one-thread block; returns the pixels.
+// The frame kernel over the band of local_height rows from row_offset, one
+// pixel per one-thread block; returns the pixels.
 extern "C" int rh_frame(const float* params, const int* layout, const float* tri, float* out,
-                        int width, int height, int max_depth, int G, int M, int shared) {
+                        int width, int height, int row_offset, int local_height, int max_depth,
+                        int G, int M, int shared) {
   blockDim = dim3{1, 1, 1};
-  gridDim = dim3{(unsigned)width, (unsigned)height, 1};
+  gridDim = dim3{(unsigned)width, (unsigned)local_height, 1};
   threadIdx = dim3{0, 0, 0};
   const auto kernel = shared ? gprt::frame_kernel<false, true> : gprt::frame_kernel<false, false>;
-  for (int y = 0; y < height; ++y) {
+  for (int y = 0; y < local_height; ++y) {
     for (int x = 0; x < width; ++x) {
       blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
-      kernel(params, layout, tri, reinterpret_cast<float4*>(out), width, height, max_depth, G, M,
-             nullptr);
+      kernel(params, layout, tri, reinterpret_cast<float4*>(out), width, height, row_offset,
+             local_height, max_depth, G, M, nullptr);
     }
   }
-  return width * height;
+  return width * local_height;
 }
 
-// The compact entry with a queue of `cap` slots (every SDF march capped at
+// The compact entry over a band with a queue of `cap` slots (every SDF march capped at
 // `steps`, metaballs uncapped), counting its 32 keys into bins (2 x 32 + 1
 // int32, zeroed here as the launcher's memset does: the histogram, the bin
 // entry's cursors and its count of finished blocks); returns the queue's
 // count.
 extern "C" int rh_compact(const float* params, const int* layout, const float* tri, float* out,
-                          void* queue, int* bins, int cap, int width, int height, int max_depth,
-                          int G, int M, int steps) {
+                          void* queue, int* bins, int cap, int width, int height, int row_offset,
+                          int local_height, int max_depth, int G, int M, int steps) {
   int count = 0;
   blockDim = dim3{1, 1, 1};
   threadIdx = dim3{0, 0, 0};
   const gprt::CapSpec caps{steps, gprt::kMetaballSteps};
   for (int k = 0; k < 2 * 32 + 1; ++k) bins[k] = 0;
-  for (int y = 0; y < height; ++y) {
+  for (int y = 0; y < local_height; ++y) {
     for (int x = 0; x < width; ++x) {
       blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
       gprt::frame_compact_kernel<true>(params, layout, tri, reinterpret_cast<float4*>(out), nullptr,
                                        gprt::DeviceQueue{queue, &count, cap, bins, 32}, width,
-                                       height, max_depth, G, M, caps, caps, nullptr);
+                                       height, row_offset, local_height, max_depth, G, M, caps,
+                                       caps, nullptr);
     }
   }
   return count;
 }
 
-// The dense entry over a compact queue with `count` entries counted.
+// The dense entry over a band's compact queue with `count` entries counted.
 extern "C" void rh_dense(const float* params, const int* layout, const float* tri, void* queue,
-                          int count, int cap, float* out, int width, int height, int max_depth,
-                          int G, int M) {
+                          int count, int cap, float* out, int width, int height, int row_offset,
+                          int max_depth, int G, int M) {
   blockDim = dim3{1, 1, 1};
   threadIdx = dim3{0, 0, 0};
   for (int i = 0; i < cap; ++i) {
@@ -149,33 +152,35 @@ extern "C" void rh_dense(const float* params, const int* layout, const float* tr
     gprt::frame_dense_kernel<false, true>(params, layout, tri,
                                            gprt::DeviceQueue{queue, &count, cap, nullptr, 0},
                                            reinterpret_cast<float4*>(out), width, height,
-                                           max_depth, G, M, nullptr);
+                                           row_offset, max_depth, G, M, nullptr);
   }
 }
 
-// The defer entry with per-level queues of `cap` slots (occlusion capped at
-// `steps`), the march records of the unknown lanes in march ((max_depth -
-// 1) x width x height MarchRecords; may be null) and the keys counted into
+// The defer entry over a band with per-level queues of `cap` slots
+// (occlusion capped at `steps`), the march records of the unknown lanes in
+// march ((max_depth - 1) x width x local_height MarchRecords; may be null)
+// and the keys counted into
 // bins (2 x (max_depth - 1) x nbins + 1 int32, zeroed here as the
 // launcher's memset does: the histograms, the bin entry's cursors and its
 // count of finished blocks); counts (max_depth - 1) out.
 extern "C" void rh_defer(const float* params, const int* layout, const float* tri, float* lit,
                          float* shadowed, int* sinfo, float* rays, void* march, int* queue,
-                         int* counts, int* bins, int cap, int width, int height, int max_depth,
-                         int G, int M, int steps) {
+                         int* counts, int* bins, int cap, int width, int height, int row_offset,
+                         int local_height, int max_depth, int G, int M, int steps) {
   blockDim = dim3{1, 1, 1};
   threadIdx = dim3{0, 0, 0};
-  const int nsl = max_depth - 1, npix = width * height, nbins = 32 * ((npix + 32767) >> 15);
+  const int nsl = max_depth - 1, npix = width * local_height;
+  const int nbins = 32 * ((npix + 32767) >> 15);
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
                            sinfo, rays, static_cast<gprt::MarchRecord*>(march), npix};
   for (int k = 0; k < nsl; ++k) counts[k] = 0;
   for (int k = 0; k < 2 * nsl * nbins + 1; ++k) bins[k] = 0;
-  for (int y = 0; y < height; ++y) {
+  for (int y = 0; y < local_height; ++y) {
     for (int x = 0; x < width; ++x) {
       blockIdx = dim3{(unsigned)x, (unsigned)y, 0};
       gprt::frame_defer_kernel<true>(params, layout, tri, rec,
                                      gprt::DeviceQueue{queue, counts, cap, bins, nbins}, width,
-                                     height, max_depth, G, M,
+                                     height, row_offset, local_height, max_depth, G, M,
                                      gprt::CapSpec{steps, gprt::kMetaballSteps}, nullptr);
     }
   }
@@ -559,7 +564,7 @@ def test_frame_kernel_matches_plain(libs, name, shared):
     params, layout, tri = _np(pack.params), _np(pack.layout), _tri(pack)
     lib = libs["frame_kernel"]
     lib.rh_frame.restype = ctypes.c_int
-    handed = lib.rh_frame(_p(params), _p(layout), _p(tri), _p(out), W, H, depth,
+    handed = lib.rh_frame(_p(params), _p(layout), _p(tri), _p(out), W, H, 0, H, depth,
                           pack.num_geometries, pack.num_materials, shared)
     assert handed == W * H
     plain = _np(frame_kernel.render_frame_plain(pack, width=W, height=H, max_depth=depth))
@@ -666,7 +671,7 @@ def test_compact_queue_and_resume_match_plain(libs):
     entries = np.full((cap, frame_kernel.QUEUE_ENTRY_WORDS), -7, np.int32)
     bins = np.full(2 * 32 + 1, -7, np.int32)
     count = lib.rh_compact(_p(params), _p(layout), _p(tri), _p(img), _p(entries), _p(bins), cap,
-                           MODE_W, MODE_H, 3, g, m, MODE_CAP_STEPS)
+                           MODE_W, MODE_H, 0, MODE_H, 3, g, m, MODE_CAP_STEPS)
     p_img, p_queue = frame_kernel.render_frame_compact_main_plain(
         pack, width=MODE_W, height=MODE_H, budget_cap=MODE_CAP_STEPS, cap=cap)
     assert 0 < count == int(p_queue.count[0]) <= cap
@@ -700,16 +705,16 @@ def test_compact_queue_and_resume_match_plain(libs):
     assert np.array_equal(binned[:count][np.argsort(binned[:count, 0])], got.numpy())
     entries = binned
     ref = np.full((MODE_H, MODE_W, 4), np.nan, np.float32)
-    lib.rh_frame(_p(params), _p(layout), _p(tri), _p(ref), MODE_W, MODE_H, 3, g, m, 1)
+    lib.rh_frame(_p(params), _p(layout), _p(tri), _p(ref), MODE_W, MODE_H, 0, MODE_H, 3, g, m, 1)
     lib.rh_dense(_p(params), _p(layout), _p(tri), _p(entries), count, cap, _p(img), MODE_W,
-                  MODE_H, 3, g, m)
+                  MODE_H, 0, 3, g, m)
     assert np.array_equal(img, ref)
     _assert_bar(img, _np(frame_kernel.render_frame_plain(pack, width=MODE_W, height=MODE_H)))
     # Entries at level -1 start from the camera ray (render_frame_dense).
     entries[:count, 1] = -1
     img[:] = np.nan
     lib.rh_dense(_p(params), _p(layout), _p(tri), _p(entries), count, cap, _p(img), MODE_W,
-                 MODE_H, 3, g, m)
+                 MODE_H, 0, 3, g, m)
     pix = entries[:count, 0]
     assert np.array_equal(img.reshape(-1, 4)[pix], ref.reshape(-1, 4)[pix])
 
@@ -741,7 +746,7 @@ def test_defer_queues_repair_and_compose_match_plain(libs):
     counts = np.zeros(nsl, np.int32)
     libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
                                   _p(sinfo), _p(rays), _p(march), _p(queue), _p(counts), _p(bins),
-                                  cap, MODE_W, MODE_H, depth, g, m, MODE_CAP_STEPS)
+                                  cap, MODE_W, MODE_H, 0, MODE_H, depth, g, m, MODE_CAP_STEPS)
     p_planes, p_queue = frame_kernel.render_frame_deferred_queue_plain(
         pack, width=MODE_W, height=MODE_H, shadow_cap=MODE_CAP_STEPS, cap=cap)
     assert np.array_equal(counts, p_queue.count.numpy()) and counts.min() > 0
@@ -812,8 +817,8 @@ def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
     counts = np.zeros(nsl, np.int32)
     libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
                                   _p(sinfo), _p(rays), _p(march), _p(queue), _p(counts),
-                                  _p(bins[guard:]), cap, MODE_W, MODE_H, depth, g, m,
-                                  MODE_CAP_STEPS)
+                                  _p(bins[guard:]), cap, MODE_W, MODE_H, 0, MODE_H, depth, g,
+                                  m, MODE_CAP_STEPS)
     unknown = (sinfo & 3) == 2
     assert counts.min() > 0 and (unknown & (((sinfo >> 2) & 0x3FFFFFFF) == 0)).any()
     # The records name the capped geometries past 29 that the status word
@@ -850,6 +855,91 @@ def test_defer_bins_of_geometries_past_29_and_the_flat_repair_match_plain(libs):
 
 
 # ---------------------------------------------------------------------------
+# Bands (row-band sharding): each entry over a band of rows
+# ---------------------------------------------------------------------------
+
+BAND_W, BAND_H, BANDS = 32, 18, 3
+
+
+def _defer_band(libs, inputs, row_offset, local_height, depth=3):
+    """The defer entry over the band of local_height rows from row_offset,
+    then the resumed repair over its queues and the compose entry: (planes
+    (lit, shadowed, sinfo, rays), queue, counts, composed image)."""
+    pack, params, layout, tri = inputs
+    g, m, nsl, npix = pack.num_geometries, pack.num_materials, depth - 1, BAND_W * local_height
+    cap = frame_kernel.queue_capacity(BAND_W, local_height)
+    nbins = frame_kernel.defer_bins(npix)
+    lit, shadowed, sinfo, rays, march, bins = _defer_planes(nsl, local_height, BAND_W, nbins)
+    queue = np.full((nsl, cap), -7, np.int32)
+    counts = np.zeros(nsl, np.int32)
+    libs["frame_kernel"].rh_defer(_p(params), _p(layout), _p(tri), _p(lit), _p(shadowed),
+                                  _p(sinfo), _p(rays), _p(march), _p(queue), _p(counts), _p(bins),
+                                  cap, BAND_W, BAND_H, row_offset, local_height, depth, g, m,
+                                  MODE_CAP_STEPS)
+    occ = np.zeros((nsl, local_height, BAND_W), np.int32)
+    libs["scene_kernel"].rh_queue_planes(_p(params), _p(layout), _p(tri), _p(rays), _p(queue),
+                                         _p(counts), None, _p(march), _p(occ), npix, nsl, cap, g,
+                                         m)
+    out = np.full((local_height, BAND_W, 4), np.nan, np.float32)
+    libs["frame_kernel"].rh_compose(_p(lit), _p(shadowed), _p(sinfo), _p(occ), _p(out), npix,
+                                    depth)
+    return (lit, shadowed, sinfo, rays), queue, counts, out
+
+
+def test_band_entries_equal_the_whole_frame(libs):
+    # The plain, compact + dense and defer entries over 3 bands of 6 rows of
+    # a 32x18 frame (the band's row offset and height as launch arguments):
+    # each band is the whole frame's rows bit for bit; the queues hold the
+    # band's own raster indices, the whole frame's shifted by the band's
+    # first pixel.
+    scene = builtin.build_scene(aspect=BAND_W / BAND_H, elapsed_time=T_ANIM, device="cpu")
+    pack = frame_kernel.pack_frame(scene)
+    inputs = (pack, _np(pack.params), _np(pack.layout), _tri(pack))
+    _, params, layout, tri = inputs
+    g, m, lh = pack.num_geometries, pack.num_materials, BAND_H // BANDS
+    lib = libs["frame_kernel"]
+    lib.rh_frame.restype = lib.rh_compact.restype = ctypes.c_int
+    whole = np.full((BAND_H, BAND_W, 4), np.nan, np.float32)
+    lib.rh_frame(_p(params), _p(layout), _p(tri), _p(whole), BAND_W, BAND_H, 0, BAND_H, 3, g, m, 1)
+    cap_w = frame_kernel.queue_capacity(BAND_W, BAND_H)
+    w_entries = np.full((cap_w, frame_kernel.QUEUE_ENTRY_WORDS), -7, np.int32)
+    w_img, bins = np.zeros_like(whole), np.zeros(2 * 32 + 1, np.int32)
+    w_count = lib.rh_compact(_p(params), _p(layout), _p(tri), _p(w_img), _p(w_entries), _p(bins),
+                             cap_w, BAND_W, BAND_H, 0, BAND_H, 3, g, m, MODE_CAP_STEPS)
+    w_pix = np.sort(w_entries[:w_count, 0])
+    (w_lit, w_shadowed, w_sinfo, w_rays), w_queue, w_counts, w_out = _defer_band(libs, inputs, 0,
+                                                                                 BAND_H)
+    plain, compact = np.full_like(whole, np.nan), np.full_like(whole, np.nan)
+    defer = np.full_like(whole, np.nan)
+    queued = []
+    for k in range(BANDS):
+        rows = slice(k * lh, (k + 1) * lh)
+        assert lib.rh_frame(_p(params), _p(layout), _p(tri), _p(plain[rows]), BAND_W, BAND_H,
+                            k * lh, lh, 3, g, m, 1) == BAND_W * lh
+        cap = frame_kernel.queue_capacity(BAND_W, lh)
+        entries = np.full((cap, frame_kernel.QUEUE_ENTRY_WORDS), -7, np.int32)
+        count = lib.rh_compact(_p(params), _p(layout), _p(tri), _p(compact[rows]), _p(entries),
+                               _p(bins), cap, BAND_W, BAND_H, k * lh, lh, 3, g, m, MODE_CAP_STEPS)
+        assert count <= cap and (entries[:count, 0] < BAND_W * lh).all()
+        queued.append(entries[:count, 0] + k * lh * BAND_W)
+        lib.rh_dense(_p(params), _p(layout), _p(tri), _p(entries), count, cap, _p(compact[rows]),
+                     BAND_W, BAND_H, k * lh, 3, g, m)
+        planes, queue, counts, defer[rows] = _defer_band(libs, inputs, k * lh, lh)
+        for band_plane, whole_plane in zip(planes, (w_lit, w_shadowed, w_sinfo, w_rays)):
+            assert np.array_equal(band_plane, whole_plane[:, rows])
+        for s in range(len(counts)):
+            w_level = w_queue[s, :w_counts[s]]
+            w_level = w_level[(w_level >= k * lh * BAND_W) & (w_level < (k + 1) * lh * BAND_W)]
+            assert np.array_equal(np.sort(queue[s, :counts[s]]), np.sort(w_level) - k * lh * BAND_W)
+    assert w_count > 0 and w_counts.min() > 0
+    assert np.array_equal(np.sort(np.concatenate(queued)), w_pix)
+    assert np.isfinite(whole).all()
+    assert np.array_equal(plain, whole)
+    assert np.array_equal(compact, whole)
+    assert np.array_equal(defer, w_out)
+
+
+# ---------------------------------------------------------------------------
 # The merged occlusion march (GPURT_MERGED_SHADOW) on warps of emulated lanes
 # ---------------------------------------------------------------------------
 
@@ -873,7 +963,7 @@ def _shadow_rays(libs, pack, depth=4):
             np.zeros((nsl, npix, frame_kernel.MARCH_RECORD_WORDS), np.int32),
             np.zeros((nsl, npix), np.int32), np.zeros(nsl, np.int32),
             np.zeros(2 * nsl * frame_kernel.defer_bins(npix) + 1, np.int32)]
-    libs["frame_kernel"].rh_defer(*(_p(b) for b in bufs), npix, W, H, depth,
+    libs["frame_kernel"].rh_defer(*(_p(b) for b in bufs), npix, W, H, 0, H, depth,
                                   pack.num_geometries, pack.num_materials, 1 << 20)
     return [np.ascontiguousarray(r[np.abs(r[:, 3:]).sum(-1) > 0]) for r in rays]
 

@@ -222,7 +222,9 @@ class FallbackSpy:
     def __init__(self):
         self.calls, self.image = [], None
 
-    def __call__(self, pack, *, width, height, max_depth):
+    def __call__(self, pack, *, width, height, max_depth, row_offset=0, local_height=None):
+        # A whole frame here: the band (row_offset, local_height) is all of it.
+        assert row_offset == 0 and local_height in (None, height), (row_offset, local_height)
         self.calls.append((width, height, max_depth))
         self.image = torch.zeros(height, width, 4)
         return self.image
@@ -315,7 +317,7 @@ def test_frame_mode_reaches_only_fused_scenes(monkeypatch, mode):
     monkeypatch.setattr(frame_kernel, f"render_frame_{'compact' if mode == 'compact' else 'deferred'}",
                         lambda pack, **kw: calls.append(kw) or torch.zeros(2, 2, 4))
     trace.render_frame(fused, 2, 2)
-    assert calls == [dict(width=2, height=2, max_depth=3)]
+    assert calls == [dict(width=2, height=2, max_depth=3, row_offset=0, local_height=None)]
 
 
 def test_merged_shadow_raises_only_on_the_kernels_that_reach_it(monkeypatch):

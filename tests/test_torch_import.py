@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX: a fresh interpreter imports every
 module of the package (among them every module of the bench-scene slice
 and of the host slice: the runtime, timers, devices, frames in flight,
-recovery, checkpoints, the preview server), renders a small frame on the
+recovery, checkpoints, the preview server; the row-band sharding, the
+entry points and the version), renders a small frame on the
 CPU through the CLI, runs the bench suite on
 one scene at a tiny size, and checks that neither ``jax`` nor the JAX
 package entered sys.modules."""
@@ -24,7 +25,8 @@ slice_modules = {"geometry.fractal", "geometry.registry", "accel.bvh", "models.b
                  "models.scenes", "kernels.scene_kernel", "utils.stats", "apps.bench_suite",
                  "kernels.op_probe", "apps.op_probe", "runtime.hostrt", "utils.timers",
                  "parallel.device", "parallel.pipeline", "parallel.recovery", "utils.checkpoint",
-                 "utils.introspect", "utils.debug", "utils.profile", "apps.serve", "core.upload"}
+                 "utils.introspect", "utils.debug", "utils.profile", "apps.serve", "core.upload",
+                 "parallel.sharding", "entry", "version"}
 assert slice_modules <= names, sorted(slice_modules - names)
 from gpuraytracer_tpu_torch.apps import bench_suite, render_cli
 assert bench_suite.main(["--device", "cpu", "--configs", "single_sphere_plane_256",
