@@ -6,12 +6,18 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases (each prints its result and its seconds; any failure raises and
 exits non-zero):
   1. device   fail without CUDA; print the card's name and power limit
-  2. build    build the three kernel libraries from csrc/ with nvcc, all
-              builds at once (each with --fmad true and false, and the
-              op-counting build of each; the SIMT-counting builds of the
-              frame and scene kernels; the megakernel's unculled face loop
-              and the scene kernel's whole-traversal repair
-              (-DGPRT_REPAIR_FULL) for the checks); print ptxas' registers
+  2. build    build the kernel libraries from csrc/ with nvcc, all builds
+              at once (the frame kernel, scene kernel and megakernel each
+              with --fmad true and false, and the op-counting build of
+              each; the SIMT-counting builds of the frame and scene
+              kernels; the megakernel's unculled face loop and the scene
+              kernel's whole-traversal repair (-DGPRT_REPAIR_FULL) for the
+              checks; the two-phase finisher, scene_finish.cu, in both
+              --fmad modes, its op-counting build and its per-ray build
+              (-DGPRT_FINISH_PER_RAY); the overflow gate, frame_gate.cu,
+              whose device-side launch is built with -ewp and linked
+              against cudadevrt, in both --fmad modes); print ptxas'
+              registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
@@ -92,7 +98,11 @@ exits non-zero):
               records: bit-equal to the whole traversal of the
               -DGPRT_REPAIR_FULL build in both fmad builds, and timed beside
               it, with both builds' op counts), the compose entry and the
-              gated entry; beside the bin entry on both modes' queues, its
+              overflow gate of csrc/frame_gate.cu (without an overflow the
+              image keeps every bit; with one, the frame kernel that the gate
+              launches from the device gives the plain kernel's frame to a
+              clone queued right after it, timed beside the plain frame
+              kernel); beside the bin entry on both modes' queues, its
               library call (torch.sort of the live slots' keys, stable)
  11. last     the last three kernel-table items: GPURT_MERGED_SHADOW=1 (the
               merged instantiations of the frame kernel's plain and dense
@@ -108,11 +118,17 @@ exits non-zero):
               64-frame 1080p windows with and without the knob (plain,
               compact, defer) and each merged kernel alone beside its
               sequential twin in the same call; the two-phase
-              scene pass (scene_closest_tiles(two_phase=True): main and
-              finish entries of csrc/scene_kernel.cu) on the builtin 1080p
-              level-0 closest and shadow passes against the single pass
-              (every differing ray named by its cause) and its plain
-              version, dirty rays per geometry, each entry alone; the
+              scene pass (scene_closest_tiles(two_phase=True): the main
+              entry of csrc/scene_kernel.cu, then csrc/scene_finish.cu's
+              compaction of the dirty rays into a queue in key order and the
+              finisher over the queue's capacity) on the
+              builtin 1080p level-0 closest and shadow passes against the
+              single pass (every differing ray named by its cause) and its
+              plain version, dirty rays per geometry, each entry alone: the
+              finish step beside the parent's one thread per ray
+              (-DGPRT_FINISH_PER_RAY) in turns, bit for bit, the compaction
+              alone against its plain version's set and key order, the warps
+              that march in each form; the
               two-phase pass against its plain version on 320x180 ray
               batches (the three scenes' reflection rays at level 1, the
               builtin scene's camera and shadow rays at level 0) in both
@@ -325,6 +341,7 @@ def reset_counts():
     frame_kernel.MERGED_LAUNCHES = frame_kernel.MERGED_DENSE_LAUNCHES = 0
     scene_kernel.MERGED_QUEUE_LAUNCHES = 0
     scene_kernel.MAIN_LAUNCHES = scene_kernel.FINISH_LAUNCHES = 0
+    scene_kernel.FINISH_QUEUE_LAUNCHES = 0
 
 
 def mode_counts():
@@ -925,16 +942,30 @@ def main() -> int:
                                              (not build.DEFAULT_FMAD, False, False),
                                              (build.DEFAULT_FMAD, True, False),
                                              (build.DEFAULT_FMAD, False, True))]
+        # The two-phase finisher over its queue (both contraction modes, the
+        # op-counting build, and the parent's one thread per ray,
+        # -DGPRT_FINISH_PER_RAY, that phase 11 holds it to) and the overflow
+        # gate with its device-side launch (-ewp, cudadevrt; both
+        # contraction modes, as phase 10 runs the modes).
+        builds += [("scene_finish", fmad, count)
+                   for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
+                                       (build.DEFAULT_FMAD, True))]
+        builds.append(("scene_finish", build.DEFAULT_FMAD, False, False, False, False, True))
+        builds += [("frame_gate", fmad, False) for fmad in (build.DEFAULT_FMAD,
+                                                            not build.DEFAULT_FMAD)]
         reports = build.compile_all(builds)
         registers, spills = {}, {}
         for (name, fmad, count, *rest), report in reports.items():
-            simt, unculled, full = (rest + [False, False, False])[:3]
+            simt, unculled, full, per_ray = (rest + [False] * 4)[:4]
             print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}"
                   f"{' count_simt' if simt else ''}{' faces_global' if unculled else ''}"
-                  f"{' repair_full' if full else ''}: {ptxas_summary(report)}", flush=True)
-            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled or full):
-                registers.update(ptxas_registers(report))
-                spills.update(ptxas_spill_stores(report))
+                  f"{' repair_full' if full else ''}{' finish_per_ray' if per_ray else ''}: "
+                  f"{ptxas_summary(report)}", flush=True)
+            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled or full or per_ray):
+                # frame_gate.cu holds its own build of the frame kernel.
+                prefix = "frame_gate.cu " if name == "frame_gate" else ""
+                registers.update({prefix + k: v for k, v in ptxas_registers(report).items()})
+                spills.update({prefix + k: v for k, v in ptxas_spill_stores(report).items()})
 
     # 3. the fractals' device distance functions, before any render ----------
     with Phase("probe"):
@@ -1988,30 +2019,37 @@ def main() -> int:
               f"{c_exact}; the deferred frame vs the plain kernel max |diff| {c_err:.6g}; kernel "
               f"{compose_ms:.3f} ms ({compose_ops} f32 adds, {compose_bytes} bytes: bound "
               f"{b_ms:.4f} ms by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
-        # the gated plain frame: the path's launch (no overflow: every block
-        # returns at once), and an overflowing count (the plain kernel's frame)
+        # the overflow gate (csrc/frame_gate.cu): the path's launch (no
+        # overflow: one warp reads the count and launches nothing; the image
+        # keeps every bit), and an overflowing count (the gate launches the
+        # plain frame kernel from the device: the plain kernel's frame, seen
+        # by a clone queued right after the gate with no synchronize between)
         g_img = m_img.clone()
         frame_kernel.render_frame_gated(pack_m, g_img, queue_m.count, cap_m, **kw_m)
         over = torch.full((1,), cap_m + 1, dtype=torch.int32, device=dev)
         o_img = torch.zeros_like(m_img)
-        frame_kernel.render_frame_gated(pack_m, o_img, over, cap_m, **kw_m)
+        o_seen = frame_kernel.render_frame_gated(pack_m, o_img, over, cap_m, **kw_m).clone()
         p_ms, po_img = plain_run(lambda: frame_kernel.render_frame_gated_plain(
             pack_m, torch.zeros_like(m_img), over, cap_m, **kw_m))
-        g_ok = bool(torch.equal(g_img, m_img)) and bool(torch.equal(o_img, m_img))
+        g_ok = all(bool(torch.equal(x, m_img)) for x in (g_img, o_img, o_seen))
         if not g_ok or not bar(o_img, po_img)[0]:
-            raise AssertionError("gated frame kernel: wrong image")
+            raise AssertionError("overflow gate: wrong image")
         gated_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_gated(
             pack_m, g_img, queue_m.count, cap_m, **kw_m), SHORT_REPS)
         gated_over_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_gated(
             pack_m, o_img, over, cap_m, **kw_m), 10)
-        n_blocks = ((W_MAIN + 15) // 16) * ((H_MAIN + 7) // 8)
+        plain_frame_ms, _ = cuda_ms(lambda: frame_kernel.render_frame_tiles(pack_m, **kw_m), 10)
         b_ms, b_by = bound(4, 0)
         alone_m["frame_gated"] = dict(ms=gated_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                                      err=float((o_img - po_img).abs().max()))
-        print(f"[modes] frame_gated alone 1920x1080: no overflow {gated_ms:.4f} ms ({n_blocks} "
-              f"blocks read the count and return; bound {b_ms:.6f} ms by {b_by}); overflow "
-              f"{gated_over_ms:.3f} ms, the plain kernel's frame bit for bit: {g_ok}; plain "
-              f"{p_ms:.1f} ms; {card}", flush=True)
+                                      err=float((o_img - po_img).abs().max()),
+                                      overflow_ms=gated_over_ms, frame_ms=plain_frame_ms)
+        print(f"[modes] frame_gated alone 1920x1080: no overflow {gated_ms:.5f} ms (one warp "
+              f"reads the count; bound {b_ms:.6f} ms by {b_by}); overflow {gated_over_ms:.4f} ms "
+              f"(the frame kernel launched from the device; the plain frame kernel "
+              f"{plain_frame_ms:.4f} ms in the same place, ratio "
+              f"{gated_over_ms / plain_frame_ms:.4f}), the plain kernel's frame bit for bit and "
+              f"seen by the next operation on the stream: {g_ok}; plain {p_ms:.1f} ms; {card}",
+              flush=True)
 
     # 11. the last kernel-table items: merged occlusion, two-phase, op probe --
     with Phase("last"):
@@ -2216,9 +2254,11 @@ def main() -> int:
                                                    two_phase=True, debug_dirty=True, pack=pack_m)
                for k, (o_, d_, a_, t_, af) in passes.items()}
         torch.cuda.synchronize()
-        two_phase_launches = (scene_kernel.MAIN_LAUNCHES, scene_kernel.FINISH_LAUNCHES)
-        if two_phase_launches != (2, 2) or scene_kernel.LAUNCHES != 0:
-            raise AssertionError(f"two-phase passes launched {two_phase_launches}")
+        two_phase_launches = (scene_kernel.MAIN_LAUNCHES, scene_kernel.FINISH_LAUNCHES,
+                              scene_kernel.FINISH_QUEUE_LAUNCHES)
+        if two_phase_launches != (2, 2, 2) or scene_kernel.LAUNCHES != 0:
+            raise AssertionError(f"two-phase passes launched (main, finish, compaction) "
+                                 f"{two_phase_launches}")
         two_phase = {}
         for k, (o_, d_, a_, t_, af) in passes.items():
             single = scene_kernel.scene_closest_tiles(scene_m, o_, d_, a_, t_, accept_first=af,
@@ -2256,41 +2296,92 @@ def main() -> int:
                                          **kw_p)
             torch.cuda.synchronize()
             main_ops = int(ops.item())
-            work = [x.clone() for x in main_out[:3]]
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            fin_ms = 0.0
-            for r in range(11):
-                for w_, m_ in zip(work, main_out[:3]):
-                    w_.copy_(m_)
-                start.record()
-                scene_kernel.scene_finish(scene_m, o_, d_, main_out[3], *work, accept_first=af,
-                                          pack=pack_m)
-                end.record()
-                torch.cuda.synchronize()
-                if r:
-                    fin_ms += start.elapsed_time(end) / 10
-            for w_, m_ in zip(work, main_out[:3]):
-                w_.copy_(m_)
+            dirty_m = main_out[3]
+            n_dirty = int((dirty_m != 0).sum())
+
+            def finish_ms(lib=None, reps=10):
+                """Mean ms of the finish step (the compaction and the finisher
+                over the queue; the per-ray build: one launch over every ray)
+                on fresh copies of the main pass's outputs, and its
+                outputs."""
+                work = [x.clone() for x in main_out[:3]]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                total = 0.0
+                for r in range(reps + 1):
+                    # The card waits first, so that the host's launches are
+                    # queued before the timed ones run (as cuda_ms does).
+                    torch.cuda._sleep(10 ** 6)
+                    for w_, m_ in zip(work, main_out[:3]):
+                        w_.copy_(m_)
+                    start.record()
+                    scene_kernel.scene_finish(scene_m, o_, d_, dirty_m, *work, accept_first=af,
+                                              pack=pack_m, lib=lib)
+                    end.record()
+                    torch.cuda.synchronize()
+                    if r:
+                        total += start.elapsed_time(end) / reps
+                return total, work
+
+            # The parent's finisher (one thread per ray, -DGPRT_FINISH_PER_RAY)
+            # around the shipped one, in turns; the outputs bit for bit.
+            per_ray = build.load("scene_finish", finish_per_ray=True)
+            ray_ms_a, ray_out = finish_ms(per_ray)
+            fin_ms, fin_out = finish_ms()
+            ray_ms_b, _ = finish_ms(per_ray)
+            ray_ms = (ray_ms_a + ray_ms_b) / 2
+            fin_equal = all(bool(torch.equal(a_, b_)) for a_, b_ in zip(fin_out, ray_out))
+            if not fin_equal:
+                raise AssertionError(f"two-phase {k} pass: the queued finisher is not the "
+                                     f"per-ray finisher bit for bit")
+            # The compaction alone, its queue against its plain version.
+            queue_ms, queue_k = cuda_ms(lambda: scene_kernel.scene_finish_queue(dirty_m),
+                                        SHORT_REPS)
+            live = int(queue_k.count[0])
+            p_queue_ms, queue_p = plain_run(lambda: scene_kernel.scene_finish_queue_plain(dirty_m))
+            q_live, p_live = queue_k.idx[:live].long(), queue_p.idx[:live].long()
+            queue_ok = (live == int(queue_p.count[0]) == n_dirty
+                        and bool(torch.equal(torch.sort(q_live).values,
+                                             torch.sort(p_live).values))
+                        and bool(torch.equal(scene_kernel.finish_key(dirty_m[q_live]),
+                                             scene_kernel.finish_key(dirty_m[p_live]))))
+            if not queue_ok:
+                raise AssertionError(f"two-phase {k} pass: the finisher's queue is not its "
+                                     f"plain version's set in key order")
             ops.zero_()
-            scene_kernel.scene_finish(scene_m, o_, d_, main_out[3], *work, accept_first=af,
+            scene_kernel.scene_finish(scene_m, o_, d_, dirty_m,
+                                      *[x.clone() for x in main_out[:3]], accept_first=af,
                                       pack=pack_m, ops=ops,
-                                      lib=build.load("scene_kernel", count_ops=True))
+                                      lib=build.load("scene_finish", count_ops=True))
             torch.cuda.synchronize()
             fin_ops = int(ops.item())
-            n_dirty = int((main_out[3] != 0).sum())
             shared = frame_kernel.shared_bytes(pack_m.num_geometries, pack_m.num_materials,
                                                shading=False)
             main_bytes = shared + n * (29 + 20 + 4)
+            # The finish step reads every dirty word and, at each dirty ray,
+            # o, d and the main pass's answer, and writes the answer there;
+            # the compaction reads every word and writes the queue and count.
             fin_bytes = shared + n * 4 + n_dirty * (24 + 2 * 20)
+            queue_bytes = n * 4 + live * 4 + 4
+            warps_ray = int((dirty_m.reshape(-1, 32) != 0).any(dim=1).sum())
+            warps_queue = (live + 31) // 32
             two_phase[k] = dict(main_ms=main_ms, main_ops=main_ops, main_bytes=main_bytes,
-                                fin_ms=fin_ms, fin_ops=fin_ops, fin_bytes=fin_bytes)
+                                fin_ms=fin_ms, fin_ops=fin_ops, fin_bytes=fin_bytes,
+                                ray_ms=ray_ms, queue_ms=queue_ms, queue_plain_ms=p_queue_ms,
+                                queue_bytes=queue_bytes)
             mb_, mby = bound(main_bytes, main_ops)
             fb_, fby = bound(fin_bytes, fin_ops)
+            qb_, qby = bound(queue_bytes, 0)
             print(f"[last] two-phase 1080p {k} entries alone: main {main_ms:.3f} ms ({main_ops} "
-                  f"f32 FLOPs, {main_bytes} bytes: bound {mb_:.4f} ms by {mby}); finish "
-                  f"{fin_ms:.3f} ms over {n_dirty} dirty rays ({fin_ops} f32 FLOPs, {fin_bytes} "
-                  f"bytes: bound {fb_:.4f} ms by {fby}); {card}", flush=True)
+                  f"f32 FLOPs, {main_bytes} bytes: bound {mb_:.4f} ms by {mby}); finish step "
+                  f"{fin_ms:.4f} ms over {n_dirty} dirty rays (the compaction alone "
+                  f"{queue_ms:.4f} ms, bound {qb_:.4f} ms by {qby}; the finisher over the queue "
+                  f"{fin_ms - queue_ms:.4f} ms by difference; {fin_ops} f32 FLOPs, {fin_bytes} "
+                  f"bytes: bound {fb_:.4f} ms by {fby}); the parent's finisher (one thread per "
+                  f"ray) {ray_ms_a:.4f} / {ray_ms_b:.4f} ms in turns, its outputs bit for bit: "
+                  f"{fin_equal}; warps that march {warps_queue} (one thread per ray: "
+                  f"{warps_ray} warps hold a dirty ray); queue of {live} rays in key order, its "
+                  f"plain version {p_queue_ms:.1f} ms; {card}", flush=True)
         # The plain version of both entries on the closest pass.
         ob_, db_, a_, t_, _ = passes["closest"]
         tp_main_ms, p_main = plain_run(lambda: scene_kernel.scene_main_plain(
@@ -2350,7 +2441,8 @@ def main() -> int:
                 for fmad in (build.DEFAULT_FMAD, not build.DEFAULT_FMAD):
                     kt, _, kg, kdirty = scene_kernel.scene_closest_tiles(
                         scene_b, obb, dbb, ab, tb, level=level, accept_first=af, two_phase=True,
-                        debug_dirty=True, pack=pack_b, lib=build.load("scene_kernel", fmad=fmad))
+                        debug_dirty=True, pack=pack_b, lib=build.load("scene_kernel", fmad=fmad),
+                        finish_lib=build.load("scene_finish", fmad=fmad))
                     same = kg == pg
                     dt = (kt - pt).abs()[same & (pg >= 0)]
                     agree = float(same.float().mean())
@@ -2575,8 +2667,10 @@ def main() -> int:
         # The merged rows: their sequential instantiation, timed in the same
         # call; the repair: its whole traversal (-DGPRT_REPAIR_FULL); the bin:
         # its time, bound and library call on the defer queues.
+        # the gate: its overflow's time beside the plain frame kernel's.
         **{key: alone_m[name][key] for key in ("twin_ms", "full_ms", "defer_ms",
-                                               "defer_bound_ms", "defer_library_ms")
+                                               "defer_bound_ms", "defer_library_ms",
+                                               "overflow_ms", "frame_ms")
            if key in alone_m[name]},
     } for name, src, replaces, launches in (
         ("frame_compact", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
@@ -2589,7 +2683,7 @@ def main() -> int:
          windows["defer"]["queue"]),
         ("frame_compose", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1075",
          windows["defer"]["compose"]),
-        ("frame_gated", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:803",
+        ("frame_gated", "frame_gate.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:1004",
          windows["compact"]["gated"] + windows["defer"]["gated"]),
         ("queue_bin", "frame_kernel.cu", "gpuraytracer_tpu/kernels/frame_kernel.py:934",
          windows["compact"]["bin"] + windows["defer"]["bin"]),
@@ -2601,7 +2695,7 @@ def main() -> int:
          merged_windows["defer merged"]["queue_merged"]))] + [{
         "name": f"scene_two_phase_{entry}",
         "route": "cuda",
-        "source": "gpuraytracer_tpu_torch/kernels/csrc/scene_kernel.cu",
+        "source": f"gpuraytracer_tpu_torch/kernels/csrc/{src}",
         "replaces": f"gpuraytracer_tpu/kernels/scene_kernel.py:{line}",
         "launches": launches,
         "max_abs_err": tp_err,
@@ -2610,9 +2704,23 @@ def main() -> int:
         "bound_ms": bound(two_phase["closest"][f"{key}_bytes"], two_phase["closest"][f"{key}_ops"])[0],
         "bound_by": bound(two_phase["closest"][f"{key}_bytes"], two_phase["closest"][f"{key}_ops"])[1],
         "library_ms": None,
-    } for entry, key, line, launches, plain_ms in (
-        ("main", "main", 2008, two_phase_launches[0], tp_main_ms),
-        ("finish", "fin", 2017, two_phase_launches[1], tp_fin_ms))] + [{
+        # the finish step: the parent's one thread per ray in the same call.
+        **({"ray_ms": two_phase["closest"]["ray_ms"]} if entry == "finish" else {}),
+    } for entry, key, src, line, launches, plain_ms in (
+        ("main", "main", "scene_kernel.cu", 2008, two_phase_launches[0], tp_main_ms),
+        ("finish", "fin", "scene_finish.cu", 2017, two_phase_launches[1], tp_fin_ms))] + [{
+        "name": "scene_finish_queue",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/scene_finish.cu",
+        "replaces": "gpuraytracer_tpu/kernels/scene_kernel.py:2017",
+        "launches": two_phase_launches[2],
+        "max_abs_err": 0.0,
+        "ms": two_phase["closest"]["queue_ms"],
+        "plain_ms": two_phase["closest"]["queue_plain_ms"],
+        "bound_ms": bound(two_phase["closest"]["queue_bytes"], 0)[0],
+        "bound_by": bound(two_phase["closest"]["queue_bytes"], 0)[1],
+        "library_ms": None,
+    }] + [{
         "name": "op_probe",
         "route": "cuda",
         "source": "gpuraytracer_tpu_torch/kernels/csrc/op_probe.cu",
@@ -2635,13 +2743,15 @@ def main() -> int:
         "frame_compact": "frame_compact_kernel<true>",
         "frame_dense": "frame_dense_kernel<false, true>", "frame_defer": "frame_defer_kernel<true>",
         "shadow_queue": "shadow_queue_kernel<false, true, true>",
-        "frame_compose": "frame_compose_kernel", "frame_gated": "frame_gated_kernel<false, true>",
+        "frame_compose": "frame_compose_kernel",
+        "frame_gated": "frame_gate.cu frame_gate_kernel<false, true>",
         "queue_bin": "queue_bin_kernel<false>",
         "frame_kernel_merged": "frame_kernel<true, true>",
         "frame_dense_merged": "frame_dense_kernel<true, true>",
         "shadow_queue_merged": "shadow_queue_kernel<true, true, true>",
         "scene_two_phase_main": "scene_kernel<true, true>",
-        "scene_two_phase_finish": "scene_finish_kernel<true>", "op_probe": "op_probe_kernel"}
+        "scene_two_phase_finish": "finish_queue_kernel<true>",
+        "scene_finish_queue": "finish_append_kernel", "op_probe": "op_probe_kernel"}
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
     resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)
     resident["shadow_queue"] = scene_kernel.residency(pack_m, entry="repair")

@@ -48,13 +48,19 @@ where the checkout's repair resumes from the defer entry's march records,
 the whole traversal of its -DGPRT_REPAIR_FULL build at the same queues,
 ``queue_full_ms`` and ``queue_full_canonical_ms``; and each mode's chain of
 kernels alone, ``compact_chain_ms`` (compact entry, bin, dense pass, gated
-frame) and ``defer_chain_ms`` (defer entry, bin, repair, compose, gated))
+frame) and ``defer_chain_ms`` (defer entry, bin, repair, compose, gated);
+``gated_overflow_ms``, the gated frame with a count past the capacity)
 beside the calls both forms have (``compact_capped_ms``,
 ``dense_camera_ms``, ``queue_compacted_ms``, ``compose_torch_ms``: the host
 recomposition of torch ops); and 64-frame animated windows through
 Renderer.render (ms/frame) in each GPURT_FRAME_MODE, with the modes' host
 syncs and queued lanes per frame (on a device queue read once after the
-window); and the per-geometry route of mesh_heightfield_sdf (544 faces):
+window); the two-phase finish step on the builtin 1080p level-0 closest and
+shadow passes, each checkout's ``scene_finish`` on fresh copies of its main
+pass's outputs (``finish_closest_ms``, ``finish_shadow_ms``), and where the
+checkout compacts the dirty rays first, the compaction alone
+(``finish_queue_closest_ms``, ``finish_queue_shadow_ms``); and the
+per-geometry route of mesh_heightfield_sdf (544 faces):
 each checkout's pass function on the 1080p level-0 closest and shadow
 passes, whole (``mesh_route_*_pass_ms``: the parent's launches per
 geometry and its torch ops between them, or one pass-entry launch), and a
@@ -74,7 +80,7 @@ with and without the knob. Each process also saves its outputs, made with
 the ``--fmad`` build (default: the shipped one): the builtin 1080p frame
 (plain, compact and defer), the five bench scenes and mesh_octahedra at
 320x180, the 1080p level-0 closest and shadow passes of the builtin scene
-and of mesh_heightfield_sdf (shadow rays from the plain closest pass, so
+(single and two-phase) and of mesh_heightfield_sdf (shadow rays from the plain closest pass, so
 that every root gets the same rays), the CLI window's 64 frames (the sum of
 each frame's bits), and the merged entries' outputs
 beside their sequential twins: the builtin 1080p frame in each mode, the
@@ -411,6 +417,10 @@ if device_queue:
     res["compose_ms"] = timed(lambda: frame_kernel.frame_compose(d_planes, occ))
     res["gated_ms"] = timed(lambda: frame_kernel.render_frame_gated(pack, m_img, queue.count, cap,
                                                                     **kw))
+    over = torch.full((1,), cap + 1, dtype=torch.int32, device=dev)
+    o_img = torch.empty_like(m_img)
+    res["gated_overflow_ms"] = timed(lambda: frame_kernel.render_frame_gated(pack, o_img, over,
+                                                                             cap, **kw))
     # Each mode's chain of device time per frame, its kernels timed alone:
     # compact main + bin + resumed dense + gated; defer main + bin + repair +
     # compose + gated.
@@ -425,6 +435,36 @@ else:
     res["dense_ms"] = res["dense_camera_ms"]
     res["defer_main_queue_ms"] = res["defer_main_ms"]
     res["queue_ms"] = res["queue_compacted_ms"]
+
+
+def finish_step(args, af):
+    # (mean ms, dirty words) of the checkout's two-phase finish step on the
+    # pass ``args``: scene_finish on fresh copies of the main pass's outputs,
+    # the copies outside the events.
+    *main, dirty = scene_kernel.scene_main_pass(scene, *args, accept_first=af, pack=pack)
+    work = [x.clone() for x in main]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for r in range(REPS + 1):
+        # the card waits first, as in timed()
+        torch.cuda._sleep(10 ** 6)
+        for w_, m_ in zip(work, main):
+            w_.copy_(m_)
+        start.record()
+        scene_kernel.scene_finish(scene, args[0], args[1], dirty, *work, accept_first=af,
+                                  pack=pack)
+        end.record()
+        torch.cuda.synchronize()
+        if r:
+            total += start.elapsed_time(end)
+    return total / REPS, dirty
+
+
+passes = (("closest", (ob, db, act, t0), False), ("shadow", (obs, dbs, acts, t0s), True))
+for label, args, af in passes:
+    res[f"finish_{label}_ms"], f_dirty = finish_step(args, af)
+    if hasattr(scene_kernel, "scene_finish_queue"):
+        res[f"finish_queue_{label}_ms"] = timed(lambda: scene_kernel.scene_finish_queue(f_dirty))
 
 
 def recompose():
@@ -651,11 +691,16 @@ for name in [cfg.name for cfg in scenes.BENCH_CONFIGS] + ["mesh_octahedra"]:
     sc, depth = frame_pack(name, 320, 180, 0.7)
     outs[f"{name} 320x180"] = frame_kernel.render_frame_tiles(
         frame_kernel.pack_frame(sc), width=320, height=180, max_depth=depth, lib=flib)
-for label, args, af in (("closest", (ob, db, act, t0), False), ("shadow", (obs, dbs, acts, t0s), True)):
+for label, args, af in passes:
     bt, nrm, g = scene_kernel.scene_closest_tiles(scene, *args, accept_first=af, pack=pack, lib=slib)
     outs[f"1080p level-0 {label} pass"] = torch.cat([bt[:, None], nrm, g[:, None].float()], dim=1)
-# The route's passes through the --fmad build.
+# The route's passes and the two-phase passes through the --fmad build.
 build.load = lambda name, count_ops=False: real_load(name, fmad=FMAD, count_ops=count_ops)
+for label, args, af in passes:
+    bt, nrm, g = scene_kernel.scene_closest_tiles(scene, *args, accept_first=af, pack=pack,
+                                                  two_phase=True)
+    outs[f"1080p level-0 {label} two-phase pass"] = torch.cat(
+        [bt[:, None], nrm, g[:, None].float()], dim=1)
 for label, args, af in m_passes:
     bt, nrm, g = m_route(m_scene, *args, level=0, accept_first=af)
     outs[f"mesh_heightfield_sdf 1080p level-0 {label} pass"] = torch.cat(

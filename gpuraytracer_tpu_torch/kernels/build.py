@@ -19,7 +19,20 @@ to; never the shipped build); ``repair_full`` adds -DGPRT_REPAIR_FULL: a
 scene-kernel build whose occlusion repair runs the whole traversal from
 geometry 0 instead of resuming from the defer entry's march records (the
 parent's repair, which checks hold the resumed one to; never the shipped
-build). The library
+build); ``finish_per_ray`` adds -DGPRT_FINISH_PER_RAY: a scene_finish
+build whose two-phase finisher runs one thread per ray over every ray (the
+parent's finisher, which checks hold the queued one to; never the shipped
+build).
+
+The source that launches a kernel from device code (DEVICE_LAUNCH:
+frame_gate.cu, through its GPRT_TAIL_LAUNCH) is compiled as
+extensible whole-program device code (-ewp: whole-program compilation whose
+calls into the device runtime are resolved at the link) and linked against
+the toolkit's device runtime (-lcudadevrt, a static library of the CUDA
+toolkit), in a library of its own, so that no other kernel's build
+changes. (-rdc=true, separate compilation, gave its frame kernel 156
+registers instead of -ewp's 128 and the whole-program build's 118;
+PERF.md.) The library
 lands in build/gpuraytracer_tpu_torch/ at the repository root, named after
 a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing build. A failed build raises with nvcc's
@@ -49,6 +62,13 @@ DEFAULT_FMAD = True
 
 # Shared headers every kernel source may include.
 _HEADERS = ("frame_math.cuh", "traverse.cuh")
+# Kernel sources that another source includes: {source: included sources}.
+_INCLUDES = {"frame_gate": ("frame_kernel.cu",)}
+# Sources with device-side launches, their compile flags and the libraries
+# their link needs.
+DEVICE_LAUNCH = ("frame_gate",)
+DEVICE_LAUNCH_FLAGS = ["-ewp"]
+DEVICE_LAUNCH_LIBS = ["-lcudadevrt"]
 
 
 def nvcc_path() -> str:
@@ -62,43 +82,51 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(fmad: bool, count_ops: bool = False, count_simt: bool = False,
-           faces_global: bool = False, repair_full: bool = False):
+def _flags(name: str, fmad: bool, count_ops: bool = False, count_simt: bool = False,
+           faces_global: bool = False, repair_full: bool = False,
+           finish_per_ray: bool = False):
     return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
              "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else [])
             + (["-DGPRT_COUNT_SIMT"] if count_simt else [])
             + (["-DGPRT_FACE_LOOP_GLOBAL"] if faces_global else [])
-            + (["-DGPRT_REPAIR_FULL"] if repair_full else []))
+            + (["-DGPRT_REPAIR_FULL"] if repair_full else [])
+            + (["-DGPRT_FINISH_PER_RAY"] if finish_per_ray else [])
+            + (DEVICE_LAUNCH_FLAGS if name in DEVICE_LAUNCH else []))
 
 
 def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
                  count_simt: bool = False, faces_global: bool = False,
-                 repair_full: bool = False) -> Path:
+                 repair_full: bool = False, finish_per_ray: bool = False) -> Path:
     """Where the build of csrc/<name>.cu with these flags lives."""
-    h = hashlib.sha256(" ".join(_flags(fmad, count_ops, count_simt, faces_global,
-                                       repair_full)).encode())
-    for src in (f"{name}.cu",) + _HEADERS:
+    flags = _flags(name, fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray)
+    h = hashlib.sha256(" ".join(flags + _libs(name)).encode())
+    for src in (f"{name}.cu",) + _INCLUDES.get(name, ()) + _HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _libs(name: str) -> list:
+    return DEVICE_LAUNCH_LIBS if name in DEVICE_LAUNCH else []
+
+
 def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
                    count_simt: bool = False, faces_global: bool = False,
-                   repair_full: bool = False) -> tuple[Path, str]:
+                   repair_full: bool = False, finish_per_ray: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills), kept beside the library so
     that a reused build reports it too."""
-    out = library_path(name, fmad, count_ops, count_simt, faces_global, repair_full)
+    variant = (fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray)
+    out = library_path(name, *variant)
     report = out.with_suffix(".ptxas")
     if out.exists():
         return out, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path()] + _flags(fmad, count_ops, count_simt, faces_global, repair_full) + [
-        "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path()] + _flags(name, *variant) + [
+        "-o", tmp, str(CSRC / f"{name}.cu")] + _libs(name)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -111,8 +139,8 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
 
 def compile_all(builds) -> dict:
     """Run compile_kernel for every (name, fmad, count_ops[, count_simt[,
-    faces_global[, repair_full]]]) in ``builds`` at once (one nvcc process
-    each); returns {build: ptxas report}."""
+    faces_global[, repair_full[, finish_per_ray]]]]) in ``builds`` at once
+    (one nvcc process each); returns {build: ptxas report}."""
     builds = list(builds)
     with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
         reports = list(pool.map(lambda b: compile_kernel(*b)[1], builds))
@@ -122,22 +150,25 @@ def compile_all(builds) -> dict:
 @functools.lru_cache(maxsize=None)
 def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
          count_simt: bool = False, faces_global: bool = False,
-         repair_full: bool = False) -> ctypes.CDLL:
+         repair_full: bool = False, finish_per_ray: bool = False) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; declares the C interface
     (every pointer and the stream as c_void_p). repair_full
     (-DGPRT_REPAIR_FULL, scene_kernel.cu): the occlusion repair runs the
     whole traversal instead of resuming from the defer entry's march
-    records, for checks."""
-    path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global, repair_full)
+    records, for checks; finish_per_ray (-DGPRT_FINISH_PER_RAY,
+    scene_finish.cu): the two-phase finisher runs one thread per ray
+    without the queue, for checks."""
+    path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global, repair_full,
+                             finish_per_ray)
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
     entries = {
         "frame_kernel": (("gprt_frame_render", 4, 9), ("gprt_frame_compact", 7, 13),
-                         ("gprt_frame_dense", 6, 10), ("gprt_frame_gated", 5, 11),
-                         ("gprt_frame_defer", 10, 11)),
-        "scene_kernel": (("gprt_scene_closest", 11, 9), ("gprt_scene_finish", 9, 6),
-                         ("gprt_shadow_queue", 9, 7)),
+                         ("gprt_frame_dense", 6, 10), ("gprt_frame_defer", 10, 11)),
+        "frame_gate": (("gprt_frame_gated", 5, 11),),
+        "scene_kernel": (("gprt_scene_closest", 11, 9), ("gprt_shadow_queue", 9, 7)),
+        "scene_finish": (("gprt_scene_finish", 11, 6),),
     }
     for fn, n_ptr, n_int in entries.get(name, ()):
         getattr(lib, fn).argtypes = [vp] * n_ptr + [ci] * n_int + [vp, ci, vp]
@@ -154,6 +185,11 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_scene_residency.restype = ci
         lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
         lib.gprt_sdf_distance.restype = ci
+    elif name == "scene_finish":
+        lib.gprt_finish_queue.argtypes = [vp] * 3 + [ci, ci, vp]
+        lib.gprt_finish_queue.restype = ci
+        lib.gprt_finish_compacts.argtypes = []
+        lib.gprt_finish_compacts.restype = ci
     elif name == "megakernel":
         lib.gprt_sphere_trace.argtypes = ([vp] * 7 + [ci, ci, cf, ci, cf, cf, ci, ci, ci]
                                           + [vp, ci, vp])

@@ -67,9 +67,10 @@
 //             the queue entry of scene_kernel.cu continues each such march
 //             from its record into occlusion planes, and the compose entry
 //             sums the levels.
-//   gated     the plain frame behind a device-side flag: its blocks return
-//             before loading the scene unless a queue overflowed (the
-//             reference's lax.cond, decided on the device).
+//   gated     the plain frame behind a device-side flag (the reference's
+//             lax.cond, decided on the device): frame_gate.cu's one-warp
+//             gate reads the counts and, only where a queue overflowed,
+//             launches this file's plain frame kernel from the device.
 // Each mode is one stream-ordered chain of these entries: the queues' counts
 // stay on the device and the host reads nothing back. On Hopper the modes'
 // purpose on the TPU, breaking its tile convoys, does not arise (each thread
@@ -86,7 +87,7 @@
 // lanes that a cap stops together) the dense pass read 1.7x and the repair
 // 1.1-1.3x slower on an H100 (PERF.md).
 //
-// The plain, dense and gated entries have a second instantiation (kMerged) whose
+// The plain and dense entries have a second instantiation (kMerged) whose
 // occlusion traversal merges the SDF marches (traverse.cuh
 // occluded_merged; the reference's _march_sdf_multi, which its frame kernel
 // runs under GPURT_MERGED_SHADOW where it allocates the merged banks); the
@@ -228,30 +229,6 @@ struct alignas(16) QueueEntry {
   int pix, level;
   float o[3], d[3], color[4], tw[4];
 };
-
-__device__ __forceinline__ int lane_id() {
-  return (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
-}
-
-// Appends the lanes of `group` (lanes of one warp that execute this call
-// together, the caller among them) to a queue with one atomicAdd on *count.
-// Returns the caller's slot, which may lie past the queue's capacity (the
-// caller stores only below it; the count still counts it).
-__device__ __forceinline__ int group_append(unsigned group, int* count) {
-  const int lane = lane_id();
-  const int leader = __ffs((int)group) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(group));
-  base = __shfl_sync(group, base, leader);
-  return base + __popc(group & ((1u << lane) - 1u));
-}
-
-// Counts the lanes of `group` (as group_append's) into the histogram bins
-// of their keys: one atomicAdd per key among them (__match_any_sync).
-__device__ __forceinline__ void group_count(unsigned group, int* bins, int key) {
-  const unsigned same = __match_any_sync(group, key);
-  if (lane_id() == __ffs((int)same) - 1) atomicAdd(bins + key, __popc(same));
-}
 
 // A device queue: `cap` slots, count[k] the lanes appended to segment k
 // (stored or not); hist[k * nbins + key] the lanes of segment k with each
@@ -499,27 +476,6 @@ __device__ __forceinline__ bool overflowed(const int* count, int n, int cap) {
   return over;
 }
 
-// The plain frame kernel behind the queues' overflow flag: every block
-// returns before loading the scene unless one of the n counts passed cap.
-template <bool kMerged, bool kShared>
-__global__ void __launch_bounds__(128)
-    frame_gated_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                       const float* __restrict__ tri, float4* __restrict__ out,
-                       const int* __restrict__ count, int n, int cap, int width, int height,
-                       int row_offset, int local_height, int max_depth, int G, int M,
-                       unsigned long long* ops) {
-  if (!overflowed(count, n, cap)) return;
-  const Scene s = block_scene<kShared>(params, layout, tri, G, M, ops);
-  const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px < width && row < local_height) {
-    out[row * width + px] = render_pixel<kPlainForm, kMerged>(
-        s, px, row + row_offset, width, height, max_depth, CapSpec{}, CapSpec{}, nullptr,
-        DeferOut{}, 0, nullptr, nullptr);
-  }
-  counters_end(ops);
-}
-
 // dirty_out (may be null): the (local_height, W) int32 dirty masks. q.count
 // (may be null): append each dirty pixel's QueueEntry to q where the cap
 // stops it.
@@ -740,7 +696,23 @@ __global__ void __launch_bounds__(kBinThreads) queue_bin_kernel(BinQueue b,
   }
 }
 
+// The grid of the 16x8 blocks that cover a band of local_height rows of a
+// frame width pixels wide.
+__host__ __device__ inline dim3 frame_grid(int width, int local_height) {
+  return dim3{(unsigned)((width + 15) / 16), (unsigned)((local_height + 7) / 8), 1};
+}
+
+// Whether the rows [row_offset, row_offset + local_height) lie in a frame
+// of `height` rows.
+__host__ __device__ inline bool band_ok(int height, int row_offset, int local_height) {
+  return row_offset >= 0 && local_height > 0 && row_offset <= height - local_height;
+}
+
 }  // namespace gprt
+
+// frame_gate.cu includes the device code above (GPRT_DEVICE_ONLY) for the
+// frame kernel that its gate launches; it has launchers of its own.
+#ifndef GPRT_DEVICE_ONLY
 
 // Checks the device and takes the dynamic shared memory `kernel` needs:
 // the buffers' bytes where the host put the scene's tables in shared
@@ -752,18 +724,6 @@ static cudaError_t setup(Kernel kernel, int G, int M, int shared, int device, si
   if (GPRT_COUNTING && !shared) return cudaErrorNotSupported;
   *shmem = shared ? gprt::shared_bytes(true, G, M) : 0;
   return gprt::reserve_shared(kernel, *shmem, device);
-}
-
-// The grid of the 16x8 blocks that cover a band of local_height rows of a
-// frame width pixels wide.
-static dim3 frame_grid(int width, int local_height) {
-  return dim3((width + 15) / 16, (local_height + 7) / 8);
-}
-
-// Whether the rows [row_offset, row_offset + local_height) lie in a frame
-// of `height` rows.
-static bool band_ok(int height, int row_offset, int local_height) {
-  return row_offset >= 0 && local_height > 0 && row_offset <= height - local_height;
 }
 
 static auto frame_entry(int merged, int shared) {
@@ -781,12 +741,12 @@ extern "C" int gprt_frame_render(const float* params, const int* layout, const f
                                  int local_height, int max_depth, int num_geometries,
                                  int num_materials, int shared, int merged,
                                  unsigned long long* ops, int device, void* stream) {
-  if (!band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
+  if (!gprt::band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
   const auto kernel = frame_entry(merged, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+  kernel<<<gprt::frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), width, height, row_offset,
       local_height, max_depth, num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
@@ -836,7 +796,7 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
                                   int closest_sdf_cap, int closest_mb_cap, int shadow_sdf_cap,
                                   int shadow_mb_cap, unsigned long long* ops, int device,
                                   void* stream) {
-  if (!band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
+  if (!gprt::band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
   const auto kernel = GPRT_PICK1(gprt::frame_compact_kernel, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
@@ -846,7 +806,7 @@ extern "C" int gprt_frame_compact(const float* params, const int* layout, const 
     err = cudaMemsetAsync(count, 0, sizeof(int) * queue_words(1, 32), (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+  kernel<<<gprt::frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, reinterpret_cast<float4*>(out), dirty,
       gprt::DeviceQueue{queue, count, cap, count != nullptr ? count + 1 : nullptr, 32}, width,
       height, row_offset, local_height, max_depth, num_geometries,
@@ -864,7 +824,9 @@ extern "C" int gprt_frame_dense(const float* params, const int* layout, const fl
                                 int width, int height, int row_offset, int local_height,
                                 int max_depth, int num_geometries, int num_materials, int shared,
                                 int merged, unsigned long long* ops, int device, void* stream) {
-  if (cap <= 0 || !band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
+  if (cap <= 0 || !gprt::band_ok(height, row_offset, local_height)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const auto kernel = GPRT_PICK2(gprt::frame_dense_kernel, merged, shared);
   size_t shmem;
   cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
@@ -874,24 +836,6 @@ extern "C" int gprt_frame_dense(const float* params, const int* layout, const fl
       gprt::DeviceQueue{const_cast<void*>(queue), const_cast<int*>(count), cap, nullptr, 0},
       reinterpret_cast<float4*>(out), width, height, row_offset, max_depth, num_geometries,
       num_materials, ops);
-  return (int)cudaGetLastError();
-}
-
-// The plain frame's band into out (local_height, W, 4) if any of the n
-// counts passed cap; the band and merged as for gprt_frame_render.
-extern "C" int gprt_frame_gated(const float* params, const int* layout, const float* tri,
-                                float* out, const int* count, int n, int cap, int width,
-                                int height, int row_offset, int local_height, int max_depth,
-                                int num_geometries, int num_materials, int shared, int merged,
-                                unsigned long long* ops, int device, void* stream) {
-  if (n <= 0 || !band_ok(height, row_offset, local_height)) return (int)cudaErrorInvalidValue;
-  const auto kernel = GPRT_PICK2(gprt::frame_gated_kernel, merged, shared);
-  size_t shmem;
-  cudaError_t err = setup(kernel, num_geometries, num_materials, shared, device, &shmem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, reinterpret_cast<float4*>(out), count, n, cap, width, height,
-      row_offset, local_height, max_depth, num_geometries, num_materials, ops);
   return (int)cudaGetLastError();
 }
 
@@ -911,7 +855,7 @@ extern "C" int gprt_frame_defer(const float* params, const int* layout, const fl
                                 int num_geometries, int num_materials,
                                 int shared, int shadow_sdf_cap, int shadow_mb_cap,
                                 unsigned long long* ops, int device, void* stream) {
-  if (max_depth < 2 || !band_ok(height, row_offset, local_height)) {
+  if (max_depth < 2 || !gprt::band_ok(height, row_offset, local_height)) {
     return (int)cudaErrorInvalidValue;
   }
   const auto kernel = GPRT_PICK1(gprt::frame_defer_kernel, shared);
@@ -927,7 +871,7 @@ extern "C" int gprt_frame_defer(const float* params, const int* layout, const fl
   }
   const gprt::DeferOut rec{reinterpret_cast<float4*>(lit), reinterpret_cast<float4*>(shadowed),
                            sinfo, rays, static_cast<gprt::MarchRecord*>(march), npix};
-  kernel<<<frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
+  kernel<<<gprt::frame_grid(width, local_height), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
       params, layout, tri, rec,
       gprt::DeviceQueue{queue, count, cap, count != nullptr ? count + nsl : nullptr, nbins},
       width, height, row_offset, local_height,
@@ -978,3 +922,5 @@ extern "C" int gprt_queue_bin(const void* queue, void* out, const int* count, co
 extern "C" const char* gprt_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+#endif  // GPRT_DEVICE_ONLY

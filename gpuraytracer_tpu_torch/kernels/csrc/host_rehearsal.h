@@ -2,9 +2,10 @@
 // calls that the kernel sources use, so that g++ compiles a kernel source's
 // device code (the part before its host launchers) for a rehearsal on the
 // CPU: tests/test_torch_csrc_rehearsal.py builds frame_kernel.cu,
-// scene_kernel.cu and megakernel.cu against it with -ffp-contract=off, which
-// repeats the plain versions' arithmetic, and runs every block with one
-// thread.
+// scene_kernel.cu, scene_finish.cu, frame_gate.cu and megakernel.cu against
+// it with -ffp-contract=off, which repeats the plain versions' arithmetic,
+// and runs every block with one thread. A launch from device code is
+// recorded, not made (GPRT_TAIL_LAUNCH below).
 //
 // A block of one thread is a warp of one lane: __activemask() and
 // __match_any_sync() are that lane, a ballot, a vote (__any_sync,
@@ -182,6 +183,32 @@ inline bool run_warp(const unsigned* groups, int ngroups, void (*fn)(int, void*)
 }
 
 }  // namespace rh
+
+// A launch from device code into the tail of its grid (frame_gate.cu
+// GPRT_TAIL_LAUNCH): the rehearsal cannot launch from device code, so it
+// records the launch's grid and block (and counts it) and drops the call;
+// the rehearsal's entry then runs the child's body over the recorded grid.
+// Written `kernel GPRT_TAIL_LAUNCH(grid, block, shmem)(args);` inside
+// braces, it expands to three statements there.
+namespace rh {
+
+struct TailLaunch {
+  dim3 grid, block;
+};
+inline TailLaunch tail;
+inline int tail_launches = 0;
+
+inline void record_tail(dim3 grid, dim3 block) {
+  tail = TailLaunch{grid, block};
+  ++tail_launches;
+}
+
+}  // namespace rh
+
+#define GPRT_TAIL_LAUNCH(grid, block, shmem) \
+  ;                                          \
+  rh::record_tail(grid, block);              \
+  (void)
 
 inline void __syncthreads() {}
 inline void __threadfence() {}

@@ -15,16 +15,15 @@
 // behaviour and is not carried over.
 //
 // The two-phase form (scene_closest_tiles(two_phase=True), the reference's
-// phases "main" and "finish", scene_kernel.py:2008, :2017) is two more
-// entries: the main pass (scene_kernel<true>) caps every SDF and metaball
-// march at PHASE_BUDGET = 64 steps, sets the geometry's bit of the ray's
-// dirty word where a capped march ran out below its natural budget, and
-// goes on with the next geometry (no kill-on-cap, :1362-1369); the finisher
-// (scene_finish_kernel), one thread per ray, marches the dirty (ray,
-// geometry) pairs again at the level-0 plain budgets and updates the main
-// pass's outputs in place; a ray with a zero dirty word exits at once. On
-// the TPU the split bounded a tile's convoy by its honest work; each thread
-// here already ends its own march, so it is ported for the reference's
+// phases "main" and "finish", scene_kernel.py:2008, :2017): the main pass
+// here (scene_kernel<true>) caps every SDF and metaball march at
+// PHASE_BUDGET = 64 steps, sets the geometry's bit of the ray's dirty word
+// where a capped march ran out below its natural budget, and goes on with
+// the next geometry (no kill-on-cap, :1362-1369); the finisher, which
+// marches the dirty (ray, geometry) pairs again at the level-0 plain
+// budgets over a queue of the dirty rays, is scene_finish.cu. On the TPU
+// the split bounded a tile's convoy by its honest work; each thread here
+// already ends its own march, so it is ported for the reference's
 // semantics (the finisher's level-0 budgets and its post-pass metaball
 // step change some answers) and measured, not for speed.
 //
@@ -87,38 +86,6 @@ __global__ void __launch_bounds__(128)
     normal[3 * i + 2] = h.n.z;
     gid[i] = h.gid;
     if (kMain) dirty_out[i] = (int)dirty;
-  }
-  counters_end(ops);
-}
-
-// The two-phase finisher (replaces _finish_tile, scene_kernel.py:1028):
-// best_t, normal, gid hold the main pass's outputs and are updated in place
-// (traverse.cuh finish_procedural) for the rays whose dirty word is not 0
-// (those were active in the main pass); the rest are not touched. Bound like
-// the scene kernel over the dirty rays; 4 bytes read per clean ray.
-template <bool kShared>
-__global__ void __launch_bounds__(128)
-    scene_finish_kernel(const float* __restrict__ params, const int* __restrict__ layout,
-                        const float* __restrict__ tri, const float* __restrict__ o,
-                        const float* __restrict__ d, const int* __restrict__ dirty,
-                        float* __restrict__ best_t, float* __restrict__ normal,
-                        int* __restrict__ gid, int n, int G, int M, int accept_first, int cull,
-                        unsigned long long* ops) {
-  extern __shared__ float smem[];
-  counters_begin(ops);
-  const Scene s = load_scene<false, kShared>(params, layout, tri, G, M, smem);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned bits = i < n ? (unsigned)dirty[i] : 0u;
-  if (bits != 0) {
-    Hit h{best_t[i], gid[i], v3(normal[3 * i], normal[3 * i + 1], normal[3 * i + 2])};
-    finish_procedural(s, v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]),
-                      v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]), bits, accept_first != 0,
-                      cull != 0, &h);
-    best_t[i] = h.t;
-    normal[3 * i] = h.n.x;
-    normal[3 * i + 1] = h.n.y;
-    normal[3 * i + 2] = h.n.z;
-    gid[i] = h.gid;
   }
   counters_end(ops);
 }
@@ -300,23 +267,6 @@ extern "C" int gprt_scene_residency(int num_geometries, int num_materials, int s
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The two-phase finisher over the main pass's outputs (updated in place);
-// ops and shared as for gprt_scene_closest.
-extern "C" int gprt_scene_finish(const float* params, const int* layout, const float* tri,
-                                 const float* o, const float* d, const int* dirty, float* best_t,
-                                 float* normal, int* gid, int n, int num_geometries,
-                                 int num_materials, int shared, int accept_first, int cull,
-                                 unsigned long long* ops, int device, void* stream) {
-  const auto kernel = GPRT_PICK1(gprt::scene_finish_kernel, shared);
-  size_t shmem;
-  cudaError_t err = setup(kernel, n, num_geometries, num_materials, shared, device, &shmem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(n + 127) / 128, 128, shmem, (cudaStream_t)stream>>>(
-      params, layout, tri, o, d, dirty, best_t, normal, gid, n, num_geometries, num_materials,
-      accept_first, cull, ops);
-  return (int)cudaGetLastError();
 }
 
 // The repair: rays (nsl, npix, 6), idx (nsl, cap) int32 and count (nsl,)

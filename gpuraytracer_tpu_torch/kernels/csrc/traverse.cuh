@@ -172,6 +172,7 @@ __host__ cudaError_t resident_blocks(Kernel kernel, size_t shmem, int device, in
           : ((shared) ? Kernel<false, true> : Kernel<false, false>))
 #endif
 
+
 // Points a Scene at the buffers: with kShared, copies them into the block's
 // shared memory first (every thread of the block must call it), else reads
 // them where they are in global memory. The host picks the instantiation
@@ -218,6 +219,31 @@ __device__ __forceinline__ Scene load_scene(const float* __restrict__ params,
   s.has_plane = ibase[3];
   s.tri = tri;
   return s;
+}
+
+// The lane's index in its warp (blocks of any shape).
+__device__ __forceinline__ int lane_id() {
+  return (int)(((threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x) & 31u);
+}
+
+// Appends the lanes of `group` (lanes of one warp that execute this call
+// together, the caller among them) to a queue with one atomicAdd on *count.
+// Returns the caller's slot, which may lie past the queue's capacity (the
+// caller stores only below it; the count still counts it).
+__device__ __forceinline__ int group_append(unsigned group, int* count) {
+  const int lane = lane_id();
+  const int leader = __ffs((int)group) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(group));
+  base = __shfl_sync(group, base, leader);
+  return base + __popc(group & ((1u << lane) - 1u));
+}
+
+// Counts the lanes of `group` (as group_append's) into the histogram bins
+// of their keys: one atomicAdd per key among them (__match_any_sync).
+__device__ __forceinline__ void group_count(unsigned group, int* bins, int key) {
+  const unsigned same = __match_any_sync(group, key);
+  if (lane_id() == __ffs((int)same) - 1) atomicAdd(bins + key, __popc(same));
 }
 
 // Resets a counting build's counters of the block (before load_scene, whose

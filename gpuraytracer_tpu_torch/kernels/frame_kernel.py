@@ -16,8 +16,9 @@ it, the plain kernel if the queue overflows) and ``render_frame_deferred``
 both shadow variants per level and queues the unknown lanes, the occlusion
 repair of scene_kernel.shadow_queue_planes, and the recomposition). On a
 GPU each mode is one stream-ordered chain of kernels: the queues and their
-counts stay on the device, the overflow is decided there (a gated launch of
-the plain kernel), and the host reads nothing back. Each of the kernels'
+counts stay on the device, the overflow is decided there (a one-warp gate,
+csrc/frame_gate.cu, that launches the plain kernel from the device only on
+an overflow), and the host reads nothing back. Each of the kernels'
 wrappers runs its plain version on a CPU tensor, where the modes' host
 code reads the counts.
 
@@ -78,8 +79,9 @@ from gpuraytracer_tpu_torch.geometry import metaballs, sdf, trimesh
 # plain and dense entries' merged instantiations (``merges``), LAUNCHES and
 # DENSE_LAUNCHES their default ones (the dense entry serves the compact
 # mode's ``render_frame_resume`` and ``render_frame_dense``).
-# GATED_FALLBACK_LAUNCHES counts the gated plain frame (either
-# instantiation), COMPOSE_LAUNCHES the defer recomposition and BIN_LAUNCHES
+# GATED_FALLBACK_LAUNCHES counts the overflow gate (csrc/frame_gate.cu;
+# either instantiation; one per call, whether or not the gate launches the
+# plain frame kernel from the device), COMPOSE_LAUNCHES the defer recomposition and BIN_LAUNCHES
 # the queue binning (one kernel per call). HOST_SYNCS
 # counts the compacted modes' reads of a queue's count on the host (the CPU
 # path, and ``debug_count``); QUEUED_LANES the lanes those reads counted
@@ -557,9 +559,10 @@ def _raise_on(rc, lib, what):
                            f"({lib.gprt_error_string(rc).decode()})")
 
 
-def _launch_setup(pack: FramePack, width, height, max_depth, lib):
-    """Check a CUDA launch of an entry of csrc/frame_kernel.cu; returns the
-    library (``lib``, default the shipped build)."""
+def _launch_setup(pack: FramePack, width, height, max_depth, lib, name: str = "frame_kernel"):
+    """Check a CUDA launch of an entry of csrc/frame_kernel.cu (or of
+    csrc/<name>.cu); returns the library (``lib``, default the shipped
+    build)."""
     dev = pack.params.device
     if dev.type != "cuda":
         raise ValueError(f"no frame kernel for device {dev}")
@@ -570,7 +573,7 @@ def _launch_setup(pack: FramePack, width, height, max_depth, lib):
                          f"{MAX_MATERIALS} (render_frame routes such scenes to the wavefront)")
     from gpuraytracer_tpu_torch.kernels import build
 
-    return lib if lib is not None else build.load("frame_kernel")
+    return lib if lib is not None else build.load(name)
 
 
 # ---------------------------------------------------------------------------
@@ -1155,11 +1158,13 @@ def render_frame_gated(pack: FramePack, image, count, cap: int, *, width: int, h
     """The queues' overflow, decided where the counts are: if any of
     ``count`` ((K,) int32) passed ``cap``, ``image`` (H, W, 4) becomes the
     plain kernel's frame, in place (the reference's lax.cond,
-    frame_kernel.py:1004, :1311); it is returned. CUDA: the gated entry of
-    csrc/frame_kernel.cu, whose blocks return before loading the scene
-    unless the flag is set (merged where ``merges`` says so; counted in
-    GATED_FALLBACK_LAUNCHES, launched every frame); CPU: the plain version.
-    """
+    frame_kernel.py:1004, :1311); it is returned. CUDA: the gate of
+    csrc/frame_gate.cu (``lib``, default its shipped build), one warp that
+    reads the counts and, only where one passed ``cap``, launches the plain
+    frame kernel over the band from the device, after which the stream's
+    later work runs (merged where ``merges`` says so; counted in
+    GATED_FALLBACK_LAUNCHES, one per call, launched every frame); CPU: the
+    plain version."""
     global GATED_FALLBACK_LAUNCHES
     check_pack(pack)
     dev = pack.params.device
@@ -1172,7 +1177,7 @@ def render_frame_gated(pack: FramePack, image, count, cap: int, *, width: int, h
         return render_frame_gated_plain(pack, image, count, cap, width=width, height=height,
                                         max_depth=max_depth, row_offset=row_offset,
                                         local_height=lh)
-    lib = _launch_setup(pack, width, height, max_depth, lib)
+    lib = _launch_setup(pack, width, height, max_depth, lib, "frame_gate")
     _raise_on(lib.gprt_frame_gated(
         *_buffers(pack), _ptr(image), _ptr(count), count.numel(), cap, width, height, row_offset,
         lh, max_depth, pack.num_geometries, pack.num_materials, int(_shared(pack)), int(merges(pack)),

@@ -20,14 +20,18 @@ tensor it launches the kernel or raises.
 (its phases "main" and "finish"): a main pass with every march capped at
 PHASE_BUDGET steps that writes a dirty word per ray, then a finisher that
 marches the dirty (ray, geometry) pairs again at the level-0 plain budgets
-(``scene_finish_plain``). ``occluded_merged_plain`` is the plain version of
-the merged occlusion march (GPURT_MERGED_SHADOW) that the frame kernel
-family and the occlusion queue run on the card.
+(``scene_finish_plain``). On the card the finisher runs over a queue of the
+dirty rays ordered by the first geometry each marches again
+(``scene_finish_queue``), one thread per queued ray (csrc/scene_finish.cu).
+``occluded_merged_plain`` is the plain version of the merged occlusion
+march (GPURT_MERGED_SHADOW) that the frame kernel family and the occlusion
+queue run on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -47,13 +51,17 @@ from gpuraytracer_tpu_torch.kernels import frame_kernel
 # QUEUE_LAUNCHES and MERGED_QUEUE_LAUNCHES the occlusion repair's default
 # and merged instantiations (``shadow_queue_planes``, the deferred mode's,
 # and ``shadow_queue``), MAIN_LAUNCHES and
-# FINISH_LAUNCHES the two-phase form's main pass and finisher.
+# FINISH_LAUNCHES the two-phase form's main pass and finisher,
+# FINISH_QUEUE_LAUNCHES the compaction of the dirty rays into the
+# finisher's queue (its append and bin kernels; ``scene_finish_queue``, and
+# every ``scene_finish`` of the queued build).
 LAUNCHES = 0
 PROBE_LAUNCHES = 0
 QUEUE_LAUNCHES = 0
 MERGED_QUEUE_LAUNCHES = 0
 MAIN_LAUNCHES = 0
 FINISH_LAUNCHES = 0
+FINISH_QUEUE_LAUNCHES = 0
 
 # The two-phase main pass's step cap (the reference's PHASE_BUDGET,
 # scene_kernel.py:92), on SDF and metaball marches alike.
@@ -261,6 +269,97 @@ def scene_finish_plain(scene: Scene, o_blas, d_blas, dirty, best_t, normal, gid,
     return best_t, normal, gid
 
 
+class FinishQueue(NamedTuple):
+    """The finisher's queue of dirty rays: ``idx`` (N,) int32 ray indices,
+    the first ``count[0]`` of them live, ordered by ``finish_key`` (within
+    a key, in any order: on the card the order of the bin's atomics); the
+    slots past the count hold anything. ``count`` (1,) int32 stays where it
+    was counted (on the card, the device)."""
+    idx: torch.Tensor
+    count: torch.Tensor
+
+
+def finish_key(dirty):
+    """The queue's key of each dirty word: its lowest set bit, the first
+    geometry the finisher marches again (geometries past 31 share bit 31);
+    32 where the word is 0."""
+    key = torch.full_like(dirty, 32)
+    for b in range(31, -1, -1):
+        key = torch.where(((dirty >> b) & 1) != 0, b, key)
+    return key
+
+
+def scene_finish_queue_plain(dirty) -> FinishQueue:
+    """Plain version of ``scene_finish_queue``: the rays whose dirty word is
+    not 0 (``nonzero``), stably ordered by ``finish_key`` (so within a key
+    in ray order), in an N-slot queue whose slots past the count hold -1."""
+    live = torch.nonzero(dirty).squeeze(1)
+    live = live[torch.argsort(finish_key(dirty[live]), stable=True)]
+    idx = torch.full_like(dirty, -1)
+    idx[:live.shape[0]] = live.to(torch.int32)
+    return FinishQueue(idx, torch.tensor([live.shape[0]], dtype=torch.int32,
+                                         device=dirty.device))
+
+
+def scene_finish_queue(dirty, lib=None) -> FinishQueue:
+    """The compaction of the two-phase main pass's (N,) int32 dirty words into
+    the finisher's queue (``FinishQueue``), with no host sync. CUDA: the
+    append and bin kernels of csrc/scene_finish.cu (``lib``, default the
+    shipped build; counted in FINISH_QUEUE_LAUNCHES), which ``scene_finish``
+    runs before its finisher; the count stays on the device. CPU: the plain
+    version."""
+    global FINISH_QUEUE_LAUNCHES
+    if dirty.dtype != torch.int32 or dirty.dim() != 1 or not dirty.is_contiguous():
+        raise ValueError(f"dirty: expected a contiguous (N,) int32 tensor, got "
+                         f"{tuple(dirty.shape)} {dirty.dtype}")
+    dev, n = dirty.device, dirty.shape[0]
+    if dev.type == "cpu":
+        return scene_finish_queue_plain(dirty)
+    if dev.type != "cuda":
+        raise ValueError(f"no finisher for device {dev}")
+    if n == 0:
+        return FinishQueue(torch.empty(0, dtype=torch.int32, device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("scene_finish")
+    queue, words = _finish_scratch(n, dev)
+    _raise_on(lib.gprt_finish_queue(_ptr(dirty), _ptr(queue), _ptr(words), n, dev.index,
+                                    _stream(dev)), lib, "finisher queue")
+    FINISH_QUEUE_LAUNCHES += 1
+    return FinishQueue(queue[n:], words[:1])
+
+
+# The int32 words beside a finisher queue on the card: its count, the 32
+# keys' histogram and the bin's cursors (csrc/scene_finish.cu kFinishWords).
+FINISH_WORDS = 1 + 2 * 32
+
+
+def _finish_scratch(n, dev):
+    """(queue, words) of a compaction on the card: 2n int32 slots (the
+    append order, then the ordered queue; 8.3 MB each at 1080p) and
+    FINISH_WORDS."""
+    return (torch.empty(2 * n, dtype=torch.int32, device=dev),
+            torch.empty(FINISH_WORDS, dtype=torch.int32, device=dev))
+
+
+def scene_finish_queued_plain(scene: Scene, o_blas, d_blas, dirty, queue: FinishQueue,
+                              best_t, normal, gid, *, accept_first: bool = False,
+                              cull_backface: bool = True):
+    """``scene_finish_plain`` over the live rays of ``queue`` alone (the
+    card's order of work), their answers scattered back into copies of the
+    main pass's outputs; every other ray keeps its answer. Each ray's answer
+    depends on its own inputs only, so this is ``scene_finish_plain`` over
+    every ray. Returns new (best_t, normal, gid)."""
+    live = queue.idx[:int(queue.count[0])].long()
+    best_t, normal, gid = best_t.clone(), normal.clone(), gid.clone()
+    t, nn, g = scene_finish_plain(scene, o_blas[live], d_blas[live], dirty[live], best_t[live],
+                                  normal[live], gid[live], accept_first=accept_first,
+                                  cull_backface=cull_backface)
+    best_t[live], normal[live], gid[live] = t, nn, g
+    return best_t, normal, gid
+
+
 def two_phase_runs(scene: Scene) -> bool:
     """Whether the two-phase form splits the pass: some march's budget
     exceeds PHASE_BUDGET (an SDF geometry's natural budget, or the
@@ -310,8 +409,9 @@ def _check_rays(o_blas, d_blas, active, t0):
             raise ValueError(f"{name} on {x.device}, o_blas on {o_blas.device}")
 
 
-def _prepare(scene: Scene, o_blas, pack, lib):
-    """(pack, library) of a CUDA launch over rays on o_blas's device."""
+def _prepare(scene: Scene, o_blas, pack, lib, name: str = "scene_kernel"):
+    """(pack, library: ``lib``, default the shipped build of csrc/<name>.cu)
+    of a CUDA launch over rays on o_blas's device."""
     dev = o_blas.device
     if dev.type != "cuda":
         raise ValueError(f"no scene kernel for device {dev}")
@@ -321,7 +421,7 @@ def _prepare(scene: Scene, o_blas, pack, lib):
         raise ValueError(f"pack on {pack.params.device}, rays on {dev}")
     from gpuraytracer_tpu_torch.kernels import build
 
-    return pack, lib if lib is not None else build.load("scene_kernel")
+    return pack, lib if lib is not None else build.load(name)
 
 
 def _shared(pack: frame_kernel.FramePack) -> int:
@@ -416,28 +516,40 @@ def scene_finish(scene: Scene, o_blas, d_blas, dirty, best_t, normal, gid, *,
                  accept_first: bool = False, cull_backface: bool = True,
                  pack: frame_kernel.FramePack | None = None, lib=None, ops=None):
     """The two-phase finisher over the main pass's outputs, (best_t, normal,
-    gid) as ``scene_finish_plain`` gives them: on CUDA the finisher entry of
-    csrc/scene_kernel.cu, which updates the (contiguous) outputs in place
-    and returns them (counted in FINISH_LAUNCHES), on the CPU the plain
-    version."""
-    global FINISH_LAUNCHES
+    gid) as ``scene_finish_plain`` gives them. CUDA: csrc/scene_finish.cu
+    (``lib``, default the shipped build; ``build.load("scene_finish",
+    finish_per_ray=True)`` is the parent's one thread per ray, for checks):
+    the compaction of ``dirty`` into a queue ordered by the first geometry
+    each dirty ray marches again (``scene_finish_queue``, counted in
+    FINISH_QUEUE_LAUNCHES), then the finisher, one thread per queued ray,
+    launched over the queue's capacity and reading the live count on the
+    device; it updates the (contiguous) outputs in place and returns them
+    (counted in FINISH_LAUNCHES). No host sync. CPU: the plain versions in
+    the card's order of work (``scene_finish_queue_plain``, then
+    ``scene_finish_queued_plain``)."""
+    global FINISH_LAUNCHES, FINISH_QUEUE_LAUNCHES
     dev, n = o_blas.device, o_blas.shape[0]
     if dev.type == "cpu":
-        return scene_finish_plain(scene, o_blas, d_blas, dirty, best_t, normal, gid,
-                                  accept_first=accept_first, cull_backface=cull_backface)
+        return scene_finish_queued_plain(scene, o_blas, d_blas, dirty,
+                                         scene_finish_queue_plain(dirty), best_t, normal, gid,
+                                         accept_first=accept_first, cull_backface=cull_backface)
     for name, x, dtype in (("dirty", dirty, torch.int32), ("best_t", best_t, torch.float32),
                            ("normal", normal, torch.float32), ("gid", gid, torch.int32)):
         if x.dtype != dtype or x.shape[0] != n or x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous {dtype} tensor of {n} rows on {dev}")
     if n == 0:
         return best_t, normal, gid
-    pack, lib = _prepare(scene, o_blas, pack, lib)
+    pack, lib = _prepare(scene, o_blas, pack, lib, "scene_finish")
     o_blas, d_blas = o_blas.contiguous(), d_blas.contiguous()
+    queue, words = _finish_scratch(n, dev)
     _raise_on(lib.gprt_scene_finish(
         _ptr(pack.params), _ptr(pack.layout), _ptr(pack.tri), _ptr(o_blas), _ptr(d_blas),
-        _ptr(dirty), _ptr(best_t), _ptr(normal), _ptr(gid), n, pack.num_geometries,
-        pack.num_materials, _shared(pack), int(accept_first), int(cull_backface),
-        frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib, "two-phase finisher")
+        _ptr(dirty), _ptr(queue), _ptr(words), _ptr(best_t), _ptr(normal), _ptr(gid), n,
+        pack.num_geometries, pack.num_materials, _shared(pack), int(accept_first),
+        int(cull_backface), frame_kernel.ops_pointer(ops), dev.index, _stream(dev)), lib,
+        "two-phase finisher")
+    if lib.gprt_finish_compacts():
+        FINISH_QUEUE_LAUNCHES += 1
     FINISH_LAUNCHES += 1
     return best_t, normal, gid
 
@@ -445,12 +557,14 @@ def scene_finish(scene: Scene, o_blas, d_blas, dirty, best_t, normal, gid, *,
 def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int = 0,
                         accept_first: bool = False, cull_backface: bool = True,
                         two_phase: bool = False, debug_dirty: bool = False,
-                        pack: frame_kernel.FramePack | None = None, lib=None, ops=None):
+                        pack: frame_kernel.FramePack | None = None, lib=None, ops=None,
+                        finish_lib=None):
     """(best_t, normal, gid) of one traversal pass over (N, 3) BLAS-space
     rays; see ``scene_closest_plain`` for the semantics.
 
     ``two_phase``: the reference's two-phase form where it splits the pass
-    (``two_phase_runs``): ``scene_main_pass``, then ``scene_finish``.
+    (``two_phase_runs``): ``scene_main_pass``, then ``scene_finish`` (with
+    ``finish_lib``, default the shipped csrc/scene_finish.cu build).
     ``debug_dirty``: also return the main pass's (N,) int32 dirty words
     (zeros for a single pass).
 
@@ -463,10 +577,10 @@ def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
     _check_rays(o_blas, d_blas, active, t0)
     kw = dict(level=level, accept_first=accept_first, cull_backface=cull_backface)
     if two_phase and two_phase_runs(scene):
-        dev = dict(pack=pack, lib=lib, ops=ops)
-        *main, dirty = scene_main_pass(scene, o_blas, d_blas, active, t0, **kw, **dev)
+        *main, dirty = scene_main_pass(scene, o_blas, d_blas, active, t0, **kw, pack=pack,
+                                       lib=lib, ops=ops)
         out = scene_finish(scene, o_blas, d_blas, dirty, *main, accept_first=accept_first,
-                           cull_backface=cull_backface, **dev)
+                           cull_backface=cull_backface, pack=pack, lib=finish_lib, ops=ops)
     elif o_blas.device.type == "cpu":
         out = scene_closest_plain(scene, o_blas, d_blas, active, t0, **kw)
         dirty = torch.zeros(o_blas.shape[0], dtype=torch.int32)

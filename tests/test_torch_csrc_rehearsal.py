@@ -48,6 +48,16 @@ staging and the chunk skip equals the unculled loop bit for bit on the
 heightfield's faces and seeded rays, a third of them grazing a face (det
 between 1e-12 and 1e-6), and the skip passes over most chunks of the rays
 that do not graze.
+
+csrc/scene_finish.cu's two-phase compaction queues every dirty ray once
+in key order, and the finisher over the queue gives the per-ray
+finisher's outputs (the -DGPRT_FINISH_PER_RAY build) bit for bit and the
+plain finisher's within the tolerances above. csrc/frame_gate.cu
+launches the frame kernel from device code (GPRT_TAIL_LAUNCH), which the
+rehearsal records instead (host_rehearsal.h rh::tail) and its entry runs
+over the recorded grid: the gate launches nothing and leaves the image as
+it was without an overflow, and with one launches the frame kernel over
+the band, the rehearsed frame kernel's pixels bit for bit.
 """
 
 import ctypes
@@ -62,6 +72,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_megakernel import seeded_face_rays
+from test_torch_two_phase import GOLDEN, port_scene_cached
+from test_torch_two_phase import inputs as two_phase_inputs
 
 from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.core import camera as cam
@@ -450,14 +462,91 @@ extern "C" int rh_trimesh(const float* tri, int count, const float* o, const flo
   return skipped;
 }
 """,
+    "scene_finish": r"""
+namespace gprt { float smem[1 << 16]; }
+
+// The two-phase finisher over n rays' main-pass outputs (best_t, normal,
+// gid, updated in place) and dirty words, one-thread blocks. The queued
+// build: the compaction's append and bin entries into queue (2n int32: the
+// append order, then the ordered queue) with words (kFinishWords int32),
+// then the finisher over the queue's n slots. The -DGPRT_FINISH_PER_RAY
+// build: one block per ray over all n.
+extern "C" void rh_finish(const float* params, const int* layout, const float* tri,
+                          const float* o, const float* d, const int* dirty, int* queue, int* words,
+                          float* best_t, float* normal, int* gid, int n, int G, int M, int shared,
+                          int accept_first, int cull) {
+  blockDim = dim3{1, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  gridDim = dim3{(unsigned)n, 1, 1};
+#ifdef GPRT_FINISH_PER_RAY
+  const auto kernel = shared ? gprt::finish_ray_kernel<true> : gprt::finish_ray_kernel<false>;
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    kernel(params, layout, tri, o, d, dirty, best_t, normal, gid, n, G, M, accept_first, cull,
+           nullptr);
+  }
+#else
+  for (int k = 0; k < gprt::kFinishWords; ++k) words[k] = 0;
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    gprt::finish_append_kernel(dirty, n, queue, words);
+  }
+  for (int b = 0; b < n; ++b) {
+    blockIdx = dim3{(unsigned)b, 0, 0};
+    gprt::finish_bin_kernel(dirty, queue, queue + n, words);
+  }
+  const auto kernel = shared ? gprt::finish_queue_kernel<true> : gprt::finish_queue_kernel<false>;
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    kernel(params, layout, tri, o, d, dirty, queue + n, words, best_t, normal, gid, G, M,
+           accept_first, cull, nullptr);
+  }
+#endif
+}
+""",
+    "frame_gate": r"""
+namespace gprt { float smem[1 << 16]; }
+
+// The overflow gate (one block; one-thread warps) over n counts against
+// cap, then, where it launched the frame kernel into the tail of its grid,
+// that frame kernel over the recorded grid, each pixel of its 16x8 blocks
+// as a one-thread block, into the band's image out; returns the gate's
+// tail launches.
+extern "C" int rh_gate(const float* params, const int* layout, const float* tri, float* out,
+                       const int* count, int n, int cap, int width, int height, int row_offset,
+                       int local_height, int max_depth, int G, int M, int shared) {
+  blockDim = gridDim = dim3{1, 1, 1};
+  blockIdx = threadIdx = dim3{0, 0, 0};
+  rh::tail_launches = 0;
+  const auto gate = shared ? gprt::frame_gate_kernel<false, true>
+                           : gprt::frame_gate_kernel<false, false>;
+  gate(params, layout, tri, reinterpret_cast<float4*>(out), count, n, cap,
+       gprt::frame_grid(width, local_height), 0u, width, height, row_offset, local_height,
+       max_depth, G, M, nullptr);
+  if (rh::tail_launches == 0) return 0;
+  const auto kernel = shared ? gprt::frame_kernel<false, true> : gprt::frame_kernel<false, false>;
+  const dim3 g = rh::tail.grid, b = rh::tail.block;
+  gridDim = dim3{g.x * b.x, g.y * b.y, 1};
+  for (unsigned y = 0; y < g.y * b.y; ++y) {
+    for (unsigned x = 0; x < g.x * b.x; ++x) {
+      blockIdx = dim3{x, y, 0};
+      kernel(params, layout, tri, reinterpret_cast<float4*>(out), width, height, row_offset,
+             local_height, max_depth, G, M, nullptr);
+    }
+  }
+  return rh::tail_launches;
+}
+""",
 }
 
 
 # Builds of a source with a macro defined: (source, macro).
 DEFINES = {"megakernel_global": ("megakernel", "GPRT_FACE_LOOP_GLOBAL"),
-           "scene_kernel_fma": ("scene_kernel", None)}
+           "scene_kernel_fma": ("scene_kernel", None),
+           "scene_finish_per_ray": ("scene_finish", "GPRT_FINISH_PER_RAY")}
 ENTRIES["megakernel_global"] = ENTRIES["megakernel"]
 ENTRIES["scene_kernel_fma"] = ENTRIES["scene_kernel"]
+ENTRIES["scene_finish_per_ray"] = ENTRIES["scene_finish"]
 # Builds that contract multiply-adds into FMAs as the shipped CUDA build
 # does (-mfma -ffp-contract=fast; made only on a CPU with FMA instructions);
 # the rest repeat the plain arithmetic.
@@ -488,8 +577,10 @@ def libs():
     with os.fdopen(fd, "w") as f:
         f.write('#pragma once\n#include "host_rehearsal.h"\n')
     os.replace(tmp, os.path.join(BUILD, "include", "cuda_runtime.h"))
+    # frame_gate.cu includes frame_kernel.cu.
     headers = b"".join(open(os.path.join(CSRC, h), "rb").read()
-                       for h in ("frame_math.cuh", "traverse.cuh", "host_rehearsal.h"))
+                       for h in ("frame_math.cuh", "traverse.cuh", "host_rehearsal.h",
+                                 "frame_kernel.cu"))
     procs, paths = {}, {}
     for name, entry in ENTRIES.items():
         if name in CONTRACTED and not fma:
@@ -937,6 +1028,82 @@ def test_band_entries_equal_the_whole_frame(libs):
     assert np.array_equal(plain, whole)
     assert np.array_equal(compact, whole)
     assert np.array_equal(defer, w_out)
+
+
+# ---------------------------------------------------------------------------
+# The two-phase finisher over its queue, and the overflow gate
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind, shared", [("closest", 1), ("shadow", 0)],
+                         ids=["closest_shared", "shadow_global"])
+def test_finish_queue_and_queued_finisher_equal_the_per_ray_finisher(libs, kind, shared):
+    # On the builtin scene's 1024 seeded level-0 rays of
+    # tests/golden_torch_two_phase.npz, after the plain main pass: the
+    # compaction queues every dirty ray once, in key order; the finisher over
+    # the queue's capacity gives the per-ray finisher's outputs (the
+    # -DGPRT_FINISH_PER_RAY build) bit for bit, and the plain finisher's
+    # within the file's tolerances.
+    scene = port_scene_cached("builtin")
+    with np.load(GOLDEN) as z:
+        ob, db, a, t0 = two_phase_inputs(z, "builtin", kind, 0)
+    af = kind == "shadow"
+    *main, dirty = scene_kernel.scene_main_plain(scene, ob, db, a, t0, accept_first=af)
+    pack = frame_kernel.pack_frame(scene)
+    n = ob.shape[0]
+    arrays = [_np(x) for x in (pack.params, pack.layout)] + [_tri(pack)] + [
+        _np(x) for x in (ob, db, dirty)]
+    out = {}
+    for name in ("scene_finish", "scene_finish_per_ray"):
+        queue, words = np.full(2 * n, -7, np.int32), np.zeros(scene_kernel.FINISH_WORDS, np.int32)
+        res = [_np(x).copy() for x in main]
+        lib = libs[name]
+        lib.rh_finish.restype = ctypes.c_int
+        lib.rh_finish(*(_p(x) for x in arrays), _p(queue), _p(words), *(_p(x) for x in res), n,
+                      pack.num_geometries, pack.num_materials, shared, int(af), 1)
+        out[name] = res, queue, words
+    res, queue, words = out["scene_finish"]
+    live = _np(dirty) != 0
+    assert words[0] == live.sum() > 0
+    ordered = queue[n:n + words[0]]
+    assert np.array_equal(np.sort(ordered), np.flatnonzero(live))
+    keys = _np(scene_kernel.finish_key(dirty))[ordered]
+    assert (np.diff(keys) >= 0).all()
+    assert np.array_equal(words[1:33], np.bincount(keys, minlength=32))
+    for got, want in zip(res, out["scene_finish_per_ray"][0]):
+        assert np.array_equal(got, want)
+    pt, pn, pg = (_np(x) for x in scene_kernel.scene_finish_plain(
+        scene, ob, db, dirty, *main, accept_first=af))
+    t, nrm, g = res
+    assert (g == pg).all() and np.abs(t - pt).max() <= TOL
+    assert np.abs(nrm - pn).max() <= NORMAL_TOL
+
+
+def test_gate_writes_nothing_without_overflow_and_the_plain_frame_with_it(libs):
+    # The gate over two counts: at and below the capacity it launches
+    # nothing and the image keeps what it held; with one count past it, it
+    # launches the frame kernel over the band, whose pixels are the
+    # rehearsed frame kernel's bit for bit, for the whole frame and a band.
+    scene = builtin.build_scene(aspect=BAND_W / BAND_H, elapsed_time=T_ANIM, device="cpu")
+    pack = frame_kernel.pack_frame(scene)
+    params, layout, tri = _np(pack.params), _np(pack.layout), _tri(pack)
+    g, m, cap = pack.num_geometries, pack.num_materials, 100
+    gate, frame = libs["frame_gate"], libs["frame_kernel"]
+    gate.rh_gate.restype = ctypes.c_int
+    whole = np.full((BAND_H, BAND_W, 4), np.nan, np.float32)
+    frame.rh_frame(_p(params), _p(layout), _p(tri), _p(whole), BAND_W, BAND_H, 0, BAND_H, 3, g,
+                   m, 1)
+    assert np.isfinite(whole).all()
+    for row_offset, lh in ((0, BAND_H), (4, 6)):
+        for counts, over in (((cap, cap - 1), False), ((1, cap + 1), True)):
+            img = np.full((lh, BAND_W, 4), -7.0, np.float32)
+            count = np.array(counts, np.int32)
+            launches = gate.rh_gate(_p(params), _p(layout), _p(tri), _p(img), _p(count), 2, cap,
+                                    BAND_W, BAND_H, row_offset, lh, 3, g, m, 1)
+            assert launches == int(over)
+            if over:
+                assert np.array_equal(img, whole[row_offset:row_offset + lh])
+            else:
+                assert (img == -7.0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,11 @@ planes of the full-traversal build (-DGPRT_REPAIR_FULL) bit for bit, and
 the deferred frame that build's frame, in both contraction builds, merged
 or not (builtin 1080p, the fractal scene, padded_sdf_showcase(28)); the
 one-launch bin gives the plain version's key order and each segment's set
-on both modes' 1080p queues, also when the same queue is binned again.
+on both modes' 1080p queues, also when the same queue is binned again. The
+overflow gate (csrc/frame_gate.cu) leaves the image as it was without an
+overflow and, with one, gives the plain kernel's frame to the next
+operation on the stream with no synchronize between them; a band whose
+queues overflow in either mode is the plain kernel's band bit for bit.
 """
 
 import numpy as np
@@ -289,6 +293,46 @@ def test_overflowing_deferred_frame_is_the_plain_kernels_on_cuda(cuda_device):
                                                 cap_lanes=1, debug_count=True)
     assert n.overflow and scene_kernel.QUEUE_LAUNCHES == queue + 1
     assert torch.equal(img, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["compact", "defer"])
+def test_overflowing_band_is_the_plain_kernels_on_cuda(cuda_device, mode):
+    # Rows 60-119 of a 320x180 frame at a one-tile queue: the band's queue
+    # overflows and the gate's device-side launch renders the plain band.
+    w, h, row_offset, lh = 320, 180, 60, 60
+    pack = cuda_pack(cuda_device, w, h)
+    band = dict(width=w, height=h, row_offset=row_offset, local_height=lh)
+    plain = frame_kernel.render_frame_tiles(pack, **band)
+    if mode == "compact":
+        img, n = frame_kernel.render_frame_compact(pack, budget_cap=1, cap_lanes=1,
+                                                   debug_count=True, **band)
+    else:
+        img, n = frame_kernel.render_frame_deferred(pack, shadow_cap=1, cap_lanes=1,
+                                                    debug_count=True, **band)
+    assert n.overflow
+    assert torch.equal(img, plain)
+
+
+@pytest.mark.cuda
+def test_gate_renders_only_on_overflow_before_the_next_operation_on_cuda(cuda_device):
+    # The gate with counts at the capacity writes nothing; with one past it,
+    # a clone queued right after it (no synchronize) already holds the
+    # plain kernel's frame: the frame kernel that the gate launches on the
+    # device finishes before the stream's next operation starts.
+    w, h, cap = 320, 180, 100
+    pack = cuda_pack(cuda_device, w, h)
+    kw = dict(width=w, height=h)
+    plain = frame_kernel.render_frame_tiles(pack, **kw)
+    gated = frame_kernel.GATED_FALLBACK_LAUNCHES
+    img = torch.full_like(plain, -7.0)
+    count = torch.tensor([cap, cap - 1], dtype=torch.int32, device=cuda_device)
+    frame_kernel.render_frame_gated(pack, img, count, cap, **kw)
+    assert bool((img == -7.0).all())
+    count = torch.tensor([1, cap + 1], dtype=torch.int32, device=cuda_device)
+    seen = frame_kernel.render_frame_gated(pack, img, count, cap, **kw).clone()
+    assert frame_kernel.GATED_FALLBACK_LAUNCHES == gated + 2
+    assert torch.equal(seen, plain)
 
 
 @pytest.mark.cuda

@@ -28,8 +28,19 @@ the port's single pass and against the reference.
   marches at the level-0 budget (closest: 160 steps where the single pass
   takes GPURT_MARCH_BUDGET_B = 128).
 
-On a GPU (the ``cuda`` marker) the main and finish entries of
-csrc/scene_kernel.cu are held to their plain versions.
+- The finisher's queue (scene_kernel.scene_finish_queue, its plain
+  version on the CPU) holds every ray whose dirty word is not 0, once,
+  ordered by the word's lowest set bit, on every committed batch; the plain
+  finisher over the queued rays alone is scene_finish_plain over every ray,
+  bit for bit.
+
+On a GPU (the ``cuda`` marker) the main pass (csrc/scene_kernel.cu) and the
+finish step (csrc/scene_finish.cu: the compaction, and the finisher over
+its queue) are held to their plain versions; on the
+builtin 1080p level-0 closest and shadow passes the finish step equals the
+parent's one thread per ray (the -DGPRT_FINISH_PER_RAY build) bit for bit,
+and the two-phase pass completes under
+``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import functools
@@ -117,15 +128,32 @@ def port_scene_cached(name):
 
 
 @functools.lru_cache(maxsize=None)
+def golden_inputs(name, kind, level):
+    with np.load(GOLDEN) as z:
+        return inputs(z, name, kind, level)
+
+
+@functools.lru_cache(maxsize=None)
+def port_main(name, kind, level):
+    """The port's plain main pass on the committed inputs, (best_t, normal,
+    gid, dirty), computed once for the module."""
+    return scene_kernel.scene_main_plain(port_scene_cached(name), *golden_inputs(name, kind, level),
+                                         level=level, accept_first=kind == "shadow")
+
+
+@functools.lru_cache(maxsize=None)
 def port_passes(name, kind, level):
     """(single pass, two-phase form with its dirty words) of the port's plain
-    versions on the committed inputs, computed once for the module."""
-    with np.load(GOLDEN) as z:
-        ob, db, a, t0 = inputs(z, name, kind, level)
+    versions on the committed inputs, computed once for the module: the
+    two-phase form is scene_two_phase_plain's, the main pass then
+    scene_finish_plain."""
+    ob, db, a, t0 = golden_inputs(name, kind, level)
     scene = port_scene_cached(name)
     kw = dict(level=level, accept_first=kind == "shadow")
+    *main, dirty = port_main(name, kind, level)
     return (scene_kernel.scene_closest_plain(scene, ob, db, a, t0, **kw),
-            scene_kernel.scene_two_phase_plain(scene, ob, db, a, t0, **kw))
+            scene_kernel.scene_finish_plain(scene, ob, db, dirty, *main,
+                                            accept_first=kw["accept_first"]) + (dirty,))
 
 
 def explain(scene, single, two, dirty):
@@ -258,6 +286,43 @@ def test_wrapper_takes_two_phase_on_cpu(golden):
     assert scene_kernel.two_phase_runs(scene) and not scene_kernel.two_phase_runs(short)
 
 
+@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("kind, level", BATCHES)
+def test_finish_queue_plain_holds_each_dirty_ray_once_in_key_order(name, kind, level):
+    # The finisher's queue (on the CPU the wrapper's plain version): every
+    # ray whose dirty word is not 0, once, ordered by its lowest set bit,
+    # and in ray order within a key; the slots past the count hold -1.
+    dirty = port_main(name, kind, level)[3]
+    queue = scene_kernel.scene_finish_queue(dirty)
+    n = int(queue.count[0])
+    live = queue.idx[:n].long()
+    assert n > 0 and torch.equal(torch.sort(live).values, torch.nonzero(dirty).squeeze(1))
+    words, keys = dirty[live], scene_kernel.finish_key(dirty[live]).long()
+    assert bool((((words >> keys) & 1) == 1).all())
+    assert bool(((words & ((1 << keys) - 1)) == 0).all())
+    assert bool((keys[1:] >= keys[:-1]).all())
+    same = keys[1:] == keys[:-1]
+    assert bool((live[1:] > live[:-1])[same].all())
+    assert bool((queue.idx[n:] == -1).all())
+
+
+@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("kind", ["closest", "shadow"])
+def test_queued_plain_finisher_is_scene_finish_plain(name, kind):
+    # The plain finisher over the queued rays alone, scattered back, is
+    # scene_finish_plain over every ray, bit for bit, at both levels.
+    scene = port_scene_cached(name)
+    for level in (0, 1):
+        ob, db, _, _ = golden_inputs(name, kind, level)
+        *main, dirty = port_main(name, kind, level)
+        want = port_passes(name, kind, level)[1][:3]
+        got = scene_kernel.scene_finish_queued_plain(
+            scene, ob, db, dirty, scene_kernel.scene_finish_queue_plain(dirty), *main,
+            accept_first=kind == "shadow")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -286,6 +351,80 @@ def test_two_phase_kernels_match_plain_on_cuda(cuda_device, golden, name):
         assert float(same.float().mean()) >= 0.98
         dt = (kt - pt).abs()[same & (pg >= 0)]
         assert dt.numel() == 0 or float((dt <= 1e-3).float().mean()) >= 0.98
+
+
+def _1080p_passes(dev):
+    """The builtin 1920x1080 frame's level-0 closest and shadow passes at t =
+    0.2664 as the wavefront builds them: (scene, pack, {kind: (o, d, active,
+    t0)})."""
+    from gpuraytracer_tpu_torch.core.types import RAY_TMAX
+
+    w, h = 1920, 1080
+    scene = builtin.build_scene(aspect=w / h, elapsed_time=0.2664, device=dev)
+    pack = frame_kernel.pack_frame(scene)
+    px, py = cam.pixel_grid(w, h, dev)
+    c = scene.arrays.constants
+    o, d = cam.generate_camera_rays(px, py, w, h, c.camera_position, c.projection_to_world)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    hit_p, ob, db, act, t0 = traverse.pass_inputs(o, d, scene)
+    st, _, sg = scene_kernel.scene_closest_tiles(scene, ob, db, act, t0, pack=pack)
+    hp = o + torch.where(sg >= 0, st, torch.where(hit_p, t0, RAY_TMAX))[:, None] * d
+    sd = hlsl.normalize(c.light_position[:3] - hp)
+    _, obs, dbs, acts, t0s = traverse.pass_inputs(hp, sd, scene, active=(sg >= 0) | hit_p,
+                                                  occlusion=True)
+    return scene, pack, {"closest": (ob, db, act, t0), "shadow": (obs, dbs, acts, t0s)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["closest", "shadow"])
+def test_queued_finisher_equals_the_per_ray_build_at_1080p_on_cuda(cuda_device, kind):
+    # The shipped finisher (the compaction, then one thread per queued ray,
+    # launched over the queue's capacity) against the parent's one thread per
+    # ray (the -DGPRT_FINISH_PER_RAY build) on the builtin 1080p level-0
+    # pass: best_t, normal and gid bit for bit; the queue holds each dirty
+    # ray once, in key order.
+    from gpuraytracer_tpu_torch.kernels import build
+
+    scene, pack, passes = _1080p_passes(cuda_device)
+    ob, db, a, t0 = passes[kind]
+    af = kind == "shadow"
+    *main, dirty = scene_kernel.scene_main_pass(scene, ob, db, a, t0, accept_first=af, pack=pack)
+    queued, per_ray = [x.clone() for x in main], [x.clone() for x in main]
+    before = (scene_kernel.FINISH_LAUNCHES, scene_kernel.FINISH_QUEUE_LAUNCHES)
+    scene_kernel.scene_finish(scene, ob, db, dirty, *queued, accept_first=af, pack=pack)
+    scene_kernel.scene_finish(scene, ob, db, dirty, *per_ray, accept_first=af, pack=pack,
+                              lib=build.load("scene_finish", finish_per_ray=True))
+    torch.cuda.synchronize()
+    assert (scene_kernel.FINISH_LAUNCHES, scene_kernel.FINISH_QUEUE_LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+    for got, want in zip(queued, per_ray):
+        assert torch.equal(got, want)
+    assert not all(torch.equal(q, m) for q, m in zip(queued, main))
+    queue = scene_kernel.scene_finish_queue(dirty)
+    n = int(queue.count[0])
+    live = queue.idx[:n].long()
+    assert n == int((dirty != 0).sum()) > 0
+    assert torch.equal(torch.sort(live).values, torch.nonzero(dirty).squeeze(1))
+    keys = scene_kernel.finish_key(dirty[live])
+    assert bool((keys[1:] >= keys[:-1]).all())
+
+
+@pytest.mark.cuda
+def test_two_phase_pass_makes_no_host_sync_on_cuda(cuda_device):
+    # The main pass, the compaction and the finisher over the queue read
+    # nothing back.
+    scene, pack, passes = _1080p_passes(cuda_device)
+    ob, db, a, t0 = passes["closest"]
+    kw = dict(two_phase=True, debug_dirty=True, pack=pack)
+    want = scene_kernel.scene_closest_tiles(scene, ob, db, a, t0, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = scene_kernel.scene_closest_tiles(scene, ob, db, a, t0, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _write_golden():
