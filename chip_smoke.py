@@ -192,6 +192,28 @@ exits non-zero):
               1920x1080 frame: the gathered bands bit for bit the
               one-process frame); the frame kernel's ms at row_offset 0 and
               of the frame as 4 band launches, after a device-side wait
+ 15. parity   the port against the JAX package's CPU reference renders in
+              tests/parity_refs/ (tools/torch_make_refs.py): every scene
+              (builtin at 320x180, the five bench scenes and the three mesh
+              scenes at 160x90, t=0.7) on its default route, and builtin on
+              the compact, defer, merged and scene-kernel routes too,
+              through tools/torch_parity.py, one [parity] line each
+              (pct_within_1e3, interior_pct_1e3, sens_fraction,
+              stable_pct_1e3, stable_max_abs, the route's launches); fails
+              on a frame that is not finite, a route that launched no
+              kernel or an entry below its bars (torch_parity.BARS: each
+              entry's first H100 reading less 2 points, builtin's default
+              route at least tests/test_parity.py's 89 / 95.5 / 95.5);
+              the parity floor (tools/torch_parity_floor.py: builtin
+              320x180 as shipped, launched again, in the --fmad=false build,
+              compact, defer, merged, scene kernel and the CPU wavefront,
+              each against the first; [floor] lines) and the bisect
+              (tools/torch_parity_bisect.py: the level-0 hit of the scene
+              kernel against the CPU's plain pass, the distance entry of
+              csrc/scene_kernel.cu on the 4,096 committed points of every
+              SDF code against its plain version, which fails past
+              DIST_ULPS, and the JAX values, timed with its op count, and
+              the card's frame against the CPU port's; [bisect] lines)
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
 2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass), the card
@@ -224,6 +246,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -432,20 +455,6 @@ def ptxas_spill_stores(report):
         if ": Used " in item:
             out[item.split(": Used ", 1)[0]] = int(m.group(1)) if m else 0
     return out
-
-
-@contextlib.contextmanager
-def fmad_build(fmad):
-    """Every kernel wrapper's default library is the build with
-    --fmad=<fmad> (the modes' host code takes no library argument)."""
-    from gpuraytracer_tpu_torch.kernels import build
-
-    real = build.load
-    build.load = lambda name, **kw: real(name, **{**kw, "fmad": fmad})
-    try:
-        yield
-    finally:
-        build.load = real
 
 
 def exactness(img, ref):
@@ -696,7 +705,13 @@ def host_phase(dev, card, pack_m):
     if ex.recoveries != 1 or not torch.equal(out, direct_r):
         raise AssertionError("no recovery from a CUDA launch error, or a different frame")
     builds.clear()
-    ex = RecoveringExecutor(make_step(lambda: time.sleep(2.5)), retry_delay_seconds=0.0,
+    abandoned = []
+
+    def wedge():
+        abandoned.append(threading.current_thread())
+        time.sleep(2.5)
+
+    ex = RecoveringExecutor(make_step(wedge), retry_delay_seconds=0.0,
                             watchdog_seconds=1.0, device=dev)
     try:
         t_wd = time.perf_counter()
@@ -704,6 +719,10 @@ def host_phase(dev, card, pack_m):
         t_wd = time.perf_counter() - t_wd
     finally:
         ex.close()
+        # The abandoned step still renders once it wakes: wait for it, so
+        # that its frame kernel launch lands in no later phase's counts.
+        for worker in abandoned:
+            worker.join(60)
     if ex.recoveries != 1 or not torch.equal(out, direct_r):
         raise AssertionError("no recovery from a step past the watchdog")
     builds.clear()
@@ -883,6 +902,33 @@ def bands_phase(dev, card):
           flush=True)
 
 
+def parity_phase(card):
+    """Phase 15: the port against the committed CPU reference renders, the
+    parity floor and the bisect (see the module docstring). Raises on any
+    failure; returns the bisect's distance stage (the distance entry's
+    launches, error, times, bytes and FLOPs)."""
+    from tools import torch_parity, torch_parity_bisect, torch_parity_floor
+
+    def log(msg):
+        print(msg, flush=True)
+
+    t0 = time.perf_counter()
+    results = torch_parity.run("cuda", log=log)
+    bad = torch_parity.failures(results)
+    if bad:
+        raise AssertionError("parity: " + "; ".join(bad))
+    print(f"[parity] {len(results['entries'])} scene/route entries meet their bars, "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    floor, images = torch_parity_floor.run(log)
+    print(f"[floor] A' bit-equal to A: {floor['a_prime_bit_equal']}", flush=True)
+    bisect = torch_parity_bisect.run(log, cpu_image=images["g_cpu_wavefront"])
+    dist = bisect["dist"]
+    print(f"[bisect] distance entry: {dist['launches']} launches, max |diff| vs plain "
+          f"{dist['max_abs_vs_plain']:.3e}, {dist['ms']:.4f} ms the nine codes "
+          f"(plain {dist['plain_ms']:.4f} ms); {card}", flush=True)
+    return dist
+
+
 def main() -> int:
     # 1. device -------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -901,6 +947,7 @@ def main() -> int:
     from gpuraytracer_tpu_torch.models import builtin, scenes
     from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.render.renderer import Renderer
+    from tools.torch_parity import fmad_build
 
     # The plain version keeps explicit row math, but pin full-f32 matrix
     # products and convolutions anyway so no reference step runs in TF32.
@@ -2591,6 +2638,11 @@ def main() -> int:
     with Phase("bands"):
         bands_phase(dev, card)
 
+    # 15. parity against the committed CPU reference renders ------------------
+    with Phase("parity"):
+        dist = parity_phase(card)
+        dist_bound, dist_bound_by = bound(dist["bytes"], dist["flops"])
+
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "frame_kernel",
@@ -2721,6 +2773,18 @@ def main() -> int:
         "bound_by": bound(two_phase["closest"]["queue_bytes"], 0)[1],
         "library_ms": None,
     }] + [{
+        "name": "sdf_distance",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/scene_kernel.cu",
+        "replaces": "tools/parity_bisect.py:107",
+        "launches": dist["launches"],
+        "max_abs_err": dist["max_abs_vs_plain"],
+        "ms": dist["ms"],
+        "plain_ms": dist["plain_ms"],
+        "bound_ms": dist_bound,
+        "bound_by": dist_bound_by,
+        "library_ms": None,
+    }] + [{
         "name": "op_probe",
         "route": "cuda",
         "source": "gpuraytracer_tpu_torch/kernels/csrc/op_probe.cu",
@@ -2751,7 +2815,8 @@ def main() -> int:
         "shadow_queue_merged": "shadow_queue_kernel<true, true, true>",
         "scene_two_phase_main": "scene_kernel<true, true>",
         "scene_two_phase_finish": "finish_queue_kernel<true>",
-        "scene_finish_queue": "finish_append_kernel", "op_probe": "op_probe_kernel"}
+        "scene_finish_queue": "finish_append_kernel", "op_probe": "op_probe_kernel",
+        "sdf_distance": "sdf_probe"}
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
     resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)
     resident["shadow_queue"] = scene_kernel.residency(pack_m, entry="repair")

@@ -183,7 +183,7 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
     elif name == "scene_kernel":
         lib.gprt_scene_residency.argtypes = [ci] * 5 + [vp, vp]
         lib.gprt_scene_residency.restype = ci
-        lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, ci, vp]
+        lib.gprt_sdf_distance.argtypes = [ci, vp, vp, ci, vp, ci, vp]
         lib.gprt_sdf_distance.restype = ci
     elif name == "scene_finish":
         lib.gprt_finish_queue.argtypes = [vp] * 3 + [ci, ci, vp]

@@ -165,12 +165,17 @@ __global__ void __launch_bounds__(128)
 }
 
 // Check entry, not on any render path: the distance function of SDF code
-// `code` at n local-space points (N, 3), for the point-by-point comparison
-// of the device distance functions with their plain versions.
+// `code` at n local-space points (N, 3), one thread a point, for the
+// point-by-point comparison of the device distance functions with their
+// plain versions (the card's side of the parity bisect's distance stage).
+// `ops`: the counting build's FLOP total, else unused.
 __global__ void __launch_bounds__(128)
-    sdf_probe(int code, const float* __restrict__ p, float* __restrict__ out, int n) {
+    sdf_probe(int code, const float* __restrict__ p, float* __restrict__ out, int n,
+              unsigned long long* ops) {
+  counters_begin(ops);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = sdf_distance(code, v3(p[3 * i], p[3 * i + 1], p[3 * i + 2]));
+  counters_end(ops);
 }
 
 }  // namespace gprt
@@ -297,12 +302,12 @@ extern "C" int gprt_shadow_queue(const float* params, const int* layout, const f
   return (int)cudaGetLastError();
 }
 
-extern "C" int gprt_sdf_distance(int code, const float* p, float* out, int n, int device,
-                                 void* stream) {
+extern "C" int gprt_sdf_distance(int code, const float* p, float* out, int n,
+                                 unsigned long long* ops, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || code < 0 || code > 8) return (int)cudaErrorInvalidValue;
-  gprt::sdf_probe<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(code, p, out, n);
+  gprt::sdf_probe<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(code, p, out, n, ops);
   return (int)cudaGetLastError();
 }
 

@@ -593,12 +593,13 @@ def scene_closest_tiles(scene: Scene, o_blas, d_blas, active, t0, *, level: int 
     return tuple(out) + ((dirty,) if debug_dirty else ())
 
 
-def sdf_distance(code: int, points, lib=None):
+def sdf_distance(code: int, points, lib=None, ops=None):
     """(N,) distances of SDF code ``code`` at (N, 3) f32 local-space points:
     a check entry (no render path calls it) that holds the device distance
     functions against their plain versions point by point. CUDA: launches
-    the probe kernel of csrc/scene_kernel.cu and counts it in
-    PROBE_LAUNCHES; CPU: geometry/sdf.DISTANCE_FUNCTIONS[code]."""
+    the probe kernel of csrc/scene_kernel.cu, one thread a point, and counts
+    it in PROBE_LAUNCHES (``ops``: the counting build's FLOP counter, as for
+    ``scene_closest_tiles``); CPU: geometry/sdf.DISTANCE_FUNCTIONS[code]."""
     global PROBE_LAUNCHES
     from gpuraytracer_tpu_torch.geometry import sdf
 
@@ -620,7 +621,8 @@ def sdf_distance(code: int, points, lib=None):
     if points.shape[0] == 0:
         return out
     _raise_on(lib.gprt_sdf_distance(int(code), _ptr(points), _ptr(out), points.shape[0],
-                                    dev.index, _stream(dev)), lib, "distance probe")
+                                    frame_kernel.ops_pointer(ops), dev.index, _stream(dev)),
+              lib, "distance probe")
     PROBE_LAUNCHES += 1
     return out
 

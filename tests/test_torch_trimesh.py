@@ -23,8 +23,9 @@
 - The port's CPU wavefront against committed goldens
   tests/golden_torch_mesh_<scene>_96x54_t0p7.npz under the image bar of
   tests/test_torch_suite.py. The goldens come from the reference's XLA path
-  and are written by running this file:
-      JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_trimesh.py
+  and are written, with every other reference the port is held to, by
+      JAX_PLATFORMS=cpu python tools/torch_make_refs.py --goldens --force
+  (running this file runs that command).
 
 On a GPU (the ``cuda`` marker) the mesh body of the frame and scene
 kernels is held to its plain version.
@@ -273,15 +274,6 @@ def test_mesh_body_matches_plain_on_cuda(cuda_device, disable_fused, monkeypatch
 
 if __name__ == "__main__":
     # Write the goldens from the reference's XLA path (JAX on the CPU).
-    import jax
+    from tools import torch_make_refs
 
-    jax.config.update("jax_platforms", "cpu")
-    from gpuraytracer_tpu.render import trace as j_trace
-
-    for cfg in meshes.MESH_CONFIGS:
-        image = np.asarray(j_trace.render_frame(reference_scene(cfg.name), W, H,
-                                                max_depth=cfg.max_depth))
-        assert image.shape == (H, W, 4) and np.isfinite(image).all()
-        np.savez_compressed(golden_path(cfg.name), image=image.astype(np.float32),
-                            max_depth=np.int32(cfg.max_depth))
-        print(golden_path(cfg.name))
+    raise SystemExit(torch_make_refs.main(["--goldens", "--force"]))
