@@ -16,8 +16,8 @@ exits non-zero):
               --fmad modes, its op-counting build and its per-ray build
               (-DGPRT_FINISH_PER_RAY); the overflow gate, frame_gate.cu,
               whose device-side launch is built with -ewp and linked
-              against cudadevrt, in both --fmad modes); print ptxas'
-              registers
+              against cudadevrt, in both --fmad modes; the wavefront's
+              lane kernels, wavefront.cu); print ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
@@ -38,7 +38,15 @@ exits non-zero):
               at levels 0/1); a builtin 320x180 frame through the
               wavefront with the scene kernel against the frame kernel and
               the plain version; the builtin 1080p 64-frame window on this
-              path with its exact launch count; the 1080p level-0 closest
+              path (the wavefront's device form, render/trace.render_lanes)
+              under torch.cuda.set_sync_debug_mode("error") (no host sync)
+              with its exact launch counts (5 passes, and 1 start, 2 hit
+              and 3 shade lane kernels a frame), and its 1080p frame
+              against the plain wavefront of phase 6; the lane kernels
+              (csrc/wavefront.cu) each at the 1080p level-0 inputs against
+              its plain version, timed, with its bound, and every pass of
+              the frame at the masked lanes beside the compacted lanes
+              the plain wavefront gives it; the 1080p level-0 closest
               pass timed; then three builder scenes against the plain
               version, with GPURT_DISABLE_FUSED unset and set: 16
               instances of 16 materials (17 with the plane, past the frame
@@ -55,8 +63,11 @@ exits non-zero):
               also with GPURT_DISABLE_FUSED=1, through the scene kernel);
               64-frame 1080p windows of mesh_octahedra and
               mesh_heightfield_512 (frame kernel) and mesh_heightfield_sdf
-              (per-geometry route: exactly 5 pass-entry launches a frame,
-              no march or mesh entry); the pass entry on the 544-face
+              (per-geometry route, the wavefront's device form under
+              set_sync_debug_mode("error"): exactly 5 pass-entry launches
+              and the lane kernels' 6 a frame, no march or mesh entry);
+              the lane kernels on its 1080p level-0 inputs as in phase 8;
+              the pass entry on the 544-face
               scene's 1080p level-0 closest and shadow passes against the
               route's plain version (gid on >= 99.9% of rays, t within 1e-3
               on >= 99.9% of both-hit rays) and against the one-geometry
@@ -216,7 +227,9 @@ exits non-zero):
               the card's frame against the CPU port's; [bisect] lines)
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
-2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass), the card
+2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass; the lane
+kernels' launches over both wavefront windows, their times at builtin's
+1080p level-0 inputs, and at mesh_heightfield_sdf's as route_ms), the card
 line, and the final JSON status line.
 
 Image bar (as tests/test_frame_kernel.py holds the reference's Pallas
@@ -348,8 +361,9 @@ _QUEUED_BASE = [0]
 
 
 def reset_counts():
-    from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel, wavefront
 
+    wavefront.reset_launches()
     frame_kernel.LAUNCHES = 0
     scene_kernel.LAUNCHES = 0
     megakernel.LAUNCHES = 0
@@ -474,16 +488,23 @@ def counts():
             megakernel.MESH_LAUNCHES, megakernel.PASS_LAUNCHES)
 
 
-def animated_window(renderer, dev, label, w, h):
+def animated_window(renderer, dev, label, w, h, sync_error=False):
     """FRAMES animated frames through renderer.render, timed by CUDA events:
     (ms/frame, counts(), max background share); every frame is checked
-    finite and not mostly background."""
+    finite and not mostly background. ``sync_error``: the frames render
+    under torch.cuda.set_sync_debug_mode("error"), so a host sync in a frame
+    raises."""
     renderer.render(0.0)  # warm-up (module load), not counted
     torch.cuda.synchronize()
     reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    frames = [renderer.render(0.0333 * k) for k in range(FRAMES)]
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = [renderer.render(0.0333 * k) for k in range(FRAMES)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     end.record()
     torch.cuda.synchronize()
     launched = counts()
@@ -496,6 +517,177 @@ def animated_window(renderer, dev, label, w, h):
     if max(bg_frac) >= 0.70:
         raise AssertionError(f"{label}: a frame is mostly background ({max(bg_frac):.3f})")
     return start.elapsed_time(end) / FRAMES, launched, max(bg_frac)
+
+
+# The lane kernels' launches in a FRAMES-frame window at depth 3: one start,
+# two hit (levels 0 and 1) and three shade launches a frame.
+LANE_LAUNCHES = {"wavefront_start": FRAMES, "wavefront_hit": 2 * FRAMES,
+                 "wavefront_shade": 3 * FRAMES}
+SYNC_ERROR_NOTE = " under set_sync_debug_mode('error'): 0 host syncs"
+# FLOPs of one level of one lane, as csrc/frame_kernel.cu's render_pixel
+# counts them (its GPRT_OPS: the level's surface, shadow ray, shading and
+# bounce), the checkerboard's on a plane hit, and raygen with the plane test
+# and the move to BLAS space (start): the lane kernels' operation bounds
+# take them per active lane (an upper count: each lane kernel runs a part
+# of a level). Their bytes bound them in every case.
+LEVEL_FLOPS = 181
+CHECKERS_FLOPS = 81
+START_FLOPS = 46 + 8 + 3
+
+
+def lane_kernels(label, scene, pack, route, card, w=W_MAIN, h=H_MAIN, depth=3):
+    """The wavefront's lane kernels (csrc/wavefront.cu) on a 1080p frame of
+    ``scene`` on its ``route`` ("scene" or "per_geometry"): each kernel at
+    the level-0 inputs against its plain version on the same inputs, timed
+    alone (the card waits first; shade on fresh copies of its inputs), with
+    its bound (bytes: each lane's state read once and written once, counted
+    on this run's active lanes; operations: LEVEL_FLOPS per active lane);
+    then the frame's loop run step by step through the wrappers (render/
+    trace.render_lanes' launches), each pass timed at the masked lanes it
+    takes now and at the compacted lanes the parent took (the level's active
+    lanes only, the same rays). Returns ({kernel: row of the kernels line},
+    {pass: (masked ms, compacted ms, active lanes)}). Raises where a kernel
+    disagrees with its plain version."""
+    from gpuraytracer_tpu_torch.kernels import build, megakernel, scene_kernel, wavefront
+
+    dev = pack.params.device
+    pass_fn = functools.partial(
+        scene_kernel.scene_closest_tiles if route == "scene" else megakernel.route_pass,
+        pack=pack)
+
+    def copy(lanes):
+        return wavefront.Lanes(*(x.clone() for x in lanes))
+
+    def rel_err(got, want, on=None):
+        err = (got - want).abs() / want.abs().clamp(min=1.0)
+        if on is not None:
+            err = err[on]
+        return float(err.max()) if err.numel() else 0.0
+
+    lanes = wavefront.start(scene, pack, width=w, height=h)
+    n = lanes.o.shape[0]
+    want = wavefront.start_plain(scene, width=w, height=h)
+    start_err = max(rel_err(getattr(lanes, k), getattr(want, k)) for k in ("o", "d", "ob", "t0"))
+    start_abs = max(float((getattr(lanes, k) - getattr(want, k)).abs().max())
+                    for k in ("o", "d", "ob", "t0"))
+    start_ok = torch.equal(lanes.active, want.active) and torch.equal(lanes.color, want.color) \
+        and torch.equal(lanes.tw, want.tw) and start_err <= 1e-3
+    answer = pass_fn(scene, lanes.ob, lanes.d, lanes.active, lanes.t0, level=0, cull_backface=True)
+    shadow = wavefront.hit(scene, pack, lanes, answer)
+    want_s = wavefront.hit_plain(scene, lanes, answer)
+    both = shadow.active & want_s.active
+    hit_agree = float((shadow.active == want_s.active).float().mean())
+    t0_agree = float((shadow.t0 == want_s.t0).float().mean())
+    hit_err = max(rel_err(shadow.ob, want_s.ob, both), rel_err(shadow.d, want_s.d, both))
+    hit_abs = max(float((shadow.ob - want_s.ob).abs()[both].max()),
+                  float((shadow.d - want_s.d).abs()[both].max()))
+    _, _, sgid = pass_fn(scene, *shadow, level=0, accept_first=True)
+    kw = dict(level=0, max_depth=depth, width=w, height=h)
+    want_l = wavefront.shade_plain(scene, copy(lanes), answer, shadow, sgid, **kw)
+
+    def shade_vs_plain(lib=None):
+        # (kill agreement, colour bar, throughput bar, share of the lanes
+        # live on both sides whose next ray and pass inputs are within 1e-3,
+        # max |diff| of colour and throughput)
+        got = wavefront.shade(scene, pack, copy(lanes), answer, shadow, sgid, lib=lib, **kw)
+        on = got.active & want_l.active
+        near = torch.stack([((getattr(got, k) - getattr(want_l, k)).abs()
+                             / getattr(want_l, k).abs().clamp(min=1.0)).reshape(n, -1).amax(-1)
+                            for k in ("o", "d", "ob", "t0")]).amax(0)[on] <= 1e-3
+        return (float((got.active == want_l.active).float().mean()), bar(got.color, want_l.color),
+                bar(got.tw, want_l.tw), float(near.float().mean()) if near.numel() else 1.0,
+                max(float((got.color - want_l.color).abs().max()),
+                    float((got.tw - want_l.tw).abs().max())), got)
+
+    shade_agree, c_bar, t_bar, next_ok, shade_abs, got = shade_vs_plain()
+    nf = shade_vs_plain(build.load("wavefront", fmad=not build.DEFAULT_FMAD))
+    print(f"[lanes] {label} 1080p level 0 ({n} lanes) vs the plain versions: start max rel "
+          f"|diff| {start_err:.3g} (abs {start_abs:.3g}); hit: shadow ray traced agrees on "
+          f"{hit_agree:.6f}, t0 on {t0_agree:.6f}, max rel |diff| {hit_err:.3g} (abs "
+          f"{hit_abs:.3g}); shade: kill agrees on {shade_agree:.6f}, colour flipped "
+          f"{c_bar[1]:.6f} within 1e-5 {c_bar[2]:.6f}, throughput flipped {t_bar[1]:.6f} within "
+          f"1e-5 {t_bar[2]:.6f}, max |diff| {shade_abs:.3g}, next rays within 1e-3 on "
+          f"{next_ok:.6f}; the --fmad={not build.DEFAULT_FMAD} build's shade: kill agrees on "
+          f"{nf[0]:.6f}, colour flipped {nf[1][1]:.6f} within 1e-5 {nf[1][2]:.6f}, max |diff| "
+          f"{nf[4]:.3g}", flush=True)
+    if not (start_ok and hit_agree >= 0.999 and t0_agree >= 0.999 and hit_err <= 1e-3
+            and shade_agree >= 0.99 and c_bar[0] and t_bar[0] and next_ok >= 0.98):
+        raise AssertionError(f"{label}: a lane kernel disagrees with its plain version")
+    start_err, hit_err, shade_err = start_abs, hit_abs, shade_abs
+
+    # Each kernel alone at these inputs; shade on fresh copies (it works in place).
+    torch.cuda.empty_cache()
+    copies = [copy(lanes) for _ in range(11)]
+    start_ms = cuda_ms(lambda: wavefront.start(scene, pack, width=w, height=h), SHORT_REPS)[0]
+    hit_ms = cuda_ms(lambda: wavefront.hit(scene, pack, lanes, answer), SHORT_REPS)[0]
+    shade_ms = cuda_ms(lambda: wavefront.shade(scene, pack, copies.pop(), answer, shadow, sgid,
+                                               **kw), 10)[0]
+    del copies
+    start_plain_ms = cuda_ms(lambda: wavefront.start_plain(scene, width=w, height=h), 1,
+                             warmup=False)[0]
+    hit_plain_ms = cuda_ms(lambda: wavefront.hit_plain(scene, lanes, answer), 1, warmup=False)[0]
+    shade_plain_ms = cuda_ms(lambda: wavefront.shade_plain(scene, copy(lanes), answer, shadow,
+                                                           sgid, **kw), 1, warmup=False)[0]
+    a = int(lanes.active.sum())
+    s_on = int(shadow.active.sum())
+    live = int(got.active.sum())
+    plane = int((wavefront._active_hits(scene, lanes, answer)[3].geometry_id
+                 == scene.layout.plane_geometry_id).sum())
+    nbytes = {"start": n * 73,
+              # active; o, d and the answer read; the shadow ray written
+              "hit": n * 1 + a * (24 + 20) + a * 29 + (n - a) * 5,
+              # active; o, d, the answer, colour, throughput, the shadow
+              # ray's active and t0 read (its gid where it was traced);
+              # colour, throughput, active written, and o, d, ob, t0 where
+              # the lane lives on
+              "shade": n * 1 + a * (24 + 20 + 32 + 5) + s_on * 4 + a * 33 + live * 40}
+    flops = {"start": n * START_FLOPS, "hit": a * LEVEL_FLOPS,
+             "shade": a * LEVEL_FLOPS + plane * CHECKERS_FLOPS}
+    rows = {}
+    for name, ms, plain_ms, err in (("start", start_ms, start_plain_ms, start_err),
+                                    ("hit", hit_ms, hit_plain_ms, hit_err),
+                                    ("shade", shade_ms, shade_plain_ms, shade_err)):
+        b_ms, b_by = bound(nbytes[name], flops[name])
+        rows[f"wavefront_{name}"] = dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=b_ms,
+                                         bound_by=b_by)
+        print(f"[lanes] {label} wavefront_{name} alone at the 1080p level-0 inputs: {ms:.4f} ms "
+              f"({nbytes[name]} bytes, {flops[name]} FLOPs: bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of bound); plain {plain_ms:.1f} ms; {card}", flush=True)
+
+    # The frame's loop step by step: each pass at the masked lanes and at the
+    # level's active lanes compacted.
+    passes = {}
+    lanes = wavefront.start(scene, pack, width=w, height=h)
+    for level in range(depth):
+        idx = torch.nonzero(lanes.active).squeeze(1)
+        ones = torch.ones(idx.shape[0], dtype=torch.bool, device=dev)
+        args = (lanes.ob, lanes.d, lanes.active, lanes.t0)
+        packed = (args[0][idx], args[1][idx], ones, args[3][idx])
+        answer = pass_fn(scene, *args, level=level, cull_backface=True)
+        passes[f"closest {level}"] = (
+            cuda_ms(lambda: pass_fn(scene, *args, level=level, cull_backface=True), 10)[0],
+            cuda_ms(lambda: pass_fn(scene, *packed, level=level, cull_backface=True), 10)[0],
+            idx.shape[0])
+        shadow = sgid = None
+        if level + 1 < depth:
+            shadow = wavefront.hit(scene, pack, lanes, answer)
+            sa = tuple(shadow)
+            sp = tuple(x[idx] for x in sa)
+            _, _, sgid = pass_fn(scene, *sa, level=level, accept_first=True)
+            passes[f"occlusion {level}"] = (
+                cuda_ms(lambda: pass_fn(scene, *sa, level=level, accept_first=True), 10)[0],
+                cuda_ms(lambda: pass_fn(scene, *sp, level=level, accept_first=True), 10)[0],
+                idx.shape[0])
+        wavefront.shade(scene, pack, lanes, answer, shadow, sgid, level=level, max_depth=depth,
+                        width=w, height=h)
+    masked = sum(m for m, _, _ in passes.values())
+    compacted = sum(c for _, c, _ in passes.values())
+    print(f"[lanes] {label} 1080p passes at the masked lanes against the parent's compacted "
+          f"lanes (ms, ms, active lanes): " + "; ".join(
+              f"{k} {m:.4f} / {c:.4f} ({a_})" for k, (m, c, a_) in passes.items())
+          + f"; a frame's five {masked:.4f} / {compacted:.4f} ms ({masked - compacted:+.4f}); "
+          f"{card}", flush=True)
+    return rows, passes
 
 
 def png_size(data: bytes):
@@ -943,7 +1135,7 @@ def main() -> int:
     from gpuraytracer_tpu_torch.core import camera as cam
     from gpuraytracer_tpu_torch.core import hlsl
     from gpuraytracer_tpu_torch.geometry import sdf
-    from gpuraytracer_tpu_torch.kernels import build, frame_kernel, scene_kernel
+    from gpuraytracer_tpu_torch.kernels import build, frame_kernel, scene_kernel, wavefront
     from gpuraytracer_tpu_torch.models import builtin, scenes
     from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.render.renderer import Renderer
@@ -970,6 +1162,8 @@ def main() -> int:
                   for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
                                       (build.DEFAULT_FMAD, True))]
         builds.append(("op_probe", build.DEFAULT_FMAD, False))
+        builds += [("wavefront", fmad, False) for fmad in (build.DEFAULT_FMAD,
+                                                          not build.DEFAULT_FMAD)]
         builds += [(name, build.DEFAULT_FMAD, False, True) for name in ("frame_kernel",
                                                                         "scene_kernel",
                                                                         "megakernel")]
@@ -1213,17 +1407,47 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"scene-kernel frame disagrees with the {label}")
 
+        # The wavefront's device form (render/trace.render_lanes): every frame
+        # of the window with each synchronizing torch call an error. The
+        # plain versions above leave large blocks in the allocator's cache:
+        # released first, and the allocator's retries (a cudaFree and a
+        # retried cudaMalloc each) counted over the window.
+        torch.cuda.empty_cache()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
         ms_scene_frame, launched, bg_max = animated_window(
-            Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p wavefront", W_MAIN, H_MAIN)
-        if launched != (0, 5 * FRAMES, 0, 0, 0):
-            raise AssertionError(f"builtin 1080p wavefront: {launched} launches for {FRAMES} "
-                                 f"frames (expected 0 frame, {5 * FRAMES} scene)")
+            Renderer(W_MAIN, H_MAIN, device=dev), dev, "builtin 1080p wavefront", W_MAIN, H_MAIN,
+            sync_error=True)
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+        lane_launches = wavefront.launches()
+        if launched != (0, 5 * FRAMES, 0, 0, 0) or lane_launches != LANE_LAUNCHES:
+            raise AssertionError(f"builtin 1080p wavefront: {launched} launches and lane "
+                                 f"kernels {lane_launches} for {FRAMES} frames (expected 0 "
+                                 f"frame, {5 * FRAMES} scene, {LANE_LAUNCHES})")
         scene_launches = launched[1]
-        print(f"[scene] Renderer 1920x1080 with GPURT_DISABLE_FUSED=1, {FRAMES} frames: "
-              f"{launched[1]} scene kernel launches (3 closest + 2 occlusion per frame), "
-              f"background <= {bg_max:.3f}; {ms_scene_frame:.3f} ms/frame, "
+        print(f"[scene] Renderer 1920x1080 with GPURT_DISABLE_FUSED=1, {FRAMES} frames under "
+              f"set_sync_debug_mode('error'): 0 host syncs; {launched[1]} scene kernel launches "
+              f"(3 closest + 2 occlusion per frame), lane kernels {lane_launches}, "
+              f"background <= {bg_max:.3f}; allocator retries {retries}; {ms_scene_frame:.3f} ms/frame, "
               f"{W_MAIN * H_MAIN / ms_scene_frame / 1e3:.3f} Mrays/s; frame-kernel path "
               f"{ms_frame:.3f} ms/frame in phase 6; {card}", flush=True)
+        # The same 1080p frame as phase 6's, against its plain version there
+        # (the compacted wavefront with plain passes).
+        img = trace.render_frame(Scene(builtin.LAYOUT, scene), W_MAIN, H_MAIN)
+        ok, frac, tight, err = bar(img, plain_m)
+        print(f"[scene] builtin 1920x1080 t={0.0333 * 8:.4f} device wavefront vs the plain "
+              f"wavefront: flipped {frac:.6f}, within 1e-5 {tight:.6f}, max |diff| {err:.6g}",
+              flush=True)
+        if not ok:
+            raise AssertionError("1080p device wavefront disagrees with the plain wavefront")
+        # The lane kernels compute each level as the frame kernel does (the
+        # same expressions; csrc/shading.cuh, csrc/wavefront.cu) and the
+        # scene kernel its traversal: the frame kernel's frame of phase 6,
+        # compared bit for bit.
+        exact, flips, err = exactness(img, main_img)
+        print(f"[scene] builtin 1920x1080 device wavefront vs the frame kernel's frame: bit-equal "
+              f"{exact:.6f}, flipped {flips:.6f}, max |diff| {err:.6g}", flush=True)
+        lane_rows, lane_passes = lane_kernels("builtin (scene kernel)", Scene(builtin.LAYOUT, scene),
+                                              pack_m, "scene", card)
 
         # The main path's largest pass: 1080p camera rays, closest, level 0.
         scene_m = Scene(builtin.LAYOUT, scene)
@@ -1413,18 +1637,27 @@ def main() -> int:
             cfg = meshes.get_config(name)
             renderer = Renderer(cfg.width, cfg.height, device=dev, scene_factory=cfg.build,
                                 animate=cfg.builder().animator(), max_depth=cfg.max_depth)
-            ms, launched, bg_max = animated_window(renderer, dev, name, cfg.width, cfg.height)
+            # The per-geometry route's window: the wavefront's device form,
+            # every frame with each synchronizing torch call an error.
+            route_scene = name == "mesh_heightfield_sdf"
+            torch.cuda.empty_cache()
+            ms, launched, bg_max = animated_window(renderer, dev, name, cfg.width, cfg.height,
+                                                   sync_error=route_scene)
             expect = tuple(FRAMES * c for c in per_frame[name])
-            if launched != expect:
-                raise AssertionError(f"{name}: {launched} launches for {FRAMES} frames, "
-                                     f"not {expect}")
-            if name == "mesh_heightfield_sdf":
+            lanes_run = wavefront.launches()
+            if launched != expect or lanes_run != (LANE_LAUNCHES if route_scene else
+                                                   {k: 0 for k in LANE_LAUNCHES}):
+                raise AssertionError(f"{name}: {launched} launches and lane kernels {lanes_run} "
+                                     f"for {FRAMES} frames, not {expect}")
+            if route_scene:
                 mega_launches, mesh_launches, pass_launches = launched[2:5]
                 route_window_ms = ms
+                lane_launches = {k: v + lanes_run[k] for k, v in lane_launches.items()}
             print(f"[mesh] {name} {cfg.width}x{cfg.height} depth {cfg.max_depth}, {FRAMES} "
-                  f"frames: launches (frame, scene, march, mesh, pass) {launched}, background <= "
-                  f"{bg_max:.3f}; {ms:.3f} ms/frame, {cfg.width * cfg.height / ms / 1e3:.3f} "
-                  f"Mrays/s; {card}", flush=True)
+                  f"frames{SYNC_ERROR_NOTE if route_scene else ''}: "
+                  f"launches (frame, scene, march, mesh, pass) {launched}, lane kernels "
+                  f"{lanes_run}, background <= {bg_max:.3f}; {ms:.3f} ms/frame, "
+                  f"{cfg.width * cfg.height / ms / 1e3:.3f} Mrays/s; {card}", flush=True)
 
         # The 544-face scene's 1080p level-0 closest and shadow passes (the
         # route's largest): the pass entry against the route's plain version,
@@ -1440,6 +1673,8 @@ def main() -> int:
         # plain versions alone.
         scene_m9 = sdf_cfg.build(W_MAIN / H_MAIN, 0.0333 * 8, device=dev)
         pack_9 = frame_kernel.pack_frame(scene_m9)
+        lane_rows_9, lane_passes_9 = lane_kernels("mesh_heightfield_sdf (per-geometry route)",
+                                                  scene_m9, pack_9, "per_geometry", card)
         resident["megakernel_route_pass"] = megakernel.route_residency(pack_9)
         calls = {"march": [], "mesh": []}
 
@@ -2785,6 +3020,22 @@ def main() -> int:
         "bound_by": dist_bound_by,
         "library_ms": None,
     }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/wavefront.cu",
+        "replaces": "gpuraytracer_tpu/render/trace.py:127",
+        "launches": lane_launches[name],
+        "max_abs_err": lane_rows[name]["err"],
+        "ms": lane_rows[name]["ms"],
+        "plain_ms": lane_rows[name]["plain_ms"],
+        "bound_ms": lane_rows[name]["bound_ms"],
+        "bound_by": lane_rows[name]["bound_by"],
+        "library_ms": None,
+        # the same kernel at mesh_heightfield_sdf's level-0 inputs (the
+        # per-geometry route), in the same run
+        "route_ms": lane_rows_9[name]["ms"],
+        "route_plain_ms": lane_rows_9[name]["plain_ms"],
+    } for name in ("wavefront_start", "wavefront_hit", "wavefront_shade")] + [{
         "name": "op_probe",
         "route": "cuda",
         "source": "gpuraytracer_tpu_torch/kernels/csrc/op_probe.cu",
@@ -2816,6 +3067,8 @@ def main() -> int:
         "scene_two_phase_main": "scene_kernel<true, true>",
         "scene_two_phase_finish": "finish_queue_kernel<true>",
         "scene_finish_queue": "finish_append_kernel", "op_probe": "op_probe_kernel",
+        "wavefront_start": "wavefront_start_kernel", "wavefront_hit": "wavefront_hit_kernel",
+        "wavefront_shade": "wavefront_shade_kernel",
         "sdf_distance": "sdf_probe"}
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
     resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)

@@ -173,11 +173,19 @@ def closest_hit(origins, directions, scene: Scene, *, t_min=RAY_TMIN, t_max=RAY_
         origins, directions, scene, t_min=t_min, t_max=t_max, active=active)
     best_t, normal, gid = _capped_pass(scene, plain, pack, caps)(
         scene, o_blas, d_blas, active, t0, level=level, cull_backface=cull_backface)
+    return merge_hit(scene, hit_p, t0, best_t, normal, gid)
+
+
+def merge_hit(scene: Scene, hit_p, t0, best_t, normal, gid) -> HitRecord:
+    """The closest hit from the plane test (hit_p, t0: ``pass_inputs``) and
+    the procedural pass's answer (best_t, normal, gid): the procedural hit
+    where one beat t0, else the plane's where it hits, else a miss (t
+    RAY_TMAX)."""
     hit_proc = gid >= 0
     geometry_id = torch.where(hit_proc, gid.to(torch.int64),
                               torch.where(hit_p, scene.layout.plane_geometry_id, -1))
     hit = geometry_id >= 0
-    up = torch.zeros_like(origins)
+    up = torch.zeros_like(normal)
     up[:, 1] = 1.0
     nrm = torch.where(hit_proc[:, None], normal, torch.where(hit_p[:, None], up, 0.0))
     t = torch.where(hit_proc, best_t, t0)

@@ -92,13 +92,28 @@ root, then one per root after the first with the share of bit-equal pixels
 and rays against the first root, the rays (and geometry ids) that differ,
 and the largest difference.
 
+``--ab-roots ... --wavefront`` times, in each root's process instead, the
+two wavefront routes at 1920x1080, depth 3: the scene-kernel route
+(builtin under GPURT_DISABLE_FUSED=1) and the per-geometry route
+(mesh_heightfield_sdf). Per route: a 64-frame animated window through
+Renderer.render (``<route>_window_64_ms_per_frame``, CUDA events, every
+frame consumed by a checksum) with the pass and lane kernels' launches per
+frame; the host syncs per frame over 8 frames under
+torch.cuda.set_sync_debug_mode("warn"); and a torch.profiler trace of 4
+frames (utils/profile.trace) split per frame into the device's busy share,
+the pass kernels', the lane kernels' and the other device operations' ms
+and counts, and the host's ms outside its blocking runtime calls
+(``<route>_trace_per_frame``). Also row 1, the builtin 1080p frame kernel
+(``frame_kernel_ms``), and each route's frame at t = 0.2664 for the
+comparison against the first root.
+
 Usage (on a GPU; ``--device cpu`` runs the wavefront on the CPU, timed by
 the host clock, for tiny smoke runs only):
   python -m gpuraytracer_tpu_torch.apps.bench_suite [--configs a,b]
          [--frames 4] [--reps 3] [--wall-chain 64] [--scale 1.0]
          [--json out.json] [--device cuda]
   python -m gpuraytracer_tpu_torch.apps.bench_suite --ab-roots PARENT,.,.,PARENT
-         [--reps 20] [--fmad false]
+         [--reps 20] [--fmad false] [--wavefront]
 """
 
 from __future__ import annotations
@@ -760,6 +775,153 @@ print(json.dumps(res), flush=True)
 """
 
 
+_WAVEFRONT_TIMING = r"""
+import collections, json, os, sys, time, warnings, torch
+sys.path.insert(0, ROOT)
+from gpuraytracer_tpu_torch.accel.instances import Scene
+from gpuraytracer_tpu_torch.kernels import build, frame_kernel, megakernel, scene_kernel
+from gpuraytracer_tpu_torch.models import builtin, meshes
+from gpuraytracer_tpu_torch.render.renderer import Renderer
+from gpuraytracer_tpu_torch.utils import profile
+
+assert frame_kernel.__file__.startswith(ROOT), frame_kernel.__file__
+try:
+    from gpuraytracer_tpu_torch.kernels import wavefront
+except ImportError:
+    wavefront = None
+dev = torch.device("cuda:0")
+names = ["frame_kernel", "scene_kernel", "megakernel"] + (["wavefront"] if wavefront else [])
+reports = build.compile_all([(k, FMAD, False) for k in names])
+w, h = 1920, 1080
+res = {"root": ROOT, "card": torch.cuda.get_device_name(0), "reps": REPS}
+# Row 1's ptxas lines (frame_kernel<false, true>: its stack, spills and
+# registers).
+lines = reports[("frame_kernel", FMAD, False)].splitlines()
+at = [i for i, x in enumerate(lines) if "_ZN4gprt12frame_kernelILb0ELb1EE" in x and "entry" in x]
+res["frame_kernel_ptxas"] = " | ".join(x.split(":", 1)[-1].strip() for x in lines[at[0] + 1:at[0] + 3])
+
+# Row 1, the frame kernel, at the builtin 1080p frame (t = 0.2664), timed as
+# the full A/B times it: the card waits first, then REPS launches.
+a = builtin.animate_arrays(builtin.build_scene(aspect=w / h, device=dev).arrays, 0.0333 * 8)
+pack = frame_kernel.pack_frame(Scene(builtin.LAYOUT, a))
+frame_kernel.render_frame_tiles(pack, width=w, height=h)
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+torch.cuda.synchronize()
+torch.cuda._sleep(10 ** 8)
+start.record()
+for _ in range(REPS):
+    frame_kernel.render_frame_tiles(pack, width=w, height=h)
+end.record()
+torch.cuda.synchronize()
+res["frame_kernel_ms"] = start.elapsed_time(end) / REPS
+
+
+def counters():
+    c = {"scene_pass": scene_kernel.LAUNCHES, "route_pass": megakernel.PASS_LAUNCHES,
+         "frame": frame_kernel.LAUNCHES}
+    if wavefront:
+        c.update(wavefront.launches())
+    return c
+
+
+# Device work the trace tells apart: the traversal passes, the wavefront's
+# lane kernels, and everything else (kernels, copies, sets).
+DEVICE = ("kernel", "gpu_memcpy", "gpu_memset")
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy")
+
+
+def trace_split(path, frames):
+    # Per frame, from a Chrome trace of `frames` frames inside the
+    # "wavefront frames" annotation: the device's busy share from the
+    # annotation's start to the last device operation's end; the pass
+    # kernels' and the lane kernels' ms and launches; the other device
+    # operations' ms and count; the host's ms inside the annotation outside
+    # the blocking runtime calls (SYNCS), and in them.
+    with open(path) as f:
+        ev = json.load(f)
+    ev = ev.get("traceEvents", []) if isinstance(ev, dict) else ev
+    ann = [e for e in ev if e.get("ph") == "X" and e.get("name") == "wavefront frames"]
+    w0, w1 = float(ann[0]["ts"]), float(ann[0]["ts"]) + float(ann[0]["dur"])
+    spans, groups = [], collections.defaultdict(lambda: [0.0, 0])
+    for e in ev:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE or float(e["ts"]) < w0:
+            continue
+        s, d = float(e["ts"]), float(e.get("dur", 0.0))
+        spans.append((s, s + d))
+        name = e.get("name", "")
+        g = ("passes" if ("scene_kernel" in name or "route_pass" in name) else
+             "lane_kernels" if "wavefront" in name else "other")
+        groups[g][0] += d
+        groups[g][1] += 1
+    busy, end_ = 0.0, None
+    for s, t in sorted(spans):
+        if end_ is None or s > end_:
+            busy, end_ = busy + t - s, t
+        elif t > end_:
+            busy, end_ = busy + t - end_, t
+    last = max([w1] + [t for _, t in spans])
+    blocked = sum(float(e.get("dur", 0.0)) for e in ev
+                  if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                  and e.get("name") in SYNCS and w0 <= float(e["ts"]) <= w1)
+    out = {"busy_share": busy / (last - w0), "window_ms": (last - w0) / 1e3 / frames,
+           "host_ms_outside_syncs": (w1 - w0 - blocked) / 1e3 / frames,
+           "host_ms_in_syncs": blocked / 1e3 / frames}
+    for g in ("passes", "lane_kernels", "other"):
+        out[f"{g}_ms"] = groups[g][0] / 1e3 / frames
+        out[f"{g}_count"] = groups[g][1] / frames
+    return out
+
+
+outs = {}
+for route, cfg in (("scene", None), ("per_geometry", meshes.get_config("mesh_heightfield_sdf"))):
+    if cfg is None:
+        os.environ["GPURT_DISABLE_FUSED"] = "1"
+        renderer = Renderer(w, h, device=dev)
+    else:
+        renderer = Renderer(cfg.width, cfg.height, device=dev, scene_factory=cfg.build,
+                            animate=cfg.builder().animator(), max_depth=cfg.max_depth)
+    renderer.render(0.0)  # kernel load, first-use allocations
+    torch.cuda.synchronize()
+    # The 64-frame window, every frame consumed by a checksum.
+    before = counters()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    acc = torch.zeros((), device=dev)
+    for k in range(64):
+        acc = acc + renderer.render(0.0333 * k).sum()
+    end.record()
+    torch.cuda.synchronize()
+    assert torch.isfinite(acc), "non-finite window"
+    res[f"{route}_window_64_ms_per_frame"] = start.elapsed_time(end) / 64
+    res[f"{route}_launches_per_frame"] = {k: (v - before[k]) / 64 for k, v in counters().items()}
+    # Host syncs: every blocking copy, item() or stream sync warns (the
+    # mode's own notice that it is a prototype is not one).
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k in range(8):
+                renderer.render(0.0333 * k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    res[f"{route}_host_syncs_per_frame"] = sum("synchronizing CUDA operation" in str(c.message)
+                                               for c in caught) / 8
+    # The trace of 4 frames (utils/profile.py).
+    log_dir = os.path.join(os.path.dirname(OUT), f"trace_{route}_{os.path.basename(OUT)[:-3]}")
+    with profile.trace(log_dir):
+        with profile.annotate("wavefront frames"):
+            for k in range(4):
+                renderer.render(0.0333 * k)
+        torch.cuda.synchronize()
+    res[f"{route}_trace_per_frame"] = trace_split(os.path.join(log_dir, profile.TRACE_FILE), 4)
+    outs[f"{route} 1080p frame"] = renderer.render(0.0333 * 8)
+    os.environ.pop("GPURT_DISABLE_FUSED", None)
+torch.save({k: v.cpu() for k, v in outs.items()}, OUT)
+print(json.dumps(res), flush=True)
+"""
+
+
 def _compare(a: dict, b: dict) -> dict:
     """Per output: the share of pixels (frames) or rays (passes) whose
     every value is bit-equal, and the largest absolute difference; for a
@@ -778,11 +940,12 @@ def _compare(a: dict, b: dict) -> dict:
     return out
 
 
-def ab_kernels(roots, reps: int, fmad: bool = True) -> int:
+def ab_kernels(roots, reps: int, fmad: bool = True, wavefront: bool = False) -> int:
     """The builtin 1080p kernels of each checkout in ``roots``, in that
     order, each in a fresh process (see the module docstring); prints one
     JSON line per root, then the outputs of each later root against the
-    first root's."""
+    first root's. ``wavefront``: the wavefront routes' windows, host syncs
+    and traces instead (``--wavefront``)."""
     out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "build", "ab")
     os.makedirs(out_dir, exist_ok=True)
@@ -791,7 +954,7 @@ def ab_kernels(roots, reps: int, fmad: bool = True) -> int:
         root = os.path.abspath(root)
         path = os.path.join(out_dir, f"root{k}.pt")
         code = (f"ROOT = {root!r}\nREPS = {reps}\nFMAD = {fmad!r}\nOUT = {path!r}\n"
-                + _KERNEL_TIMING)
+                + (_WAVEFRONT_TIMING if wavefront else _KERNEL_TIMING))
         proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                               text=True, timeout=900)
         if proc.returncode != 0:
@@ -824,10 +987,13 @@ def main(argv=None) -> int:
                    help="comma-separated checkout roots: time their kernels in turns instead")
     p.add_argument("--fmad", choices=("true", "false"), default="true",
                    help="--ab-roots: the contraction mode of the builds whose outputs are compared")
+    p.add_argument("--wavefront", action="store_true",
+                   help="--ab-roots: time the wavefront routes' windows and trace them instead")
     args = p.parse_args(argv)
     if args.ab_roots:
         print(card_line(), flush=True)
-        return ab_kernels(args.ab_roots.split(","), args.reps, fmad=args.fmad == "true")
+        return ab_kernels(args.ab_roots.split(","), args.reps, fmad=args.fmad == "true",
+                          wavefront=args.wavefront)
 
     configs = ([get_config(n) for n in args.configs.split(",") if n] if args.configs
                else list(BENCH_CONFIGS))

@@ -61,7 +61,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpuraytracer_tpu_to
 DEFAULT_FMAD = True
 
 # Shared headers every kernel source may include.
-_HEADERS = ("frame_math.cuh", "traverse.cuh")
+_HEADERS = ("frame_math.cuh", "traverse.cuh", "shading.cuh")
 # Kernel sources that another source includes: {source: included sources}.
 _INCLUDES = {"frame_gate": ("frame_kernel.cu",)}
 # Sources with device-side launches, their compile flags and the libraries
@@ -200,6 +200,13 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_route_pass.restype = ci
         lib.gprt_route_residency.argtypes = [ci] * 5 + [vp, vp]
         lib.gprt_route_residency.restype = ci
+    elif name == "wavefront":
+        lib.gprt_wavefront_start.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+        lib.gprt_wavefront_start.restype = ci
+        lib.gprt_wavefront_hit.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+        lib.gprt_wavefront_hit.restype = ci
+        lib.gprt_wavefront_shade.argtypes = [vp] * 15 + [ci] * 9 + [vp]
+        lib.gprt_wavefront_shade.restype = ci
     elif name == "op_probe":
         lib.gprt_op_probe.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp]
         lib.gprt_op_probe.restype = ci

@@ -692,8 +692,7 @@ def render_frame_dense_plain(pack: FramePack, qpx, qpy, *, width: int, height: i
     c = scene.arrays.constants
     o, d = cam.generate_camera_rays(px, py, width, height, c.camera_position,
                                     c.projection_to_world)
-    out[q] = trace.trace_radiance(o, d, px, py, width, height, scene, max_depth=max_depth,
-                                  plain=True)
+    out[q] = trace.trace_radiance(o, d, px, py, width, height, scene, max_depth=max_depth)
     return out
 
 
@@ -1110,7 +1109,7 @@ def render_frame_resume_plain(pack: FramePack, queue: CompactQueue, image, *, wi
     pix, state = entry_state(queue.entries[:count])
     colour = trace.trace_radiance(state.o, state.d, pix % width, pix // width + row_offset,
                                   width, height, unpack_frame(pack), max_depth=max_depth,
-                                  plain=True, start=state)
+                                  start=state)
     image.view(-1, 4)[pix] = colour
     return image
 

@@ -28,6 +28,7 @@ import torch
 from gpuraytracer_tpu_torch.accel import bvh
 from gpuraytracer_tpu_torch.accel.instances import Scene, SceneArrays, SceneLayout
 from gpuraytracer_tpu_torch.core.camera import Camera
+from gpuraytracer_tpu_torch.core.upload import constant
 from gpuraytracer_tpu_torch.core.types import (
     SDF_MAX_STEPS,
     InstanceTransforms,
@@ -180,8 +181,10 @@ class SceneBuilder:
         translation column -(A^-1 center) as explicit multiply-adds."""
         specs = self._instances
         f32 = torch.float32
-        t = torch.as_tensor(elapsed_time, dtype=f32, device=device)
-        rates = torch.tensor([s.rotation_rate for s in specs], dtype=f32, device=device)
+        t = builtin._time_on(elapsed_time, device)
+        # The per-instance tables do not change between frames: uploaded once
+        # per device (core/upload.constant), so a frame makes no host sync.
+        rates = constant(tuple(float(s.rotation_rate) for s in specs), device)
         theta = rates * t
         c, s = torch.cos(theta), torch.sin(theta)
         zero, one = torch.zeros_like(c), torch.ones_like(c)
@@ -190,18 +193,18 @@ class SceneBuilder:
             torch.stack([zero, one, zero], dim=-1),
             torch.stack([-s, zero, c], dim=-1),
         ], dim=1)  # (P, 3, 3)
-        rotates = torch.tensor([sp.rotates for sp in specs], device=device)
+        rotates = constant(tuple(bool(sp.rotates) for sp in specs), device, torch.bool)
         rot = torch.where(rotates[:, None, None], rot_y, torch.eye(3, dtype=f32, device=device))
         rot_inv = rot.transpose(1, 2)
-        scale = torch.tensor([sp.scale for sp in specs], dtype=f32, device=device)
+        scale = constant(tuple(tuple(map(float, sp.scale)) for sp in specs), device)
         a = rot * scale[:, None, :]
         a_inv = rot_inv / scale[:, :, None]
-        mn = torch.tensor([sp.aabb_min for sp in specs], dtype=f32, device=device)
-        mx = torch.tensor([sp.aabb_max for sp in specs], dtype=f32, device=device)
+        mn = constant(tuple(tuple(map(float, sp.aabb_min)) for sp in specs), device)
+        mx = constant(tuple(tuple(map(float, sp.aabb_max)) for sp in specs), device)
         center = (mn + mx) * 0.5
         tcol = -(a_inv[:, :, 0] * center[:, 0:1] + a_inv[:, :, 1] * center[:, 1:2]
                  + a_inv[:, :, 2] * center[:, 2:3])
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=f32, device=device).expand(
+        bottom = constant((0.0, 0.0, 0.0, 1.0), device).expand(
             len(specs), 1, 4)
         l2b = torch.cat([torch.cat([a, center[:, :, None]], dim=2), bottom], dim=1)
         b2l = torch.cat([torch.cat([a_inv, tcol[:, :, None]], dim=2), bottom], dim=1)
@@ -213,7 +216,7 @@ class SceneBuilder:
 
         def animate(arrays: SceneArrays, elapsed_time) -> SceneArrays:
             device = arrays.aabb_min.device
-            t = torch.as_tensor(elapsed_time, dtype=torch.float32, device=device)
+            t = builtin._time_on(elapsed_time, device)
             constants = dataclasses.replace(arrays.constants, elapsed_time=t)
             return dataclasses.replace(arrays, constants=constants,
                                        transforms=self._transforms(t, device))

@@ -12,22 +12,30 @@ throughput. Shadow rays are traced at levels 0 and 1 only (the recursion
 cap, Raytracing.hlsl:117-120).
 
 ``trace_radiance`` is the plain PyTorch version of the CUDA frame kernel
-(kernels/frame_kernel.py). ``render_frame`` sends a CUDA scene to the
+(kernels/frame_kernel.py): each level over the lanes still alive, which a
+``torch.nonzero`` compacts. ``render_frame`` sends a CUDA scene to the
 frame kernel when it is fused-eligible, and every other CUDA scene to this
 wavefront, whose traversal passes take the scene's route
 (accel/traverse.py): the CUDA scene kernel (kernels/scene_kernel.py)
 within the mesh face cap, the per-geometry route with the march kernel of
-kernels/megakernel.py past it. A CPU scene renders through the wavefront
+kernels/megakernel.py past it. On a GPU the wavefront runs as
+``render_lanes``, one stream-ordered chain of launches with no host sync:
+every lane under an active mask for the whole frame, the passes over every
+lane, the level's work between them in the lane kernels of
+kernels/wavefront.py, whose plain versions are ``_surface``,
+``_shadow_ray`` and ``_shading`` over the active lanes, the code
+``trace_radiance`` runs. A CPU scene renders through ``trace_radiance``
 with the scene kernel's plain version.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
+from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.accel.instances import Scene, ray_to_blas
 from gpuraytracer_tpu_torch.accel.traverse import _total_mesh_faces, any_hit, closest_hit
 from gpuraytracer_tpu_torch.core import camera as cam
@@ -54,6 +62,100 @@ def _material_rows(scene: Scene, geometry_id):
         return gid
     table = torch.tensor(ids, dtype=torch.int64, device=gid.device)
     return torch.where(geometry_id >= 0, table[gid], 0)
+
+
+class Surface(NamedTuple):
+    """What a level's closest hit leaves for the shading over B lanes: the
+    hit, its position and its material row's fields (the plane and misses
+    through ``_material_rows``); csrc/wavefront.cu's Surface, whose Phong
+    geometry terms ``_shadow_ray`` and shade.phong_lighting compute here."""
+
+    hit: HitRecord
+    hit_pos: torch.Tensor
+    albedo: torch.Tensor
+    refl_coef: torch.Tensor
+    diff_coef: torch.Tensor
+    spec_coef: torch.Tensor
+    spec_pow: torch.Tensor
+
+
+def _surface(scene: Scene, oa, da, hit: HitRecord) -> Surface:
+    mats = scene.arrays.materials
+    gid = _material_rows(scene, hit.geometry_id)
+    return Surface(hit, oa + hit.t[:, None] * da, mats.albedo[gid],
+                   mats.reflectance_coefficient[gid], mats.diffuse_coefficient[gid],
+                   mats.specular_coefficient[gid], mats.specular_power[gid])
+
+
+def _shadow_ray(scene: Scene, surf: Surface, da):
+    """(needed, shadow direction) of the lanes' shadow rays: a shadow ray
+    is traced only where it can change the image. The shadow factor scales
+    the diffuse term (zero when kd == 0) and zeroes the specular term (zero
+    when spec * ks == 0), so lanes where both vanish render identically lit
+    or shadowed."""
+    light_pos = scene.arrays.constants.light_position[:3]
+    nrm, hit_pos = surf.hit.normal, surf.hit_pos
+    incident = hlsl.normalize(hit_pos - light_pos)
+    kd = hlsl.saturate(hlsl.dot(-incident, nrm))
+    refl_l = hlsl.normalize(hlsl.reflect(incident, nrm))
+    ks = torch.pow(hlsl.saturate(hlsl.dot(refl_l, hlsl.normalize(-da))), surf.spec_pow)
+    needed = surf.hit.hit & ((kd > 0.0) | (surf.spec_coef * ks > 0.0))
+    return needed, hlsl.normalize(light_pos - hit_pos)
+
+
+class Shading(NamedTuple):
+    """A level's shading over B lanes: ``base(in_shadow)`` the (B, 4)
+    colour before the throughput (Phong under that shadow flag), ``mult``
+    the (B, 4) reflection multiplier, ``reflective`` (B,) bool."""
+
+    base: Callable
+    mult: torch.Tensor
+    reflective: torch.Tensor
+
+
+def _shading(scene: Scene, surf: Surface, da, px, py, width: int, height: int) -> Shading:
+    """Phong with fake AO, the checkerboard on plane hits (px, py: the
+    lanes' pixels, whose neighbours' camera rays give its differentials),
+    the Fresnel-weighted reflection multiplier and the fog of the lanes'
+    surfaces (csrc/wavefront.cu shading, phong, base, mult)."""
+    constants = scene.arrays.constants
+    light_pos = constants.light_position[:3]
+    hit, hit_pos = surf.hit, surf.hit_pos
+    nrm = hit.normal
+    bg = shade.background_color(hit_pos.device)
+
+    def phong_for(shadowed):
+        return shade.phong_lighting(
+            surf.albedo, nrm, shadowed, hit_pos, da, light_pos,
+            constants.light_ambient_color, constants.light_diffuse_color,
+            surf.diff_coef, surf.spec_coef, surf.spec_pow,
+        )
+
+    # Checkerboard modulation on plane hits only (Raytracing.hlsl:195,211).
+    k = torch.ones_like(hit.t)
+    on_plane = torch.nonzero(hit.geometry_id == scene.layout.plane_geometry_id).squeeze(1)
+    if on_plane.numel():
+        k[on_plane] = checkers_mod.analytical_checkers(
+            hit_pos[on_plane], nrm[on_plane], px[on_plane], py[on_plane], width, height,
+            constants.camera_position, constants.projection_to_world,
+        )
+    k = k[:, None]
+
+    # Reflection multiplier reflectance * float4(fresnel(albedo.rgb), 1),
+    # gated on reflectance > 0.001 (Raytracing.hlsl:198-207, 233-242).
+    fresnel = shade.fresnel_reflectance_schlick(da, nrm, surf.albedo[:, :3])
+    refl_mult = surf.refl_coef[:, None] * torch.cat([fresnel, torch.ones_like(fresnel[:, :1])],
+                                                    dim=-1)
+    reflective = hit.hit & (surf.refl_coef > REFLECTANCE_EPS)
+    refl_mult = torch.where(reflective[:, None], refl_mult, 0.0)
+
+    fog = shade.fog_factor(hit.t)[:, None]
+    hit4 = hit.hit[:, None]
+
+    def base(in_shadow):
+        return torch.where(hit4, (1.0 - fog) * (k * phong_for(in_shadow)) + fog * bg, bg)
+
+    return Shading(base, torch.where(hit4, (1.0 - fog) * k * refl_mult, 0.0), reflective)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +213,7 @@ class DeferPlanes(NamedTuple):
 
 
 def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: Scene,
-                   *, max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None,
-                   plain: bool = False, main: MainPass | None = None,
+                   *, max_depth: int = MAX_RAY_RECURSION_DEPTH, main: MainPass | None = None,
                    start: PixelState | None = None):
     """Trace radiance rays (..., 3) and return float4 colours (..., 4).
 
@@ -122,9 +223,8 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     its outgoing throughput is exactly zero on every channel (it would add
     +0.0 at every later level, so retiring it is result-exact).
 
-    ``pack``: the frame's packed kernel buffers (frame_kernel.pack_frame),
-    built once by the caller for the scene kernel's passes on a GPU;
-    ``plain``: the route's plain version of every pass on a GPU.
+    Every pass is its route's plain version (on a GPU too: the device form
+    of the wavefront is ``render_lanes``).
 
     ``main``: the plain version of a compacted frame mode's main pass
     (``MainPass``; the passes run as the scene kernel's plain version).
@@ -138,8 +238,6 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     throughput, as the resumed dense pass does.
     """
     arrays = scene.arrays
-    constants = arrays.constants
-    mats = arrays.materials
     batch = origins.shape[:-1]
     dev = origins.device
     o = origins.reshape(-1, 3).clone()
@@ -148,9 +246,6 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
     py_all = pixel_y.reshape(-1)
     n = o.shape[0]
 
-    bg = shade.background_color(dev)
-    light_pos = constants.light_position[:3]
-    plane_id = scene.layout.plane_geometry_id
     color = torch.zeros(n, 4, dtype=torch.float32, device=dev)
     throughput = torch.ones(n, 4, dtype=torch.float32, device=dev)
     active = torch.ones(n, dtype=torch.bool, device=dev)
@@ -194,7 +289,7 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
         mask = None if dirty is None else dirty[lanes]
         clean = None if mask is None else mask == 0
         hit = closest_hit(oa, da, scene, t_min=RAY_TMIN, t_max=RAY_TMAX,
-                          cull_backface=True, level=level, pack=pack, plain=plain,
+                          cull_backface=True, level=level, plain=True,
                           caps=None if mask is None else capped(main.closest, mask))
         if mask is not None:
             # A lane capped in its closest pass is dropped here: the dense
@@ -208,34 +303,19 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
                             geometry_id=hit.geometry_id[keep], hit=hit.hit[keep])
         if debug.nan_checks_enabled():  # the NaN trap (utils/debug.debug_layer)
             debug.trap(f"level {level} closest pass", hit.t[hit.hit], hit.normal[hit.hit])
-        nrm = hit.normal
-        hit_pos = oa + hit.t[:, None] * da
-        gid = _material_rows(scene, hit.geometry_id)
-        albedo = mats.albedo[gid]
-        refl_coef = mats.reflectance_coefficient[gid]
-        diff_coef = mats.diffuse_coefficient[gid]
-        spec_coef = mats.specular_coefficient[gid]
-        spec_pow = mats.specular_power[gid]
+        surf = _surface(scene, oa, da, hit)
+        hit_pos = surf.hit_pos
 
-        # Shadow ray, only where it can change the image: the shadow factor
-        # scales the diffuse term (zero when kd == 0) and zeroes the
-        # specular term (zero when spec * ks == 0), so lanes where both
-        # vanish render identically lit or shadowed.
+        # Shadow ray, only where it can change the image (``_shadow_ray``).
         in_shadow = torch.zeros_like(hit.hit)
         if level + 1 < max_depth:
-            incident = hlsl.normalize(hit_pos - light_pos)
-            kd = hlsl.saturate(hlsl.dot(-incident, nrm))
-            refl_l = hlsl.normalize(hlsl.reflect(incident, nrm))
-            ks = torch.pow(hlsl.saturate(hlsl.dot(refl_l, hlsl.normalize(-da))), spec_pow)
-            needed = hit.hit & ((kd > 0.0) | (spec_coef * ks > 0.0))
-            shadow_dir = hlsl.normalize(light_pos - hit_pos)
+            needed, shadow_dir = _shadow_ray(scene, surf, da)
             if main is not None:
                 # compact: the lane's sticky mask (0 here); defer: the level's own.
                 mask = (dirty[lanes] if dirty is not None
                         else torch.zeros(lanes.shape[0], dtype=torch.int32, device=dev))
             in_shadow = any_hit(hit_pos, shadow_dir, scene, t_min=RAY_TMIN,
-                                t_max=RAY_TMAX, active=needed, level=level, pack=pack,
-                                plain=plain,
+                                t_max=RAY_TMAX, active=needed, level=level, plain=True,
                                 caps=None if main is None else capped(main.shadow, mask))
             if debug.nan_checks_enabled():
                 debug.trap(f"level {level} shadow pass", hit_pos[needed], shadow_dir[needed])
@@ -249,55 +329,23 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
                 ob, _ = ray_to_blas(hit_pos, shadow_dir, arrays.blas_offset)
                 planes.rays[level, lanes] = torch.cat([ob, shadow_dir], dim=-1)
 
-        def phong_for(shadowed):
-            return shade.phong_lighting(
-                albedo, nrm, shadowed, hit_pos, da, light_pos,
-                constants.light_ambient_color, constants.light_diffuse_color,
-                diff_coef, spec_coef, spec_pow,
-            )
-
-        phong = phong_for(in_shadow)
-
-        # Checkerboard modulation on plane hits only (Raytracing.hlsl:195,211).
-        k = torch.ones_like(hit.t)
-        on_plane = torch.nonzero(hit.geometry_id == plane_id).squeeze(1)
-        if on_plane.numel():
-            k[on_plane] = checkers_mod.analytical_checkers(
-                hit_pos[on_plane], nrm[on_plane], px_all[lanes[on_plane]],
-                py_all[lanes[on_plane]], width, height,
-                constants.camera_position, constants.projection_to_world,
-            )
-        k = k[:, None]
-
-        # Reflection multiplier reflectance * float4(fresnel(albedo.rgb), 1),
-        # gated on reflectance > 0.001 (Raytracing.hlsl:198-207, 233-242).
-        fresnel = shade.fresnel_reflectance_schlick(da, nrm, albedo[:, :3])
-        refl_mult = refl_coef[:, None] * torch.cat([fresnel, torch.ones_like(fresnel[:, :1])], dim=-1)
-        reflective = hit.hit & (refl_coef > REFLECTANCE_EPS)
-        refl_mult = torch.where(reflective[:, None], refl_mult, 0.0)
-
-        fog = shade.fog_factor(hit.t)[:, None]
-        hit4 = hit.hit[:, None]
-
-        def base_for(ph):
-            return torch.where(hit4, (1.0 - fog) * (k * ph) + fog * bg, bg)
-
-        base = base_for(phong)
-        mult = torch.where(hit4, (1.0 - fog) * k * refl_mult, 0.0)
+        shading = _shading(scene, surf, da, px_all[lanes], py_all[lanes], width, height)
+        base = shading.base(in_shadow)
+        mult, reflective = shading.mult, shading.reflective
 
         tw = throughput[lanes]
         if defer:
             # Both variants, in the association of the plain recurrence.
-            planes.lit[level, lanes] = tw * base_for(phong_for(torch.zeros_like(hit.hit)))
+            planes.lit[level, lanes] = tw * shading.base(torch.zeros_like(hit.hit))
             if level + 1 < max_depth:
-                planes.shadowed[level, lanes] = tw * base_for(phong_for(torch.ones_like(hit.hit)))
+                planes.shadowed[level, lanes] = tw * shading.base(torch.ones_like(hit.hit))
         color[lanes] = color[lanes] + tw * base
         tw_out = tw * mult
         throughput[lanes] = tw_out
         live = reflective & (tw_out != 0.0).any(dim=-1)
         active[lanes] = live if dirty is None else live & (dirty[lanes] == 0)
         o[lanes] = hit_pos
-        d[lanes] = hlsl.reflect(da, nrm)
+        d[lanes] = hlsl.reflect(da, hit.normal)
         if debug.nan_checks_enabled():
             debug.trap(f"level {level} shading", color[lanes], throughput[lanes])
     if defer:
@@ -376,24 +424,74 @@ def render_wavefront(scene: Scene, width: int, height: int, *,
     or over the band of ``local_height`` rows from ``row_offset``
     (kernels/frame_kernel.band_height): the W x H frame's pixels at those
     rows, (local_height, W, ...).
-    On a GPU the traversal passes take the scene's route: the scene kernel,
-    or the per-geometry route past the mesh face cap (``pack``: the frame's
-    packed buffers, built here if None); with ``plain`` each route's plain
-    version. On the CPU every pass is the scene kernel's plain version, the
-    frame kernel's plain version. ``main``: see ``trace_radiance``."""
+    On a GPU the frame is ``render_lanes``, the device form, whose passes
+    take the scene's route: the scene kernel, or the per-geometry route past
+    the mesh face cap (``pack``: the frame's packed buffers, built if None);
+    with ``plain`` (or ``main``) it is ``trace_radiance``, the plain version
+    with each route's plain passes. On the CPU it is ``trace_radiance`` with
+    the scene kernel's plain passes, the frame kernel's plain version.
+    ``main``: see ``trace_radiance``."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     lh = frame_kernel.band_height(height, row_offset, local_height)
     dev = scene.arrays.aabb_min.device
-    if dev.type == "cuda" and pack is None and not plain:
-        pack = frame_kernel.pack_frame(scene)
+    if dev.type == "cuda" and not plain and main is None:
+        return render_lanes(scene, width, height, max_depth=max_depth, pack=pack,
+                            row_offset=row_offset, local_height=lh)
     px, py = cam.pixel_grid(width, lh, dev)
     py = py + row_offset
     c = scene.arrays.constants
     origins, directions = cam.generate_camera_rays(
         px, py, width, height, c.camera_position, c.projection_to_world)
     return trace_radiance(origins, directions, px, py, width, height, scene,
-                          max_depth=max_depth, pack=pack, plain=plain, main=main)
+                          max_depth=max_depth, main=main)
+
+
+def render_lanes(scene: Scene, width: int, height: int, *,
+                 max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None, row_offset: int = 0,
+                 local_height: int | None = None):
+    """The wavefront's device form: the band's (local_height, W, 4) image
+    (the whole (H, W, 4) frame by default) as one stream-ordered chain of
+    launches, with no host sync.
+
+    The reference's trace_radiance runs its level body over every lane
+    under an ``active`` mask, at fixed shapes (lax.scan, render/trace.py:
+    95-210 there). So does this: every lane of the band stays in the
+    ``kernels/wavefront.Lanes`` buffers for the whole frame, and the host
+    loops over the levels. Per level: the closest pass over every lane,
+    then (below the last level) the hit kernel, the occlusion pass and the
+    shade kernel; at the last level the shade kernel alone. The passes take
+    the active mask, and an inactive lane's thread in them and in the lane
+    kernels returns at once: 5 pass launches and 1 start, 2 hit and 3 shade
+    launches a frame at depth 3.
+
+    The passes take the scene's route (traverse._procedural_pass; ``pack``:
+    the frame's packed buffers, built if None on a GPU). On a GPU every
+    wrapper launches its kernel or raises; on the CPU each runs its plain
+    version (the route's plain passes, the lane kernels' plain versions),
+    which is how the CPU checks this loop: it equals ``trace_radiance``'s
+    compacted frame on the same passes bit for bit."""
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, wavefront
+
+    lh = frame_kernel.band_height(height, row_offset, local_height)
+    if pack is None and scene.arrays.aabb_min.device.type == "cuda":
+        pack = frame_kernel.pack_frame(scene)
+    traverse_pass = traverse._procedural_pass(scene, False, pack)
+    lanes = wavefront.start(scene, pack, width=width, height=height, row_offset=row_offset,
+                            local_height=lh)
+    for level in range(max_depth):
+        answer = traverse_pass(scene, lanes.ob, lanes.d, lanes.active, lanes.t0, level=level,
+                               cull_backface=True)
+        shadow = shadow_gid = None
+        if level + 1 < max_depth:
+            shadow = wavefront.hit(scene, pack, lanes, answer)
+            _, _, shadow_gid = traverse_pass(scene, shadow.ob, shadow.d, shadow.active,
+                                             shadow.t0, level=level, accept_first=True)
+        wavefront.shade(scene, pack, lanes, answer, shadow, shadow_gid, level=level,
+                        max_depth=max_depth, width=width, height=height, row_offset=row_offset)
+        if debug.nan_checks_enabled():  # the NaN trap (utils/debug.debug_layer): host reads
+            debug.trap(f"level {level} shading", lanes.color, lanes.tw)
+    return lanes.color.reshape(lh, width, 4)
 
 
 def to_rgba8(image_f32):

@@ -58,6 +58,16 @@ rehearsal records instead (host_rehearsal.h rh::tail) and its entry runs
 over the recorded grid: the gate launches nothing and leaves the image as
 it was without an overflow, and with one launches the frame kernel over
 the band, the rehearsed frame kernel's pixels bit for bit.
+
+csrc/wavefront.cu's lane kernels (the wavefront's device form between its
+passes) are held to their plain versions (kernels/wavefront.start_plain,
+hit_plain, shade_plain) on lanes drawn from a numpy seed: the start kernel
+over a band of the builtin frame, the hit and shade kernels on 600 lanes
+of the builtin and the fractal scene aimed at every geometry and past
+them (plane hits, misses, metaball and fractal hits, a fifth of the lanes
+inactive), shade at level 0 with the occlusion pass's answer and at the
+last level without one: floats within 1e-5, relative past 1 (positions
+and t reach 10^4), the shadow and kill flags equal.
 """
 
 import ctypes
@@ -537,6 +547,37 @@ extern "C" int rh_gate(const float* params, const int* layout, const float* tri,
   return rh::tail_launches;
 }
 """,
+    "wavefront": r"""
+namespace gprt { float smem[1 << 16]; }
+
+// One of the lane kernels (kernel 0 start, 1 hit, 2 shade) over n lanes,
+// one lane per one-thread block.
+extern "C" void rh_wave(int kernel, const float* params, const int* layout, float* o, float* d,
+                        float* color, float* tw, bool* active, float* ob, float* t0,
+                        const float* best_t, const float* normal, const int* gid, float* s_ob,
+                        float* s_d, bool* s_active, float* s_t0, const int* s_gid, int n,
+                        int width, int height, int row_offset, int level, int max_depth, int G,
+                        int M) {
+  blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)n, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  const gprt::Lanes L{o, d, reinterpret_cast<float4*>(color), reinterpret_cast<float4*>(tw),
+                      active, ob, t0};
+  const gprt::Answer a{best_t, normal, gid};
+  const gprt::ShadowRays R{s_ob, s_d, s_active, s_t0};
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    if (kernel == 0) {
+      gprt::wavefront_start_kernel(params, layout, L, n, width, height, row_offset, G, M);
+    } else if (kernel == 1) {
+      gprt::wavefront_hit_kernel(params, layout, L, a, R, n, G, M);
+    } else {
+      gprt::wavefront_shade_kernel(params, layout, L, a, R, s_gid, n, width, height, row_offset,
+                                   level, max_depth, G, M);
+    }
+  }
+}
+""",
 }
 
 
@@ -579,8 +620,8 @@ def libs():
     os.replace(tmp, os.path.join(BUILD, "include", "cuda_runtime.h"))
     # frame_gate.cu includes frame_kernel.cu.
     headers = b"".join(open(os.path.join(CSRC, h), "rb").read()
-                       for h in ("frame_math.cuh", "traverse.cuh", "host_rehearsal.h",
-                                 "frame_kernel.cu"))
+                       for h in ("frame_math.cuh", "traverse.cuh", "shading.cuh",
+                                 "host_rehearsal.h", "frame_kernel.cu"))
     procs, paths = {}, {}
     for name, entry in ENTRIES.items():
         if name in CONTRACTED and not fma:
@@ -1341,3 +1382,126 @@ def test_staged_face_loop_with_skip_equals_unculled(libs):
     nchunks = -(-rows.shape[0] // megakernel.FACE_CHUNK)
     print("skipped", skipped, "of", nchunks * o.shape[0], "hits graze", hits[graze].sum())
     assert skipped > 0.5 * nchunks * int((~graze).sum())
+
+
+# ---------------------------------------------------------------------------
+# The wavefront's lane kernels (csrc/wavefront.cu)
+# ---------------------------------------------------------------------------
+
+WAVE_SEED = 15
+
+
+def _rel_close(got, want, tol=TOL):
+    """Whether every value is within tol of its plain value, relative past
+    1 (positions and t reach 10^4)."""
+    return bool((np.abs(got - want) <= tol * np.maximum(1.0, np.abs(want))).all())
+
+
+def _seeded_lanes(scene, n, seed):
+    """n lanes of a level from a numpy seed: origins near the camera, three
+    quarters aimed into a random geometry's world AABB (every kind gets
+    hits), the rest into a box around the scene (plane hits, misses); a
+    fifth of the lanes inactive; colour and throughput drawn in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    arrays = scene.arrays
+    lo = _np(arrays.aabb_min + arrays.blas_offset)
+    hi = _np(arrays.aabb_max + arrays.blas_offset)
+    o = _np(arrays.constants.camera_position[:3]) + rng.uniform(-1.0, 1.0, (n, 3))
+    g = rng.integers(0, lo.shape[0], n)
+    target = lo[g] + rng.uniform(0.0, 1.0, (n, 3)) * (hi[g] - lo[g])
+    wide = rng.random(n) < 0.25
+    target[wide] = rng.uniform([-10.0, -2.0, -10.0], [10.0, 6.0, 10.0], (int(wide.sum()), 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+    _, ob, _, _, t0 = traverse.pass_inputs(o, d, scene)
+    color = torch.from_numpy(rng.random((n, 4), dtype=np.float32))
+    tw = torch.from_numpy(rng.random((n, 4), dtype=np.float32))
+    active = torch.from_numpy(rng.random(n) >= 0.2)
+    from gpuraytracer_tpu_torch.kernels import wavefront
+    return wavefront.Lanes(o, d, color, tw, active, ob, t0)
+
+
+def _rh_wave(libs, kernel, pack, lanes, answer=None, shadow=None, shadow_gid=None, *, width=1,
+             height=1, row_offset=0, level=0, max_depth=3):
+    """The rehearsed lane kernel over numpy copies of the lanes (updated in
+    place and returned) and, for the hit kernel, the shadow rays it
+    writes."""
+    n = lanes.o.shape[0]
+    ln = [_np(x).copy() for x in lanes]
+    ans = [_np(x) for x in answer] if answer is not None else [
+        np.zeros(n, np.float32), np.zeros((n, 3), np.float32), np.zeros(n, np.int32)]
+    sh = ([_np(x).copy() for x in shadow] if shadow is not None else
+          [np.full((n, 3), np.nan, np.float32), np.full((n, 3), np.nan, np.float32),
+           np.zeros(n, bool), np.full(n, np.nan, np.float32)])
+    sg = _np(shadow_gid) if shadow_gid is not None else None
+    libs["wavefront"].rh_wave(kernel, _p(_np(pack.params)), _p(_np(pack.layout)),
+                              *(_p(a) for a in ln), *(_p(a) for a in ans), *(_p(a) for a in sh),
+                              _p(sg) if sg is not None else None, n, width, height, row_offset,
+                              level, max_depth, pack.num_geometries, pack.num_materials)
+    return ln, sh
+
+
+def test_wavefront_start_matches_plain(libs):
+    # A band of 8 rows from row 1 of the W x H builtin frame (its row 1 sees
+    # no plane).
+    from gpuraytracer_tpu_torch.kernels import wavefront
+
+    scene = _scene("builtin")
+    pack = frame_kernel.pack_frame(scene)
+    want = wavefront.start_plain(scene, width=W, height=H, row_offset=1, local_height=8)
+    blank = wavefront.Lanes(*(torch.full_like(x, float("nan")) if x.is_floating_point()
+                              else torch.zeros_like(x) for x in want))
+    got, _ = _rh_wave(libs, 0, pack, blank, width=W, height=H, row_offset=1)
+    for name, g_, w_ in zip(wavefront.Lanes._fields, got, want):
+        w_ = _np(w_)
+        assert np.array_equal(g_, w_) if w_.dtype == bool else _rel_close(g_, w_), name
+    assert (_np(want.t0) < 1e4).any() and (_np(want.t0) == 1e4).any()  # plane hits and misses
+
+
+@pytest.mark.parametrize("name", ["builtin", "fractal_mandelbulb_julia_1080p"])
+def test_wavefront_hit_and_shade_match_plain(libs, name):
+    # Seeded lanes (plane hits, misses, metaball and fractal hits, inactive
+    # lanes): the hit kernel against hit_plain at level 0, the shade kernel
+    # against shade_plain at level 0 of 3 (with the occlusion pass's answer)
+    # and at the last level (none); within 1e-5 (relative past 1), booleans
+    # equal: both sides take the same float32 operations, and only the
+    # libraries' sqrt, pow and exp may differ in the last ulp.
+    from gpuraytracer_tpu_torch.kernels import wavefront
+
+    scene = _scene(name)
+    pack = frame_kernel.pack_frame(scene)
+    lanes = _seeded_lanes(scene, 600, WAVE_SEED)
+    answer = scene_kernel.scene_closest_plain(scene, lanes.ob, lanes.d, lanes.active, lanes.t0)
+    _, _, _, hit = wavefront._active_hits(scene, lanes, answer)
+    kinds = [int(k) for k in scene.layout.kinds]
+    gids = _np(hit.geometry_id)
+    hit_kinds = {kinds[g] for g in gids if 0 <= g < len(kinds)}
+    assert (gids == scene.layout.plane_geometry_id).any() and (gids < 0).any()
+    assert (1 if name == "builtin" else 2) in hit_kinds  # metaballs / fractals
+    assert not _np(lanes.active).all()
+
+    want = wavefront.hit_plain(scene, lanes, answer)
+    _, got = _rh_wave(libs, 1, pack, lanes, answer)
+    act = _np(want.active)
+    assert np.array_equal(got[2], act) and np.array_equal(got[3], _np(want.t0))
+    live = _np(lanes.active)
+    assert act.any() and (live & ~act).any()  # active lanes with and without a shadow ray
+    for g_, w_ in zip(got[:2], want[:2]):
+        assert _rel_close(g_[live], _np(w_)[live])
+
+    _, _, sgid = scene_kernel.scene_closest_plain(scene, want.ob, want.d, want.active, want.t0,
+                                                  accept_first=True)
+    for level, shadow, gid in ((0, want, sgid), (2, None, None)):
+        kw = dict(width=W, height=H, row_offset=0, level=level, max_depth=3)
+        got, _ = _rh_wave(libs, 2, pack, lanes, answer, shadow, gid, **kw)
+        plain = wavefront.shade_plain(scene, lanes._replace(**{
+            k: getattr(lanes, k).clone() for k in wavefront.Lanes._fields}), answer, shadow, gid,
+            **kw)
+        on = _np(plain.active)
+        assert np.array_equal(got[4], on), f"level {level}: the kill differs"
+        assert _rel_close(got[2], _np(plain.color)) and _rel_close(got[3], _np(plain.tw))
+        if level == 0:
+            assert on.any() and (live & ~on).any()  # lanes live on and lanes killed
+            for k in (0, 1, 5, 6):  # o, d, ob, t0 of the lanes that live on
+                assert _rel_close(got[k][on], _np(plain[k])[on]), wavefront.Lanes._fields[k]
