@@ -225,6 +225,26 @@ exits non-zero):
               SDF code against its plain version, which fails past
               DIST_ULPS, and the JAX values, timed with its op count, and
               the card's frame against the CPU port's; [bisect] lines)
+ 16. bench    the port's bench suite through its command line, in process:
+              apps/bench_suite.main with tools/round_end.sh's line (--json,
+              into out/torch/ beside the reference's committed
+              out/bench_suite.json: the five BENCH_CONFIGS at their
+              published sizes), README.md's (--scale 0.25), then one scene
+              with --warmup 2 --chain 4 and one with --no-device-time;
+              fails on a JSON line without
+              the reference's keys (bench_suite.REFERENCE_KEYS), with the
+              device-time keys where the flags say none or without them
+              where they say some, a frame_ms that is not finite and
+              positive, a frame-kernel scene not rendered by exactly one
+              frame-kernel launch a frame (launches_per_frame and the
+              wrapper's count over the whole run), or frame_ms_events past
+              frame_ms x 1.01; one [bench] line a scene (frame_ms,
+              frame_ms_events, frame_ms_1dispatch, device_frame_ms); then
+              the reference's ray invariants (tests/test_properties.py,
+              tests/test_torch_properties.py) on the CUDA scene kernel's
+              closest and occlusion passes over the same 2,048 random
+              rays (builtin at t = 1.3, the tests' seed) and the sky ray,
+              with the plain passes' answers beside them; [props] lines
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
 2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass; the lane
@@ -254,6 +274,7 @@ FLOPs on the same inputs, in the unit of that peak: a multiply-add is two
 import contextlib
 import functools
 import json
+import math
 import os
 import shutil
 import struct
@@ -1119,6 +1140,154 @@ def parity_phase(card):
           f"{dist['max_abs_vs_plain']:.3e}, {dist['ms']:.4f} ms the nine codes "
           f"(plain {dist['plain_ms']:.4f} ms); {card}", flush=True)
     return dist
+
+
+# tests/conftest.py's seed: the rays of the property tests.
+PROPS_SEED = 20260816
+PROPS_RAYS = 2048
+
+
+def property_rays(dev):
+    """tests/test_properties.py's 2,048 rays, drawn from a fresh generator
+    with the tests' seed: from a shell around the scene to random scene
+    points."""
+    import numpy as np
+
+    rng = np.random.default_rng(PROPS_SEED)
+    origins = rng.uniform(-14, 14, size=(PROPS_RAYS, 3))
+    origins[:, 1] = rng.uniform(0.5, 12, size=PROPS_RAYS)
+    targets = rng.uniform(-7, 7, size=(PROPS_RAYS, 3))
+    targets[:, 1] = rng.uniform(0.0, 3.0, size=PROPS_RAYS)
+    dirs = targets - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return (torch.as_tensor(origins, dtype=torch.float32, device=dev),
+            torch.as_tensor(dirs, dtype=torch.float32, device=dev))
+
+
+def bench_phase(dev, card):
+    """Phase 16: the port's bench suite through its command line, then the
+    reference's ray invariants on the CUDA scene kernel (see the module
+    docstring). Raises on any failure."""
+    import io
+
+    from gpuraytracer_tpu_torch.accel import traverse
+    from gpuraytracer_tpu_torch.apps import bench_suite
+    from gpuraytracer_tpu_torch.core.types import RAY_TMAX, RAY_TMIN
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, scene_kernel
+    from gpuraytracer_tpu_torch.models import builtin, scenes
+    from gpuraytracer_tpu_torch.render import trace
+
+    t0 = time.perf_counter()
+    # out/ is gitignored; out/bench_suite.json itself is the reference's
+    # committed TPU artifact, which this run must not overwrite.
+    out_dir = os.path.join(ROOT, "out", "torch")
+    os.makedirs(out_dir, exist_ok=True)
+    one = "analytic_grid_720p"
+    runs = [("round_end", ["--json", os.path.join(out_dir, "bench_suite.json")]),
+            ("README, scale 0.25", ["--scale", "0.25", "--json",
+                                    os.path.join(out_dir, "bench_suite_scale_0.25.json")]),
+            ("warmup 2, chain 4", ["--configs", one, "--warmup", "2", "--chain", "4", "--json",
+                                   os.path.join(out_dir, "bench_suite_chain4.json")]),
+            ("no device time", ["--configs", one, "--no-device-time", "--json",
+                                os.path.join(out_dir, "bench_suite_no_device_time.json")])]
+    for label, argv in runs:
+        args = bench_suite.build_parser().parse_args(argv)
+        configs = ([scenes.get_config(n) for n in args.configs.split(",")] if args.configs
+                   else list(scenes.BENCH_CONFIGS))
+        timed = not args.no_device_time and args.chain > 1
+        frames_per_scene = (1 + max(0, args.warmup - 1)
+                            + args.reps * args.frames * (args.wall_chain + 1
+                                                         + (args.chain if timed else 0)))
+        fused = [trace.frame_route(c.build(c.width / c.height, 0.0, device=dev))[0] == "frame"
+                 for c in configs]
+        stdout = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(stdout):
+            rc = bench_suite.main(argv)
+        torch.cuda.synchronize()
+        launched = frame_kernel.LAUNCHES
+        with open(args.json[:-len(".json")] + ".txt", "w") as f:
+            f.write(stdout.getvalue())
+        if rc != 0:
+            raise AssertionError(f"bench {label}: main exited {rc}")
+        with open(args.json) as f:
+            lines = json.load(f)
+        if [line["config"] for line in lines] != [c.name for c in configs]:
+            raise AssertionError(f"bench {label}: lines for {[x['config'] for x in lines]}")
+        if launched != frames_per_scene * sum(fused):
+            raise AssertionError(f"bench {label}: {launched} frame kernel launches, expected "
+                                 f"{frames_per_scene} for each of {sum(fused)} scenes")
+        for line, is_fused in zip(lines, fused):
+            name = line["config"]
+            missing = [k for k in bench_suite.REFERENCE_KEYS if k not in line]
+            if missing:
+                raise AssertionError(f"bench {label} {name}: no {missing}")
+            device_keys = set(bench_suite.DEVICE_TIME_KEYS) | {"device_frame_ms_below_resolution"}
+            if timed and not set(bench_suite.DEVICE_TIME_KEYS) <= set(line):
+                raise AssertionError(f"bench {label} {name}: no device-time keys")
+            if not timed and device_keys & set(line):
+                raise AssertionError(f"bench {label} {name}: device-time keys under {argv}")
+            if not (math.isfinite(line["frame_ms"]) and line["frame_ms"] > 0):
+                raise AssertionError(f"bench {label} {name}: frame_ms {line['frame_ms']}")
+            if is_fused and line["launches_per_frame"]["frame_kernel"] != 1.0:
+                raise AssertionError(f"bench {label} {name}: launches per frame "
+                                     f"{line['launches_per_frame']}")
+            if not line["frame_ms_events"] <= line["frame_ms"] * 1.01:
+                raise AssertionError(f"bench {label} {name}: frame_ms_events "
+                                     f"{line['frame_ms_events']} past frame_ms {line['frame_ms']}")
+            print(f"[bench] {label}: {name} {line['width']}x{line['height']} depth "
+                  f"{line['max_depth']}: frame_ms {line['frame_ms']} (min {line['frame_ms_min']}, "
+                  f"max {line['frame_ms_max']}), frame_ms_events {line['frame_ms_events']} "
+                  f"(host's share {line['frame_ms'] - line['frame_ms_events']:.3f} ms/frame), "
+                  f"frame_ms_1dispatch {line['frame_ms_1dispatch']}, device_frame_ms "
+                  f"{line.get('device_frame_ms')}"
+                  f"{' (below resolution)' if line.get('device_frame_ms_below_resolution') else ''}"
+                  f", mrays_fps {line['mrays_fps']}, compile_s {line['compile_s']}, "
+                  f"launches/frame {line['launches_per_frame']['frame_kernel']}; {card}",
+                  flush=True)
+    print(f"[bench] the bench's runs done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The reference's ray invariants on the scene kernel's two passes.
+    scene = builtin.build_scene(aspect=1.0, elapsed_time=1.3, device=dev)
+    o, d = property_rays(dev)
+    reset_counts()
+    hit = traverse.closest_hit(o, d, scene)
+    occluded = traverse.any_hit(o, d, scene)
+    sky_o = torch.tensor([[0.0, 30.0, 0.0]], device=dev)
+    sky_d = torch.tensor([[0.0, 1.0, 0.0]], device=dev)
+    sky = builtin.build_scene(aspect=1.0, elapsed_time=0.0, device=dev)
+    sky_hit = traverse.closest_hit(sky_o, sky_d, sky).hit
+    sky_occ = traverse.any_hit(sky_o, sky_d, sky)
+    torch.cuda.synchronize()
+    if scene_kernel.LAUNCHES != 4:
+        raise AssertionError(f"props: {scene_kernel.LAUNCHES} scene kernel launches, not 4")
+    plain = traverse.closest_hit(o, d, scene, plain=True)
+    plain_occ = traverse.any_hit(o, d, scene, plain=True)
+    h, t, g = hit.hit, hit.t, hit.geometry_id
+    lens = hit.normal[h].norm(dim=-1)
+    broken = {
+        "t outside [RAY_TMIN, RAY_TMAX] on a hit": int(((t[h] < RAY_TMIN) | (t[h] > RAY_TMAX)).sum()),
+        "t != RAY_TMAX on a miss": int((t[~h] != RAY_TMAX).sum()),
+        "normal not unit (1e-3)": int(((lens - 1).abs() > 1e-3).sum()),
+        "gid outside the rows on a hit": int(((g[h] < 0) | (g[h] > scene.layout.plane_geometry_id))
+                                             .sum()),
+        "gid != -1 on a miss": int((g[~h] != -1).sum()),
+        "hit but not occluded": int((h & ~occluded).sum()),
+        "sky ray hit or occluded": int(sky_hit[0] | sky_occ[0]),
+    }
+    if not bool(h.any()):
+        raise AssertionError("props: no random ray hit the scene")
+    agree = g == plain.geometry_id
+    print(f"[props] scene kernel, builtin t=1.3, {PROPS_RAYS} random rays (seed {PROPS_SEED}): "
+          f"{int(h.sum())} hits (plain {int(plain.hit.sum())}), {int(occluded.sum())} occluded "
+          f"(plain {int(plain_occ.sum())}); gid equal to the plain pass's on "
+          f"{float(agree.float().mean()):.6f}, max |t diff| where equal "
+          f"{float((t - plain.t)[agree].abs().max()):.3e}, occlusion equal on "
+          f"{float((occluded == plain_occ).float().mean()):.6f}; max ||n| - 1| "
+          f"{float((lens - 1).abs().max()):.3e}; rays breaking an invariant: {broken}", flush=True)
+    if any(broken.values()):
+        raise AssertionError(f"props: the scene kernel breaks an invariant: {broken}")
+    print(f"[props] done; phase {time.perf_counter() - t0:.1f} s; {card}", flush=True)
 
 
 def main() -> int:
@@ -2877,6 +3046,10 @@ def main() -> int:
     with Phase("parity"):
         dist = parity_phase(card)
         dist_bound, dist_bound_by = bound(dist["bytes"], dist["flops"])
+
+    # 16. bench: the bench suite's command line and report on the card -------
+    with Phase("bench"):
+        bench_phase(dev, card)
 
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{

@@ -87,4 +87,4 @@ def test_bench_window_is_the_references_64_frames():
     assert want == 64
     assert bench_suite.WALL_CHAIN == want
     assert inspect.signature(bench_suite.bench_config).parameters["wall_chain"].default == want
-    assert "default=WALL_CHAIN" in inspect.getsource(bench_suite.main)
+    assert bench_suite.build_parser().parse_args([]).wall_chain == want
