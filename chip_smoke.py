@@ -17,14 +17,18 @@ exits non-zero):
               (-DGPRT_FINISH_PER_RAY); the overflow gate, frame_gate.cu,
               whose device-side launch is built with -ewp and linked
               against cudadevrt, in both --fmad modes; the wavefront's
-              lane kernels, wavefront.cu); print ptxas' registers
+              lane kernels, wavefront.cu; row 10, frame_state.cu, always
+              --fmad=false); print ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
   5. golden   frame kernel vs tests/golden_builtin_96x54_t0p7.npz, both
               fmad modes
   6. main     Renderer(1920, 1080, device="cuda") over a 64-frame animated
-              window: every frame through the frame kernel (launch count),
+              window (each frame one replay of the Renderer's frame
+              program, animated by row 10: one frame-state launch a frame
+              in every Renderer window of the script): every frame
+              through the frame kernel (launch count),
               finite, not background; ms/frame from CUDA events; the kernel
               alone, its op count and bound, its resident blocks, and one
               plain 1080p frame
@@ -164,13 +168,16 @@ exits non-zero):
               byte the native encoding of trace.render_frame of the state
               ticked once; 4 frames with --checkpoint then 4 with --resume,
               whose last PNG is the unbroken run's byte for byte; the CLI's
-              frame loop (tick, scene, FramePipeline.submit; no PNGs) over a
+              frame loop (tick, scene, FramePipeline.submit; no PNGs;
+              through the CLI's trace.make_renderer, one replay of its
+              frame program a frame) over a
               64-frame builtin 1080p window at 1 and 3 frames in flight:
               ms/frame by the wall clock, the host's own ms/frame outside
               the pipeline's event waits, the frame kernel's ms by CUDA
               events and the device's busy share (64 x kernel ms over the
               window's wall ms), the host's ms a frame by step (tick,
-              scene, pack_frame, the launch, render_frame), frames 2-63 under
+              scene, pack_frame, the launch, render_frame, the
+              make_renderer replay), frames 2-63 under
               torch.cuda.set_sync_debug_mode("error") (any host sync
               raises), every frame bit-equal to a direct render of the same
               state; a torch.profiler trace of 4 frames (the trace file, its
@@ -245,6 +252,29 @@ exits non-zero):
               closest and occlusion passes over the same 2,048 random
               rays (builtin at t = 1.3, the tests' seed) and the sky ray,
               with the plain passes' answers beside them; [props] lines
+ 17. programs the frame programs (render/program.py: the Renderer's step,
+              trace.make_renderer, the bench's windows as captured CUDA
+              graphs) and row 10 (kernels/frame_state.py,
+              csrc/frame_state.cu): row 10 against its plain version on
+              every field of the parameter buffer, bit for bit, at 64 times
+              of builtin and each bench scene, timed with its bound; the
+              builtin 1080p 64-frame window as one program, replayed with
+              the counts at 0 under set_sync_debug_mode("error") (one
+              frame-kernel and one row-10 launch a frame), every frame's
+              checksum and frames 0, 31 and 63 bit for bit the eager
+              frames' (animate, pack_frame, render_frame), and a replay
+              with trace.render_frame and frame_state.advance patched to
+              raise; the same for 8-frame 320x180 windows in compact mode,
+              compact with GPURT_COMPACT_BUDGET=1 (the queue overflows: the
+              gate launches the plain frame kernel from the device inside
+              the graph), defer, GPURT_MERGED_SHADOW=1, the scene-kernel
+              route (GPURT_DISABLE_FUSED=1) and the per-geometry route
+              (mesh_heightfield_sdf); per program one [programs] line:
+              graph nodes a frame, the private pool's peak bytes, ms/frame
+              by the host clock and CUDA events beside the eager window's,
+              the busy share of a torch.profiler trace of one replay (not
+              traced where the gate launches from the device: CUPTI then
+              stops the card), the launches a frame
 Then the kernel JSON line (with each entry's registers and bytes of
 spill stores from ptxas, and the resident blocks per SM of rows 1, 1m,
 2's dense pass, 2m, 4, 4m and 5 and the two-phase main pass; the lane
@@ -382,9 +412,11 @@ _QUEUED_BASE = [0]
 
 
 def reset_counts():
-    from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel, wavefront
+    from gpuraytracer_tpu_torch.kernels import (frame_kernel, frame_state, megakernel,
+                                                scene_kernel, wavefront)
 
     wavefront.reset_launches()
+    frame_state.LAUNCHES = 0
     frame_kernel.LAUNCHES = 0
     scene_kernel.LAUNCHES = 0
     megakernel.LAUNCHES = 0
@@ -512,10 +544,14 @@ def counts():
 def animated_window(renderer, dev, label, w, h, sync_error=False):
     """FRAMES animated frames through renderer.render, timed by CUDA events:
     (ms/frame, counts(), max background share); every frame is checked
-    finite and not mostly background. ``sync_error``: the frames render
-    under torch.cuda.set_sync_debug_mode("error"), so a host sync in a frame
+    finite and not mostly background, and animated by row 10 (one
+    frame-state launch a frame: the Renderer's step is a frame program,
+    render/program.py). ``sync_error``: the frames render under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync in a frame
     raises."""
-    renderer.render(0.0)  # warm-up (module load), not counted
+    from gpuraytracer_tpu_torch.kernels import frame_state
+
+    renderer.render(0.0)  # warm-up: builds the step's program, not counted
     torch.cuda.synchronize()
     reset_counts()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -529,6 +565,9 @@ def animated_window(renderer, dev, label, w, h, sync_error=False):
     end.record()
     torch.cuda.synchronize()
     launched = counts()
+    if frame_state.LAUNCHES != FRAMES:
+        raise AssertionError(f"{label}: {frame_state.LAUNCHES} frame-state launches for "
+                             f"{FRAMES} frames")
     bg = torch.tensor([0.8, 0.9, 1.0, 1.0], device=dev)
     bg_frac = []
     for k, f in enumerate(frames):
@@ -734,6 +773,7 @@ def host_phase(dev, card, pack_m):
     from gpuraytracer_tpu_torch.apps import render_cli, serve
     from gpuraytracer_tpu_torch.core.config import RenderConfig
     from gpuraytracer_tpu_torch.kernels import frame_kernel
+    from gpuraytracer_tpu_torch.models import builtin
     from gpuraytracer_tpu_torch.models.animate import AnimationState
     from gpuraytracer_tpu_torch.parallel.device import pick_device
     from gpuraytracer_tpu_torch.parallel.pipeline import FramePipeline
@@ -799,12 +839,16 @@ def host_phase(dev, card, pack_m):
     print("[host] checkpoint after 4 frames, resumed for 4: frame 7 byte for byte the "
           "unbroken 8-frame run's", flush=True)
 
-    # (c) the CLI's frame loop over a 64-frame 1080p window, no PNGs.
+    # (c) the CLI's frame loop over a 64-frame 1080p window, no PNGs, through
+    # the CLI's trace.make_renderer (its frame program, built by the warm-up
+    # window below).
+    cli_renderer = trace.make_renderer(builtin.LAYOUT, W_MAIN, H_MAIN)
+
     def loop_window(fif, frames=FRAMES, sync_check_from=2):
         sums = []
 
         def render(scene):
-            out = trace.render_frame(scene, W_MAIN, H_MAIN)
+            out = cli_renderer(scene.arrays)
             sums.append(out.view(torch.int32).sum(dtype=torch.int64))
             return out
 
@@ -866,14 +910,14 @@ def host_phase(dev, card, pack_m):
     host_ms("frame kernel launch", lambda k: frame_kernel.render_frame_tiles(
         packs[k], width=W_MAIN, height=H_MAIN))
     host_ms("render_frame", lambda k: trace.render_frame(scenes[k], W_MAIN, H_MAIN))
+    host_ms("make_renderer replay", lambda k: cli_renderer(scenes[k].arrays))
     torch.cuda.synchronize()
     print("[host] host ms a frame by step (16 frames each, host clock): " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()), flush=True)
 
     # (d) a torch.profiler trace of 4 frames at 3 in flight.
     prof_dir = os.path.join(host_dir, "profile")
-    pipe = FramePipeline(lambda scene: trace.render_frame(scene, W_MAIN, H_MAIN), 3,
-                         device=dev)
+    pipe = FramePipeline(lambda scene: cli_renderer(scene.arrays), 3, device=dev)
     torch.cuda.synchronize()
     with profile.trace(prof_dir):
         with profile.annotate("four frames"):
@@ -1195,7 +1239,12 @@ def bench_phase(dev, card):
         configs = ([scenes.get_config(n) for n in args.configs.split(",")] if args.configs
                    else list(scenes.BENCH_CONFIGS))
         timed = not args.no_device_time and args.chain > 1
-        frames_per_scene = (1 + max(0, args.warmup - 1)
+        # Each window is a frame program (render/program.py): its build runs
+        # one eager frame before the capture (one for each of the programs of
+        # 1, --wall-chain and --chain frames), and every replayed frame counts
+        # its launches as an eager frame does.
+        programs = {1, args.wall_chain} | ({args.chain} if timed else set())
+        frames_per_scene = (len(programs) + 1 + max(0, args.warmup - 1)
                             + args.reps * args.frames * (args.wall_chain + 1
                                                          + (args.chain if timed else 0)))
         fused = [trace.frame_route(c.build(c.width / c.height, 0.0, device=dev))[0] == "frame"
@@ -1289,6 +1338,284 @@ def bench_phase(dev, card):
         raise AssertionError(f"props: the scene kernel breaks an invariant: {broken}")
     print(f"[props] done; phase {time.perf_counter() - t0:.1f} s; {card}", flush=True)
 
+# FLOPs of row 10 (csrc/frame_state.cu), counted as csrc/frame_math.cuh
+# counts them (cos and sin one each): per instance R diag(scale) (9
+# products), diag(1/scale) R^T (9 divisions) and the translation column (9
+# products, 6 sums), and where it rotates the angle's product, cos and sin;
+# the metaball thread's interpolant (fmod, the product by the reciprocal,
+# the triangle wave's 3, the clamp's 2, smoothstep's 4) and the three
+# lerped centres (27).
+STATE_FLOPS_INSTANCE = 33
+STATE_FLOPS_ROTATES = 3
+STATE_FLOPS_METABALLS = 38
+# Frames in each 320x180 program window of phase 17.
+PROGRAM_WINDOW = 8
+
+
+def eager_window(scene, animate, n, w, h, depth, keep=()):
+    """The bench's window of n animated frames as eager frames through the
+    same kernels (animate, pack_frame and render_frame per frame, frame_t(i)
+    as the window program's times): (checksum, per-frame sums, the kept
+    frames' images)."""
+    from gpuraytracer_tpu_torch.accel.instances import Scene
+    from gpuraytracer_tpu_torch.apps import bench_suite
+    from gpuraytracer_tpu_torch.render import trace
+
+    acc = torch.zeros((), dtype=torch.float32, device=scene.arrays.aabb_min.device)
+    sums, images = [], []
+    for i, t in enumerate(bench_suite.frame_times(n)):
+        img = trace.render_frame(Scene(scene.layout, animate(scene.arrays, t)), w, h,
+                                 max_depth=depth)
+        total = torch.sum(img)
+        acc = acc + total
+        sums.append(total)
+        if i in keep:
+            images.append(img)
+    return acc, torch.stack(sums), images
+
+
+def window_times(call, n, windows=4, reps=3):
+    """(host-clock ms/frame, CUDA-event ms/frame), medians over ``reps``:
+    ``windows`` calls of an n-frame window issued back to back, then each
+    window's checksum read (the bench's _timed_window)."""
+    import statistics
+
+    host, events = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        outs = [call() for _ in range(windows)]
+        end.record()
+        for out in outs:
+            float(out[0] if isinstance(out, tuple) else out)
+        host.append((time.perf_counter() - t0) * 1e3 / (windows * n))
+        end.synchronize()
+        events.append(start.elapsed_time(end) / (windows * n))
+    return statistics.median(host), statistics.median(events)
+
+
+def programs_phase(dev, card, frame_ms):
+    """Phase 17: frame programs (render/program.py) and row 10
+    (kernels/frame_state.py) on the card (see the module docstring). Returns
+    row 10's entry of the kernels line; raises on any failure."""
+    import dataclasses
+
+    import numpy as np
+
+    from gpuraytracer_tpu_torch.accel.instances import Scene
+    from gpuraytracer_tpu_torch.apps import bench_suite
+    from gpuraytracer_tpu_torch.kernels import frame_kernel, frame_state
+    from gpuraytracer_tpu_torch.models import builtin, meshes, scenes
+    from gpuraytracer_tpu_torch.render import program, trace
+    from gpuraytracer_tpu_torch.utils import profile
+
+    t_phase = time.perf_counter()
+    if program.knobs():
+        raise AssertionError(f"programs: knobs left set by an earlier phase: {program.knobs()}")
+    # (a) row 10 against its plain version, every field of the buffer bit for
+    # bit, at 64 times (the bench's first 32, the metaball cycle's turning
+    # point, 31 seeded in [0, 40)) of builtin and each bench scene.
+    rng = np.random.default_rng(17)
+    times_h = np.asarray([0.033 * i for i in range(32)] + [6.0]
+                         + list(rng.uniform(0.0, 40.0, 31)), dtype=np.float32)
+    times = torch.from_numpy(times_h).to(dev)
+    cases = [("builtin", builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev),
+              builtin.animate_arrays)]
+    cases += [(c.name, c.build(c.width / c.height, 0.0, device=dev), c.builder().animator())
+              for c in scenes.BENCH_CONFIGS]
+    reset_counts()
+    for name, scene, animate in cases:
+        base = frame_kernel.pack_static(scene)
+        differ = 0
+        for i in range(times.shape[0]):
+            k = dataclasses.replace(base, params=base.params.clone())
+            p = dataclasses.replace(base, params=base.params.clone())
+            frame_state.advance(k, animate, scene.arrays, times, i)
+            frame_state.advance_plain(p, animate, scene.arrays, times, i)
+            if not torch.equal(k.params, p.params):
+                differ += 1
+                print(f"[programs] row 10 {name} t={float(times_h[i])}: {int((k.params != p.params).sum())} "
+                      f"floats differ, max |diff| {float((k.params - p.params).abs().max()):.3g}",
+                      flush=True)
+        print(f"[programs] row 10 {name}, {pack_fields(base)} per-frame floats, {times.shape[0]} "
+              f"times: {times.shape[0] - differ} of {times.shape[0]} buffers bit-equal to the plain "
+              f"version's", flush=True)
+        if differ:
+            raise AssertionError(f"row 10 differs from its plain version on {name}")
+    if frame_state.LAUNCHES != times.shape[0] * len(cases):
+        raise AssertionError(f"row 10: {frame_state.LAUNCHES} launches")
+    name, scene, animate = cases[0]
+    pack = frame_kernel.pack_static(scene)
+    state_ms, _ = cuda_ms(lambda: frame_state.advance(pack, animate, scene.arrays, times, 8),
+                          SHORT_REPS)
+    state_plain_ms, _ = cuda_ms(
+        lambda: frame_state.advance_plain(pack, animate, scene.arrays, times, 8), 20)
+    g = pack.num_geometries
+    rotating = sum(1 for row in animate.table if row[1])
+    state_bytes = 4 * (g * frame_state.STATE_STRIDE + len(frame_state.METABALL_TABLE) + 1
+                       + 1 + 21 * g + 12)
+    state_ops = STATE_FLOPS_INSTANCE * g + STATE_FLOPS_ROTATES * rotating + STATE_FLOPS_METABALLS
+    state_bound, state_bound_by = bound(state_bytes, state_ops)
+    print(f"[programs] row 10 builtin ({g} instances, {rotating} rotating): {state_ms:.4f} ms a "
+          f"launch (CUDA events, {SHORT_REPS} launches; {state_ops} FLOPs, {state_bytes} bytes: "
+          f"bound {state_bound:.6f} ms by {state_bound_by}); plain {state_plain_ms:.4f} ms; "
+          f"library none; {card}", flush=True)
+
+    def report(label, prog, n, eager_call, kernel_note, traced=True):
+        """Time a built program's windows beside the eager window's, trace
+        one window for the busy share (unless ``traced`` is False), print
+        the program's line."""
+        ms, ms_ev = window_times(prog, n)
+        e_ms, e_ev = window_times(eager_call, n)
+        summary = {"busy_ms": 0.0}
+        busy = ("not measured: a torch.profiler (CUPTI) trace of a replay whose gate launches "
+                "the frame kernel from the device stops the card with an illegal instruction")
+        if traced:
+            slug = "".join(ch if ch.isalnum() else "_" for ch in label)
+            prof_dir = os.path.join(ROOT, "build", "chip_smoke_programs", slug)
+            torch.cuda.synchronize()
+            with profile.trace(prof_dir):
+                prog()
+                torch.cuda.synchronize()
+            summary = profile.device_summary(os.path.join(prof_dir, profile.TRACE_FILE))
+            busy = (f"{summary['busy_share']:.4f} ({summary['busy_ms'] / n:.4f} ms of device "
+                    f"work a frame)" if summary["busy_ms"] > 0
+                    else "not measured (no device time traced)")
+        nodes = (f"{prog.nodes} graph nodes ({prog.nodes / n:.2f} a frame)" if prog.nodes
+                 else "graph nodes not measured")
+        per_frame = dict(sorted((f"{mod.__name__.rsplit('.', 1)[1]}.{name}", d / n)
+                                for (mod, name), d in prog.deltas.items()))
+        print(f"[programs] {label}, {n}-frame window: {nodes}, private pool peak "
+              f"{prog.pool_peak_bytes} bytes; program {ms:.4f} ms/frame by the host clock, "
+              f"{ms_ev:.4f} by CUDA events; eager window {e_ms:.4f} / {e_ev:.4f}; "
+              f"{kernel_note}; busy share of the traced program window {busy}; "
+              f"launches a frame {per_frame}; "
+              f"{card}", flush=True)
+        return dict(ms=ms, ms_events=ms_ev, eager_ms=e_ms, eager_ms_events=e_ev,
+                    nodes=prog.nodes, pool=prog.pool_peak_bytes,
+                    busy=summary["busy_share"] if summary["busy_ms"] > 0 else None)
+
+    def check(label, scene, animate, n, w, h, depth, keep):
+        """Build the window program, replay it under
+        set_sync_debug_mode("error") with the counts at 0, and hold every
+        frame's checksum and the kept images to the eager frames bit for
+        bit. Returns (program, counts of the replay)."""
+        prog = bench_suite.window_program(scene, animate, n, animated=True, width=w, height=h,
+                                          max_depth=depth, keep=keep)
+        t0 = time.perf_counter()
+        prog.build()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            acc, sums, *images = prog()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launched = (counts(), frame_state.LAUNCHES, mode_counts())
+        e_acc, e_sums, e_images = eager_window(scene, animate, n, w, h, depth, keep)
+        equal_sums = int((sums == e_sums).sum())
+        equal_images = [bool(torch.equal(a, b)) for a, b in zip(images, e_images)]
+        print(f"[programs] {label} {w}x{h} depth {depth}: built in {build_s:.2f} s; one replay "
+              f"of {n} frames under set_sync_debug_mode('error'): checksums bit-equal to the "
+              f"eager frames' on {equal_sums} of {n} frames (window sum {float(acc)!r} vs "
+              f"{float(e_acc)!r}), frames {list(keep)} bit-equal {equal_images}", flush=True)
+        if equal_sums != n or not all(equal_images) or not torch.equal(acc, e_acc):
+            raise AssertionError(f"programs: {label} differs from its eager frames")
+        return prog, launched
+
+    # (b) the main path's window: builtin 1080p, 64 frames.
+    b_scene = builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev)
+    prog, (launched, states, _) = check("builtin", b_scene, builtin.animate_arrays, FRAMES,
+                                        W_MAIN, H_MAIN, 3, (0, FRAMES // 2 - 1, FRAMES - 1))
+    if launched != (FRAMES, 0, 0, 0, 0) or states != FRAMES:
+        raise AssertionError(f"programs: builtin window launched {launched}, {states} row 10")
+    state_launches = states
+    # (d) a replay runs no eager frame: the frame entry and row 10's wrapper
+    # raise if called while the program replays.
+    saved = trace.render_frame, frame_state.advance
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a replay ran an eager frame")
+
+    trace.render_frame = frame_state.advance = refuse
+    try:
+        out = prog()
+        torch.cuda.synchronize()
+    finally:
+        trace.render_frame, frame_state.advance = saved
+    print(f"[programs] builtin 1080p replay with trace.render_frame and frame_state.advance "
+          f"patched to raise: ran (checksum {float(out[0])!r})", flush=True)
+    results = {"builtin 1080p": report(
+        "builtin 1080p", prog, FRAMES,
+        lambda: eager_window(b_scene, builtin.animate_arrays, FRAMES, W_MAIN, H_MAIN, 3)[0],
+        f"frame kernel alone {frame_ms:.4f} ms (phase 6)")}
+    prog.close()
+
+    # (c) every other route and mode at 320x180.
+    w, h = 320, 180
+    hf = meshes.get_config("mesh_heightfield_sdf")
+    cases = [("compact", None, {"GPURT_FRAME_MODE": "compact"}),
+             ("compact overflowing (GPURT_COMPACT_BUDGET=1)", None,
+              {"GPURT_FRAME_MODE": "compact", "GPURT_COMPACT_BUDGET": "1"}),
+             ("defer", None, {"GPURT_FRAME_MODE": "defer"}),
+             ("merged (GPURT_MERGED_SHADOW=1)", None, {"GPURT_MERGED_SHADOW": "1"}),
+             ("scene-kernel route (GPURT_DISABLE_FUSED=1)", None, {"GPURT_DISABLE_FUSED": "1"}),
+             ("per-geometry route (mesh_heightfield_sdf)", hf, {})]
+    for label, cfg, knobs in cases:
+        with env(**knobs):
+            if cfg is None:
+                scene, animate, depth = (builtin.build_scene(aspect=w / h, device=dev),
+                                         builtin.animate_arrays, 3)
+            else:
+                b = cfg.builder()
+                scene, animate, depth = b.build(w / h, 0.0, device=dev), b.animator(), cfg.max_depth
+            route = trace.frame_route(scene)
+            prog, (launched, states, modes) = check(label, scene, animate, PROGRAM_WINDOW, w, h,
+                                                    depth, (0, PROGRAM_WINDOW - 1))
+            if states != PROGRAM_WINDOW or modes["syncs"]:
+                raise AssertionError(f"programs: {label}: {states} row 10 launches, "
+                                     f"{modes['syncs']} host syncs")
+            if "GPURT_COMPACT_BUDGET" in knobs:
+                pack = frame_kernel.pack_frame(Scene(scene.layout, animate(scene.arrays, 0.0)))
+                _, queued = frame_kernel.render_frame_compact(pack, width=w, height=h,
+                                                              max_depth=depth, debug_count=True)
+                if not queued.overflow or modes["gated"] != PROGRAM_WINDOW:
+                    raise AssertionError(f"programs: {label}: no overflow ({int(queued)} queued, "
+                                         f"{modes})")
+                print(f"[programs] {label}: frame 0 queues {int(queued)} pixels past the "
+                      f"capacity {frame_kernel.queue_capacity(w, h)}: the gate under capture "
+                      f"launched the plain frame kernel from the device", flush=True)
+            results[label] = report(label, prog, PROGRAM_WINDOW,
+                                    lambda: eager_window(scene, animate, PROGRAM_WINDOW, w, h,
+                                                         depth)[0],
+                                    f"route {route}", traced="GPURT_COMPACT_BUDGET" not in knobs)
+            prog.close()
+    print(f"[programs] every program bit-equal to its eager frames, "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return {
+        "name": "frame_state",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/frame_state.cu",
+        "replaces": "gpuraytracer_tpu/models/builtin.py:306",
+        "launches": state_launches,
+        "max_abs_err": 0.0,
+        "ms": state_ms,
+        "plain_ms": state_plain_ms,
+        "bound_ms": state_bound,
+        "bound_by": state_bound_by,
+        "library_ms": None,
+        "programs": results,
+    }
+
+
+def pack_fields(pack):
+    """Floats of a pack's per-frame fields (kernels/frame_kernel.frame_fields)."""
+    return 1 + 21 * pack.num_geometries + 12
+
 
 def main() -> int:
     # 1. device -------------------------------------------------------------
@@ -1363,6 +1690,8 @@ def main() -> int:
         builds.append(("scene_finish", build.DEFAULT_FMAD, False, False, False, False, True))
         builds += [("frame_gate", fmad, False) for fmad in (build.DEFAULT_FMAD,
                                                             not build.DEFAULT_FMAD)]
+        # Row 10, the frame programs' per-frame state (always --fmad=false).
+        builds.append(("frame_state", build.DEFAULT_FMAD, False))
         reports = build.compile_all(builds)
         registers, spills = {}, {}
         for (name, fmad, count, *rest), report in reports.items():
@@ -3051,6 +3380,10 @@ def main() -> int:
     with Phase("bench"):
         bench_phase(dev, card)
 
+    # 17. programs: the frame programs and row 10 -----------------------------
+    with Phase("programs"):
+        state_row = programs_phase(dev, card, frame_ms)
+
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     kernels = [{
         "name": "frame_kernel",
@@ -3220,7 +3553,7 @@ def main() -> int:
         "bound_ms": probe_bound,
         "bound_by": probe_bound_by,
         "library_ms": None,
-    }]
+    }, {key: v for key, v in state_row.items() if key != "programs"}]
     # Registers of the shipped build's shared-layout instantiations (ptxas)
     # and, for rows 1, 1m, 5 and the two-phase main pass, resident blocks
     # per SM.
@@ -3242,7 +3575,7 @@ def main() -> int:
         "scene_finish_queue": "finish_append_kernel", "op_probe": "op_probe_kernel",
         "wavefront_start": "wavefront_start_kernel", "wavefront_hit": "wavefront_hit_kernel",
         "wavefront_shade": "wavefront_shade_kernel",
-        "sdf_distance": "sdf_probe"}
+        "sdf_distance": "sdf_probe", "frame_state": "frame_state_kernel"}
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
     resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)
     resident["shadow_queue"] = scene_kernel.residency(pack_m, entry="repair")

@@ -6,14 +6,25 @@ windows, with the reference's two Mrays/s variants: fps-derived
 (W*H*fps/1e6, Renderer.cpp:391) and dispatch-time-derived (W*H/(ms*1e3),
 RendererRaytracingHelper.h:673-678).
 
-A window of n frames issues n animated frames back to back; each image
-feeds a ``torch.sum`` checksum that accumulates on the device, so no frame
-is dead work, and the host reads the checksum (and fails on a non-finite
-one) after every window of the timed batch has been issued.
+A window of n frames is one frame program of n animated frames
+(render/program.animated_frames, the counterpart of the reference's
+``make_chain(n)``, one jitted program a window): on a GPU one captured
+CUDA graph a window, replayed at each call, in which each frame's
+animation is row 10 (kernels/frame_state.py) reading the frame's time from
+the window's time buffer (frame_t(i) rounded to f32 once, uploaded before
+capture), and each image feeds a ``torch.sum`` checksum that accumulates
+on the device, so no frame is dead work. The host reads the checksum (and
+fails on a non-finite one) after every window of the timed batch has been
+issued. The programs for one frame, ``--chain`` and ``--wall-chain``
+frames are built before any timing, as the reference compiles its wall and
+chain programs untimed; each scene's programs are closed before the next
+scene. Launches are counted per replayed frame (render/program.py adds
+each replay's launches to the wrappers' counters).
 
-- ``compile_s``: the first one-frame window by the host clock (on a GPU it
-  includes the first use's nvcc build and load of the kernels); then
-  ``--warmup`` - 1 more untimed windows.
+- ``compile_s``: the first one-frame window by the host clock: the builds
+  and the capture of the one-frame program (on a GPU it includes the
+  first use's nvcc build and load of the kernels); then ``--warmup`` - 1
+  more untimed windows.
 - Wall throughput, ``frame_ms``: each of ``--reps`` repetitions issues
   ``--frames`` windows of ``--wall-chain`` frames (default 64, the
   reference's window, bench.py) while the earlier ones still run, then
@@ -209,9 +220,7 @@ def bench_config(cfg, frames: int = 4, warmup: int = 1, scale: float = 1.0, reps
                  device="cuda") -> dict:
     """One JSON line of the bench for ``cfg`` (see the module docstring):
     the reference's parameters and defaults, and the torch ``device``."""
-    from gpuraytracer_tpu_torch.accel.instances import Scene
     from gpuraytracer_tpu_torch.kernels import frame_kernel
-    from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.utils import stats
 
     dev = torch.device(device)
@@ -222,27 +231,29 @@ def bench_config(cfg, frames: int = 4, warmup: int = 1, scale: float = 1.0, reps
     height = max(8, int(cfg.height * scale))
     builder = cfg.builder()
     scene0 = builder.build(width / height, 0.0, device=dev)
-    layout, arrays0 = scene0.layout, scene0.arrays
     animate = builder.animator()
 
-    def frame_t(i):
-        return 0.033 * i if cfg.animated else 1e-5 * i
+    programs = {}
+
+    def program(n):
+        if n not in programs:
+            programs[n] = window_program(scene0, animate, n, animated=cfg.animated,
+                                         width=width, height=height, max_depth=cfg.max_depth)
+        return programs[n]
 
     def window(n):
-        """n animated frames issued back to back; every image feeds the
-        checksum, which stays on the device."""
-        acc = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(n):
-            img = trace.render_frame(Scene(layout, animate(arrays0, frame_t(i))), width, height,
-                                     max_depth=cfg.max_depth)
-            acc = acc + torch.sum(img)
-        return acc
+        """The window of n animated frames (its program, built at its first
+        call): every image feeds the checksum, which stays on the device."""
+        return program(n)()
 
     t0 = time.perf_counter()
     _timed_window(window, 1, 1)
     t_compile = time.perf_counter() - t0
     for _ in range(max(0, warmup - 1)):
         _timed_window(window, 1, 1)
+    # The wall and chain programs, captured untimed.
+    for n in (wall_chain, chain if device_time and chain > 1 else 1):
+        program(n).build()
 
     # Launches are counted over the first repetition (reading the queued
     # lanes syncs, so between repetitions).
@@ -289,7 +300,30 @@ def bench_config(cfg, frames: int = 4, warmup: int = 1, scale: float = 1.0, reps
         else:
             out["mrays_dispatch"] = round(
                 stats.mrays_per_second_from_dispatch_ms(width, height, device_ms), 3)
+    for prog in programs.values():
+        prog.close()
     return out
+
+
+def frame_times(n: int, animated: bool = True) -> list:
+    """The animation times of a window's n frames, as the reference's
+    frame_t(i) computes them in double (1e-5 i for a scene that does not
+    animate): rounded to f32 once where they reach the device."""
+    return [0.033 * i if animated else 1e-5 * i for i in range(n)]
+
+
+def window_program(scene, animate, n: int, *, animated: bool, width: int, height: int,
+                   max_depth: int, keep=()):
+    """The frame program of a window of n animated frames of ``scene``
+    (render/program.animated_frames with a checksum): each frame's time is
+    entry i of a time buffer uploaded once, here, before the capture."""
+    from gpuraytracer_tpu_torch.core.upload import to_device
+    from gpuraytracer_tpu_torch.render import program
+
+    times = to_device(frame_times(n, animated), scene.arrays.aabb_min.device)
+    return program.animated_frames(scene, animate, times, width=width, height=height,
+                                   max_depth=max_depth, checksum=True, keep=keep,
+                                   label=f"bench window of {n} frames {width}x{height}")
 
 
 _KERNEL_TIMING = r"""

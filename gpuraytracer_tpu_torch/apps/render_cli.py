@@ -90,16 +90,22 @@ def frame_loop(pipe, state, config, frames, *, dt=None, timer=None, on_frame=Non
 
 
 def frame_to_host(config, device):
-    """The pipeline's frame function: render the scene, then, on a GPU,
-    convert the image to RGBA8 on the card and enqueue its copy into pinned
-    host memory (valid once the frame's event has completed); on the CPU,
-    the reference's host conversion."""
+    """The pipeline's frame function: render the scene's arrays through
+    ``trace.make_renderer`` over the builtin layout (the reference's CLI,
+    apps/render_cli.py:99 there: on a GPU a replay of the captured frame
+    program), then, on a GPU, convert the image to RGBA8 on the card and
+    enqueue its copy into pinned host memory on the same stream (valid once
+    the frame's event has completed); on the CPU, the reference's host
+    conversion."""
+    from gpuraytracer_tpu_torch.models import builtin
     from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.utils import png
 
+    renderer = trace.make_renderer(builtin.LAYOUT, config.width, config.height,
+                                   max_depth=config.max_recursion_depth)
+
     def render(scene):
-        img = trace.render_frame(scene, config.width, config.height,
-                                 max_depth=config.max_recursion_depth)
+        img = renderer(scene.arrays)
         if device.type != "cuda":
             return png.image_f32_to_rgba8(img.numpy())
         rgba = png.image_to_rgba8(img)

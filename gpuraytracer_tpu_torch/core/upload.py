@@ -22,8 +22,8 @@ import functools
 import numpy as np
 import torch
 
-_NP = {torch.float32: np.float32, torch.int32: np.int32, torch.int64: np.int64,
-       torch.bool: np.bool_}
+_NP = {torch.float32: np.float32, torch.float64: np.float64, torch.int32: np.int32,
+       torch.int64: np.int64, torch.bool: np.bool_}
 
 
 def to_device(values, device, dtype=torch.float32) -> torch.Tensor:
@@ -37,15 +37,17 @@ def to_device(values, device, dtype=torch.float32) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def _constant(values, device, dtype):
-    return to_device(values, device, dtype)
+def _constant(raw, shape, device, dtype):
+    return to_device(np.frombuffer(raw, dtype=_NP[dtype]).reshape(shape), device, dtype)
 
 
 def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
     """A constant table on ``device``, uploaded once per (values, device,
     dtype) and shared by every caller: read it, never write it. ``values``
-    is a (nested) tuple."""
-    return _constant(values, torch.device(device), dtype)
+    is a (nested) tuple; tables are told apart by their bits in ``dtype``,
+    so -0.0 and 0.0 (equal as Python floats) get tables of their own."""
+    host = np.array(values, dtype=_NP[dtype])
+    return _constant(host.tobytes(), host.shape, torch.device(device), dtype)
 
 
 def tensor_to(t: torch.Tensor, device) -> torch.Tensor:

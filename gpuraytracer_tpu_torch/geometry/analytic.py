@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from gpuraytracer_tpu_torch.core import hlsl
+from gpuraytracer_tpu_torch.core.upload import constant
 
 # The 3 hard-coded spheres (AnalyticPrimitives.hlsli:121-128).
 SPHERE_CENTERS = ((-0.3, -0.3, -0.3), (0.1, 0.1, 0.4), (0.35, 0.35, 0.0))
@@ -20,7 +21,11 @@ AABB_EPS = 0.0001  # face-pick epsilon (hlsli:208)
 
 
 def _vec(v, like):
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """A constant vector (or scalar) of ``like``'s type on its device,
+    uploaded once per device (core/upload.constant): read it, never write
+    it."""
+    v = tuple(map(float, v)) if isinstance(v, (tuple, list)) else float(v)
+    return constant(v, like.device, like.dtype)
 
 
 def solve_ray_sphere(origins, directions, center, radius):
@@ -78,7 +83,8 @@ def intersect_spheres(origins, directions, *, t_min, t_max, cull_backface):
     """RaySpheresIntersectionTest (hlsli:119-153): three hollow spheres,
     closest valid hit wins (thit starts at RayTCurrent)."""
     n = origins.shape[0]
-    best_t = torch.as_tensor(t_max, dtype=origins.dtype, device=origins.device).expand(n)
+    best_t = (t_max.to(origins.dtype).expand(n) if isinstance(t_max, torch.Tensor)
+              else torch.full((n,), t_max, dtype=origins.dtype, device=origins.device))
     best_n = torch.zeros_like(origins)
     found = torch.zeros(n, dtype=torch.bool, device=origins.device)
     for center, radius in zip(SPHERE_CENTERS, SPHERE_RADII):

@@ -21,6 +21,7 @@ import os
 import torch
 
 from gpuraytracer_tpu_torch.core import hlsl
+from gpuraytracer_tpu_torch.core.upload import constant
 from gpuraytracer_tpu_torch.core.types import (
     FRACTAL_ITERATIONS_COUNT,
     SDF_HIT_THRESHOLD,
@@ -30,7 +31,11 @@ from gpuraytracer_tpu_torch.core.types import (
 
 
 def _vec(v, like):
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    """A constant vector (or scalar) of ``like``'s type on its device,
+    uploaded once per device (core/upload.constant): read it, never write
+    it."""
+    v = tuple(map(float, v)) if isinstance(v, (tuple, list)) else float(v)
+    return constant(v, like.device, like.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ parent's repair, which checks hold the resumed one to; never the shipped
 build); ``finish_per_ray`` adds -DGPRT_FINISH_PER_RAY: a scene_finish
 build whose two-phase finisher runs one thread per ray over every ray (the
 parent's finisher, which checks hold the queued one to; never the shipped
-build).
+build). The sources in NO_FMAD (frame_state.cu) build with --fmad=false
+whatever ``fmad`` asks: their values must equal their plain versions'
+bit for bit on the card, which never contract across torch kernels.
 
 The source that launches a kernel from device code (DEVICE_LAUNCH:
 frame_gate.cu, through its GPRT_TAIL_LAUNCH) is compiled as
@@ -69,6 +71,9 @@ _INCLUDES = {"frame_gate": ("frame_kernel.cu",)}
 DEVICE_LAUNCH = ("frame_gate",)
 DEVICE_LAUNCH_FLAGS = ["-ewp"]
 DEVICE_LAUNCH_LIBS = ["-lcudadevrt"]
+# Sources built without contraction in every build (see the module
+# docstring).
+NO_FMAD = ("frame_state",)
 
 
 def nvcc_path() -> str:
@@ -85,6 +90,7 @@ def nvcc_path() -> str:
 def _flags(name: str, fmad: bool, count_ops: bool = False, count_simt: bool = False,
            faces_global: bool = False, repair_full: bool = False,
            finish_per_ray: bool = False):
+    fmad = fmad and name not in NO_FMAD
     return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
              "-Xptxas", "-v"] + (["-DGPRT_COUNT_OPS"] if count_ops else [])
@@ -207,6 +213,9 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_wavefront_hit.restype = ci
         lib.gprt_wavefront_shade.argtypes = [vp] * 15 + [ci] * 9 + [vp]
         lib.gprt_wavefront_shade.restype = ci
+    elif name == "frame_state":
+        lib.gprt_frame_state.argtypes = [vp] * 4 + [ci, ci, ci, vp]
+        lib.gprt_frame_state.restype = ci
     elif name == "op_probe":
         lib.gprt_op_probe.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp]
         lib.gprt_op_probe.restype = ci

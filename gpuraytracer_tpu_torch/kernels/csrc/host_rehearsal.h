@@ -63,6 +63,7 @@ using std::min;
 __attribute__((noinline)) inline float __fmul_rn(float a, float b) { return a * b; }
 __attribute__((noinline)) inline float __fadd_rn(float a, float b) { return a + b; }
 __attribute__((noinline)) inline float __fsub_rn(float a, float b) { return a - b; }
+__attribute__((noinline)) inline float __fdiv_rn(float a, float b) { return a / b; }
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 

@@ -225,19 +225,28 @@ def check_kernel_covers(layout: SceneLayout, route: str = "frame") -> None:
                 f"distance code {int(code)} has no CUDA device function")
 
 
-def pack_frame_params(scene: Scene):
-    """Parameter blocks as the reference's pack_frame_params builds them:
-    (b2l_rows (G,12), l2b_rot (G,9), step_scales (G,), aabbs (G,6),
-    mb_params (3,4), materials (M,8), p2w (4,4), cvec (8,4)), plus the
-    static fields (geoms, plane_gid)."""
-    arrays, layout = scene.arrays, scene.layout
+def frame_fields(arrays: SceneArrays):
+    """The pack's per-frame half, the fields that move with the animation
+    time: (t (1,), b2l_rows (G,12), l2b_rot (G,9), mb_params (3,4)), from
+    the arrays' elapsed time and instance transforms (the metaball centres
+    from the time: geometry/metaballs.animated_metaballs). Row 10
+    (kernels/frame_state.py) writes the same fields on the device."""
     tr = arrays.transforms
     g = tr.blas_to_local.shape[0]
     b2l_rows = tr.blas_to_local[:, :3, :].reshape(g, 12)
     l2b_rot = tr.local_to_blas[:, :3, :3].reshape(g, 9)
-    aabbs = torch.cat([arrays.aabb_min, arrays.aabb_max], dim=-1)
     centers, radii = metaballs.animated_metaballs(arrays.constants.elapsed_time)
     mb_params = torch.cat([centers, radii[:, None]], dim=-1)
+    return (arrays.constants.elapsed_time.reshape(1).to(torch.float32), b2l_rows, l2b_rot,
+            mb_params)
+
+
+def _static_blocks(scene: Scene):
+    """The parameter blocks that do not move with the animation time:
+    (step_scales (G,), aabbs (G,6), materials (M,8), p2w (4,4), cvec (8,4))."""
+    arrays, layout = scene.arrays, scene.layout
+    g = arrays.transforms.blas_to_local.shape[0]
+    aabbs = torch.cat([arrays.aabb_min, arrays.aabb_max], dim=-1)
     step_scales = arrays.materials.step_scale[:g]
     mats = arrays.materials
     materials = torch.stack([
@@ -261,7 +270,18 @@ def pack_frame_params(scene: Scene):
         plane_o, plane_s, zeros,
     ])
     p2w = c.projection_to_world.reshape(4, 4)
+    return step_scales, aabbs, materials, p2w, cvec
+
+
+def pack_frame_params(scene: Scene):
+    """Parameter blocks as the reference's pack_frame_params builds them:
+    (b2l_rows (G,12), l2b_rot (G,9), step_scales (G,), aabbs (G,6),
+    mb_params (3,4), materials (M,8), p2w (4,4), cvec (8,4)), plus the
+    static fields (geoms, plane_gid)."""
+    _, b2l_rows, l2b_rot, mb_params = frame_fields(scene.arrays)
+    step_scales, aabbs, materials, p2w, cvec = _static_blocks(scene)
     blocks = (b2l_rows, l2b_rot, step_scales, aabbs, mb_params, materials, p2w, cvec)
+    layout = scene.layout
     static = dict(
         geoms=tuple((int(k), int(p)) for k, p in zip(layout.kinds, layout.prim_types)),
         plane_gid=int(layout.plane_geometry_id),
@@ -269,31 +289,54 @@ def pack_frame_params(scene: Scene):
     return blocks, static
 
 
-def pack_frame(scene: Scene) -> FramePack:
-    """One f32 parameter buffer + one int32 layout buffer on the scene's
-    device. The march knobs (budgets per level, relaxation, capped-hit
-    occlusion) are read here, at call time, as the wavefront reads them."""
-    blocks, static = pack_frame_params(scene)
-    layout = scene.layout
-    tri, tri_offsets = traverse.pack_tri_rows(scene.arrays)
-    g = len(static["geoms"])
-    m = blocks[5].shape[0]
-    dev = blocks[0].device
+def _param_blocks(scene: Scene, fields):
+    """Every block of the f32 buffer after the header, in order, with the
+    per-frame ``fields`` (``frame_fields``'s last three) in their places."""
+    b2l_rows, l2b_rot, mb_params = fields
+    step_scales, aabbs, materials, p2w, cvec = _static_blocks(scene)
+    blocks = (b2l_rows, l2b_rot, step_scales, aabbs, mb_params, materials, p2w, cvec)
+    return [b.reshape(-1).to(torch.float32) for b in blocks]
+
+
+def _relax_header() -> list:
+    """The header's march constants after the time (F_HEADER - 1 floats),
+    from the march knobs read now: (relax, fail_scale) of radiance and
+    occlusion marches for the reference codes, then the windowed codes."""
     relax = []
     for windowed in (False, True):
         relax_r = sdf.march_relax(windowed, occlusion=False)
         relax_s = sdf.march_relax(windowed, occlusion=True)
         relax += [relax_r, relax_s, (1.0 - relax_r) * relax_r, (1.0 - relax_s) * relax_s]
-    # The header and the layout buffer go up without a host sync
-    # (core/upload.to_device); the animation time is already on the device.
-    header = torch.cat([scene.arrays.constants.elapsed_time.reshape(1).to(torch.float32),
-                        to_device(relax + [0.0, 0.0, 0.0], dev)])
-    params = torch.cat([header] + [b.reshape(-1).to(torch.float32) for b in blocks])
+    return relax + [0.0, 0.0, 0.0]
 
-    ints = [g, m, static["plane_gid"], int(layout.has_plane), int(layout.material_ids is not None),
-            int(layout.step_budgets is not None), 0, 0]
+
+def pack_static(scene: Scene) -> FramePack:
+    """The static half of ``pack_frame``, built once per frame program
+    (render/program.py): one f32 parameter buffer + one int32 layout buffer
+    on the scene's device, with every host upload of the pack (the layout
+    buffer, the header's march constants) and the blocks that do not move
+    with the animation time; the per-frame fields (``frame_fields``: the
+    header's time, b2l_rows, l2b_rot, mb_params) are zero until
+    ``write_frame_fields`` or row 10 (kernels/frame_state.py) writes them.
+    The march knobs (budgets per level, relaxation, capped-hit occlusion)
+    are read here, as the wavefront reads them."""
+    layout = scene.layout
+    arrays = scene.arrays
+    tri, tri_offsets = traverse.pack_tri_rows(arrays)
+    g = arrays.transforms.blas_to_local.shape[0]
+    m = arrays.materials.albedo.shape[0]
+    dev = arrays.aabb_min.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    fields = (zero.expand(g, 12), zero.expand(g, 9), zero.expand(3, 4))
+    # The header and the layout buffer go up without a host sync
+    # (core/upload.to_device).
+    params = torch.cat([zero.reshape(1), to_device(_relax_header(), dev)]
+                       + _param_blocks(scene, fields))
+    geoms = tuple((int(k), int(p)) for k, p in zip(layout.kinds, layout.prim_types))
+    ints = [g, m, int(layout.plane_geometry_id), int(layout.has_plane),
+            int(layout.material_ids is not None), int(layout.step_budgets is not None), 0, 0]
     budgets = []
-    for i, (kind, code) in enumerate(static["geoms"]):
+    for i, (kind, code) in enumerate(geoms):
         natural = layout.step_budgets[i] if layout.step_budgets else SDF_MAX_STEPS
         budgets.append((kind, natural))
         rb0, _ = sdf.march_budget(natural, occlusion=False, level=0)
@@ -309,6 +352,45 @@ def pack_frame(scene: Scene) -> FramePack:
     layout_buf = to_device(ints, dev, torch.int32)
     return FramePack(params=params.contiguous(), layout=layout_buf, num_geometries=g,
                      num_materials=m, tri=tri, tri_offsets=tri_offsets, budgets=tuple(budgets))
+
+
+def write_frame_fields(pack: FramePack, fields) -> FramePack:
+    """Write ``frame_fields``'s four per-frame fields into the pack's
+    parameter buffer, in place (stream-ordered copies on its device, no
+    upload); returns the pack. Row 10's plain version."""
+    t, b2l_rows, l2b_rot, mb_params = fields
+    g = pack.num_geometries
+    off = param_offsets(g, pack.num_materials)
+    p = pack.params
+    p[0:1].copy_(t)
+    p[off["b2l"]: off["b2l"] + 12 * g].copy_(b2l_rows.reshape(-1))
+    p[off["l2b"]: off["l2b"] + 9 * g].copy_(l2b_rot.reshape(-1))
+    p[off["mb"]: off["mb"] + 12].copy_(mb_params.reshape(-1))
+    return pack
+
+
+def repack(pack: FramePack, scene: Scene) -> FramePack:
+    """Every block of ``pack``'s parameter buffer after the header's march
+    constants, and its mesh face table, from ``scene``'s arrays, in place
+    (torch ops on the device, no upload): what a frame program over a
+    caller's arrays runs in its graph (trace.make_renderer). The layout
+    buffer and the march constants stay ``pack_static``'s."""
+    t, *fields = frame_fields(scene.arrays)
+    p = pack.params
+    p[0:1].copy_(t)
+    p[F_HEADER:].copy_(torch.cat(_param_blocks(scene, fields)))
+    if pack.tri.numel():
+        pack.tri.copy_(traverse.pack_tri_rows(scene.arrays)[0])
+    return pack
+
+
+def pack_frame(scene: Scene) -> FramePack:
+    """One f32 parameter buffer + one int32 layout buffer on the scene's
+    device: ``pack_static`` with the scene's per-frame fields written in
+    (``write_frame_fields``). The march knobs (budgets per level,
+    relaxation, capped-hit occlusion) are read here, at call time, as the
+    wavefront reads them."""
+    return write_frame_fields(pack_static(scene), frame_fields(scene.arrays))
 
 
 def layout_size(g: int) -> int:

@@ -210,9 +210,20 @@ class SceneBuilder:
         b2l = torch.cat([torch.cat([a_inv, tcol[:, :, None]], dim=2), bottom], dim=1)
         return InstanceTransforms(local_to_blas=l2b.contiguous(), blas_to_local=b2l.contiguous())
 
+    def animation_table(self) -> tuple:
+        """Row 10's per-instance inputs (kernels/frame_state.py): (rotation
+        rate, rotates, scale xyz, centre xyz) per instance, the values
+        ``_transforms`` reads (the centre rounded as it rounds it, in f32)."""
+        f32 = np.float32
+        return tuple(
+            (float(s.rotation_rate), float(s.rotates), *map(float, s.scale),
+             *(float((f32(lo) + f32(hi)) * f32(0.5)) for lo, hi in zip(s.aabb_min, s.aabb_max)))
+            for s in self._instances)
+
     def animator(self):
         """fn(arrays, elapsed_time) -> arrays with the transforms and the
-        elapsed time advanced, on the arrays' device."""
+        elapsed time advanced, on the arrays' device; its ``table`` is
+        ``animation_table()``, which row 10 reads in a frame program."""
 
         def animate(arrays: SceneArrays, elapsed_time) -> SceneArrays:
             device = arrays.aabb_min.device
@@ -221,6 +232,7 @@ class SceneBuilder:
             return dataclasses.replace(arrays, constants=constants,
                                        transforms=self._transforms(t, device))
 
+        animate.table = self.animation_table()
         return animate
 
     def build(self, aspect: float, elapsed_time=0.0, *, device="cuda") -> Scene:

@@ -238,6 +238,15 @@ def animate_arrays(arrays: SceneArrays, elapsed_time) -> SceneArrays:
     )
 
 
+# Row 10's per-instance inputs (kernels/frame_state.py): (rotation rate,
+# rotates, scale xyz, centre xyz) per instance, the values
+# build_instance_transforms reads.
+ANIMATION_TABLE = tuple(
+    (ROTATION_RATE, float(rotates), *map(float, scale), *map(float, centre))
+    for (scale, rotates), centre in zip(TRANSFORM_SPECS, (AABB_MIN + AABB_MAX) * np.float32(0.5)))
+animate_arrays.table = ANIMATION_TABLE
+
+
 def build_scene(aspect: float, elapsed_time=0.0, camera: Camera | None = None,
                 light_position=LIGHT_POSITION, *, device) -> Scene:
     """Assemble the full reference scene at a given animation time."""

@@ -10,6 +10,7 @@ import torch
 
 from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.core.types import BACKGROUND_COLOR, IN_SHADOW_RADIANCE
+from gpuraytracer_tpu_torch.core.upload import constant
 
 
 def phong_lighting(albedo, normal, in_shadow, hit_position, ray_direction,
@@ -30,7 +31,7 @@ def phong_lighting(albedo, normal, in_shadow, hit_position, ray_direction,
     specular = torch.where(in_shadow, 0.0, specular_coef * ks)[:, None].expand(-1, 4)
 
     # Fake AO: lerp(ambient - 0.1, ambient, 1 - saturate(dot(N, -Y))).
-    down = torch.tensor([0.0, -1.0, 0.0], dtype=normal.dtype, device=normal.device)
+    down = constant((0.0, -1.0, 0.0), normal.device, normal.dtype)
     a = 1.0 - hlsl.saturate(hlsl.dot(normal, down))
     ambient = albedo * hlsl.lerp(light_ambient_color - 0.1, light_ambient_color, a[:, None])
     return ambient + diffuse + specular
@@ -48,4 +49,6 @@ def fog_factor(t):
 
 
 def background_color(device):
-    return torch.tensor(BACKGROUND_COLOR, dtype=torch.float32, device=device)
+    """The background colour on ``device``, uploaded once per device
+    (core/upload.constant): read it, never write it."""
+    return constant(tuple(map(float, BACKGROUND_COLOR)), device)

@@ -40,6 +40,7 @@ from gpuraytracer_tpu_torch.accel.instances import Scene, ray_to_blas
 from gpuraytracer_tpu_torch.accel.traverse import _total_mesh_faces, any_hit, closest_hit
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
+from gpuraytracer_tpu_torch.core.upload import constant
 from gpuraytracer_tpu_torch.core.types import (
     MAX_RAY_RECURSION_DEPTH,
     RAY_TMAX,
@@ -60,7 +61,7 @@ def _material_rows(scene: Scene, geometry_id):
     ids = scene.layout.material_ids
     if ids is None:
         return gid
-    table = torch.tensor(ids, dtype=torch.int64, device=gid.device)
+    table = constant(tuple(ids), gid.device, torch.int64)
     return torch.where(geometry_id >= 0, table[gid], 0)
 
 
@@ -359,7 +360,7 @@ def trace_radiance(origins, directions, pixel_x, pixel_y, width, height, scene: 
 
 def render_frame(scene: Scene, width: int, height: int, *,
                  max_depth: int = MAX_RAY_RECURSION_DEPTH, row_offset: int = 0,
-                 local_height: int | None = None):
+                 local_height: int | None = None, pack=None):
     """Full frame, the DispatchRays(W, H, 1) analog; returns an (H, W, 4)
     float32 radiance image on the scene's device. With ``row_offset`` and
     ``local_height`` (kernels/frame_kernel.band_height), the band of those
@@ -381,7 +382,12 @@ def render_frame(scene: Scene, width: int, height: int, *,
 
     A CPU scene renders through the wavefront with plain passes, or in
     "compact" or "defer" mode (fused-eligible only) through those modes'
-    host code with their kernels' plain versions."""
+    host code with their kernels' plain versions.
+
+    ``pack``: the frame's packed buffers (frame_kernel.FramePack), built
+    from the scene (frame_kernel.pack_frame) if None; a frame program
+    (render/program.py) passes the pack it keeps and writes in place. The
+    CPU's plain mode renders the scene's arrays and reads no pack."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
     route, mode = frame_route(scene)
@@ -390,7 +396,7 @@ def render_frame(scene: Scene, width: int, height: int, *,
         frame_kernel.check_kernel_covers(scene.layout, route)
     elif mode == "plain":
         return render_wavefront(scene, width, height, max_depth=max_depth, **band)
-    pack = frame_kernel.pack_frame(scene)
+    pack = pack if pack is not None else frame_kernel.pack_frame(scene)
     kw = dict(width=width, height=height, max_depth=max_depth, **band)
     if mode == "compact":
         return frame_kernel.render_frame_compact(pack, **kw)
@@ -399,6 +405,56 @@ def render_frame(scene: Scene, width: int, height: int, *,
     if route == "frame":
         return frame_kernel.render_frame_tiles(pack, **kw)
     return render_wavefront(scene, width, height, max_depth=max_depth, pack=pack, **band)
+
+
+def make_renderer(layout, width: int, height: int, *,
+                  max_depth: int = MAX_RAY_RECURSION_DEPTH):
+    """The frame function over a scene's arrays, ``render(arrays)`` -> the
+    (H, W, 4) image, with the layout, size and depth bound (the reference's
+    make_renderer, render/trace.py:260-267 there: a jit-compiled frame
+    function, the compiled RTPSO analog).
+
+    On a GPU each call copies ``arrays`` device to device into a program's
+    static inputs and replays its captured graph (render/program.py): the
+    whole pack of the arrays (frame_kernel.repack, torch ops in the graph)
+    and ``render_frame`` on the scene's route and in its mode. A program is
+    built at the first call for its key (the device, the arrays' shapes,
+    the route, the frame mode and the GPURT_* knobs); a failed capture or
+    replay raises. On the CPU, which has no graphs, each call renders the
+    arrays eagerly through ``render_frame``."""
+    from gpuraytracer_tpu_torch.kernels import frame_kernel
+    from gpuraytracer_tpu_torch.render import program
+
+    programs = {}
+
+    def build(arrays):
+        static = program.static_copy(arrays)
+        scene = Scene(layout, static)
+        pack = frame_kernel.pack_static(scene)
+
+        def frame():
+            frame_kernel.repack(pack, scene)
+            return render_frame(scene, width, height, max_depth=max_depth, pack=pack)
+
+        route, mode = frame_route(scene)
+        return static, program.FrameProgram(
+            frame, static.aabb_min.device,
+            label=f"make_renderer {width}x{height} depth {max_depth} (route {route}, mode {mode})")
+
+    def render(arrays):
+        dev = arrays.aabb_min.device
+        if dev.type != "cuda":
+            return render_frame(Scene(layout, arrays), width, height, max_depth=max_depth)
+        shapes = tuple(tuple(t.shape) for t in program.tensor_leaves(arrays))
+        k = program.key(Scene(layout, arrays), str(dev), shapes)
+        if k not in programs:
+            programs[k] = build(arrays)
+        static, prog = programs[k]
+        program.copy_arrays(static, arrays)
+        return prog()
+
+    render.programs = programs
+    return render
 
 
 def frame_route(scene: Scene):

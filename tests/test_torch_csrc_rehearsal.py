@@ -68,6 +68,18 @@ them (plane hits, misses, metaball and fractal hits, a fifth of the lanes
 inactive), shade at level 0 with the occlusion pass's answer and at the
 last level without one: floats within 1e-5, relative past 1 (positions
 and t reach 10^4), the shadow and kill flags equal.
+
+csrc/frame_state.cu (row 10) writes the per-frame fields of the builtin
+scene, the five bench scenes and the three mesh scenes at times drawn from
+a seed into pack_static's buffer as its plain version
+(kernels/frame_state.advance_plain) writes them: the header's time and
+every instance that does not rotate bit for bit, the rotating instances'
+fields within 4 ulps of max(|value|, 8) (glibc's cosf and sinf against
+PyTorch's cos and sin; the translation column sums products of centres up
+to 6) and the metaball centres within 4 ulps of 1 (the kernel multiplies
+the time by the cycle's f32 reciprocal, as PyTorch's CUDA division by a
+Python scalar does, where the CPU's plain version divides); everything
+else in the buffer untouched.
 """
 
 import ctypes
@@ -89,7 +101,7 @@ from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.geometry import sdf
-from gpuraytracer_tpu_torch.kernels import frame_kernel, megakernel, scene_kernel
+from gpuraytracer_tpu_torch.kernels import frame_kernel, frame_state, megakernel, scene_kernel
 from gpuraytracer_tpu_torch.models import builtin, meshes, scenes
 from gpuraytracer_tpu_torch.render import trace
 
@@ -575,6 +587,19 @@ extern "C" void rh_wave(int kernel, const float* params, const int* layout, floa
       gprt::wavefront_shade_kernel(params, layout, L, a, R, s_gid, n, width, height, row_offset,
                                    level, max_depth, G, M);
     }
+  }
+}
+""",
+    "frame_state": r"""
+// Row 10 over its G + 1 threads, one thread per one-thread block.
+extern "C" void rh_frame_state(float* params, const float* table, const float* mb,
+                               const float* times, int index, int G) {
+  blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)(G + 1), 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  for (int g = 0; g <= G; ++g) {
+    blockIdx = dim3{(unsigned)g, 0, 0};
+    gprt::frame_state_kernel(params, table, mb, times, index, G);
   }
 }
 """,
@@ -1505,3 +1530,48 @@ def test_wavefront_hit_and_shade_match_plain(libs, name):
             assert on.any() and (live & ~on).any()  # lanes live on and lanes killed
             for k in (0, 1, 5, 6):  # o, d, ob, t0 of the lanes that live on
                 assert _rel_close(got[k][on], _np(plain[k])[on]), wavefront.Lanes._fields[k]
+
+
+STATE_SEED = 17
+
+
+@pytest.mark.parametrize("name", ["builtin"] + [c.name for c in scenes.BENCH_CONFIGS]
+                         + [c.name for c in meshes.MESH_CONFIGS])
+def test_frame_state_matches_plain(libs, name):
+    if name == "builtin":
+        scene, animate = builtin.build_scene(aspect=W / H, device="cpu"), builtin.animate_arrays
+    else:
+        cfg = (meshes.get_config(name) if name.startswith("mesh_") else scenes.get_config(name))
+        b = cfg.builder()
+        scene, animate = b.build(W / H, 0.0, device="cpu"), b.animator()
+    rng = np.random.default_rng(STATE_SEED)
+    times = np.concatenate([[0.0, 6.0], rng.uniform(0.0, 40.0, 6)]).astype(np.float32)
+    table = np.asarray(animate.table, dtype=np.float32)
+    mb = np.asarray(frame_state.METABALL_TABLE, dtype=np.float32)
+    g = scene.layout.num_procedural
+    off = frame_kernel.param_offsets(g, scene.arrays.materials.albedo.shape[0])
+    rotates = np.repeat(table[:, 1] != 0, 12).reshape(g, 12)
+    for i in range(times.shape[0]):
+        plain = frame_kernel.pack_static(scene)
+        frame_state.advance_plain(plain, animate, scene.arrays, torch.from_numpy(times), i)
+        want = _np(plain.params)
+        got = _np(frame_kernel.pack_static(scene).params)
+        libs["frame_state"].rh_frame_state(_p(got), _p(table), _p(mb), _p(times),
+                                           ctypes.c_int(i), ctypes.c_int(g))
+        fields = {"b2l": 12 * g, "l2b": 9 * g, "mb": 12}
+        frame = np.zeros(got.shape, dtype=bool)
+        frame[0] = True
+        for key, n in fields.items():
+            frame[off[key]: off[key] + n] = True
+        assert np.array_equal(got[~frame], want[~frame]), (name, i)
+        assert got[0] == want[0] == times[i]
+        b2l = slice(off["b2l"], off["b2l"] + 12 * g)
+        l2b = slice(off["l2b"], off["l2b"] + 9 * g)
+        mbs = slice(off["mb"], off["mb"] + 12)
+        fixed = ~rotates.reshape(-1)
+        assert np.array_equal(got[b2l][fixed], want[b2l][fixed]), (name, i)
+        assert np.array_equal(got[l2b][~rotates[:, :9].reshape(-1)],
+                              want[l2b][~rotates[:, :9].reshape(-1)]), (name, i)
+        for sl, scale in ((b2l, 8.0), (l2b, 1.0), (mbs, 1.0)):
+            bound = 4 * np.spacing(np.maximum(np.abs(want[sl]), np.float32(scale)))
+            assert (np.abs(got[sl] - want[sl]) <= bound).all(), (name, i, sl)
