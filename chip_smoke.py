@@ -195,21 +195,30 @@ exits non-zero):
               rows), in plain mode, under GPURT_FRAME_MODE=compact, under
               defer (which the band renderer sends to compact, as the
               reference's compact_enabled() does) and under
-              GPURT_MERGED_SHADOW=1: each gathered image bit for bit the
-              whole frame of the same route and knobs in this process, the
-              mean radiance the image's to rel 1e-5, the launch counters
-              (set to 0 just before each banded render, read just after:
-              one frame-kernel launch per band in plain mode), and in plain
-              mode a second banded frame under
-              torch.cuda.set_sync_debug_mode("error") (no host sync);
-              render_frame_deferred over the same bands against its whole
-              frame; the wavefront routes at 320x180 in 4 bands against
-              their whole frames (GPURT_DISABLE_FUSED=1: the scene kernel;
-              mesh_heightfield_sdf: the per-geometry route); a 2-rank gloo
-              world on cuda:0 (entry.dryrun_multichip(2, "cuda") with a
-              1920x1080 frame: the gathered bands bit for bit the
+              GPURT_MERGED_SHADOW=1: the eager bands (sharding.render_bands,
+              each band packing the scene itself) and the band program's
+              replay (make_sharded_renderer: one CUDA graph over the n bands
+              of cuda:0, built by a first call) each bit for bit the whole
+              frame of the same route and knobs in this process, the
+              program's mean radiance bit for bit the eager bands' sums
+              added in band order and the image's to rel 1e-5, the launch
+              counters of the eager bands and of the replay (set to 0 just
+              before each, read just after: one frame-kernel launch per band
+              in plain mode), the replay under
+              torch.cuda.set_sync_debug_mode("error") (no host sync), a
+              second replay equal to the first, the graph's nodes and
+              private pool; render_frame_deferred over the same bands
+              against its whole frame; the wavefront routes at 320x180 in 4
+              bands, eager and as a program, against their whole frames
+              (GPURT_DISABLE_FUSED=1: the scene kernel; mesh_heightfield_sdf:
+              the per-geometry route); a 2-rank gloo world on cuda:0
+              (entry.dryrun_multichip(2, "cuda") with a 1920x1080 frame,
+              each rank's band a program: the gathered bands bit for bit the
               one-process frame); the frame kernel's ms at row_offset 0 and
-              of the frame as 4 band launches, after a device-side wait
+              of the frame as 4 band launches, after a device-side wait; a
+              64-frame window of animated builtin 1080p frames in 4 bands,
+              program against eager bands against the whole frame's
+              make_renderer program, by the host clock and CUDA events
  15. parity   the port against the JAX package's CPU reference renders in
               tests/parity_refs/ (tools/torch_make_refs.py): every scene
               (builtin at 320x180, the five bench scenes and the three mesh
@@ -1030,11 +1039,33 @@ def host_phase(dev, card, pack_m):
           f"/resize?w=4&h=4 answered 400; {frames_served} frames rendered", flush=True)
 
 
-def bands_phase(dev, card):
-    """Phase 14: row-band sharding on the card (see the module docstring).
-    Raises on any failure."""
-    import numpy as np
+def band_window_times(call, frames, reps=3):
+    """(host-clock ms/frame, CUDA-event ms/frame), medians over ``reps``:
+    ``call(arrays)`` for each of ``frames`` issued back to back, then one
+    value of the last frame read (the host clock runs from the first issue
+    to that read)."""
+    import statistics
 
+    host, events = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for arrays in frames:
+            out = call(arrays)
+        end.record()
+        last = out if isinstance(out, torch.Tensor) else out[-1]
+        float(last.reshape(-1)[0])
+        host.append((time.perf_counter() - t0) * 1e3 / len(frames))
+        end.synchronize()
+        events.append(start.elapsed_time(end) / len(frames))
+    return statistics.median(host), statistics.median(events)
+
+
+def bands_phase(dev, card):
+    """Phase 14: row-band sharding on the card, eager and as band programs
+    (see the module docstring). Raises on any failure."""
     from gpuraytracer_tpu_torch import entry
     from gpuraytracer_tpu_torch.accel.instances import Scene
     from gpuraytracer_tpu_torch.kernels import frame_kernel
@@ -1042,6 +1073,7 @@ def bands_phase(dev, card):
     from gpuraytracer_tpu_torch.parallel import sharding
     from gpuraytracer_tpu_torch.render import trace
 
+    t_phase = time.perf_counter()
     t_band = 0.0333 * 8
     arrays = builtin.animate_arrays(
         builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev).arrays, t_band)
@@ -1051,7 +1083,32 @@ def bands_phase(dev, card):
     zero = {k: 0 for k in mode_counts()}
 
     def differing(img, whole):
-        return int((img != whole.cpu()).any(dim=-1).sum())
+        return int((img.cpu() != whole.cpu()).any(dim=-1).sum())
+
+    def band_sums(images):
+        total = None
+        for image in images:
+            part = torch.sum(image[..., :3], dtype=torch.float32)
+            total = part if total is None else total + part
+        return total
+
+    def replayed(render, args):
+        """The program's replay of ``render(*args)`` with the counts set to
+        0 just before it and read just after, under
+        set_sync_debug_mode("error"): (output, counts)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = render(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, (counts(), mode_counts())
+
+    def graph_of(render):
+        ((_, prog),) = render.programs.values()
+        return prog
 
     for n in (4, 8):
         mesh = sharding.make_mesh(["cuda:0"] * n)
@@ -1068,39 +1125,52 @@ def bands_phase(dev, card):
             ("merged", {"GPURT_MERGED_SHADOW": "1"},
              lambda: frame_kernel.render_frame_tiles(pack, **kw), {"merged": n}))
         for label, knobs, whole_fn, want in cases:
+            want = {**{k: 0 for k in zero if k != "queued"}, **want}
             with env(**knobs):
                 whole = whole_fn()
-                render = sharding.make_sharded_renderer(scene.layout, W_MAIN, H_MAIN, mesh,
-                                                        compute_stats=True)
+                # The eager bands, each packing the scene itself.
                 torch.cuda.synchronize()
                 reset_counts()
-                bands, mean = render(arrays)
+                eager = sharding.render_bands(scene, W_MAIN, H_MAIN, n, range(n))
                 torch.cuda.synchronize()
-                launched = mode_counts()
+                launched_eager = mode_counts()
+                eager_mean = band_sums(eager) / (W_MAIN * H_MAIN * 3)
+                # The band program: built by its first call, then replayed.
+                render = sharding.make_sharded_renderer(scene.layout, W_MAIN, H_MAIN, mesh,
+                                                        compute_stats=True)
+                t0 = time.perf_counter()
+                render(arrays)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                (bands, mean), (_, launched) = replayed(render, (arrays,))
+                again, _ = replayed(render, (arrays,))
+            prog = graph_of(render)
             img = torch.from_numpy(sharding.gather_image(bands))
-            launched.pop("queued")
-            want = {**{k: 0 for k in zero if k != "queued"}, **want}
+            for c in (launched, launched_eager):
+                c.pop("queued")
             differ = differing(img, whole)
+            differ_eager = differing(torch.cat(eager), whole)
+            equal_bands = all(torch.equal(a, b) for a, b in zip(bands.images, eager))
             ref_mean = float(img[..., :3].double().mean())
             rel = abs(float(mean) - ref_mean) / ref_mean
-            print(f"[bands] {n} bands of {H_MAIN // n} rows, {label}: {differ} of "
-                  f"{W_MAIN * H_MAIN} pixels differ from the whole frame; mean radiance "
-                  f"{float(mean):.7f} vs the image's {ref_mean:.7f} (rel {rel:.3g}); launches "
-                  f"{ {k: v for k, v in launched.items() if v} }", flush=True)
-            if differ or rel > 1e-5 or not bool(torch.isfinite(img).all()):
+            print(f"[bands] {n} bands of {H_MAIN // n} rows, {label}: eager bands {differ_eager} "
+                  f"of {W_MAIN * H_MAIN} pixels differ from the whole frame, launches "
+                  f"{ {k: v for k, v in launched_eager.items() if v} }; band program (built in "
+                  f"{build_s:.2f} s, {prog.nodes} graph nodes, private pool peak "
+                  f"{prog.pool_peak_bytes} bytes): replay {differ} pixels differ from the whole "
+                  f"frame, bands bit-equal to the eager bands {equal_bands}, mean radiance "
+                  f"{float(mean)!r} vs the eager bands' {float(eager_mean)!r} and the image's "
+                  f"{ref_mean:.7f} (rel {rel:.3g}), launches "
+                  f"{ {k: v for k, v in launched.items() if v} }, 0 host syncs", flush=True)
+            if differ or differ_eager or not equal_bands or rel > 1e-5 \
+                    or not torch.equal(mean, eager_mean) or not bool(torch.isfinite(img).all()):
                 raise AssertionError(f"{n} bands, {label}: not the whole frame")
-            if launched != want:
-                raise AssertionError(f"{n} bands, {label}: launches {launched}, not {want}")
-            if label == "plain":
-                # No host sync in a banded frame (the upload, the pack and
-                # every band's launch queue without waiting).
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    again = render(arrays)[0]
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                if not np.array_equal(sharding.gather_image(again), img.numpy()):
-                    raise AssertionError(f"{n} bands: a second banded frame differs")
+            if launched != want or launched_eager != want:
+                raise AssertionError(f"{n} bands, {label}: launches {launched} (program), "
+                                     f"{launched_eager} (eager), not {want}")
+            if not all(torch.equal(a, b) for a, b in zip(again[0].images, bands.images)):
+                raise AssertionError(f"{n} bands, {label}: a second replay differs")
+            render.close()
         lh = H_MAIN // n
         whole = frame_kernel.render_frame_deferred(pack, **kw)
         parts = [frame_kernel.render_frame_deferred(pack, row_offset=k * lh, local_height=lh, **kw)
@@ -1111,7 +1181,8 @@ def bands_phase(dev, card):
         if differ:
             raise AssertionError(f"{n} deferred bands: not the whole deferred frame")
 
-    # The wavefront routes at 320x180 in 4 bands of 45 rows.
+    # The wavefront routes at 320x180 in 4 bands of 45 rows, eager and as a
+    # band program.
     w, h = 320, 180
     mesh = sharding.make_mesh(["cuda:0"] * 4)
     for label, knobs, build_scene, want in (
@@ -1126,23 +1197,35 @@ def bands_phase(dev, card):
             whole = trace.render_frame(sc, w, h)
             torch.cuda.synchronize()
             reset_counts()
-            img = torch.from_numpy(sharding.gather_image(
-                sharding.make_sharded_renderer(sc.layout, w, h, mesh)(sc.arrays)))
-            launched = counts()
-        differ = differing(img, whole)
-        ran = [bool(c) for c in launched] == [bool(c) for c in want]
-        print(f"[bands] 4 bands of {h // 4} rows at {w}x{h}, {label}: {differ} pixels differ "
-              f"from the whole frame; launches (frame, scene, march, mesh, pass) {launched}",
-              flush=True)
-        if differ or not ran:
-            raise AssertionError(f"{label}: bands not the whole frame, or launches {launched}")
+            eager = sharding.render_bands(sc, w, h, 4, range(4))
+            torch.cuda.synchronize()
+            launched_eager = counts()
+            render = sharding.make_sharded_renderer(sc.layout, w, h, mesh)
+            render(sc.arrays)
+            bands, (launched, _) = replayed(render, (sc.arrays,))
+        prog = graph_of(render)
+        img = torch.from_numpy(sharding.gather_image(bands))
+        differ, differ_eager = differing(img, whole), differing(torch.cat(eager), whole)
+        equal_bands = all(torch.equal(a, b) for a, b in zip(bands.images, eager))
+        ran = all([bool(c) for c in got] == [bool(c) for c in want]
+                  for got in (launched, launched_eager))
+        print(f"[bands] 4 bands of {h // 4} rows at {w}x{h}, {label}: eager bands {differ_eager} "
+              f"pixels differ from the whole frame, launches (frame, scene, march, mesh, pass) "
+              f"{launched_eager}; band program ({prog.nodes} graph nodes, private pool peak "
+              f"{prog.pool_peak_bytes} bytes): {differ} pixels differ, bands bit-equal to the "
+              f"eager bands {equal_bands}, launches {launched}, 0 host syncs", flush=True)
+        if differ or differ_eager or not equal_bands or not ran:
+            raise AssertionError(f"{label}: bands not the whole frame, or launches {launched}, "
+                                 f"{launched_eager}")
+        render.close()
 
-    # One band per rank of a 2-rank gloo world, both ranks on card 0.
+    # One band per rank of a 2-rank gloo world, both ranks on card 0, each
+    # rank's band a program.
     t0 = time.perf_counter()
     entry.dryrun_multichip(2, device="cuda", size=(W_MAIN, H_MAIN), timeout=300)
     print(f"[bands] dryrun_multichip(2, device=\"cuda\") over gloo with a {W_MAIN}x{H_MAIN} "
-          f"frame: bit for bit the one-process frame ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
+          f"frame, each rank's band a program: bit for bit the one-process frame "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # Row 1 with the band arguments: the whole frame at row_offset 0, and the
     # same frame as 4 band launches.
@@ -1157,6 +1240,37 @@ def bands_phase(dev, card):
           f"launches: {bands_ms:.3f} ms a frame; each band alone "
           f"{', '.join(f'{t:.3f}' for t in each_ms)} ms (sum {sum(each_ms):.3f}); {card}",
           flush=True)
+
+    # A 64-frame window of animated builtin 1080p frames (the caller's arrays
+    # at t_i = 0.0333 i, made before timing) in 4 bands on cuda:0: the band
+    # program (one replay a frame: the arrays copied in, the pack and the 4
+    # band launches in the graph), the eager bands (each band packs the
+    # scene and launches), and the whole frame's make_renderer program.
+    base = builtin.build_scene(aspect=W_MAIN / H_MAIN, device=dev).arrays
+    frames = [builtin.animate_arrays(base, 0.0333 * i) for i in range(FRAMES)]
+    render = sharding.make_sharded_renderer(builtin.LAYOUT, W_MAIN, H_MAIN, mesh)
+    whole = trace.make_renderer(builtin.LAYOUT, W_MAIN, H_MAIN)
+    render(frames[0])
+    whole(frames[0])
+    prog = graph_of(render)
+    (_, whole_prog), = whole.programs.values()
+    reset_counts()
+    ms, ms_ev = band_window_times(lambda a: render(a).images, frames)
+    per_frame = {k: v / (3 * FRAMES) for k, v in mode_counts().items() if v and k != "queued"}
+    e_ms, e_ev = band_window_times(
+        lambda a: sharding.render_bands(Scene(builtin.LAYOUT, a), W_MAIN, H_MAIN, 4, range(4)),
+        frames)
+    w_ms, w_ev = band_window_times(whole, frames)
+    print(f"[bands] window of {FRAMES} builtin {W_MAIN}x{H_MAIN} frames in 4 bands on cuda:0: "
+          f"band program {ms:.4f} ms/frame by the host clock, {ms_ev:.4f} by CUDA events "
+          f"({prog.nodes} graph nodes a frame, private pool peak {prog.pool_peak_bytes} bytes, "
+          f"launches a frame {per_frame}); eager bands {e_ms:.4f} / {e_ev:.4f}; the whole "
+          f"frame's make_renderer program {w_ms:.4f} / {w_ev:.4f} ({whole_prog.nodes} graph "
+          f"nodes); 4 band launches alone {bands_ms:.3f} ms; {card}", flush=True)
+    render.close()
+    for _, p in whole.programs.values():
+        p.close()
+    print(f"[bands] done {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
 
 
 def parity_phase(card):

@@ -36,6 +36,10 @@ def smoothstep(edge0, edge1, x):
     return t * t * (3.0 - 2.0 * t)
 
 
+def clamp(x, lo, hi):
+    return torch.clamp(x, lo, hi)
+
+
 def sqrt(x):
     """Correctly rounded f32 square root on every device. PyTorch's CPU
     float sqrt may be 1 ulp off; a float64 square root rounded once to
@@ -69,6 +73,32 @@ def normalize(v):
 def reflect(i, n):
     """HLSL reflect: i - 2 * dot(i, n) * n."""
     return i - 2.0 * dot(i, n, keepdim=True) * n
+
+
+def cross(a, b):
+    """Cross product over the trailing xyz axis (torch.linalg.cross's
+    three products-differences, as jnp.cross computes them)."""
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _stack(parts):
+    """``parts`` (tensors and Python scalars) broadcast to one shape and
+    stacked on a new trailing axis; a scalar takes the first tensor's
+    dtype and device."""
+    like = next((p for p in parts if isinstance(p, torch.Tensor)), None)
+    kw = {} if like is None else dict(dtype=like.dtype, device=like.device)
+    parts = [p if isinstance(p, torch.Tensor) else torch.as_tensor(p, **kw) for p in parts]
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
+
+
+def vec3(x, y, z):
+    """Stack three arrays of one broadcast shape into a trailing-axis-3
+    vector."""
+    return _stack((x, y, z))
+
+
+def vec4(x, y, z, w):
+    return _stack((x, y, z, w))
 
 
 def calculate_animation_interpolant(elapsed_time, cycle_duration):

@@ -135,6 +135,11 @@ class MaterialTable:
     def to(self, device) -> "MaterialTable":
         return tensors_to(self, device)
 
+    def row(self, g) -> "MaterialTable":
+        """Geometry ``g``'s material: each field indexed by ``g`` (an int or
+        a tensor of geometry ids)."""
+        return MaterialTable(*(getattr(self, f.name)[g] for f in dataclasses.fields(self)))
+
 
 @dataclasses.dataclass(frozen=True)
 class InstanceTransforms:

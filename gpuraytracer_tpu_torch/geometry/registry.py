@@ -66,6 +66,30 @@ def registered() -> Tuple[Tuple[IntersectorKind, int], ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def dense_code(kind: IntersectorKind, prim_type: int) -> int:
+    """Index of (kind, prim_type) in ``registered()`` order: the branch
+    that ``intersect_switch`` takes. It is the reference's index for every
+    key that both packages register; the port's one more key, the shared
+    TRIANGLE entry, sorts last."""
+    return registered().index(_key(kind, prim_type))
+
+
+def intersect_switch(code, o, d, *, t_min, t_max, cull_backface, step_scale, elapsed_time,
+                     active, **kwargs):
+    """``intersect`` of the entry whose dense code (``dense_code``) is
+    ``code``, a Python int or a 0-d integer tensor; out of range it is
+    clamped to the first or last entry, as the reference's lax.switch
+    clamps its index. The host picks the branch, since it has no
+    lax.switch: a 0-d tensor on a CUDA device is read on the host, one
+    host sync; a Python int or a CPU tensor makes none. ``kwargs`` go to
+    ``intersect`` (a TRIANGLE entry's ``mesh``, the march's knobs)."""
+    entries = registered()
+    kind, prim_type = entries[min(max(int(code), 0), len(entries) - 1)]
+    return intersect(kind, prim_type, o, d, t_min=t_min, t_max=t_max,
+                     cull_backface=cull_backface, step_scale=step_scale,
+                     elapsed_time=elapsed_time, active=active, **kwargs)
+
+
 def intersect(kind, prim_type, o, d, *, t_min, t_max, cull_backface, step_scale,
               elapsed_time, natural_budget=SDF_MAX_STEPS, occlusion=False, level=0,
               with_normal=True, mesh=None, active=None, march=None, mesh_closest=None,

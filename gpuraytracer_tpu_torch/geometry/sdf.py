@@ -46,6 +46,10 @@ def op_subtract(d1, d2):
     return torch.maximum(d1, -d2)
 
 
+def op_union(d1, d2):
+    return torch.minimum(d1, d2)
+
+
 def op_intersect(d1, d2):
     return torch.maximum(d1, d2)
 
@@ -62,6 +66,22 @@ def op_twist(p):
     s = torch.sin(3.0 * p[:, 1])
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
     return torch.stack([c * x - s * z, s * x + c * z, y], dim=-1)
+
+
+def smin(a, b, k):
+    """Polynomial smooth minimum of blend width k."""
+    h = torch.clamp(0.5 + 0.5 * (b - a) / k, 0.0, 1.0)
+    return hlsl.lerp(b, a, h) - k * h * (1.0 - h)
+
+
+def smax(a, b, k):
+    """Polynomial smooth maximum of blend width k."""
+    h = torch.clamp(0.5 + 0.5 * (b - a) / k, 0.0, 1.0)
+    return hlsl.lerp(a, b, h) + k * h * (1.0 - h)
+
+
+def sd_plane(p):
+    return p[..., 1]
 
 
 def sd_sphere(p, s):
@@ -230,6 +250,12 @@ def register_distance_function(code, fn, *, aabb_windowed=False):
             "inside their unit box only; declare aabb_windowed=True")
     DISTANCE_FUNCTIONS[code] = fn
     AABB_WINDOWED_CODES = AABB_WINDOWED_CODES | {code}
+
+
+def get_distance(p, code):
+    """Distance code ``code``'s (``DISTANCE_FUNCTIONS``) distances at the
+    (N, 3) positions ``p``."""
+    return DISTANCE_FUNCTIONS[int(code)](p)
 
 
 def calculate_normal(pos, distance_fn):

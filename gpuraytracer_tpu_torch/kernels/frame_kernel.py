@@ -180,6 +180,12 @@ def frame_mode() -> str:
     return "plain"
 
 
+def compact_enabled() -> bool:
+    """Whether GPURT_FRAME_MODE asks for a compacted mode (the reference's
+    compact_enabled: "compact" or "defer")."""
+    return frame_mode() != "plain"
+
+
 def merged_shadow_enabled() -> bool:
     """GPURT_MERGED_SHADOW as the reference reads it ("1" on; default off)."""
     return os.environ.get("GPURT_MERGED_SHADOW", "") == "1"
@@ -208,6 +214,15 @@ def fused_eligible_layout(layout: SceneLayout, num_materials: int,
         and num_materials <= MAX_MATERIALS
         and total_mesh_faces <= traverse.TRI_FACE_TOTAL_CAP
     )
+
+
+def fused_eligible(scene: Scene, origins_ndim: int = 3) -> bool:
+    """Whether the frame kernel renders ``scene`` (the reference's
+    fused_eligible): ``fused_eligible_layout`` of its layout, its material
+    count and its mesh faces; render/trace.frame_route routes by it.
+    ``origins_ndim`` is the reference's, and unused there too."""
+    return fused_eligible_layout(scene.layout, scene.arrays.materials.albedo.shape[0],
+                                 traverse._total_mesh_faces(scene))
 
 
 def check_kernel_covers(layout: SceneLayout, route: str = "frame") -> None:
@@ -241,13 +256,18 @@ def frame_fields(arrays: SceneArrays):
             mb_params)
 
 
+def geometry_blocks(arrays: SceneArrays):
+    """The per-geometry blocks that do not move with the animation time:
+    (step_scales (G,), aabbs (G,6))."""
+    g = arrays.transforms.blas_to_local.shape[0]
+    return arrays.materials.step_scale[:g], torch.cat([arrays.aabb_min, arrays.aabb_max], dim=-1)
+
+
 def _static_blocks(scene: Scene):
     """The parameter blocks that do not move with the animation time:
     (step_scales (G,), aabbs (G,6), materials (M,8), p2w (4,4), cvec (8,4))."""
     arrays, layout = scene.arrays, scene.layout
-    g = arrays.transforms.blas_to_local.shape[0]
-    aabbs = torch.cat([arrays.aabb_min, arrays.aabb_max], dim=-1)
-    step_scales = arrays.materials.step_scale[:g]
+    step_scales, aabbs = geometry_blocks(arrays)
     mats = arrays.materials
     materials = torch.stack([
         mats.albedo[:, 0], mats.albedo[:, 1], mats.albedo[:, 2], mats.albedo[:, 3],

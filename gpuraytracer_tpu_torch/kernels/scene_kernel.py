@@ -31,6 +31,7 @@ queue run on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -69,6 +70,25 @@ PHASE_BUDGET = 64
 # Gated SDF geometries a lane keeps pending at once in the merged occlusion
 # march (csrc/traverse.cuh kMergeWindow).
 MERGE_WINDOW = 2
+
+
+# GPURT_MERGED_SHADOW as the reference's scene_kernel reads it; the port
+# keeps the rule in frame_kernel.
+merged_shadow_enabled = frame_kernel.merged_shadow_enabled
+
+
+def pack_params(arrays, elapsed_time):
+    """The reference's parameter blocks of ``arrays``: (b2l_rows (G,12),
+    l2b_rot (G,9), step_scales (G,), aabbs (G,6), mb_params (3,4)), the
+    metaballs' centres and radii at ``elapsed_time`` (a float or a 0-d
+    tensor): the fields that frame_kernel.pack_frame packs
+    (frame_kernel.frame_fields, geometry_blocks)."""
+    t = torch.as_tensor(elapsed_time, dtype=torch.float32, device=arrays.aabb_min.device)
+    at_t = dataclasses.replace(arrays, constants=dataclasses.replace(arrays.constants,
+                                                                     elapsed_time=t))
+    _, b2l_rows, l2b_rot, mb_params = frame_kernel.frame_fields(at_t)
+    step_scales, aabbs = frame_kernel.geometry_blocks(arrays)
+    return b2l_rows, l2b_rot, step_scales, aabbs, mb_params
 
 
 def dirty_bit(g: int) -> int:

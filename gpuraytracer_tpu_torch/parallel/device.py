@@ -23,6 +23,17 @@ class DeviceInfo:
     is_software: bool  # the CPU: the WARP analog
     description: str
 
+    @property
+    def id(self) -> int:
+        """The device's index (card N of "cuda:N"; 0 for the CPU)."""
+        return self.device.index or 0
+
+
+def available_platforms() -> list[str]:
+    """The platforms present, of "cuda" and "cpu", in that order."""
+    return (["cuda"] if torch.cuda.is_available() and torch.cuda.device_count() > 0
+            else []) + ["cpu"]
+
 
 def pick_device(device: str = "cuda") -> DeviceInfo:
     """The device named ``device``: "cuda" (card 0), "cuda:N" (the
@@ -48,3 +59,11 @@ def pick_device(device: str = "cuda") -> DeviceInfo:
     dev = torch.device("cuda", idx)
     return DeviceInfo(device=dev, platform="cuda", is_software=False,
                       description=f"{torch.cuda.get_device_name(dev)} (cuda:{idx})")
+
+
+def device_count(platform: str = "cuda") -> int:
+    """The number of devices of ``platform`` ("cuda" or "cpu", as
+    ``pick_device`` takes it; the CPU is one device). Raises as
+    ``pick_device`` does when the platform is absent."""
+    info = pick_device(platform)
+    return torch.cuda.device_count() if info.platform == "cuda" else 1

@@ -15,11 +15,15 @@ frame's pixels at its rows bit for bit, on every route and in every mode.
 may repeat in the mesh: its bands render one after another and share one
 upload of the scene's arrays). ``make_distributed_renderer`` renders
 one band per rank of a torch.distributed group; the mean radiance is an
-all_reduce and ``gather_image`` an all_gather there.
+all_reduce and ``gather_image`` an all_gather there. Both replay frame
+programs (render/program.py), as the reference jits its band renderer:
+one captured graph per device, over every band the device renders
+(``_BandPrograms``); ``render_bands`` is the bands' eager form.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -30,7 +34,7 @@ from gpuraytracer_tpu_torch.core import upload
 from gpuraytracer_tpu_torch.core.types import MAX_RAY_RECURSION_DEPTH
 from gpuraytracer_tpu_torch.kernels import frame_kernel
 from gpuraytracer_tpu_torch.parallel.device import pick_device
-from gpuraytracer_tpu_torch.render import trace
+from gpuraytracer_tpu_torch.render import program, trace
 
 
 def make_mesh(devices: Sequence | None = None) -> tuple:
@@ -70,41 +74,132 @@ def _band_sum(image):
     return torch.sum(image[..., :3], dtype=torch.float32)
 
 
-class _BandRenderer:
-    """Renders bands of one layout's frames through render/trace.render_frame,
-    which routes each band as the whole frame is routed (trace.frame_route),
-    with one exception copied from the reference (sharding.py:89-93,
-    :122-124; ROADMAP.md Q3 decision 7): on the frame route,
-    GPURT_FRAME_MODE=defer renders through the compacted mode, as the
-    reference's compact_enabled() sends "defer" to compact. The mode is
-    read per frame."""
+def render_bands(scene: Scene, width: int, height: int, n_bands: int, bands, *,
+                 max_depth: int = MAX_RAY_RECURSION_DEPTH, pack=None) -> list:
+    """The images of bands ``bands`` (indices of ``n_bands``, each of
+    H / n_bands rows) of ``scene``'s W x H frame, on the scene's device, in
+    the order given: each band through render/trace.render_frame, which
+    routes it as the whole frame is routed (trace.frame_route), with one
+    exception copied from the reference (sharding.py:89-93, :122-124;
+    ROADMAP.md Q3 decision 7): on the frame route every compacted mode
+    (frame_kernel.compact_enabled) renders through
+    frame_kernel.render_frame_compact, so GPURT_FRAME_MODE=defer takes the
+    compacted mode, as the reference's band renderer sends it. ``pack``:
+    the frame's packed buffers, shared by the bands (a band program's, which
+    it repacks in its graph); each band packs the scene itself if None (the
+    eager form)."""
+    if height % n_bands != 0:
+        raise ValueError(f"height {height} not divisible by mesh size {n_bands}")
+    lh = height // n_bands
+    compact = trace.frame_route(scene)[0] == "frame" and frame_kernel.compact_enabled()
+    if compact and scene.arrays.aabb_min.device.type == "cuda":
+        frame_kernel.check_kernel_covers(scene.layout, "frame")
+    images = []
+    for k in bands:
+        kw = dict(max_depth=max_depth, row_offset=k * lh, local_height=lh)
+        if compact:
+            images.append(frame_kernel.render_frame_compact(
+                pack if pack is not None else frame_kernel.pack_frame(scene), width=width,
+                height=height, **kw))
+        else:
+            images.append(trace.render_frame(scene, width, height, pack=pack, **kw))
+    return images
+
+
+class _BandPrograms:
+    """The band programs of one renderer: for each device, one frame
+    program (render/program.FrameProgram) that renders every band the
+    renderer places there, in band order, and with ``compute_stats`` each
+    band's f32 RGB sum (``_band_sum``) as one more output. Its static inputs
+    are a copy of the arrays (program.static_copy); its graph repacks them
+    into the pack that frame_kernel.pack_static built once
+    (frame_kernel.repack, as trace.make_renderer's graph does) and renders
+    the bands over that one pack (``render_bands``). Programs are keyed as
+    trace.make_renderer keys its own: program.key of the device, the
+    arrays' shapes, the size, the depth, ``compute_stats`` and the
+    device's band indices, so a changed GPURT_* knob builds a new one. A
+    graph belongs to one device, so a device that repeats in the mesh gets
+    one program for all its bands, the nearest a CUDA graph comes to the
+    reference's one jitted program over the mesh.
+
+    On a CUDA device a failed capture or replay raises, naming the program;
+    nothing renders the bands eagerly instead. On the CPU, which has no
+    graphs, each call runs the same frame function eagerly."""
 
     def __init__(self, layout: SceneLayout, width: int, height: int, n_bands: int, *,
-                 max_depth: int):
+                 max_depth: int, compute_stats: bool):
         if height % n_bands != 0:
             raise ValueError(f"height {height} not divisible by mesh size {n_bands}")
-        self.layout, self.width, self.height = layout, width, height
+        self.layout, self.width, self.height, self.n_bands = layout, width, height, n_bands
         self.local_height = height // n_bands
-        self.max_depth = max_depth
+        self.max_depth, self.compute_stats = max_depth, compute_stats
+        self.programs = {}
+
+    def _build(self, arrays: SceneArrays, dev, bands: tuple):
+        static = program.static_copy(arrays)
+        scene = Scene(self.layout, static)
+        pack = frame_kernel.pack_static(scene)
+
+        def frame():
+            frame_kernel.repack(pack, scene)
+            images = render_bands(scene, self.width, self.height, self.n_bands, bands,
+                                  max_depth=self.max_depth, pack=pack)
+            sums = [_band_sum(image) for image in images] if self.compute_stats else []
+            return tuple(images + sums)
+
+        route, mode = trace.frame_route(scene)
+        return static, program.FrameProgram(
+            frame, dev, label=f"band program {self.width}x{self.height} depth {self.max_depth}, "
+                              f"bands {list(bands)} of {self.n_bands} on {dev} (route {route}, "
+                              f"mode {mode})")
 
     def __call__(self, arrays: SceneArrays, placements):
-        """Band images at ``placements``, (device, band index) pairs; the
-        arrays go to each device once (core/upload.arrays_to, no host sync)."""
-        scenes, images = {}, []
+        """(images, sums) of the bands at ``placements``, (device, band
+        index) pairs in band order: the images by band, and with
+        ``compute_stats`` each band's RGB sum on its device (else None). The
+        arrays go to each device once (core/upload.arrays_to: itself where
+        it is there, no host sync) and into its program's static inputs
+        (program.copy_arrays, stream-ordered)."""
+        by_device = {}
         for dev, k in placements:
-            if dev not in scenes:
-                scenes[dev] = Scene(self.layout, upload.arrays_to(arrays, dev))
-            scene = scenes[dev]
-            kw = dict(max_depth=self.max_depth, row_offset=k * self.local_height,
-                      local_height=self.local_height)
-            if trace.frame_route(scene) == ("frame", "defer"):
-                if dev.type == "cuda":
-                    frame_kernel.check_kernel_covers(self.layout, "frame")
-                images.append(frame_kernel.render_frame_compact(
-                    frame_kernel.pack_frame(scene), width=self.width, height=self.height, **kw))
-            else:
-                images.append(trace.render_frame(scene, self.width, self.height, **kw))
-        return images
+            by_device.setdefault(dev, []).append(k)
+        images, sums = {}, {}
+        for dev, bands in by_device.items():
+            bands = tuple(bands)
+            src = upload.arrays_to(arrays, dev)
+            shapes = tuple(tuple(t.shape) for t in program.tensor_leaves(src))
+            key = program.key(Scene(self.layout, src), str(dev), shapes, self.width, self.height,
+                              self.max_depth, self.compute_stats, bands)
+            if key not in self.programs:
+                self.programs[key] = self._build(src, dev, bands)
+            static, prog = self.programs[key]
+            program.copy_arrays(static, src)
+            out = prog()
+            for i, k in enumerate(bands):
+                images[k] = out[i]
+                sums[k] = out[len(bands) + i] if self.compute_stats else None
+        order = [k for _, k in placements]
+        return [images[k] for k in order], [sums[k] for k in order]
+
+    def close(self) -> None:
+        """Drop every program's graph and outputs."""
+        _close(self.programs)
+
+
+def _close(programs: dict) -> None:
+    for _, prog in programs.values():
+        prog.close()
+    programs.clear()
+
+
+def _renderer(render, bands: _BandPrograms):
+    """``render`` with the renderer's ``programs`` and ``close`` attached;
+    the programs close when ``render`` is collected."""
+    render.programs = bands.programs
+    render.close = bands.close
+    # Not at interpreter exit: the process's teardown frees the graphs.
+    weakref.finalize(render, _close, bands.programs).atexit = False
+    return render
 
 
 def make_sharded_renderer(layout: SceneLayout, width: int, height: int, mesh: Sequence, *,
@@ -115,23 +210,31 @@ def make_sharded_renderer(layout: SceneLayout, width: int, height: int, mesh: Se
     on a GPU); with ``compute_stats`` also the mean radiance, the f32 sum of
     each band's RGB added on ``mesh[0]`` in band order, over W * H * 3 (the
     reference's psum), a 0-d tensor on ``mesh[0]``. ``height`` must divide
-    by the mesh size (ValueError)."""
+    by the mesh size (ValueError).
+
+    The reference jits this function (sharding.py:144-148). Here each call
+    replays one band program per device of the mesh (``_BandPrograms``),
+    built at the first call for its key; the copies of the arrays in, the
+    cross-device add of the band sums and the ``Bands`` stay outside the
+    graphs. ``render.programs`` holds them, ``render.close()`` drops them
+    (and so does collecting ``render``)."""
     mesh = tuple(torch.device(d) for d in mesh)
-    bands = _BandRenderer(layout, width, height, len(mesh), max_depth=max_depth)
+    bands = _BandPrograms(layout, width, height, len(mesh), max_depth=max_depth,
+                          compute_stats=compute_stats)
     offsets = tuple(k * bands.local_height for k in range(len(mesh)))
 
     def render(arrays: SceneArrays):
-        images = tuple(bands(arrays, [(dev, k) for k, dev in enumerate(mesh)]))
-        out = Bands(images, offsets, width, height)
+        images, sums = bands(arrays, [(dev, k) for k, dev in enumerate(mesh)])
+        out = Bands(tuple(images), offsets, width, height)
         if not compute_stats:
             return out
         total = None
-        for image in images:
-            part = upload.tensor_to(_band_sum(image), mesh[0])
+        for part in sums:
+            part = upload.tensor_to(part, mesh[0])
             total = part if total is None else total + part
         return out, total / (width * height * 3)
 
-    return render
+    return _renderer(render, bands)
 
 
 def _staged(t: torch.Tensor, group) -> torch.Tensor:
@@ -148,32 +251,35 @@ def make_distributed_renderer(layout: SceneLayout, width: int, height: int, *, g
     """The frame function of one rank of a torch.distributed ``group``
     (default the world; initialised by the caller): ``render(arrays)``
     renders the rank's band, rows [r * H / n, (r + 1) * H / n) for rank r
-    of n, on ``device``, routed as ``make_sharded_renderer`` routes it, and
-    returns ``Bands`` holding that band (``gather_image`` of it assembles
+    of n, on ``device``, routed as ``make_sharded_renderer`` routes it and
+    replayed from one band program (``_BandPrograms``), and returns ``Bands`` holding that band (``gather_image`` of it assembles
     the frame on every rank with an all_gather); with ``compute_stats`` also
     the mean radiance, an all_reduce(SUM) of the ranks' f32 RGB sums over
     W * H * 3. Under gloo the collectives' tensors are staged through the
     host: the band's RGB sum (one f32; the mean comes back as a 0-d CPU
     tensor) and, in ``gather_image``, the band image and the other ranks'
     bands; under another backend they stay on the device. ``height`` must
-    divide by the group's size (ValueError)."""
+    divide by the group's size (ValueError). The collectives run outside
+    the program's graph, where the reference's psum is inside its jit
+    (ROADMAP.md Q3 decision 13)."""
     import torch.distributed as dist
 
     group = group if group is not None else dist.group.WORLD
     n, rank = dist.get_world_size(group), dist.get_rank(group)
     device = pick_device(str(torch.device(device))).device
-    bands = _BandRenderer(layout, width, height, n, max_depth=max_depth)
+    bands = _BandPrograms(layout, width, height, n, max_depth=max_depth,
+                          compute_stats=compute_stats)
 
     def render(arrays: SceneArrays):
-        (image,) = bands(arrays, [(device, rank)])
+        (image,), (part,) = bands(arrays, [(device, rank)])
         out = Bands((image,), (rank * bands.local_height,), width, height, group)
         if not compute_stats:
             return out
-        total = _staged(_band_sum(image), group)
+        total = _staged(part, group)
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
         return out, total / (width * height * 3)
 
-    return render
+    return _renderer(render, bands)
 
 
 def gather_image(bands: Bands) -> np.ndarray:

@@ -37,7 +37,7 @@ import torch
 
 from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.accel.instances import Scene, ray_to_blas
-from gpuraytracer_tpu_torch.accel.traverse import _total_mesh_faces, any_hit, closest_hit
+from gpuraytracer_tpu_torch.accel.traverse import any_hit, closest_hit
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
 from gpuraytracer_tpu_torch.core.upload import constant
@@ -459,15 +459,14 @@ def make_renderer(layout, width: int, height: int, *,
 
 def frame_route(scene: Scene):
     """(route, mode) of a frame on a GPU: route "frame" for a fused-eligible
-    scene (frame_kernel.fused_eligible_layout), else "scene" within the
+    scene (frame_kernel.fused_eligible), else "scene" within the
     mesh face cap and "per_geometry" past it; mode GPURT_FRAME_MODE
     (frame_kernel.frame_mode) for the "frame" route, "plain" for the
     others, which the reference never sends to a compacted mode."""
     from gpuraytracer_tpu_torch.accel.traverse import _scene_kernel_eligible
     from gpuraytracer_tpu_torch.kernels import frame_kernel
 
-    if frame_kernel.fused_eligible_layout(
-            scene.layout, scene.arrays.materials.albedo.shape[0], _total_mesh_faces(scene)):
+    if frame_kernel.fused_eligible(scene):
         return "frame", frame_kernel.frame_mode()
     return ("scene" if _scene_kernel_eligible(scene) else "per_geometry"), "plain"
 

@@ -17,9 +17,24 @@ class Event:
         self._listeners: List[object] = []
 
     def attach(self, fn: Callable) -> None:
+        """Hold a bound method weakly; a builtin's bound method (``list.
+        append``), which a WeakMethod refuses, and any other callable
+        strongly, as the reference does."""
+        entry = fn
+        if hasattr(fn, "__self__"):
+            try:
+                entry = weakref.WeakMethod(fn)
+            except TypeError:
+                pass
         with self._lock:
-            self._listeners.append(
-                weakref.WeakMethod(fn) if hasattr(fn, "__self__") else fn)
+            self._listeners.append(entry)
+
+    def detach(self, fn: Callable) -> None:
+        """Remove every attachment of ``fn`` (held strongly or weakly)."""
+        with self._lock:
+            self._listeners = [
+                e for e in self._listeners
+                if not (isinstance(e, weakref.WeakMethod) and e() == fn) and e != fn]
 
     def __call__(self, *args, **kwargs) -> None:
         with self._lock:
@@ -35,13 +50,19 @@ class Event:
             with self._lock:
                 self._listeners = [e for e in self._listeners if e not in dead]
 
+    @property
+    def listener_count(self) -> int:
+        with self._lock:
+            return len(self._listeners)
+
 
 class Viewport:
-    """Headless viewport: image size and a resize event."""
+    """Headless viewport: image size, a title and a resize event."""
 
-    def __init__(self, width: int, height: int):
+    def __init__(self, width: int, height: int, title: str = "gpuraytracer_tpu"):
         self.width = width
         self.height = height
+        self.title = title
         self.on_size_changed = Event()
 
     @property
@@ -54,3 +75,7 @@ class Viewport:
         self.width = width
         self.height = height
         self.on_size_changed(width, height)
+
+    def set_title(self, text: str) -> None:
+        """The set_custom_window_text analog: keeps the frame-stats line."""
+        self.title = text

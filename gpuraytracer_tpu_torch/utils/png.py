@@ -29,6 +29,14 @@ def encode_png(rgba: np.ndarray, compress_level: int = 6) -> bytes:
                      _chunk(b"IEND", b"")])
 
 
+def write_png(path: str, rgba: np.ndarray) -> None:
+    """Write (H, W, 3|4) uint8 as a PNG file: runtime/hostrt.write_png, the
+    native writer where it is available, else ``encode_png``."""
+    from gpuraytracer_tpu_torch.runtime import hostrt
+
+    hostrt.write_png(path, rgba)
+
+
 def image_f32_to_rgba8(image) -> np.ndarray:
     """Radiance -> R8G8B8A8_UNORM (saturate + round), alpha forced opaque
     for viewing (the reference's alpha carries shading, not coverage)."""

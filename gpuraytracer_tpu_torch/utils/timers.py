@@ -190,6 +190,21 @@ class DeviceTimer(EmaTimer):
         self.poll()
         return self._last_ms
 
+    def stop_after(self, value) -> float:
+        """Wait for the stream that produced ``value`` (a tensor or a tuple
+        of them: the current stream of each one's CUDA device), then
+        ``stop`` and return the span's ms. A host sync by design, as the
+        reference's block_until_ready."""
+        values = value if isinstance(value, (tuple, list)) else (value,)
+        for dev in {v.device for v in values if isinstance(v, torch.Tensor)}:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        ms = self.stop()
+        if self._cuda:
+            self.drain()
+            ms = self._last_ms
+        return ms
+
     def poll(self) -> int:
         """Fold the completed spans; returns how many are still pending."""
         while self._pending and self._pending[0][1].query():

@@ -24,6 +24,7 @@ import shlex
 import pytest
 
 from gpuraytracer_tpu_torch.apps import bench_suite
+from gpuraytracer_tpu_torch.utils import stats
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_PATH = os.path.join(ROOT, "gpuraytracer_tpu", "apps", "bench_suite.py")
@@ -149,7 +150,18 @@ def test_report_has_the_reference_keys(tmp_path, extra):
         assert line["mrays_dispatch"] is None
     else:
         assert "device_frame_ms_below_resolution" not in line
-        assert line["mrays_dispatch"] > 0
+        # mrays_dispatch is W * H / (d * 1e3) of the unrounded device time d,
+        # rounded to 3 decimals, and device_frame_ms is d rounded to 3
+        # decimals, D (>= RESOLUTION_MS here). From D the value is exact to
+        # within the two roundings: 5e-4 for its own, and for D's, |D - d| <=
+        # 5e-4 moves W * H / (x * 1e3) by at most W * H / 1e3 * 5e-4 /
+        # (D * (D - 5e-4)); 1e-9 covers the float arithmetic. A slow host
+        # makes the value small (0.0 past about 288 ms at 12x12), not wrong.
+        half = 5e-4
+        d_ms = line["device_frame_ms"]
+        want = stats.mrays_per_second_from_dispatch_ms(line["width"], line["height"], d_ms)
+        err = half + line["width"] * line["height"] / 1e3 * half / (d_ms * (d_ms - half))
+        assert abs(line["mrays_dispatch"] - want) <= err + 1e-9, (line["mrays_dispatch"], want, err)
 
 
 def test_warmup_flag_runs():

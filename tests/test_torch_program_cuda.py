@@ -6,8 +6,13 @@ GPURT_DISABLE_FUSED=1, the per-geometry route of mesh_heightfield_sdf),
 and a replay makes no host sync (torch.cuda.set_sync_debug_mode("error")
 raises on one). The Renderer's program animates with row 10
 (kernels/frame_state.py), make_renderer's packs the caller's arrays in its
-graph. Skips without a GPU; this file imports nothing of JAX, so it runs on
-the GPU machine with --noconftest."""
+graph. The band renderer's programs (parallel/sharding.py) at 320x180 in 4
+bands on cuda:0 (one graph over the four bands) equal the eager bands bit
+for bit in plain mode, in compact mode with GPURT_COMPACT_BUDGET=1 (bands
+whose queue overflows, where the gate launches the plain frame kernel over
+the band from the device inside the graph) and on the per-geometry route,
+with no host sync in a replay. Skips without a GPU; this file imports
+nothing of JAX, so it runs on the GPU machine with --noconftest."""
 
 import pytest
 import torch
@@ -15,7 +20,9 @@ import torch
 from gpuraytracer_tpu_torch.accel.instances import Scene
 from gpuraytracer_tpu_torch.apps import bench_suite
 from gpuraytracer_tpu_torch.kernels import frame_state
+from gpuraytracer_tpu_torch.kernels import frame_kernel
 from gpuraytracer_tpu_torch.models import builtin, meshes
+from gpuraytracer_tpu_torch.parallel import sharding
 from gpuraytracer_tpu_torch.render import trace
 from gpuraytracer_tpu_torch.render.renderer import Renderer
 
@@ -95,3 +102,45 @@ def test_window_program_equals_eager_frames_on_cuda(cuda_device):
         want = want + torch.sum(img)
     assert torch.equal(acc, want)
     assert prog.nodes is None or prog.nodes > 0
+
+
+BAND_ROUTES = {"plain": ("builtin", {}),
+               "compact overflowing": ("builtin", {"GPURT_FRAME_MODE": "compact",
+                                                   "GPURT_COMPACT_BUDGET": "1"}),
+               "per_geometry": ("mesh_heightfield_sdf", {})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(BAND_ROUTES))
+def test_band_programs_equal_the_eager_bands_on_cuda(cuda_device, monkeypatch, route):
+    name, knobs = BAND_ROUTES[route]
+    for k in ("GPURT_FRAME_MODE", "GPURT_COMPACT_BUDGET", "GPURT_MERGED_SHADOW",
+              "GPURT_DISABLE_FUSED"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    n = 4
+    _, scene, animate = _renderer(name, cuda_device)
+    render = sharding.make_sharded_renderer(scene.layout, W, H,
+                                            sharding.make_mesh(["cuda:0"] * n),
+                                            compute_stats=True)
+    render(scene.arrays)  # builds the program (outside the sync check: the warm-up uploads)
+    frames = [animate(scene.arrays, t) for t in TIMES]
+    gated = frame_kernel.GATED_FALLBACK_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [render(a) for a in frames]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(render.programs) == 1
+    if "GPURT_COMPACT_BUDGET" in knobs:  # one gate a band, overflowing or not
+        assert frame_kernel.GATED_FALLBACK_LAUNCHES - gated == n * len(TIMES)
+    for t, a, (bands, mean) in zip(TIMES, frames, got):
+        eager = sharding.render_bands(Scene(scene.layout, a), W, H, n, range(n))
+        assert all(torch.equal(x, y) for x, y in zip(bands.images, eager)), (route, t)
+        total = None
+        for image in eager:
+            part = torch.sum(image[..., :3], dtype=torch.float32)
+            total = part if total is None else total + part
+        assert torch.equal(mean, total / (W * H * 3)), (route, t)
+    render.close()
