@@ -18,7 +18,10 @@ exits non-zero):
               whose device-side launch is built with -ewp and linked
               against cudadevrt, in both --fmad modes; the wavefront's
               lane kernels, wavefront.cu; row 10, frame_state.cu, always
-              --fmad=false); print ptxas' registers
+              --fmad=false; row 7's parent march, one thread per ray
+              (-DGPRT_SPHERE_TRACE_PER_RAY), and its SIMT build; row 8's
+              parent bf16 probe, one element a thread
+              (-DGPRT_PROBE_BF16_SCALAR)); print ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
@@ -61,7 +64,8 @@ exits non-zero):
               shared memory (both kernels read them from global memory)
   9. mesh     the march kernel (csrc/megakernel.cu) against its plain version
               on ray batches for every SDF code, closest and occlusion, at
-              the level-0 and the bounce budget; the three mesh scenes of
+              the level-0 and the bounce budget, and bit for bit against
+              the parent's one thread per ray; the three mesh scenes of
               models/meshes.py at 96x54 against their goldens and at
               320x180 against their route's plain version (the octahedra
               also with GPURT_DISABLE_FUSED=1, through the scene kernel);
@@ -82,8 +86,18 @@ exits non-zero):
               bounds and SIMT; the chain's march and mesh calls against
               their plain versions (ray-batch bar over the gated rays,
               normals, gated-out rays miss) and alone, the mesh entry in
-              each face loop; one 1080p mesh_octahedra frame-kernel frame
-              against its plain version
+              each face loop; row 7 on the chain's two 1080p march calls
+              (its [mesh] "row 7" lines): gated rays and the parent grid's
+              blocks and warps that hold one, march samples (mean, max),
+              SIMT and resident blocks of both designs, the queued march
+              bit for bit against the parent's and under
+              set_sync_debug_mode("error"), the queue against its plain
+              version's set, both timed in one call in turns, the queue
+              alone beside torch.nonzero(gate), and the bound's terms:
+              bytes, operations and the critical path (the longest march's
+              samples times one sample's latency, from the ray the plain
+              version marches longest, marched alone); one 1080p
+              mesh_octahedra frame-kernel frame against its plain version
  10. modes    GPURT_FRAME_MODE=compact|defer (the compact, dense, defer,
               compose and gated entries of csrc/frame_kernel.cu, the queue
               kernel of csrc/scene_kernel.cu; device-side queues, no host
@@ -148,8 +162,15 @@ exits non-zero):
               batches (the three scenes' reflection rays at level 1, the
               builtin scene's camera and shadow rays at level 0) in both
               fmad builds; the op probe (csrc/op_probe.cu) against its plain
-              version in all ten variants, then timed at the reference's
-              2000 iterations (ns per element-iteration, bf16/f32)
+              version in all ten variants (the bf16 variants, packed pairs,
+              element for element against the scalar build and the plain
+              version on the reference's array and a seeded one), then
+              timed at the reference's 2000 iterations (ns per
+              element-iteration, bf16/f32, packed beside scalar) and priced
+              by pipe (apps/op_probe.py pipes: each variant's SASS
+              instructions a iteration by pipe, its chain's cycles a
+              iteration with one warp, its ns/elem-iter with the card full,
+              its bound by pipe beside the FLOP-count bound)
  12. simt     the SIMT-counting builds (-DGPRT_COUNT_SIMT): the share of a
               warp's 32 lanes that march at each march sample, for the frame
               kernel on the builtin and the fractal 1080p frames per level
@@ -429,6 +450,7 @@ def reset_counts():
     frame_kernel.LAUNCHES = 0
     scene_kernel.LAUNCHES = 0
     megakernel.LAUNCHES = 0
+    megakernel.APPEND_LAUNCHES = 0
     megakernel.MESH_LAUNCHES = 0
     megakernel.PASS_LAUNCHES = 0
     frame_kernel.COMPACT_LAUNCHES = frame_kernel.DENSE_LAUNCHES = 0
@@ -486,10 +508,11 @@ def ptxas_summary(report):
         if not m:
             return mangled
         n, rest = int(m.group(1)), m.group(2)
-        flags = re.match(r"I((?:Lb[01]E)+)E", rest[n:])
+        flags = re.match(r"I((?:L[bi]n?\d+E)+)E", rest[n:])
         if not flags:
             return rest[:n]
-        names = ["true" if f == "1" else "false" for f in re.findall(r"Lb([01])E", flags.group(1))]
+        names = [("true" if v == "1" else "false") if kind == "b" else "-" * len(neg) + v
+                 for kind, neg, v in re.findall(r"L([bi])(n?)(\d+)E", flags.group(1))]
         return rest[:n] + "<" + ", ".join(names) + ">"
 
     out, entry, props, stack = [], None, None, ""
@@ -757,6 +780,178 @@ def lane_kernels(label, scene, pack, route, card, w=W_MAIN, h=H_MAIN, depth=3):
           + f"; a frame's five {masked:.4f} / {compacted:.4f} ms ({masked - compacted:+.4f}); "
           f"{card}", flush=True)
     return rows, passes
+
+
+# Row 7's steps alone, each a build with one macro, for phase 9's same-call
+# A/B: the queue with the generic march, the queue in the order its warps'
+# groups append, one thread per ray with the specialized march.
+ROW7_VARIANTS = {"queue_generic": "GPRT_SPHERE_MARCH_GENERIC",
+                 "queue_groups": "GPRT_SPHERE_QUEUE_WARP_GROUPS",
+                 "per_ray_coded": "GPRT_SPHERE_TRACE_PER_RAY"}
+
+
+def march_designs(calls, dev, card):
+    """Row 7 (the one-geometry march) on the recorded ``calls`` [(args, kw)]
+    of sphere_trace_tiles: per call the gated rays and the blocks and warps
+    of the parent's grid that hold one; the queued march against the
+    parent's one thread per ray (-DGPRT_SPHERE_TRACE_PER_RAY) bit for bit,
+    and under set_sync_debug_mode("error"); both designs' SIMT and the
+    march samples (the SIMT builds' counters); their times in one call, in
+    turns (parent, queued, queued, parent); the queue alone and
+    torch.nonzero(gate); and the bound's three terms: bytes, operations
+    (the op-counting build) and the critical path, the longest march's
+    samples times one sample's dependent latency (the ray that the plain
+    version marches longest, marched alone, less an empty call, over its
+    samples). Returns the sums over the calls."""
+    from gpuraytracer_tpu_torch.geometry import sdf
+    from gpuraytracer_tpu_torch.kernels import build, megakernel
+
+    # The parent's design (one thread per ray, the generic march), the
+    # shipped one (the queue in ray order within each block, the march
+    # specialized on its code), and each step alone (ROW7_VARIANTS).
+    libs = {"per_ray": build.load("megakernel", defines=megakernel.PER_RAY_DEFINES),
+            "queue": build.load("megakernel")}
+    libs.update({k: build.load("megakernel", defines=(m,)) for k, m in ROW7_VARIANTS.items()})
+    simt_libs = {"per_ray": build.load("megakernel", count_simt=True,
+                                       defines=megakernel.PER_RAY_DEFINES),
+                 "queue": build.load("megakernel", count_simt=True),
+                 "queue_groups": build.load("megakernel", count_simt=True,
+                                            defines=(ROW7_VARIANTS["queue_groups"],))}
+    ops_lib = build.load("megakernel", count_ops=True)
+    tot = dict(ms={k: 0.0 for k in libs}, queue_ms=0.0, queue_plain_ms=0.0,
+               library_ms=0.0, bytes=0, queue_bytes=0, ops=0, critical_ms=0.0, gated=0)
+
+    def call(args, kw, lib=None, ops=None):
+        return megakernel.sphere_trace_tiles(*args, lib=lib, ops=ops, **kw)
+
+    for j, (args, kw) in enumerate(calls):
+        o, d, gate, t_max, step_scale = args
+        n, gated = o.shape[0], int(gate.sum())
+        pad = torch.zeros(-(-n // 128) * 128, dtype=torch.bool, device=dev)
+        pad[:n] = gate
+        blocks, warps = int(pad.view(-1, 128).any(1).sum()), int(pad.view(-1, 32).any(1).sum())
+        resident = {k: megakernel.sphere_residency(dev, kw["prim_code"], lib=lib)
+                    for k, lib in libs.items()}
+        out = {k: call(args, kw, lib) for k, lib in libs.items()}
+        # Rays whose t or normal differ from the parent's, bit for bit.
+        differ = {k: int(((out[k][1] != out["per_ray"][1])
+                          | (out[k][2] != out["per_ray"][2]).any(1)).sum()) for k in libs}
+        same = differ["queue"] == 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced = call(args, kw)
+            queue, count = megakernel.sphere_queue(gate)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        same = same and all(torch.equal(x, y) for x, y in zip(synced, out["per_ray"]))
+        p_queue, p_count = megakernel.sphere_queue_plain(gate)
+        queue_ok = (int(count) == int(p_count) and torch.equal(
+            torch.sort(queue[:int(count)]).values, p_queue[:int(p_count)]))
+        if not (same and queue_ok):
+            raise AssertionError(f"1080p march call {j}: the queued march is not the parent's "
+                                 f"bit for bit ({same}) or its queue not the gated rays ({queue_ok})")
+        sim = {}
+        for k, lib in simt_libs.items():
+            cnt = torch.zeros(megakernel.MARCH_SIMT_COUNTERS, dtype=torch.int64, device=dev)
+            call(args, kw, lib, cnt)
+            sim[k] = megakernel.march_simt(cnt)
+        if any(sim[k]["samples"] != sim["per_ray"]["samples"] or
+               sim[k]["max_samples"] != sim["per_ray"]["max_samples"] for k in sim):
+            raise AssertionError(f"1080p march call {j}: the designs took other samples: {sim}")
+        ms = {k: [] for k in libs}
+        for k in ("per_ray", "queue_generic", "queue_groups", "per_ray_coded", "queue", "queue",
+                  "per_ray_coded", "queue_groups", "queue_generic", "per_ray"):
+            ms[k].append(cuda_ms(lambda: call(args, kw, libs[k]), 20)[0])
+        q_ms = cuda_ms(lambda: megakernel.sphere_queue(gate), SHORT_REPS)[0]
+        qp_ms = cuda_ms(lambda: megakernel.sphere_queue_plain(gate), 1, warmup=False)[0]
+        lib_ms = cuda_ms(lambda: torch.nonzero(gate), SHORT_REPS)[0]
+        ops = torch.zeros(1, dtype=torch.int64, device=dev)
+        call(args, kw, ops_lib, ops)
+        n_ops = int(ops.item())
+        # The critical path: the ray the plain version marches longest,
+        # alone (its samples from the SIMT build), less a call that
+        # marches nothing.
+        st = sdf.march_state(o, d, gate, t_max, step_scale, prim_code=kw["prim_code"],
+                             cull_backface=kw["cull_backface"], max_steps=kw["max_steps"],
+                             t_start=kw.get("t_start"), relax=kw["relax"])
+        samples = torch.zeros(st.lanes.numel(), dtype=torch.int64, device=dev)
+        while st.marching:
+            samples[st.cur] += 1
+            st.step()
+        r = int(st.lanes[int(torch.argmax(samples))])
+        one_kw = dict(kw, t_start=None if kw.get("t_start") is None else kw["t_start"][r:r + 1])
+        one = (o[r:r + 1], d[r:r + 1], gate[r:r + 1], t_max[r:r + 1], step_scale)
+        none = (o[r:r + 1], d[r:r + 1], ~gate[r:r + 1], t_max[r:r + 1], step_scale)
+        cnt = torch.zeros(megakernel.MARCH_SIMT_COUNTERS, dtype=torch.int64, device=dev)
+        call(one, one_kw, simt_libs["queue"], cnt)
+        one_samples = megakernel.march_simt(cnt)["max_samples"]
+        one_ms = cuda_ms(lambda: call(one, one_kw), SHORT_REPS)[0]
+        none_ms = cuda_ms(lambda: call(none, one_kw), SHORT_REPS)[0]
+        sample_ns = (one_ms - none_ms) * 1e6 / max(one_samples, 1)
+        # The parent's march (generic: a call and a switch a sample), the
+        # same ray alone.
+        p_one_ms = cuda_ms(lambda: call(one, one_kw, libs["per_ray"]), SHORT_REPS)[0]
+        p_none_ms = cuda_ms(lambda: call(none, one_kw, libs["per_ray"]), SHORT_REPS)[0]
+        p_sample_ns = (p_one_ms - p_none_ms) * 1e6 / max(one_samples, 1)
+        critical_ms = sim["queue"]["max_samples"] * sample_ns * 1e-6
+        # Every ray reads its gate and writes t_hit and its normal; a gated
+        # ray reads o, d, t_max (and t_start). The queue: each ray's gate
+        # read, each ungated ray's miss and each gated ray's index written.
+        t_start_b = 4 if kw.get("t_start") is not None else 0
+        nbytes = n * (1 + 16) + gated * (12 + 12 + 4 + t_start_b)
+        q_bytes = n + (n - gated) * 16 + gated * 4 + 4
+        print(f"[mesh] row 7, 1080p march call {j} (code {kw['prim_code']}, budget "
+              f"{kw['max_steps']}): {gated} of {n} rays gated ({100 * gated / n:.2f}%), in "
+              f"{blocks} of {-(-n // 128)} blocks and {warps} of {-(-n // 32)} warps of the "
+              f"parent's grid; march samples mean {sim['queue']['samples'] / max(gated, 1):.2f}, "
+              f"max {sim['queue']['max_samples']}; SIMT parent {100 * sim['per_ray']['simt']:.2f}%"
+              f" ({sim['per_ray']['warp_samples']} warp-samples), queued "
+              f"{100 * sim['queue']['simt']:.2f}% ({sim['queue']['warp_samples']}); resident "
+              f"blocks/SM parent {resident['per_ray'][0]}, shipped {resident['queue'][0]}; "
+              f"rays that differ from the parent's bit for bit {differ}, queue = the gated rays, "
+              f"0 host syncs; in turns: parent (one thread per ray, generic march) "
+              f"{ms['per_ray'][0]:.4f} / {ms['per_ray'][1]:.4f} ms, the queue with the generic "
+              f"march {ms['queue_generic'][0]:.4f} / {ms['queue_generic'][1]:.4f}, the queue in "
+              f"its warps' groups' order {ms['queue_groups'][0]:.4f} / "
+              f"{ms['queue_groups'][1]:.4f} (SIMT {100 * sim['queue_groups']['simt']:.2f}%), one "
+              f"thread per "
+              f"ray with the march specialized on its code {ms['per_ray_coded'][0]:.4f} / "
+              f"{ms['per_ray_coded'][1]:.4f}, shipped (the queue, the specialized march) "
+              f"{ms['queue'][0]:.4f} / {ms['queue'][1]:.4f} ms; the queue alone "
+              f"{q_ms:.4f} ms (plain {qp_ms:.3f}, torch.nonzero(gate) {lib_ms:.4f}); bound "
+              f"terms: bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B), operations "
+              f"{n_ops / F32_OPS_PER_S * 1e3:.4f} ms ({n_ops} FLOPs), critical path "
+              f"{critical_ms:.4f} ms (ray {r} alone: {one_samples} samples in "
+              f"{one_ms:.4f} ms, an empty call {none_ms:.4f} ms: {sample_ns:.2f} ns a "
+              f"sample; the parent's march {p_sample_ns:.2f} ns a sample, {p_one_ms:.4f} and "
+              f"{p_none_ms:.4f} ms); {card}", flush=True)
+        for k in ms:
+            tot["ms"][k] += sum(ms[k]) / len(ms[k])
+        tot["queue_ms"] += q_ms
+        tot["queue_plain_ms"] += qp_ms
+        tot["library_ms"] += lib_ms
+        tot["bytes"] += nbytes
+        tot["queue_bytes"] += q_bytes
+        tot["ops"] += n_ops
+        tot["critical_ms"] += critical_ms
+        tot["gated"] += gated
+        tot.setdefault("resident", resident)
+        tot.setdefault("code", kw["prim_code"])
+    tot["bound_ms"] = max(tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["ops"] / F32_OPS_PER_S * 1e3,
+                          tot["critical_ms"])
+    tot["bound_by"] = ("critical path" if tot["bound_ms"] == tot["critical_ms"] else
+                       bound(tot["bytes"], tot["ops"])[1])
+    print(f"[mesh] row 7, the {len(calls)} 1080p march calls (same call): parent "
+          f"{tot['ms']['per_ray']:.4f} ms, the queue alone changed {tot['ms']['queue_generic']:.4f}"
+          f", the queue in its groups' order {tot['ms']['queue_groups']:.4f}, the specialized "
+          f"march alone {tot['ms']['per_ray_coded']:.4f}, shipped "
+          f"{tot['ms']['queue']:.4f} ms; bound {tot['bound_ms']:.4f} ms by "
+          f"{tot['bound_by']} (bytes {tot['bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, operations "
+          f"{tot['ops'] / F32_OPS_PER_S * 1e3:.4f}, critical path {tot['critical_ms']:.4f}); "
+          f"the queue alone {tot['queue_ms']:.4f} ms, torch.nonzero {tot['library_ms']:.4f} ms; "
+          f"{card}", flush=True)
+    return tot
 
 
 def png_size(data: bytes):
@@ -1745,7 +1940,8 @@ def main() -> int:
     from gpuraytracer_tpu_torch.core import camera as cam
     from gpuraytracer_tpu_torch.core import hlsl
     from gpuraytracer_tpu_torch.geometry import sdf
-    from gpuraytracer_tpu_torch.kernels import build, frame_kernel, scene_kernel, wavefront
+    from gpuraytracer_tpu_torch.kernels import (build, frame_kernel, megakernel, op_probe,
+                                                scene_kernel, wavefront)
     from gpuraytracer_tpu_torch.models import builtin, scenes
     from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.render.renderer import Renderer
@@ -1802,6 +1998,20 @@ def main() -> int:
                    for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
                                        (build.DEFAULT_FMAD, True))]
         builds.append(("scene_finish", build.DEFAULT_FMAD, False, False, False, False, True))
+        # Row 7's parent design, one thread per ray (-DGPRT_SPHERE_TRACE_PER_RAY),
+        # which phase 9 holds the queued march to and times beside it, with
+        # its SIMT build; row 8's parent bf16 form, one element a thread
+        # (-DGPRT_PROBE_BF16_SCALAR), which phase 11 holds the packed pairs to.
+        builds += [("megakernel", build.DEFAULT_FMAD, False, simt, False, False, False,
+                    megakernel.PER_RAY_DEFINES) for simt in (False, True)]
+        builds.append(("op_probe", build.DEFAULT_FMAD, False, False, False, False, False,
+                       op_probe.SCALAR_DEFINES))
+        # Row 7's steps alone, for phase 9's same-call A/B (ROW7_VARIANTS),
+        # and the SIMT build of the queue in its groups' order.
+        builds += [("megakernel", build.DEFAULT_FMAD, False, False, False, False, False, (macro,))
+                   for macro in ROW7_VARIANTS.values()]
+        builds.append(("megakernel", build.DEFAULT_FMAD, False, True, False, False, False,
+                       (ROW7_VARIANTS["queue_groups"],)))
         builds += [("frame_gate", fmad, False) for fmad in (build.DEFAULT_FMAD,
                                                             not build.DEFAULT_FMAD)]
         # Row 10, the frame programs' per-frame state (always --fmad=false).
@@ -1810,11 +2020,13 @@ def main() -> int:
         registers, spills = {}, {}
         for (name, fmad, count, *rest), report in reports.items():
             simt, unculled, full, per_ray = (rest + [False] * 4)[:4]
+            defines = rest[4] if len(rest) > 4 else ()
             print(f"[build] {name}.cu fmad={fmad}{' count_ops' if count else ''}"
                   f"{' count_simt' if simt else ''}{' faces_global' if unculled else ''}"
-                  f"{' repair_full' if full else ''}{' finish_per_ray' if per_ray else ''}: "
-                  f"{ptxas_summary(report)}", flush=True)
-            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled or full or per_ray):
+                  f"{' repair_full' if full else ''}{' finish_per_ray' if per_ray else ''}"
+                  f"{''.join(' -D' + m for m in defines)}: {ptxas_summary(report)}", flush=True)
+            if fmad == build.DEFAULT_FMAD and not (count or simt or unculled or full or per_ray
+                                                   or defines):
                 # frame_gate.cu holds its own build of the frame kernel.
                 prefix = "frame_gate.cu " if name == "frame_gate" else ""
                 registers.update({prefix + k: v for k, v in ptxas_registers(report).items()})
@@ -2146,6 +2358,9 @@ def main() -> int:
         d = hlsl.normalize(torch.rand(n, 3, generator=gen) * 1.2 - 0.6 - o)
         o, d = o.to(dev), d.to(dev)
         mega_err = 0.0
+        # Row 7's parent design (one thread per ray): the queued march must
+        # equal it bit for bit on every ray of every batch.
+        per_ray_lib = build.load("megakernel", defines=megakernel.PER_RAY_DEFINES)
         for code in range(9):
             gate = torch.ones(n, dtype=torch.bool, device=dev)
             t_max = torch.full((n,), 10.0, device=dev)
@@ -2180,12 +2395,20 @@ def main() -> int:
                                     f"|dt| <= 1e-3 on {close:.6f} of both-hit rays, max |dt| "
                                     f"{dt_max:.6g}, normals within 1e-2 on {n_close:.6f} "
                                     f"(max {dn_max:.6g})")
+                    q_out = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, **kw)
+                    r_out = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, lib=per_ray_lib,
+                                                          **kw)
+                    same = all(torch.equal(x, y) for x, y in zip(q_out, r_out))
                     print(f"[mesh] march code {code} {'occlusion' if occlusion else 'closest'} "
                           f"budget {steps}{' capped-hit' if capped else ''}: {int(gate.sum())} "
-                          f"gated rays, {int(p_out[0].sum())} plain hits; " + "; ".join(line),
-                          flush=True)
+                          f"gated rays, {int(p_out[0].sum())} plain hits; the queued march "
+                          f"bit-equal to the parent's one thread per ray: {same}; "
+                          + "; ".join(line), flush=True)
                     if not ok:
                         raise AssertionError(f"march code {code}: kernel disagrees with plain")
+                    if not same:
+                        raise AssertionError(f"march code {code}: the queued march is not the "
+                                             f"parent's bit for bit")
 
         # The three mesh scenes: 96x54 against their goldens, 320x180 against
         # their route's plain version; the octahedra also on the wavefront.
@@ -2263,6 +2486,7 @@ def main() -> int:
                                      f"for {FRAMES} frames, not {expect}")
             if route_scene:
                 mega_launches, mesh_launches, pass_launches = launched[2:5]
+                append_launches = megakernel.APPEND_LAUNCHES
                 route_window_ms = ms
                 lane_launches = {k: v + lanes_run[k] for k, v in lane_launches.items()}
             print(f"[mesh] {name} {cfg.width}x{cfg.height} depth {cfg.max_depth}, {FRAMES} "
@@ -2483,6 +2707,10 @@ def main() -> int:
                   f"({len(calls[kind])} calls): kernel {k_ms:.4f} ms ({k_ops} f32 FLOPs, "
                   f"{int(nbytes)} bytes: bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f}% "
                   f"of bound); plain {p_ms:.1f} ms; {card}", flush=True)
+
+        # Row 7's redesign on the chain's 1080p march calls: the queued march
+        # against the parent's one thread per ray, and the bound's terms.
+        march_row = march_designs(calls["march"], dev, card)
 
         # The mesh body inside the frame kernel at 1080p: one mesh_octahedra
         # frame against its plain version, as phase 6 holds the builtin one.
@@ -3242,6 +3470,10 @@ def main() -> int:
             if not queue_ok:
                 raise AssertionError(f"two-phase {k} pass: the finisher's queue is not its "
                                      f"plain version's set in key order")
+            # The one PyTorch call that orders the same keys: a stable sort
+            # of the dirty rays' keys (as the bin's row 2q reads it).
+            dirty_keys = scene_kernel.finish_key(dirty_m[dirty_m != 0])
+            queue_lib_ms = cuda_ms(lambda: torch.sort(dirty_keys, stable=True), SHORT_REPS)[0]
             ops.zero_()
             scene_kernel.scene_finish(scene_m, o_, d_, dirty_m,
                                       *[x.clone() for x in main_out[:3]], accept_first=af,
@@ -3262,7 +3494,7 @@ def main() -> int:
             two_phase[k] = dict(main_ms=main_ms, main_ops=main_ops, main_bytes=main_bytes,
                                 fin_ms=fin_ms, fin_ops=fin_ops, fin_bytes=fin_bytes,
                                 ray_ms=ray_ms, queue_ms=queue_ms, queue_plain_ms=p_queue_ms,
-                                queue_bytes=queue_bytes)
+                                queue_bytes=queue_bytes, queue_library_ms=queue_lib_ms)
             mb_, mby = bound(main_bytes, main_ops)
             fb_, fby = bound(fin_bytes, fin_ops)
             qb_, qby = bound(queue_bytes, 0)
@@ -3275,7 +3507,8 @@ def main() -> int:
                   f"ray) {ray_ms_a:.4f} / {ray_ms_b:.4f} ms in turns, its outputs bit for bit: "
                   f"{fin_equal}; warps that march {warps_queue} (one thread per ray: "
                   f"{warps_ray} warps hold a dirty ray); queue of {live} rays in key order, its "
-                  f"plain version {p_queue_ms:.1f} ms; {card}", flush=True)
+                  f"plain version {p_queue_ms:.1f} ms, torch.sort(keys, stable=True) of its keys "
+                  f"{queue_lib_ms:.4f} ms; {card}", flush=True)
         # The plain version of both entries on the closest pass.
         ob_, db_, a_, t_, _ = passes["closest"]
         tp_main_ms, p_main = plain_run(lambda: scene_kernel.scene_main_plain(
@@ -3361,24 +3594,46 @@ def main() -> int:
         print(f"[last] 320x180 two-phase batches done {time.perf_counter() - t11:.1f} s into "
               f"the phase", flush=True)
 
-        # (g) the op probe: every variant against its plain version, then the
-        # reference's run (2000 iterations) through apps/op_probe.py.
+        # (g) the op probe: every variant against its plain version (bf16:
+        # the packed pairs element for element against the scalar build,
+        # -DGPRT_PROBE_BF16_SCALAR, and the plain version, on the reference's
+        # array and on a seeded one), then the reference's run (2000
+        # iterations) through apps/op_probe.py, and each variant priced by
+        # pipe from its SASS.
         probe_err = 0.0
+        scalar_lib = build.load("op_probe", defines=op_probe.SCALAR_DEFINES)
+        gen = torch.Generator().manual_seed(11)
+        seeded = torch.rand(op_probe.SHAPE, generator=gen) * 1.5 + 0.25
         for name, dtype in op_probe.DTYPES.items():
             x = torch.full(op_probe.SHAPE, op_probe.FILL, dtype=dtype, device=dev)
             for opn in op_probe.OPS:
                 for iters in (1, 4):  # the fma chain is inf from the second iteration
+                    if name == "bf16":
+                        line, ok = [], True
+                        for label, xs in (("reference", x), ("seeded", seeded.to(dev, dtype))):
+                            got = op_probe.op_probe(xs, opn, iters)
+                            scalar = op_probe.op_probe(xs, opn, iters, lib=scalar_lib)
+                            want = op_probe.op_probe_plain(xs, opn, iters)
+                            d_s, d_p = int((got != scalar).sum()), int((got != want).sum())
+                            ok = ok and d_s == 0 and d_p == 0
+                            line.append(f"{label} array: {d_s} elements differ from the scalar "
+                                        f"build, {d_p} from plain")
+                        print(f"[last] op probe {opn} bf16 packed pairs, {iters} iterations: "
+                              + "; ".join(line), flush=True)
+                        if not ok:
+                            raise AssertionError(f"op probe {opn} bf16: the packed pairs are not "
+                                                 f"the scalar build and the plain version")
+                        continue
                     got = op_probe.op_probe(x, opn, iters).float()
                     want = op_probe.op_probe_plain(x, opn, iters).float()
                     inf = torch.isinf(want)
                     diff = (got - want)[~inf].abs()
                     rel = float((diff / want[~inf].abs().clamp(min=1e-30)).max()) if diff.numel() else 0.0
-                    tol = 1e-6 if name == "f32" else 2.0 ** -7
-                    ok = bool(torch.equal(got[inf], want[inf])) and rel <= tol
+                    ok = bool(torch.equal(got[inf], want[inf])) and rel <= 1e-6
                     if diff.numel() and iters == 4:  # the bounded mixes (fma is inf)
                         probe_err = max(probe_err, float(diff.max()))
                     print(f"[last] op probe {opn} {name}, {iters} iterations: max relative diff "
-                          f"{rel:.3g} (bar {tol:.3g}), inf where plain is inf: "
+                          f"{rel:.3g} (bar 1e-06), inf where plain is inf: "
                           f"{bool(torch.equal(got[inf], want[inf]))}", flush=True)
                     if not ok:
                         raise AssertionError(f"op probe {opn} {name} disagrees with its plain "
@@ -3387,8 +3642,11 @@ def main() -> int:
         op_probe.LAUNCHES = 0
         probe = probe_app.run(2000, 20, dev)
         probe_launches = op_probe.LAUNCHES
-        probe_ms = probe_plain_ms = probe_bound = 0.0
+        pipes = probe_app.pipes(2000, 8, dev)
+        scalar_sass = probe_app.sass_loop_counts(scalar_lib._name)
+        probe_ms = probe_plain_ms = probe_bound = probe_pipe_bound = 0.0
         bound_share = {"bytes": 0.0, "operations": 0.0}
+        pipe_share = {}
         rates = {"f32": F32_OPS_PER_S, "bf16": BF16_OPS_PER_S}
         for key, r in probe["variants"].items():
             opn, name = key.split("_")
@@ -3397,18 +3655,36 @@ def main() -> int:
             nbytes = 2 * x.numel() * x.element_size()
             n_ops = 2000 * x.numel() * op_probe.FLOPS_PER_ITER[opn]
             b_ms, b_by = bound(nbytes, n_ops, rates[name])
+            pp = pipes["variants"][key]
             probe_ms += r["ms"]
             probe_plain_ms += p_ms
             probe_bound += b_ms
+            probe_pipe_bound += pp["bound_ms"]
             bound_share[b_by] += b_ms
+            pipe_share[pp["bound_by"]] = pipe_share.get(pp["bound_by"], 0.0) + pp["bound_ms"]
+            scalar_line = ""
+            if name == "bf16":
+                s_ms = probe_app.time_variant(x, opn, 2000, 20, scalar_lib)
+                scalar_line = (f"; the scalar build {s_ms:.4f} ms (packed/scalar "
+                               f"{r['ms'] / s_ms:.3f}), its SASS a iteration "
+                               f"{scalar_sass[(opn, 'bf16')]['pipes']}")
+            terms = ", ".join(f"{k} {v:.4f}" for k, v in pp["terms"].items())
             print(f"[last] op probe {key}, 2000 iterations over {x.numel()} elements: "
-                  f"{r['ms']:.4f} ms, {r['ns_per_elem_iter']:.6f} ns/elem-iter ({n_ops} {name} "
-                  f"FLOPs at {rates[name] / 1e12:.1f} TFLOP/s, {nbytes} bytes: bound {b_ms:.4f} ms "
-                  f"by {b_by}); plain {p_ms:.1f} ms; {card}", flush=True)
+                  f"{r['ms']:.4f} ms, {r['ns_per_elem_iter']:.6f} ns/elem-iter; SASS a iteration "
+                  f"{pp['sass']['pipes']} ({pp['sass']['opcodes']}); chain "
+                  f"{pp['chain_cycles_per_iter']:.2f} cycles ({pp['chain_ns_per_iter']:.3f} ns) a "
+                  f"iteration with one warp; full card {pp['throughput_ns_per_elem_iter']:.7f} "
+                  f"ns/elem-iter; bound by pipe {pp['bound_ms']:.4f} ms by {pp['bound_by']} "
+                  f"({terms}); FLOP bound {b_ms:.4f} ms by {b_by} ({n_ops} {name} FLOPs at "
+                  f"{rates[name] / 1e12:.1f} TFLOP/s, {nbytes} bytes); plain {p_ms:.1f} ms"
+                  f"{scalar_line}; {card}", flush=True)
         print(f"[last] op probe bf16/f32: " + ", ".join(
             f"{k} {v:.3f}" for k, v in probe["bf16_over_f32"].items()) + f"; {probe_launches} "
-            f"launches; bound over the ten variants {probe_bound:.4f} ms; {card}", flush=True)
+            f"launches; bound over the ten variants: by pipe {probe_pipe_bound:.4f} ms, by FLOPs "
+            f"{probe_bound:.4f} ms; SM clock {pipes['clock_hz'] / 1e6:.0f} MHz (nvidia-smi's "
+            f"maximum), {pipes['sms']} SMs; {card}", flush=True)
         probe_bound_by = max(bound_share, key=bound_share.get)
+        probe_pipe_bound_by = max(pipe_share, key=pipe_share.get)
 
     # 12. SIMT efficiency of the frame kernel and the scene pass --------------
     with Phase("simt"):
@@ -3547,6 +3823,23 @@ def main() -> int:
         "bound_ms": alone["march"]["bound_ms"],
         "bound_by": alone["march"]["bound_by"],
         "library_ms": None,
+        # Row 7's terms of its bound beyond bytes and operations, and the
+        # parent's design (one thread per ray) timed in the same call.
+        "critical_path_ms": march_row["critical_ms"],
+        "per_ray_ms": march_row["ms"]["per_ray"],
+        "queued_ms": march_row["ms"]["queue"],
+    }, {
+        "name": "megakernel_sphere_append",
+        "route": "cuda",
+        "source": "gpuraytracer_tpu_torch/kernels/csrc/megakernel.cu",
+        "replaces": "gpuraytracer_tpu/kernels/megakernel.py:103",
+        "launches": append_launches,
+        "max_abs_err": 0.0,
+        "ms": march_row["queue_ms"],
+        "plain_ms": march_row["queue_plain_ms"],
+        "bound_ms": bound(march_row["queue_bytes"], 0)[0],
+        "bound_by": bound(march_row["queue_bytes"], 0)[1],
+        "library_ms": march_row["library_ms"],
     }, {
         "name": "megakernel_trimesh",
         "route": "cuda",
@@ -3626,7 +3919,7 @@ def main() -> int:
         "plain_ms": two_phase["closest"]["queue_plain_ms"],
         "bound_ms": bound(two_phase["closest"]["queue_bytes"], 0)[0],
         "bound_by": bound(two_phase["closest"]["queue_bytes"], 0)[1],
-        "library_ms": None,
+        "library_ms": two_phase["closest"]["queue_library_ms"],
     }] + [{
         "name": "sdf_distance",
         "route": "cuda",
@@ -3667,13 +3960,19 @@ def main() -> int:
         "bound_ms": probe_bound,
         "bound_by": probe_bound_by,
         "library_ms": None,
+        # The bound by pipe: each variant's SASS priced at its pipes' rates,
+        # its issue slots and its chain's latency (apps/op_probe.py pipes).
+        "pipe_bound_ms": probe_pipe_bound,
+        "pipe_bound_by": probe_pipe_bound_by,
     }, {key: v for key, v in state_row.items() if key != "programs"}]
     # Registers of the shipped build's shared-layout instantiations (ptxas)
     # and, for rows 1, 1m, 5 and the two-phase main pass, resident blocks
     # per SM.
     ptxas_name = {
         "frame_kernel": "frame_kernel<false, true>", "scene_kernel": "scene_kernel<false, true>",
-        "megakernel_sphere_trace": "sphere_trace", "megakernel_trimesh": "trimesh",
+        "megakernel_sphere_trace": f"sphere_trace<{march_row['code']}>",
+        "megakernel_sphere_append": "sphere_append",
+        "megakernel_trimesh": "trimesh",
         "megakernel_route_pass": "route_pass<true>",
         "frame_compact": "frame_compact_kernel<true>",
         "frame_dense": "frame_dense_kernel<false, true>", "frame_defer": "frame_defer_kernel<true>",
@@ -3690,6 +3989,7 @@ def main() -> int:
         "wavefront_start": "wavefront_start_kernel", "wavefront_hit": "wavefront_hit_kernel",
         "wavefront_shade": "wavefront_shade_kernel",
         "sdf_distance": "sdf_probe", "frame_state": "frame_state_kernel"}
+    resident["megakernel_sphere_trace"] = march_row["resident"]["queue"]
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
     resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)
     resident["shadow_queue"] = scene_kernel.residency(pack_m, entry="repair")

@@ -22,7 +22,12 @@ parent's repair, which checks hold the resumed one to; never the shipped
 build); ``finish_per_ray`` adds -DGPRT_FINISH_PER_RAY: a scene_finish
 build whose two-phase finisher runs one thread per ray over every ray (the
 parent's finisher, which checks hold the queued one to; never the shipped
-build). The sources in NO_FMAD (frame_state.cu) build with --fmad=false
+build); ``defines`` adds -D<macro> for each macro it names: a variant
+that checks hold the shipped build to or that a same-call A/B times
+beside it (megakernel.PER_RAY_DEFINES, the one-geometry march's parent
+design; op_probe.SCALAR_DEFINES, the probe's bf16 one element a thread;
+never the shipped build). The sources
+in NO_FMAD (frame_state.cu) build with --fmad=false
 whatever ``fmad`` asks: their values must equal their plain versions'
 bit for bit on the card, which never contract across torch kernels.
 
@@ -89,7 +94,7 @@ def nvcc_path() -> str:
 
 def _flags(name: str, fmad: bool, count_ops: bool = False, count_simt: bool = False,
            faces_global: bool = False, repair_full: bool = False,
-           finish_per_ray: bool = False):
+           finish_per_ray: bool = False, defines: tuple = ()):
     fmad = fmad and name not in NO_FMAD
     return (["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
              "-shared", "-Xcompiler", "-fPIC", f"--fmad={'true' if fmad else 'false'}",
@@ -98,14 +103,17 @@ def _flags(name: str, fmad: bool, count_ops: bool = False, count_simt: bool = Fa
             + (["-DGPRT_FACE_LOOP_GLOBAL"] if faces_global else [])
             + (["-DGPRT_REPAIR_FULL"] if repair_full else [])
             + (["-DGPRT_FINISH_PER_RAY"] if finish_per_ray else [])
+            + [f"-D{macro}" for macro in defines]
             + (DEVICE_LAUNCH_FLAGS if name in DEVICE_LAUNCH else []))
 
 
 def library_path(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
                  count_simt: bool = False, faces_global: bool = False,
-                 repair_full: bool = False, finish_per_ray: bool = False) -> Path:
+                 repair_full: bool = False, finish_per_ray: bool = False,
+                 defines: tuple = ()) -> Path:
     """Where the build of csrc/<name>.cu with these flags lives."""
-    flags = _flags(name, fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray)
+    flags = _flags(name, fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray,
+                   defines)
     h = hashlib.sha256(" ".join(flags + _libs(name)).encode())
     for src in (f"{name}.cu",) + _INCLUDES.get(name, ()) + _HEADERS:
         h.update(src.encode())
@@ -119,11 +127,13 @@ def _libs(name: str) -> list:
 
 def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
                    count_simt: bool = False, faces_global: bool = False,
-                   repair_full: bool = False, finish_per_ray: bool = False) -> tuple[Path, str]:
+                   repair_full: bool = False, finish_per_ray: bool = False,
+                   defines: tuple = ()) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills), kept beside the library so
     that a reused build reports it too."""
-    variant = (fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray)
+    variant = (fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray,
+               tuple(defines))
     out = library_path(name, *variant)
     report = out.with_suffix(".ptxas")
     if out.exists():
@@ -145,7 +155,8 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
 
 def compile_all(builds) -> dict:
     """Run compile_kernel for every (name, fmad, count_ops[, count_simt[,
-    faces_global[, repair_full[, finish_per_ray]]]]) in ``builds`` at once
+    faces_global[, repair_full[, finish_per_ray[, defines]]]]]]) in ``builds``
+    at once
     (one nvcc process each); returns {build: ptxas report}."""
     builds = list(builds)
     with ThreadPoolExecutor(max_workers=max(1, len(builds))) as pool:
@@ -156,16 +167,18 @@ def compile_all(builds) -> dict:
 @functools.lru_cache(maxsize=None)
 def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
          count_simt: bool = False, faces_global: bool = False,
-         repair_full: bool = False, finish_per_ray: bool = False) -> ctypes.CDLL:
+         repair_full: bool = False, finish_per_ray: bool = False,
+         defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu; declares the C interface
     (every pointer and the stream as c_void_p). repair_full
     (-DGPRT_REPAIR_FULL, scene_kernel.cu): the occlusion repair runs the
     whole traversal instead of resuming from the defer entry's march
     records, for checks; finish_per_ray (-DGPRT_FINISH_PER_RAY,
     scene_finish.cu): the two-phase finisher runs one thread per ray
-    without the queue, for checks."""
+    without the queue, for checks; defines: the -D macros of a variant (a
+    tuple), for checks and A/Bs."""
     path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global, repair_full,
-                             finish_per_ray)
+                             finish_per_ray, tuple(defines))
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
@@ -197,9 +210,15 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_finish_compacts.argtypes = []
         lib.gprt_finish_compacts.restype = ci
     elif name == "megakernel":
-        lib.gprt_sphere_trace.argtypes = ([vp] * 7 + [ci, ci, cf, ci, cf, cf, ci, ci, ci]
+        lib.gprt_sphere_trace.argtypes = ([vp] * 8 + [ci, ci, cf, ci, cf, cf, ci, ci, ci]
                                           + [vp, ci, vp])
         lib.gprt_sphere_trace.restype = ci
+        lib.gprt_sphere_queue.argtypes = [vp] * 4 + [ci, ci, vp]
+        lib.gprt_sphere_queue.restype = ci
+        lib.gprt_sphere_trace_queues.argtypes = []
+        lib.gprt_sphere_trace_queues.restype = ci
+        lib.gprt_sphere_residency.argtypes = [ci, ci, vp, vp]
+        lib.gprt_sphere_residency.restype = ci
         lib.gprt_trimesh.argtypes = [vp, ci] + [vp] * 6 + [ci, ci, vp, ci, vp]
         lib.gprt_trimesh.restype = ci
         lib.gprt_route_pass.argtypes = [vp] * 10 + [ci] * 7 + [vp, ci, vp]
@@ -219,6 +238,8 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
     elif name == "op_probe":
         lib.gprt_op_probe.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp]
         lib.gprt_op_probe.restype = ci
+        lib.gprt_op_probe_bf16_per_thread.argtypes = []
+        lib.gprt_op_probe_bf16_per_thread.restype = ci
     lib.gprt_error_string.argtypes = [ci]
     lib.gprt_error_string.restype = ctypes.c_char_p
     return lib

@@ -33,7 +33,9 @@
 // in units of 2^-20) to its bucket's warp-samples, and the warp's lowest
 // active lane adds one to the total warp-samples. SIMT efficiency is
 // lane-samples / (32 x warp-samples). The kernel's ops pointer then holds
-// 2 x kSimtBuckets + 1 counters; the default build compiles it away.
+// 2 x kSimtBuckets + 1 counters; the default build compiles it away. Each
+// sample also counts one for its thread (gprt_simt_steps), which a kernel
+// that reads it resets first (megakernel.cu's march entries).
 #pragma once
 
 #include <math.h>
@@ -59,6 +61,7 @@ constexpr int kSimtShift = 20;    // fixed-point unit of a warp-sample share
 #ifdef GPRT_COUNT_SIMT
 __shared__ unsigned long long* gprt_simt_out;
 __shared__ int gprt_simt_bucket[128];  // one slot per thread of a 128-thread block
+__shared__ int gprt_simt_steps[128];   // the thread's samples
 
 __device__ __forceinline__ int gprt_thread() {
   return (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
@@ -68,6 +71,7 @@ __device__ __forceinline__ void gprt_simt_sample() {
   const unsigned active = __activemask();
   const unsigned lane = gprt_thread() & 31;
   const int b = gprt_simt_bucket[gprt_thread()];
+  ++gprt_simt_steps[gprt_thread()];
   const unsigned group = __match_any_sync(active, b);
   if (lane == (unsigned)(__ffs(group) - 1)) {
     atomicAdd(gprt_simt_out + 2 * b, (unsigned long long)__popc(group));
@@ -311,6 +315,38 @@ __device__ __noinline__ float sdf_distance(int code, V3 p) {
     case 6: return distance_fractal_pyramid(p);
     case 7: return distance_mandelbulb(p);
     default: return distance_julia(p);
+  }
+}
+
+// The distance of code kCode alone, for a march specialized on its code
+// (megakernel.cu's one-geometry march): sdf_distance's case of the code,
+// without the switch, and a call that saves only the registers this one
+// distance uses. Still a call, so that the distance's operations are
+// compiled on their own, as in sdf_distance.
+template <int kCode>
+__device__ __noinline__ float sdf_distance_code(V3 p) {
+  if (kCode < 7) GPRT_OPS(kDistanceOps[kCode]);
+  switch (kCode) {
+    case 0: return distance_mini_spheres(p);
+    case 1: return distance_round_cube(p);
+    case 2: return sd_torus82(p, F(0.75), F(0.15));
+    case 3: return distance_twisted_torus(p);
+    case 4: return distance_cog(p);
+    case 5: return distance_cylinder(p);
+    case 6: return distance_fractal_pyramid(p);
+    case 7: return distance_mandelbulb(p);
+    default: return distance_julia(p);
+  }
+}
+
+// The march loop's distance: sdf_distance_code<kCode>, or for kCode < 0
+// sdf_distance with the code read at run time.
+template <int kCode>
+__device__ __forceinline__ float sdf_distance_of(int code, V3 p) {
+  if constexpr (kCode < 0) {
+    return sdf_distance(code, p);
+  } else {
+    return sdf_distance_code<kCode>(p);
   }
 }
 
@@ -664,7 +700,7 @@ __device__ __forceinline__ float escape_bound(V3 o, V3 d, float t_max, const Mar
 // kCarryResume: the march
 // starts from the carries in *rec instead of t_start, and misses at once
 // where the record says that the full march missed.
-template <int kCarry>
+template <int kCarry, int kCode = -1>
 __device__ __forceinline__ int march_sdf_loop(int code, V3 o, V3 d, float t_start, float t_max,
                                               float step_scale, const MarchSpec& m, float* t_out,
                                               MarchRecord* rec) {
@@ -685,7 +721,7 @@ __device__ __forceinline__ int march_sdf_loop(int code, V3 o, V3 d, float t_star
     GPRT_OPS(relaxed ? 13 : 9);
     GPRT_SIMT_SAMPLE();
     V3 pos = along(o, t, d);
-    float dist = sdf_distance(code, pos);
+    float dist = sdf_distance_of<kCode>(code, pos);
     ++steps;
     bool fail = relaxed && oon && (dist + rprev < m.relax * rprev);
     bool crossed = dist <= F(0.0001) * t && !fail;
@@ -750,6 +786,19 @@ __device__ __forceinline__ int march_sdf_loop(int code, V3 o, V3 d, float t_star
 __device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float t_max,
                                       float step_scale, const MarchSpec& m, float* t_out) {
   return march_sdf_loop<kCarryNone>(code, o, d, t_start, t_max, step_scale, m, t_out, nullptr);
+}
+
+// march_sdf specialized on its code kCode (sdf_distance_code a sample),
+// for a kernel instantiated per code: the same operations in the same
+// order as march_sdf's. Not inlined, as march_sdf is not: inlined into its
+// kernel, the compiler split the loop on the relaxation (a kernel
+// parameter there) and contracted the plain step into an FMA, which moved
+// the crossings of the unrelaxed marches by an ulp on an H100.
+template <int kCode>
+__device__ __noinline__ int march_sdf_code(V3 o, V3 d, float t_start, float t_max,
+                                           float step_scale, const MarchSpec& m, float* t_out) {
+  return march_sdf_loop<kCarryNone, kCode>(kCode, o, d, t_start, t_max, step_scale, m, t_out,
+                                           nullptr);
 }
 
 // The march that writes its record where its budget runs out, and the

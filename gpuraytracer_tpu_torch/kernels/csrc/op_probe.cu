@@ -1,5 +1,6 @@
-// Op-cost probe: one thread per element runs `iters` dependent iterations of
-// an op mix on its value, in f32 or bf16.
+// Op-cost probe: one thread runs `iters` dependent iterations of an op mix on
+// its value, in f32 (one element a thread) or bf16 (two elements a thread,
+// as one packed pair).
 //
 // Replaces: tools/profile_vpu.py make_kernel (a Pallas kernel over a (256,
 // 256) tile in VMEM, fori_loop(0, iters, body, x)), which priced the op
@@ -9,48 +10,125 @@
 // blend), minmax (max, min and selects), sqrt, rsqrt, cos.
 //
 // What bounds it on an H100: each iteration depends on the last, so a
-// thread issues one mix per op latency; with the reference's 65,536
-// elements (512 blocks of 128 threads, under a quarter of the card's
-// resident threads) the probe reads the latency of the chain and the SFU
-// (sqrt, rsqrt, cos), not the card's peak throughput, and its bytes (one
-// read and one write per element) are nothing. That is what it measures:
-// ns per element-iteration at the reference's shape. The loop is kept
-// from being folded or hoisted by the dependent chain and `#pragma unroll
-// 1`; bf16 uses cuda_bf16.h arithmetic (one bf16 rounding per op, as the
-// reference's bf16 arrays round).
+// thread issues one mix per chain latency; with the reference's 65,536
+// elements (512 blocks of 128 threads in f32, 256 in bf16: under a quarter
+// of the card's resident threads) the probe reads the latency of the chain
+// and the MUFU (sqrt, rsqrt, cos), not the card's peak throughput, and its
+// bytes (one read and one write per element) are nothing. That is what it
+// measures: ns per element-iteration at the reference's shape
+// (apps/op_probe.py also prices each variant's SASS by pipe).
 //
-// Inputs: x (n,) f32 or bf16; out (n,) of the same type. The C entry
-// returns cudaGetLastError() after the launch.
+// bf16 rounds once per op, as the reference's bf16 arrays and PyTorch's
+// bf16 tensors round: a product and a sum each rounded to nearest
+// (mul.rn / add.rn, which no compiler contracts into one fma), min, max and
+// selects exact, and sqrt, rsqrt and cos computed by the f32 variants'
+// functions and rounded once. The card's bf16 rate is a rate of packed
+// pairs (HFMA2, HMUL2, HADD2, HMNMX2), so each thread computes two elements
+// as one __nv_bfloat162 and issues one instruction for both wherever the
+// pair has one; sqrt, rsqrt and cos have none and run per element on the
+// MUFU. The -DGPRT_PROBE_BF16_SCALAR build computes one element a thread
+// (the parent's form) with the same per-element rounding: the packed build
+// equals it element for element, for checks. The loop is kept from being
+// folded or hoisted by the dependent chain and `#pragma unroll 1`.
+//
+// Inputs: x (n,) f32 or bf16; out (n,) of the same type (bf16: 4-byte
+// aligned in the packed build). The C entry returns cudaGetLastError()
+// after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace gprt {
 
 enum ProbeOp { kFma = 0, kMinMax = 1, kSqrt = 2, kRsqrt = 3, kCos = 4 };
 
+typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf16x2;
+
+__device__ __forceinline__ unsigned short bits(bf16 a) { return __bfloat16_as_ushort(a); }
+__device__ __forceinline__ bf16 from_bits(unsigned short b) { return __ushort_as_bfloat16(b); }
+__device__ __forceinline__ unsigned bits(bf16x2 a) { return *reinterpret_cast<unsigned*>(&a); }
+__device__ __forceinline__ bf16x2 from_bits(unsigned b) { return *reinterpret_cast<bf16x2*>(&b); }
+
+// The f32 variants' values of the constants: 1.0000001 and 0.5.
 __device__ __forceinline__ float probe_one(float) { return 1.0000001f; }
-__device__ __forceinline__ __nv_bfloat16 probe_one(__nv_bfloat16) {
-  return __float2bfloat16(1.0000001f);
+__device__ __forceinline__ bf16 probe_one(bf16) { return __float2bfloat16_rn(1.0000001f); }
+__device__ __forceinline__ bf16x2 probe_one(bf16x2) {
+  return __float2bfloat162_rn(1.0000001f);
 }
 __device__ __forceinline__ float probe_half(float) { return 0.5f; }
-__device__ __forceinline__ __nv_bfloat16 probe_half(__nv_bfloat16) {
-  return __float2bfloat16(0.5f);
+__device__ __forceinline__ bf16 probe_half(bf16) { return __float2bfloat16_rn(0.5f); }
+__device__ __forceinline__ bf16x2 probe_half(bf16x2) { return __float2bfloat162_rn(0.5f); }
+
+// a * b and a + b: f32 as written (the build's contraction applies); bf16
+// rounded to nearest at each op.
+__device__ __forceinline__ float vmul(float a, float b) { return a * b; }
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ bf16 vmul(bf16 a, bf16 b) {
+  unsigned short r;
+  asm("mul.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(bits(a)), "h"(bits(b)));
+  return from_bits(r);
 }
+__device__ __forceinline__ bf16 vadd(bf16 a, bf16 b) {
+  unsigned short r;
+  asm("add.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(bits(a)), "h"(bits(b)));
+  return from_bits(r);
+}
+__device__ __forceinline__ bf16x2 vmul(bf16x2 a, bf16x2 b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(bits(a)), "r"(bits(b)));
+  return from_bits(r);
+}
+__device__ __forceinline__ bf16x2 vadd(bf16x2 a, bf16x2 b) {
+  unsigned r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(bits(a)), "r"(bits(b)));
+  return from_bits(r);
+}
+
 __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ __nv_bfloat16 vmax(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return __hmax(a, b);
-}
+__device__ __forceinline__ bf16 vmax(bf16 a, bf16 b) { return __hmax(a, b); }
+__device__ __forceinline__ bf16x2 vmax(bf16x2 a, bf16x2 b) { return __hmax2(a, b); }
 __device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ __nv_bfloat16 vmin(__nv_bfloat16 a, __nv_bfloat16 b) {
-  return __hmin(a, b);
+__device__ __forceinline__ bf16 vmin(bf16 a, bf16 b) { return __hmin(a, b); }
+__device__ __forceinline__ bf16x2 vmin(bf16x2 a, bf16x2 b) { return __hmin2(a, b); }
+
+// a > b ? x : y, per element.
+__device__ __forceinline__ float vsel_gt(float a, float b, float x, float y) {
+  return a > b ? x : y;
 }
-__device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
-__device__ __forceinline__ __nv_bfloat16 vsqrt(__nv_bfloat16 a) { return hsqrt(a); }
-__device__ __forceinline__ float vrsqrt(float a) { return rsqrtf(a); }
-__device__ __forceinline__ __nv_bfloat16 vrsqrt(__nv_bfloat16 a) { return hrsqrt(a); }
-__device__ __forceinline__ float vcos(float a) { return cosf(a); }
-__device__ __forceinline__ __nv_bfloat16 vcos(__nv_bfloat16 a) { return hcos(a); }
+__device__ __forceinline__ bf16 vsel_gt(bf16 a, bf16 b, bf16 x, bf16 y) {
+  return __hgt(a, b) ? x : y;
+}
+__device__ __forceinline__ bf16x2 vsel_gt(bf16x2 a, bf16x2 b, bf16x2 x, bf16x2 y) {
+  // __hgt2 gives 1.0 (0x3f80) or 0 in each half: bit 13 of a half is set
+  // only for 1.0, and stretches to that half's mask.
+  const unsigned m = ((bits(__hgt2(a, b)) >> 13) & 0x00010001u) * 0xffffu;
+  return from_bits((bits(x) & m) | (bits(y) & ~m));
+}
+
+// f(a) in f32, rounded once to bf16 (each half of a pair on its own).
+template <typename Fn>
+__device__ __forceinline__ float vmap(float a, Fn f) { return f(a); }
+template <typename Fn>
+__device__ __forceinline__ bf16 vmap(bf16 a, Fn f) {
+  return __float2bfloat16_rn(f(__bfloat162float(a)));
+}
+template <typename Fn>
+__device__ __forceinline__ bf16x2 vmap(bf16x2 a, Fn f) {
+  return __floats2bfloat162_rn(f(__low2float(a)), f(__high2float(a)));
+}
+
+struct Sqrt {
+  __device__ float operator()(float a) const { return sqrtf(a); }
+};
+struct Rsqrt {
+  __device__ float operator()(float a) const { return rsqrtf(a); }
+};
+struct Cos {
+  __device__ float operator()(float a) const { return cosf(a); }
+};
 
 // One iteration of op mix kOp (tools/profile_vpu.py make_kernel's body).
 template <int kOp, typename T>
@@ -58,29 +136,30 @@ __device__ __forceinline__ T probe_body(T v) {
   const T one = probe_one(v), half = probe_half(v);
   if (kOp == kFma) {
     // Both operands vary, so the chain cannot fold into one affine map.
-    T a = v * v + half;
-    T b = v * a + one;
-    a = a * b + half;
-    b = b * a + one;
-    a = a * b + half;
-    b = b * a + one;
-    a = a * b + half;
-    b = b * a + one;
-    return a * half + b * half;
+    T a = vadd(vmul(v, v), half);
+    T b = vadd(vmul(v, a), one);
+    a = vadd(vmul(a, b), half);
+    b = vadd(vmul(b, a), one);
+    a = vadd(vmul(a, b), half);
+    b = vadd(vmul(b, a), one);
+    a = vadd(vmul(a, b), half);
+    b = vadd(vmul(b, a), one);
+    return vadd(vmul(a, half), vmul(b, half));
   }
   if (kOp == kMinMax) {
     T a = vmax(v, half);
     T b = vmin(v, one);
-    T c = a > b ? a * half : b;
+    T c = vsel_gt(a, b, vmul(a, half), b);
     a = vmax(c, half);
     b = vmin(c, one);
-    return (a > b ? a * half : b) * one;
+    return vmul(vsel_gt(a, b, vmul(a, half), b), one);
   }
-  if (kOp == kSqrt) return vsqrt(v * v + one);
-  if (kOp == kRsqrt) return vrsqrt(v * v + one);
-  return vcos(v) + half;
+  if (kOp == kSqrt) return vmap(vadd(vmul(v, v), one), Sqrt());
+  if (kOp == kRsqrt) return vmap(vadd(vmul(v, v), one), Rsqrt());
+  return vadd(vmap(v, Cos()), half);
 }
 
+// One element a thread.
 template <int kOp, typename T>
 __global__ void __launch_bounds__(128)
     op_probe_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int iters) {
@@ -90,6 +169,24 @@ __global__ void __launch_bounds__(128)
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) v = probe_body<kOp>(v);
   out[i] = v;
+}
+
+// Two bf16 elements a thread, as one pair (an odd n's last thread carries
+// its element twice and stores one).
+template <int kOp>
+__global__ void __launch_bounds__(128)
+    op_probe_pair_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int n, int iters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (2 * i >= n) return;
+  const bool whole = 2 * i + 1 < n;
+  bf16x2 v = whole ? reinterpret_cast<const bf16x2*>(x)[i] : __bfloat162bfloat162(x[2 * i]);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) v = probe_body<kOp>(v);
+  if (whole) {
+    reinterpret_cast<bf16x2*>(out)[i] = v;
+  } else {
+    out[2 * i] = __low2bfloat16(v);
+  }
 }
 
 template <typename T>
@@ -108,6 +205,23 @@ static cudaError_t launch(int op, const void* x, void* out, int n, int iters,
   return cudaGetLastError();
 }
 
+#ifndef GPRT_PROBE_BF16_SCALAR
+static cudaError_t launch_pairs(int op, const void* x, void* out, int n, int iters,
+                                cudaStream_t stream) {
+  const bf16* xs = static_cast<const bf16*>(x);
+  bf16* os = static_cast<bf16*>(out);
+  const int grid = ((n + 1) / 2 + 127) / 128;
+  switch (op) {
+    case kFma: op_probe_pair_kernel<kFma><<<grid, 128, 0, stream>>>(xs, os, n, iters); break;
+    case kMinMax: op_probe_pair_kernel<kMinMax><<<grid, 128, 0, stream>>>(xs, os, n, iters); break;
+    case kSqrt: op_probe_pair_kernel<kSqrt><<<grid, 128, 0, stream>>>(xs, os, n, iters); break;
+    case kRsqrt: op_probe_pair_kernel<kRsqrt><<<grid, 128, 0, stream>>>(xs, os, n, iters); break;
+    default: op_probe_pair_kernel<kCos><<<grid, 128, 0, stream>>>(xs, os, n, iters); break;
+  }
+  return cudaGetLastError();
+}
+#endif
+
 }  // namespace gprt
 
 // op: 0 fma, 1 minmax, 2 sqrt, 3 rsqrt, 4 cos; bf16: 0 for f32 tensors, 1
@@ -117,9 +231,25 @@ extern "C" int gprt_op_probe(int op, int bf16, const void* x, void* out, int n, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || iters < 0 || op < 0 || op > 4) return (int)cudaErrorInvalidValue;
-  err = bf16 ? gprt::launch<__nv_bfloat16>(op, x, out, n, iters, (cudaStream_t)stream)
-             : gprt::launch<float>(op, x, out, n, iters, (cudaStream_t)stream);
-  return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!bf16) return (int)gprt::launch<float>(op, x, out, n, iters, s);
+#ifdef GPRT_PROBE_BF16_SCALAR
+  return (int)gprt::launch<gprt::bf16>(op, x, out, n, iters, s);
+#else
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 3)
+    return (int)cudaErrorMisalignedAddress;
+  return (int)gprt::launch_pairs(op, x, out, n, iters, s);
+#endif
+}
+
+// Elements of a bf16 tensor that one thread of this build computes: 2 in
+// the packed build, 1 in the -DGPRT_PROBE_BF16_SCALAR build.
+extern "C" int gprt_op_probe_bf16_per_thread() {
+#ifdef GPRT_PROBE_BF16_SCALAR
+  return 1;
+#else
+  return 2;
+#endif
 }
 
 extern "C" const char* gprt_error_string(int code) {

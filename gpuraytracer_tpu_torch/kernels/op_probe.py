@@ -6,7 +6,11 @@ which priced the op classes of a distance function on the TPU's vector
 unit in f32 and bf16, to decide whether a reduced-precision occlusion march
 would pay. Each element runs ``iters`` dependent iterations of one op mix
 (OPS) on its own value; ``apps/op_probe.py`` times every mix in both types
-with CUDA events.
+with CUDA events and prices each variant's SASS by pipe. On the card a bf16
+thread computes two elements as one packed pair (each op rounded once, as
+the plain version rounds); ``build.load("op_probe",
+defines=SCALAR_DEFINES)`` is the parent's one element a thread, which it
+equals element for element.
 
 On a CPU tensor ``op_probe`` runs the plain version, the same loop in
 PyTorch in the tensor's type (one rounding per op in bf16); on a CUDA
@@ -29,6 +33,9 @@ FILL = 1.2345
 # counts (a multiply-add is two; min, max, sqrt, rsqrt and cos one each;
 # compares and selects none): the operation bound of a measurement.
 FLOPS_PER_ITER = {"fma": 19, "minmax": 7, "sqrt": 3, "rsqrt": 3, "cos": 2}
+
+# The -D macro of the probe's parent bf16 form, one element a thread.
+SCALAR_DEFINES = ("GPRT_PROBE_BF16_SCALAR",)
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -96,6 +103,8 @@ def op_probe(x, op: str, iters: int, lib=None):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    if x.data_ptr() % 4:
+        x = x.clone()  # a packed pair is read as one 4-byte word
     rc = lib.gprt_op_probe(OPS.index(op), int(x.dtype == torch.bfloat16),
                            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                            x.numel(), int(iters), dev.index,

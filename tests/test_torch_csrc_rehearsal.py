@@ -100,7 +100,7 @@ from test_torch_two_phase import inputs as two_phase_inputs
 from gpuraytracer_tpu_torch.accel import traverse
 from gpuraytracer_tpu_torch.core import camera as cam
 from gpuraytracer_tpu_torch.core import hlsl
-from gpuraytracer_tpu_torch.geometry import sdf
+from gpuraytracer_tpu_torch.geometry import analytic, sdf
 from gpuraytracer_tpu_torch.kernels import frame_kernel, frame_state, megakernel, scene_kernel
 from gpuraytracer_tpu_torch.models import builtin, meshes, scenes
 from gpuraytracer_tpu_torch.render import trace
@@ -482,6 +482,39 @@ extern "C" int rh_trimesh(const float* tri, int count, const float* o, const flo
     }
   }
   return skipped;
+}
+
+// The one-geometry march over n rays, one-thread blocks: the append entry
+// over every ray into work (the count, then the queue), then the march
+// entry for the code over the queue's n slots. Returns the count.
+extern "C" int rh_sphere_trace(const float* o, const float* d, const bool* gate,
+                               const float* t_max, const float* t_start, float* t_hit,
+                               float* normal, int* work, int n, int code, float step_scale,
+                               int max_steps, float relax, float fail_scale, int capped_hit,
+                               int cull, int escape) {
+  blockDim = dim3{1, 1, 1};
+  gridDim = dim3{(unsigned)n, 1, 1};
+  threadIdx = dim3{0, 0, 0};
+  gprt::MarchSpec m;
+  m.max_steps = max_steps;
+  m.relax = relax;
+  m.fail_scale = fail_scale;
+  m.capped_hit = capped_hit != 0;
+  m.cull = cull != 0;
+  m.escape = escape != 0;
+  work[0] = 0;
+  for (int i = 0; i < n; ++i) {
+    blockIdx = dim3{(unsigned)i, 0, 0};
+    gprt::sphere_append(gate, n, work + 1, work, t_hit, normal);
+  }
+  gprt::sphere_kernel(code, [&](auto kernel) {
+    for (int i = 0; i < n; ++i) {
+      blockIdx = dim3{(unsigned)i, 0, 0};
+      kernel(o, d, t_max, t_start, work + 1, work, t_hit, normal, code, step_scale, m, nullptr);
+    }
+    return 0;
+  });
+  return work[0];
 }
 """,
     "scene_finish": r"""
@@ -1364,6 +1397,58 @@ def _rehearse_route(libs, scene, passes):
         assert (gid == pg).all(), f"{label}: {int((gid != pg).sum())} of {n} rays differ in gid"
         assert np.abs(best_t - pt).max() <= 1e-6, label
         assert np.abs(normal - pn).max() <= 1e-6, label
+
+
+@pytest.mark.parametrize("code, occlusion", [(0, False), (5, True), (7, False)])
+def test_sphere_queue_and_queued_march_match_plain(libs, code, occlusion):
+    """Row 7's queued march (csrc/megakernel.cu sphere_append, then
+    sphere_trace over the queue): the queue holds exactly the gated rays
+    (in ray order: a one-lane warp appends alone), every ungated ray is a
+    miss with a zero normal, and the gated rays' answers are
+    sphere_trace_plain's (equal hits, t within TOL, normals within
+    NORMAL_TOL but at a capped hit, t = 0, whose normal no caller reads)."""
+    rng = np.random.default_rng(19 + code)
+    n = 256
+    o = rng.uniform(-3.0, 3.0, size=(n, 3)).astype(np.float32)
+    aim = rng.uniform(-0.6, 0.6, size=(n, 3)).astype(np.float32)
+    d = ((aim - o) / np.linalg.norm(aim - o, axis=-1, keepdims=True)).astype(np.float32)
+    gate = rng.random(n) < 0.4
+    t_max = np.full(n, 10.0, np.float32)
+    t_start = None
+    if code in sdf.AABB_WINDOWED_CODES:
+        lo, hi = (x.numpy() for x in analytic.aabb_interval(
+            torch.from_numpy(o), torch.from_numpy(d), torch.full((3,), -1.0),
+            torch.full((3,), 1.0)))
+        t_start = np.maximum(lo, 0.0).astype(np.float32)
+        t_max = np.minimum(t_max, hi).astype(np.float32)
+        gate &= (hi > lo) & (t_max > t_start)
+    steps, capped = sdf.march_budget(512, occlusion=occlusion, level=0)
+    relax = sdf.relax_for_code(code, occlusion=occlusion)
+    cull = code not in sdf.AABB_WINDOWED_CODES
+    t_hit = np.full(n, np.nan, np.float32)
+    normal = np.full((n, 3), np.nan, np.float32)
+    work = np.full(n + 1, -7, np.int32)
+    f = libs["megakernel"].rh_sphere_trace
+    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                          ctypes.c_int, ctypes.c_float, ctypes.c_float] + \
+        [ctypes.c_int] * 3
+    count = f(_p(o), _p(d), _p(gate), _p(t_max), None if t_start is None else _p(t_start),
+              _p(t_hit), _p(normal), _p(work), n, code, 0.9, steps, relax,
+              (1.0 - relax) * relax, int(capped), int(cull), int(code in sdf.ESCAPE_SAFE_CODES))
+    assert count == int(gate.sum()) > 0
+    np.testing.assert_array_equal(work[1:1 + count], np.nonzero(gate)[0])
+    assert np.isinf(t_hit[~gate]).all() and (normal[~gate] == 0.0).all()
+    p_hit, p_t, p_n = (_np(x) for x in megakernel.sphere_trace_plain(
+        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(gate),
+        torch.from_numpy(t_max), 0.9, prim_code=code, cull_backface=cull, max_steps=steps,
+        t_start=None if t_start is None else torch.from_numpy(t_start), relax=relax,
+        capped_hit=capped))
+    hit = np.isfinite(t_hit)
+    np.testing.assert_array_equal(hit, p_hit)
+    assert hit.any()
+    np.testing.assert_allclose(t_hit[hit], p_t[hit], rtol=0.0, atol=TOL)
+    valid = hit & (p_t > 0.0)
+    np.testing.assert_allclose(normal[valid], p_n[valid], rtol=0.0, atol=NORMAL_TOL)
 
 
 def test_route_pass_matches_plain(libs):

@@ -13,7 +13,12 @@ within 2**-7 relative, one bf16 ulp (XLA may keep an intermediate of a mix
 in f32 where PyTorch rounds each op to bf16). On a GPU (the ``cuda``
 marker) the kernel is held to the plain version the same way, at iters = 1
 and 4 (past a few iterations the f32 build's contracted multiply-adds
-drift from the plain version's separate roundings by more ulps).
+drift from the plain version's separate roundings by more ulps), and the
+bf16 variants, two elements a thread as one packed pair, equal the scalar
+build (-DGPRT_PROBE_BF16_SCALAR, one element a thread) and the plain
+version element for element (each op rounded once on all three), on the
+reference's array, on a seeded one, on an odd count (the last thread
+carries one element) and on a view 2 bytes off a 4-byte boundary.
 """
 
 import importlib.util
@@ -24,7 +29,7 @@ import pytest
 import torch
 
 from gpuraytracer_tpu_torch.apps import op_probe as probe_app
-from gpuraytracer_tpu_torch.kernels import op_probe
+from gpuraytracer_tpu_torch.kernels import build, op_probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 4
@@ -99,3 +104,19 @@ def test_probe_kernel_matches_plain_on_cuda(cuda_device, iters):
         assert op_probe.LAUNCHES == launches + 1
         assert_close(got.float().cpu().numpy(),
                      op_probe.op_probe_plain(x, op, iters).float().cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, ITERS])
+def test_packed_bf16_equals_the_scalar_build_and_plain_on_cuda(cuda_device, iters):
+    scalar = build.load("op_probe", defines=op_probe.SCALAR_DEFINES)
+    seeded = np.random.default_rng(8).uniform(0.25, 1.75, size=op_probe.SHAPE)
+    base = torch.from_numpy(seeded.astype(np.float32)).to(cuda_device, torch.bfloat16)
+    inputs = (torch.full(op_probe.SHAPE, op_probe.FILL, dtype=torch.bfloat16, device=cuda_device),
+              base, base.reshape(-1)[:257], base.reshape(-1)[1:1025])
+    for op in op_probe.OPS:
+        for x in inputs:
+            got = op_probe.op_probe(x, op, iters)
+            torch.cuda.synchronize()
+            assert torch.equal(got, op_probe.op_probe(x, op, iters, lib=scalar))
+            assert torch.equal(got, op_probe.op_probe_plain(x, op, iters))
