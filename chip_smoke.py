@@ -18,10 +18,10 @@ exits non-zero):
               whose device-side launch is built with -ewp and linked
               against cudadevrt, in both --fmad modes; the wavefront's
               lane kernels, wavefront.cu; row 10, frame_state.cu, always
-              --fmad=false; row 7's parent march, one thread per ray
-              (-DGPRT_SPHERE_TRACE_PER_RAY), and its SIMT build; row 8's
-              parent bf16 probe, one element a thread
-              (-DGPRT_PROBE_BF16_SCALAR)); print ptxas' registers
+              --fmad=false; row 7's generic march
+              (-DGPRT_SPHERE_MARCH_GENERIC); row 8's parent bf16 probe,
+              one element a thread (-DGPRT_PROBE_BF16_SCALAR)); print
+              ptxas' registers
   3. probe    the extension fractals' device distance functions against
               their plain versions point by point across the local AABB
   4. plain    frame kernel vs its plain PyTorch version, builtin 320x180
@@ -65,7 +65,7 @@ exits non-zero):
   9. mesh     the march kernel (csrc/megakernel.cu) against its plain version
               on ray batches for every SDF code, closest and occlusion, at
               the level-0 and the bounce budget, and bit for bit against
-              the parent's one thread per ray; the three mesh scenes of
+              the generic march's build; the three mesh scenes of
               models/meshes.py at 96x54 against their goldens and at
               320x180 against their route's plain version (the octahedra
               also with GPURT_DISABLE_FUSED=1, through the scene kernel);
@@ -87,17 +87,14 @@ exits non-zero):
               their plain versions (ray-batch bar over the gated rays,
               normals, gated-out rays miss) and alone, the mesh entry in
               each face loop; row 7 on the chain's two 1080p march calls
-              (its [mesh] "row 7" lines): gated rays and the parent grid's
-              blocks and warps that hold one, march samples (mean, max),
-              SIMT and resident blocks of both designs, the queued march
-              bit for bit against the parent's and under
-              set_sync_debug_mode("error"), the queue against its plain
-              version's set, both timed in one call in turns, the queue
-              alone beside torch.nonzero(gate), and the bound's terms:
-              bytes, operations and the critical path (the longest march's
-              samples times one sample's latency, from the ray the plain
-              version marches longest, marched alone); one 1080p
-              mesh_octahedra frame-kernel frame against its plain version
+              (its [mesh] "row 7" lines): gated rays and the blocks and
+              warps that hold one, march samples (mean, max), SIMT,
+              resident blocks, the shipped march bit for bit against the
+              generic march's build and under set_sync_debug_mode("error"),
+              both timed in one call in turns, and the longest ray marched
+              alone (the ray the plain version marches longest; a
+              measurement, not a bound); one 1080p mesh_octahedra
+              frame-kernel frame against its plain version
  10. modes    GPURT_FRAME_MODE=compact|defer (the compact, dense, defer,
               compose and gated entries of csrc/frame_kernel.cu, the queue
               kernel of csrc/scene_kernel.cu; device-side queues, no host
@@ -167,10 +164,12 @@ exits non-zero):
               version on the reference's array and a seeded one), then
               timed at the reference's 2000 iterations (ns per
               element-iteration, bf16/f32, packed beside scalar) and priced
-              by pipe (apps/op_probe.py pipes: each variant's SASS
-              instructions a iteration by pipe, its chain's cycles a
-              iteration with one warp, its ns/elem-iter with the card full,
-              its bound by pipe beside the FLOP-count bound)
+              by pipe (apps/op_probe.py pipes: the latency chains' cycles
+              an instruction by class and pipe; each variant's SASS
+              instructions an iteration by pipe, its dependent chain's
+              cycles an iteration at those latencies, its bound by pipe
+              beside the FLOP-count bound, and what one warp and the full
+              card read)
  12. simt     the SIMT-counting builds (-DGPRT_COUNT_SIMT): the share of a
               warp's 32 lanes that march at each march sample, for the frame
               kernel on the builtin and the fractal 1080p frames per level
@@ -450,7 +449,6 @@ def reset_counts():
     frame_kernel.LAUNCHES = 0
     scene_kernel.LAUNCHES = 0
     megakernel.LAUNCHES = 0
-    megakernel.APPEND_LAUNCHES = 0
     megakernel.MESH_LAUNCHES = 0
     megakernel.PASS_LAUNCHES = 0
     frame_kernel.COMPACT_LAUNCHES = frame_kernel.DENSE_LAUNCHES = 0
@@ -782,44 +780,24 @@ def lane_kernels(label, scene, pack, route, card, w=W_MAIN, h=H_MAIN, depth=3):
     return rows, passes
 
 
-# Row 7's steps alone, each a build with one macro, for phase 9's same-call
-# A/B: the queue with the generic march, the queue in the order its warps'
-# groups append, one thread per ray with the specialized march.
-ROW7_VARIANTS = {"queue_generic": "GPRT_SPHERE_MARCH_GENERIC",
-                 "queue_groups": "GPRT_SPHERE_QUEUE_WARP_GROUPS",
-                 "per_ray_coded": "GPRT_SPHERE_TRACE_PER_RAY"}
-
-
 def march_designs(calls, dev, card):
     """Row 7 (the one-geometry march) on the recorded ``calls`` [(args, kw)]
     of sphere_trace_tiles: per call the gated rays and the blocks and warps
-    of the parent's grid that hold one; the queued march against the
-    parent's one thread per ray (-DGPRT_SPHERE_TRACE_PER_RAY) bit for bit,
-    and under set_sync_debug_mode("error"); both designs' SIMT and the
-    march samples (the SIMT builds' counters); their times in one call, in
-    turns (parent, queued, queued, parent); the queue alone and
-    torch.nonzero(gate); and the bound's three terms: bytes, operations
-    (the op-counting build) and the critical path, the longest march's
-    samples times one sample's dependent latency (the ray that the plain
-    version marches longest, marched alone, less an empty call, over its
-    samples). Returns the sums over the calls."""
+    that hold one; the shipped march (specialized on its code) against the
+    generic march's build (-DGPRT_SPHERE_MARCH_GENERIC, the parent's) bit
+    for bit, and under set_sync_debug_mode("error"); SIMT and the march
+    samples (the SIMT build's counters); resident blocks; both builds'
+    times in one call, in turns (generic, shipped, shipped, generic); and
+    the longest ray alone: the ray that the plain version marches longest,
+    marched by itself, less a call that marches nothing (a measurement of
+    the march's own chain, not a bound). Returns the sums over the calls."""
     from gpuraytracer_tpu_torch.geometry import sdf
     from gpuraytracer_tpu_torch.kernels import build, megakernel
 
-    # The parent's design (one thread per ray, the generic march), the
-    # shipped one (the queue in ray order within each block, the march
-    # specialized on its code), and each step alone (ROW7_VARIANTS).
-    libs = {"per_ray": build.load("megakernel", defines=megakernel.PER_RAY_DEFINES),
-            "queue": build.load("megakernel")}
-    libs.update({k: build.load("megakernel", defines=(m,)) for k, m in ROW7_VARIANTS.items()})
-    simt_libs = {"per_ray": build.load("megakernel", count_simt=True,
-                                       defines=megakernel.PER_RAY_DEFINES),
-                 "queue": build.load("megakernel", count_simt=True),
-                 "queue_groups": build.load("megakernel", count_simt=True,
-                                            defines=(ROW7_VARIANTS["queue_groups"],))}
-    ops_lib = build.load("megakernel", count_ops=True)
-    tot = dict(ms={k: 0.0 for k in libs}, queue_ms=0.0, queue_plain_ms=0.0,
-               library_ms=0.0, bytes=0, queue_bytes=0, ops=0, critical_ms=0.0, gated=0)
+    libs = {"generic": build.load("megakernel", defines=megakernel.GENERIC_DEFINES),
+            "shipped": build.load("megakernel")}
+    simt_lib = build.load("megakernel", count_simt=True)
+    tot = dict(ms={k: 0.0 for k in libs}, longest_ms=0.0)
 
     def call(args, kw, lib=None, ops=None):
         return megakernel.sphere_trace_tiles(*args, lib=lib, ops=ops, **kw)
@@ -832,46 +810,26 @@ def march_designs(calls, dev, card):
         blocks, warps = int(pad.view(-1, 128).any(1).sum()), int(pad.view(-1, 32).any(1).sum())
         resident = {k: megakernel.sphere_residency(dev, kw["prim_code"], lib=lib)
                     for k, lib in libs.items()}
-        out = {k: call(args, kw, lib) for k, lib in libs.items()}
-        # Rays whose t or normal differ from the parent's, bit for bit.
-        differ = {k: int(((out[k][1] != out["per_ray"][1])
-                          | (out[k][2] != out["per_ray"][2]).any(1)).sum()) for k in libs}
-        same = differ["queue"] == 0
+        generic = call(args, kw, libs["generic"])
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            synced = call(args, kw)
-            queue, count = megakernel.sphere_queue(gate)
+            shipped = call(args, kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        same = same and all(torch.equal(x, y) for x, y in zip(synced, out["per_ray"]))
-        p_queue, p_count = megakernel.sphere_queue_plain(gate)
-        queue_ok = (int(count) == int(p_count) and torch.equal(
-            torch.sort(queue[:int(count)]).values, p_queue[:int(p_count)]))
-        if not (same and queue_ok):
-            raise AssertionError(f"1080p march call {j}: the queued march is not the parent's "
-                                 f"bit for bit ({same}) or its queue not the gated rays ({queue_ok})")
-        sim = {}
-        for k, lib in simt_libs.items():
-            cnt = torch.zeros(megakernel.MARCH_SIMT_COUNTERS, dtype=torch.int64, device=dev)
-            call(args, kw, lib, cnt)
-            sim[k] = megakernel.march_simt(cnt)
-        if any(sim[k]["samples"] != sim["per_ray"]["samples"] or
-               sim[k]["max_samples"] != sim["per_ray"]["max_samples"] for k in sim):
-            raise AssertionError(f"1080p march call {j}: the designs took other samples: {sim}")
+        # Rays whose t or normal differ from the generic march's, bit for bit.
+        differ = int(((shipped[1] != generic[1]) | (shipped[2] != generic[2]).any(1)).sum())
+        if differ or not all(torch.equal(x, y) for x, y in zip(shipped, generic)):
+            raise AssertionError(f"1080p march call {j}: {differ} rays of the specialized march "
+                                 f"differ from the generic march's bit for bit")
+        cnt = torch.zeros(megakernel.MARCH_SIMT_COUNTERS, dtype=torch.int64, device=dev)
+        call(args, kw, simt_lib, cnt)
+        sim = megakernel.march_simt(cnt)
         ms = {k: [] for k in libs}
-        for k in ("per_ray", "queue_generic", "queue_groups", "per_ray_coded", "queue", "queue",
-                  "per_ray_coded", "queue_groups", "queue_generic", "per_ray"):
+        for k in ("generic", "shipped", "shipped", "generic"):
             ms[k].append(cuda_ms(lambda: call(args, kw, libs[k]), 20)[0])
-        q_ms = cuda_ms(lambda: megakernel.sphere_queue(gate), SHORT_REPS)[0]
-        qp_ms = cuda_ms(lambda: megakernel.sphere_queue_plain(gate), 1, warmup=False)[0]
-        lib_ms = cuda_ms(lambda: torch.nonzero(gate), SHORT_REPS)[0]
-        ops = torch.zeros(1, dtype=torch.int64, device=dev)
-        call(args, kw, ops_lib, ops)
-        n_ops = int(ops.item())
-        # The critical path: the ray the plain version marches longest,
-        # alone (its samples from the SIMT build), less a call that
-        # marches nothing.
+        # The longest ray alone: the ray the plain version marches longest
+        # (its samples from the SIMT build), less a call that marches nothing.
         st = sdf.march_state(o, d, gate, t_max, step_scale, prim_code=kw["prim_code"],
                              cull_backface=kw["cull_backface"], max_steps=kw["max_steps"],
                              t_start=kw.get("t_start"), relax=kw["relax"])
@@ -883,74 +841,39 @@ def march_designs(calls, dev, card):
         one_kw = dict(kw, t_start=None if kw.get("t_start") is None else kw["t_start"][r:r + 1])
         one = (o[r:r + 1], d[r:r + 1], gate[r:r + 1], t_max[r:r + 1], step_scale)
         none = (o[r:r + 1], d[r:r + 1], ~gate[r:r + 1], t_max[r:r + 1], step_scale)
-        cnt = torch.zeros(megakernel.MARCH_SIMT_COUNTERS, dtype=torch.int64, device=dev)
-        call(one, one_kw, simt_libs["queue"], cnt)
+        cnt.zero_()
+        call(one, one_kw, simt_lib, cnt)
         one_samples = megakernel.march_simt(cnt)["max_samples"]
         one_ms = cuda_ms(lambda: call(one, one_kw), SHORT_REPS)[0]
         none_ms = cuda_ms(lambda: call(none, one_kw), SHORT_REPS)[0]
+        g_one_ms = cuda_ms(lambda: call(one, one_kw, libs["generic"]), SHORT_REPS)[0]
+        g_none_ms = cuda_ms(lambda: call(none, one_kw, libs["generic"]), SHORT_REPS)[0]
         sample_ns = (one_ms - none_ms) * 1e6 / max(one_samples, 1)
-        # The parent's march (generic: a call and a switch a sample), the
-        # same ray alone.
-        p_one_ms = cuda_ms(lambda: call(one, one_kw, libs["per_ray"]), SHORT_REPS)[0]
-        p_none_ms = cuda_ms(lambda: call(none, one_kw, libs["per_ray"]), SHORT_REPS)[0]
-        p_sample_ns = (p_one_ms - p_none_ms) * 1e6 / max(one_samples, 1)
-        critical_ms = sim["queue"]["max_samples"] * sample_ns * 1e-6
-        # Every ray reads its gate and writes t_hit and its normal; a gated
-        # ray reads o, d, t_max (and t_start). The queue: each ray's gate
-        # read, each ungated ray's miss and each gated ray's index written.
-        t_start_b = 4 if kw.get("t_start") is not None else 0
-        nbytes = n * (1 + 16) + gated * (12 + 12 + 4 + t_start_b)
-        q_bytes = n + (n - gated) * 16 + gated * 4 + 4
+        g_sample_ns = (g_one_ms - g_none_ms) * 1e6 / max(one_samples, 1)
+        longest_ms = sim["max_samples"] * sample_ns * 1e-6
         print(f"[mesh] row 7, 1080p march call {j} (code {kw['prim_code']}, budget "
               f"{kw['max_steps']}): {gated} of {n} rays gated ({100 * gated / n:.2f}%), in "
-              f"{blocks} of {-(-n // 128)} blocks and {warps} of {-(-n // 32)} warps of the "
-              f"parent's grid; march samples mean {sim['queue']['samples'] / max(gated, 1):.2f}, "
-              f"max {sim['queue']['max_samples']}; SIMT parent {100 * sim['per_ray']['simt']:.2f}%"
-              f" ({sim['per_ray']['warp_samples']} warp-samples), queued "
-              f"{100 * sim['queue']['simt']:.2f}% ({sim['queue']['warp_samples']}); resident "
-              f"blocks/SM parent {resident['per_ray'][0]}, shipped {resident['queue'][0]}; "
-              f"rays that differ from the parent's bit for bit {differ}, queue = the gated rays, "
-              f"0 host syncs; in turns: parent (one thread per ray, generic march) "
-              f"{ms['per_ray'][0]:.4f} / {ms['per_ray'][1]:.4f} ms, the queue with the generic "
-              f"march {ms['queue_generic'][0]:.4f} / {ms['queue_generic'][1]:.4f}, the queue in "
-              f"its warps' groups' order {ms['queue_groups'][0]:.4f} / "
-              f"{ms['queue_groups'][1]:.4f} (SIMT {100 * sim['queue_groups']['simt']:.2f}%), one "
-              f"thread per "
-              f"ray with the march specialized on its code {ms['per_ray_coded'][0]:.4f} / "
-              f"{ms['per_ray_coded'][1]:.4f}, shipped (the queue, the specialized march) "
-              f"{ms['queue'][0]:.4f} / {ms['queue'][1]:.4f} ms; the queue alone "
-              f"{q_ms:.4f} ms (plain {qp_ms:.3f}, torch.nonzero(gate) {lib_ms:.4f}); bound "
-              f"terms: bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B), operations "
-              f"{n_ops / F32_OPS_PER_S * 1e3:.4f} ms ({n_ops} FLOPs), critical path "
-              f"{critical_ms:.4f} ms (ray {r} alone: {one_samples} samples in "
-              f"{one_ms:.4f} ms, an empty call {none_ms:.4f} ms: {sample_ns:.2f} ns a "
-              f"sample; the parent's march {p_sample_ns:.2f} ns a sample, {p_one_ms:.4f} and "
-              f"{p_none_ms:.4f} ms); {card}", flush=True)
+              f"{blocks} of {-(-n // 128)} blocks and {warps} of {-(-n // 32)} warps; march "
+              f"samples mean {sim['samples'] / max(gated, 1):.2f}, max {sim['max_samples']}; "
+              f"SIMT {100 * sim['simt']:.2f}% ({sim['warp_samples']} warp-samples; the generic "
+              f"march takes the same samples on the same lanes); resident blocks/SM generic "
+              f"{resident['generic'][0]}, shipped {resident['shipped'][0]}; bit for bit the "
+              f"generic march's on every ray, 0 host syncs; in turns: generic "
+              f"{ms['generic'][0]:.4f} / {ms['generic'][1]:.4f} ms, shipped (the march "
+              f"specialized on its code) {ms['shipped'][0]:.4f} / {ms['shipped'][1]:.4f} ms; the "
+              f"longest ray alone (ray {r}, {one_samples} samples): {one_ms:.4f} ms, an empty "
+              f"call {none_ms:.4f} ms, {sample_ns:.2f} ns a sample (generic {g_sample_ns:.2f}: "
+              f"{g_one_ms:.4f} and {g_none_ms:.4f} ms), so the longest march alone "
+              f"{longest_ms:.4f} ms (a measurement, not a bound); {card}", flush=True)
         for k in ms:
             tot["ms"][k] += sum(ms[k]) / len(ms[k])
-        tot["queue_ms"] += q_ms
-        tot["queue_plain_ms"] += qp_ms
-        tot["library_ms"] += lib_ms
-        tot["bytes"] += nbytes
-        tot["queue_bytes"] += q_bytes
-        tot["ops"] += n_ops
-        tot["critical_ms"] += critical_ms
-        tot["gated"] += gated
+        tot["longest_ms"] += longest_ms
         tot.setdefault("resident", resident)
         tot.setdefault("code", kw["prim_code"])
-    tot["bound_ms"] = max(tot["bytes"] / HBM_BYTES_PER_S * 1e3, tot["ops"] / F32_OPS_PER_S * 1e3,
-                          tot["critical_ms"])
-    tot["bound_by"] = ("critical path" if tot["bound_ms"] == tot["critical_ms"] else
-                       bound(tot["bytes"], tot["ops"])[1])
-    print(f"[mesh] row 7, the {len(calls)} 1080p march calls (same call): parent "
-          f"{tot['ms']['per_ray']:.4f} ms, the queue alone changed {tot['ms']['queue_generic']:.4f}"
-          f", the queue in its groups' order {tot['ms']['queue_groups']:.4f}, the specialized "
-          f"march alone {tot['ms']['per_ray_coded']:.4f}, shipped "
-          f"{tot['ms']['queue']:.4f} ms; bound {tot['bound_ms']:.4f} ms by "
-          f"{tot['bound_by']} (bytes {tot['bytes'] / HBM_BYTES_PER_S * 1e3:.4f}, operations "
-          f"{tot['ops'] / F32_OPS_PER_S * 1e3:.4f}, critical path {tot['critical_ms']:.4f}); "
-          f"the queue alone {tot['queue_ms']:.4f} ms, torch.nonzero {tot['library_ms']:.4f} ms; "
-          f"{card}", flush=True)
+    print(f"[mesh] row 7, the {len(calls)} 1080p march calls (same call): generic "
+          f"{tot['ms']['generic']:.4f} ms, shipped {tot['ms']['shipped']:.4f} ms "
+          f"({100 * (tot['ms']['shipped'] / tot['ms']['generic'] - 1):+.1f}%); the longest "
+          f"marches alone {tot['longest_ms']:.4f} ms; {card}", flush=True)
     return tot
 
 
@@ -1998,20 +1921,14 @@ def main() -> int:
                    for fmad, count in ((build.DEFAULT_FMAD, False), (not build.DEFAULT_FMAD, False),
                                        (build.DEFAULT_FMAD, True))]
         builds.append(("scene_finish", build.DEFAULT_FMAD, False, False, False, False, True))
-        # Row 7's parent design, one thread per ray (-DGPRT_SPHERE_TRACE_PER_RAY),
-        # which phase 9 holds the queued march to and times beside it, with
-        # its SIMT build; row 8's parent bf16 form, one element a thread
+        # Row 7's generic march (-DGPRT_SPHERE_MARCH_GENERIC, the parent's),
+        # which phase 9 holds the specialized march to and times beside it;
+        # row 8's parent bf16 form, one element a thread
         # (-DGPRT_PROBE_BF16_SCALAR), which phase 11 holds the packed pairs to.
-        builds += [("megakernel", build.DEFAULT_FMAD, False, simt, False, False, False,
-                    megakernel.PER_RAY_DEFINES) for simt in (False, True)]
+        builds.append(("megakernel", build.DEFAULT_FMAD, False, False, False, False, False,
+                       megakernel.GENERIC_DEFINES))
         builds.append(("op_probe", build.DEFAULT_FMAD, False, False, False, False, False,
                        op_probe.SCALAR_DEFINES))
-        # Row 7's steps alone, for phase 9's same-call A/B (ROW7_VARIANTS),
-        # and the SIMT build of the queue in its groups' order.
-        builds += [("megakernel", build.DEFAULT_FMAD, False, False, False, False, False, (macro,))
-                   for macro in ROW7_VARIANTS.values()]
-        builds.append(("megakernel", build.DEFAULT_FMAD, False, True, False, False, False,
-                       (ROW7_VARIANTS["queue_groups"],)))
         builds += [("frame_gate", fmad, False) for fmad in (build.DEFAULT_FMAD,
                                                             not build.DEFAULT_FMAD)]
         # Row 10, the frame programs' per-frame state (always --fmad=false).
@@ -2358,9 +2275,9 @@ def main() -> int:
         d = hlsl.normalize(torch.rand(n, 3, generator=gen) * 1.2 - 0.6 - o)
         o, d = o.to(dev), d.to(dev)
         mega_err = 0.0
-        # Row 7's parent design (one thread per ray): the queued march must
-        # equal it bit for bit on every ray of every batch.
-        per_ray_lib = build.load("megakernel", defines=megakernel.PER_RAY_DEFINES)
+        # Row 7's generic march (the parent's): the march specialized on its
+        # code must equal it bit for bit on every ray of every batch.
+        generic_lib = build.load("megakernel", defines=megakernel.GENERIC_DEFINES)
         for code in range(9):
             gate = torch.ones(n, dtype=torch.bool, device=dev)
             t_max = torch.full((n,), 10.0, device=dev)
@@ -2395,20 +2312,20 @@ def main() -> int:
                                     f"|dt| <= 1e-3 on {close:.6f} of both-hit rays, max |dt| "
                                     f"{dt_max:.6g}, normals within 1e-2 on {n_close:.6f} "
                                     f"(max {dn_max:.6g})")
-                    q_out = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, **kw)
-                    r_out = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, lib=per_ray_lib,
+                    c_out = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, **kw)
+                    g_out = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, lib=generic_lib,
                                                           **kw)
-                    same = all(torch.equal(x, y) for x, y in zip(q_out, r_out))
+                    same = all(torch.equal(x, y) for x, y in zip(c_out, g_out))
                     print(f"[mesh] march code {code} {'occlusion' if occlusion else 'closest'} "
                           f"budget {steps}{' capped-hit' if capped else ''}: {int(gate.sum())} "
-                          f"gated rays, {int(p_out[0].sum())} plain hits; the queued march "
-                          f"bit-equal to the parent's one thread per ray: {same}; "
+                          f"gated rays, {int(p_out[0].sum())} plain hits; bit-equal to the "
+                          f"generic march: {same}; "
                           + "; ".join(line), flush=True)
                     if not ok:
                         raise AssertionError(f"march code {code}: kernel disagrees with plain")
                     if not same:
-                        raise AssertionError(f"march code {code}: the queued march is not the "
-                                             f"parent's bit for bit")
+                        raise AssertionError(f"march code {code}: the specialized march is not "
+                                             f"the generic march's bit for bit")
 
         # The three mesh scenes: 96x54 against their goldens, 320x180 against
         # their route's plain version; the octahedra also on the wavefront.
@@ -2486,7 +2403,6 @@ def main() -> int:
                                      f"for {FRAMES} frames, not {expect}")
             if route_scene:
                 mega_launches, mesh_launches, pass_launches = launched[2:5]
-                append_launches = megakernel.APPEND_LAUNCHES
                 route_window_ms = ms
                 lane_launches = {k: v + lanes_run[k] for k, v in lane_launches.items()}
             print(f"[mesh] {name} {cfg.width}x{cfg.height} depth {cfg.max_depth}, {FRAMES} "
@@ -2708,8 +2624,8 @@ def main() -> int:
                   f"{int(nbytes)} bytes: bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / k_ms:.1f}% "
                   f"of bound); plain {p_ms:.1f} ms; {card}", flush=True)
 
-        # Row 7's redesign on the chain's 1080p march calls: the queued march
-        # against the parent's one thread per ray, and the bound's terms.
+        # Row 7's redesign on the chain's 1080p march calls: the specialized
+        # march against the generic march's build, and the longest ray alone.
         march_row = march_designs(calls["march"], dev, card)
 
         # The mesh body inside the frame kernel at 1080p: one mesh_octahedra
@@ -3642,8 +3558,20 @@ def main() -> int:
         op_probe.LAUNCHES = 0
         probe = probe_app.run(2000, 20, dev)
         probe_launches = op_probe.LAUNCHES
+        op_probe.LATENCY_LAUNCHES = 0
         pipes = probe_app.pipes(2000, 8, dev)
         scalar_sass = probe_app.sass_loop_counts(scalar_lib._name)
+        lat = pipes["latencies"]
+        print(f"[last] op probe latency chains ({op_probe.LATENCY_LAUNCHES} launches, one "
+              f"thread, {op_probe.CHAIN_LENGTH} dependent links a round), cycles an "
+              f"instruction: " + "; ".join(
+                  f"{k} {c['cycles']:.2f} (family {c['family']}; SASS a round {c['opcodes']})"
+                  for k, c in lat["classes"].items())
+              + "; the prices: " + ", ".join(f"{k} {v:.2f}" for k, v in lat["families"].items())
+              + f", any other family {lat['floor']:.2f}; {card}", flush=True)
+        if op_probe.LATENCY_LAUNCHES == 0 or not all(
+                0.5 < c["cycles"] < 200 for c in lat["classes"].values()):
+            raise AssertionError(f"op probe latency chains: {lat['classes']}")
         probe_ms = probe_plain_ms = probe_bound = probe_pipe_bound = 0.0
         bound_share = {"bytes": 0.0, "operations": 0.0}
         pipe_share = {}
@@ -3671,9 +3599,11 @@ def main() -> int:
             terms = ", ".join(f"{k} {v:.4f}" for k, v in pp["terms"].items())
             print(f"[last] op probe {key}, 2000 iterations over {x.numel()} elements: "
                   f"{r['ms']:.4f} ms, {r['ns_per_elem_iter']:.6f} ns/elem-iter; SASS a iteration "
-                  f"{pp['sass']['pipes']} ({pp['sass']['opcodes']}); chain "
-                  f"{pp['chain_cycles_per_iter']:.2f} cycles ({pp['chain_ns_per_iter']:.3f} ns) a "
-                  f"iteration with one warp; full card {pp['throughput_ns_per_elem_iter']:.7f} "
+                  f"{pp['sass']['pipes']} ({pp['sass']['opcodes']}); dependent chain "
+                  f"{pp['chain_cycles_per_iter']:.2f} cycles an iteration at the chains' "
+                  f"latencies (a lower bound); read: one warp {pp['one_warp_cycles_per_iter']:.2f} cycles "
+                  f"({pp['one_warp_ns_per_iter']:.3f} ns) an iteration, the full card "
+                  f"{pp['throughput_ns_per_elem_iter']:.7f} "
                   f"ns/elem-iter; bound by pipe {pp['bound_ms']:.4f} ms by {pp['bound_by']} "
                   f"({terms}); FLOP bound {b_ms:.4f} ms by {b_by} ({n_ops} {name} FLOPs at "
                   f"{rates[name] / 1e12:.1f} TFLOP/s, {nbytes} bytes); plain {p_ms:.1f} ms"
@@ -3823,23 +3753,11 @@ def main() -> int:
         "bound_ms": alone["march"]["bound_ms"],
         "bound_by": alone["march"]["bound_by"],
         "library_ms": None,
-        # Row 7's terms of its bound beyond bytes and operations, and the
-        # parent's design (one thread per ray) timed in the same call.
-        "critical_path_ms": march_row["critical_ms"],
-        "per_ray_ms": march_row["ms"]["per_ray"],
-        "queued_ms": march_row["ms"]["queue"],
-    }, {
-        "name": "megakernel_sphere_append",
-        "route": "cuda",
-        "source": "gpuraytracer_tpu_torch/kernels/csrc/megakernel.cu",
-        "replaces": "gpuraytracer_tpu/kernels/megakernel.py:103",
-        "launches": append_launches,
-        "max_abs_err": 0.0,
-        "ms": march_row["queue_ms"],
-        "plain_ms": march_row["queue_plain_ms"],
-        "bound_ms": bound(march_row["queue_bytes"], 0)[0],
-        "bound_by": bound(march_row["queue_bytes"], 0)[1],
-        "library_ms": march_row["library_ms"],
+        # The generic march's build (the parent's) timed in the same call
+        # in turns, and the longest marches alone (a measurement).
+        "generic_ms": march_row["ms"]["generic"],
+        "shipped_in_turns_ms": march_row["ms"]["shipped"],
+        "longest_ray_ms": march_row["longest_ms"],
     }, {
         "name": "megakernel_trimesh",
         "route": "cuda",
@@ -3961,7 +3879,8 @@ def main() -> int:
         "bound_by": probe_bound_by,
         "library_ms": None,
         # The bound by pipe: each variant's SASS priced at its pipes' rates,
-        # its issue slots and its chain's latency (apps/op_probe.py pipes).
+        # its issue slots and its dependent chain at the latency chains'
+        # latencies (apps/op_probe.py pipes).
         "pipe_bound_ms": probe_pipe_bound,
         "pipe_bound_by": probe_pipe_bound_by,
     }, {key: v for key, v in state_row.items() if key != "programs"}]
@@ -3971,7 +3890,6 @@ def main() -> int:
     ptxas_name = {
         "frame_kernel": "frame_kernel<false, true>", "scene_kernel": "scene_kernel<false, true>",
         "megakernel_sphere_trace": f"sphere_trace<{march_row['code']}>",
-        "megakernel_sphere_append": "sphere_append",
         "megakernel_trimesh": "trimesh",
         "megakernel_route_pass": "route_pass<true>",
         "frame_compact": "frame_compact_kernel<true>",
@@ -3989,7 +3907,7 @@ def main() -> int:
         "wavefront_start": "wavefront_start_kernel", "wavefront_hit": "wavefront_hit_kernel",
         "wavefront_shade": "wavefront_shade_kernel",
         "sdf_distance": "sdf_probe", "frame_state": "frame_state_kernel"}
-    resident["megakernel_sphere_trace"] = march_row["resident"]["queue"]
+    resident["megakernel_sphere_trace"] = march_row["resident"]["shipped"]
     resident["scene_two_phase_main"] = scene_kernel.residency(pack_m, entry="main")
     resident["frame_dense"] = frame_kernel.residency(pack_m, dense=True)
     resident["shadow_queue"] = scene_kernel.residency(pack_m, entry="repair")

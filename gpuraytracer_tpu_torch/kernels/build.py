@@ -24,8 +24,8 @@ build whose two-phase finisher runs one thread per ray over every ray (the
 parent's finisher, which checks hold the queued one to; never the shipped
 build); ``defines`` adds -D<macro> for each macro it names: a variant
 that checks hold the shipped build to or that a same-call A/B times
-beside it (megakernel.PER_RAY_DEFINES, the one-geometry march's parent
-design; op_probe.SCALAR_DEFINES, the probe's bf16 one element a thread;
+beside it (megakernel.GENERIC_DEFINES, the one-geometry march with the
+generic march; op_probe.SCALAR_DEFINES, the probe's bf16 one element a thread;
 never the shipped build). The sources
 in NO_FMAD (frame_state.cu) build with --fmad=false
 whatever ``fmad`` asks: their values must equal their plain versions'
@@ -210,13 +210,9 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_finish_compacts.argtypes = []
         lib.gprt_finish_compacts.restype = ci
     elif name == "megakernel":
-        lib.gprt_sphere_trace.argtypes = ([vp] * 8 + [ci, ci, cf, ci, cf, cf, ci, ci, ci]
+        lib.gprt_sphere_trace.argtypes = ([vp] * 7 + [ci, ci, cf, ci, cf, cf, ci, ci, ci]
                                           + [vp, ci, vp])
         lib.gprt_sphere_trace.restype = ci
-        lib.gprt_sphere_queue.argtypes = [vp] * 4 + [ci, ci, vp]
-        lib.gprt_sphere_queue.restype = ci
-        lib.gprt_sphere_trace_queues.argtypes = []
-        lib.gprt_sphere_trace_queues.restype = ci
         lib.gprt_sphere_residency.argtypes = [ci, ci, vp, vp]
         lib.gprt_sphere_residency.restype = ci
         lib.gprt_trimesh.argtypes = [vp, ci] + [vp] * 6 + [ci, ci, vp, ci, vp]
@@ -240,6 +236,8 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
         lib.gprt_op_probe.restype = ci
         lib.gprt_op_probe_bf16_per_thread.argtypes = []
         lib.gprt_op_probe_bf16_per_thread.restype = ci
+        lib.gprt_op_latency.argtypes = [ci, ci, vp, vp, ci, vp]
+        lib.gprt_op_latency.restype = ci
     lib.gprt_error_string.argtypes = [ci]
     lib.gprt_error_string.restype = ctypes.c_char_p
     return lib

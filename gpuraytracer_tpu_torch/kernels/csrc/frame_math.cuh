@@ -33,9 +33,7 @@
 // in units of 2^-20) to its bucket's warp-samples, and the warp's lowest
 // active lane adds one to the total warp-samples. SIMT efficiency is
 // lane-samples / (32 x warp-samples). The kernel's ops pointer then holds
-// 2 x kSimtBuckets + 1 counters; the default build compiles it away. Each
-// sample also counts one for its thread (gprt_simt_steps), which a kernel
-// that reads it resets first (megakernel.cu's march entries).
+// 2 x kSimtBuckets + 1 counters; the default build compiles it away.
 #pragma once
 
 #include <math.h>
@@ -61,7 +59,6 @@ constexpr int kSimtShift = 20;    // fixed-point unit of a warp-sample share
 #ifdef GPRT_COUNT_SIMT
 __shared__ unsigned long long* gprt_simt_out;
 __shared__ int gprt_simt_bucket[128];  // one slot per thread of a 128-thread block
-__shared__ int gprt_simt_steps[128];   // the thread's samples
 
 __device__ __forceinline__ int gprt_thread() {
   return (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
@@ -71,7 +68,6 @@ __device__ __forceinline__ void gprt_simt_sample() {
   const unsigned active = __activemask();
   const unsigned lane = gprt_thread() & 31;
   const int b = gprt_simt_bucket[gprt_thread()];
-  ++gprt_simt_steps[gprt_thread()];
   const unsigned group = __match_any_sync(active, b);
   if (lane == (unsigned)(__ffs(group) - 1)) {
     atomicAdd(gprt_simt_out + 2 * b, (unsigned long long)__popc(group));
@@ -699,11 +695,12 @@ __device__ __forceinline__ float escape_bound(V3 o, V3 d, float t_max, const Mar
 // *rec (a MarchRecord; rec->g is the caller's; none where rec is null);
 // kCarryResume: the march
 // starts from the carries in *rec instead of t_start, and misses at once
-// where the record says that the full march missed.
+// where the record says that the full march missed. samples (non-null):
+// counts the samples taken.
 template <int kCarry, int kCode = -1>
 __device__ __forceinline__ int march_sdf_loop(int code, V3 o, V3 d, float t_start, float t_max,
                                               float step_scale, const MarchSpec& m, float* t_out,
-                                              MarchRecord* rec) {
+                                              MarchRecord* rec, int* samples = nullptr) {
   const float t_esc = escape_bound(o, d, t_max, m);
   float t = t_start, rprev = 0.0f, t_prev = -1.0f;
   bool oon = true, escaped_last = false;
@@ -720,6 +717,7 @@ __device__ __forceinline__ int march_sdf_loop(int code, V3 o, V3 d, float t_star
   while (steps < m.max_steps) {
     GPRT_OPS(relaxed ? 13 : 9);
     GPRT_SIMT_SAMPLE();
+    if (samples != nullptr) ++*samples;
     V3 pos = along(o, t, d);
     float dist = sdf_distance_of<kCode>(code, pos);
     ++steps;
@@ -793,13 +791,27 @@ __device__ __noinline__ int march_sdf(int code, V3 o, V3 d, float t_start, float
 // order as march_sdf's. Not inlined, as march_sdf is not: inlined into its
 // kernel, the compiler split the loop on the relaxation (a kernel
 // parameter there) and contracted the plain step into an FMA, which moved
-// the crossings of the unrelaxed marches by an ulp on an H100.
+// the crossings of the unrelaxed marches by an ulp on an H100. The SIMT
+// build (-DGPRT_COUNT_SIMT) also writes the samples it took to *samples.
+#ifdef GPRT_COUNT_SIMT
+template <int kCode>
+__device__ __noinline__ int march_sdf_code(V3 o, V3 d, float t_start, float t_max,
+                                           float step_scale, const MarchSpec& m, float* t_out,
+                                           int* samples) {
+  int taken = 0;
+  const int r = march_sdf_loop<kCarryNone, kCode>(kCode, o, d, t_start, t_max, step_scale, m,
+                                                  t_out, nullptr, &taken);
+  *samples = taken;
+  return r;
+}
+#else
 template <int kCode>
 __device__ __noinline__ int march_sdf_code(V3 o, V3 d, float t_start, float t_max,
                                            float step_scale, const MarchSpec& m, float* t_out) {
   return march_sdf_loop<kCarryNone, kCode>(kCode, o, d, t_start, t_max, step_scale, m, t_out,
                                            nullptr);
 }
+#endif
 
 // The march that writes its record where its budget runs out, and the
 // march that continues from a record (the occlusion repair):

@@ -45,32 +45,22 @@
 // normal ((0, 0, 0) on a miss, where the reference evaluates the normal at
 // the zeroed position and no caller reads it). The march and the normal are
 // frame_math.cuh's (march_sdf's loop, specialized below, and sdf_normal),
-// the frame and scene kernels' own. The TPU schedule ((32, 128) tiles, the pause/check split of the
-// march, the unroll) is not behaviour and is not carried over. trimesh is
+// the frame and scene kernels' own. The TPU schedule ((32, 128) tiles, the
+// pause/check split of the march, the unroll) is not behaviour and is not
+// carried over. trimesh is
 // the one-mesh entry (the reference's intersect_trimesh), with the staged
 // face loop. These two keep the reference's one-geometry API; no render path
 // launches them.
 //
-// The march runs over a device queue of its gated rays: few rays pass a
-// geometry's gate (3.6-4.6% of the 544-face scene's 1080p level-0 closest
-// pass), so one thread per ray (the parent's form) started 16,200 blocks of
-// which most marched nothing. sphere_append writes each ungated ray's miss
-// and appends each gated ray's index with one atomicAdd per block, in ray
-// order within it; sphere_trace<code> runs one thread per queued ray,
-// launched over the queue's capacity (n slots, one block per 128), and
-// reads the live count on the device: a block past it returns at once, so
-// the host reads nothing back and the chain can be captured in a CUDA
-// graph. Each kernel is instantiated per distance code, and its march
-// calls that code's distance alone each sample (frame_math.cuh
-// march_sdf_code), where march_sdf switches over every code. What bounds
-// the march on an H100 is its critical path, the longest ray's samples
-// times one sample's dependent latency (379-681 ns there), not its bytes
-// or operations; the specialized march takes 13-16% off a sample, and the
-// queue's order changes which lanes share a warp and nothing else. Every
-// ray runs the same operations as in the parent's form, so the outputs are
-// the parent's bit for bit: the -DGPRT_SPHERE_TRACE_PER_RAY build with
-// -DGPRT_SPHERE_MARCH_GENERIC (megakernel.PER_RAY_DEFINES) keeps the
-// parent's one thread per ray with the generic march, for checks.
+// The march is instantiated per distance code: its loop calls that code's
+// distance alone each sample (frame_math.cuh march_sdf_code), where
+// march_sdf switches over every code. Every ray runs the same operations
+// as with march_sdf, so the outputs are the generic march's bit for bit:
+// the -DGPRT_SPHERE_MARCH_GENERIC build (megakernel.GENERIC_DEFINES) keeps
+// it, for checks. On an H100 the specialized march took 3.5-3.7% off the two
+// 1080p march calls of the 544-face scene's level-0 closest pass, where a
+// device queue of the gated rays (3.6-4.6% of them) gained nothing over
+// one thread per ray (PERF.md).
 //
 // What bounds it on an H100: the marches' divergent per-lane loops (ALU-
 // and latency-bound, as in the frame kernel) and the face loop's
@@ -405,69 +395,21 @@ __device__ StagedFaces stage_faces(const float* __restrict__ tri, int lo, int hi
   return sf;
 }
 
-// The SIMT build (-DGPRT_COUNT_SIMT) of the march entries also keeps the
-// launch's longest march: each thread's samples (frame_math.cuh
-// gprt_simt_steps), maxed into the counter past the SIMT counters.
-#ifdef GPRT_COUNT_SIMT
-#define GPRT_STEPS_BEGIN() (gprt_simt_steps[gprt_thread()] = 0)
-#define GPRT_STEPS_END(ops) \
-  atomicMax((ops) + 2 * kSimtBuckets + 1, (unsigned long long)gprt_simt_steps[gprt_thread()])
-#else
-#define GPRT_STEPS_BEGIN() ((void)0)
-#define GPRT_STEPS_END(ops) ((void)0)
-#endif
-
-// The march of the kernels below: specialized on its code (kCode 0..8: a
-// call of that code's distance alone a sample, frame_math.cuh
+// The march of sphere_trace: specialized on its code (kCode 0..8: a call
+// of that code's distance alone a sample, frame_math.cuh
 // sdf_distance_code) unless kCode < 0 (march_sdf, the parent's, which calls
-// sdf_distance's switch of every code a sample). -DGPRT_SPHERE_MARCH_GENERIC
-// launches the kCode < 0 form (the -DGPRT_SPHERE_TRACE_PER_RAY build
-// defines it too, the parent's design whole).
+// sdf_distance's switch of every code a sample), which the
+// -DGPRT_SPHERE_MARCH_GENERIC build launches, for checks.
 #ifdef GPRT_SPHERE_MARCH_GENERIC
 constexpr bool kSphereCoded = false;
 #else
 constexpr bool kSphereCoded = true;
 #endif
 
-// Ray i's march and normal (a gated ray): t_hit[i] and its normal out.
-template <int kCode>
-__device__ __forceinline__ void sphere_ray(int i, const float* __restrict__ o,
-                                           const float* __restrict__ d,
-                                           const float* __restrict__ t_max,
-                                           const float* __restrict__ t_start,
-                                           float* __restrict__ t_hit, float* __restrict__ normal,
-                                           int code, float step_scale, const MarchSpec& m) {
-  float t = kInf;
-  V3 nl = v3(0.0f, 0.0f, 0.0f);
-  const V3 ol = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
-  const V3 dl = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
-  const float ts = t_start ? t_start[i] : 0.0f;
-  float th = kInf;
-  const int r = kCode < 0 ? march_sdf(code, ol, dl, ts, t_max[i], step_scale, m, &th)
-                          : march_sdf_code<kCode>(ol, dl, ts, t_max[i], step_scale, m, &th);
-  if (march_hit(r, m)) {
-    GPRT_OPS(6);
-    t = r == kMarchCapped ? 0.0f : th;
-    nl = hit_normal(code, along(ol, t, dl));
-  }
-  t_hit[i] = t;
-  normal[3 * i] = nl.x;
-  normal[3 * i + 1] = nl.y;
-  normal[3 * i + 2] = nl.z;
-}
-
-// Ray i's miss: what an ungated ray writes.
-__device__ __forceinline__ void sphere_miss(int i, float* __restrict__ t_hit,
-                                            float* __restrict__ normal) {
-  t_hit[i] = kInf;
-  normal[3 * i] = 0.0f;
-  normal[3 * i + 1] = 0.0f;
-  normal[3 * i + 2] = 0.0f;
-}
-
-#ifdef GPRT_SPHERE_TRACE_PER_RAY
-// One thread per ray over all n (the parent's launch form); an ungated ray
-// writes its miss.
+// One thread per ray: a gated ray marches and takes its normal at the hit,
+// an ungated ray writes its miss. The SIMT build (-DGPRT_COUNT_SIMT) also
+// keeps the launch's longest march: each thread's samples, maxed into the
+// counter past the SIMT counters.
 template <int kCode>
 __global__ void __launch_bounds__(128)
     sphere_trace(const float* __restrict__ o, const float* __restrict__ d,
@@ -481,84 +423,36 @@ __global__ void __launch_bounds__(128)
 #endif
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
+    float t = kInf;
+    V3 nl = v3(0.0f, 0.0f, 0.0f);
     if (gate[i]) {
-      GPRT_STEPS_BEGIN();
-      sphere_ray<kCode>(i, o, d, t_max, t_start, t_hit, normal, code, step_scale, m);
-      GPRT_STEPS_END(ops);
-    } else {
-      sphere_miss(i, t_hit, normal);
+      const V3 ol = v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]);
+      const V3 dl = v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]);
+      const float ts = t_start ? t_start[i] : 0.0f;
+      float th = kInf;
+#ifdef GPRT_COUNT_SIMT
+      int samples = 0;
+      const int r = kCode < 0
+                        ? march_sdf(code, ol, dl, ts, t_max[i], step_scale, m, &th)
+                        : march_sdf_code<kCode>(ol, dl, ts, t_max[i], step_scale, m, &th, &samples);
+      atomicMax(ops + 2 * kSimtBuckets + 1, (unsigned long long)samples);
+#else
+      const int r = kCode < 0 ? march_sdf(code, ol, dl, ts, t_max[i], step_scale, m, &th)
+                              : march_sdf_code<kCode>(ol, dl, ts, t_max[i], step_scale, m, &th);
+#endif
+      if (march_hit(r, m)) {
+        GPRT_OPS(6);
+        t = r == kMarchCapped ? 0.0f : th;
+        nl = hit_normal(code, along(ol, t, dl));
+      }
     }
+    t_hit[i] = t;
+    normal[3 * i] = nl.x;
+    normal[3 * i + 1] = nl.y;
+    normal[3 * i + 2] = nl.z;
   }
   counters_end(ops);
 }
-#else
-// The queue's first launch: each ungated ray writes its miss; each gated
-// ray's index is appended to `queue` (n slots: it cannot overflow) and
-// counted in *count, one atomicAdd per block, in ray order within the
-// block (a warp's ballot ranks its lanes, the block's warps take their
-// runs in warp order), so that a queue warp marches neighbouring rays.
-// -DGPRT_SPHERE_QUEUE_WARP_GROUPS: one atomicAdd per group of lanes
-// (group_append), whose runs land in the order the groups reach the
-// counter, for the A/B of the queue's order.
-__global__ void __launch_bounds__(128)
-    sphere_append(const bool* __restrict__ gate, int n, int* __restrict__ queue,
-                  int* __restrict__ count, float* __restrict__ t_hit,
-                  float* __restrict__ normal) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-#ifdef GPRT_SPHERE_QUEUE_WARP_GROUPS
-  if (i >= n) return;
-  if (gate[i]) {
-    queue[group_append(__activemask(), count)] = i;
-  } else {
-    sphere_miss(i, t_hit, normal);
-  }
-#else
-  __shared__ int run[4];  // the block's warps' runs (128 threads), then their offsets
-  __shared__ int base;
-  const bool gated = i < n && gate[i];
-  if (i < n && !gated) sphere_miss(i, t_hit, normal);
-  const unsigned votes = __ballot_sync(0xffffffffu, gated);
-  const int lane = lane_id(), warp = threadIdx.x / 32;
-  if (lane == 0) run[warp] = __popc(votes);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < (int)(blockDim.x + 31) / 32; ++w) {
-      const int c = run[w];
-      run[w] = total;
-      total += c;
-    }
-    base = total > 0 ? atomicAdd(count, total) : 0;
-  }
-  __syncthreads();
-  if (gated) queue[base + run[warp] + __popc(votes & ((1u << lane) - 1u))] = i;
-#endif
-}
-
-// The march over the queue, launched over its capacity: one thread per live
-// slot (the live count read from *count; a block past it returns at once).
-template <int kCode>
-__global__ void __launch_bounds__(128)
-    sphere_trace(const float* __restrict__ o, const float* __restrict__ d,
-                 const float* __restrict__ t_max, const float* __restrict__ t_start,
-                 const int* __restrict__ queue, const int* __restrict__ count,
-                 float* __restrict__ t_hit, float* __restrict__ normal, int code,
-                 float step_scale, MarchSpec m, unsigned long long* ops) {
-  const int live = *count;
-  if ((int)(blockIdx.x * blockDim.x) >= live) return;
-  counters_begin(ops);
-#if GPRT_COUNTING
-  __syncthreads();
-#endif
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot < live) {
-    GPRT_STEPS_BEGIN();
-    sphere_ray<kCode>(queue[slot], o, d, t_max, t_start, t_hit, normal, code, step_scale, m);
-    GPRT_STEPS_END(ops);
-  }
-  counters_end(ops);
-}
-#endif
 
 // The march kernel for `code`: its specialized instantiation, or the
 // generic one (kSphereCoded false).
@@ -688,19 +582,15 @@ __global__ void __launch_bounds__(128)
 }  // namespace gprt
 
 // o, d: (n, 3) f32 local rays; gate (n,) bool; t_max (n,) f32; t_start (n,)
-// f32 or null (march from 0); t_hit (n,) and normal (n, 3) f32 out; work
-// (n + 1 int32: the count, then the queue's n slots; unused by the
-// -DGPRT_SPHERE_TRACE_PER_RAY build, which takes null). ops: a device
-// counter that the counting build (-DGPRT_COUNT_OPS) adds the call's f32
-// FLOPs to (-DGPRT_COUNT_SIMT: 2 x 16 + 2 counters, the SIMT counters and
-// the longest march's samples); the default build ignores it. The queued
-// build: a memset of the count, the append, the march over the queue.
+// f32 or null (march from 0); t_hit (n,) and normal (n, 3) f32 out. ops: a
+// device counter that the counting build (-DGPRT_COUNT_OPS) adds the
+// call's f32 FLOPs to (-DGPRT_COUNT_SIMT: 2 x 16 + 2 counters, the SIMT
+// counters and the longest march's samples); the default build ignores it.
 extern "C" int gprt_sphere_trace(const float* o, const float* d, const bool* gate,
                                  const float* t_max, const float* t_start, float* t_hit,
-                                 float* normal, int* work, int n, int code, float step_scale,
-                                 int max_steps, float relax, float fail_scale, int capped_hit,
-                                 int cull, int escape, unsigned long long* ops, int device,
-                                 void* stream) {
+                                 float* normal, int n, int code, float step_scale, int max_steps,
+                                 float relax, float fail_scale, int capped_hit, int cull,
+                                 int escape, unsigned long long* ops, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0 || code < 0 || code > 8 || max_steps < 0) return (int)cudaErrorInvalidValue;
@@ -711,58 +601,12 @@ extern "C" int gprt_sphere_trace(const float* o, const float* d, const bool* gat
   m.capped_hit = capped_hit != 0;
   m.cull = cull != 0;
   m.escape = escape != 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n + 127) / 128;
-#ifdef GPRT_SPHERE_TRACE_PER_RAY
-  (void)work;
   gprt::sphere_kernel(code, [&](auto kernel) {
-    kernel<<<blocks, 128, 0, s>>>(o, d, gate, t_max, t_start, t_hit, normal, n, code, step_scale,
-                                  m, ops);
+    kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+        o, d, gate, t_max, t_start, t_hit, normal, n, code, step_scale, m, ops);
     return 0;
   });
-#else
-  if (work == nullptr) return (int)cudaErrorInvalidValue;
-  err = cudaMemsetAsync(work, 0, sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  gprt::sphere_append<<<blocks, 128, 0, s>>>(gate, n, work + 1, work, t_hit, normal);
-  gprt::sphere_kernel(code, [&](auto kernel) {
-    kernel<<<blocks, 128, 0, s>>>(o, d, t_max, t_start, work + 1, work, t_hit, normal, code,
-                                  step_scale, m, ops);
-    return 0;
-  });
-#endif
   return (int)cudaGetLastError();
-}
-
-// The queue alone (the memset and the append of gprt_sphere_trace): work
-// (n + 1 int32) gets the count, then the gated rays' indices in its first
-// count slots; t_hit (n,) and normal (n, 3) get every ungated ray's miss.
-// Not in the -DGPRT_SPHERE_TRACE_PER_RAY build.
-extern "C" int gprt_sphere_queue(const bool* gate, int* work, float* t_hit, float* normal, int n,
-                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-#ifdef GPRT_SPHERE_TRACE_PER_RAY
-  (void)gate, (void)work, (void)t_hit, (void)normal, (void)n, (void)stream;
-  return (int)cudaErrorNotSupported;
-#else
-  if (n <= 0 || work == nullptr) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  err = cudaMemsetAsync(work, 0, sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  gprt::sphere_append<<<(n + 127) / 128, 128, 0, s>>>(gate, n, work + 1, work, t_hit, normal);
-  return (int)cudaGetLastError();
-#endif
-}
-
-// Whether this build marches over the queue of gated rays (else the
-// -DGPRT_SPHERE_TRACE_PER_RAY build: one thread per ray, no append).
-extern "C" int gprt_sphere_trace_queues() {
-#ifdef GPRT_SPHERE_TRACE_PER_RAY
-  return 0;
-#else
-  return 1;
-#endif
 }
 
 // The march kernel's resident blocks per SM and in all for distance code

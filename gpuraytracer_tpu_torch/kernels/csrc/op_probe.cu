@@ -31,8 +31,18 @@
 // equals it element for element, for checks. The loop is kept from being
 // folded or hoisted by the dependent chain and `#pragma unroll 1`.
 //
+// The latency chains (latency_kernel) are the instrument that prices a
+// probe's dependent chain: one thread runs kChainLength dependent
+// instructions of one SASS class, `iters` times, between two reads of the
+// SM's clock, and writes the cycles. The operands come from kernel
+// arguments and each instruction takes the last one's result, so that the
+// assembler can neither fold the chain nor overlap it; apps/op_probe.py
+// reads each class's cycles an instruction (its SASS counted from the
+// built library) and prices the probe loops' SASS with them. Seeded from
+// the thread's index, so that no link runs on the uniform datapath.
+//
 // Inputs: x (n,) f32 or bf16; out (n,) of the same type (bf16: 4-byte
-// aligned in the packed build). The C entry returns cudaGetLastError()
+// aligned in the packed build). The C entries return cudaGetLastError()
 // after the launch.
 
 #include <cuda_bf16.h>
@@ -222,6 +232,78 @@ static cudaError_t launch_pairs(int op, const void* x, void* out, int n, int ite
 }
 #endif
 
+// The latency chains' classes (apps/op_probe.LATENCY_CLASSES names them):
+// FFMA, FADD, IMAD (the FMA pipe), FMNMX (the ALU), HFMA2, HMUL2, HADD2
+// (the packed pair pipe), HMNMX2, MUFU.RSQ, and F2I then I2F (the
+// conversions, a pair of instructions a link).
+enum LatencyClass {
+  kLatFfma = 0, kLatFadd, kLatImad, kLatFmnmx, kLatHfma2, kLatHmul2, kLatHadd2, kLatHmnmx2,
+  kLatRsq, kLatCvt, kLatClasses
+};
+constexpr int kChainLength = 64;
+
+// One link of class kClass's chain on the carried values (x, y); a and b
+// are kernel arguments, unknown to the assembler.
+template <int kClass>
+__device__ __forceinline__ void chain_link(float& x, unsigned& y, float a, float b, unsigned ua,
+                                           unsigned ub) {
+  if constexpr (kClass == kLatFfma) {
+    asm volatile("fma.rn.f32 %0, %0, %1, %2;" : "+f"(x) : "f"(a), "f"(b));
+  } else if constexpr (kClass == kLatFadd) {
+    asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(x) : "f"(a));
+  } else if constexpr (kClass == kLatImad) {
+    asm volatile("mad.lo.u32 %0, %0, %1, %2;" : "+r"(y) : "r"(ua), "r"(ub));
+  } else if constexpr (kClass == kLatFmnmx) {
+    // min then max against two arguments: a clamp the assembler cannot
+    // fold without their order.
+    asm volatile("min.f32 %0, %0, %1;" : "+f"(x) : "f"(a));
+    asm volatile("max.f32 %0, %0, %1;" : "+f"(x) : "f"(b));
+  } else if constexpr (kClass == kLatHfma2) {
+    asm volatile("fma.rn.bf16x2 %0, %0, %1, %2;" : "+r"(y) : "r"(ua), "r"(ub));
+  } else if constexpr (kClass == kLatHmul2) {
+    asm volatile("mul.rn.bf16x2 %0, %0, %1;" : "+r"(y) : "r"(ua));
+  } else if constexpr (kClass == kLatHadd2) {
+    asm volatile("add.rn.bf16x2 %0, %0, %1;" : "+r"(y) : "r"(ua));
+  } else if constexpr (kClass == kLatHmnmx2) {
+    asm volatile("min.bf16x2 %0, %0, %1;" : "+r"(y) : "r"(ua));
+    asm volatile("max.bf16x2 %0, %0, %1;" : "+r"(y) : "r"(ub));
+  } else if constexpr (kClass == kLatRsq) {
+    asm volatile("rsqrt.approx.ftz.f32 %0, %0;" : "+f"(x));
+  } else {
+    int k;
+    asm volatile("cvt.rzi.s32.f32 %0, %1;" : "=r"(k) : "f"(x));
+    asm volatile("cvt.rn.f32.s32 %0, %1;" : "=f"(x) : "r"(k));
+  }
+}
+
+// One thread: `iters` rounds of kChainLength links of class kClass between
+// two clock reads; cycles[0] gets the clocks, sink[0] the chain's value.
+template <int kClass>
+__global__ void latency_kernel(float a, float b, unsigned ua, unsigned ub, int iters,
+                               long long* __restrict__ cycles, float* __restrict__ sink) {
+  // Seeded from the thread's index (0 here), so that no link runs on the
+  // uniform datapath (UIMAD) as the assembler would run one on values that
+  // every thread shares.
+  float x = a + (float)threadIdx.x;
+  unsigned y = ub ^ threadIdx.x;
+  const long long start = clock64();
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < kChainLength; ++k) chain_link<kClass>(x, y, a, b, ua, ub);
+  }
+  const long long stop = clock64();
+  cycles[0] = stop - start;
+  sink[0] = x + __uint_as_float(y);
+}
+
+template <int kClass>
+static cudaError_t launch_latency(float a, float b, unsigned ua, unsigned ub, int iters,
+                                  long long* cycles, float* sink, cudaStream_t s) {
+  latency_kernel<kClass><<<1, 1, 0, s>>>(a, b, ua, ub, iters, cycles, sink);
+  return cudaGetLastError();
+}
+
 }  // namespace gprt
 
 // op: 0 fma, 1 minmax, 2 sqrt, 3 rsqrt, 4 cos; bf16: 0 for f32 tensors, 1
@@ -250,6 +332,31 @@ extern "C" int gprt_op_probe_bf16_per_thread() {
 #else
   return 2;
 #endif
+}
+
+// The latency chain of class `klass` (LatencyClass): one thread, `iters`
+// rounds of kChainLength links; cycles (1 int64) gets the SM clocks between
+// its two reads, sink (1 f32) the chain's value.
+extern "C" int gprt_op_latency(int klass, int iters, void* cycles, void* sink, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (iters < 1 || klass < 0 || klass >= gprt::kLatClasses) return (int)cudaErrorInvalidValue;
+  long long* c = static_cast<long long*>(cycles);
+  float* k = static_cast<float*>(sink);
+  const cudaStream_t s = (cudaStream_t)stream;
+  // Operands that keep every chain finite and off denormals: x in [0.5,
+  // 1.5], the bf16 pairs 1.0 and 0.99609375 (0x3f80, 0x3f7f in each half).
+  const float a = 0.75f, b = 1.25f;
+  const unsigned ua = 0x3f7f3f7fu, ub = 0x3f803f80u;
+  typedef cudaError_t (*Launch)(float, float, unsigned, unsigned, int, long long*, float*,
+                                cudaStream_t);
+  static const Launch kLaunch[gprt::kLatClasses] = {
+      gprt::launch_latency<0>, gprt::launch_latency<1>, gprt::launch_latency<2>,
+      gprt::launch_latency<3>, gprt::launch_latency<4>, gprt::launch_latency<5>,
+      gprt::launch_latency<6>, gprt::launch_latency<7>, gprt::launch_latency<8>,
+      gprt::launch_latency<9>};
+  return (int)kLaunch[klass](a, b, ua, ub, iters, c, k, s);
 }
 
 extern "C" const char* gprt_error_string(int code) {

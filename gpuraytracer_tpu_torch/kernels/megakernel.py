@@ -14,20 +14,18 @@ every ray of the pass.
 (gpuraytracer_tpu/kernels/megakernel.py: sphere_trace_tiles /
 _tile_march_kernel): one SDF geometry's sphere trace over (N,) local rays
 behind a gate, with the call's static march spec, and the tetrahedral
-normal at the hit; on the card it appends the gated rays to a device queue
-(writing every ungated ray's miss) and marches over the queue with the
-march specialized on its distance code (``build.load("megakernel",
-defines=PER_RAY_DEFINES)`` is the parent's one thread per ray with the
-generic march, for checks).
-``trimesh_closest`` is the same library's mesh entry:
+normal at the hit; on the card one thread per ray with the march
+specialized on its distance code (``build.load("megakernel",
+defines=GENERIC_DEFINES)`` is the generic march, which switches over every
+code a sample, for checks). ``trimesh_closest`` is the same library's mesh
+entry:
 one mesh's closest face for each gated ray (the reference runs it in XLA,
 geometry/trimesh.intersect_trimesh), with the pass entry's face loop.
 These two keep the reference's one-geometry API; no render path launches
 them.
 
 Each wrapper launches its kernel on a CUDA tensor and counts the launch
-(PASS_LAUNCHES, LAUNCHES and APPEND_LAUNCHES, MESH_LAUNCHES); on a CPU
-tensor it runs its plain
+(PASS_LAUNCHES, LAUNCHES, MESH_LAUNCHES); on a CPU tensor it runs its plain
 version (``route_pass_plain``, ``sphere_trace_plain``,
 ``trimesh_closest_plain``); any other device raises.
 """
@@ -43,16 +41,15 @@ from gpuraytracer_tpu_torch.geometry import sdf, trimesh
 from gpuraytracer_tpu_torch.kernels import frame_kernel
 
 # Kernel launches since import (or since a caller reset it): the pass
-# entry, the march kernel, the append kernel of the march's queue and the
-# mesh entry, apart.
+# entry, the march kernel and the mesh entry, apart.
 PASS_LAUNCHES = 0
 LAUNCHES = 0
-APPEND_LAUNCHES = 0
 MESH_LAUNCHES = 0
 
-# The -D macros of the one-geometry march's parent design (one thread per
-# ray, the generic march): a build that checks hold the shipped one to.
-PER_RAY_DEFINES = ("GPRT_SPHERE_TRACE_PER_RAY", "GPRT_SPHERE_MARCH_GENERIC")
+# The -D macro of the one-geometry march with the generic march (a switch
+# over every distance code a sample): a build that checks hold the shipped
+# one to.
+GENERIC_DEFINES = ("GPRT_SPHERE_MARCH_GENERIC",)
 
 # Faces per chunk of the face loop's skip (csrc/megakernel.cu kChunk).
 FACE_CHUNK = 16
@@ -107,15 +104,12 @@ def sphere_trace_tiles(o, d, gate, t_max, step_scale, *, prim_code: int,
     rays o, d with gate (N,) bool, t_max and t_start (N,) f32 (t_start None:
     march from 0) and a scalar step_scale; see ``sphere_trace_plain``.
 
-    CUDA: on the current stream, csrc/megakernel.cu's append kernel (each
-    ungated ray's miss out, each gated ray's index onto a device queue;
-    counted in APPEND_LAUNCHES) and its march over the queue (counted in
-    LAUNCHES), no host sync (``lib``: a loaded build, default the shipped
-    one; the -DGPRT_SPHERE_TRACE_PER_RAY build launches the parent's one
-    thread per ray and no append; ``ops``: the counters a counting build
-    adds to, -DGPRT_COUNT_SIMT: ``MARCH_SIMT_COUNTERS`` of them, read by
-    ``march_simt``). CPU: runs ``sphere_trace_plain``."""
-    global LAUNCHES, APPEND_LAUNCHES
+    CUDA: launches csrc/megakernel.cu's march on the current stream
+    (``lib``: a loaded build, default the shipped one; ``ops``: the
+    counters a counting build adds to, -DGPRT_COUNT_SIMT:
+    ``MARCH_SIMT_COUNTERS`` of them, read by ``march_simt``) and counts it
+    in LAUNCHES. CPU: runs ``sphere_trace_plain``."""
+    global LAUNCHES
     n = o.shape[0]
     dev = _check(n, o=o, d=d, gate=gate, t_max=t_max, t_start=t_start)
     kw = dict(prim_code=prim_code, cull_backface=cull_backface, max_steps=max_steps,
@@ -135,67 +129,19 @@ def sphere_trace_tiles(o, d, gate, t_max, step_scale, *, prim_code: int,
     o, d, gate, t_max = o.contiguous(), d.contiguous(), gate.contiguous(), t_max.contiguous()
     t_start = None if t_start is None else t_start.contiguous()
     relax = float(relax)
-    queues = bool(lib.gprt_sphere_trace_queues())
-    # The queue's count, then its n slots.
-    work = torch.empty(n + 1, dtype=torch.int32, device=dev) if queues else None
     rc = lib.gprt_sphere_trace(
-        _ptr(o), _ptr(d), _ptr(gate), _ptr(t_max), _ptr(t_start), _ptr(t_hit), _ptr(normal),
-        _ptr(work), n, code, float(step_scale), int(max_steps), relax, (1.0 - relax) * relax,
-        int(capped_hit), int(cull_backface), int(code in sdf.ESCAPE_SAFE_CODES),
-        frame_kernel.ops_pointer(ops), dev.index,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _ptr(o), _ptr(d), _ptr(gate), _ptr(t_max), _ptr(t_start), _ptr(t_hit), _ptr(normal), n,
+        code, float(step_scale), int(max_steps), relax, (1.0 - relax) * relax, int(capped_hit),
+        int(cull_backface), int(code in sdf.ESCAPE_SAFE_CODES), frame_kernel.ops_pointer(ops),
+        dev.index, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(rc, lib, "megakernel march")
     LAUNCHES += 1
-    APPEND_LAUNCHES += int(queues)
     return torch.isfinite(t_hit), t_hit, normal
 
 
-def sphere_queue_plain(gate):
-    """The append kernel's plain version: (queue (N,) int32 whose first
-    count slots hold the gated rays' indices in ray order and -1 after
-    them, count (1,) int32)."""
-    idx = torch.nonzero(gate).squeeze(1).to(torch.int32)
-    queue = torch.full(gate.shape, -1, dtype=torch.int32, device=gate.device)
-    queue[:idx.numel()] = idx
-    return queue, torch.tensor([idx.numel()], dtype=torch.int32, device=gate.device)
-
-
-def sphere_queue(gate, *, lib=None):
-    """(queue, count) of the march's append kernel alone over the (N,) bool
-    gate: count (1,) int32 on the device, the gated rays' indices in the
-    queue's first count slots (N int32; on the card in the order the
-    warps' groups appended them, a ray order within each group, and the
-    slots past count unset). CUDA: the memset and the append on the current
-    stream, counted in APPEND_LAUNCHES, no host sync (``lib``: a queued
-    build, default the shipped one). CPU: ``sphere_queue_plain``."""
-    global APPEND_LAUNCHES
-    n = gate.shape[0]
-    if gate.dim() != 1 or gate.dtype != torch.bool:
-        raise ValueError(f"gate: expected (N,) bool, got {tuple(gate.shape)} {gate.dtype}")
-    dev = gate.device
-    if dev.type == "cpu":
-        return sphere_queue_plain(gate)
-    if dev.type != "cuda":
-        raise ValueError(f"no megakernel for device {dev}")
-    work = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return work[1:], work[:1].zero_()
-    from gpuraytracer_tpu_torch.kernels import build
-
-    lib = lib if lib is not None else build.load("megakernel")
-    gate = gate.contiguous()
-    # The append also writes each ungated ray's miss.
-    t_hit = torch.empty(n, dtype=torch.float32, device=dev)
-    normal = torch.empty(n, 3, dtype=torch.float32, device=dev)
-    rc = lib.gprt_sphere_queue(_ptr(gate), _ptr(work), _ptr(t_hit), _ptr(normal), n, dev.index,
-                               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(rc, lib, "megakernel append")
-    APPEND_LAUNCHES += 1
-    return work[1:], work[:1]
-
-
 # Counters of a -DGPRT_COUNT_SIMT build's march entry: the SIMT counters
-# (frame_kernel.SIMT_COUNTERS), then the launch's longest march in samples.
+# (frame_kernel.SIMT_COUNTERS), then the launch's longest march in samples
+# (0 in the generic march's build).
 MARCH_SIMT_COUNTERS = frame_kernel.SIMT_COUNTERS + 1
 
 
@@ -213,8 +159,8 @@ def march_simt(counts) -> dict:
 
 def sphere_residency(device, code: int, *, lib=None) -> tuple:
     """(blocks per SM, blocks in all) of the march kernel for distance code
-    ``code`` that the card keeps resident (the loaded build's: the queued
-    march, or the parent's one thread per ray); launches nothing."""
+    ``code`` that the card keeps resident (the loaded build's); launches
+    nothing."""
     from gpuraytracer_tpu_torch.kernels import build
 
     device = torch.device(device)

@@ -15,6 +15,11 @@ equals element for element.
 On a CPU tensor ``op_probe`` runs the plain version, the same loop in
 PyTorch in the tensor's type (one rounding per op in bf16); on a CUDA
 tensor it launches the kernel or raises.
+
+``latency_cycles`` runs the same library's latency chains, the instrument
+that prices a probe's dependent chain: one thread, a chain of one SASS
+class's dependent instructions between two reads of the SM clock (a GPU
+only: a CPU has no such clock to read).
 """
 
 from __future__ import annotations
@@ -37,8 +42,19 @@ FLOPS_PER_ITER = {"fma": 19, "minmax": 7, "sqrt": 3, "rsqrt": 3, "cos": 2}
 # The -D macro of the probe's parent bf16 form, one element a thread.
 SCALAR_DEFINES = ("GPRT_PROBE_BF16_SCALAR",)
 
-# Kernel launches since import (or since a caller reset it).
+# The latency chains' classes, in csrc/op_probe.cu's LatencyClass order,
+# and the instructions a link of each issues (fmnmx: min.f32 then max.f32;
+# hmnmx2: min.bf16x2 then max.bf16x2; cvt: cvt.rzi.s32.f32 then
+# cvt.rn.f32.s32; mufu: rsqrt.approx.ftz.f32; the rest one PTX op).
+LATENCY_CLASSES = {"ffma": 1, "fadd": 1, "imad": 1, "fmnmx": 2, "hfma2": 1, "hmul2": 1,
+                   "hadd2": 1, "hmnmx2": 2, "mufu": 1, "cvt": 2}
+# Links of a chain's round (csrc/op_probe.cu kChainLength).
+CHAIN_LENGTH = 64
+
+# Kernel launches since import (or since a caller reset it): the probe, and
+# the latency chains apart.
 LAUNCHES = 0
+LATENCY_LAUNCHES = 0
 
 
 def _body(op: str, v, one, half):
@@ -114,3 +130,34 @@ def op_probe(x, op: str, iters: int, lib=None):
                            f"({lib.gprt_error_string(rc).decode()})")
     LAUNCHES += 1
     return out
+
+
+def latency_cycles(klass: str, iters: int, device, lib=None) -> int:
+    """SM clocks of one latency chain of class ``klass`` (LATENCY_CLASSES):
+    one thread, ``iters`` rounds of CHAIN_LENGTH dependent links between two
+    clock reads. Launches csrc/op_probe.cu's chain on the current stream and
+    counts it in LATENCY_LAUNCHES, then reads the clocks back (``lib``: a
+    loaded build, default the shipped one). A GPU only: raises on any other
+    device."""
+    global LATENCY_LAUNCHES
+    if klass not in LATENCY_CLASSES:
+        raise ValueError(f"unknown latency class {klass!r}; one of {tuple(LATENCY_CLASSES)}")
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the latency chains read the SM clock of a GPU, not of {dev}")
+    from gpuraytracer_tpu_torch.kernels import build
+
+    lib = lib if lib is not None else build.load("op_probe")
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    rc = lib.gprt_op_latency(list(LATENCY_CLASSES).index(klass), int(iters),
+                             ctypes.c_void_p(cycles.data_ptr()), ctypes.c_void_p(sink.data_ptr()),
+                             index, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"latency chain launch failed: CUDA error {rc} "
+                           f"({lib.gprt_error_string(rc).decode()})")
+    LATENCY_LAUNCHES += 1
+    return int(cycles.item())

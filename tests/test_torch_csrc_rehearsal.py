@@ -484,14 +484,13 @@ extern "C" int rh_trimesh(const float* tri, int count, const float* o, const flo
   return skipped;
 }
 
-// The one-geometry march over n rays, one-thread blocks: the append entry
-// over every ray into work (the count, then the queue), then the march
-// entry for the code over the queue's n slots. Returns the count.
-extern "C" int rh_sphere_trace(const float* o, const float* d, const bool* gate,
-                               const float* t_max, const float* t_start, float* t_hit,
-                               float* normal, int* work, int n, int code, float step_scale,
-                               int max_steps, float relax, float fail_scale, int capped_hit,
-                               int cull, int escape) {
+// The one-geometry march over n rays, one-thread blocks: the march entry
+// for the code (specialized on it) over every ray.
+extern "C" void rh_sphere_trace(const float* o, const float* d, const bool* gate,
+                                const float* t_max, const float* t_start, float* t_hit,
+                                float* normal, int n, int code, float step_scale, int max_steps,
+                                float relax, float fail_scale, int capped_hit, int cull,
+                                int escape) {
   blockDim = dim3{1, 1, 1};
   gridDim = dim3{(unsigned)n, 1, 1};
   threadIdx = dim3{0, 0, 0};
@@ -502,19 +501,13 @@ extern "C" int rh_sphere_trace(const float* o, const float* d, const bool* gate,
   m.capped_hit = capped_hit != 0;
   m.cull = cull != 0;
   m.escape = escape != 0;
-  work[0] = 0;
-  for (int i = 0; i < n; ++i) {
-    blockIdx = dim3{(unsigned)i, 0, 0};
-    gprt::sphere_append(gate, n, work + 1, work, t_hit, normal);
-  }
   gprt::sphere_kernel(code, [&](auto kernel) {
     for (int i = 0; i < n; ++i) {
       blockIdx = dim3{(unsigned)i, 0, 0};
-      kernel(o, d, t_max, t_start, work + 1, work, t_hit, normal, code, step_scale, m, nullptr);
+      kernel(o, d, gate, t_max, t_start, t_hit, normal, n, code, step_scale, m, nullptr);
     }
     return 0;
   });
-  return work[0];
 }
 """,
     "scene_finish": r"""
@@ -1400,13 +1393,12 @@ def _rehearse_route(libs, scene, passes):
 
 
 @pytest.mark.parametrize("code, occlusion", [(0, False), (5, True), (7, False)])
-def test_sphere_queue_and_queued_march_match_plain(libs, code, occlusion):
-    """Row 7's queued march (csrc/megakernel.cu sphere_append, then
-    sphere_trace over the queue): the queue holds exactly the gated rays
-    (in ray order: a one-lane warp appends alone), every ungated ray is a
-    miss with a zero normal, and the gated rays' answers are
-    sphere_trace_plain's (equal hits, t within TOL, normals within
-    NORMAL_TOL but at a capped hit, t = 0, whose normal no caller reads)."""
+def test_specialized_march_matches_plain(libs, code, occlusion):
+    """Row 7's march (csrc/megakernel.cu sphere_trace<code>, the march
+    specialized on its code): every ungated ray is a miss with a zero
+    normal, and the gated rays' answers are sphere_trace_plain's (equal
+    hits, t within TOL, normals within NORMAL_TOL but at a capped hit,
+    t = 0, whose normal no caller reads)."""
     rng = np.random.default_rng(19 + code)
     n = 256
     o = rng.uniform(-3.0, 3.0, size=(n, 3)).astype(np.float32)
@@ -1427,16 +1419,15 @@ def test_sphere_queue_and_queued_march_match_plain(libs, code, occlusion):
     cull = code not in sdf.AABB_WINDOWED_CODES
     t_hit = np.full(n, np.nan, np.float32)
     normal = np.full((n, 3), np.nan, np.float32)
-    work = np.full(n + 1, -7, np.int32)
     f = libs["megakernel"].rh_sphere_trace
-    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                           ctypes.c_int, ctypes.c_float, ctypes.c_float] + \
         [ctypes.c_int] * 3
-    count = f(_p(o), _p(d), _p(gate), _p(t_max), None if t_start is None else _p(t_start),
-              _p(t_hit), _p(normal), _p(work), n, code, 0.9, steps, relax,
-              (1.0 - relax) * relax, int(capped), int(cull), int(code in sdf.ESCAPE_SAFE_CODES))
-    assert count == int(gate.sum()) > 0
-    np.testing.assert_array_equal(work[1:1 + count], np.nonzero(gate)[0])
+    f.restype = None
+    f(_p(o), _p(d), _p(gate), _p(t_max), None if t_start is None else _p(t_start), _p(t_hit),
+      _p(normal), n, code, 0.9, steps, relax, (1.0 - relax) * relax, int(capped), int(cull),
+      int(code in sdf.ESCAPE_SAFE_CODES))
+    assert gate.any() and not gate.all()
     assert np.isinf(t_hit[~gate]).all() and (normal[~gate] == 0.0).all()
     p_hit, p_t, p_n = (_np(x) for x in megakernel.sphere_trace_plain(
         torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(gate),

@@ -37,10 +37,9 @@ row 7 of the kernel table in PERF.md, and the mesh entry) and the route.
   their hits and 5e-2 on all (the march kernel's bar above).
 
 On a GPU (the ``cuda`` marker) the march kernel is held to its plain
-version on ray batches for every SDF code, and its queued form (the append,
-then the march over the queue of gated rays, no host sync) to the parent's
-one thread per ray (-DGPRT_SPHERE_TRACE_PER_RAY) bit for bit, with the
-queue holding exactly the gated rays; the pass entry to the
+version on ray batches for every SDF code, and its march specialized on
+the code to the generic march's build (-DGPRT_SPHERE_MARCH_GENERIC) bit
+for bit, with no host sync; the pass entry to the
 unculled face loop's build (-DGPRT_FACE_LOOP_GLOBAL) bit for bit and to
 its plain version on these rays (equal ids; t within 1e-3 but where
 contraction moves a march crossing); the route on the card to the JAX
@@ -136,7 +135,7 @@ def test_plain_matches_reference_kernel(code, occlusion):
 def test_wrappers_run_plain_versions_on_cpu():
     o, d, gate, t_max, _ = batch(6)
     o, d, gate, t_max = map(torch.from_numpy, (o, d, gate, t_max))
-    launches = (megakernel.LAUNCHES, megakernel.APPEND_LAUNCHES, megakernel.MESH_LAUNCHES)
+    launches = (megakernel.LAUNCHES, megakernel.MESH_LAUNCHES)
     kw = spec(6, False)
     got = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, **kw)
     want = megakernel.sphere_trace_plain(o, d, gate, t_max, 0.9, **kw)
@@ -150,11 +149,7 @@ def test_wrappers_run_plain_versions_on_cpu():
         megakernel.sphere_trace_tiles(o, d, gate[:-1], t_max, 0.9, **kw)
     with pytest.raises(ValueError, match="rows"):
         megakernel.trimesh_closest(torch.zeros(4, 9), o, d, gate, t_max)
-    queue, count = megakernel.sphere_queue(gate)
-    k = int(gate.sum())
-    assert int(count) == k and torch.equal(queue[:k].long(), torch.nonzero(gate).squeeze(1))
-    assert bool((queue[k:] == -1).all())
-    assert (megakernel.LAUNCHES, megakernel.APPEND_LAUNCHES, megakernel.MESH_LAUNCHES) == launches
+    assert (megakernel.LAUNCHES, megakernel.MESH_LAUNCHES) == launches
 
 
 def _route_rays(device="cpu"):
@@ -342,7 +337,7 @@ def test_march_kernel_matches_plain_on_cuda(cuda_device, code, occlusion):
 @pytest.mark.cuda
 @pytest.mark.parametrize("occlusion", [False, True], ids=["closest", "occlusion"])
 @pytest.mark.parametrize("code", list(range(9)))
-def test_queued_march_equals_the_per_ray_build_on_cuda(cuda_device, code, occlusion):
+def test_specialized_march_equals_the_generic_build_on_cuda(cuda_device, code, occlusion):
     rng = np.random.default_rng(60 + code)
     o = rng.uniform(-3.0, 3.0, size=(65536, 3)).astype(np.float32)
     aim = rng.uniform(-0.6, 0.6, size=(65536, 3)).astype(np.float32)
@@ -356,22 +351,19 @@ def test_queued_march_equals_the_per_ray_build_on_cuda(cuda_device, code, occlus
                                         torch.full((3,), 1.0, device=cuda_device))
         kw["t_start"], t_max = lo.clamp(min=0.0), torch.minimum(t_max, hi)
         gate &= (hi > lo) & (t_max > kw["t_start"])
-    per_ray = megakernel.sphere_trace_tiles(
-        o, d, gate, t_max, 0.9, lib=build.load("megakernel", defines=megakernel.PER_RAY_DEFINES),
+    generic = megakernel.sphere_trace_tiles(
+        o, d, gate, t_max, 0.9, lib=build.load("megakernel", defines=megakernel.GENERIC_DEFINES),
         **kw)
-    launches, appends = megakernel.LAUNCHES, megakernel.APPEND_LAUNCHES
+    launches = megakernel.LAUNCHES
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        queued = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, **kw)
-        queue, count = megakernel.sphere_queue(gate)
+        coded = megakernel.sphere_trace_tiles(o, d, gate, t_max, 0.9, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert (megakernel.LAUNCHES, megakernel.APPEND_LAUNCHES) == (launches + 1, appends + 2)
-    assert all(torch.equal(x, y) for x, y in zip(queued, per_ray))
-    want, want_count = megakernel.sphere_queue_plain(gate)
-    assert int(count) == int(want_count) > 0
-    assert torch.equal(torch.sort(queue[:int(count)]).values, want[:int(want_count)])
+    assert megakernel.LAUNCHES == launches + 1
+    assert int(gate.sum()) > 0
+    assert all(torch.equal(x, y) for x, y in zip(coded, generic))
 
 
 @pytest.mark.cuda

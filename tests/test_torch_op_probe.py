@@ -18,7 +18,10 @@ bf16 variants, two elements a thread as one packed pair, equal the scalar
 build (-DGPRT_PROBE_BF16_SCALAR, one element a thread) and the plain
 version element for element (each op rounded once on all three), on the
 reference's array, on a seeded one, on an odd count (the last thread
-carries one element) and on a view 2 bytes off a 4-byte boundary.
+carries one element) and on a view 2 bytes off a 4-byte boundary; the
+latency chains read every class on its pipe. On the CPU the dependent-chain
+analysis that prices the probe's SASS (apps/op_probe.chain_cycles) runs on
+a loop as cuobjdump prints it.
 """
 
 import importlib.util
@@ -85,6 +88,39 @@ def test_wrapper_runs_plain_version_on_cpu_and_cli():
     assert set(out["bf16_over_f32"]) == set(op_probe.OPS)
 
 
+# A loop as cuobjdump prints it: a loop-carried chain through R0 (FFMA,
+# FFMA, FMUL, FFMA), a counter through R2 and P0, and a store after it.
+LOOP_SASS = """
+        /*0070*/                   MOV R2, RZ ;
+        /*0080*/                   FFMA R0, R0, R0, 0.5 ;
+        /*0090*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*00a0*/                   FFMA R3, R0, R0, 1 ;
+        /*00b0*/                   FMUL R4, R3, 0.5 ;
+        /*00c0*/                   FFMA R0, R0, 0.5, R4 ;
+        /*00d0*/                   ISETP.NE.AND P0, PT, R2, c[0x0][0x170], PT ;
+        /*00e0*/               @P0 BRA 0x80 ;
+        /*00f0*/                   STG.E desc[UR4][R6.64], R0 ;
+"""
+
+
+def test_chain_cycles_prices_the_loop_carried_chain():
+    path = [(g, o, a) for _, g, o, a in probe_app.iteration_path(LOOP_SASS.splitlines())]
+    assert [o for _, o, _ in path] == ["FFMA", "IADD3", "FFMA", "FMUL", "FFMA", "ISETP.NE.AND",
+                                       "BRA"]
+    assert probe_app.operands("", "ISETP.NE.AND", "P0, PT, R2, c[0x0][0x170], PT") == (
+        ["P0"], ["R2"])
+    assert probe_app.operands("@!P1", "STG.E", "desc[UR4][R6.64], R0") == (
+        [], ["UR4", "R6", "R7", "R0", "P1"])
+    # R0's chain: four instructions at 4 cycles; the counter's (IADD3 at
+    # the floor, 2 cycles) is shorter, until it is priced longer.
+    assert probe_app.chain_cycles(path, {"FFMA": 4.0, "FMUL": 4.0}, 2.0) == 16.0
+    assert probe_app.chain_cycles(path, {"IADD3": 6.0}, 1.0) == 6.0
+    assert [probe_app.family(op) for op in ("HFMA2.MMA.BF16_V2", "HFMA2.BF16_V2", "MUFU.RSQ")] \
+        == ["HFMA2.MMA", "HFMA2", "MUFU"]
+    with pytest.raises(ValueError, match="SM clock of a GPU"):
+        op_probe.latency_cycles("ffma", 1, "cpu")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -120,3 +156,16 @@ def test_packed_bf16_equals_the_scalar_build_and_plain_on_cuda(cuda_device, iter
             torch.cuda.synchronize()
             assert torch.equal(got, op_probe.op_probe(x, op, iters, lib=scalar))
             assert torch.equal(got, op_probe.op_probe_plain(x, op, iters))
+
+
+@pytest.mark.cuda
+def test_latency_chains_read_every_class_on_cuda(cuda_device):
+    lib = build.load("op_probe")
+    sass = probe_app.sass_loop_counts(lib._name)
+    launches = op_probe.LATENCY_LAUNCHES
+    lat = probe_app.instruction_latencies(cuda_device, lib, sass, iters=50)
+    assert op_probe.LATENCY_LAUNCHES == launches + 3 * len(op_probe.LATENCY_CLASSES)
+    assert set(lat["classes"]) == set(op_probe.LATENCY_CLASSES)
+    assert all(1.0 <= c["cycles"] < 100.0 for c in lat["classes"].values())
+    assert {"FFMA", "FADD", "IMAD", "FMNMX", "HMNMX2", "MUFU"} <= set(lat["families"])
+    assert lat["floor"] == min(lat["families"].values()) >= 1.0
