@@ -1047,7 +1047,7 @@ def host_phase(dev, card, pack_m):
     pipe = FramePipeline(lambda scene: cli_renderer(scene.arrays), 3, device=dev)
     torch.cuda.synchronize()
     with profile.trace(prof_dir):
-        with profile.annotate("four frames"):
+        with profile.span("four frames"):
             render_cli.frame_loop(pipe, AnimationState.initial(), cfg, range(4), dt=dt)
             pipe.drain()
     trace_file = os.path.join(prof_dir, profile.TRACE_FILE)

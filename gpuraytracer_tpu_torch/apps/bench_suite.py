@@ -978,7 +978,7 @@ for route, cfg in (("scene", None), ("per_geometry", meshes.get_config("mesh_hei
     # The trace of 4 frames (utils/profile.py).
     log_dir = os.path.join(os.path.dirname(OUT), f"trace_{route}_{os.path.basename(OUT)[:-3]}")
     with profile.trace(log_dir):
-        with profile.annotate("wavefront frames"):
+        with profile.span("wavefront frames"):
             for k in range(4):
                 renderer.render(0.0333 * k)
         torch.cuda.synchronize()

@@ -37,6 +37,7 @@ import sys
 import numpy as np
 import torch
 
+from gpuraytracer_tpu_torch.utils import profile
 from gpuraytracer_tpu_torch.utils.log import get_logger
 
 log = get_logger("render_cli")
@@ -80,12 +81,14 @@ def frame_loop(pipe, state, config, frames, *, dt=None, timer=None, on_frame=Non
     out)`` gets each frame's output as the pipeline returns it completed,
     oldest first; the frames still in flight stay in the pipeline (drain
     it: they are the last ``pipe.in_flight`` indices). Returns the last
-    state."""
+    state. Each frame's body is an ``apps.frame`` span (utils/profile.py)
+    with the frame's index."""
     for i in frames:
-        state = tick(state, config, dt, timer)
-        _, done = pipe.submit(state.scene(config.aspect_ratio, device=pipe.device))
-        if done is not None and on_frame is not None:
-            on_frame(i - pipe.depth, done)
+        with profile.span("apps.frame", frame=i):
+            state = tick(state, config, dt, timer)
+            _, done = pipe.submit(state.scene(config.aspect_ratio, device=pipe.device))
+            if done is not None and on_frame is not None:
+                on_frame(i - pipe.depth, done)
     return state
 
 
@@ -96,7 +99,8 @@ def frame_to_host(config, device):
     program), then, on a GPU, convert the image to RGBA8 on the card and
     enqueue its copy into pinned host memory on the same stream (valid once
     the frame's event has completed); on the CPU, the reference's host
-    conversion."""
+    conversion. The conversion and the copy are an ``apps.present`` span
+    (utils/profile.py)."""
     from gpuraytracer_tpu_torch.models import builtin
     from gpuraytracer_tpu_torch.render import trace
     from gpuraytracer_tpu_torch.utils import png
@@ -106,12 +110,13 @@ def frame_to_host(config, device):
 
     def render(scene):
         img = renderer(scene.arrays)
-        if device.type != "cuda":
-            return png.image_f32_to_rgba8(img.numpy())
-        rgba = png.image_to_rgba8(img)
-        host = torch.empty(rgba.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(rgba, non_blocking=True)
-        return host
+        with profile.span("apps.present"):
+            if device.type != "cuda":
+                return png.image_f32_to_rgba8(img.numpy())
+            rgba = png.image_to_rgba8(img)
+            host = torch.empty(rgba.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(rgba, non_blocking=True)
+            return host
 
     return render
 

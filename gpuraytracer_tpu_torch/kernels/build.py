@@ -44,6 +44,11 @@ lands in build/gpuraytracer_tpu_torch/ at the repository root, named after
 a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads the existing build. A failed build raises with nvcc's
 stderr. ``compile_all`` runs several builds at once, one nvcc each.
+
+Set-up counters, always on: ``LOADS`` (libraries loaded), ``COMPILES``
+(nvcc runs) and ``LOAD_SECONDS`` (the seconds ``load`` took: the hash,
+nvcc where it ran, and ``ctypes.CDLL``); each load is also a
+``kernels.load`` span (utils/profile.py) with the library's name.
 """
 
 from __future__ import annotations
@@ -55,8 +60,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from gpuraytracer_tpu_torch.utils import profile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpuraytracer_tpu_torch"
@@ -79,6 +88,12 @@ DEVICE_LAUNCH_LIBS = ["-lcudadevrt"]
 # Sources built without contraction in every build (see the module
 # docstring).
 NO_FMAD = ("frame_state",)
+
+# Set-up counters (see the module docstring).
+LOADS = 0
+COMPILES = 0
+LOAD_SECONDS = 0.0
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -131,7 +146,8 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
                    defines: tuple = ()) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its build exists. Returns the library
     path and ptxas' report (registers, spills), kept beside the library so
-    that a reused build reports it too."""
+    that a reused build reports it too. An nvcc run counts in COMPILES."""
+    global COMPILES
     variant = (fmad, count_ops, count_simt, faces_global, repair_full, finish_per_ray,
                tuple(defines))
     out = library_path(name, *variant)
@@ -141,6 +157,8 @@ def compile_kernel(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    with _COUNT_LOCK:
+        COMPILES += 1
     cmd = [nvcc_path()] + _flags(name, *variant) + [
         "-o", tmp, str(CSRC / f"{name}.cu")] + _libs(name)
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -176,10 +194,16 @@ def load(name: str, fmad: bool = DEFAULT_FMAD, count_ops: bool = False,
     records, for checks; finish_per_ray (-DGPRT_FINISH_PER_RAY,
     scene_finish.cu): the two-phase finisher runs one thread per ray
     without the queue, for checks; defines: the -D macros of a variant (a
-    tuple), for checks and A/Bs."""
-    path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global, repair_full,
-                             finish_per_ray, tuple(defines))
-    lib = ctypes.CDLL(str(path))
+    tuple), for checks and A/Bs. Counted in LOADS and LOAD_SECONDS."""
+    global LOADS, LOAD_SECONDS
+    t0 = time.perf_counter()
+    with profile.span("kernels.load", lib=name):
+        path, _ = compile_kernel(name, fmad, count_ops, count_simt, faces_global, repair_full,
+                                 finish_per_ray, tuple(defines))
+        lib = ctypes.CDLL(str(path))
+    with _COUNT_LOCK:
+        LOADS += 1
+        LOAD_SECONDS += time.perf_counter() - t0
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # (entry, pointers, ints) of the entries that end in (ops, device, stream)
     entries = {

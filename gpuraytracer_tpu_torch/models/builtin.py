@@ -30,6 +30,7 @@ from gpuraytracer_tpu_torch.core.types import (
     make_scene_constants,
 )
 from gpuraytracer_tpu_torch.core.upload import constant, to_device
+from gpuraytracer_tpu_torch.utils import profile
 
 # Grid constants (Renderer.h:95-96, Renderer.cpp:490-497)
 AABB_WIDTH = 2.0
@@ -249,22 +250,29 @@ animate_arrays.table = ANIMATION_TABLE
 
 def build_scene(aspect: float, elapsed_time=0.0, camera: Camera | None = None,
                 light_position=LIGHT_POSITION, *, device) -> Scene:
-    """Assemble the full reference scene at a given animation time."""
+    """Assemble the full reference scene at a given animation time, in
+    three spans (utils/profile.py): ``models.constants`` (the camera
+    matrices and the constants' upload), ``models.transforms`` and
+    ``models.tables`` (the material table and the other constant tables)."""
     camera = camera or default_camera()
 
     def f32(x):
         return constant(_rows(x) if np.ndim(x) == 2 else tuple(x), device)
 
-    constants = build_scene_constants(camera, aspect, elapsed_time, light_position,
-                                      device=device)
-    arrays = SceneArrays(
-        constants=constants,
-        materials=material_table(device),
-        transforms=build_instance_transforms(constants.elapsed_time, device),
-        aabb_min=f32(AABB_MIN),
-        aabb_max=f32(AABB_MAX),
-        blas_offset=f32(BLAS_OFFSET),
-        plane_origin=f32(PLANE_ORIGIN),
-        plane_size=f32(PLANE_SIZE),
-    )
+    with profile.span("models.constants"):
+        constants = build_scene_constants(camera, aspect, elapsed_time, light_position,
+                                          device=device)
+    with profile.span("models.transforms"):
+        transforms = build_instance_transforms(constants.elapsed_time, device)
+    with profile.span("models.tables"):
+        arrays = SceneArrays(
+            constants=constants,
+            materials=material_table(device),
+            transforms=transforms,
+            aabb_min=f32(AABB_MIN),
+            aabb_max=f32(AABB_MAX),
+            blas_offset=f32(BLAS_OFFSET),
+            plane_origin=f32(PLANE_ORIGIN),
+            plane_size=f32(PLANE_SIZE),
+        )
     return Scene(layout=LAYOUT, arrays=arrays)

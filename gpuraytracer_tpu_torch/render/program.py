@@ -32,6 +32,14 @@ at its first call and replays the graph at every later one.
   GPURT_* knob as the environment holds them now, so a changed knob builds
   a new program instead of replaying a stale one.
 
+Spans and counters (utils/profile.py): a call is ``render.replay`` (the
+graph's replay) and ``render.clone`` (the outputs' clone); a capture,
+its eager warm-up run, the capture and the instantiation, is
+``render.capture``. ``CAPTURES`` counts the graphs captured and
+``CAPTURE_SECONDS`` their seconds less those of the kernel libraries
+loaded inside them (kernels/build.py ``LOAD_SECONDS`` counts those), so
+that no second is counted twice; both are set-up counters, always on.
+
 On a CUDA device a capture or replay that fails raises, naming the
 program; nothing renders the frame eagerly instead. Under the NaN trap
 (utils/debug.debug_layer), which reads the host once per level, building
@@ -46,11 +54,19 @@ import contextlib
 import ctypes
 import dataclasses
 import os
+import threading
+import time
 
 import torch
 
 from gpuraytracer_tpu_torch.accel.instances import Scene
-from gpuraytracer_tpu_torch.utils import debug
+from gpuraytracer_tpu_torch.kernels import build as kernel_build
+from gpuraytracer_tpu_torch.utils import debug, profile
+
+# Set-up counters (see the module docstring).
+CAPTURES = 0
+CAPTURE_SECONDS = 0.0
+_COUNT_LOCK = threading.Lock()
 
 
 def knobs() -> tuple:
@@ -186,14 +202,25 @@ class FrameProgram:
         if self.device.type != "cuda":
             return self.fn()
         self.build()
-        try:
-            self.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"{self.label}: graph replay failed: {e}") from e
+        with profile.span("render.replay"):
+            try:
+                self.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"{self.label}: graph replay failed: {e}") from e
         _add(self.deltas)
-        return _clone(self.output)
+        with profile.span("render.clone"):
+            return _clone(self.output)
 
     def _capture(self) -> None:
+        global CAPTURES, CAPTURE_SECONDS
+        t0, loads0 = time.perf_counter(), kernel_build.LOAD_SECONDS
+        with profile.span("render.capture"):
+            self._capture_graph()
+        with _COUNT_LOCK:
+            CAPTURES += 1
+            CAPTURE_SECONDS += time.perf_counter() - t0 - (kernel_build.LOAD_SECONDS - loads0)
+
+    def _capture_graph(self) -> None:
         if debug.nan_checks_enabled():
             raise RuntimeError(f"{self.label}: the NaN trap (utils/debug.debug_layer) reads "
                                f"the host in every level; a frame program cannot capture it")

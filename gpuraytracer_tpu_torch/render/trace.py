@@ -421,9 +421,15 @@ def make_renderer(layout, width: int, height: int, *,
     built at the first call for its key (the device, the arrays' shapes,
     the route, the frame mode and the GPURT_* knobs); a failed capture or
     replay raises. On the CPU, which has no graphs, each call renders the
-    arrays eagerly through ``render_frame``."""
+    arrays eagerly through ``render_frame``.
+
+    Spans (utils/profile.py): each call is a ``render.frame``; inside it,
+    ``render.key`` (the program's key and the arrays' shapes) and
+    ``render.copy_inputs`` (the copy into the static inputs), then the
+    program's own."""
     from gpuraytracer_tpu_torch.kernels import frame_kernel
     from gpuraytracer_tpu_torch.render import program
+    from gpuraytracer_tpu_torch.utils import profile
 
     programs = {}
 
@@ -442,16 +448,19 @@ def make_renderer(layout, width: int, height: int, *,
             label=f"make_renderer {width}x{height} depth {max_depth} (route {route}, mode {mode})")
 
     def render(arrays):
-        dev = arrays.aabb_min.device
-        if dev.type != "cuda":
-            return render_frame(Scene(layout, arrays), width, height, max_depth=max_depth)
-        shapes = tuple(tuple(t.shape) for t in program.tensor_leaves(arrays))
-        k = program.key(Scene(layout, arrays), str(dev), shapes)
-        if k not in programs:
-            programs[k] = build(arrays)
-        static, prog = programs[k]
-        program.copy_arrays(static, arrays)
-        return prog()
+        with profile.span("render.frame"):
+            dev = arrays.aabb_min.device
+            if dev.type != "cuda":
+                return render_frame(Scene(layout, arrays), width, height, max_depth=max_depth)
+            with profile.span("render.key"):
+                shapes = tuple(tuple(t.shape) for t in program.tensor_leaves(arrays))
+                k = program.key(Scene(layout, arrays), str(dev), shapes)
+            if k not in programs:
+                programs[k] = build(arrays)
+            static, prog = programs[k]
+            with profile.span("render.copy_inputs"):
+                program.copy_arrays(static, arrays)
+            return prog()
 
     render.programs = programs
     return render

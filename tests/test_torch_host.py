@@ -386,10 +386,11 @@ def test_render_config():
 
 
 def test_profile_trace_and_device_summary(tmp_path):
-    with profile.trace(str(tmp_path)):
-        with profile.annotate("work"):
+    with profile.trace(str(tmp_path)), profile.recording() as rec:
+        with profile.span("work"):
             torch.ones(4) + 1
     assert (tmp_path / profile.TRACE_FILE).stat().st_size > 0
+    assert [s.name for s in rec.spans if s.name != "gc"] == ["work"]
     events = [{"ph": "X", "cat": "kernel", "name": "a", "ts": 0, "dur": 10},
               {"ph": "X", "cat": "kernel", "name": "b", "ts": 5, "dur": 10},
               {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 30, "dur": 10},
